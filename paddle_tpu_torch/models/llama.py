@@ -1,0 +1,340 @@
+"""Llama over a paged KV cache (counterpart of ``paddle_tpu/models/llama.py``).
+
+Ported: the configuration and its presets, the rotary tables, and the
+forward with a paged KV cache — the path ``ServingEngine`` and the
+legacy per-arrival prefill drive. Architecture as in the JAX package:
+RMSNorm (kernel K3), rotary embeddings, GQA (num_kv_heads < num_heads),
+SwiGLU MLP, untied LM head by default.
+
+Not ported yet (they raise ``NotImplementedError``): the training
+forward without a cache (flash attention, kernels K1/K2), the
+contiguous-cache forward (kernel K6) and ``generate``.
+
+The KV pools are updated IN PLACE: where the JAX step donated the pool
+buffers and returned new ones, the port writes the new K/V rows straight
+into the caller's pool tensors (and returns the same tensors, so the
+call shape matches).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import List, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ..distributed.fleet.layers.mpu import (ColumnParallelLinear,
+                                            RowParallelLinear,
+                                            VocabParallelEmbedding)
+from ..ops.kernels.decode_attention import paged_decode_attention
+from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
+from ..ops.kernels.rms_norm import rms_norm
+from ..ops.nn_ops import rotate_half as _rot_half
+
+__all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "LlamaRMSNorm",
+           "llama_tiny", "llama_7b", "llama_13b", "resolve_device"]
+
+_DTYPES = {"float32": torch.float32, None: torch.float32,
+           "bfloat16": torch.bfloat16}
+
+_TRAINING_TODO = ("not ported yet: ROADMAP.md queue 1, the GPT and Llama "
+                  "training step with flash attention (K1/K2)")
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 0               # 0 -> num_heads (MHA)
+    intermediate_size: int = 11008
+    max_position_embeddings: int = 4096
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    initializer_range: float = 0.02
+    tie_word_embeddings: bool = False
+    use_flash_attention: bool = True
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if not self.num_kv_heads:
+            self.num_kv_heads = self.num_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    def num_params(self) -> int:
+        h, L, V = self.hidden_size, self.num_layers, self.vocab_size
+        kv = self.num_kv_heads * self.head_dim
+        per_layer = (h * h + 2 * h * kv + h * h
+                     + 3 * h * self.intermediate_size + 2 * h)
+        head = 0 if self.tie_word_embeddings else V * h
+        return V * h + L * per_layer + h + head
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another. With no card present a CUDA request raises; it never
+    quietly becomes the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "paddle_tpu_torch runs on the CUDA device by default and none "
+            "is available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def _rope_tables(cfg: LlamaConfig, device) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """cos/sin [max_position_embeddings, D]: float64 numpy, then float32."""
+    D = cfg.head_dim
+    inv = 1.0 / cfg.rope_theta ** (np.arange(0, D, 2, dtype=np.float64) / D)
+    t = np.arange(cfg.max_position_embeddings, dtype=np.float64)
+    freqs = np.outer(t, inv)
+    emb = np.concatenate([freqs, freqs], axis=-1)
+    return (torch.tensor(np.cos(emb), dtype=torch.float32, device=device),
+            torch.tensor(np.sin(emb), dtype=torch.float32, device=device))
+
+
+def _apply_rope(x, cos, sin, offset):
+    """x: [B, S, H, D]; cos/sin: [max, D]; offset: an int, or a per-row
+    tensor [B] (each row rotates at its own absolute positions). Rows
+    past the table (dead slots of a ragged batch) clamp to its last
+    position, as JAX's gather does; their outputs are never used."""
+    S = x.shape[1]
+    if isinstance(offset, torch.Tensor) and offset.dim():
+        pos = offset.long()[:, None] + torch.arange(S, device=x.device)[None]
+        pos = pos.clamp(0, cos.shape[0] - 1)
+        c = cos[pos][:, :, None, :]                          # [B,S,1,D]
+        s = sin[pos][:, :, None, :]
+    else:
+        o = min(max(int(offset), 0), cos.shape[0] - S)
+        c = cos[o:o + S][None, :, None, :]
+        s = sin[o:o + S][None, :, None, :]
+    return x * c.to(x.dtype) + _rot_half(x) * s.to(x.dtype)
+
+
+class LlamaRMSNorm(nn.Module):
+    """RMSNorm straight through the K3 wrapper (no shape gate, no
+    fallback: on a CUDA tensor the kernel runs or the call raises)."""
+
+    def __init__(self, hidden_size: int, epsilon: float = 1e-6,
+                 device=None, dtype=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(hidden_size, device=device,
+                                              dtype=dtype))
+        self._epsilon = float(epsilon)
+
+    def forward(self, x):
+        return rms_norm(x, self.weight, self._epsilon)
+
+
+class LlamaAttention(nn.Module):
+    """GQA attention with rotary embeddings over the paged KV cache."""
+
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        h, D = config.hidden_size, config.head_dim
+        kv = config.num_kv_heads * D
+        kw = {"device": device, "dtype": dtype}
+        self.q_proj = ColumnParallelLinear(h, h, **kw)
+        self.k_proj = ColumnParallelLinear(h, kv, **kw)
+        self.v_proj = ColumnParallelLinear(h, kv, **kw)
+        self.o_proj = RowParallelLinear(h, h, **kw)
+        # non-persistent buffers: they follow the module across .to()
+        # (a dtype cast rounds them as the multiply's cast would) and stay
+        # out of state_dict
+        cos, sin = _rope_tables(config, device)
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
+
+    def forward(self, x, cache=None, offset=0, valid=None):
+        cfg = self.config
+        B, S = x.shape[0], x.shape[1]
+        D = cfg.head_dim
+        q = self.q_proj(x).view(B, S, cfg.num_heads, D)
+        k = self.k_proj(x).view(B, S, cfg.num_kv_heads, D)
+        v = self.v_proj(x).view(B, S, cfg.num_kv_heads, D)
+        q = _apply_rope(q, self.rope_cos, self.rope_sin, offset)
+        k = _apply_rope(k, self.rope_cos, self.rope_sin, offset)
+        if cache is None:
+            raise NotImplementedError("LlamaAttention without a KV cache "
+                                      "(training forward) is " + _TRAINING_TODO)
+        if len(cache) != 3:
+            raise NotImplementedError(
+                "the contiguous [B, KV, M, D] cache (kernel K6) is not "
+                "ported yet: ROADMAP.md queue 1, Predictor.generate")
+        k_pool, v_pool, tables = cache     # tables int32 [B, ncols]
+        page = k_pool.shape[2]
+        ncols = tables.shape[1]
+        off = torch.as_tensor(offset, device=x.device).to(
+            torch.int32).reshape(-1).expand(B)
+        pos = off.long()[:, None] + torch.arange(S, device=x.device)[None]
+        nv = None
+        if valid is not None:
+            # unified mixed prefill-chunk/decode step: only the first
+            # valid[b] slots of row b are real tokens. CONTRACT: the
+            # caller's table carries ONE EXTRA trailing column that maps
+            # to the trash page (inference/serving.py builds it); dead
+            # slots' kv writes land there instead of in the row's own
+            # future cache slots
+            nv = torch.as_tensor(valid, device=x.device).to(
+                torch.int32).reshape(B)
+            alive = torch.arange(S, device=x.device)[None] \
+                < nv.long()[:, None]
+            pos = torch.where(alive, pos, torch.full_like(pos,
+                                                          (ncols - 1) * page))
+        col = (pos // page).clamp(max=ncols - 1)
+        pid = torch.gather(tables, 1, col).long()
+        slot = pos % page                   # [B, S]
+        # advanced indices split by a slice go first: the indexed view is
+        # [B, S, KV, D], the layout of the new k/v rows. In place: the
+        # pools are the engine's, updated where JAX donated them
+        k_pool[pid, :, slot, :] = k.to(k_pool.dtype)
+        v_pool[pid, :, slot, :] = v.to(v_pool.dtype)
+        if nv is not None:
+            # the trailing trash column is write-side only: attention
+            # sees the canonical [B, npages] table
+            o = ragged_paged_attention(q, k_pool, v_pool, tables[:, :-1],
+                                       off.contiguous(), nv)
+        else:
+            o = paged_decode_attention(q, k_pool, v_pool, tables,
+                                       off.contiguous())
+        return self.o_proj(o.reshape(B, S, cfg.num_heads * D)), cache
+
+
+class LlamaMLP(nn.Module):
+    """SwiGLU MLP."""
+
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        h, m = config.hidden_size, config.intermediate_size
+        kw = {"device": device, "dtype": dtype}
+        self.gate_proj = ColumnParallelLinear(h, m, **kw)
+        self.up_proj = ColumnParallelLinear(h, m, **kw)
+        self.down_proj = RowParallelLinear(m, h, **kw)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.input_layernorm = LlamaRMSNorm(config.hidden_size,
+                                            config.rms_norm_eps, **kw)
+        self.self_attn = LlamaAttention(config, **kw)
+        self.post_attention_layernorm = LlamaRMSNorm(
+            config.hidden_size, config.rms_norm_eps, **kw)
+        self.mlp = LlamaMLP(config, **kw)
+
+    def forward(self, x, cache, offset=0, valid=None):
+        a, cache = self.self_attn(self.input_layernorm(x), cache=cache,
+                                  offset=offset, valid=valid)
+        x = x + a
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        return x, cache
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        kw = {"device": device, "dtype": dtype}
+        self.embed_tokens = VocabParallelEmbedding(config.vocab_size,
+                                                   config.hidden_size, **kw)
+        self.layers = nn.ModuleList([LlamaDecoderLayer(config, **kw)
+                                     for _ in range(config.num_layers)])
+        self.norm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps,
+                                 **kw)
+
+    def forward(self, input_ids, caches, offset=0, valid=None):
+        if caches is None:
+            raise NotImplementedError("LlamaModel without KV caches "
+                                      "(training forward) is " + _TRAINING_TODO)
+        x = self.embed_tokens(input_ids)
+        new_caches: List = []
+        for layer, cache in zip(self.layers, caches):
+            x, cache = layer(x, cache, offset=offset, valid=valid)
+            new_caches.append(cache)
+        return self.norm(x), new_caches
+
+
+class LlamaForCausalLM(nn.Module):
+    """Llama with an (untied by default) LM head, serving over a paged KV
+    cache. ``device=None`` means the CUDA device; weights are drawn from
+    a generator seeded with ``seed`` on that device (normal, std
+    ``initializer_range``; the residual-output projections use
+    std / sqrt(2 * num_layers), as the JAX package does)."""
+
+    def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
+        super().__init__()
+        self.config = config
+        dev = resolve_device(device)
+        dtype = _DTYPES[config.dtype]
+        self.llama = LlamaModel(config, device=dev, dtype=dtype)
+        if not config.tie_word_embeddings:
+            self.lm_head = ColumnParallelLinear(config.hidden_size,
+                                                config.vocab_size,
+                                                device=dev, dtype=dtype)
+        self._init_weights(seed)
+
+    @property
+    def device(self) -> torch.device:
+        return self.llama.embed_tokens.weight.device
+
+    @torch.no_grad()
+    def _init_weights(self, seed: int):
+        g = torch.Generator(device=self.device).manual_seed(int(seed))
+        std = self.config.initializer_range
+        out_std = std / math.sqrt(2 * self.config.num_layers)
+        for name, p in self.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+            elif name.endswith(("o_proj.weight", "down_proj.weight")):
+                p.normal_(0.0, out_std, generator=g)
+            else:
+                p.normal_(0.0, std, generator=g)
+
+    def _logits(self, x):
+        if self.config.tie_word_embeddings:
+            return x @ self.llama.embed_tokens.weight.t()
+        return self.lm_head(x)
+
+    def forward(self, input_ids, caches=None, offset=0, valid=None):
+        if caches is None:
+            raise NotImplementedError("LlamaForCausalLM.forward without KV "
+                                      "caches (training) is " + _TRAINING_TODO)
+        x, caches = self.llama(input_ids, caches, offset=offset, valid=valid)
+        return self._logits(x), caches
+
+    def generate(self, *args, **kwargs):
+        raise NotImplementedError(
+            "LlamaForCausalLM.generate (static cache, kernel K6) is not "
+            "ported yet: ROADMAP.md queue 1, Predictor.generate with K6; "
+            "serve through inference.ServingEngine")
+
+
+def llama_tiny(**kw) -> LlamaConfig:
+    return LlamaConfig(vocab_size=256, hidden_size=64, num_layers=2,
+                       num_heads=4, num_kv_heads=2, intermediate_size=128,
+                       max_position_embeddings=128, **kw)
+
+
+def llama_7b(**kw) -> LlamaConfig:
+    return LlamaConfig(**kw)
+
+
+def llama_13b(**kw) -> LlamaConfig:
+    kw.setdefault("hidden_size", 5120)
+    kw.setdefault("num_layers", 40)
+    kw.setdefault("num_heads", 40)
+    kw.setdefault("intermediate_size", 13824)
+    return LlamaConfig(**kw)

@@ -1,0 +1,111 @@
+"""Build and load the hand-written CUDA kernels (route (b): nvcc into a
+shared library with a plain C interface, bound with ctypes).
+
+Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>.so``,
+where the hash covers the source text and the nvcc flags, so an edited
+source rebuilds and an unchanged one is reused. Nothing is built at
+import: the first CUDA launch of a kernel builds its library, and
+``build_all()`` builds every source at once, one nvcc process per
+source, all started together.
+
+Each C entry point takes pointers and the CUDA stream as ``void*`` and
+returns ``cudaGetLastError()`` after its launch; ``check`` raises on a
+non-zero code.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict
+
+__all__ = ["SOURCES", "build_all", "check", "library", "nvcc_path"]
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD = _PKG.parent / "build" / "kernels"
+SOURCES = ("rms_norm", "paged_attention")
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels of paddle_tpu_torch "
+                       "are built from csrc/*.cu at first CUDA use and need "
+                       "the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    return BUILD / f"{name}-{h}.so"
+
+
+def _start(name: str):
+    """Start one nvcc build into a temporary file; returns (proc, tmp,
+    target) or None when the library is already built."""
+    target = _target(name)
+    if target.exists():
+        return None
+    BUILD.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+    os.close(fd)
+    cmd = [nvcc_path(), *FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, target
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, target = started
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{out}")
+    # atomic publish: a concurrent build of the same hash loses nothing
+    os.replace(tmp, target)
+
+
+def build_all() -> None:
+    """Build every source that is not built yet, all nvcc processes
+    started together."""
+    with _lock:
+        started = {n: _start(n) for n in SOURCES}
+        for n, s in started.items():
+            if s is not None:
+                _finish(n, s)
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            s = _start(name)
+            if s is not None:
+                _finish(name, s)
+            lib = ctypes.CDLL(str(_target(name)))
+            _libs[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc} "
+                           "(cudaGetLastError after the launch)")
