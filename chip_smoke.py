@@ -6,26 +6,44 @@ on one CUDA card and check it.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. build   every kernel from paddle_tpu_torch/csrc/*.cu with nvcc, all
-           sources in parallel; print the build seconds
-2. kernels K3 (RMSNorm), K4 (ragged paged attention) and K5 (paged decode
-           attention) against their plain PyTorch versions at the main
-           path's shapes, bf16 and fp32, GQA included; kernel, plain and
-           library times from CUDA events, and each kernel's bound
-3. parity  a reduced Llama (fp32, TF32 off) served on cuda and on cpu
-           with the same weights and arrival schedule: the committed
-           token streams must be equal
-4. serve   Llama-7B widths (32 layers, bf16, random weights from a seed)
-           through ServingEngine: 16 greedy requests, 8 of them arriving
-           mid-run; every kernel must have launched on this path
+1. build        every kernel from paddle_tpu_torch/csrc/*.cu with nvcc,
+                all sources in parallel; print the build seconds
+2. kernels      K3 (RMSNorm, and its gradient), K4 (ragged paged
+                attention), K5 (paged decode attention), K1 and K2 (flash
+                attention forward and backward) against their plain
+                PyTorch versions at the main paths' shapes, bf16 and
+                fp32, GQA, rectangular and segment-id cases included;
+                kernel, plain and library times, and each kernel's bound.
+                K1/K2 outputs and gradients and the K3 gradient are held
+                to the tolerance as a relative L2 error over tiles of 64
+                positions of one (batch, head), each tile against its own
+                magnitude
+3. parity       a reduced Llama (fp32, TF32 off) served on cuda and on
+                cpu with the same weights and arrival schedule: the
+                committed token streams must be equal
+4. serve        Llama-7B widths (32 layers, bf16, random weights from a
+                seed) through ServingEngine: 16 greedy requests, 8 of them
+                arriving mid-run; K3, K4 and K5 must launch on this path
+5. train-parity the reduced Llama trains 3 steps on cuda and on cpu from
+                the same weights and batch: losses and global grad norms
+                within 1e-4 relative
+6. train        Llama-7B widths cut to 8 layers (bf16 weights, f32 AdamW
+                masters and moments) through ParallelEngine.train_step:
+                12 steps on one fixed 4 x 2048 batch, 2 untimed; finite,
+                falling losses, step time, tokens/s, MFU, peak memory; K3,
+                K1 and K2 must launch in the timed steps. Then one more
+                forward and backward with each layer's attention watched:
+                K1's output and K2's gradients on the model's own bf16
+                activations against the plain version, per tile, 2e-2
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 
 Developer options (the plain run uses none of them): ``--phases`` runs a
 subset, ``--layers`` cuts the serving run's depth, and ``--profile``
-serves the schedule once more under torch.profiler and prints the
-device's busy share of that profiled run and its time by kernel.
+serves the schedule once more and runs two more train steps under
+torch.profiler, and prints the device's busy share of those profiled
+runs and their time by kernel.
 """
 from __future__ import annotations
 
@@ -112,6 +130,204 @@ def check_rms(dev, results):
                 library="torch.nn.functional.rms_norm",
                 bound_ms=b_ms, bound_by=b_by)
             results.append(rec)
+    # the gradient: K3's forward inside its autograd.Function, the backward
+    # rms_norm_grad, against autograd through rms_norm_dense
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn(2048, 4096, device=dev, generator=g).to(
+            dt).requires_grad_(True)
+        w = (1 + 0.1 * torch.randn(4096, device=dev, generator=g)).to(
+            dt).requires_grad_(True)
+        go = torch.randn(2048, 4096, device=dev, generator=g).to(dt)
+        out = K3.rms_norm(x, w, 1e-5)
+        if out.grad_fn is None:
+            raise AssertionError("K3 on a CUDA tensor that requires grad "
+                                 "returned no grad_fn")
+        dx, dw = torch.autograd.grad(out, (x, w), go)
+        rx, rw = torch.autograd.grad(K3.rms_norm_dense(x, w, 1e-5), (x, w),
+                                     go)
+        # dx in tiles of 64 rows, dw whole
+        ex = _errs(dx[None, :, None], rx[None, :, None])
+        ew = _errs(dw[None, None, None], rw[None, None, None])
+        results.append(dict(
+            name="rms_norm_grad", shape=[2048, 4096], dtype=str(dt)[6:],
+            max_abs_err=max(ex[0], ew[0]), rel_err=max(ex[3], ew[3]),
+            tol=TOL[dt]))
+
+
+def _errs(a, b, block=64):
+    """(max |a - b|, max |b|, RMS of b, the gate's error) for [B, S, H, D]
+    tensors. The gate's error is the largest relative L2 error
+    ||a - b|| / ||b|| over tiles of ``block`` consecutive positions of one
+    (batch, head): each tile is held to its own magnitude. In causal
+    attention the first rows' outputs and the first keys' gradients are
+    tens of times larger than the late ones', so an error scaled by the
+    largest value would let a wrong tile of late rows or keys pass. A tile
+    whose reference is all zero must come out all zero."""
+    torch.cuda.synchronize()
+    a, b = a.float(), b.float()
+    B, S, H, D = b.shape
+    pad = -S % block
+    tiles = []
+    for t in (a - b, b):
+        t = torch.cat([t, t.new_zeros(B, pad, H, D)], 1)
+        tiles.append(t.reshape(B, -1, block, H, D).pow(2).sum((2, 4)).sqrt())
+    dn, rn = tiles
+    rel = torch.where(rn > 0, dn / rn.clamp_min(1e-38),
+                      torch.where(dn > 0, float("inf"), 0.0))
+    return ((a - b).abs().max().item(), b.abs().max().item(),
+            b.pow(2).mean().sqrt().item(), rel.max().item())
+
+
+def events_ms(fn, iters=10, warm=2):
+    """Device milliseconds of one fn() call from CUDA events around
+    ``iters`` back-to-back calls; for calls that run autograd, which a
+    CUDA graph capture does not take. Right for calls of a millisecond
+    or more, where the host's launch time hides behind the device."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+# K1/K2 cases: (label, B, Sq, Skv, H, KV, D, causal, segments); the first
+# is the training shape of the 7B-width train phase
+FLASH_CASES = [
+    ("train", 4, 2048, 2048, 32, 32, 128, True, False),
+    ("gqa", 2, 1024, 1024, 32, 8, 128, True, False),
+    ("rect", 2, 300, 1000, 16, 16, 128, True, False),
+    ("segments", 2, 1024, 1024, 16, 4, 64, True, True),
+    ("d64", 2, 1024, 1024, 16, 16, 64, False, False),
+]
+
+
+def _flash_inputs(dev, dt, B, Sq, Skv, H, KV, D, segments, g):
+    q = torch.randn(B, Sq, H, D, device=dev, generator=g).to(dt)
+    k = torch.randn(B, Skv, KV, D, device=dev, generator=g).to(dt)
+    v = torch.randn(B, Skv, KV, D, device=dev, generator=g).to(dt)
+    do = torch.randn(B, Sq, H, D, device=dev, generator=g).to(dt)
+    qs = ks = None
+    if segments:
+        # packed rows of 3 sequences each, boundaries differing per row
+        ks = torch.zeros(B, Skv, dtype=torch.int32, device=dev)
+        for b in range(B):
+            cut = sorted(torch.randint(1, Skv, (2,), device=dev,
+                                       generator=g).tolist())
+            ks[b, cut[0]:] = 1
+            ks[b, cut[1]:] = 2
+        qs = ks[:, Skv - Sq:].contiguous()
+    return q, k, v, do, qs, ks
+
+
+def _flash_cost(q, k, causal, qs, ks):
+    """Bytes and flops this call's data needs. Visible (row, key) pairs
+    are counted from the mask: 2 matmuls of 2*D flops per pair and q
+    head forward, 5 backward. Forward bytes: q, k, v read, out written
+    once, lse written; backward: q, k, v, out, dout, lse read, dq, dk,
+    dv written."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import _keep_mask
+
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    keep = _keep_mask(Sq, Skv, causal, qs, ks, q.device)
+    pairs = B * Sq * Skv if keep is None else int(
+        keep.expand(B, 1, 1, Sq, Skv).sum().item())
+    isz = q.element_size()
+    qb, kb = B * Sq * H * D * isz, B * Skv * KV * D * isz
+    lse = B * H * Sq * 4
+    return ((2 * qb + 2 * kb + lse, 4 * D * H * pairs),
+            (4 * qb + 4 * kb + lse, 10 * D * H * pairs))
+
+
+def _sdpa_args(q, k, v, causal, qs, ks):
+    """F.scaled_dot_product_attention's layout and mask for the case:
+    its is_causal aligns top-left, so rectangular and segment cases take
+    the same keep-mask the plain version builds."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import _keep_mask
+
+    Sq, Skv = q.shape[1], k.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kw = dict(enable_gqa=q.shape[2] != k.shape[2])
+    if causal and Sq == Skv and qs is None:
+        kw["is_causal"] = True
+    elif causal or qs is not None:
+        kw["attn_mask"] = _keep_mask(Sq, Skv, causal, qs, ks,
+                                     q.device)[:, 0]
+    return qt, kt, vt, kw
+
+
+def check_flash(dev, results):
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    for label, B, Sq, Skv, H, KV, D, causal, segm in FLASH_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, do, qs, ks = _flash_inputs(dev, dt, B, Sq, Skv, H, KV,
+                                                D, segm, g)
+            out, lse = K1.flash_attention_fwd_lse(q, k, v, causal, None, qs,
+                                                  ks)
+            r_out, r_lse = K1.flash_attention_dense(q, k, v, causal, None,
+                                                    qs, ks)
+            grads = K1.flash_attention_bwd(q, k, v, out, lse, do, causal,
+                                           None, qs, ks)
+            r_grads = K1.flash_attention_bwd_dense(q, k, v, do, causal, None,
+                                                   qs, ks)
+            (fb, ff), (bb, bf) = _flash_cost(q, k, causal, qs, ks)
+            base = dict(case=label, shape=[B, Sq, H, D], skv=Skv,
+                        kv_heads=KV, causal=causal, segments=segm,
+                        dtype=str(dt)[6:], tol=TOL[dt])
+            qt, kt, vt, kw = _sdpa_args(q, k, v, causal, qs, ks)
+            b_ms, b_by = bound(fb, ff, dt)
+            eo = _errs(out, r_out)
+            results.append(dict(
+                base, name="flash_attention_fwd", bytes=fb, flops=ff,
+                max_abs_err=eo[0], ref_max_abs=eo[1], ref_rms=eo[2],
+                rel_err=eo[3],
+                lse_abs_err=(lse - r_lse).abs().max().item(),
+                ms=cuda_ms(lambda: K1.flash_attention_fwd_lse(
+                    q, k, v, causal, None, qs, ks)),
+                plain_ms=cuda_ms(lambda: K1.flash_attention_dense(
+                    q, k, v, causal, None, qs, ks), iters=3, warm=1),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, **kw)),
+                library="F.scaled_dot_product_attention forward",
+                bound_ms=b_ms, bound_by=b_by))
+            if not results[-1]["lse_abs_err"] <= TOL[dt]:
+                raise AssertionError(f"K1 lse off by "
+                                     f"{results[-1]['lse_abs_err']} ({label} "
+                                     f"{dt})")
+            qg, kg, vg = (t.detach().requires_grad_(True)
+                          for t in (qt, kt, vt))
+            lib_out = F.scaled_dot_product_attention(qg, kg, vg, **kw)
+            dot = do.transpose(1, 2).contiguous()
+            b_ms, b_by = bound(bb, bf, dt)
+            eg = [_errs(a, b) for a, b in zip(grads, r_grads)]
+            results.append(dict(
+                base, name="flash_attention_bwd", bytes=bb, flops=bf,
+                max_abs_err=max(e[0] for e in eg),
+                ref_max_abs=[e[1] for e in eg], ref_rms=[e[2] for e in eg],
+                rel_err=max(e[3] for e in eg),
+                ms=cuda_ms(lambda: K1.flash_attention_bwd(
+                    q, k, v, out, lse, do, causal, None, qs, ks)),
+                plain_ms=events_ms(lambda: K1.flash_attention_bwd_dense(
+                    q, k, v, do, causal, None, qs, ks), iters=3, warm=1),
+                library_ms=events_ms(lambda: torch.autograd.grad(
+                    lib_out, (qg, kg, vg), dot, retain_graph=True)),
+                library="backward of F.scaled_dot_product_attention "
+                        "(autograd.grad on a kept graph)",
+                library_fwd_bwd_ms=events_ms(lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(qg, kg, vg, **kw),
+                    (qg, kg, vg), dot)),
+                bound_ms=b_ms, bound_by=b_by))
+            del lib_out, qg, kg, vg
 
 
 def _attn_case(dev, dt, B, Sq, H, KV, starts, seq_lens, g, P=512, page=64,
@@ -330,6 +546,237 @@ def phase_serve(layers, counters, profile=False):
     return launches
 
 
+# -- phases 5 and 6: training ---------------------------------------------
+def _trainer(model):
+    """The train step a user builds: AdamW with f32 masters and moments,
+    global-norm clipping, through ParallelEngine.train_step."""
+    from paddle_tpu_torch.distributed.engine import ParallelEngine
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=3e-4, weight_decay=0.01, multi_precision=True,
+                grad_clip=ClipGradByGlobalNorm(1.0),
+                parameters=model.parameters())
+    crit = LlamaPretrainingCriterion(model.config)
+    eng = ParallelEngine(model, opt)
+    return opt, eng.train_step(lambda m, b: crit(m(b["x"]), b["y"]))
+
+
+def _lm_batch(seed, B, S, vocab, device):
+    """B x S token ids from ``seed`` and their next-token labels."""
+    ids = np.random.RandomState(seed).randint(0, vocab, (B, S + 1))
+    return {"x": torch.tensor(ids[:, :-1], device=device),
+            "y": torch.tensor(ids[:, 1:], device=device)}
+
+
+def phase_train_parity():
+    """The reduced Llama of the serving parity phase trains 3 steps on
+    cuda (kernels K1, K2, K3) and on cpu (their plain versions) from the
+    same weights and batch; losses and global grad norms must agree
+    within 1e-4 relative."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig(vocab_size=4096, hidden_size=1024, num_layers=2,
+                      num_heads=8, num_kv_heads=2, intermediate_size=2816,
+                      max_position_embeddings=1024, dtype="float32")
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=5)
+    gpu = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    gpu.load_state_dict(cpu.state_dict())
+    runs = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        opt, step = _trainer(model)
+        batch = _lm_batch(14, 2, 256, cfg.vocab_size, model.device)
+        runs[name] = []
+        for _ in range(3):
+            loss = float(step(batch))
+            runs[name].append((loss, float(opt.grad_norm)))
+    log(f"[train-parity] (loss, grad norm) per step: {json.dumps(runs)}")
+    for (lc, nc), (lg, ng) in zip(runs["cpu"], runs["cuda"]):
+        if not (abs(lg - lc) <= 1e-4 * abs(lc)
+                and abs(ng - nc) <= 1e-4 * abs(nc)):
+            raise AssertionError(f"cuda and cpu training differ: {runs}")
+    log("[train-parity] cuda == cpu losses and grad norms within 1e-4: OK")
+
+
+def phase_train(counters, profile=False, steps=12, warm=2):
+    """Llama at 7B widths, 8 layers, bf16, through ParallelEngine:
+    `steps` steps on one fixed batch, the first `warm` untimed."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+
+    cfg = llama_7b(dtype="bfloat16", num_layers=8)
+    B, S = 4, 2048
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    opt, step = _trainer(model)
+    batch = _lm_batch(13, B, S, cfg.vocab_size, model.device)
+    torch.cuda.synchronize()
+    log(f"[train] llama_7b widths, {cfg.num_layers} layers, bf16, random "
+        f"weights (seed 0), {cfg.num_params() / 1e9:.3f}B params; built in "
+        f"{time.perf_counter() - t0:.1f}s; batch {B} x {S} from seed 13")
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for i in range(steps):
+        if i == warm:
+            for c in counters:
+                c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))   # the readback ends the step
+        secs.append(time.perf_counter() - t0)
+    launches = {c.__name__: c.launches for c in counters}
+    timed = secs[warm:]
+    step_ms = float(np.percentile(timed, 50)) * 1e3
+    # every timed token over the timed wall, so one slow step counts
+    tok_s = B * S * len(timed) / sum(timed)
+    # MFU as observability/flops.py:78 counts it, with S the real
+    # sequence length (2048), not max_position_embeddings
+    L, h = cfg.num_layers, cfg.hidden_size
+    flops_per_token = 6 * cfg.num_params() + 12 * L * h * S
+    summary = dict(
+        layers=L, batch=[B, S], steps=steps, untimed=warm, losses=losses,
+        step_ms=[s * 1e3 for s in secs], step_ms_p50=step_ms,
+        tokens_per_s=tok_s, mfu=flops_per_token * tok_s / 989e12,
+        mfu_seq_len=S, grad_norm_last=float(opt.grad_norm),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches)
+    log("[train] " + json.dumps(summary))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall on a fixed batch: {losses}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched on the train path")
+    check_train_attention(model, opt, _lm_batch(15, B, S, cfg.vocab_size,
+                                                model.device))
+    if profile:
+        profile_train(model, opt, batch)
+    return launches
+
+
+def check_train_attention(model, opt, batch):
+    """One more forward and backward of the trained model, on a batch it
+    has not seen, with every layer's attention call watched: K1's output
+    and K2's dq, dk, dv, as the train step runs them (autograd, bf16,
+    tensor-core bodies, the model's own activations), against the plain
+    version on the same q, k, v and output gradient, by the per-tile
+    relative error of the kernels phase. Runs after the train path's
+    launches were read, so its launches are not counted."""
+    import paddle_tpu_torch.models.llama as llama
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    kernel_path = llama.flash_attention
+    seen = []
+
+    def watched(q, k, v, causal=False, dropout=0.0):
+        out = kernel_path(q, k, v, causal=causal, dropout=dropout)
+        rec = dict(q=q.detach(), k=k.detach(), v=v.detach(),
+                   out=out.detach(), causal=causal)
+        for key, t in (("do", out), ("dq", q), ("dk", k), ("dv", v)):
+            t.register_hook(lambda g, key=key: rec.__setitem__(key, g))
+        seen.append(rec)
+        return out
+
+    crit = LlamaPretrainingCriterion(model.config)
+    llama.flash_attention = watched
+    try:
+        crit(model(batch["x"]), batch["y"]).backward()
+    finally:
+        llama.flash_attention = kernel_path
+    opt.clear_grad()
+    worst = 0.0
+    for i, r in enumerate(seen):
+        with torch.no_grad():
+            r_out = K1.flash_attention_dense(r["q"], r["k"], r["v"],
+                                             r["causal"])[0]
+        ref = K1.flash_attention_bwd_dense(r["q"], r["k"], r["v"], r["do"],
+                                           r["causal"])
+        errs = {"out": _errs(r["out"], r_out)}
+        errs.update((n, _errs(r[n], g)) for n, g in zip(("dq", "dk", "dv"),
+                                                        ref))
+        log(f"[train] layer {i} attention, kernel path vs plain: "
+            + json.dumps({n: dict(max_abs_err=e[0], ref_max_abs=e[1],
+                                  ref_rms=e[2], rel_err=e[3])
+                          for n, e in errs.items()}))
+        worst = max([worst] + [e[3] for e in errs.values()])
+        del r_out, ref
+        seen[i] = None
+    if not (len(seen) == model.config.num_layers
+            and worst <= TOL[torch.bfloat16]):
+        raise AssertionError(f"train-path attention: {len(seen)} layers "
+                             f"watched, worst tile error {worst}")
+    log(f"[train] every layer's K1 output and K2 gradients within "
+        f"{TOL[torch.bfloat16]} of the plain version (worst tile {worst}): OK")
+
+
+def profile_train(model, opt, batch):
+    """The step split by hand into forward, backward and optimizer step
+    (clipping included), timed with CUDA events, then two steps under
+    torch.profiler: device time by kernel group and by kernel, and the
+    device's busy share of the profiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+
+    crit = LlamaPretrainingCriterion(model.config)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    loss = crit(model(batch["x"]), batch["y"])
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    opt.clear_grad()
+    ev[3].record()
+    ev[3].synchronize()
+    log("[profile:train] one step by hand, CUDA events: forward "
+        f"{ev[0].elapsed_time(ev[1]):.1f} ms, backward "
+        f"{ev[1].elapsed_time(ev[2]):.1f} ms, optimizer step "
+        f"{ev[2].elapsed_time(ev[3]):.1f} ms")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            loss = crit(model(batch["x"]), batch["y"])
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _log_profile(prof, wall, "train")
+
+
+KERNEL_GROUPS = (("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass")),
+                 ("K1/K2 flash attention", ("fwd_mma", "dq_mma", "dkv_mma",
+                                            "fwd_fma", "dq_fma", "dkv_fma")),
+                 ("K3 rms_norm", ("rms_norm_kernel",)),
+                 ("K4/K5 paged attention", ("paged_attention",)))
+
+
+def _log_profile(prof, wall, tag):
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    log(f"[profile:{tag}] wall {wall * 1e3:.1f} ms (profiled), device busy "
+        f"{busy_ms:.1f} ms = {100 * busy_ms / (wall * 1e3):.1f}%")
+    groups = {}
+    for e in kern:
+        g = next((name for name, keys in KERNEL_GROUPS
+                  if any(k in e.key for k in keys)), "other (elementwise, "
+                 "copies, reductions)")
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    log(f"[profile:{tag}] device ms by group: "
+        + json.dumps({k: round(v, 1) for k, v in sorted(
+            groups.items(), key=lambda kv: -kv[1])}))
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"[profile:{tag}] {e.self_device_time_total / 1e3:9.1f} ms "
+            f"{e.count:7d} calls  {e.key[:90]}")
+
+
 def profile_serve(model, sched, kw):
     """The same schedule again under torch.profiler: device time by
     kernel name and the device's busy share of the wall (one stream, so
@@ -339,24 +786,19 @@ def profile_serve(model, sched, kw):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, _, wall = serve(model, sched, **kw)
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    log(f"[profile] wall {wall * 1e3:.1f} ms (profiled), device busy "
-        f"{busy_ms:.1f} ms = {100 * busy_ms / (wall * 1e3):.1f}%")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:15]:
-        log(f"[profile] {e.self_device_time_total / 1e3:9.1f} ms "
-            f"{e.count:7d} calls  {e.key[:90]}")
+    _log_profile(prof, wall, "serve")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="depth of the 7B-width serving run")
-    ap.add_argument("--phases", default="build,kernels,parity,serve")
+    ap.add_argument("--phases",
+                    default="build,kernels,parity,serve,train-parity,train")
     ap.add_argument("--profile", action="store_true",
-                    help="serve the schedule once more under torch.profiler "
-                    "and print device time by kernel")
+                    help="serve the schedule once more, and run two more "
+                    "train steps, under torch.profiler and print device "
+                    "time by kernel")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -377,6 +819,8 @@ def main():
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels.decode_attention import \
         paged_decode_attention
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
         ragged_paged_attention
     from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm
@@ -391,38 +835,56 @@ def main():
     if "kernels" in phases:
         check_rms(dev, results)
         check_attention(dev, results)
+        check_flash(dev, results)
         bad = []
         for r in results:
             log("[kernels] " + json.dumps(r))
-            if not r["max_abs_err"] <= r["tol"]:
+            err = r.get("rel_err", r["max_abs_err"])
+            if not err <= r["tol"]:
                 bad.append(f"{r['name']} {r['shape']} {r['dtype']}: "
-                           f"{r['max_abs_err']} > {r['tol']}")
+                           f"{err} > {r['tol']}")
         if bad:
             raise AssertionError("kernels disagree with their plain "
                                  "versions: " + "; ".join(bad))
         log("[kernels] every case within tolerance: OK")
     if "parity" in phases:
         phase_parity()
-    counters = [rms_norm, ragged_paged_attention, paged_decode_attention]
-    launches = {c.__name__: None for c in counters}
+    # each path is driven with its kernels' counts set to 0 just before
+    # it and read just after: serving runs K3, K4, K5; training K3, K1, K2
+    paths = {"serve": [rms_norm, ragged_paged_attention,
+                       paged_decode_attention],
+             "train": [rms_norm, flash_attention_fwd, flash_attention_bwd]}
+    by_path = {p: {c.__name__: None for c in cs} for p, cs in paths.items()}
     if "serve" in phases:
-        launches = phase_serve(args.layers, counters, args.profile)
+        by_path["serve"] = phase_serve(args.layers, paths["serve"],
+                                       args.profile)
+    if "train-parity" in phases:
+        phase_train_parity()
+    if "train" in phases:
+        by_path["train"] = phase_train(paths["train"], args.profile)
 
     # one entry per kernel: the main path's dtype (bf16) at its main shape
     main_shape = {"rms_norm": [2048, 4096],
                   "ragged_paged_attention": [8, 256, 32, 128],
-                  "paged_decode_attention": [8, 1, 32, 128]}
+                  "paged_decode_attention": [8, 1, 32, 128],
+                  "flash_attention_fwd": [4, 2048, 32, 128],
+                  "flash_attention_bwd": [4, 2048, 32, 128]}
+    flash = "paddle_tpu/ops/pallas/flash_attention.py"
     meta = {
         "rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
-                     "paddle_tpu/ops/pallas/rms_norm.py:75"),
+                     "paddle_tpu/ops/pallas/rms_norm.py:75", "serve"),
         "ragged_paged_attention": (
             "paddle_tpu_torch/csrc/paged_attention.cu",
-            "paddle_tpu/ops/pallas/ragged_paged_attention.py:122"),
+            "paddle_tpu/ops/pallas/ragged_paged_attention.py:122", "serve"),
         "paged_decode_attention": (
             "paddle_tpu_torch/csrc/paged_attention.cu",
-            "paddle_tpu/ops/pallas/decode_attention.py:220")}
+            "paddle_tpu/ops/pallas/decode_attention.py:220", "serve"),
+        "flash_attention_fwd": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                                f"{flash}:432", "train"),
+        "flash_attention_bwd": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                                f"{flash}:307", "train")}
     kernels = []
-    for name, (src, repl) in meta.items():
+    for name, (src, repl, path) in meta.items():
         mine = [r for r in results if r["name"] == name]
         main = [r for r in mine if r["shape"] == main_shape[name]
                 and r["dtype"] == "bfloat16"
@@ -430,7 +892,9 @@ def main():
         row = main[0] if main else {}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=repl,
-            launches=launches[name],
+            launches=by_path[path][name],
+            launches_by_path={p: n[name] for p, n in by_path.items()
+                              if name in n},
             max_abs_err=max((r["max_abs_err"] for r in mine), default=None),
             ms=row.get("ms"), plain_ms=row.get("plain_ms"),
             bound_ms=row.get("bound_ms"), bound_by=row.get("bound_by"),

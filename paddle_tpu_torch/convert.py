@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package into the port.
+"""Carry weights between the JAX package and the port.
 
 ``load_jax_state_dict(model, state)`` takes ``{structured name:
 np.ndarray}`` named as ``paddle_tpu``'s ``Layer.state_dict()`` names them
@@ -8,6 +8,11 @@ np.ndarray}`` named as ``paddle_tpu``'s ``Layer.state_dict()`` names them
 shape must match both ways, or the load raises before anything is
 written. The caller builds ``state`` with numpy, so the port never
 imports JAX.
+
+``export_jax_state_dict(model)`` is the inverse: ``{JAX name:
+np.ndarray}`` with the linears transposed back to ``[in, out]``, for
+comparing parameters with the JAX package after training steps
+(bf16 parameters come out as float32 arrays, which numpy can hold).
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_jax_state_dict"]
+__all__ = ["load_jax_state_dict", "export_jax_state_dict"]
 
 
 def _linear_weights(model: nn.Module):
@@ -52,3 +57,13 @@ def load_jax_state_dict(model: nn.Module,
         converted[name] = torch.tensor(np.ascontiguousarray(arr))
     for name, p in params.items():
         p.copy_(converted[name].to(device=p.device, dtype=p.dtype))
+
+
+@torch.no_grad()
+def export_jax_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:
+    linear = _linear_weights(model)
+    out = {}
+    for name, p in model.named_parameters():
+        arr = p.detach().float().cpu().numpy()
+        out[name] = np.ascontiguousarray(arr.T if name in linear else arr)
+    return out

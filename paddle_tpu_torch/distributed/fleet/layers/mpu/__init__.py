@@ -1,5 +1,5 @@
 from .mp_layers import (ColumnParallelLinear, RowParallelLinear,
-                        VocabParallelEmbedding)
+                        VocabParallelEmbedding, parallel_cross_entropy)
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding"]
+           "VocabParallelEmbedding", "parallel_cross_entropy"]

@@ -1,14 +1,19 @@
-"""Llama over a paged KV cache (counterpart of ``paddle_tpu/models/llama.py``).
+"""Llama (counterpart of ``paddle_tpu/models/llama.py``).
 
-Ported: the configuration and its presets, the rotary tables, and the
-forward with a paged KV cache — the path ``ServingEngine`` and the
-legacy per-arrival prefill drive. Architecture as in the JAX package:
-RMSNorm (kernel K3), rotary embeddings, GQA (num_kv_heads < num_heads),
-SwiGLU MLP, untied LM head by default.
+Ported: the configuration and its presets, the rotary tables, the
+training forward without a cache (flash attention, kernels K1/K2, and
+``LlamaPretrainingCriterion``), and the forward with a paged KV cache —
+the path ``ServingEngine`` and the legacy per-arrival prefill drive.
+Architecture as in the JAX package: RMSNorm (kernel K3, with its
+gradient), rotary embeddings, GQA (num_kv_heads < num_heads), SwiGLU
+MLP, untied LM head by default.
 
-Not ported yet (they raise ``NotImplementedError``): the training
-forward without a cache (flash attention, kernels K1/K2), the
+Not ported yet (they raise ``NotImplementedError``): the
 contiguous-cache forward (kernel K6) and ``generate``.
+
+The training forward keeps activations in the parameters' dtype: its
+rope casts the f32 tables to q/k's dtype, as the serving rope does
+(the JAX training rope promotes bf16 q/k to f32; in f32 the two agree).
 
 The KV pools are updated IN PLACE: where the JAX step donated the pool
 buffers and returned new ones, the port writes the new K/V rows straight
@@ -28,20 +33,21 @@ from torch.nn import functional as F
 
 from ..distributed.fleet.layers.mpu import (ColumnParallelLinear,
                                             RowParallelLinear,
-                                            VocabParallelEmbedding)
+                                            VocabParallelEmbedding,
+                                            parallel_cross_entropy)
+from ..ops.attention import flash_attention
 from ..ops.kernels.decode_attention import paged_decode_attention
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
 from ..ops.kernels.rms_norm import rms_norm
+from ..ops.nn_ops import fused_rope
 from ..ops.nn_ops import rotate_half as _rot_half
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "LlamaRMSNorm",
-           "llama_tiny", "llama_7b", "llama_13b", "resolve_device"]
+           "LlamaPretrainingCriterion", "llama_tiny", "llama_7b",
+           "llama_13b", "resolve_device"]
 
 _DTYPES = {"float32": torch.float32, None: torch.float32,
            "bfloat16": torch.bfloat16}
-
-_TRAINING_TODO = ("not ported yet: ROADMAP.md queue 1, the GPT and Llama "
-                  "training step with flash attention (K1/K2)")
 
 
 @dataclass
@@ -161,11 +167,14 @@ class LlamaAttention(nn.Module):
         q = self.q_proj(x).view(B, S, cfg.num_heads, D)
         k = self.k_proj(x).view(B, S, cfg.num_kv_heads, D)
         v = self.v_proj(x).view(B, S, cfg.num_kv_heads, D)
+        if cache is None:
+            # training: rope over positions 0..S-1, causal flash
+            # attention (K1/K2); GQA heads pass through as they are
+            q, k = fused_rope(q, k, self.rope_cos[:S], self.rope_sin[:S])
+            o = flash_attention(q, k, v, causal=True)
+            return self.o_proj(o.reshape(B, S, cfg.num_heads * D))
         q = _apply_rope(q, self.rope_cos, self.rope_sin, offset)
         k = _apply_rope(k, self.rope_cos, self.rope_sin, offset)
-        if cache is None:
-            raise NotImplementedError("LlamaAttention without a KV cache "
-                                      "(training forward) is " + _TRAINING_TODO)
         if len(cache) != 3:
             raise NotImplementedError(
                 "the contiguous [B, KV, M, D] cache (kernel K6) is not "
@@ -235,7 +244,10 @@ class LlamaDecoderLayer(nn.Module):
             config.hidden_size, config.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(config, **kw)
 
-    def forward(self, x, cache, offset=0, valid=None):
+    def forward(self, x, cache=None, offset=0, valid=None):
+        if cache is None:
+            x = x + self.self_attn(self.input_layernorm(x))
+            return x + self.mlp(self.post_attention_layernorm(x))
         a, cache = self.self_attn(self.input_layernorm(x), cache=cache,
                                   offset=offset, valid=valid)
         x = x + a
@@ -255,11 +267,12 @@ class LlamaModel(nn.Module):
         self.norm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps,
                                  **kw)
 
-    def forward(self, input_ids, caches, offset=0, valid=None):
-        if caches is None:
-            raise NotImplementedError("LlamaModel without KV caches "
-                                      "(training forward) is " + _TRAINING_TODO)
+    def forward(self, input_ids, caches=None, offset=0, valid=None):
         x = self.embed_tokens(input_ids)
+        if caches is None:
+            for layer in self.layers:
+                x = layer(x)
+            return self.norm(x)
         new_caches: List = []
         for layer, cache in zip(self.layers, caches):
             x, cache = layer(x, cache, offset=offset, valid=valid)
@@ -268,11 +281,12 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
-    """Llama with an (untied by default) LM head, serving over a paged KV
-    cache. ``device=None`` means the CUDA device; weights are drawn from
-    a generator seeded with ``seed`` on that device (normal, std
-    ``initializer_range``; the residual-output projections use
-    std / sqrt(2 * num_layers), as the JAX package does)."""
+    """Llama with an (untied by default) LM head: the training forward,
+    and serving over a paged KV cache. ``device=None`` means the CUDA
+    device; weights are drawn from a generator seeded with ``seed`` on
+    that device (normal, std ``initializer_range``; the residual-output
+    projections use std / sqrt(2 * num_layers), as the JAX package
+    does)."""
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
@@ -309,9 +323,10 @@ class LlamaForCausalLM(nn.Module):
         return self.lm_head(x)
 
     def forward(self, input_ids, caches=None, offset=0, valid=None):
+        """Without caches: logits [B, S, vocab] of the training forward.
+        With paged caches: (logits, caches)."""
         if caches is None:
-            raise NotImplementedError("LlamaForCausalLM.forward without KV "
-                                      "caches (training) is " + _TRAINING_TODO)
+            return self._logits(self.llama(input_ids))
         x, caches = self.llama(input_ids, caches, offset=offset, valid=valid)
         return self._logits(x), caches
 
@@ -320,6 +335,23 @@ class LlamaForCausalLM(nn.Module):
             "LlamaForCausalLM.generate (static cache, kernel K6) is not "
             "ported yet: ROADMAP.md queue 1, Predictor.generate with K6; "
             "serve through inference.ServingEngine")
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """LM loss: the mean over tokens of ``parallel_cross_entropy``, or
+    with ``loss_mask`` the masked mean sum(loss * m) / max(sum(m), 1)."""
+
+    def __init__(self, config=None, mp_group=None):
+        super().__init__()
+        self._mp_group = mp_group
+
+    def forward(self, logits, labels, loss_mask=None):
+        loss = parallel_cross_entropy(logits, labels,
+                                      self._mp_group).squeeze(-1)
+        if loss_mask is not None:
+            m = loss_mask.to(loss.dtype)
+            return (loss * m).sum() / m.sum().clamp_min(1.0)
+        return loss.mean()
 
 
 def llama_tiny(**kw) -> LlamaConfig:

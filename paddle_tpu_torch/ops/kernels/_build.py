@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "build_all", "check", "library", "nvcc_path"]
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD = _PKG.parent / "build" / "kernels"
-SOURCES = ("rms_norm", "paged_attention")
+SOURCES = ("rms_norm", "paged_attention", "flash_attention")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 

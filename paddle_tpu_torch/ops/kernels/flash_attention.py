@@ -1,0 +1,267 @@
+"""K1 + K2: flash attention forward and backward (counterpart of
+``paddle_tpu/ops/pallas/flash_attention.py``).
+
+``flash_attention_fwd(q, k, v, causal, scale, q_segment_ids,
+kv_segment_ids)`` is the differentiable entry a model calls, as the JAX
+``flash_attention_fwd`` (custom VJP) is. On CUDA tensors its forward
+launches K1 and its backward launches K2 (``flash_attention_bwd``: one
+dq kernel and one dk/dv kernel); on CPU tensors it is the plain version
+``flash_attention_dense``, and autograd differentiates that.
+
+The CUDA source is ``csrc/flash_attention.cu``; its header gives the
+shape limits, the bound (operations, at training shapes) and the
+design. Layout ``[B, S, H, D]``; k and v may carry fewer heads (GQA,
+``H % KV == 0``), which the kernels take natively: no repeated K/V.
+``lse`` is f32 ``[B, H, Sq]``. Segment ids are int32 ``[B, Sq]`` and
+``[B, Skv]``; they get no gradient.
+
+The backward's ``delta = rowsum(dO * O)`` (f32) is a plain torch op
+outside the kernels, as the JAX ``_fa_bwd`` leaves it to XLA.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build, dtype_code, ptr, route, stream, want_contiguous
+
+__all__ = ["flash_attention_fwd", "flash_attention_fwd_lse",
+           "flash_attention_bwd", "flash_attention_dense",
+           "flash_attention_bwd_dense", "HEAD_DIMS"]
+
+HEAD_DIMS = (16, 32, 64, 128)
+_NEG = -1e30
+
+
+def _keep_mask(Sq, Skv, causal, qseg, kseg, device, keep=None):
+    """[B or 1, 1, 1, Sq, Skv] keep-mask (True = attend) or None; an
+    explicit ``keep`` [B or 1, Sq, Skv] joins the causal and segment
+    masks."""
+    if keep is not None:
+        keep = keep[:, None, None]
+    if causal:
+        # bottom-right convention: row r sees keys <= r + Skv - Sq
+        tri = torch.ones(Sq, Skv, dtype=torch.bool, device=device).tril(
+            Skv - Sq)[None, None, None]
+        keep = tri if keep is None else keep & tri
+    if qseg is not None:
+        same = (qseg[:, :, None] == kseg[:, None, :])[:, None, None]
+        keep = same if keep is None else keep & same
+    return keep
+
+
+def flash_attention_dense(q, k, v, causal=False, scale=None,
+                          q_segment_ids=None, kv_segment_ids=None, keep=None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: (out [B, Sq, H, D] in q's dtype, lse [B, H, Sq] f32).
+    ``keep`` is an optional boolean [B or 1, Sq, Skv] mask (True =
+    attend) on top of the causal and segment masks; the kernels take no
+    such mask.
+
+    The GQA broadcast of the JAX ``_gqa_sdpa`` (ops/attention.py:31): q
+    reshapes to [B, KV, rep, Sq, D] and the kv planes broadcast over rep,
+    so no K/V copies. f32 scores and softmax; masked scores -1e30 with
+    probability exactly 0 and l clamped at 1e-30, as the kernels do, so
+    a row that sees no key gives 0. Autograd differentiates it."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    qf = q.transpose(1, 2).float().reshape(B, KV, rep, Sq, D)
+    kf = k.transpose(1, 2).float()[:, :, None]           # [B, KV, 1, Skv, D]
+    vf = v.transpose(1, 2).float()[:, :, None]
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale   # [B, KV, rep, Sq, Skv]
+    keep = _keep_mask(Sq, Skv, causal, q_segment_ids, kv_segment_ids,
+                      q.device, keep)
+    if keep is not None:
+        s = s.masked_fill(~keep, _NEG)
+    m = s.amax(dim=-1, keepdim=True).detach()
+    p = torch.exp(s - m)
+    if keep is not None:
+        p = p * keep
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.matmul(p, vf) / l
+    lse = (m + torch.log(l)).reshape(B, H, Sq)
+    out = out.reshape(B, H, Sq, D).transpose(1, 2).to(q.dtype)
+    return out, lse
+
+
+def flash_attention_bwd_dense(q, k, v, dout, causal=False, scale=None,
+                              q_segment_ids=None, kv_segment_ids=None):
+    """Plain backward: (dq, dk, dv) by autograd through
+    ``flash_attention_dense``."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out, _ = flash_attention_dense(qq, kk, vv, causal, scale,
+                                       q_segment_ids, kv_segment_ids)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+
+@functools.cache
+def _lib():
+    lib = _build.library("flash_attention")
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_fwd_launch.argtypes = (
+        [vp] * 7 + [i] * 7 + [f, i, vp])
+    lib.flash_attention_fwd_launch.restype = i
+    lib.flash_attention_bwd_launch.argtypes = (
+        [vp] * 11 + [i] * 7 + [f, i, vp])
+    lib.flash_attention_bwd_launch.restype = i
+    return lib
+
+
+def _check(q, k, v, qseg, kseg, what):
+    """Shape and type checks shared by both routes; returns the segment
+    ids as contiguous int32 (or None)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{what}: q, k, v must be [B, S, H, D]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"{what}: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must be [B, Skv, KV, D] with "
+                         f"q's B={B}, D={D}")
+    KV = k.shape[2]
+    if KV == 0 or H % KV:
+        raise ValueError(f"{what}: {H} query heads are not a multiple of "
+                         f"{KV} kv heads")
+    dtype_code(q, what)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what}: q, k, v dtypes differ ({q.dtype}, "
+                        f"{k.dtype}, {v.dtype})")
+    if (qseg is None) != (kseg is None):
+        raise ValueError(f"{what}: q/kv segment ids must be given together")
+    if qseg is None:
+        return None, None
+    if tuple(qseg.shape) != (B, Sq) or tuple(kseg.shape) != (B, k.shape[1]):
+        raise ValueError(f"{what}: segment ids {tuple(qseg.shape)}, "
+                         f"{tuple(kseg.shape)} must be [B, Sq], [B, Skv]")
+    return (qseg.to(torch.int32).contiguous(),
+            kseg.to(torch.int32).contiguous())
+
+
+def _check_cuda(tensors, D, what):
+    """The kernels read these with 16-byte vectors."""
+    for name, t in tensors.items():
+        want_contiguous(t, f"{what} {name}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {D} not supported by the kernel "
+                         f"(one of {HEAD_DIMS})")
+
+
+def _present(*tensors):
+    return [t for t in tensors if t is not None]
+
+
+def _opt(t: Optional[torch.Tensor]):
+    return ctypes.c_void_p(0) if t is None else ptr(t)
+
+
+def _k1(q, k, v, causal, scale, qseg, kseg):
+    """Launch K1: (out, lse)."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    _check_cuda({"q": q, "k": k, "v": v}, D, "flash_attention_fwd")
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    rc = _lib().flash_attention_fwd_launch(
+        ptr(q), ptr(k), ptr(v), _opt(qseg), _opt(kseg), ptr(out), ptr(lse),
+        B, Sq, Skv, H, KV, D, int(bool(causal)), float(scale),
+        dtype_code(q, "q"), stream(q))
+    _build.check(rc, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
+                        q_segment_ids=None, kv_segment_ids=None):
+    """K2: (dq, dk, dv) of ``out = flash_attention(q, k, v)`` for the
+    output gradient ``dout``, from K1's ``out`` and ``lse``. CPU tensors
+    take ``flash_attention_bwd_dense``; CUDA tensors launch the dq and
+    the dk/dv kernels."""
+    qseg, kseg = _check(q, k, v, q_segment_ids, kv_segment_ids,
+                        "flash_attention_bwd")
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    if route(q, k, v, out, lse, dout, *_present(qseg, kseg)) == "cpu":
+        return flash_attention_bwd_dense(q, k, v, dout, causal, scale, qseg,
+                                         kseg)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and "
+                         f"dout {tuple(dout.shape)} must have q's shape")
+    if dout.dtype != q.dtype or out.dtype != q.dtype:
+        raise TypeError("flash_attention_bwd: out and dout must have q's "
+                        "dtype")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be float32 "
+                         f"[{B}, {H}, {Sq}], got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    want_contiguous(lse, "flash_attention_bwd lse")
+    dout = dout.contiguous()    # autograd may hand any strides
+    _check_cuda({"q": q, "k": k, "v": v, "out": out, "dout": dout}, D,
+                "flash_attention_bwd")
+    # delta_i = rowsum(dO o O), f32 [B, H, Sq] (flash_attention.py:503)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    rc = _lib().flash_attention_bwd_launch(
+        ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), _opt(qseg),
+        _opt(kseg), ptr(dq), ptr(dk), ptr(dv), B, Sq, Skv, H, KV, D,
+        int(bool(causal)),
+        float(scale), dtype_code(q, "q"), stream(q))
+    _build.check(rc, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, qseg, kseg):
+        out, lse = _k1(q, k, v, causal, scale, qseg, kseg)
+        ctx.save_for_backward(q, k, v, out, lse, qseg, kseg)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, qseg, kseg = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal,
+                                         ctx.scale, qseg, kseg)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_fwd(q, k, v, causal=False, scale=None,
+                        q_segment_ids=None, kv_segment_ids=None):
+    """[B, Sq, H, D] attention output, differentiable in q, k and v."""
+    qseg, kseg = _check(q, k, v, q_segment_ids, kv_segment_ids,
+                        "flash_attention_fwd")
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if route(q, k, v, *_present(qseg, kseg)) == "cpu":
+        return flash_attention_dense(q, k, v, causal, scale, qseg, kseg)[0]
+    return _FlashAttention.apply(q, k, v, bool(causal), scale, qseg, kseg)
+
+
+def flash_attention_fwd_lse(q, k, v, causal=False, scale=None,
+                            q_segment_ids=None, kv_segment_ids=None):
+    """(out, lse) with no graph: K1's two outputs (the JAX ``_fa_fwd``
+    residuals), for checks and for callers that reuse the lse."""
+    qseg, kseg = _check(q, k, v, q_segment_ids, kv_segment_ids,
+                        "flash_attention_fwd")
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    with torch.no_grad():
+        if route(q, k, v, *_present(qseg, kseg)) == "cpu":
+            return flash_attention_dense(q, k, v, causal, scale, qseg, kseg)
+        return _k1(q, k, v, causal, scale, qseg, kseg)
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd.launches = 0

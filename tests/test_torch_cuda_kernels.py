@@ -7,13 +7,19 @@ paddle_tpu_torch/csrc with nvcc on first use):
 
 Without a card every test here skips with a reason (decided inside the
 ``cuda`` fixture, never at import). Tolerances: fp32 1e-4; bf16 2e-2 on
-unit-scale inputs (both sides accumulate in f32 and round once).
+unit-scale inputs (both sides accumulate in f32 and round once). Flash
+attention outputs and gradients, and RMSNorm gradients, are held to the
+same tolerances as a relative L2 error over tiles of 16 positions of one
+(batch, head), each tile against its own magnitude: in causal attention
+the first rows and keys are far larger than the late ones, and an error
+scaled by the largest value would let a wrong late tile pass.
 """
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops.kernels import decode_attention as K5
+from paddle_tpu_torch.ops.kernels import flash_attention as K1
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as K4
 from paddle_tpu_torch.ops.kernels import rms_norm as K3
 
@@ -154,3 +160,196 @@ def test_tiny_serving_cuda_equals_cpu(cuda, how):
         outs.append([list(done[i].new_tokens) for i in rids])
         assert all(k.device == m.device for k, _ in eng.pools)
     assert outs[0] == outs[1]
+
+
+# -- K1 / K2: flash attention -------------------------------------------------
+FLASH = {  # (B, Sq, Skv, H, KV, D, causal, segments)
+    "mha_d128_causal": (2, 256, 256, 4, 4, 128, True, False),
+    "gqa4_d64_causal": (2, 192, 192, 8, 2, 64, True, False),
+    "mha_d64_full": (1, 128, 128, 4, 4, 64, False, False),
+    "rect_d128": (2, 100, 300, 4, 2, 128, True, False),
+    "segments_d128": (2, 256, 256, 4, 2, 128, True, True),
+    "partial_tiles_d32": (3, 37, 37, 2, 1, 32, True, False),
+    "partial_rect_d16": (1, 45, 77, 4, 4, 16, False, True),
+}
+
+
+def _scaled(a, b, block=16):
+    """Largest ||a - b|| / ||b|| over tiles of ``block`` positions (dim 1)
+    of one (batch, head) of [B, S, H, D] tensors; a tile whose reference
+    is all zero must come out all zero."""
+    torch.cuda.synchronize()
+    a, b = a.float(), b.float()
+    B, S, H, D = b.shape
+    pad = -S % block
+    dn, rn = (torch.cat([t, t.new_zeros(B, pad, H, D)], 1).reshape(
+        B, -1, block, H, D).pow(2).sum((2, 4)).sqrt() for t in (a - b, b))
+    return torch.where(rn > 0, dn / rn.clamp_min(1e-38),
+                       torch.where(dn > 0, float("inf"), 0.0)).max().item()
+
+
+def _flash(cuda, dtype, B, Sq, Skv, H, KV, D, segments, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, device=cuda, generator=g).to(dtype)
+    q, k, v = mk(B, Sq, H, D), mk(B, Skv, KV, D), mk(B, Skv, KV, D)
+    do = mk(B, Sq, H, D)
+    qs = ks = None
+    if segments:
+        ks = (torch.arange(Skv, device=cuda) * 3 // Skv).to(
+            torch.int32).expand(B, Skv).contiguous()
+        qs = ks[:, Skv - Sq:].contiguous()
+    return q, k, v, do, qs, ks
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", sorted(FLASH))
+def test_flash_attention_kernels(cuda, case, dtype):
+    B, Sq, Skv, H, KV, D, causal, segm = FLASH[case]
+    q, k, v, do, qs, ks = _flash(cuda, dtype, B, Sq, Skv, H, KV, D, segm, 5)
+    nf, nb = K1.flash_attention_fwd.launches, K1.flash_attention_bwd.launches
+    out, lse = K1.flash_attention_fwd_lse(q, k, v, causal, None, qs, ks)
+    grads = K1.flash_attention_bwd(q, k, v, out, lse, do, causal, None, qs,
+                                   ks)
+    assert (K1.flash_attention_fwd.launches,
+            K1.flash_attention_bwd.launches) == (nf + 1, nb + 1)
+    r_out, r_lse = K1.flash_attention_dense(q, k, v, causal, None, qs, ks)
+    assert _scaled(out, r_out) <= TOL[dtype]
+    assert _err(lse, r_lse) <= TOL[dtype]
+    r_grads = K1.flash_attention_bwd_dense(q, k, v, do, causal, None, qs, ks)
+    for a, b in zip(grads, r_grads):
+        assert _scaled(a, b) <= TOL[dtype]
+
+
+def test_flash_attention_autograd_and_launch_counts(cuda):
+    q, k, v, do, _, _ = _flash(cuda, torch.bfloat16, 2, 128, 128, 4, 2, 64,
+                               False, 6)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    nf, nb = K1.flash_attention_fwd.launches, K1.flash_attention_bwd.launches
+    out = K1.flash_attention_fwd(q, k, v, True)
+    assert out.grad_fn is not None
+    out.backward(do)
+    assert (K1.flash_attention_fwd.launches,
+            K1.flash_attention_bwd.launches) == (nf + 1, nb + 1)
+    r = K1.flash_attention_bwd_dense(q, k, v, do, True)
+    for a, b in zip((q.grad, k.grad, v.grad), r):
+        assert _scaled(a, b) <= TOL[torch.bfloat16]
+
+
+def test_flash_attention_limits_raise_on_the_card(cuda):
+    q = torch.randn(1, 16, 2, 96, device=cuda)
+    with pytest.raises(ValueError, match="head dim 96"):
+        K1.flash_attention_fwd(q, q, q)
+    x = torch.randn(1, 16, 4, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        K1.flash_attention_fwd(x.transpose(1, 2), x.transpose(1, 2),
+                               x.transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_rms_norm_gradient_on_the_card(cuda, dtype):
+    """K3 inside its autograd.Function: a CUDA output that requires grad
+    has a grad_fn, and the backward matches autograd on the plain
+    version; under no_grad it is one launch as before."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(3, 5, 256, device=cuda, generator=g).to(
+        dtype).requires_grad_(True)
+    w = torch.randn(256, device=cuda, generator=g).to(
+        dtype).requires_grad_(True)
+    go = torch.randn(3, 5, 256, device=cuda, generator=g).to(dtype)
+    out = K3.rms_norm(x, w, 1e-5)
+    assert out.grad_fn is not None
+    dx, dw = torch.autograd.grad(out, (x, w), go)
+    rx, rw = torch.autograd.grad(K3.rms_norm_dense(x, w, 1e-5), (x, w), go)
+    assert _scaled(dx.reshape(1, 15, 1, 256),
+                   rx.reshape(1, 15, 1, 256)) <= TOL[dtype]
+    assert _scaled(dw[None, None, None], rw[None, None, None]) <= TOL[dtype]
+    n = K3.rms_norm.launches
+    with torch.no_grad():
+        assert K3.rms_norm(x, w, 1e-5).grad_fn is None
+    assert K3.rms_norm.launches == n + 1
+
+
+def test_tiny_training_cuda_equals_cpu(cuda):
+    """Three AdamW steps of llama_tiny (fp32, TF32 off) through
+    ParallelEngine on cuda and on cpu from the same weights."""
+    from paddle_tpu_torch.distributed.engine import ParallelEngine
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               LlamaPretrainingCriterion,
+                                               llama_tiny)
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cpu = LlamaForCausalLM(llama_tiny(), device="cpu", seed=3)
+    gpu = LlamaForCausalLM(llama_tiny(), device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = np.random.RandomState(0).randint(0, 256, (2, 65))
+    batch = {"x": ids[:, :-1], "y": ids[:, 1:]}
+    crit = LlamaPretrainingCriterion()
+    losses = []
+    for m in (cpu, gpu):
+        opt = AdamW(learning_rate=3e-3, parameters=m.parameters(),
+                    multi_precision=True,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        step = ParallelEngine(m, opt).train_step(
+            lambda mm, b: crit(mm(b["x"]), b["y"]))
+        losses.append([float(step(batch)) for _ in range(3)])
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+
+
+def test_tiny_training_bf16_attention_grads(cuda):
+    """llama_tiny in bf16 on the card: every layer's attention, as the
+    training forward and backward run it (K1 and K2's tensor-core
+    bodies, through autograd), against the plain version on the same q,
+    k, v and output gradient."""
+    import paddle_tpu_torch.models.llama as llama
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               LlamaPretrainingCriterion,
+                                               llama_tiny)
+
+    m = LlamaForCausalLM(llama_tiny(dtype="bfloat16"), device=cuda, seed=4)
+    ids = torch.tensor(np.random.RandomState(1).randint(0, 256, (2, 65)),
+                       device=cuda)
+    kernel_path, seen = llama.flash_attention, []
+
+    def watched(q, k, v, causal=False, dropout=0.0):
+        out = kernel_path(q, k, v, causal=causal, dropout=dropout)
+        rec = dict(q=q.detach(), k=k.detach(), v=v.detach(),
+                   out=out.detach())
+        for key, t in (("do", out), ("dq", q), ("dk", k), ("dv", v)):
+            t.register_hook(lambda g, key=key: rec.__setitem__(key, g))
+        seen.append(rec)
+        return out
+
+    nb = K1.flash_attention_bwd.launches
+    llama.flash_attention = watched
+    try:
+        LlamaPretrainingCriterion()(m(ids[:, :-1]), ids[:, 1:]).backward()
+    finally:
+        llama.flash_attention = kernel_path
+    assert len(seen) == 2 and K1.flash_attention_bwd.launches == nb + 2
+    for r in seen:
+        assert r["q"].dtype == torch.bfloat16
+        r_out = K1.flash_attention_dense(r["q"], r["k"], r["v"], True)[0]
+        assert _scaled(r["out"], r_out) <= TOL[torch.bfloat16]
+        ref = K1.flash_attention_bwd_dense(r["q"], r["k"], r["v"], r["do"],
+                                           True)
+        for n, g in zip(("dq", "dk", "dv"), ref):
+            assert _scaled(r[n], g) <= TOL[torch.bfloat16], n
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_varlen_noncausal_rect_pack_launches_k1(cuda, dtype):
+    """A non-causal varlen pack with Tq != Tk is segment ids alone: K1
+    serves it on the card, and it matches the CPU route."""
+    from paddle_tpu_torch.ops.attention import flash_attn_varlen
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn(64, 4, 64, device=cuda, generator=g).to(dtype)
+    k = torch.randn(80, 2, 64, device=cuda, generator=g).to(dtype)
+    v = torch.randn(80, 2, 64, device=cuda, generator=g).to(dtype)
+    cu_q, cu_k = [0, 20, 52, 64], [0, 30, 50, 80]
+    n = K1.flash_attention_fwd.launches
+    out = flash_attn_varlen(q, k, v, cu_q, cu_k)
+    assert K1.flash_attention_fwd.launches == n + 1
+    ref = flash_attn_varlen(q.cpu(), k.cpu(), v.cpu(), cu_q, cu_k)
+    assert _scaled(out[None], ref.to(cuda)[None]) <= TOL[dtype]

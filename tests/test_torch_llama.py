@@ -191,12 +191,18 @@ class TestDevicePolicy:
             tl.LlamaForCausalLM(tl.llama_tiny())
 
     def test_unported_paths_raise(self, models):
+        """generate and the contiguous [B, KV, M, D] cache (kernel K6)
+        still raise; the no-cache forward is the training path now
+        (tests/test_torch_train.py)."""
         _, tm, _ = models
         ids = torch.zeros(1, 4, dtype=torch.int64)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm(ids)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
             tm.generate(ids)
+        cfg = tm.config
+        kv = torch.zeros(1, cfg.num_kv_heads, 8, cfg.head_dim)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tm(ids, caches=[(kv, kv)] * cfg.num_layers)
+        assert tm(ids).shape == (1, 4, cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------
