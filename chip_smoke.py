@@ -9,25 +9,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. build        every kernel from paddle_tpu_torch/csrc/*.cu with nvcc,
                 all sources in parallel; print the build seconds
 2. kernels      K3 (RMSNorm, and its gradient), K4 (ragged paged
-                attention), K5 (paged decode attention), K1 and K2 (flash
+                attention), K5 (paged decode attention), K6 (decode
+                attention over the contiguous cache), K1 and K2 (flash
                 attention forward and backward) against their plain
                 PyTorch versions at the main paths' shapes, bf16 and
-                fp32, GQA, rectangular and segment-id cases included;
-                kernel, plain and library times, and each kernel's bound.
-                K1/K2 outputs and gradients and the K3 gradient are held
-                to the tolerance as a relative L2 error over tiles of 64
-                positions of one (batch, head), each tile against its own
-                magnitude
+                fp32, GQA, rectangular, segment-id and odd-cache-length
+                cases included; kernel, plain and library times, and each
+                kernel's bound. K1/K2/K6 outputs, K2 gradients and the K3
+                gradient are held to the tolerance as a relative L2 error
+                over tiles of 64 positions of one (batch, head), each tile
+                against its own magnitude
 3. parity       a reduced Llama (fp32, TF32 off) served on cuda and on
-                cpu with the same weights and arrival schedule: the
-                committed token streams must be equal
+                cpu with the same weights and arrival schedule, and run
+                through Predictor.generate with static and paged caches
+                (ragged rows, an EOS): every token stream must be equal,
+                across devices and between the two caches; a
+                FusedMultiTransformer prefill and 3 decode steps, cuda
+                against cpu, within 1e-4
 4. serve        Llama-7B widths (32 layers, bf16, random weights from a
                 seed) through ServingEngine: 16 greedy requests, 8 of them
                 arriving mid-run; K3, K4 and K5 must launch on this path
-5. train-parity the reduced Llama trains 3 steps on cuda and on cpu from
+5. generate     the same model through Predictor.generate: 8 ragged
+                prompts of 128..1024 tokens, 128 greedy new tokens with
+                the static cache (K6), then with enable_paged_kv(64) (K5);
+                prefill and per-token decode ms, tokens/s, peak memory,
+                and exact launch counts of K6, K5 and K3
+6. train-parity the reduced Llama trains 3 steps on cuda and on cpu from
                 the same weights and batch: losses and global grad norms
                 within 1e-4 relative
-6. train        Llama-7B widths cut to 8 layers (bf16 weights, f32 AdamW
+7. train        Llama-7B widths cut to 8 layers (bf16 weights, f32 AdamW
                 masters and moments) through ParallelEngine.train_step:
                 12 steps on one fixed 4 x 2048 batch, 2 untimed; finite,
                 falling losses, step time, tokens/s, MFU, peak memory; K3,
@@ -40,10 +50,11 @@ The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 
 Developer options (the plain run uses none of them): ``--phases`` runs a
-subset, ``--layers`` cuts the serving run's depth, and ``--profile``
-serves the schedule once more and runs two more train steps under
-torch.profiler, and prints the device's busy share of those profiled
-runs and their time by kernel.
+subset, ``--layers`` cuts the 7B-width serving and generate runs' depth,
+and ``--profile`` serves the schedule once more, runs 16 more decode steps
+of each generate run and two more train steps under torch.profiler, and
+prints the device's busy share of those profiled runs and their time by
+kernel.
 """
 from __future__ import annotations
 
@@ -442,6 +453,73 @@ def check_attention(dev, results):
                 bound_ms=b_ms, bound_by=b_by))
 
 
+# K6 cases: (label, B, Sq, H, KV, M, offsets); "decode" is the shape of the
+# generate phase's decode steps, "prefill" that of its prefill
+def _k6_cases():
+    r = np.random.RandomState(3)
+    dec = [int(x) for x in r.randint(1, 1501, 8)]
+    return [("decode", 8, 1, 32, 32, 2048, dec),
+            ("prefill", 8, 1024, 32, 32, 2048, 0),
+            ("gqa", 8, 1, 32, 8, 2048, dec),
+            ("m100", 8, 16, 32, 32, 100, 84),
+            ("sq300", 8, 300, 32, 32, 2048,
+             [int(x) for x in r.randint(0, 1749, 8)])]
+
+
+def _k6_cost(B, Sq, H, KV, M, offs, D, isz):
+    """Bytes and flops this call's data needs: each row's K and V rows up
+    to its frontier min(off + Sq, M) once per KV head, q and out once;
+    4*D flops per (q head, visible key), row s of batch b seeing
+    min(off_b + s + 1, M) keys."""
+    nbytes = 2 * B * Sq * H * D * isz
+    pairs = 0
+    for o in offs:
+        nbytes += 2 * KV * min(o + Sq, M) * D * isz
+        pairs += sum(min(o + s + 1, M) for s in range(Sq))
+    return nbytes, 4 * D * H * pairs
+
+
+def check_decode(dev, results):
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import decode_attention as K6
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    D = 128
+    for label, B, Sq, H, KV, M, off in _k6_cases():
+        offs = off if isinstance(off, list) else [off] * B
+        for dt in (torch.bfloat16, torch.float32):
+            q = torch.randn(B, Sq, H, D, device=dev, generator=g).to(dt)
+            k = torch.randn(B, KV, M, D, device=dev, generator=g).to(dt)
+            v = torch.randn(B, KV, M, D, device=dev, generator=g).to(dt)
+            o = torch.tensor(off, dtype=torch.int32, device=dev) \
+                if isinstance(off, list) else off
+            out = K6.decode_attention(q, k, v, o)
+            ref = K6.decode_attention_dense(q, k, v, o)
+            e = _errs(out, ref)
+            b_ms, b_by = bound(*_k6_cost(B, Sq, H, KV, M, offs, D,
+                                         q.element_size()), dt)
+            # the yardstick: SDPA over the same cache and boolean mask
+            qt = q.transpose(1, 2).contiguous()
+            pos = torch.tensor(offs, device=dev)[:, None, None] \
+                + torch.arange(Sq, device=dev)[None, :, None]
+            mask = (torch.arange(M, device=dev)[None, None] <= pos)[:, None]
+            results.append(dict(
+                name="decode_attention", case=label, shape=[B, Sq, H, D],
+                cache_len=M, kv_heads=KV, dtype=str(dt)[6:],
+                offsets=off, max_abs_err=e[0], ref_max_abs=e[1],
+                rel_err=e[3], tol=TOL[dt],
+                ms=cuda_ms(lambda: K6.decode_attention(q, k, v, o)),
+                plain_ms=cuda_ms(lambda: K6.decode_attention_dense(
+                    q, k, v, o), iters=3, warm=1),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, k, v, attn_mask=mask, enable_gqa=KV != H)),
+                library="F.scaled_dot_product_attention on the cache, same "
+                        "boolean mask, enable_gqa",
+                bound_ms=b_ms, bound_by=b_by))
+            del q, k, v, out, ref, qt, mask
+
+
 # -- phases 3 and 4: serving ---------------------------------------------------
 def serve(model, schedule, page, max_length, **engine_kw):
     """Run ``schedule`` = (first prompts, later prompts, steps before the
@@ -494,19 +572,86 @@ def phase_parity():
         raise AssertionError(f"cuda and cpu token streams differ:\ncpu  {a}"
                              f"\ncuda {b}")
     log("[parity] cuda == cpu token streams: OK")
+    generate_parity(cpu, gpu)
+    fused_transformer_parity()
 
 
-def phase_serve(layers, counters, profile=False):
+def generate_parity(cpu, gpu):
+    """Predictor.generate with static (K6) and paged (K5) caches on cuda
+    and cpu: ragged rows and an EOS that stops one of them; all four
+    token streams must be equal."""
+    from paddle_tpu_torch.inference import Config, create_predictor
+
+    lens = [40, 200, 130]
+    ids = np.zeros((3, max(lens)), np.int64)
+    for b, p in enumerate(prompts(9, lens, 4096)):
+        ids[b, :len(p)] = p
+
+    def run(model, page, **kw):
+        conf = Config().set_model(model)
+        if page:
+            conf.enable_paged_kv(page)
+        return create_predictor(conf).generate(
+            ids, max_new_tokens=12, lengths=lens, **kw).cpu().numpy()
+
+    eos = int(run(cpu, None)[1, -9])    # row 1 stops at its 4th new token
+    outs = {(dev, page): run(m, page, eos_token_id=eos)
+            for dev, m in (("cpu", cpu), ("cuda", gpu))
+            for page in (None, 64)}
+    log(f"[parity] generate (eos {eos}) cuda static new tokens "
+        f"{outs['cuda', None][:, -12:].tolist()}")
+    first = outs["cpu", None]
+    if not all(np.array_equal(first, o) for o in outs.values()):
+        raise AssertionError(f"generate streams differ: {outs}")
+    if list(first[1, -9:]) != [eos] * 9:
+        raise AssertionError("the EOS row did not freeze")
+    log("[parity] Predictor.generate static == paged, cuda == cpu: OK")
+
+
+def fused_transformer_parity():
+    """FusedMultiTransformer prefill + 3 decode steps through its caches
+    (K6 on cuda), cuda against cpu within 1e-4."""
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.ops.kernels import decode_attention as K6
+
+    cpu = FusedMultiTransformer(1024, 8, 2816, num_layers=2,
+                                device="cpu").eval()
+    gpu = FusedMultiTransformer(1024, 8, 2816, num_layers=2,
+                                device="cuda").eval()
+    gpu.load_state_dict(cpu.state_dict())
+    cc, gc = cpu.empty_caches(2, 128), gpu.empty_caches(2, 128)
+    r = np.random.RandomState(10)
+    worst, n0 = 0.0, K6.decode_attention.launches
+    with torch.no_grad():
+        for S, t in [(64, 0), (1, 64), (1, 65), (1, 66)]:
+            x = torch.tensor(r.randn(2, S, 1024).astype(np.float32))
+            a, gc = gpu(x.cuda(), caches=gc, time_step=t)
+            b, cc = cpu(x, caches=cc, time_step=t)
+            worst = max(worst, (a.cpu() - b).abs().max().item())
+    n = K6.decode_attention.launches - n0
+    log(f"[parity] FusedMultiTransformer cuda vs cpu: max |diff| {worst}, "
+        f"K6 launches {n}")
+    if not (worst <= 1e-4 and n == 8):
+        raise AssertionError("FusedMultiTransformer cuda and cpu differ")
+
+
+def build_7b(layers):
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
 
     cfg = llama_7b(dtype="bfloat16", num_layers=layers)
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
-    log(f"[serve] llama_7b widths, {layers} layers, bf16, random weights "
+    log(f"[7b] llama_7b widths, {layers} layers, bf16, random weights "
         f"(seed 0, std {cfg.initializer_range}); built in "
         f"{time.perf_counter() - t0:.1f}s, {cfg.num_params() / 1e9:.2f}B "
         "params")
+    return model
+
+
+def phase_serve(model, counters, profile=False):
+    cfg = model.config
+    layers = cfg.num_layers
     kw = dict(page=64, max_length=2048, max_batch=8, prefill_chunk=256,
               prefill_token_budget=256)
     # warmup (not measured): first cuBLAS handles, allocator growth
@@ -546,7 +691,116 @@ def phase_serve(layers, counters, profile=False):
     return launches
 
 
-# -- phases 5 and 6: training ---------------------------------------------
+# -- phase 5: generation --------------------------------------------------------
+def _ragged_prompts(vocab):
+    """8 prompts of RandomState(21).randint(128, 1025, 8) tokens, right-
+    padded into one [8, max] array."""
+    lens = np.random.RandomState(21).randint(128, 1025, 8)
+    ids = np.zeros((8, int(lens.max())), np.int64)
+    for b, p in enumerate(prompts(22, lens, vocab)):
+        ids[b, :len(p)] = p
+    return ids, lens
+
+
+def phase_generate(model, paths, profile=False, n_new=128):
+    """Predictor.generate over the 7B-width model: the same ragged prompts
+    with the static cache (K6), then with enable_paged_kv(64) (K5)."""
+    from paddle_tpu_torch.inference import Config, create_predictor
+
+    cfg = model.config
+    ids, lens = _ragged_prompts(cfg.vocab_size)
+    launches, outs = {}, {}
+    for label, page in (("static", None), ("paged", 64)):
+        conf = Config().set_model(model)
+        conf.max_length = 2048
+        if page:
+            conf.enable_paged_kv(page)
+        pred = create_predictor(conf)
+        pred.generate(ids[:, :16], max_new_tokens=4).cpu()   # warmup
+        counters = paths[f"generate_{label}"]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        prefill = pred._prefill_step
+
+        def timed_prefill(*a):
+            ev[0].record()
+            out = prefill(*a)
+            ev[1].record()
+            return out
+
+        pred._prefill_step = timed_prefill
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = pred.generate(ids, max_new_tokens=n_new, lengths=lens)
+        ev[2].record()
+        toks = out.cpu().numpy()            # the readback ends the wall
+        wall = time.perf_counter() - t0
+        launches[label] = {c.__name__: c.launches for c in counters}
+        del pred._prefill_step
+        new = toks[:, ids.shape[1]:]
+        outs[label] = new
+        summary = dict(
+            cache=label, layers=cfg.num_layers, prompt_lens=lens.tolist(),
+            new_tokens=int(new.size), wall_s=wall,
+            tokens_per_s=new.size / wall,
+            prefill_ms=ev[0].elapsed_time(ev[1]),
+            decode_ms_per_token=ev[1].elapsed_time(ev[2]) / (n_new - 1),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            stats=repr(pred.stats), launches=launches[label])
+        log("[generate] " + json.dumps(summary))
+        if new.shape != (8, n_new) or not ((new >= 0)
+                                           & (new < cfg.vocab_size)).all():
+            raise AssertionError(f"bad generate output {new.shape}")
+        want = {"rms_norm": (2 * cfg.num_layers + 1) * n_new,
+                "decode_attention": cfg.num_layers * n_new,
+                "paged_decode_attention": cfg.num_layers * n_new}
+        for name, n in launches[label].items():
+            if n != want[name]:
+                raise AssertionError(f"{label}: {name} launched {n} times, "
+                                     f"expected {want[name]}")
+        if profile:
+            profile_decode(pred, ids, lens, label)
+        del pred, out
+    agree = int((outs["static"] == outs["paged"]).sum())
+    log(f"[generate] static and paged agree on {agree} of "
+        f"{outs['static'].size} new tokens (bf16: informational)")
+    return launches
+
+
+def profile_decode(pred, ids, lens, label, steps=16):
+    """A prefill, then ``steps`` decode steps under torch.profiler: the
+    device's busy share of the profiled wall and the device time of one
+    decode step by kernel group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.inference import GenerationConfig, _sample
+
+    dev = pred.device
+    M = pred.config.max_length
+    page = pred.config._kv_page_size
+    caches = (pred._paged_caches(lens, steps + 1, M, page, pred.dtype)[0]
+              if page else pred._model._empty_caches(8, M))
+    last, caches = pred._prefill_step(
+        torch.tensor(ids, device=dev), caches,
+        torch.tensor(lens, dtype=torch.int32, device=dev))
+    gen = GenerationConfig()
+    tok0 = _sample(last, gen)
+    pos0 = torch.tensor(lens, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pred._decode_loop(tok0, caches, pos0, steps, gen, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(f"[profile:generate_{label}] {steps} decode steps, "
+        f"{wall * 1e3 / steps:.2f} ms a step on the host clock")
+    _log_profile(prof, wall, f"generate_{label}", per=steps)
+
+
+# -- phases 6 and 7: training ---------------------------------------------
 def _trainer(model):
     """The train step a user builds: AdamW with f32 masters and moments,
     global-norm clipping, through ParallelEngine.train_step."""
@@ -754,10 +1008,13 @@ KERNEL_GROUPS = (("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass")),
                  ("K1/K2 flash attention", ("fwd_mma", "dq_mma", "dkv_mma",
                                             "fwd_fma", "dq_fma", "dkv_fma")),
                  ("K3 rms_norm", ("rms_norm_kernel",)),
-                 ("K4/K5 paged attention", ("paged_attention",)))
+                 ("K4/K5/K6 paged or contiguous-cache attention",
+                  ("paged_attention",)))
 
 
-def _log_profile(prof, wall, tag):
+def _log_profile(prof, wall, tag, per=1):
+    """Busy share of the profiled wall and device ms by kernel group
+    (divided by ``per``: ms per step where ``per`` steps ran)."""
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
@@ -768,9 +1025,10 @@ def _log_profile(prof, wall, tag):
         g = next((name for name, keys in KERNEL_GROUPS
                   if any(k in e.key for k in keys)), "other (elementwise, "
                  "copies, reductions)")
-        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
-    log(f"[profile:{tag}] device ms by group: "
-        + json.dumps({k: round(v, 1) for k, v in sorted(
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3 / per
+    log(f"[profile:{tag}] device ms by group"
+        + (f", per step of {per}" if per > 1 else "") + ": "
+        + json.dumps({k: round(v, 3) for k, v in sorted(
             groups.items(), key=lambda kv: -kv[1])}))
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"[profile:{tag}] {e.self_device_time_total / 1e3:9.1f} ms "
@@ -792,13 +1050,14 @@ def profile_serve(model, sched, kw):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
-                    help="depth of the 7B-width serving run")
+                    help="depth of the 7B-width serving and generate runs")
     ap.add_argument("--phases",
-                    default="build,kernels,parity,serve,train-parity,train")
+                    default="build,kernels,parity,serve,generate,"
+                            "train-parity,train")
     ap.add_argument("--profile", action="store_true",
-                    help="serve the schedule once more, and run two more "
-                    "train steps, under torch.profiler and print device "
-                    "time by kernel")
+                    help="serve the schedule once more, run 16 more decode "
+                    "steps of each generate run and two more train steps "
+                    "under torch.profiler, and print device time by kernel")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -817,8 +1076,8 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
 
     from paddle_tpu_torch.ops.kernels import _build
-    from paddle_tpu_torch.ops.kernels.decode_attention import \
-        paged_decode_attention
+    from paddle_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention, paged_decode_attention)
     from paddle_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_fwd)
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
@@ -835,6 +1094,7 @@ def main():
     if "kernels" in phases:
         check_rms(dev, results)
         check_attention(dev, results)
+        check_decode(dev, results)
         check_flash(dev, results)
         bad = []
         for r in results:
@@ -850,14 +1110,24 @@ def main():
     if "parity" in phases:
         phase_parity()
     # each path is driven with its kernels' counts set to 0 just before
-    # it and read just after: serving runs K3, K4, K5; training K3, K1, K2
+    # it and read just after: serving runs K3, K4, K5; static-cache
+    # generation K3, K6; paged generation K3, K5; training K3, K1, K2
     paths = {"serve": [rms_norm, ragged_paged_attention,
                        paged_decode_attention],
+             "generate_static": [rms_norm, decode_attention],
+             "generate_paged": [rms_norm, paged_decode_attention],
              "train": [rms_norm, flash_attention_fwd, flash_attention_bwd]}
     by_path = {p: {c.__name__: None for c in cs} for p, cs in paths.items()}
-    if "serve" in phases:
-        by_path["serve"] = phase_serve(args.layers, paths["serve"],
-                                       args.profile)
+    if "serve" in phases or "generate" in phases:
+        model = build_7b(args.layers)
+        if "serve" in phases:
+            by_path["serve"] = phase_serve(model, paths["serve"],
+                                           args.profile)
+        if "generate" in phases:
+            by_path.update(("generate_" + k, v) for k, v in phase_generate(
+                model, paths, args.profile).items())
+        del model
+        torch.cuda.empty_cache()
     if "train-parity" in phases:
         phase_train_parity()
     if "train" in phases:
@@ -867,6 +1137,7 @@ def main():
     main_shape = {"rms_norm": [2048, 4096],
                   "ragged_paged_attention": [8, 256, 32, 128],
                   "paged_decode_attention": [8, 1, 32, 128],
+                  "decode_attention": [8, 1, 32, 128],
                   "flash_attention_fwd": [4, 2048, 32, 128],
                   "flash_attention_bwd": [4, 2048, 32, 128]}
     flash = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -879,6 +1150,10 @@ def main():
         "paged_decode_attention": (
             "paddle_tpu_torch/csrc/paged_attention.cu",
             "paddle_tpu/ops/pallas/decode_attention.py:220", "serve"),
+        "decode_attention": (
+            "paddle_tpu_torch/csrc/paged_attention.cu",
+            "paddle_tpu/ops/pallas/decode_attention.py:113",
+            "generate_static"),
         "flash_attention_fwd": ("paddle_tpu_torch/csrc/flash_attention.cu",
                                 f"{flash}:432", "train"),
         "flash_attention_bwd": ("paddle_tpu_torch/csrc/flash_attention.cu",

@@ -4,9 +4,12 @@
 np.ndarray}`` named as ``paddle_tpu``'s ``Layer.state_dict()`` names them
 (``llama.layers.0.self_attn.q_proj.weight``, ...). The JAX package stores
 ``Linear`` weights as ``[in, out]``; the port's linears are
-``nn.Linear``s (``[out, in]``), so those are transposed. Every name and
-shape must match both ways, or the load raises before anything is
-written. The caller builds ``state`` with numpy, so the port never
+``nn.Linear``s (``[out, in]``), so the weights of ``nn.Linear`` modules,
+and only those, are transposed. Raw parameters that keep Paddle's
+``[in, out]`` layout in the port too, such as ``FusedMultiTransformer``'s
+``qkv_weights_0`` or ``ffn1_weights_0``, are carried as they are. Every
+name and shape must match both ways, or the load raises before anything
+is written. The caller builds ``state`` with numpy, so the port never
 imports JAX.
 
 ``export_jax_state_dict(model)`` is the inverse: ``{JAX name:

@@ -1,6 +1,7 @@
-// K4 and K5: attention over the paged KV pool for Hopper (sm_90a).
+// K4, K5 and K6: attention over a paged or contiguous KV cache for Hopper
+// (sm_90a).
 //
-// Replaces two TPU kernels that share one body:
+// Replaces three TPU kernels that share one body:
 //   K4 paddle_tpu/ops/pallas/ragged_paged_attention.py:
 //      ragged_paged_attention -> _ragged_kernel (mixed prefill-chunk and
 //      decode rows; slot i of row b sits at starts[b] + i, slots
@@ -8,12 +9,20 @@
 //   K5 paddle_tpu/ops/pallas/decode_attention.py:
 //      paged_decode_attention -> _paged_kernel (every slot live, rows at
 //      lengths[b] .. lengths[b] + Sq - 1)
-// K5 is K4 with seq_lens = Sq, so both entry points below launch the same
-// kernel; a null seq_lens pointer means "every slot live".
+//   K6 paddle_tpu/ops/pallas/decode_attention.py:
+//      decode_attention -> _kernel (K5's rows against the contiguous
+//      head-major cache [B, KV, M, D] of static-cache generation)
+// K5 is K4 with seq_lens = Sq, and K6 is K5 with direct addressing, so all
+// three entry points below launch the same two bodies; a null seq_lens
+// pointer means "every slot live", a null table pointer "contiguous cache".
 //
 // Layouts: q and out [B, Sq, H, D]; k/v pools [P, KV, page, D]; block
 // tables [B, >= npages] int32 with row stride tbl_stride; starts and
-// seq_lens [B] int32. Query head h reads KV head h / (H / KV) (GQA).
+// seq_lens [B] int32. K6's caches are [B, KV, M, D]: key t of (b, kv) sits
+// at ((b * KV + kv) * M + t) * D, and M (the caller's max length) need not
+// be a multiple of the 8-key or 64-key steps, so every K6 load is bounded
+// by M and keys past it are masked. Query head h reads KV head h / (H / KV)
+// (GQA).
 //
 // Bound on this card: bytes at decode. Each (row, KV head) must read the
 // K and V pages its frontier reaches once: sum over rows b of
@@ -38,8 +47,9 @@
 // pool into registers: every K/V byte a tile needs is read once and is
 // shared by all the tile's rows (the G q heads of a KV head share each
 // page load, as at ragged_paged_attention.py:79). The CTA reads the
-// physical page id from the block table itself and stops at the frontier
-// of its last live row, so a decode row reads only its own history. The
+// physical page id from the block table itself (K6: computes the address
+// directly) and stops at the frontier of its last live row, clamped at M
+// for K6, so a decode row reads only its own history. The
 // four warps' partial softmax states are merged through shared memory at
 // the end. A tile whose slots are all dead writes zeros and exits.
 // Scores, softmax state and accumulation are f32; masking uses -1e30 and
@@ -48,12 +58,15 @@
 // Tensor-core body: one CTA of 4 warps per (64 rows, KV head, batch
 // row), 16 rows per warp held as mma A fragments. The CTA stages K and V
 // 64 keys at a time in shared memory (read once per CTA from the pages
-// the block table names, up to the tile's frontier) and every warp runs
+// the block table names, or K6's cache rows, up to the tile's frontier;
+// K6 rows past M stage as zeros) and every warp runs
 // S = Q K^T and acc += P V on mma.sync m16n8k16; the same masking,
 // online softmax and dead-slot rules hold.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <climits>
 
 namespace {
 
@@ -87,13 +100,37 @@ struct Args {
   const void* q;
   const void* k_pool;
   const void* v_pool;
-  const int* tables;
+  const int* tables;    // null: contiguous [B, KV, M, D] cache (K6)
   const int* starts;
-  const int* seq_lens;  // null: every slot live (K5)
+  const int* seq_lens;  // null: every slot live (K5, K6)
   void* out;
   int B, Sq, H, KV, D, page, npages, tbl_stride;
+  int M;                // K6: cache length
   float scale;
 };
+
+// The addressing policy: element offset of cache key `key` of (batch row
+// b, KV head kv). Paged (K4, K5): through the block table; a key past the
+// table reads its last page, as the TPU kernel's clamped index map does,
+// and is masked. Contiguous (K6): direct, no lookup.
+template <bool kContig>
+__device__ __forceinline__ size_t key_offset(const Args& a, int b, int kv,
+                                             int key) {
+  if constexpr (kContig) {
+    return ((size_t(b) * a.KV + kv) * a.M + key) * size_t(a.D);
+  } else {
+    const int j = min(key / a.page, a.npages - 1);
+    const int pid = a.tables[size_t(b) * a.tbl_stride + j];
+    const size_t plane = size_t(a.page) * a.D;  // one [page, D] head plane
+    return (size_t(pid) * a.KV + kv) * plane + size_t(key % a.page) * a.D;
+  }
+}
+
+// keys at or past this position do not exist (K6: the cache length)
+template <bool kContig>
+__device__ __forceinline__ int key_limit(const Args& a) {
+  return kContig ? a.M : INT_MAX;
+}
 
 // element offset of the [D] vector of tile row i (slot, q head) in q/out
 __device__ __forceinline__ size_t row_offset(const Args& a, int b, int kv,
@@ -104,8 +141,43 @@ __device__ __forceinline__ size_t row_offset(const Args& a, int b, int kv,
          size_t(a.D);
 }
 
+// One warp step's K and V rows, KB keys from element offset `base`, into
+// registers as f32 (lane holds d = lane + 32 * n). kGuard: only the first
+// `nk` keys exist (K6's last group before M); the others read as 0, and
+// whole groups take the unguarded form. Every raw value is loaded before
+// any is converted: were the conversion beside its guarded load, the
+// compiler may wrap each load and its use in one branch region and wait
+// for each load in turn (measured on the H100: K6's bf16 decode 8.6x
+// slower; PERF.md, K6 findings).
+template <typename T, int NI, int KB, bool kGuard>
+__device__ __forceinline__ void load_keys(const T* __restrict__ kp,
+                                          const T* __restrict__ vp,
+                                          size_t base, int D, int lane,
+                                          int nk, float (&kf)[KB][NI],
+                                          float (&vf)[KB][NI]) {
+  T kr[KB][NI], vr[KB][NI];
+#pragma unroll
+  for (int kk = 0; kk < KB; ++kk) {
+#pragma unroll
+    for (int n = 0; n < NI; ++n) {
+      const int d = lane + 32 * n;
+      const bool ok = d < D && (!kGuard || kk < nk);
+      kr[kk][n] = ok ? kp[base + size_t(kk) * D + d] : from_f<T>(0.f);
+      vr[kk][n] = ok ? vp[base + size_t(kk) * D + d] : from_f<T>(0.f);
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < KB; ++kk) {
+#pragma unroll
+    for (int n = 0; n < NI; ++n) {
+      kf[kk][n] = to_f(kr[kk][n]);
+      vf[kk][n] = to_f(vr[kk][n]);
+    }
+  }
+}
+
 // NI: head-dim elements per lane; TR: rows per CTA; KB: keys per warp step
-template <typename T, int NI, int TR, int KB>
+template <typename T, int NI, int TR, int KB, bool kContig>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(Args a) {
   const T* __restrict__ q = static_cast<const T*>(a.q);
@@ -126,6 +198,7 @@ paged_attention_kernel(Args a) {
   const int nrows = min(TR, R - r0);
   const int slot_lo = r0 / G;
   const int last_live = min((r0 + nrows - 1) / G, nv - 1);
+  const int klim = key_limit<kContig>(a);
 
   if (last_live < slot_lo) {  // every slot of this tile is dead
     for (int i = warp; i < nrows; i += kWarps) {
@@ -141,7 +214,7 @@ paged_attention_kernel(Args a) {
   for (int i = 0; i < TR; ++i) {
     const int slot = (r0 + i) / G;
     const bool live = i < nrows && slot < nv;
-    qpos[i] = live ? start + slot : -1;
+    qpos[i] = live ? min(start + slot, klim - 1) : -1;
     m[i] = kNeg;
     l[i] = 0.f;
     const size_t o = live ? row_offset(a, b, kv, G, r0 + i) : 0;
@@ -153,26 +226,18 @@ paged_attention_kernel(Args a) {
     }
   }
 
-  const int nkeys = start + last_live + 1;
+  const int nkeys = min(start + last_live + 1, klim);
   const int ngroups = (nkeys + KB - 1) / KB;
-  const size_t plane = size_t(a.page) * D;  // one [page, D] head plane
   for (int gi = warp; gi < ngroups; gi += kWarps) {
-    const int k0 = gi * KB;  // KB divides page: a group never straddles
-    const int j = min(k0 / a.page, a.npages - 1);
-    const int pid = a.tables[size_t(b) * a.tbl_stride + j];
-    const size_t base = (size_t(pid) * a.KV + kv) * plane +
-                        size_t(k0 % a.page) * D;
+    // KB divides page: a paged group never straddles pages; a contiguous
+    // group may run past M, and those keys are neither read nor seen
+    const int k0 = gi * KB;
+    const size_t base = key_offset<kContig>(a, b, kv, k0);
     float kf[KB][NI], vf[KB][NI];
-#pragma unroll
-    for (int kk = 0; kk < KB; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NI; ++n) {
-        const int d = lane + 32 * n;
-        const bool ok = d < D;
-        kf[kk][n] = ok ? to_f(kp[base + size_t(kk) * D + d]) : 0.f;
-        vf[kk][n] = ok ? to_f(vp[base + size_t(kk) * D + d]) : 0.f;
-      }
-    }
+    if (!kContig || k0 + KB <= klim)
+      load_keys<T, NI, KB, false>(kp, vp, base, D, lane, KB, kf, vf);
+    else
+      load_keys<T, NI, KB, true>(kp, vp, base, D, lane, klim - k0, kf, vf);
 #pragma unroll
     for (int i = 0; i < TR; ++i) {
       if (qpos[i] < k0) continue;  // warp-uniform: no visible key here
@@ -291,7 +356,7 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int D>
+template <int D, bool kContig>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_mma_kernel(Args a) {
   constexpr int KT = D / 16;          // k-steps over the head dim (Q K^T)
@@ -323,6 +388,7 @@ paged_attention_mma_kernel(Args a) {
   const int nrows = min(kMmaRows, R - r0);
   const int slot_lo = r0 / G;
   const int last_live = min((r0 + nrows - 1) / G, nv - 1);
+  const int klim = key_limit<kContig>(a);
 
   if (last_live < slot_lo) {  // every slot of this tile is dead
     for (int i = warp; i < nrows; i += kWarps) {
@@ -335,8 +401,10 @@ paged_attention_mma_kernel(Args a) {
   // this lane's two rows: grp and grp + 8 of the warp's 16
   const int rA = r0 + warp * 16 + grp;
   const int rB = rA + 8;
-  const int qpA = (rA < R && rA / G < nv) ? start + rA / G : -1;
-  const int qpB = (rB < R && rB / G < nv) ? start + rB / G : -1;
+  const int qpA = (rA < R && rA / G < nv) ? min(start + rA / G, klim - 1)
+                                          : -1;
+  const int qpB = (rB < R && rB / G < nv) ? min(start + rB / G, klim - 1)
+                                          : -1;
   int wmax = max(qpA, qpB);  // the warp's last visible key
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -359,8 +427,7 @@ paged_attention_mma_kernel(Args a) {
     acc[v][0] = acc[v][1] = acc[v][2] = acc[v][3] = 0.f;
   float mA = kNeg, mB = kNeg, lA = 0.f, lB = 0.f;
 
-  const int nkeys = start + last_live + 1;
-  const size_t plane = size_t(a.page) * D;
+  const int nkeys = min(start + last_live + 1, klim);
   const unsigned short* sv16 = reinterpret_cast<const unsigned short*>(sv);
   for (int k0 = 0; k0 < nkeys; k0 += kMmaKeys) {
     __syncthreads();  // the previous block's readers are done
@@ -369,10 +436,12 @@ paged_attention_mma_kernel(Args a) {
     for (int i = 0; i < CH; ++i) {
       const int c = threadIdx.x + i * kThreads;
       const int key = k0 + c / (D / 8);
-      const int j = min(key / a.page, a.npages - 1);
-      const int pid = a.tables[size_t(b) * a.tbl_stride + j];
-      const size_t src = (size_t(pid) * a.KV + kv) * plane +
-                         size_t(key % a.page) * D + (c % (D / 8)) * 8;
+      if (kContig && key >= klim) {  // past M: zeros, hidden by the mask
+        tk[i] = tv[i] = make_uint4(0u, 0u, 0u, 0u);
+        continue;
+      }
+      const size_t src = key_offset<kContig>(a, b, kv, key) +
+                         (c % (D / 8)) * 8;
       tk[i] = *reinterpret_cast<const uint4*>(kp + src);
       tv[i] = *reinterpret_cast<const uint4*>(vp + src);
     }
@@ -467,57 +536,60 @@ paged_attention_mma_kernel(Args a) {
   }
 }
 
-template <int D>
+template <int D, bool kContig>
 cudaError_t launch_mma(const Args& a, cudaStream_t s) {
   const int R = a.Sq * (a.H / a.KV);
   dim3 grid((R + kMmaRows - 1) / kMmaRows, a.KV, a.B);
-  paged_attention_mma_kernel<D><<<grid, kThreads, 0, s>>>(a);
+  paged_attention_mma_kernel<D, kContig><<<grid, kThreads, 0, s>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int NI, int TR>
+template <typename T, int NI, int TR, bool kContig>
 cudaError_t launch_tile(const Args& a, cudaStream_t s) {
   constexpr int KB = NI >= 8 ? 4 : 8;
   const int R = a.Sq * (a.H / a.KV);
   dim3 grid((R + TR - 1) / TR, a.KV, a.B);
-  paged_attention_kernel<T, NI, TR, KB><<<grid, kThreads, 0, s>>>(a);
+  paged_attention_kernel<T, NI, TR, KB, kContig><<<grid, kThreads, 0, s>>>(
+      a);
   return cudaGetLastError();
 }
 
-template <typename T, int NI>
+template <typename T, int NI, bool kContig>
 cudaError_t launch_rows(const Args& a, cudaStream_t s) {
   constexpr int kMaxRows = NI >= 8 ? 4 : 8;  // register budget
   const int R = a.Sq * (a.H / a.KV);
-  if (R >= kMaxRows) return launch_tile<T, NI, kMaxRows>(a, s);
-  if (R >= 4) return launch_tile<T, NI, 4>(a, s);
-  if (R >= 2) return launch_tile<T, NI, 2>(a, s);
-  return launch_tile<T, NI, 1>(a, s);
+  if (R >= kMaxRows) return launch_tile<T, NI, kMaxRows, kContig>(a, s);
+  if (R >= 4) return launch_tile<T, NI, 4, kContig>(a, s);
+  if (R >= 2) return launch_tile<T, NI, 2, kContig>(a, s);
+  return launch_tile<T, NI, 1, kContig>(a, s);
 }
 
-template <typename T>
+template <typename T, bool kContig>
 cudaError_t launch(const Args& a, cudaStream_t s) {
-  if (a.D <= 32) return launch_rows<T, 1>(a, s);
-  if (a.D <= 64) return launch_rows<T, 2>(a, s);
-  if (a.D <= 128) return launch_rows<T, 4>(a, s);
-  if (a.D <= 256) return launch_rows<T, 8>(a, s);
+  if (a.D <= 32) return launch_rows<T, 1, kContig>(a, s);
+  if (a.D <= 64) return launch_rows<T, 2, kContig>(a, s);
+  if (a.D <= 128) return launch_rows<T, 4, kContig>(a, s);
+  if (a.D <= 256) return launch_rows<T, 8, kContig>(a, s);
   return cudaErrorInvalidValue;
 }
 
+template <bool kContig>
 int run(const Args& a, int dtype, void* stream) {
   if (a.B <= 0 || a.Sq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = a.Sq * (a.H / a.KV);
   cudaError_t e;
   if (dtype == 1 && R >= 16 && a.D == 128)
-    e = launch_mma<128>(a, s);
+    e = launch_mma<128, kContig>(a, s);
   else if (dtype == 1 && R >= 16 && a.D == 64)
-    e = launch_mma<64>(a, s);
+    e = launch_mma<64, kContig>(a, s);
   else if (dtype == 1 && R >= 16 && a.D == 32)
-    e = launch_mma<32>(a, s);
+    e = launch_mma<32, kContig>(a, s);
   else if (dtype == 1 && R >= 16 && a.D == 16)
-    e = launch_mma<16>(a, s);
+    e = launch_mma<16, kContig>(a, s);
   else
-    e = dtype == 0 ? launch<float>(a, s) : launch<__nv_bfloat16>(a, s);
+    e = dtype == 0 ? launch<float, kContig>(a, s)
+                   : launch<__nv_bfloat16, kContig>(a, s);
   return static_cast<int>(e);
 }
 
@@ -531,8 +603,8 @@ extern "C" int ragged_paged_attention_launch(
     int dtype, void* stream) {
   Args a{q, k_pool, v_pool, static_cast<const int*>(tables),
          static_cast<const int*>(starts), static_cast<const int*>(seq_lens),
-         out, B, Sq, H, KV, D, page, npages, tbl_stride, scale};
-  return run(a, dtype, stream);
+         out, B, Sq, H, KV, D, page, npages, tbl_stride, 0, scale};
+  return run<false>(a, dtype, stream);
 }
 
 extern "C" int paged_decode_attention_launch(
@@ -542,6 +614,19 @@ extern "C" int paged_decode_attention_launch(
     void* stream) {
   Args a{q, k_pool, v_pool, static_cast<const int*>(tables),
          static_cast<const int*>(lengths), nullptr, out, B, Sq, H, KV, D,
-         page, npages, tbl_stride, scale};
-  return run(a, dtype, stream);
+         page, npages, tbl_stride, 0, scale};
+  return run<false>(a, dtype, stream);
+}
+
+// K6: q [B, Sq, H, D] at offsets[b] .. offsets[b] + Sq - 1 against the
+// contiguous caches [B, KV, M, D]
+extern "C" int decode_attention_launch(const void* q, const void* k_cache,
+                                       const void* v_cache,
+                                       const void* offsets, void* out, int B,
+                                       int Sq, int H, int KV, int D, int M,
+                                       float scale, int dtype,
+                                       void* stream) {
+  Args a{q, k_cache, v_cache, nullptr, static_cast<const int*>(offsets),
+         nullptr, out, B, Sq, H, KV, D, 0, 0, 0, M, scale};
+  return run<true>(a, dtype, stream);
 }

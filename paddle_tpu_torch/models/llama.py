@@ -2,23 +2,24 @@
 
 Ported: the configuration and its presets, the rotary tables, the
 training forward without a cache (flash attention, kernels K1/K2, and
-``LlamaPretrainingCriterion``), and the forward with a paged KV cache —
-the path ``ServingEngine`` and the legacy per-arrival prefill drive.
-Architecture as in the JAX package: RMSNorm (kernel K3, with its
-gradient), rotary embeddings, GQA (num_kv_heads < num_heads), SwiGLU
-MLP, untied LM head by default.
-
-Not ported yet (they raise ``NotImplementedError``): the
-contiguous-cache forward (kernel K6) and ``generate``.
+``LlamaPretrainingCriterion``), the forward with a paged KV cache (the
+path ``ServingEngine``, the legacy per-arrival prefill and paged
+``Predictor.generate`` drive; kernels K4/K5), the forward with the
+contiguous head-major cache ``[B, KV, M, D]`` (static-cache generation;
+kernel K6), and ``generate``. Architecture as in the JAX package:
+RMSNorm (kernel K3, with its gradient), rotary embeddings, GQA
+(num_kv_heads < num_heads), SwiGLU MLP, untied LM head by default.
 
 The training forward keeps activations in the parameters' dtype: its
 rope casts the f32 tables to q/k's dtype, as the serving rope does
 (the JAX training rope promotes bf16 q/k to f32; in f32 the two agree).
 
-The KV pools are updated IN PLACE: where the JAX step donated the pool
-buffers and returned new ones, the port writes the new K/V rows straight
-into the caller's pool tensors (and returns the same tensors, so the
-call shape matches).
+The KV caches are updated IN PLACE: where the JAX step donated the pool
+or cache buffers and returned new ones, the port writes the new K/V rows
+straight into the caller's tensors (and returns the same tensors, so the
+call shape matches). ``generate`` is an eager loop where JAX reused one
+jitted step per shape; ``stats`` notes each shape, as the serving path
+does.
 """
 from __future__ import annotations
 
@@ -35,16 +36,20 @@ from ..distributed.fleet.layers.mpu import (ColumnParallelLinear,
                                             RowParallelLinear,
                                             VocabParallelEmbedding,
                                             parallel_cross_entropy)
+from ..core.compile_stats import CompileStats
+from ..core.enforce import enforce
 from ..ops.attention import flash_attention
-from ..ops.kernels.decode_attention import paged_decode_attention
+from ..ops.kernels.decode_attention import (decode_attention,
+                                            paged_decode_attention,
+                                            row_offsets)
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
 from ..ops.kernels.rms_norm import rms_norm
 from ..ops.nn_ops import fused_rope
 from ..ops.nn_ops import rotate_half as _rot_half
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "LlamaRMSNorm",
-           "LlamaPretrainingCriterion", "llama_tiny", "llama_7b",
-           "llama_13b", "resolve_device"]
+           "LlamaPretrainingCriterion", "llama_tiny", "llama_tiny_draft",
+           "llama_7b", "llama_13b", "resolve_device"]
 
 _DTYPES = {"float32": torch.float32, None: torch.float32,
            "bfloat16": torch.bfloat16}
@@ -125,6 +130,25 @@ def _apply_rope(x, cos, sin, offset):
     return x * c.to(x.dtype) + _rot_half(x) * s.to(x.dtype)
 
 
+def write_cache(cache, new, offset):
+    """Write the new rows ``new`` [B, S, KV, D] into the head-major cache
+    [B, KV, M, D] in place: every row at ``offset`` (an int), or row b at
+    ``offset[b]`` (a tensor [B]). As ``lax.dynamic_update_slice`` does,
+    the start is clamped into [0, M - S]."""
+    B, S = new.shape[0], new.shape[1]
+    M = cache.shape[2]
+    new = new.to(cache.dtype)
+    if isinstance(offset, torch.Tensor) and offset.dim():
+        start = offset.long().reshape(-1).expand(B).clamp(0, M - S)
+        pos = start[:, None] + torch.arange(S, device=cache.device)[None]
+        # advanced indices split by a slice go first: the indexed view is
+        # [B, S, KV, D], the layout of the new rows
+        cache[torch.arange(B, device=cache.device)[:, None], :, pos] = new
+    else:
+        o = min(max(int(offset), 0), M - S)
+        cache[:, :, o:o + S] = new.transpose(1, 2)
+
+
 class LlamaRMSNorm(nn.Module):
     """RMSNorm straight through the K3 wrapper (no shape gate, no
     fallback: on a CUDA tensor the kernel runs or the call raises)."""
@@ -141,7 +165,9 @@ class LlamaRMSNorm(nn.Module):
 
 
 class LlamaAttention(nn.Module):
-    """GQA attention with rotary embeddings over the paged KV cache."""
+    """GQA attention with rotary embeddings: causal flash attention
+    without a cache, else attention over a paged or a contiguous KV
+    cache."""
 
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
@@ -175,15 +201,20 @@ class LlamaAttention(nn.Module):
             return self.o_proj(o.reshape(B, S, cfg.num_heads * D))
         q = _apply_rope(q, self.rope_cos, self.rope_sin, offset)
         k = _apply_rope(k, self.rope_cos, self.rope_sin, offset)
-        if len(cache) != 3:
-            raise NotImplementedError(
-                "the contiguous [B, KV, M, D] cache (kernel K6) is not "
-                "ported yet: ROADMAP.md queue 1, Predictor.generate")
+        if len(cache) == 2:
+            # static cache: head-major [B, KV, M, D], written in place at
+            # the offset, then attention through K6
+            enforce(valid is None, "valid (unified ragged metadata) is "
+                    "only served over the paged KV cache")
+            k_cache, v_cache = cache
+            write_cache(k_cache, k, offset)
+            write_cache(v_cache, v, offset)
+            o = decode_attention(q, k_cache, v_cache, offset)
+            return self.o_proj(o.reshape(B, S, cfg.num_heads * D)), cache
         k_pool, v_pool, tables = cache     # tables int32 [B, ncols]
         page = k_pool.shape[2]
         ncols = tables.shape[1]
-        off = torch.as_tensor(offset, device=x.device).to(
-            torch.int32).reshape(-1).expand(B)
+        off = row_offsets(offset, x)       # an int fills on the device
         pos = off.long()[:, None] + torch.arange(S, device=x.device)[None]
         nv = None
         if valid is not None:
@@ -211,10 +242,9 @@ class LlamaAttention(nn.Module):
             # the trailing trash column is write-side only: attention
             # sees the canonical [B, npages] table
             o = ragged_paged_attention(q, k_pool, v_pool, tables[:, :-1],
-                                       off.contiguous(), nv)
+                                       off, nv)
         else:
-            o = paged_decode_attention(q, k_pool, v_pool, tables,
-                                       off.contiguous())
+            o = paged_decode_attention(q, k_pool, v_pool, tables, off)
         return self.o_proj(o.reshape(B, S, cfg.num_heads * D)), cache
 
 
@@ -282,7 +312,8 @@ class LlamaModel(nn.Module):
 
 class LlamaForCausalLM(nn.Module):
     """Llama with an (untied by default) LM head: the training forward,
-    and serving over a paged KV cache. ``device=None`` means the CUDA
+    the forward over a paged or contiguous KV cache, and ``generate``
+    with static caches. ``device=None`` means the CUDA
     device; weights are drawn from a generator seeded with ``seed`` on
     that device (normal, std ``initializer_range``; the residual-output
     projections use std / sqrt(2 * num_layers), as the JAX package
@@ -299,6 +330,7 @@ class LlamaForCausalLM(nn.Module):
                                                 config.vocab_size,
                                                 device=dev, dtype=dtype)
         self._init_weights(seed)
+        self.stats = CompileStats()
 
     @property
     def device(self) -> torch.device:
@@ -324,17 +356,64 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, caches=None, offset=0, valid=None):
         """Without caches: logits [B, S, vocab] of the training forward.
-        With paged caches: (logits, caches)."""
+        With caches, one per layer — (k_pool, v_pool, tables) paged or
+        (k_cache, v_cache) contiguous — (logits, caches), the caches
+        written in place."""
         if caches is None:
             return self._logits(self.llama(input_ids))
         x, caches = self.llama(input_ids, caches, offset=offset, valid=valid)
         return self._logits(x), caches
 
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LlamaForCausalLM.generate (static cache, kernel K6) is not "
-            "ported yet: ROADMAP.md queue 1, Predictor.generate with K6; "
-            "serve through inference.ServingEngine")
+    # -- generation (static caches) ---------------------------------------
+    def _empty_caches(self, B: int, max_len: int, dtype=None):
+        """One (k, v) pair of zeroed head-major caches [B, KV, M, D] per
+        layer, on the model's device, in the parameters' dtype unless
+        ``dtype`` says otherwise."""
+        cfg = self.config
+        shape = (B, cfg.num_kv_heads, max_len, cfg.head_dim)
+        kw = {"device": self.device,
+              "dtype": dtype or self.llama.embed_tokens.weight.dtype}
+        return [(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
+                for _ in range(cfg.num_layers)]
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+                 max_length=None) -> torch.Tensor:
+        """Greedy (or temperature/top-k) generation with static caches.
+
+        Returns [B, S_prompt + max_new_tokens] token ids on the model's
+        device: one prefill at [B, S_prompt], then one [B, 1] decode step
+        per further token, attention through K6. Sampling draws from a
+        ``torch.Generator`` seeded with ``seed`` on the model's device
+        (its numbers differ from JAX's for the same seed; greedy is
+        identical)."""
+        from ..inference import GenerationConfig, _sample
+
+        ids = torch.as_tensor(input_ids, device=self.device).long()
+        B, S0 = ids.shape
+        M = max_length or min(self.config.max_position_embeddings,
+                              S0 + max_new_tokens)
+        enforce(S0 + max_new_tokens <= M,
+                f"prompt ({S0}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds the cache length {M} (max_position_embeddings="
+                f"{self.config.max_position_embeddings}); writes past the "
+                "cache would silently clamp")
+        caches = self._empty_caches(B, M)
+        gen = GenerationConfig(max_new_tokens, temperature, top_k)
+        g = torch.Generator(device=self.device).manual_seed(int(seed))
+        self.stats.note("step", (B, S0, M))
+        logits, caches = self(ids, caches, offset=0)
+        nxt = _sample(logits[:, -1], gen, g)
+        if max_new_tokens > 1:
+            self.stats.note("step", (B, 1, M))
+        toks = [ids]
+        for pos in range(S0, S0 + max_new_tokens - 1):
+            toks.append(nxt[:, None])
+            logits, caches = self(nxt[:, None], caches, offset=pos)
+            nxt = _sample(logits[:, -1], gen, g)
+        toks.append(nxt[:, None])
+        return torch.cat(toks, dim=1)
 
 
 class LlamaPretrainingCriterion(nn.Module):
@@ -358,6 +437,16 @@ def llama_tiny(**kw) -> LlamaConfig:
     return LlamaConfig(vocab_size=256, hidden_size=64, num_layers=2,
                        num_heads=4, num_kv_heads=2, intermediate_size=128,
                        max_position_embeddings=128, **kw)
+
+
+def llama_tiny_draft(**kw) -> LlamaConfig:
+    """Draft-sized companion to ``llama_tiny`` for speculative
+    decoding: same vocabulary and position range, one layer, half the
+    width."""
+    kw.setdefault("vocab_size", 256)
+    kw.setdefault("max_position_embeddings", 128)
+    return LlamaConfig(hidden_size=32, num_layers=1, num_heads=2,
+                       num_kv_heads=1, intermediate_size=64, **kw)
 
 
 def llama_7b(**kw) -> LlamaConfig:

@@ -1,10 +1,39 @@
-"""Functional losses (counterpart of ``paddle_tpu/nn/functional.py``;
-the hard-label cross entropy the Llama training step uses)."""
+"""Functional ops (counterpart of ``paddle_tpu/nn/functional.py``): the
+hard-label cross entropy the Llama training step uses, and the layer
+norm, exact GELU and Paddle-layout linear of the fused inference ops."""
 from __future__ import annotations
 
 import torch
+from torch.nn import functional as _F
 
-__all__ = ["cross_entropy"]
+__all__ = ["cross_entropy", "gelu", "layer_norm", "linear"]
+
+
+def layer_norm(x, weight=None, bias=None, epsilon=1e-5, begin_norm_axis=-1):
+    """Normalise over the axes from ``begin_norm_axis`` on, in x's dtype,
+    with the JAX ``layer_norm``'s formula (ops/nn_ops.py:383): biased
+    variance, ``(x - mean) * rsqrt(var + epsilon) * weight + bias``."""
+    dims = tuple(range(begin_norm_axis % x.dim(), x.dim()))
+    mean = x.mean(dim=dims, keepdim=True)
+    var = (x - mean).square().mean(dim=dims, keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def gelu(x, approximate=False):
+    """GELU, exact (erf) unless ``approximate`` (the tanh form), as
+    ``jax.nn.gelu`` behind the JAX ``gelu`` (ops/nn_ops.py:58)."""
+    return _F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def linear(x, weight, bias=None):
+    """Paddle's linear: ``x @ weight + bias`` with weight ``[in, out]``."""
+    out = x @ weight
+    return out if bias is None else out + bias
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,

@@ -1,17 +1,23 @@
-"""K5: paged decode attention (counterpart of the paged half of
-``paddle_tpu/ops/pallas/decode_attention.py``).
+"""K5 and K6: decode attention over a paged or a contiguous KV cache
+(counterpart of ``paddle_tpu/ops/pallas/decode_attention.py``).
 
-``paged_decode_attention`` replaces the TPU kernel of the same name:
+``paged_decode_attention`` (K5) replaces the TPU kernel of the same name:
 q [B, Sq, H, D] at absolute positions ``lengths[b] .. lengths[b]+Sq-1``
 attends to the cache positions up to its own, read through the block
 table from the shared page pool. It serves the fused ``[B, 1]`` decode
-rounds and the legacy per-arrival prefill. The CUDA body is shared with
-K4 (``csrc/paged_attention.cu``, whose header gives the bound and the
-design): K5 is K4 with every slot live.
+rounds, the legacy per-arrival prefill and paged ``Predictor.generate``.
 
-``paged_attention_dense`` and ``_dense_ragged`` are the plain versions
-(gather the pages, f32 dense mask), as in the JAX package. The contiguous
-head-major cache kernel (``decode_attention``, K6) is not ported yet.
+``decode_attention`` (K6) replaces the TPU ``decode_attention``: the same
+rows against the contiguous head-major cache ``[B, KV, M, D]`` of
+static-cache generation (``LlamaForCausalLM.generate``, static
+``Predictor.generate``, ``FusedMultiTransformer``), at a scalar or
+per-row ``offset``. Both launch one CUDA body (``csrc/paged_attention.cu``,
+whose header gives the bound and the design): K5 is K4 with every slot
+live, and K6 is K5 with direct addressing.
+
+``paged_attention_dense``, ``decode_attention_dense`` and
+``_dense_ragged`` are the plain versions (gather the pages or take the
+cache as it is, f32 dense mask), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ import torch
 
 from . import _build, dtype_code, ptr, route, stream, want_contiguous
 
-__all__ = ["paged_decode_attention", "paged_attention_dense"]
+__all__ = ["decode_attention", "decode_attention_dense",
+           "paged_decode_attention", "paged_attention_dense"]
 
 _NEG = -1e30
 
@@ -64,6 +71,64 @@ def paged_attention_dense(q, k_pool, v_pool, block_tables, lengths):
     """Plain version of K5: gather the pages, then dense ragged attention."""
     return _dense_ragged(q, _gather_pages(k_pool, block_tables),
                          _gather_pages(v_pool, block_tables), lengths)
+
+
+def row_offsets(offset, q):
+    """``offset`` (an int, or an int tensor of one or B elements) as the
+    int32 [B] tensor of each row's first position, on q's device. An int
+    fills on the device (no host-to-device copy); a tensor is cast and
+    broadcast where it lies, so a tensor on another device raises in the
+    wrapper's device check."""
+    B = q.shape[0]
+    if not isinstance(offset, torch.Tensor):
+        return torch.full((B,), int(offset), dtype=torch.int32,
+                          device=q.device)
+    off = offset.to(torch.int32).reshape(-1)
+    if off.numel() not in (1, B):
+        raise ValueError(f"offset must be an int, or hold 1 or B={B} "
+                         f"values, got shape {tuple(offset.shape)}")
+    return off.expand(B).contiguous()
+
+
+def decode_attention_dense(q, k_cache, v_cache, offset):
+    """Plain version of K6 (the JAX ``_cache_attention_dense``,
+    models/llama.py:223): the offset broadcast to [B], then
+    ``_dense_ragged`` over the whole cache."""
+    return _dense_ragged(q, k_cache, v_cache, row_offsets(offset, q))
+
+
+def check_cache_args(name, q, k_cache, v_cache, offsets):
+    """Shape/dtype/device checks of K6: q [B, Sq, H, D], caches
+    [B, KV, M, D] of q's dtype, offsets int32 [B]. Returns the route and
+    the q dtype code."""
+    kind = route(q, k_cache, v_cache, offsets)
+    if q.dim() != 4 or k_cache.dim() != 4:
+        raise ValueError(f"{name}: q [B,Sq,H,D] and caches [B,KV,M,D] "
+                         f"expected, got {tuple(q.shape)} and "
+                         f"{tuple(k_cache.shape)}")
+    B, Sq, H, D = q.shape
+    Bk, KV, M, Dk = k_cache.shape
+    if v_cache.shape != k_cache.shape:
+        raise ValueError(f"{name}: k/v cache shapes differ")
+    if Bk != B or Dk != D or H % KV:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not fit caches "
+                         f"{tuple(k_cache.shape)} (batch, head dim, or "
+                         "heads not a multiple of the KV heads)")
+    code = dtype_code(q, name)
+    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise TypeError(f"{name}: caches must share q's dtype {q.dtype}")
+    if offsets.dtype != torch.int32 or offsets.shape != (B,):
+        raise TypeError(f"{name}: offsets must be int32 [B={B}]")
+    if kind == "cuda":
+        # the port's own limits: whole 8-element groups, head dim held in
+        # registers up to 256 (M is free: loads are bounded by it)
+        if D % 8 or D > 256:
+            raise ValueError(f"{name}: CUDA kernel needs D % 8 == 0 and "
+                             f"D <= 256 (D={D})")
+        for t, n in ((q, "q"), (k_cache, "k_cache"), (v_cache, "v_cache"),
+                     (offsets, "offsets")):
+            want_contiguous(t, f"{name} {n}")
+    return kind, code
 
 
 def check_paged_args(name, q, k_pool, v_pool, block_tables, *rows):
@@ -119,6 +184,43 @@ def _decode_fn():
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _cache_fn():
+    fn = _lib().decode_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_attention(q, k_cache, v_cache, offset):
+    """Attention of q against the contiguous head-major caches, scaled by
+    1/sqrt(D) as the plain version is: query slot s of row b sees cache
+    positions <= offset[b] + s, and query head h reads KV head
+    h // (H / KV).
+
+    q        [B, Sq, H, D]
+    k/v      [B, KV, M, D]  M is the cache length (any value)
+    offset   int, or an int tensor of 1 or B values on q's device
+    """
+    off = row_offsets(offset, q)
+    kind, code = check_cache_args("decode_attention", q, k_cache, v_cache,
+                                  off)
+    if kind == "cpu":
+        return _dense_ragged(q, k_cache, v_cache, off)
+    B, Sq, H, D = q.shape
+    KV, M = k_cache.shape[1], k_cache.shape[2]
+    out = torch.empty_like(q)
+    rc = _cache_fn()(ptr(q), ptr(k_cache), ptr(v_cache), ptr(off), ptr(out),
+                     B, Sq, H, KV, D, M, 1.0 / math.sqrt(D), code, stream(q))
+    _build.check(rc, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):

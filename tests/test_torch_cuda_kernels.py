@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.ops.kernels import decode_attention as K5
+from paddle_tpu_torch.ops.kernels import decode_attention as K5  # K5, K6
 from paddle_tpu_torch.ops.kernels import flash_attention as K1
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as K4
 from paddle_tpu_torch.ops.kernels import rms_norm as K3
@@ -123,12 +123,132 @@ def test_paged_decode_kernel(cuda, geom, sq, dtype):
     assert _err(out, ref) <= TOL[dtype]
 
 
+# -- K6: attention over the contiguous head-major cache -----------------------
+K6 = {  # (B, Sq, H, KV, D, M, offsets: int or per-row list)
+    "sq1_rows_gqa4_m512": (4, 1, 8, 2, 128, 512, [0, 9, 256, 511]),
+    "sq1_scalar_mha_m100": (3, 1, 4, 4, 64, 100, 99),
+    "sq16_scalar_gqa4_m100": (2, 16, 8, 2, 128, 100, 84),
+    "sq300_rows_gqa2_m1000": (2, 300, 4, 2, 128, 1000, [0, 700]),
+    "sq300_scalar_mha_m300": (1, 300, 2, 2, 64, 300, 0),
+    "sq40_rows_d16_m77": (2, 40, 2, 1, 16, 77, [0, 37]),
+}
+
+
+def _contig(cuda, dtype, B, Sq, H, KV, D, M, off, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, device=cuda, generator=g).to(dtype)
+    off = off if np.ndim(off) == 0 else torch.tensor(
+        off, dtype=torch.int32, device=cuda)
+    return mk(B, Sq, H, D), mk(B, KV, M, D), mk(B, KV, M, D), off
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", sorted(K6))
+def test_decode_attention_kernel(cuda, case, dtype):
+    """K6 against its plain version: scalar and per-row offsets, Sq 1 to
+    300 (the FMA body and the bf16 tensor-core tile), GQA, and cache
+    lengths that are no multiple of the 8- or 64-key steps."""
+    q, k, v, off = _contig(cuda, dtype, *K6[case], 9)
+    n = K5.decode_attention.launches
+    out = K5.decode_attention(q, k, v, off)
+    assert K5.decode_attention.launches == n + 1
+    ref = K5.decode_attention_dense(q, k, v, off)
+    assert _scaled(out, ref) <= TOL[dtype]
+    assert _err(out, ref) <= 4 * TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("sq", [1, 64])
+def test_contiguous_cache_as_pages_gives_k5(cuda, sq, dtype):
+    """The counterpart of JAX test_paged_vs_contiguous_cache: a contiguous
+    cache cut into pages, each row's pages in order, gives K6 and K5 the
+    same keys in the same order, so their outputs are identical."""
+    B, H, KV, D, page, npages = 3, 8, 2, 128, 64, 5
+    q, k, v, _ = _contig(cuda, dtype, B, sq, H, KV, D, page * npages, 0, 10)
+    off = torch.tensor([0, 100, page * npages - sq], dtype=torch.int32,
+                       device=cuda)
+
+    def pages(c):
+        return c.reshape(B, KV, npages, page, D).transpose(1, 2).reshape(
+            B * npages, KV, page, D).contiguous()
+
+    tbl = torch.arange(B * npages, dtype=torch.int32,
+                       device=cuda).reshape(B, npages)
+    a = K5.decode_attention(q, k, v, off)
+    b = K5.paged_decode_attention(q, pages(k), pages(v), tbl, off)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_fused_ops_launch_k6_on_the_card(cuda):
+    """masked_multihead_attention and FusedMultiTransformer with caches go
+    through K6 on CUDA tensors and agree with the CPU."""
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.incubate.nn.functional import \
+        masked_multihead_attention
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(3, 3 * 4 * 64, device=cuda, generator=g)
+    cache = torch.randn(2, 3, 4, 50, 64, device=cuda, generator=g)
+    sl = torch.tensor([[0], [7], [49]], dtype=torch.int32, device=cuda)
+    ccpu = cache.cpu()
+    n = K5.decode_attention.launches
+    out, _ = masked_multihead_attention(x, cache, sequence_lengths=sl)
+    assert K5.decode_attention.launches == n + 1
+    ref, _ = masked_multihead_attention(x.cpu(), ccpu,
+                                        sequence_lengths=sl.cpu())
+    assert _err(out, ref.to(cuda)) <= TOL[torch.float32]
+    assert _err(cache, ccpu.to(cuda)) == 0.0
+    cpu = FusedMultiTransformer(128, 2, 256, num_layers=2,
+                                device="cpu").eval()
+    gpu = FusedMultiTransformer(128, 2, 256, num_layers=2,
+                                device=cuda).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    cc, gc = cpu.empty_caches(2, 24), gpu.empty_caches(2, 24)
+    n = K5.decode_attention.launches
+    with torch.no_grad():
+        for S, t in [(9, 0), (1, 9), (1, 10)]:
+            xs = torch.randn(2, S, 128, device=cuda, generator=g)
+            a, gc = gpu(xs, caches=gc, time_step=t)
+            b, cc = cpu(xs.cpu(), caches=cc, time_step=t)
+            assert _err(a, b.to(cuda)) <= TOL[torch.float32]
+    assert K5.decode_attention.launches == n + 6
+
+
+@pytest.mark.parametrize("page", [None, 8], ids=["static", "paged"])
+def test_tiny_generate_cuda_equals_cpu(cuda, page):
+    """Predictor.generate of llama_tiny on cuda and cpu from the same
+    weights: ragged rows with an EOS, identical tokens (fp32)."""
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
+
+    cpu = LlamaForCausalLM(llama_tiny(), device="cpu", seed=3)
+    gpu = LlamaForCausalLM(llama_tiny(), device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = np.random.RandomState(1).randint(1, 256, (3, 24))
+    outs = []
+    for m in (cpu, gpu):
+        conf = Config().set_model(m)
+        if page:
+            conf.enable_paged_kv(page)
+        pred = create_predictor(conf)
+        outs.append(pred.generate(ids, max_new_tokens=8, lengths=[11, 24, 17],
+                                  eos_token_id=7).cpu())
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(gpu.generate(torch.tensor(ids, device=cuda),
+                                    max_new_tokens=5).cpu(),
+                       cpu.generate(torch.tensor(ids), max_new_tokens=5))
+
+
 def test_kernel_limits_raise_on_the_card(cuda):
     """No fallback: what the kernel does not take raises on CUDA."""
     q, kp, vp, tbl = _paged(cuda, torch.float32, 2, 1, 4, 2, 12, 8, 4, 3)
     lengths = torch.zeros(2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="D % 8"):
         K5.paged_decode_attention(q, kp, vp, tbl, lengths)
+    kc = torch.zeros(2, 2, 10, 12, device=cuda)
+    with pytest.raises(ValueError, match="D % 8"):
+        K5.decode_attention(q, kc, kc, 3)
     x = torch.randn(2, 6, device=cuda)
     with pytest.raises(ValueError, match="multiple of 4"):
         K3.rms_norm(x, torch.ones(6, device=cuda))

@@ -191,18 +191,24 @@ class TestDevicePolicy:
             tl.LlamaForCausalLM(tl.llama_tiny())
 
     def test_unported_paths_raise(self, models):
-        """generate and the contiguous [B, KV, M, D] cache (kernel K6)
-        still raise; the no-cache forward is the training path now
-        (tests/test_torch_train.py)."""
+        """Weight loading from a params file or model directory and
+        weight-only serving still raise, naming their ROADMAP items;
+        generate and the contiguous cache are ported
+        (tests/test_torch_generate.py)."""
+        from paddle_tpu_torch.inference import Config
+
         _, tm, _ = models
+        for kw in ({"params_file": "model.pdparams"}, {"model_dir": "m"}):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                Config(**kw)
+        conf = Config().set_model(tm)
+        for call in (lambda: conf.enable_weight_only(),
+                     lambda: conf.set_model_factory(lambda: tm),
+                     lambda: conf.set_params_file("model.pdparams")):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                call()
         ids = torch.zeros(1, 4, dtype=torch.int64)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm.generate(ids)
-        cfg = tm.config
-        kv = torch.zeros(1, cfg.num_kv_heads, 8, cfg.head_dim)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm(ids, caches=[(kv, kv)] * cfg.num_layers)
-        assert tm(ids).shape == (1, 4, cfg.vocab_size)
+        assert tm.generate(ids, max_new_tokens=2).shape == (1, 6)
 
 
 # ---------------------------------------------------------------------------
