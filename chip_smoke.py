@@ -7,7 +7,8 @@ on one CUDA card and check it.
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build        every kernel from paddle_tpu_torch/csrc/*.cu with nvcc,
-                all sources in parallel; print the build seconds
+                all sources in parallel; print the build seconds and the
+                flash attention kernels' registers and spills (ptxas -v)
 2. kernels      K3 (RMSNorm, and its gradient), K4 (ragged paged
                 attention), K5 (paged decode attention), K6 (decode
                 attention over the contiguous cache), K1 and K2 (flash
@@ -15,7 +16,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 PyTorch versions at the main paths' shapes, bf16 and
                 fp32, GQA, rectangular, segment-id and odd-cache-length
                 cases included; kernel, plain and library times, and each
-                kernel's bound. K1/K2/K6 outputs, K2 gradients and the K3
+                kernel's bound; K2 also timed part by part (pre-pass,
+                dq, dk/dv). K1/K2/K6 outputs, K2 gradients and the K3
                 gradient are held to the tolerance as a relative L2 error
                 over tiles of 64 positions of one (batch, head), each tile
                 against its own magnitude
@@ -208,13 +210,19 @@ def events_ms(fn, iters=10, warm=2):
 
 
 # K1/K2 cases: (label, B, Sq, Skv, H, KV, D, causal, segments); the first
-# is the training shape of the 7B-width train phase
+# is the training shape of the 7B-width train phase. "edge129" puts one row
+# and one key past the 128-row tiles. It is not causal: causally, key 128
+# is seen by row 128 alone, so its dk is one bf16 product whose error is
+# that of dP - delta, delta being summed from the bf16 output as the TPU
+# kernel does; a near-cancellation there fails a one-key tile's relative
+# gate whatever the kernel (the card tests hold the causal 129 case)
 FLASH_CASES = [
     ("train", 4, 2048, 2048, 32, 32, 128, True, False),
     ("gqa", 2, 1024, 1024, 32, 8, 128, True, False),
     ("rect", 2, 300, 1000, 16, 16, 128, True, False),
     ("segments", 2, 1024, 1024, 16, 4, 64, True, True),
     ("d64", 2, 1024, 1024, 16, 16, 64, False, False),
+    ("edge129", 2, 129, 129, 8, 8, 128, False, False),
 ]
 
 
@@ -337,8 +345,22 @@ def check_flash(dev, results):
                 library_fwd_bwd_ms=events_ms(lambda: torch.autograd.grad(
                     F.scaled_dot_product_attention(qg, kg, vg, **kw),
                     (qg, kg, vg), dot)),
-                bound_ms=b_ms, bound_by=b_by))
+                bound_ms=b_ms, bound_by=b_by, **_k2_split(
+                    K1, q, k, v, out, lse, do, causal, qs, ks)))
             del lib_out, qg, kg, vg
+
+
+def _k2_split(K1, q, k, v, out, lse, do, causal, qs, ks):
+    """K2's three launches timed one by one (CUDA graphs, as ``ms``): the
+    pre-pass, the dq kernel and the dk/dv kernel, the last two on the
+    workspace of one pre-pass run. Not counted as launches."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    args = (q, k, v, out, lse, do, causal, scale, qs, ks)
+    work = K1._k2(*args, parts=K1.PREPASS)[3]
+    return {f"{name}_ms": cuda_ms(lambda part=part: K1._k2(
+        *args, parts=part, work=work))
+        for name, part in (("prepass", K1.PREPASS), ("dq", K1.DQ),
+                           ("dkv", K1.DKV))}
 
 
 def _attn_case(dev, dt, B, Sq, H, KV, starts, seq_lens, g, P=512, page=64,
@@ -1005,7 +1027,9 @@ def profile_train(model, opt, batch):
 
 
 KERNEL_GROUPS = (("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass")),
-                 ("K1/K2 flash attention", ("fwd_mma", "dq_mma", "dkv_mma",
+                 ("K1/K2 flash attention", ("fwd_wgmma", "dq_wgmma",
+                                            "dkv_wgmma", "bwd_prepass",
+                                            "fwd_mma", "dq_mma", "dkv_mma",
                                             "fwd_fma", "dq_fma", "dkv_fma")),
                  ("K3 rms_norm", ("rms_norm_kernel",)),
                  ("K4/K5/K6 paged or contiguous-cache attention",
@@ -1088,6 +1112,9 @@ def main():
     _build.build_all()
     log(f"[build] {len(_build.SOURCES)} sources in "
         f"{time.perf_counter() - t0:.1f}s")
+    # registers and spills of the flash attention kernels (nvcc -Xptxas -v)
+    for fn, rep in _build.ptxas_report("flash_attention").items():
+        log(f"[build] ptxas {fn}: {json.dumps(rep)}")
 
     dev = torch.device("cuda", 0)
     results = []

@@ -4,14 +4,15 @@
 //   K1 flash_attention_fwd -> _pallas_fa -> _fwd_kernel: online-softmax
 //      attention that emits O and the f32 per-row logsumexp (lse);
 //   K2 _fa_bwd -> _pallas_fa_bwd -> _dq_kernel and _dkv_kernel: the
-//      FlashAttention-2 backward, P recomputed as exp(S - lse).
+//      FlashAttention-2 backward, P recomputed as exp(S - lse), with
+//      delta = rowsum(dO o O) (XLA in the JAX _fa_bwd) as a pre-pass here.
 //
 // Layouts: q, out, dout, dq [B, Sq, H, D]; k, v, dk, dv [B, Skv, KV, D]
-// (the paddle layout, indexed directly: no [B*H, S, D] copy); lse and
-// delta [B, H, Sq] f32; optional int32 segment ids qseg [B, Sq] and kseg
-// [B, Skv] (a pair attends only within equal ids). Query head h reads KV
-// head h / (H / KV): GQA is native, and each KV head's dk/dv sum the G
-// query heads of its group inside one CTA.
+// (the paddle layout, indexed directly: no [B*H, S, D] copy); lse [B, H,
+// Sq] f32; optional int32 segment ids qseg [B, Sq] and kseg [B, Skv] (a
+// pair attends only within equal ids). Query head h reads KV head
+// h / (H / KV): GQA is native, and each KV head's dk/dv sum the G query
+// heads of its group inside one CTA.
 //
 // Masking (as the Pallas kernel): causal uses the bottom-right convention,
 // row r sees keys <= r + Skv - Sq; masked scores are -1e30 and their
@@ -29,31 +30,54 @@
 // 2 matmuls of 2*Sq*Skv*D flops per (b, h), halved under causal; the
 // backward 5. At [4, 2048, 32, 128] causal bf16 the forward is 0.137
 // TFLOP (0.139 ms at 989 TFLOP/s) against 0.27 GB of q, k, v and out
-// (0.080 ms at 3.35 TB/s).
+// (0.080 ms at 3.35 TB/s); the backward 0.344 TFLOP (0.348 ms).
 //
-// Design. bf16 runs tensor-core bodies on mma.sync m16n8k16 (the tile
-// pattern of paged_attention.cu); fp32 runs simple FMA bodies. Neither
-// uses atomics: each output element is owned by one CTA, so the backward
-// is deterministic.
-//   forward (bf16): one CTA of 4 warps per (64 q rows, head, batch row),
-//     16 rows per warp held as mma A fragments; K and V are staged in
-//     padded shared memory 64 keys at a time, up to the tile's causal
-//     frontier (later blocks are never read); S = Q K^T and acc += P V.
-//   dq (bf16): the same CTA shape with Q and dO in registers; K and V
-//     staged 32 keys at a time; S = Q K^T, dP = dO V^T, dS = P (dP - delta),
-//     dq += dS K.
-//   dk/dv (bf16): one CTA per (64 keys, KV head, batch row), 16 keys per
-//     warp; K and V stay in shared memory; the CTA walks the q rows of
-//     each head of the group 32 at a time from the first q block that sees
-//     its keys, computing S^T = K Q^T and dP^T = V dO^T, then
-//     dv += P^T dO and dk += dS^T Q.
+// Design. No body uses atomics: each output element is owned by one CTA,
+// so the backward is deterministic.
+//   bf16, D = 64 and 128 (the training path): Hopper bodies. A CTA is two
+//     consumer warpgroups of 64 rows and one producer warp. The producer
+//     issues TMA loads (4-D tensor maps over the native layout, 128-byte
+//     swizzle, each tile as 64-column panels, rows past the end zero-
+//     filled) into a two-stage ring of shared-memory tiles, each stage
+//     guarded by a "full" mbarrier (TMA bytes) and an "empty" one (the 256
+//     consumer threads). Consumers run wgmma: scores from Q and K both in
+//     shared memory (K-major), products with P or dS as register A fragments
+//     against a tile read transposed (MN-major). Masks are applied only on
+//     tiles that a row's causal frontier, the key or row count, or segment
+//     ids cut; softmax runs in base 2 (exp2 of scores times
+//     scale*log2(e)), lse stays natural.
+//     forward: one CTA per (128 q rows, head, batch row), 128 keys of K and
+//       V a stage up to the block's causal frontier; S = Q K^T, O += P V.
+//       The q blocks of one head launch together (the K and V they
+//       stream stay in L2), under causal the heaviest (last rows) first.
+//     pre-pass: delta = rowsum(dO o O) and lse * log2(e) into f32 rows
+//       padded to 64, one read of O, dO and lse (any dtype, any D).
+//     dq: one CTA per 128 q rows; Q and dO resident, 64 keys of K and V a
+//       stage; S = Q K^T, dP = dO V^T, dS = P (dP - delta), dq += dS K.
+//     dk/dv: one CTA per (keys, KV head, batch row), K and V resident;
+//       64 q rows of Q, dO, lse and delta a stage for each head of the
+//       group from the first q block that sees the CTA's keys; S^T = K Q^T,
+//       dP^T = V dO^T, dv += P^T dO, dk += dS^T Q. The key blocks of one
+//       KV head launch together, the first keys (the most q rows) first.
+//       At D = 128 a CTA holds 64 keys and each warpgroup 64 of the 128
+//       columns of dk and dv (both compute S^T and dP^T: 6 matmuls of
+//       work for the 4 of the function, the price of fitting the 168
+//       registers a thread of a 288-thread block may hold); at D = 64, 128
+//       keys, 64 a warpgroup.
+//   bf16, D = 16 and 32: the first tensor-core bodies on mma.sync m16n8k16,
+//     4 warps of 16 rows (or keys), K/V (or Q/dO) staged synchronously;
+//     wgmma's 64-column swizzled panels do not fit these widths. A call
+//     with no q row or no key takes them at D = 64 and 128 too (a tensor
+//     map needs every dimension > 0).
 //   fp32: one warp per 4 rows (forward, dq) or 4 keys (dk/dv), each lane
 //     owning head-dim elements d = lane + 32 n; dot products by warp
 //     shuffles. Right first; the fp32 path is not the training path.
-// wgmma, TMA and warp specialisation are later work.
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -78,6 +102,7 @@ struct Args {
   void* dk;
   void* dv;
   int B, Sq, Skv, H, KV, D, causal;
+  int Sp;                // delta rows, padded: [B, H, Sp]
   float scale;
 };
 
@@ -234,7 +259,7 @@ __global__ void __launch_bounds__(kThreads) dq_fma(Args a) {
     qs[i] = (a.qseg && live) ? a.qseg[size_t(b) * a.Sq + r] : 0;
     const size_t st = (size_t(b) * a.H + h) * a.Sq + r;
     lse[i] = live ? a.lse_in[st] : 0.f;
-    dl[i] = live ? a.delta[st] : 0.f;
+    dl[i] = live ? a.delta[(size_t(b) * a.H + h) * a.Sp + r] : 0.f;
     const size_t o = live ? q_off(a, b, r, h) : 0;
 #pragma unroll
     for (int n = 0; n < NI; ++n) {
@@ -334,7 +359,7 @@ __global__ void __launch_bounds__(kThreads) dkv_fma(Args a) {
       const int qs = a.qseg ? a.qseg[size_t(b) * a.Sq + r] : 0;
       const size_t st = (size_t(b) * a.H + h) * a.Sq + r;
       const float lse = a.lse_in[st];
-      const float dl = a.delta[st];
+      const float dl = a.delta[(size_t(b) * a.H + h) * a.Sp + r];
       const size_t o = q_off(a, b, r, h);
       float qf[NI], df[NI];
 #pragma unroll
@@ -612,8 +637,9 @@ __global__ void __launch_bounds__(kThreads) dq_mma(Args a) {
   const size_t st = (size_t(b) * a.H + h) * a.Sq;
   const float lseA = rA < a.Sq ? a.lse_in[st + rA] : 0.f;
   const float lseB = rB < a.Sq ? a.lse_in[st + rB] : 0.f;
-  const float dlA = rA < a.Sq ? a.delta[st + rA] : 0.f;
-  const float dlB = rB < a.Sq ? a.delta[st + rB] : 0.f;
+  const size_t sp = (size_t(b) * a.H + h) * a.Sp;
+  const float dlA = rA < a.Sq ? a.delta[sp + rA] : 0.f;
+  const float dlB = rB < a.Sq ? a.delta[sp + rB] : 0.f;
   const int kend = frontier(a, min(q0 + kRows, a.Sq) - 1) + 1;
   const size_t oA = rA < a.Sq ? q_off(a, b, rA, h) : 0;
   const size_t oB = rB < a.Sq ? q_off(a, b, rB, h) : 0;
@@ -761,7 +787,7 @@ __global__ void __launch_bounds__(kThreads) dkv_mma(Args a) {
         const bool ok = r < a.Sq;
         const size_t st = (size_t(b) * a.H + h) * a.Sq + r;
         slse[threadIdx.x] = ok ? a.lse_in[st] : 0.f;
-        sdl[threadIdx.x] = ok ? a.delta[st] : 0.f;
+        sdl[threadIdx.x] = ok ? a.delta[(size_t(b) * a.H + h) * a.Sp + r] : 0.f;
         sseg[threadIdx.x] = (a.qseg && ok) ? a.qseg[size_t(b) * a.Sq + r] : 0;
       }
       __syncthreads();
@@ -851,8 +877,699 @@ __global__ void __launch_bounds__(kThreads) dkv_mma(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// Hopper bodies (bf16, D = 64 and 128): wgmma on the tensor cores, TMA into
+// a two-stage shared-memory ring guarded by mbarriers, one producer warp
+// and two consumer warpgroups of 64 rows each.
+// Layout of a thread's wgmma accumulator d[64 x N] (warp w of the
+// warpgroup, lane = 4 grp + tig): d[4 j + 2 hi + e] is row 16 w + grp +
+// 8 hi, column 8 j + 2 tig + e.
+// ---------------------------------------------------------------------------
+// 288 threads, at most 168 registers each: ptxas caps a block of 9 warps
+// there (as it does 12). Moving the producer's registers to the consumers
+// with setmaxnreg did not lift that cap in ptxas's allocation (the same
+// spills with and without it, nvcc 12.9), so the bodies are sized to 168
+// instead: see the dk/dv split below.
+constexpr int kConsumers = 256;               // two consumer warpgroups
+constexpr int kHopThreads = kConsumers + 32;  // and one producer warp
+constexpr int kStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kPad = 64;  // lse2 / delta rows are padded to this
+
+struct HopParams {
+  CUtensorMap tq, tk, tv, tdo;  // bf16 row maps (128-byte swizzle)
+  CUtensorMap tlse, tdelta;     // dk/dv: f32 [B * H, Sp] rows
+  Args a;
+  const float* lse2;            // dq: padded lse * log2(e)
+  const float* delta2;          // dq: padded delta
+};
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t s = hopper::smem_u32(p);
+  return p + ((1024u - (s & 1023u)) & 1023u);
+}
+
+// slot and phase parity of a kStages ring, walked in the same order by the
+// producer and the consumers
+struct Ring {
+  int s = 0;
+  uint32_t ph = 0;
+  __device__ __forceinline__ void next() {
+    if (++s == kStages) {
+      s = 0;
+      ph ^= 1u;
+    }
+  }
+};
+
+// shared bytes of a bf16 [rows, D] tile
+template <int D>
+constexpr uint32_t tile_bytes(int rows) {
+  return uint32_t(rows) * D * 2;
+}
+
+// TMA a [rows, D] tile (D / 64 panels) of row map `map` at row r0 of head hh
+template <int D>
+__device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int rows, int hh,
+                                         int r0, int b) {
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p)
+    hopper::tma_load_4d(dst + p * rows * 64, map, bar, p * 64, hh, r0, b);
+}
+
+// K-major descriptor of k-step kk (16 columns) of a [rows, D] tile, starting
+// at row `row0` (a multiple of 8)
+__device__ __forceinline__ uint64_t kmajor(const bf16* tile, int rows,
+                                           int row0, int kk) {
+  return hopper::desc_sw128(tile + (kk >> 2) * rows * 64 + row0 * 64 +
+                                (kk & 3) * 16,
+                            16, 1024);
+}
+
+// MN-major descriptor of k-step kk (16 rows) of a [rows, D] tile
+__device__ __forceinline__ uint64_t mnmajor(const bf16* tile, int rows,
+                                            int kk) {
+  return hopper::desc_sw128(tile + kk * 16 * 64, rows * 128, 1024);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// A fragments of k-step kk from a [64 x N] accumulator, rounded to bf16
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&f)[4], const float (&d)[N],
+                                     int kk) {
+  f[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+  f[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  f[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  f[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+template <int N>
+__device__ __forceinline__ void ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                   int acc) {
+  if constexpr (N == 64) hopper::wgmma_ss64(d, da, db, acc);
+  else hopper::wgmma_ss128(d, da, db, acc);
+}
+
+template <int N>
+__device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&f)[4],
+                                   uint64_t db) {
+  if constexpr (N == 64) hopper::wgmma_rs64(d, f, db);
+  else hopper::wgmma_rs128(d, f, db);
+}
+
+// write a [64 x D] accumulator times `mul` as bf16 rows rA, rB (offsets oA,
+// oB; a row is written when its flag is set)
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&d)[D / 2],
+                                           size_t oA, bool wA, float mA,
+                                           size_t oB, bool wB, float mB,
+                                           int tig) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * tig;
+    if (wA)
+      *reinterpret_cast<uint32_t*>(dst + oA + c) =
+          pack_bf16(d[4 * j] * mA, d[4 * j + 1] * mA);
+    if (wB)
+      *reinterpret_cast<uint32_t*>(dst + oB + c) =
+          pack_bf16(d[4 * j + 2] * mB, d[4 * j + 3] * mB);
+  }
+}
+
+// K1 forward: one CTA per (128 q rows, head, batch row); 128 keys a stage
+template <int D>
+struct FwdHop {
+  static constexpr int BM = 128, BN = 128;  // q rows, keys a stage
+  static constexpr uint32_t QB = tile_bytes<D>(BM), KB = tile_bytes<D>(BN);
+  static constexpr int smem = QB + kStages * 2 * KB + 64 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    fwd_wgmma(const __grid_constant__ HopParams P) {
+  using C = FwdHop<D>;
+  constexpr int BM = C::BM, BN = C::BN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* sq = reinterpret_cast<bf16*>(smem);
+  bf16* skv = reinterpret_cast<bf16*>(smem + C::QB);  // stage s: K, then V
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::QB +
+                                               kStages * 2 * C::KB);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+  const Args& a = P.a;
+  // the q blocks of one (head, batch row) launch together, so the K and V
+  // they all stream stay in L2; causal: the heaviest (last rows) first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int qb = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qb * BM;
+  const int kvh = h / (a.H / a.KV);
+  // keys [0, kend) reach the block's last row
+  const int kend = frontier(a, min(q0 + BM, a.Sq) - 1) + 1;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, kConsumers);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // producer warp
+    if (threadIdx.x == kConsumers) {
+      hopper::mbar_arrive_tx(bars, C::QB);
+      tma_rows<D>(sq, &P.tq, bars, BM, h, q0, b);
+      Ring ring;
+      for (int k0 = 0; k0 < kend; k0 += BN, ring.next()) {
+        // parity ph ^ 1: the first round passes, as the slot starts empty
+        hopper::mbar_wait(empty + ring.s, ring.ph ^ 1);
+        hopper::mbar_arrive_tx(full + ring.s, 2 * C::KB);
+        bf16* ks = skv + ring.s * 2 * BN * D;
+        tma_rows<D>(ks, &P.tk, full + ring.s, BN, kvh, k0, b);
+        tma_rows<D>(ks + BN * D, &P.tv, full + ring.s, BN, kvh, k0, b);
+      }
+    }
+  } else {  // two consumer warpgroups, 64 q rows each
+    const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const int w = tid >> 5, lane = tid & 31, grp = lane >> 2, tig = lane & 3;
+    const int r0 = q0 + wg * 64;
+    const int rA = r0 + w * 16 + grp, rB = rA + 8;
+    const int fA = frontier(a, rA), fB = frontier(a, rB);
+    const int f0 = frontier(a, r0);  // the warpgroup's smallest frontier
+    const bool seg = a.qseg != nullptr;
+    const int sA = (seg && rA < a.Sq) ? a.qseg[size_t(b) * a.Sq + rA] : 0;
+    const int sB = (seg && rB < a.Sq) ? a.qseg[size_t(b) * a.Sq + rB] : 0;
+    const float sl2 = a.scale * kLog2e;  // scores in base 2
+    float o[D / 2];
+    zero(o);
+    float mA = kNeg, mB = kNeg, lA = 0.f, lB = 0.f;
+    hopper::mbar_wait(bars, 0);
+    Ring ring;
+    for (int k0 = 0; k0 < kend; k0 += BN, ring.next()) {
+      hopper::mbar_wait(full + ring.s, ring.ph);
+      const bf16* ks = skv + ring.s * 2 * BN * D;
+      const bf16* vs = ks + BN * D;
+      float sc[BN / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ss<BN>(sc, kmajor(sq, BM, wg * 64, kk), kmajor(ks, BN, 0, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(sc);
+      // the mask only where a key past a row's frontier (or a segment
+      // boundary) can fall in the tile; masked scores become -inf, so
+      // their probability is exactly 0 and m never drops below kNeg
+      if (seg || k0 + BN - 1 > f0) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int key = k0 + 8 * (i >> 2) + 2 * tig + (i & 1);
+          const bool hi = (i >> 1) & 1;
+          bool keep = key <= (hi ? fB : fA);
+          if (seg && keep)
+            keep = a.kseg[size_t(b) * a.Skv + key] == (hi ? sB : sA);
+          if (!keep) sc[i] = neg_inf();
+        }
+      }
+      float bA = neg_inf(), bB = neg_inf();
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        bA = fmaxf(bA, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        bB = fmaxf(bB, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      const float nA = fmaxf(mA, quad_max(bA) * sl2);
+      const float nB = fmaxf(mB, quad_max(bB) * sl2);
+      const float cA = exp2f(mA - nA), cB = exp2f(mB - nB);
+      float pA = 0.f, pB = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        sc[4 * j] = exp2f(fmaf(sc[4 * j], sl2, -nA));
+        sc[4 * j + 1] = exp2f(fmaf(sc[4 * j + 1], sl2, -nA));
+        sc[4 * j + 2] = exp2f(fmaf(sc[4 * j + 2], sl2, -nB));
+        sc[4 * j + 3] = exp2f(fmaf(sc[4 * j + 3], sl2, -nB));
+        pA += sc[4 * j] + sc[4 * j + 1];
+        pB += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      lA = lA * cA + pA;  // per-lane partial sums; the quad adds them last
+      lB = lB * cB + pB;
+      mA = nA;
+      mB = nB;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= cA;
+        o[4 * j + 1] *= cA;
+        o[4 * j + 2] *= cB;
+        o[4 * j + 3] *= cB;
+      }
+      uint32_t pa[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) to_a(pa[kk], sc, kk);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) rs<D>(o, pa[kk], mnmajor(vs, BN, kk));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(o);
+      hopper::mbar_arrive(empty + ring.s);
+    }
+    lA = fmaxf(quad_sum(lA), 1e-30f);
+    lB = fmaxf(quad_sum(lB), 1e-30f);
+    const size_t oA = rA < a.Sq ? q_off(a, b, rA, h) : 0;
+    const size_t oB = rB < a.Sq ? q_off(a, b, rB, h) : 0;
+    store_rows<D>(static_cast<bf16*>(a.out), o, oA, rA < a.Sq, 1.f / lA, oB,
+                  rB < a.Sq, 1.f / lB, tig);
+    if (tig == 0) {
+      // natural-log lse; a row that saw no key keeps m = kNeg, as the
+      // plain version's -1e30 + log(1e-30) rounds to -1e30
+      const size_t st = (size_t(b) * a.H + h) * a.Sq;
+      if (rA < a.Sq) a.lse[st + rA] = mA == kNeg ? kNeg : mA * kLn2 + logf(lA);
+      if (rB < a.Sq) a.lse[st + rB] = mB == kNeg ? kNeg : mB * kLn2 + logf(lB);
+    }
+  }
+}
+
+
+// K2 dq: one CTA per (128 q rows, head, batch row); Q and dO resident, 64
+// keys of K and V a stage. S = Q K^T and dP = dO V^T from shared memory,
+// dS = P (dP - delta) in registers, dq += dS K with K read transposed.
+template <int D>
+struct DqHop {
+  static constexpr int BM = 128, BN = 64;
+  static constexpr uint32_t QB = tile_bytes<D>(BM), KB = tile_bytes<D>(BN);
+  static constexpr int smem = 2 * QB + kStages * 2 * KB + 64 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    dq_wgmma(const __grid_constant__ HopParams P) {
+  using C = DqHop<D>;
+  constexpr int BM = C::BM, BN = C::BN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* sq = reinterpret_cast<bf16*>(smem);
+  bf16* sdo = sq + BM * D;
+  bf16* skv = reinterpret_cast<bf16*>(smem + 2 * C::QB);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + 2 * C::QB +
+                                               kStages * 2 * C::KB);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+  const Args& a = P.a;
+  const int h = blockIdx.y, b = blockIdx.z;  // as the forward
+  const int qb = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qb * BM;
+  const int kvh = h / (a.H / a.KV);
+  // keys [0, kend) reach the block's last row
+  const int kend = frontier(a, min(q0 + BM, a.Sq) - 1) + 1;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, kConsumers);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      hopper::mbar_arrive_tx(bars, 2 * C::QB);
+      tma_rows<D>(sq, &P.tq, bars, BM, h, q0, b);
+      tma_rows<D>(sdo, &P.tdo, bars, BM, h, q0, b);
+      Ring ring;
+      for (int k0 = 0; k0 < kend; k0 += BN, ring.next()) {
+        // parity ph ^ 1: the first round passes, as the slot starts empty
+        hopper::mbar_wait(empty + ring.s, ring.ph ^ 1);
+        hopper::mbar_arrive_tx(full + ring.s, 2 * C::KB);
+        bf16* ks = skv + ring.s * 2 * BN * D;
+        tma_rows<D>(ks, &P.tk, full + ring.s, BN, kvh, k0, b);
+        tma_rows<D>(ks + BN * D, &P.tv, full + ring.s, BN, kvh, k0, b);
+      }
+    }
+  } else {
+    const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const int w = tid >> 5, lane = tid & 31, grp = lane >> 2, tig = lane & 3;
+    const int r0 = q0 + wg * 64;
+    const int rA = r0 + w * 16 + grp, rB = rA + 8;
+    const int fA = frontier(a, rA), fB = frontier(a, rB);
+    const int f0 = frontier(a, r0);
+    const bool seg = a.qseg != nullptr;
+    const int sA = (seg && rA < a.Sq) ? a.qseg[size_t(b) * a.Sq + rA] : 0;
+    const int sB = (seg && rB < a.Sq) ? a.qseg[size_t(b) * a.Sq + rB] : 0;
+    const size_t st = (size_t(b) * a.H + h) * a.Sp;
+    const float lA = rA < a.Sq ? P.lse2[st + rA] : 0.f;
+    const float lB = rB < a.Sq ? P.lse2[st + rB] : 0.f;
+    const float dA = rA < a.Sq ? P.delta2[st + rA] : 0.f;
+    const float dB = rB < a.Sq ? P.delta2[st + rB] : 0.f;
+    const float sl2 = a.scale * kLog2e;
+    float dq[D / 2];
+    zero(dq);
+    hopper::mbar_wait(bars, 0);
+    Ring ring;
+    for (int k0 = 0; k0 < kend; k0 += BN, ring.next()) {
+      hopper::mbar_wait(full + ring.s, ring.ph);
+      const bf16* ks = skv + ring.s * 2 * BN * D;
+      const bf16* vs = ks + BN * D;
+      float sc[BN / 2], dp[BN / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        ss<BN>(sc, kmajor(sq, BM, wg * 64, kk), kmajor(ks, BN, 0, kk), kk > 0);
+        ss<BN>(dp, kmajor(sdo, BM, wg * 64, kk), kmajor(vs, BN, 0, kk),
+               kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(sc);
+      hopper::fence_operand(dp);
+      if (seg || k0 + BN - 1 > f0) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int key = k0 + 8 * (i >> 2) + 2 * tig + (i & 1);
+          const bool hi = (i >> 1) & 1;
+          bool keep = key <= (hi ? fB : fA);
+          if (seg && keep)
+            keep = a.kseg[size_t(b) * a.Skv + key] == (hi ? sB : sA);
+          if (!keep) sc[i] = neg_inf();
+        }
+      }
+      // dS = P (dP - delta), P = exp2(S scale log2(e) - lse2), kept in sc
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const bool hi = (i >> 1) & 1;
+        const float p = exp2f(fmaf(sc[i], sl2, -(hi ? lB : lA)));
+        sc[i] = p * (dp[i] - (hi ? dB : dA));
+      }
+      uint32_t da[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) to_a(da[kk], sc, kk);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) rs<D>(dq, da[kk], mnmajor(ks, BN, kk));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(dq);
+      hopper::mbar_arrive(empty + ring.s);
+    }
+    const size_t oA = rA < a.Sq ? q_off(a, b, rA, h) : 0;
+    const size_t oB = rB < a.Sq ? q_off(a, b, rB, h) : 0;
+    store_rows<D>(static_cast<bf16*>(a.dq), dq, oA, rA < a.Sq, a.scale, oB,
+                  rB < a.Sq, a.scale, tig);
+  }
+}
+
+// K2 dk/dv: one CTA per (BN keys, KV head, batch row); K and V resident,
+// 64 q rows of Q, dO, lse2 and delta a stage, for each query head of the
+// GQA group from the first q block that sees the CTA's keys. S^T = K Q^T
+// and dP^T = V dO^T from shared memory; dv += P^T dO and dk += dS^T Q
+// with P^T, dS^T in registers and dO, Q read transposed.
+template <int D>
+struct DkvHop {
+  // D = 128 splits the head dim between the warpgroups: both hold S^T and
+  // dP^T of the CTA's 64 keys and each accumulates 64 columns of dk and
+  // dv, which keeps a thread within the 168 registers of a 288-thread
+  // block (one warpgroup owning 64 keys x 128 columns of dk and dv needs
+  // some 200 and spills). D = 64 gives each warpgroup 64 keys of its own.
+  static constexpr bool kSplit = D == 128;
+  static constexpr int BN = kSplit ? 64 : 128, BQ = 64;
+  static constexpr int DW = kSplit ? D / 2 : D;  // dk, dv columns a thread
+  static constexpr uint32_t KB = tile_bytes<D>(BN), QB = tile_bytes<D>(BQ);
+  static constexpr uint32_t VB = BQ * 4;  // one lse2 or delta tile
+  static constexpr int smem =
+      2 * KB + kStages * (2 * QB + 2 * VB) + 64 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    dkv_wgmma(const __grid_constant__ HopParams P) {
+  using C = DkvHop<D>;
+  constexpr int BN = C::BN, BQ = C::BQ, DW = C::DW;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* sk = reinterpret_cast<bf16*>(smem);
+  bf16* sv = sk + BN * D;
+  bf16* sqd = reinterpret_cast<bf16*>(smem + 2 * C::KB);  // stage: Q, dO
+  float* svec = reinterpret_cast<float*>(smem + 2 * C::KB +
+                                         kStages * 2 * C::QB);  // lse2, delta
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      smem + 2 * C::KB + kStages * (2 * C::QB + 2 * C::VB));
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+  const Args& a = P.a;
+  // the key blocks of one (KV head, batch row) launch together, so the Q
+  // and dO they all stream stay in L2; causal: the first keys see the most
+  // q rows, so they launch first
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int j0 = blockIdx.x * BN;
+  const int G = a.H / a.KV;
+  const int qoff = a.Skv - a.Sq;
+  const int qfirst = a.causal ? max(0, j0 - qoff) / BQ * BQ : 0;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, kConsumers);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      hopper::mbar_arrive_tx(bars, 2 * C::KB);
+      tma_rows<D>(sk, &P.tk, bars, BN, kvh, j0, b);
+      tma_rows<D>(sv, &P.tv, bars, BN, kvh, j0, b);
+      Ring ring;
+      for (int h = kvh * G; h < (kvh + 1) * G; ++h) {
+        for (int q0 = qfirst; q0 < a.Sq; q0 += BQ, ring.next()) {
+          uint64_t* bar = full + ring.s;
+          hopper::mbar_wait(empty + ring.s, ring.ph ^ 1);
+          hopper::mbar_arrive_tx(bar, 2 * C::QB + 2 * C::VB);
+          bf16* qs = sqd + ring.s * 2 * BQ * D;
+          float* vs = svec + ring.s * 2 * BQ;
+          tma_rows<D>(qs, &P.tq, bar, BQ, h, q0, b);
+          tma_rows<D>(qs + BQ * D, &P.tdo, bar, BQ, h, q0, b);
+          hopper::tma_load_2d(vs, &P.tlse, bar, q0, b * a.H + h);
+          hopper::tma_load_2d(vs + BQ, &P.tdelta, bar, q0, b * a.H + h);
+        }
+      }
+    }
+  } else {
+    const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const int w = tid >> 5, lane = tid & 31, grp = lane >> 2, tig = lane & 3;
+    const int k0 = C::kSplit ? 0 : wg * 64;  // the warpgroup's first key row
+    const int c0 = C::kSplit ? wg * DW : 0;  // and first dk, dv column
+    const int jA = j0 + k0 + w * 16 + grp, jB = jA + 8;
+    const int jmax = j0 + k0 + 63;  // the warpgroup's last key
+    const bool seg = a.qseg != nullptr;
+    const int gA = (seg && jA < a.Skv) ? a.kseg[size_t(b) * a.Skv + jA] : 0;
+    const int gB = (seg && jB < a.Skv) ? a.kseg[size_t(b) * a.Skv + jB] : 0;
+    const float sl2 = a.scale * kLog2e;
+    float dk[DW / 2], dv[DW / 2];
+    zero(dk);
+    zero(dv);
+    hopper::mbar_wait(bars, 0);
+    Ring ring;
+    // the producer's order: each head of the group, then its q blocks
+    for (int g = 0; g < G; ++g)
+    for (int q0 = qfirst; q0 < a.Sq; q0 += BQ, ring.next()) {
+      hopper::mbar_wait(full + ring.s, ring.ph);
+      const bf16* qs = sqd + ring.s * 2 * BQ * D;
+      const bf16* dos = qs + BQ * D;
+      const float* vl = svec + ring.s * 2 * BQ;
+      const float* vd = vl + BQ;
+      float st[BQ / 2], dpt[BQ / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        ss<BQ>(st, kmajor(sk, BN, k0, kk), kmajor(qs, BQ, 0, kk), kk > 0);
+        ss<BQ>(dpt, kmajor(sv, BN, k0, kk), kmajor(dos, BQ, 0, kk), kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(st);
+      hopper::fence_operand(dpt);
+      // rows (keys) jA, jB; columns q rows q0 + 8 j + 2 tig + e. The mask
+      // only where a tile holds rows past Sq, keys past Skv, pairs past the
+      // causal frontier or segments, as -inf scores (probability 0: lse2 is
+      // finite, pad rows' 0 included), in a loop of its own: the per-element
+      // tests inside the exp loop cost more than the tiles that need them
+      if (seg || q0 + BQ > a.Sq || jmax >= a.Skv ||
+          (a.causal && jmax > q0 + qoff)) {
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) {
+          const int r = q0 + 8 * (i >> 2) + 2 * tig + (i & 1);
+          const bool hi = (i >> 1) & 1;
+          const int j = hi ? jB : jA;
+          bool keep = r < a.Sq && j < a.Skv && (!a.causal || j <= r + qoff);
+          if (seg && keep)
+            keep = a.qseg[size_t(b) * a.Sq + r] == (hi ? gB : gA);
+          if (!keep) st[i] = neg_inf();
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int c = 8 * (i >> 2) + 2 * tig + (i & 1);
+        const float p = exp2f(fmaf(st[i], sl2, -vl[c]));
+        st[i] = p;
+        dpt[i] = p * (dpt[i] - vd[c]);
+      }
+      // one product after the other, so that P^T's registers are free
+      // before dS^T's fragments are made
+      {
+        uint32_t pa[BQ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) to_a(pa[kk], st, kk);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          rs<DW>(dv, pa[kk], mnmajor(dos + c0 * BQ, BQ, kk));
+      }
+      {
+        uint32_t da[BQ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) to_a(da[kk], dpt, kk);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          rs<DW>(dk, da[kk], mnmajor(qs + c0 * BQ, BQ, kk));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(dv);
+      hopper::fence_operand(dk);
+      hopper::mbar_arrive(empty + ring.s);
+    }
+    const size_t oA = jA < a.Skv ? k_off(a, b, jA, kvh) : 0;
+    const size_t oB = jB < a.Skv ? k_off(a, b, jB, kvh) : 0;
+    store_rows<DW>(static_cast<bf16*>(a.dk) + c0, dk, oA, jA < a.Skv,
+                   a.scale, oB, jB < a.Skv, a.scale, tig);
+    store_rows<DW>(static_cast<bf16*>(a.dv) + c0, dv, oA, jA < a.Skv, 1.f,
+                   oB, jB < a.Skv, 1.f, tig);
+  }
+}
+
+// K2 pre-pass: delta = rowsum(dO o O) and lse2 = lse log2(e), both f32
+// [B, H, Sp] with zero pad rows, from one read of O, dO and lse. L lanes
+// (16 bytes each) per (batch, row, head), rows walked in memory order.
+template <typename T, int D>
+__global__ void __launch_bounds__(256) bwd_prepass(Args a, const void* outp,
+                                                   float* lse2, float* delta) {
+  constexpr int V = 16 / sizeof(T);  // elements per lane
+  constexpr int L = D / V;           // lanes per row
+  const T* out = static_cast<const T*>(outp);
+  const T* dout = static_cast<const T*>(a.dout);
+  const size_t idx = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t row = idx / L;  // over (b, r, h), h fastest
+  const int c = int(idx % L);
+  const int h = int(row % a.H);
+  const int r = int(row / a.H % a.Sp);
+  const int b = int(row / (size_t(a.H) * a.Sp));
+  const bool live = b < a.B && r < a.Sq;
+  float sum = 0.f;
+  if (live) {
+    const size_t o = q_off(a, b, r, h) + size_t(c) * V;
+    const uint4 x = *reinterpret_cast<const uint4*>(out + o);
+    const uint4 y = *reinterpret_cast<const uint4*>(dout + o);
+    const T* xs = reinterpret_cast<const T*>(&x);
+    const T* ys = reinterpret_cast<const T*>(&y);
+#pragma unroll
+    for (int i = 0; i < V; ++i) sum += float(xs[i]) * float(ys[i]);
+  }
+#pragma unroll
+  for (int m = L / 2; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+  if (c == 0 && b < a.B) {
+    const size_t st = (size_t(b) * a.H + h) * a.Sp + r;
+    delta[st] = sum;
+    lse2[st] = live ? a.lse_in[(size_t(b) * a.H + h) * a.Sq + r] * kLog2e : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
+// the Hopper bodies take bf16 at D = 64 and 128 with at least one q row and
+// one key (a tensor map needs every dimension > 0)
+bool hop_ok(const Args& a, int dtype) {
+  return dtype == 1 && (a.D == 64 || a.D == 128) && a.Sq > 0 && a.Skv > 0;
+}
+
+template <int D>
+cudaError_t fwd_hop(const Args& a, cudaStream_t s) {
+  using C = FwdHop<D>;
+  HopParams p{};
+  p.a = a;
+  if (!hopper_host::encode_rows(&p.tq, a.q, a.B, a.Sq, a.H, D, C::BM) ||
+      !hopper_host::encode_rows(&p.tk, a.k, a.B, a.Skv, a.KV, D, C::BN) ||
+      !hopper_host::encode_rows(&p.tv, a.v, a.B, a.Skv, a.KV, D, C::BN))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.Sq + C::BM - 1) / C::BM, a.H, a.B);
+  fwd_wgmma<D><<<grid, kHopThreads, C::smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t prepass(const Args& a, const void* out, float* work,
+                    cudaStream_t s) {
+  constexpr int L = D * int(sizeof(T)) / 16;
+  const size_t lanes = size_t(a.B) * a.Sp * a.H * L;
+  bwd_prepass<T, D><<<unsigned((lanes + 255) / 256), 256, 0, s>>>(
+      a, out, work, work + size_t(a.B) * a.H * a.Sp);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dq_hop(const Args& a, const float* work, cudaStream_t s) {
+  using C = DqHop<D>;
+  HopParams p{};
+  p.a = a;
+  p.lse2 = work;
+  p.delta2 = work + size_t(a.B) * a.H * a.Sp;
+  if (!hopper_host::encode_rows(&p.tq, a.q, a.B, a.Sq, a.H, D, C::BM) ||
+      !hopper_host::encode_rows(&p.tdo, a.dout, a.B, a.Sq, a.H, D, C::BM) ||
+      !hopper_host::encode_rows(&p.tk, a.k, a.B, a.Skv, a.KV, D, C::BN) ||
+      !hopper_host::encode_rows(&p.tv, a.v, a.B, a.Skv, a.KV, D, C::BN))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.Sq + C::BM - 1) / C::BM, a.H, a.B);
+  dq_wgmma<D><<<grid, kHopThreads, C::smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dkv_hop(const Args& a, const float* work, cudaStream_t s) {
+  using C = DkvHop<D>;
+  HopParams p{};
+  p.a = a;
+  const float* delta = work + size_t(a.B) * a.H * a.Sp;
+  if (!hopper_host::encode_rows(&p.tq, a.q, a.B, a.Sq, a.H, D, C::BQ) ||
+      !hopper_host::encode_rows(&p.tdo, a.dout, a.B, a.Sq, a.H, D, C::BQ) ||
+      !hopper_host::encode_rows(&p.tk, a.k, a.B, a.Skv, a.KV, D, C::BN) ||
+      !hopper_host::encode_rows(&p.tv, a.v, a.B, a.Skv, a.KV, D, C::BN) ||
+      !hopper_host::encode_f32_rows(&p.tlse, work, a.B * a.H, a.Sp, C::BQ) ||
+      !hopper_host::encode_f32_rows(&p.tdelta, delta, a.B * a.H, a.Sp, C::BQ))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.Skv + C::BN - 1) / C::BN, a.KV, a.B);
+  dkv_wgmma<D><<<grid, kHopThreads, C::smem, s>>>(p);
+  return cudaGetLastError();
+}
+
 dim3 row_grid(const Args& a, int rows_per_cta) {
   return dim3((a.Sq + rows_per_cta - 1) / rows_per_cta, a.H, a.B);
 }
@@ -861,14 +1578,15 @@ dim3 key_grid(const Args& a, int keys_per_cta) {
   return dim3((a.Skv + keys_per_cta - 1) / keys_per_cta, a.KV, a.B);
 }
 
+
 template <int D>
-cudaError_t bwd_mma(const Args& a, cudaStream_t s) {
-  if (a.Sq > 0) {
+cudaError_t bwd_mma(const Args& a, int parts, cudaStream_t s) {
+  if ((parts & 2) && a.Sq > 0) {
     dq_mma<D><<<row_grid(a, kRows), kThreads, 0, s>>>(a);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  if (a.Skv <= 0) return cudaSuccess;
+  if (!(parts & 4) || a.Skv <= 0) return cudaSuccess;
   constexpr int bytes = dkv_smem_bytes<D>();
   cudaError_t e;
   e = cudaFuncSetAttribute(dkv_mma<D>,
@@ -878,6 +1596,16 @@ cudaError_t bwd_mma(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t bwd_hop(const Args& a, const float* work, int parts,
+                    cudaStream_t s) {
+  if (parts & 2) {
+    cudaError_t e = dq_hop<D>(a, work, s);
+    if (e != cudaSuccess) return e;
+  }
+  return (parts & 4) ? dkv_hop<D>(a, work, s) : cudaSuccess;
+}
+
 template <int NI>
 cudaError_t fwd_f(const Args& a, cudaStream_t s) {
   fwd_fma<NI><<<row_grid(a, kWarps * kTR), kThreads, 0, s>>>(a);
@@ -885,18 +1613,20 @@ cudaError_t fwd_f(const Args& a, cudaStream_t s) {
 }
 
 template <int NI>
-cudaError_t bwd_f(const Args& a, cudaStream_t s) {
-  if (a.Sq > 0) {
+cudaError_t bwd_f(const Args& a, int parts, cudaStream_t s) {
+  if ((parts & 2) && a.Sq > 0) {
     dq_fma<NI><<<row_grid(a, kWarps * kTR), kThreads, 0, s>>>(a);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  if (a.Skv <= 0) return cudaSuccess;
+  if (!(parts & 4) || a.Skv <= 0) return cudaSuccess;
   dkv_fma<NI><<<key_grid(a, kWarps * kTR), kThreads, 0, s>>>(a);
   return cudaGetLastError();
 }
 
 cudaError_t run_fwd(const Args& a, int dtype, cudaStream_t s) {
+  if (hop_ok(a, dtype))
+    return a.D == 64 ? fwd_hop<64>(a, s) : fwd_hop<128>(a, s);
   if (dtype == 1) {
     switch (a.D) {
       case 16: fwd_mma<16><<<row_grid(a, kRows), kThreads, 0, s>>>(a); break;
@@ -916,21 +1646,49 @@ cudaError_t run_fwd(const Args& a, int dtype, cudaStream_t s) {
   }
 }
 
-cudaError_t run_bwd(const Args& a, int dtype, cudaStream_t s) {
+cudaError_t run_prepass(const Args& a, int dtype, const void* out,
+                        float* work, cudaStream_t s) {
   if (dtype == 1) {
     switch (a.D) {
-      case 16: return bwd_mma<16>(a, s);
-      case 32: return bwd_mma<32>(a, s);
-      case 64: return bwd_mma<64>(a, s);
-      case 128: return bwd_mma<128>(a, s);
+      case 16: return prepass<bf16, 16>(a, out, work, s);
+      case 32: return prepass<bf16, 32>(a, out, work, s);
+      case 64: return prepass<bf16, 64>(a, out, work, s);
+      case 128: return prepass<bf16, 128>(a, out, work, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  switch (a.D) {
+    case 16: return prepass<float, 16>(a, out, work, s);
+    case 32: return prepass<float, 32>(a, out, work, s);
+    case 64: return prepass<float, 64>(a, out, work, s);
+    case 128: return prepass<float, 128>(a, out, work, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t run_bwd(const Args& a, int dtype, const void* out, float* work,
+                    int parts, cudaStream_t s) {
+  if ((parts & 1) && a.Sq > 0) {
+    cudaError_t e = run_prepass(a, dtype, out, work, s);
+    if (e != cudaSuccess) return e;
+  }
+  if (hop_ok(a, dtype))
+    return a.D == 64 ? bwd_hop<64>(a, work, parts, s)
+                     : bwd_hop<128>(a, work, parts, s);
+  if (dtype == 1) {
+    switch (a.D) {
+      case 16: return bwd_mma<16>(a, parts, s);
+      case 32: return bwd_mma<32>(a, parts, s);
+      case 64: return bwd_mma<64>(a, parts, s);
+      case 128: return bwd_mma<128>(a, parts, s);
       default: return cudaErrorInvalidValue;
     }
   }
   switch (a.D) {
     case 16:
-    case 32: return bwd_f<1>(a, s);
-    case 64: return bwd_f<2>(a, s);
-    case 128: return bwd_f<4>(a, s);
+    case 32: return bwd_f<1>(a, parts, s);
+    case 64: return bwd_f<2>(a, parts, s);
+    case 128: return bwd_f<4>(a, parts, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -958,12 +1716,16 @@ extern "C" int flash_attention_fwd_launch(
 }
 
 // dq, dk, dv are written whole (every element, zeros where no q row sees a
-// key); delta = rowsum(dout * out) [B, H, Sq] f32, computed by the caller.
+// key). `work` is f32 [2, B, H, Sp], Sp = Sq rounded up to 64: the
+// pre-pass writes lse * log2(e) and delta = rowsum(dout * out) there.
+// `parts` selects the launches: 1 the pre-pass, 2 the dq kernel, 4 the
+// dk/dv kernel (7: the whole backward).
 extern "C" int flash_attention_bwd_launch(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, const void* qseg, const void* kseg,
-    void* dq, void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
-    int D, int causal, float scale, int dtype, void* stream) {
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, void* work, const void* qseg,
+    const void* kseg, void* dq, void* dk, void* dv, int B, int Sq, int Skv,
+    int H, int KV, int D, int causal, float scale, int dtype, int parts,
+    void* stream) {
   if (B <= 0 || H <= 0 || (Sq <= 0 && Skv <= 0)) return 0;
   Args a{};
   a.q = q;
@@ -971,14 +1733,17 @@ extern "C" int flash_attention_bwd_launch(
   a.v = v;
   a.dout = dout;
   a.lse_in = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
+  a.delta = static_cast<const float*>(work) +
+            size_t(B) * H * ((Sq + kPad - 1) / kPad * kPad);
   a.qseg = static_cast<const int*>(qseg);
   a.kseg = static_cast<const int*>(kseg);
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
   a.B = B; a.Sq = Sq; a.Skv = Skv; a.H = H; a.KV = KV; a.D = D;
+  a.Sp = (Sq + kPad - 1) / kPad * kPad;
   a.causal = causal;
   a.scale = scale;
-  return static_cast<int>(run_bwd(a, dtype, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run_bwd(a, dtype, out, static_cast<float*>(work),
+                                  parts, static_cast<cudaStream_t>(stream)));
 }

@@ -2,9 +2,13 @@
 shared library with a plain C interface, bound with ctypes).
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>.so``,
-where the hash covers the source text and the nvcc flags, so an edited
-source rebuilds and an unchanged one is reused. Nothing is built at
-import: the first CUDA launch of a kernel builds its library, and
+where the hash covers the source text, every shared header
+``csrc/*.cuh`` and the nvcc flags, so an edited source or header
+rebuilds and an unchanged one is reused. Beside each library,
+``<name>-<hash>.log`` keeps nvcc's output, ptxas's per-kernel
+registers, shared memory and spills included (``ptxas_report``).
+Nothing is built at import: the first CUDA launch of a kernel builds
+its library, and
 ``build_all()`` builds every source at once, one nvcc process per
 source, all started together.
 
@@ -17,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,14 +29,16 @@ import threading
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["SOURCES", "build_all", "check", "library", "nvcc_path"]
+__all__ = ["SOURCES", "build_all", "check", "library", "nvcc_path",
+           "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD = _PKG.parent / "build" / "kernels"
 SOURCES = ("rms_norm", "paged_attention", "flash_attention")
+# sm_90a, not sm_90: wgmma exists only for the "a" target
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC"]
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -50,9 +57,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD / f"{name}-{h}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -77,6 +86,7 @@ def _finish(name: str, started) -> None:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{out}")
+    target.with_suffix(".log").write_text(out)
     # atomic publish: a concurrent build of the same hash loses nothing
     os.replace(tmp, target)
 
@@ -102,6 +112,34 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
         return lib
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """Registers, spill stores and spill loads (bytes) of every kernel of
+    ``csrc/<name>.cu`` by mangled name, from the build's nvcc log (empty
+    when the library was built before logs were kept)."""
+    log = _target(name).with_suffix(".log")
+    if not log.exists():
+        return {}
+    report: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            report[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[fn]["spill_stores"] = int(m.group(1))
+            report[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[fn]["registers"] = int(m.group(1))
+    return report
 
 
 def check(rc: int, what: str) -> None:

@@ -4,19 +4,24 @@
 ``flash_attention_fwd(q, k, v, causal, scale, q_segment_ids,
 kv_segment_ids)`` is the differentiable entry a model calls, as the JAX
 ``flash_attention_fwd`` (custom VJP) is. On CUDA tensors its forward
-launches K1 and its backward launches K2 (``flash_attention_bwd``: one
-dq kernel and one dk/dv kernel); on CPU tensors it is the plain version
-``flash_attention_dense``, and autograd differentiates that.
+launches K1 and its backward launches K2 (``flash_attention_bwd``: a
+pre-pass, one dq kernel and one dk/dv kernel); on CPU tensors it is the
+plain version ``flash_attention_dense``, and autograd differentiates
+that.
 
-The CUDA source is ``csrc/flash_attention.cu``; its header gives the
-shape limits, the bound (operations, at training shapes) and the
-design. Layout ``[B, S, H, D]``; k and v may carry fewer heads (GQA,
-``H % KV == 0``), which the kernels take natively: no repeated K/V.
+The CUDA source is ``csrc/flash_attention.cu`` (with the Hopper helpers
+of ``csrc/hopper.cuh``); its header gives the shape limits, the bound
+(operations, at training shapes) and the design: bf16 at D = 64 and 128
+runs wgmma/TMA bodies that need an ``sm_90a`` card. Layout
+``[B, S, H, D]``; k and v may carry fewer heads (GQA, ``H % KV == 0``),
+which the kernels take natively: no repeated K/V.
 ``lse`` is f32 ``[B, H, Sq]``. Segment ids are int32 ``[B, Sq]`` and
 ``[B, Skv]``; they get no gradient.
 
-The backward's ``delta = rowsum(dO * O)`` (f32) is a plain torch op
-outside the kernels, as the JAX ``_fa_bwd`` leaves it to XLA.
+The backward's ``delta = rowsum(dO * O)`` (f32), which the JAX
+``_fa_bwd`` leaves to XLA, is K2's pre-pass kernel: it writes delta and
+``lse * log2(e)`` into an f32 workspace ``[2, B, H, Sp]`` (Sp = Sq
+rounded up to 64) that the wrapper allocates.
 """
 from __future__ import annotations
 
@@ -109,7 +114,7 @@ def _lib():
         [vp] * 7 + [i] * 7 + [f, i, vp])
     lib.flash_attention_fwd_launch.restype = i
     lib.flash_attention_bwd_launch.argtypes = (
-        [vp] * 11 + [i] * 7 + [f, i, vp])
+        [vp] * 12 + [i] * 7 + [f, i, i, vp])
     lib.flash_attention_bwd_launch.restype = i
     return lib
 
@@ -184,12 +189,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
                         q_segment_ids=None, kv_segment_ids=None):
     """K2: (dq, dk, dv) of ``out = flash_attention(q, k, v)`` for the
     output gradient ``dout``, from K1's ``out`` and ``lse``. CPU tensors
-    take ``flash_attention_bwd_dense``; CUDA tensors launch the dq and
-    the dk/dv kernels."""
+    take ``flash_attention_bwd_dense``; CUDA tensors launch the
+    pre-pass, the dq and the dk/dv kernels."""
     qseg, kseg = _check(q, k, v, q_segment_ids, kv_segment_ids,
                         "flash_attention_bwd")
     B, Sq, H, D = q.shape
-    Skv, KV = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     if route(q, k, v, out, lse, dout, *_present(qseg, kseg)) == "cpu":
         return flash_attention_bwd_dense(q, k, v, dout, causal, scale, qseg,
@@ -208,19 +212,35 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
     dout = dout.contiguous()    # autograd may hand any strides
     _check_cuda({"q": q, "k": k, "v": v, "out": out, "dout": dout}, D,
                 "flash_attention_bwd")
-    # delta_i = rowsum(dO o O), f32 [B, H, Sq] (flash_attention.py:503)
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    rc = _lib().flash_attention_bwd_launch(
-        ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), _opt(qseg),
-        _opt(kseg), ptr(dq), ptr(dk), ptr(dv), B, Sq, Skv, H, KV, D,
-        int(bool(causal)),
-        float(scale), dtype_code(q, "q"), stream(q))
-    _build.check(rc, "flash_attention_bwd")
+    dq, dk, dv, _ = _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+PREPASS, DQ, DKV = 1, 2, 4   # the parts of one K2 launch
+PAD = 64                     # workspace rows are padded to this
+
+
+def _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg,
+        parts=PREPASS | DQ | DKV, work=None):
+    """Launch the ``parts`` of K2 on checked CUDA tensors: (dq, dk, dv,
+    work). ``work`` is the pre-pass's f32 workspace [2, B, H, Sp]
+    (allocated when None); a launch without PREPASS reads the workspace
+    an earlier one wrote."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if work is None:
+        Sp = -(-Sq // PAD) * PAD
+        work = torch.empty(2, B, H, Sp, dtype=torch.float32,
+                           device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rc = _lib().flash_attention_bwd_launch(
+        ptr(q), ptr(k), ptr(v), ptr(out), ptr(dout), ptr(lse), ptr(work),
+        _opt(qseg), _opt(kseg), ptr(dq), ptr(dk), ptr(dv), B, Sq, Skv, H,
+        KV, D, int(bool(causal)), float(scale), dtype_code(q, "q"),
+        int(parts), stream(q))
+    _build.check(rc, "flash_attention_bwd")
+    return dq, dk, dv, work
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -291,6 +291,12 @@ FLASH = {  # (B, Sq, Skv, H, KV, D, causal, segments)
     "segments_d128": (2, 256, 256, 4, 2, 128, True, True),
     "partial_tiles_d32": (3, 37, 37, 2, 1, 32, True, False),
     "partial_rect_d16": (1, 45, 77, 4, 4, 16, False, True),
+    # the 128-row tiles' edges: one row past a tile; fewer keys than one
+    # key tile; causal Sq > Skv, where the first rows see no key (output 0,
+    # lse -1e30)
+    "edge129_d128": (2, 129, 129, 4, 4, 128, True, False),
+    "short_kv_d128": (2, 200, 50, 4, 2, 128, False, False),
+    "causal_sq_gt_skv_d128": (2, 192, 70, 4, 4, 128, True, False),
 }
 
 
@@ -338,6 +344,23 @@ def test_flash_attention_kernels(cuda, case, dtype):
     r_grads = K1.flash_attention_bwd_dense(q, k, v, do, causal, None, qs, ks)
     for a, b in zip(grads, r_grads):
         assert _scaled(a, b) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("case", ["mha_d128_causal", "gqa4_d64_causal",
+                                  "segments_d128"])
+def test_flash_attention_backward_is_deterministic(cuda, case):
+    """No atomics: two K2 runs on the same inputs give the same bits."""
+    B, Sq, Skv, H, KV, D, causal, segm = FLASH[case]
+    q, k, v, do, qs, ks = _flash(cuda, torch.bfloat16, B, Sq, Skv, H, KV, D,
+                                 segm, 7)
+    out, lse = K1.flash_attention_fwd_lse(q, k, v, causal, None, qs, ks)
+    first = K1.flash_attention_bwd(q, k, v, out, lse, do, causal, None, qs,
+                                   ks)
+    again = K1.flash_attention_bwd(q, k, v, out, lse, do, causal, None, qs,
+                                   ks)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_autograd_and_launch_counts(cuda):
