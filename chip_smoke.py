@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build        every kernel from paddle_tpu_torch/csrc/*.cu with nvcc,
                 all sources in parallel; print the build seconds and the
-                flash attention kernels' registers and spills (ptxas -v)
+                flash and paged attention kernels' registers and spills
+                (ptxas -v)
 2. kernels      K3 (RMSNorm, and its gradient), K4 (ragged paged
                 attention), K5 (paged decode attention), K6 (decode
                 attention over the contiguous cache), K1 and K2 (flash
@@ -20,7 +21,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 dq, dk/dv). K1/K2/K6 outputs, K2 gradients and the K3
                 gradient are held to the tolerance as a relative L2 error
                 over tiles of 64 positions of one (batch, head), each tile
-                against its own magnitude
+                against its own magnitude. K4 and K5 rows name the body
+                each call ran (wgmma_split, mma, fma), its split count and
+                workspace bytes; the bf16 cases must run the Hopper body
 3. parity       a reduced Llama (fp32, TF32 off) served on cuda and on
                 cpu with the same weights and arrival schedule, and run
                 through Predictor.generate with static and paged caches
@@ -30,12 +33,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 against cpu, within 1e-4
 4. serve        Llama-7B widths (32 layers, bf16, random weights from a
                 seed) through ServingEngine: 16 greedy requests, 8 of them
-                arriving mid-run; K3, K4 and K5 must launch on this path
+                arriving mid-run; K3, K4 and K5 must launch on this path.
+                Then one unified round holding both prefill chunks and
+                decode rows, and one decode round, of a second short serve
+                with every layer's K4 and K5 call watched: each output
+                against the plain version on the engine's own q, pools,
+                tables, starts and lengths, per tile, 2e-2
 5. generate     the same model through Predictor.generate: 8 ragged
                 prompts of 128..1024 tokens, 128 greedy new tokens with
                 the static cache (K6), then with enable_paged_kv(64) (K5);
                 prefill and per-token decode ms, tokens/s, peak memory,
-                and exact launch counts of K6, K5 and K3
+                and exact launch counts of K6, K5 and K3; then a paged
+                generation of 2 tokens with every layer's K5 call (the
+                prefill and a decode step) held against the plain
+                version per tile, 2e-2
 6. train-parity the reduced Llama trains 3 steps on cuda and on cpu from
                 the same weights and batch: losses and global grad norms
                 within 1e-4 relative
@@ -429,6 +440,7 @@ def check_attention(dev, results):
     starts = [0, 300, 1024, 0, 700, 1500, 0, 37]
     lens = [256, 200, 256, 1, 1, 1, 0, 19]
     dec = [int(v) for v in np.random.RandomState(3).randint(1, 1501, 8)]
+    first = len(results)
     for KV in (32, 8):
         for dt in (torch.bfloat16, torch.float32):
             q, kp, vp, tbl, st, nv = _attn_case(dev, dt, 8, 256, 32, KV,
@@ -442,6 +454,7 @@ def check_attention(dev, results):
             results.append(dict(
                 name="ragged_paged_attention", shape=list(q.shape),
                 kv_heads=KV, dtype=str(dt)[6:],
+                **K5.paged_route(q, kp, tbl)._asdict(),
                 max_abs_err=(out.float() - ref.float()).abs().max().item(),
                 dead_slot_abs_max=dead, tol=TOL[dt],
                 ms=cuda_ms(lambda: K4.ragged_paged_attention(
@@ -464,6 +477,7 @@ def check_attention(dev, results):
             results.append(dict(
                 name="paged_decode_attention", shape=list(q.shape),
                 kv_heads=KV, dtype=str(dt)[6:],
+                **K5.paged_route(q, kp, tbl)._asdict(),
                 max_abs_err=(out.float() - ref.float()).abs().max().item(),
                 tol=TOL[dt],
                 ms=cuda_ms(lambda: K5.paged_decode_attention(
@@ -473,6 +487,27 @@ def check_attention(dev, results):
                 library_ms=_sdpa_yardstick(q, kp, vp, tbl, st, nv),
                 library="sdpa on K/V gathered to contiguous, same mask",
                 bound_ms=b_ms, bound_by=b_by))
+    # diagnostic: the chunk at 1024 alone (two 128-row tiles of 18 and 20
+    # 64-key steps a head): the serial key range that bounds the K4 case
+    q, kp, vp, tbl, st, nv = _attn_case(dev, torch.bfloat16, 8, 256, 32, 32,
+                                        starts, [0, 0, 256, 0, 0, 0, 0, 0], g)
+    out = K4.ragged_paged_attention(q, kp, vp, tbl, st, nv)
+    ref = K4.ragged_paged_attention_dense(q, kp, vp, tbl, st, nv)
+    nb, fl = _attn_cost(q, kp, starts, [0, 0, 256, 0, 0, 0, 0, 0])
+    b_ms, b_by = bound(nb, fl, torch.bfloat16)
+    results.append(dict(
+        name="ragged_paged_attention", case="chunk_alone", diagnostic=True,
+        shape=list(q.shape), kv_heads=32, dtype="bfloat16",
+        **K5.paged_route(q, kp, tbl)._asdict(),
+        max_abs_err=(out.float() - ref.float()).abs().max().item(),
+        tol=TOL[torch.bfloat16],
+        ms=cuda_ms(lambda: K4.ragged_paged_attention(q, kp, vp, tbl, st, nv)),
+        bound_ms=b_ms, bound_by=b_by))
+    # the bf16 cases (the serving path's type) must run the Hopper body
+    for r in results[first:]:
+        if r["dtype"] == "bfloat16" and r["body"] != "wgmma_split":
+            raise AssertionError(f"{r['name']} {r['shape']} KV {r['kv_heads']}"
+                                 f" ran the {r['body']} body, not wgmma_split")
 
 
 # K6 cases: (label, B, Sq, H, KV, M, offsets); "decode" is the shape of the
@@ -708,9 +743,90 @@ def phase_serve(model, counters, profile=False):
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
+    check_serve_attention(model, kw)
     if profile:
         profile_serve(model, sched, kw)
     return launches
+
+
+def check_serve_attention(model, kw):
+    """A short serve of the same model and engine settings with every
+    layer's K4 and K5 call watched: in the first unified round that holds
+    both a prefill chunk and a decode row long enough to split its key
+    range, and in the first decode round,
+    each kernel output is held against the plain version on the same q,
+    pools, tables, starts and lengths (the engine's own, read before the
+    next layer writes its pool), per tile of 64 slots of one (batch row,
+    head) as in the kernels phase, 2e-2; dead slots must be exactly 0.
+    Runs after the serve path's launches were read, so its launches are
+    not counted."""
+    import paddle_tpu_torch.models.llama as llama
+    from paddle_tpu_torch.ops.kernels import decode_attention as K5
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as K4
+
+    L = model.config.num_layers
+    calls = {"unified": 0, "decode": 0}
+    watch = {"unified": None, "decode": None}   # round index watched
+    worst = {"unified": [], "decode": []}
+    k4, k5 = llama.ragged_paged_attention, llama.paged_decode_attention
+
+    def check(kind, out, ref, info):
+        e = _errs(out, ref)
+        worst[kind].append(e[3])
+        log(f"[serve] {kind} round, layer {len(worst[kind]) - 1}, "
+            f"{info}: " + json.dumps(dict(max_abs_err=e[0], ref_max_abs=e[1],
+                                          ref_rms=e[2], rel_err=e[3])))
+
+    def watched_k4(q, kp, vp, tbl, st, nv):
+        out = k4(q, kp, vp, tbl, st, nv)
+        rnd, layer = divmod(calls["unified"], L)
+        calls["unified"] += 1
+        if layer == 0 and watch["unified"] is None:
+            # a chunk, and a decode row long enough to split its keys
+            n, at = nv.tolist(), st.tolist()
+            split = K5.paged_route(q, kp, tbl).split_len
+            if any(x > 1 for x in n) and any(
+                    x == 1 and s0 >= split for x, s0 in zip(n, at)):
+                watch["unified"] = rnd
+        if watch["unified"] == rnd:
+            with torch.no_grad():
+                ref = K4.ragged_paged_attention_dense(q, kp, vp, tbl, st, nv)
+            check("unified", out, ref, f"starts {st.tolist()} seq_lens "
+                  f"{nv.tolist()} {K5.paged_route(q, kp, tbl).body}")
+        return out
+
+    def watched_k5(q, kp, vp, tbl, lengths):
+        out = k5(q, kp, vp, tbl, lengths)
+        if q.shape[1] == 1:
+            rnd, layer = divmod(calls["decode"], L)
+            calls["decode"] += 1
+            if rnd == 0:
+                with torch.no_grad():
+                    ref = K5.paged_attention_dense(q, kp, vp, tbl, lengths)
+                check("decode", out, ref, f"lengths {lengths.tolist()} "
+                      f"{K5.paged_route(q, kp, tbl).body}")
+        return out
+
+    vocab = model.config.vocab_size
+    # prompt 0 finishes its prefill in the first round and decodes beside
+    # the longer prompts' chunks in the next ones
+    sched = (prompts(14, [90, 700, 1500, 300], vocab), [], 0, 6)
+    llama.ragged_paged_attention = watched_k4
+    llama.paged_decode_attention = watched_k5
+    try:
+        serve(model, sched, **kw)
+    finally:
+        llama.ragged_paged_attention = k4
+        llama.paged_decode_attention = k5
+    tol = TOL[torch.bfloat16]
+    for kind, errs in worst.items():
+        if len(errs) != L or not max(errs) <= tol:
+            raise AssertionError(f"serve {kind} round: {len(errs)} of {L} "
+                                 f"layers checked, worst tile error "
+                                 f"{max(errs, default=None)}")
+    log(f"[serve] every layer's K4 (a mixed unified round) and K5 (a decode "
+        f"round) within {tol} of the plain version (worst tile "
+        f"{max(worst['unified'])}, {max(worst['decode'])}): OK")
 
 
 # -- phase 5: generation --------------------------------------------------------
@@ -731,7 +847,7 @@ def phase_generate(model, paths, profile=False, n_new=128):
 
     cfg = model.config
     ids, lens = _ragged_prompts(cfg.vocab_size)
-    launches, outs = {}, {}
+    launches, outs, first_logits = {}, {}, {}
     for label, page in (("static", None), ("paged", 64)):
         conf = Config().set_model(model)
         conf.max_length = 2048
@@ -747,6 +863,7 @@ def phase_generate(model, paths, profile=False, n_new=128):
             ev[0].record()
             out = prefill(*a)
             ev[1].record()
+            first_logits[label] = out[0]
             return out
 
         pred._prefill_step = timed_prefill
@@ -786,9 +903,59 @@ def phase_generate(model, paths, profile=False, n_new=128):
             profile_decode(pred, ids, lens, label)
         del pred, out
     agree = int((outs["static"] == outs["paged"]).sum())
+    same = outs["static"] == outs["paged"]
+    first = [int(np.argmin(r)) if not r.all() else n_new for r in same]
     log(f"[generate] static and paged agree on {agree} of "
-        f"{outs['static'].size} new tokens (bf16: informational)")
+        f"{outs['static'].size} new tokens, each row up to new token "
+        f"{first} (bf16, K6 and K5 run different bodies: informational)")
+    # the first new token's logits from the two caches' prefills: their
+    # difference against each row's gap between its two best tokens
+    a, b = (first_logits[k].float() for k in ("static", "paged"))
+    top2 = a.topk(2, dim=-1).values
+    log("[generate] prefill logits, static vs paged: max |diff| per row "
+        f"{(a - b).abs().amax(-1).tolist()}, static top-2 gap per row "
+        f"{(top2[:, 0] - top2[:, 1]).tolist()}, logit RMS "
+        f"{a.pow(2).mean().sqrt().item()}")
+    check_generate_attention(model, ids, lens)
     return launches
+
+
+def check_generate_attention(model, ids, lens):
+    """Paged generation of 2 new tokens on the same prompts with every
+    layer's K5 call watched: the 1024-slot prefill and the first decode
+    step, each output held against the plain version on the same q, pool,
+    tables and lengths, per tile of 64 slots of one (row, head), 2e-2.
+    Runs after the generate path's launches were read."""
+    import paddle_tpu_torch.models.llama as llama
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.ops.kernels import decode_attention as K5
+
+    k5 = llama.paged_decode_attention
+    worst = {"prefill": [], "decode": []}
+
+    def watched(q, kp, vp, tbl, lengths):
+        out = k5(q, kp, vp, tbl, lengths)
+        with torch.no_grad():
+            ref = K5.paged_attention_dense(q, kp, vp, tbl, lengths)
+        worst["prefill" if q.shape[1] > 1 else "decode"].append(
+            _errs(out, ref)[3])
+        return out
+
+    conf = Config().set_model(model)
+    conf.max_length = 2048
+    conf.enable_paged_kv(64)
+    llama.paged_decode_attention = watched
+    try:
+        create_predictor(conf).generate(ids, max_new_tokens=2, lengths=lens)
+    finally:
+        llama.paged_decode_attention = k5
+    L, tol = model.config.num_layers, TOL[torch.bfloat16]
+    log(f"[generate] paged K5 per layer vs plain, worst tile: "
+        + json.dumps({k: max(v, default=None) for k, v in worst.items()}))
+    if not all(len(v) == L and max(v) <= tol for v in worst.values()):
+        raise AssertionError(f"paged generate attention: {worst}")
+    log(f"[generate] every layer's K5 (the 1024-slot prefill and a decode "
+        f"step) within {tol} of the plain version: OK")
 
 
 def profile_decode(pred, ids, lens, label, steps=16):
@@ -1033,7 +1200,7 @@ KERNEL_GROUPS = (("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass")),
                                             "fwd_fma", "dq_fma", "dkv_fma")),
                  ("K3 rms_norm", ("rms_norm_kernel",)),
                  ("K4/K5/K6 paged or contiguous-cache attention",
-                  ("paged_attention",)))
+                  ("paged_attention", "tile_wgmma_kernel", "merge_splits")))
 
 
 def _log_profile(prof, wall, tag, per=1):
@@ -1112,9 +1279,10 @@ def main():
     _build.build_all()
     log(f"[build] {len(_build.SOURCES)} sources in "
         f"{time.perf_counter() - t0:.1f}s")
-    # registers and spills of the flash attention kernels (nvcc -Xptxas -v)
-    for fn, rep in _build.ptxas_report("flash_attention").items():
-        log(f"[build] ptxas {fn}: {json.dumps(rep)}")
+    # registers and spills of the attention kernels (nvcc -Xptxas -v)
+    for src in ("flash_attention", "paged_attention"):
+        for fn, rep in _build.ptxas_report(src).items():
+            log(f"[build] ptxas {fn}: {json.dumps(rep)}")
 
     dev = torch.device("cuda", 0)
     results = []
@@ -1190,7 +1358,7 @@ def main():
         mine = [r for r in results if r["name"] == name]
         main = [r for r in mine if r["shape"] == main_shape[name]
                 and r["dtype"] == "bfloat16"
-                and r.get("kv_heads", 32) == 32]
+                and r.get("kv_heads", 32) == 32 and not r.get("diagnostic")]
         row = main[0] if main else {}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=repl,
@@ -1201,7 +1369,9 @@ def main():
             ms=row.get("ms"), plain_ms=row.get("plain_ms"),
             bound_ms=row.get("bound_ms"), bound_by=row.get("bound_by"),
             library_ms=row.get("library_ms"), shape=main_shape[name],
-            dtype="bfloat16"))
+            dtype="bfloat16",
+            **{k: row[k] for k in ("body", "splits", "workspace_bytes")
+               if k in row}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -904,12 +904,16 @@ struct HopParams {
   const float* delta2;          // dq: padded delta
 };
 
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t s = hopper::smem_u32(p);
-  return p + ((1024u - (s & 1023u)) & 1023u);
-}
+// the tile helpers shared with the paged-attention bodies (hopper.cuh)
+using hopper::align1024;
+using hopper::kmajor;
+using hopper::mnmajor;
+using hopper::neg_inf;
+using hopper::rs;
+using hopper::ss;
+using hopper::store_rows;
+using hopper::to_a;
+using hopper::zero;
 
 // slot and phase parity of a kStages ring, walked in the same order by the
 // producer and the consumers
@@ -938,70 +942,6 @@ __device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map,
 #pragma unroll
   for (int p = 0; p < D / 64; ++p)
     hopper::tma_load_4d(dst + p * rows * 64, map, bar, p * 64, hh, r0, b);
-}
-
-// K-major descriptor of k-step kk (16 columns) of a [rows, D] tile, starting
-// at row `row0` (a multiple of 8)
-__device__ __forceinline__ uint64_t kmajor(const bf16* tile, int rows,
-                                           int row0, int kk) {
-  return hopper::desc_sw128(tile + (kk >> 2) * rows * 64 + row0 * 64 +
-                                (kk & 3) * 16,
-                            16, 1024);
-}
-
-// MN-major descriptor of k-step kk (16 rows) of a [rows, D] tile
-__device__ __forceinline__ uint64_t mnmajor(const bf16* tile, int rows,
-                                            int kk) {
-  return hopper::desc_sw128(tile + kk * 16 * 64, rows * 128, 1024);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = 0.f;
-}
-
-// A fragments of k-step kk from a [64 x N] accumulator, rounded to bf16
-template <int N>
-__device__ __forceinline__ void to_a(uint32_t (&f)[4], const float (&d)[N],
-                                     int kk) {
-  f[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
-  f[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
-  f[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
-  f[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
-}
-
-template <int N>
-__device__ __forceinline__ void ss(float (&d)[N / 2], uint64_t da, uint64_t db,
-                                   int acc) {
-  if constexpr (N == 64) hopper::wgmma_ss64(d, da, db, acc);
-  else hopper::wgmma_ss128(d, da, db, acc);
-}
-
-template <int N>
-__device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&f)[4],
-                                   uint64_t db) {
-  if constexpr (N == 64) hopper::wgmma_rs64(d, f, db);
-  else hopper::wgmma_rs128(d, f, db);
-}
-
-// write a [64 x D] accumulator times `mul` as bf16 rows rA, rB (offsets oA,
-// oB; a row is written when its flag is set)
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&d)[D / 2],
-                                           size_t oA, bool wA, float mA,
-                                           size_t oB, bool wB, float mB,
-                                           int tig) {
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = 8 * j + 2 * tig;
-    if (wA)
-      *reinterpret_cast<uint32_t*>(dst + oA + c) =
-          pack_bf16(d[4 * j] * mA, d[4 * j + 1] * mA);
-    if (wB)
-      *reinterpret_cast<uint32_t*>(dst + oB + c) =
-          pack_bf16(d[4 * j + 2] * mB, d[4 * j + 3] * mB);
-  }
 }
 
 // K1 forward: one CTA per (128 q rows, head, batch row); 128 keys a stage

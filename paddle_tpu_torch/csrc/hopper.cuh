@@ -11,11 +11,15 @@
 // Shared-memory tiles are written by TMA with the 128-byte swizzle, one
 // "panel" of 64 bf16 columns (128 bytes a row) at a time: a [rows, D] tile
 // is D / 64 panels of [rows, 64], panel p at byte p * rows * 128, each
-// panel 1024-byte aligned. A wgmma reads such a tile either K-major (the
-// contraction runs along the 64 columns: S = Q K^T) or MN-major (the
-// contraction runs along the rows: O = P V), with the descriptors below.
+// panel 1024-byte aligned. Inside a panel, 16-byte chunk c of row r sits
+// at chunk c ^ (r % 8) of its 128-byte row (swz_chunk), so threads that
+// write or read such a tile by hand use the same layout. A wgmma reads such
+// a tile either K-major (the contraction runs along the 64 columns: S =
+// Q K^T) or MN-major (the contraction runs along the rows: O = P V), with
+// the descriptors below.
 #pragma once
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,6 +83,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       else if (now - t0 > 4000000000ull) __trap();
     }
   }
+}
+
+// make this thread's generic-proxy writes to shared memory visible to later
+// async-proxy reads (wgmma operands)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1..15) over `count` threads, a multiple of 32
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // -- TMA ---------------------------------------------------------------------
@@ -237,6 +252,91 @@ __device__ __forceinline__ void wgmma_rs128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// -- tiles of 128-byte-swizzled panels ----------------------------------------
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t s = smem_u32(p);
+  return p + ((1024u - (s & 1023u)) & 1023u);
+}
+
+// byte offset of 16-byte chunk c (c < D / 8) of row r in a [rows, D] tile
+__device__ __forceinline__ uint32_t swz_chunk(int rows, int r, int c) {
+  return uint32_t((c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+}
+
+// K-major descriptor of k-step kk (16 columns) of a [rows, D] tile, starting
+// at row `row0` (a multiple of 8)
+__device__ __forceinline__ uint64_t kmajor(const bf16* tile, int rows,
+                                           int row0, int kk) {
+  return desc_sw128(tile + (kk >> 2) * rows * 64 + row0 * 64 + (kk & 3) * 16,
+                    16, 1024);
+}
+
+// MN-major descriptor of k-step kk (16 rows) of a [rows, D] tile
+__device__ __forceinline__ uint64_t mnmajor(const bf16* tile, int rows,
+                                            int kk) {
+  return desc_sw128(tile + kk * 16 * 64, rows * 128, 1024);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A fragments of k-step kk from a [64 x N] accumulator, rounded to bf16
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&f)[4], const float (&d)[N],
+                                     int kk) {
+  f[0] = bf16x2(d[8 * kk + 0], d[8 * kk + 1]);
+  f[1] = bf16x2(d[8 * kk + 2], d[8 * kk + 3]);
+  f[2] = bf16x2(d[8 * kk + 4], d[8 * kk + 5]);
+  f[3] = bf16x2(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// d[64 x N] (+)= A B, A and B K-major in shared memory
+template <int N>
+__device__ __forceinline__ void ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                   int acc) {
+  if constexpr (N == 64) wgmma_ss64(d, da, db, acc);
+  else wgmma_ss128(d, da, db, acc);
+}
+
+// d[64 x N] += A B, A in registers, B MN-major in shared memory
+template <int N>
+__device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&f)[4],
+                                   uint64_t db) {
+  if constexpr (N == 64) wgmma_rs64(d, f, db);
+  else wgmma_rs128(d, f, db);
+}
+
+// write a [64 x D] accumulator times `mul` as bf16 rows rA, rB (offsets oA,
+// oB; a row is written when its flag is set)
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&d)[D / 2],
+                                           size_t oA, bool wA, float mA,
+                                           size_t oB, bool wB, float mB,
+                                           int tig) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * tig;
+    if (wA)
+      *reinterpret_cast<uint32_t*>(dst + oA + c) =
+          bf16x2(d[4 * j] * mA, d[4 * j + 1] * mA);
+    if (wB)
+      *reinterpret_cast<uint32_t*>(dst + oB + c) =
+          bf16x2(d[4 * j + 2] * mB, d[4 * j + 3] * mB);
+  }
+}
+
 }  // namespace hopper
 
 // -- host: tensor maps ---------------------------------------------------------
@@ -280,6 +380,24 @@ inline bool encode_rows(CUtensorMap* map, const void* base, int B, int S,
                                  cuuint64_t(heads) * D * 2,
                                  cuuint64_t(S) * heads * D * 2};
   const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 page pool [P, KV, page, D] read as boxes of `rows` keys x 64
+// columns of one (page, KV head) plane, 128-byte swizzle.
+inline bool encode_pool(CUtensorMap* map, const void* base, int P, int KV,
+                        int page, int D, int rows) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(page), cuuint64_t(KV),
+                              cuuint64_t(P)};
+  const cuuint64_t strides[3] = {cuuint64_t(D) * 2, cuuint64_t(page) * D * 2,
+                                 cuuint64_t(KV) * page * D * 2};
+  const cuuint32_t box[4] = {64, cuuint32_t(rows), 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -11,9 +11,13 @@ rounds, the legacy per-arrival prefill and paged ``Predictor.generate``.
 rows against the contiguous head-major cache ``[B, KV, M, D]`` of
 static-cache generation (``LlamaForCausalLM.generate``, static
 ``Predictor.generate``, ``FusedMultiTransformer``), at a scalar or
-per-row ``offset``. Both launch one CUDA body (``csrc/paged_attention.cu``,
-whose header gives the bound and the design): K5 is K4 with every slot
-live, and K6 is K5 with direct addressing.
+per-row ``offset``. Both launch the bodies of ``csrc/paged_attention.cu``
+(whose header gives the bound and the design): K5 is K4 with every slot
+live, and K6 is K5 with direct addressing. K4 and K5 in bf16 at head dims
+64 and 128 take the Hopper body ``wgmma_split`` (TMA page loads, wgmma,
+split-K over long key ranges with a merge kernel); fp32, other head dims
+and K6 take the older ``mma`` and ``fma`` bodies. ``paged_route`` says
+which body a call takes, with its split count and workspace bytes.
 
 ``paged_attention_dense``, ``decode_attention_dense`` and
 ``_dense_ragged`` are the plain versions (gather the pages or take the
@@ -24,13 +28,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import _build, dtype_code, ptr, route, stream, want_contiguous
 
-__all__ = ["decode_attention", "decode_attention_dense",
-           "paged_decode_attention", "paged_attention_dense"]
+__all__ = ["PagedRoute", "decode_attention", "decode_attention_dense",
+           "paged_attention_dense", "paged_decode_attention", "paged_route"]
 
 _NEG = -1e30
 
@@ -177,10 +182,50 @@ def _lib():
     return _build.library("paged_attention")
 
 
+_BODIES = ("fma", "mma", "wgmma_split")
+
+
+class PagedRoute(NamedTuple):
+    """The body a K4/K5 call takes (``csrc/paged_attention.cu``), its
+    number of key splits, the keys a split covers and the bytes of its
+    f32 split workspace."""
+    body: str
+    splits: int
+    split_len: int
+    workspace_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(B, Sq, H, KV, D, page, npages, P, code):
+    fn = _lib().paged_attention_plan
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 4)()
+    fn(B, Sq, H, KV, D, page, npages, P, code, ctypes.cast(out,
+                                                           ctypes.c_void_p))
+    return PagedRoute(_BODIES[out[0]], int(out[1]), int(out[2]), int(out[3]))
+
+
+def paged_route(q, k_pool, block_tables):
+    """The route a K4 or K5 launch on these CUDA tensors takes (the C
+    library's own plan: builds the library on first use)."""
+    B, Sq, H, D = q.shape
+    P, KV, page, _ = k_pool.shape
+    return _plan(B, Sq, H, KV, D, page, block_tables.shape[1], P,
+                 dtype_code(q, "paged_route"))
+
+
+def workspace(route, like):
+    """The f32 split workspace of a launch (empty when it does not split),
+    allocated on ``like``'s device; a CUDA graph capture records it."""
+    return torch.empty(route.workspace_bytes // 4, dtype=torch.float32,
+                       device=like.device)
+
+
 @functools.cache
 def _decode_fn():
     fn = _lib().paged_decode_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -238,13 +283,14 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
         return paged_attention_dense(q, k_pool, v_pool, block_tables,
                                      lengths)
     B, Sq, H, D = q.shape
-    KV, page = k_pool.shape[1], k_pool.shape[2]
+    P, KV, page = k_pool.shape[:3]
     scale = 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
+    ws = workspace(paged_route(q, k_pool, block_tables), q)
     rc = _decode_fn()(ptr(q), ptr(k_pool), ptr(v_pool), ptr(block_tables),
-                      ptr(lengths), ptr(out), B, Sq, H, KV, D, page,
-                      block_tables.shape[1], block_tables.stride(0), scale,
-                      code, stream(q))
+                      ptr(lengths), ptr(out), ptr(ws), B, Sq, H, KV, D, page,
+                      block_tables.shape[1], block_tables.stride(0), P,
+                      scale, code, stream(q))
     _build.check(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out

@@ -8,7 +8,11 @@ positions up to its own; only slots ``i < seq_lens[b]`` are real (a
 prefill chunk feeds up to Sb slots, a decode row 1, a dead row 0) and
 dead slots output exactly 0. It is the attention of the serving
 engine's unified ``[B, Sc]`` chunked-prefill step. The CUDA source,
-with its bound and design, is ``csrc/paged_attention.cu``.
+with its bound and design, is ``csrc/paged_attention.cu``; in bf16 at head
+dims 64 and 128 a call takes its Hopper body (``wgmma_split``), which
+splits the long key ranges of decode rows and merges the f32 partials in a
+second kernel of the same call (``decode_attention.paged_route`` names the
+body, split count and workspace bytes).
 
 ``ragged_paged_attention_dense`` is the plain version: gather the
 pages, doubly-ragged f32 dense mask, zero the dead slots.
@@ -22,7 +26,8 @@ import math
 import torch
 
 from . import _build, ptr, stream
-from .decode_attention import _NEG, _gather_pages, _lib, check_paged_args
+from .decode_attention import (_NEG, _gather_pages, _lib, check_paged_args,
+                               paged_route, workspace)
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_dense"]
 
@@ -57,7 +62,7 @@ def ragged_paged_attention_dense(q, k_pool, v_pool, block_tables, starts,
 @functools.cache
 def _ragged_fn():
     fn = _lib().ragged_paged_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -82,13 +87,14 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, starts,
         return ragged_paged_attention_dense(q, k_pool, v_pool,
                                             block_tables, starts, seq_lens)
     B, Sq, H, D = q.shape
-    KV, page = k_pool.shape[1], k_pool.shape[2]
+    P, KV, page = k_pool.shape[:3]
     scale = 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
+    ws = workspace(paged_route(q, k_pool, block_tables), q)
     rc = _ragged_fn()(ptr(q), ptr(k_pool), ptr(v_pool), ptr(block_tables),
-                      ptr(starts), ptr(seq_lens), ptr(out), B, Sq, H, KV,
-                      D, page, block_tables.shape[1],
-                      block_tables.stride(0), scale, code, stream(q))
+                      ptr(starts), ptr(seq_lens), ptr(out), ptr(ws), B, Sq,
+                      H, KV, D, page, block_tables.shape[1],
+                      block_tables.stride(0), P, scale, code, stream(q))
     _build.check(rc, "ragged_paged_attention")
     ragged_paged_attention.launches += 1
     return out

@@ -123,6 +123,100 @@ def test_paged_decode_kernel(cuda, geom, sq, dtype):
     assert _err(out, ref) <= TOL[dtype]
 
 
+# -- K4 / K5 Hopper bodies: TMA page loads, split-K, wgmma --------------------
+SPLIT = {  # (H, KV, D, page)
+    "mha_d128_p64": (4, 4, 128, 64),
+    "gqa4_d128_p16": (8, 2, 128, 16),
+    "mha_d64_p8": (4, 4, 64, 8),
+    "gqa2_d64_p64": (4, 2, 64, 64),
+}
+SPLIT_KEYS = 2048
+
+
+def _split_pools(cuda, geom, B, Sq, seed):
+    """bf16 pools of SPLIT_KEYS keys a row; the table handed to the kernel
+    is the column slice tables[:, :-1] of a table one column wider, as the
+    serving engine passes it (row stride npages + 1)."""
+    H, KV, D, page = SPLIT[geom]
+    npages = SPLIT_KEYS // page
+    q, kp, vp, tbl = _paged(cuda, torch.bfloat16, B, Sq, H, KV, D, page,
+                            npages + 1, seed)
+    return q, kp, vp, tbl[:, :-1]
+
+
+@pytest.mark.parametrize("geom", sorted(SPLIT))
+def test_split_decode_body(cuda, geom):
+    """K5 decode rows on wgmma_split: up to 2048 keys (4 splits of 512),
+    a frontier on each side of a split boundary, start = M - 1, a row of
+    one key (three empty splits), against the plain version."""
+    q, kp, vp, tbl = _split_pools(cuda, geom, 6, 1, 5)
+    r = K5.paged_route(q, kp, tbl)
+    assert r.body == "wgmma_split" and r.splits == SPLIT_KEYS // r.split_len
+    L = r.split_len
+    lengths = torch.tensor([1600, L - 1, L, SPLIT_KEYS - 1, 0, 3 * L - 1],
+                           dtype=torch.int32, device=cuda)
+    n = K5.paged_decode_attention.launches
+    out = K5.paged_decode_attention(q, kp, vp, tbl, lengths)
+    assert K5.paged_decode_attention.launches == n + 1  # merge included
+    ref = K5.paged_attention_dense(q, kp, vp, tbl, lengths)
+    assert _scaled(out, ref) <= TOL[torch.bfloat16]
+    assert _err(out, ref) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("geom", sorted(SPLIT))
+def test_split_ragged_body(cuda, geom):
+    """K4 on wgmma_split: 80-slot chunks at 0 and 1500 (a partial 128-row
+    tile, or three tiles under GQA), thin decode rows whose frontier sits
+    on each side of a 512-key split boundary and at M - 1, an all-dead
+    row, a 37-slot chunk, and thin 3-slot tiles whose rows end before the
+    last split; dead slots exactly 0."""
+    q, kp, vp, tbl = _split_pools(cuda, geom, 9, 80, 6)
+    r = K5.paged_route(q, kp, tbl)
+    assert r.body == "wgmma_split" and r.splits == SPLIT_KEYS // r.split_len
+    L = r.split_len
+    starts = [0, 1500, L - 1, L, SPLIT_KEYS - 1, 0, 900, 1700, 2 * L - 2]
+    lens = [80, 80, 1, 1, 1, 0, 37, 3, 3]
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    nv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    n = K4.ragged_paged_attention.launches
+    out = K4.ragged_paged_attention(q, kp, vp, tbl, st, nv)
+    assert K4.ragged_paged_attention.launches == n + 1
+    ref = K4.ragged_paged_attention_dense(q, kp, vp, tbl, st, nv)
+    assert _scaled(out, ref) <= TOL[torch.bfloat16]
+    assert _err(out, ref) <= TOL[torch.bfloat16]
+    for b, n_live in enumerate(lens):
+        assert (out[b, n_live:] == 0).all()
+
+
+@pytest.mark.parametrize("kernel", ["ragged", "decode"])
+def test_split_bodies_bit_equal_and_graph_replay(cuda, kernel):
+    """Two calls give equal bits (the merge runs in split order, no
+    atomics), and a call captured in a CUDA graph, workspace included,
+    replays to the eager result."""
+    if kernel == "ragged":
+        q, kp, vp, tbl = _split_pools(cuda, "mha_d128_p64", 4, 64, 7)
+        st = torch.tensor([1900, 0, 700, 1200], dtype=torch.int32,
+                          device=cuda)
+        nv = torch.tensor([1, 64, 1, 30], dtype=torch.int32, device=cuda)
+        call = lambda: K4.ragged_paged_attention(q, kp, vp, tbl, st, nv)
+    else:
+        q, kp, vp, tbl = _split_pools(cuda, "gqa4_d128_p16", 4, 1, 8)
+        st = torch.tensor([2047, 5, 1024, 700], dtype=torch.int32,
+                          device=cuda)
+        call = lambda: K5.paged_decode_attention(q, kp, vp, tbl, st)
+    assert K5.paged_route(q, kp, tbl).splits > 1
+    a, b = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, a)
+
+
 # -- K6: attention over the contiguous head-major cache -----------------------
 K6 = {  # (B, Sq, H, KV, D, M, offsets: int or per-row list)
     "sq1_rows_gqa4_m512": (4, 1, 8, 2, 128, 512, [0, 9, 256, 511]),
@@ -162,7 +256,9 @@ def test_decode_attention_kernel(cuda, case, dtype):
 def test_contiguous_cache_as_pages_gives_k5(cuda, sq, dtype):
     """The counterpart of JAX test_paged_vs_contiguous_cache: a contiguous
     cache cut into pages, each row's pages in order, gives K6 and K5 the
-    same keys in the same order, so their outputs are identical."""
+    same keys in the same order. In fp32 one body serves both, so their
+    outputs are identical; in bf16 K5 runs the Hopper bodies, whose sums
+    run in another order, so the two agree within the bf16 gate."""
     B, H, KV, D, page, npages = 3, 8, 2, 128, 64, 5
     q, k, v, _ = _contig(cuda, dtype, B, sq, H, KV, D, page * npages, 0, 10)
     off = torch.tensor([0, 100, page * npages - sq], dtype=torch.int32,
@@ -177,7 +273,12 @@ def test_contiguous_cache_as_pages_gives_k5(cuda, sq, dtype):
     a = K5.decode_attention(q, k, v, off)
     b = K5.paged_decode_attention(q, pages(k), pages(v), tbl, off)
     torch.cuda.synchronize()
-    assert torch.equal(a, b)
+    if dtype == torch.float32:  # one body (fma) serves both
+        assert torch.equal(a, b)
+    else:  # K5's bf16 Hopper bodies sum in another order than K6's
+        ref = K5.decode_attention_dense(q, k, v, off)
+        assert _scaled(a, b) <= TOL[dtype]
+        assert _scaled(b, ref) <= TOL[dtype]
 
 
 def test_fused_ops_launch_k6_on_the_card(cuda):
