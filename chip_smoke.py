@@ -24,29 +24,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 against its own magnitude. K4 and K5 rows name the body
                 each call ran (wgmma_split, mma, fma), its split count and
                 workspace bytes; the bf16 cases must run the Hopper body
-3. parity       a reduced Llama (fp32, TF32 off) served on cuda and on
-                cpu with the same weights and arrival schedule, and run
-                through Predictor.generate with static and paged caches
-                (ragged rows, an EOS): every token stream must be equal,
-                across devices and between the two caches; a
-                FusedMultiTransformer prefill and 3 decode steps, cuda
-                against cpu, within 1e-4
+3. parity       a reduced Llama (fp32, TF32 off) served on cuda, graphed
+                and eager, and on cpu with the same weights and arrival
+                schedule, and run through Predictor.generate with static
+                and paged caches (ragged rows, an EOS), graphed and eager:
+                every token stream must be equal, across devices, between
+                the two caches and between graphed and eager (with equal
+                launch counts); top-k/top-p sampling from one seed,
+                graphed against eager, equal; a FusedMultiTransformer
+                prefill and 3 decode steps, cuda against cpu, within 1e-4
 4. serve        Llama-7B widths (32 layers, bf16, random weights from a
-                seed) through ServingEngine: 16 greedy requests, 8 of them
-                arriving mid-run; K3, K4 and K5 must launch on this path.
+                seed) through one ServingEngine: a warmup that captures
+                the unified and decode rounds' CUDA graphs, then 16
+                greedy requests, 8 of them arriving mid-run, four times:
+                eager, graphed, graphed, eager. Equal tokens in all four,
+                launches of K3, K4 and K5 exactly as the rounds imply,
+                every graphed round a replay, one graph per shape key.
                 Then one unified round holding both prefill chunks and
-                decode rows, and one decode round, of a second short serve
-                with every layer's K4 and K5 call watched: each output
-                against the plain version on the engine's own q, pools,
-                tables, starts and lengths, per tile, 2e-2
+                decode rows, and one decode round, of a second short
+                eager serve with every layer's K4 and K5 call watched:
+                each output against the plain version on the engine's
+                own q, pools, tables, starts and lengths, per tile, 2e-2
 5. generate     the same model through Predictor.generate: 8 ragged
                 prompts of 128..1024 tokens, 128 greedy new tokens with
                 the static cache (K6), then with enable_paged_kv(64) (K5);
+                an untimed graphed call captures the decode graph, then
+                four measured calls, eager, graphed, graphed, eager:
                 prefill and per-token decode ms, tokens/s, peak memory,
-                and exact launch counts of K6, K5 and K3; then a paged
-                generation of 2 tokens with every layer's K5 call (the
-                prefill and a decode step) held against the plain
-                version per tile, 2e-2
+                exact launch counts of K6, K5 and K3, every graphed
+                decode step a replay, graphed-eager token agreement; then
+                an eager paged generation of 2 tokens with every layer's
+                K5 call (the prefill and a decode step) held against the
+                plain version per tile, 2e-2
 6. train-parity the reduced Llama trains 3 steps on cuda and on cpu from
                 the same weights and batch: losses and global grad norms
                 within 1e-4 relative
@@ -64,19 +73,21 @@ The line before the last is {"kernels": [...]}; the last line is
 
 Developer options (the plain run uses none of them): ``--phases`` runs a
 subset, ``--layers`` cuts the 7B-width serving and generate runs' depth,
-and ``--profile`` serves the schedule once more, runs 16 more decode steps
-of each generate run and two more train steps under torch.profiler, and
-prints the device's busy share of those profiled runs and their time by
-kernel.
+and ``--profile`` serves the schedule once more (graphed), runs 16 more
+graphed decode steps of each generate run and two more train steps under
+torch.profiler, and prints the device's busy share of those profiled runs
+and their time by kernel.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -578,16 +589,25 @@ def check_decode(dev, results):
 
 
 # -- phases 3 and 4: serving ---------------------------------------------------
-def serve(model, schedule, page, max_length, **engine_kw):
-    """Run ``schedule`` = (first prompts, later prompts, steps before the
-    later ones arrive, max_new_tokens) through a fresh engine."""
+def make_engine(model, page, max_length, **engine_kw):
     from paddle_tpu_torch.inference import (Config, ServingEngine,
                                             create_predictor)
 
-    first, later, after, n_new = schedule
     conf = Config().set_model(model).enable_paged_kv(page)
     conf.max_length = max_length
-    eng = ServingEngine(create_predictor(conf), **engine_kw)
+    return ServingEngine(create_predictor(conf), **engine_kw)
+
+
+def serve(eng, schedule):
+    """Run ``schedule`` = (first prompts, later prompts, steps before the
+    later ones arrive, max_new_tokens) through the engine ``eng`` (which
+    may have served before). Returns the requests, the wall seconds, and
+    the rounds, graph replays and kernel launches of this run."""
+    from paddle_tpu_torch.ops import kernels
+
+    first, later, after, n_new = schedule
+    rounds0, replays0 = Counter(eng.rounds), Counter(eng.stats.replays)
+    launches0 = kernels.launch_counts()
     t0 = time.perf_counter()
     rids = [eng.submit(p, max_new_tokens=n_new) for p in first]
     for _ in range(after):
@@ -596,7 +616,34 @@ def serve(model, schedule, page, max_length, **engine_kw):
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return eng, [done[r] for r in rids], wall
+    launches = {f.__name__: n - launches0[f]
+                for f, n in kernels.launch_counts().items()
+                if n != launches0[f]}
+    return ([done[r] for r in rids], wall, eng.rounds - rounds0,
+            eng.stats.replays - replays0, launches)
+
+
+def mode_ctx(mode):
+    """The context a measured run's mode asks for: eager() runs every
+    step body without its graph; "graphed" is the default."""
+    from paddle_tpu_torch.core.cuda_graphs import eager
+
+    return eager() if mode == "eager" else contextlib.nullcontext()
+
+
+def graphs_summary(stats):
+    """Graphs captured, capture seconds, the memory their captures
+    reserved and replays by site, and the check that each graphed site
+    holds one graph per shape key it saw."""
+    sites = sorted(stats.captures)
+    for site in sites:
+        if stats.captures[site] != stats.keys(site):
+            raise AssertionError(f"{site}: {stats.captures[site]} graphs "
+                                 f"for {stats.keys(site)} shape keys")
+    return {site: dict(graphs=stats.captures[site],
+                       capture_s=stats.capture_s[site],
+                       pool_mib=stats.capture_bytes[site] / 2**20,
+                       replays=stats.replays[site]) for site in sites}
 
 
 def prompts(seed, lens, vocab):
@@ -618,17 +665,31 @@ def phase_parity():
     sched = (prompts(7, [40, 200, 130], 4096), prompts(8, [7, 300, 64], 4096),
              3, 10)
     kw = dict(page=64, max_length=1024, max_batch=4, prefill_chunk=128)
-    e_cpu, r_cpu, _ = serve(cpu, sched, **kw)
-    e_gpu, r_gpu, _ = serve(gpu, sched, **kw)
-    a = [list(r.new_tokens) for r in r_cpu]
-    b = [list(r.new_tokens) for r in r_gpu]
-    log(f"[parity] tf32 off; rounds cpu {dict(e_cpu.rounds)} "
-        f"cuda {dict(e_gpu.rounds)}")
-    log(f"[parity] cuda streams {b}")
-    if a != b:
-        raise AssertionError(f"cuda and cpu token streams differ:\ncpu  {a}"
-                             f"\ncuda {b}")
-    log("[parity] cuda == cpu token streams: OK")
+    runs, counts = {}, {}
+    for dev, model, mode in (("cpu", cpu, "eager"), ("cuda", gpu, "graphed"),
+                             ("cuda", gpu, "eager")):
+        eng = make_engine(model, **kw)
+        with mode_ctx(mode):
+            reqs, _, rounds, replays, launches = serve(eng, sched)
+        runs[dev, mode] = [list(r.new_tokens) for r in reqs]
+        counts[dev, mode] = launches
+        log(f"[parity] serve {dev} {mode}: rounds {dict(rounds)}, graph "
+            f"replays {dict(replays)}, graphs "
+            f"{json.dumps(graphs_summary(eng.stats))}, launches {launches}")
+        if mode == "graphed" and not (replays["unified"] > 0
+                                      and replays["serve_decode"] > 0):
+            raise AssertionError("the graphed serve replayed no graph")
+    a, b, c = runs["cpu", "eager"], runs["cuda", "graphed"], \
+        runs["cuda", "eager"]
+    log(f"[parity] tf32 off; cuda graphed streams {b}")
+    if not a == b == c:
+        raise AssertionError(f"token streams differ:\ncpu  {a}\ncuda "
+                             f"graphed {b}\ncuda eager {c}")
+    if counts["cuda", "graphed"] != counts["cuda", "eager"]:
+        raise AssertionError(f"graphed and eager serve launch counts "
+                             f"differ: {counts}")
+    log("[parity] serve: cuda graphed == cuda eager == cpu token streams, "
+        "equal launch counts: OK")
     generate_parity(cpu, gpu)
     fused_transformer_parity()
 
@@ -644,25 +705,59 @@ def generate_parity(cpu, gpu):
     for b, p in enumerate(prompts(9, lens, 4096)):
         ids[b, :len(p)] = p
 
-    def run(model, page, **kw):
+    from paddle_tpu_torch.ops import kernels
+
+    def run(model, page, mode="graphed", **kw):
         conf = Config().set_model(model)
         if page:
             conf.enable_paged_kv(page)
-        return create_predictor(conf).generate(
-            ids, max_new_tokens=12, lengths=lens, **kw).cpu().numpy()
+        pred = create_predictor(conf)
+        n0 = kernels.launch_counts()
+        with mode_ctx(mode):
+            out = pred.generate(ids, max_new_tokens=12, lengths=lens,
+                                **kw).cpu().numpy()
+        n = {f.__name__: c - n0[f] for f, c in kernels.launch_counts().items()
+             if c != n0[f]}
+        if model is gpu and mode == "graphed" and \
+                pred.stats.replays["decode"] != 10:
+            raise AssertionError(f"graphed generate replayed "
+                                 f"{pred.stats.replays['decode']} of 10 "
+                                 "decode steps")
+        return out, n
 
-    eos = int(run(cpu, None)[1, -9])    # row 1 stops at its 4th new token
-    outs = {(dev, page): run(m, page, eos_token_id=eos)
-            for dev, m in (("cpu", cpu), ("cuda", gpu))
-            for page in (None, 64)}
-    log(f"[parity] generate (eos {eos}) cuda static new tokens "
-        f"{outs['cuda', None][:, -12:].tolist()}")
-    first = outs["cpu", None]
+    eos = int(run(cpu, None)[0][1, -9])   # row 1 stops at its 4th new token
+    outs, counts = {}, {}
+    for dev, m in (("cpu", cpu), ("cuda", gpu)):
+        for page in (None, 64):
+            for mode in (("graphed", "eager") if dev == "cuda"
+                         else ("eager",)):
+                outs[dev, page, mode], counts[dev, page, mode] = run(
+                    m, page, mode, eos_token_id=eos)
+    log(f"[parity] generate (eos {eos}) cuda static graphed new tokens "
+        f"{outs['cuda', None, 'graphed'][:, -12:].tolist()}")
+    first = outs["cpu", None, "eager"]
     if not all(np.array_equal(first, o) for o in outs.values()):
         raise AssertionError(f"generate streams differ: {outs}")
     if list(first[1, -9:]) != [eos] * 9:
         raise AssertionError("the EOS row did not freeze")
-    log("[parity] Predictor.generate static == paged, cuda == cpu: OK")
+    for page in (None, 64):
+        if counts["cuda", page, "graphed"] != counts["cuda", page, "eager"]:
+            raise AssertionError(f"generate launches differ: {counts}")
+    log("[parity] Predictor.generate static == paged, cuda graphed == cuda "
+        f"eager == cpu, equal launch counts {counts['cuda', None, 'eager']}"
+        f" / {counts['cuda', 64, 'eager']}: OK")
+    # top-k / top-p sampling from one seed: graphed and eager draw the
+    # same numbers (the graphs advance the generator as the eager steps)
+    for page in (None, 64):
+        kw = dict(temperature=0.8, top_k=50, top_p=0.9, seed=3)
+        g, _ = run(gpu, page, "graphed", **kw)
+        e, _ = run(gpu, page, "eager", **kw)
+        if not np.array_equal(g, e):
+            raise AssertionError(f"sampled generate (page {page}): graphed "
+                                 f"{g[:, -12:].tolist()} != eager "
+                                 f"{e[:, -12:].tolist()}")
+    log("[parity] sampled generate (temperature 0.8, top-k 50, top-p 0.9, "
+        "seed 3), static and paged: cuda graphed == cuda eager: OK")
 
 
 def fused_transformer_parity():
@@ -707,46 +802,77 @@ def build_7b(layers):
 
 
 def phase_serve(model, counters, profile=False):
+    """The 7B-width serve: one engine, warmed up (its unified and decode
+    graphs are captured there), then the measured schedule four times,
+    eager, graphed, graphed, eager. Every run must commit the same tokens
+    and launch exactly the kernels its rounds imply; graphed runs replay
+    every round. Returns the launches of a graphed run."""
     cfg = model.config
-    layers = cfg.num_layers
+    L = cfg.num_layers
     kw = dict(page=64, max_length=2048, max_batch=8, prefill_chunk=256,
               prefill_token_budget=256)
-    # warmup (not measured): first cuBLAS handles, allocator growth
-    serve(model, (prompts(0, [64], cfg.vocab_size), [], 0, 4), **kw)
+    eng = make_engine(model, **kw)
+    # warmup (not measured): first cuBLAS handles, allocator growth, the
+    # unified and decode rounds' graph captures
+    serve(eng, (prompts(0, [64], cfg.vocab_size), [], 0, 4))
     lens = np.random.RandomState(11).randint(64, 1537, 16)
     sched = (prompts(12, lens[:8], cfg.vocab_size),
              prompts(13, lens[8:], cfg.vocab_size), 4, 32)
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    eng, reqs, wall = serve(model, sched, **kw)
-    launches = {c.__name__: c.launches for c in counters}
-    n_tok = sum(len(r.new_tokens) for r in reqs)
-    ttft = [1e3 * (r.t_first_token - r.t_submit) for r in reqs]
-    tpot = [1e3 * (r.t_finish - r.t_first_token) / (len(r.new_tokens) - 1)
-            for r in reqs]
-    for r in reqs:
-        if len(r.new_tokens) != 32 or not all(
-                0 <= t < cfg.vocab_size for t in r.new_tokens):
-            raise AssertionError(f"request {r.rid}: bad output "
-                                 f"{r.new_tokens}")
-    summary = dict(
-        layers=layers, requests=len(reqs), prompt_lens=[int(x) for x in lens],
-        new_tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
-        ttft_ms_p50=float(np.percentile(ttft, 50)),
-        ttft_ms_p99=float(np.percentile(ttft, 99)),
-        tpot_ms_p50=float(np.percentile(tpot, 50)),
-        rounds=dict(eng.rounds), pool_pages=eng.P,
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-        launches=launches)
-    log("[serve] " + json.dumps(summary))
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+    runs = []
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        with mode_ctx(mode):
+            reqs, wall, rounds, replays, _ = serve(eng, sched)
+        launches = {c.__name__: c.launches for c in counters}
+        n_tok = sum(len(r.new_tokens) for r in reqs)
+        ttft = [1e3 * (r.t_first_token - r.t_submit) for r in reqs]
+        tpot = [1e3 * (r.t_finish - r.t_first_token)
+                / (len(r.new_tokens) - 1) for r in reqs]
+        for r in reqs:
+            if len(r.new_tokens) != 32 or not all(
+                    0 <= t < cfg.vocab_size for t in r.new_tokens):
+                raise AssertionError(f"request {r.rid}: bad output "
+                                     f"{r.new_tokens}")
+        summary = dict(
+            mode=mode, layers=L, requests=len(reqs),
+            prompt_lens=[int(x) for x in lens], new_tokens=n_tok,
+            wall_s=wall, tokens_per_s=n_tok / wall,
+            ttft_ms_p50=float(np.percentile(ttft, 50)),
+            ttft_ms_p99=float(np.percentile(ttft, 99)),
+            tpot_ms_p50=float(np.percentile(tpot, 50)),
+            rounds=dict(rounds), graph_replays=dict(replays),
+            pool_pages=eng.P,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            launches=launches)
+        log("[serve] " + json.dumps(summary))
+        # what the rounds imply: K4 once a layer a unified round, K5 once
+        # a layer a decode step, K3 twice a layer and once at the end
+        steps = rounds["unified"] + eng.chunk * rounds["decode"]
+        want = {"rms_norm": (2 * L + 1) * steps,
+                "ragged_paged_attention": L * rounds["unified"],
+                "paged_decode_attention": L * eng.chunk * rounds["decode"]}
+        if launches != want:
+            raise AssertionError(f"{mode} serve launched {launches}, its "
+                                 f"rounds {dict(rounds)} imply {want}")
+        want_replays = ({"unified": rounds["unified"],
+                         "serve_decode": rounds["decode"]}
+                        if mode == "graphed" else {})
+        if dict(replays) != want_replays:
+            raise AssertionError(f"{mode} serve replayed {dict(replays)}, "
+                                 f"expected {want_replays}")
+        runs.append((mode, [list(r.new_tokens) for r in reqs], launches))
+    log("[serve] graphs: " + json.dumps(graphs_summary(eng.stats)))
+    if any(toks != runs[0][1] or n != runs[0][2] for _, toks, n in runs):
+        raise AssertionError("serve runs differ in tokens or launches: "
+                             + "; ".join(f"{m}: {n}" for m, _, n in runs))
+    log("[serve] eager, graphed, graphed, eager: equal token streams and "
+        f"launches {runs[0][2]}: OK")
     check_serve_attention(model, kw)
     if profile:
-        profile_serve(model, sched, kw)
-    return launches
+        profile_serve(eng, sched)
+    return runs[1][2]
 
 
 def check_serve_attention(model, kw):
@@ -758,9 +884,10 @@ def check_serve_attention(model, kw):
     pools, tables, starts and lengths (the engine's own, read before the
     next layer writes its pool), per tile of 64 slots of one (batch row,
     head) as in the kernels phase, 2e-2; dead slots must be exactly 0.
-    Runs after the serve path's launches were read, so its launches are
-    not counted."""
+    Runs eagerly (every call seen), after the serve path's launches were
+    read, so its launches are not counted."""
     import paddle_tpu_torch.models.llama as llama
+    from paddle_tpu_torch.core.cuda_graphs import eager
     from paddle_tpu_torch.ops.kernels import decode_attention as K5
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as K4
 
@@ -814,7 +941,8 @@ def check_serve_attention(model, kw):
     llama.ragged_paged_attention = watched_k4
     llama.paged_decode_attention = watched_k5
     try:
-        serve(model, sched, **kw)
+        with eager():
+            serve(make_engine(model, **kw), sched)
     finally:
         llama.ragged_paged_attention = k4
         llama.paged_decode_attention = k5
@@ -842,19 +970,24 @@ def _ragged_prompts(vocab):
 
 def phase_generate(model, paths, profile=False, n_new=128):
     """Predictor.generate over the 7B-width model: the same ragged prompts
-    with the static cache (K6), then with enable_paged_kv(64) (K5)."""
+    with the static cache (K6), then with enable_paged_kv(64) (K5). For
+    each, one untimed graphed call (its decode graph is captured there),
+    then four measured calls, eager, graphed, graphed, eager."""
     from paddle_tpu_torch.inference import Config, create_predictor
 
     cfg = model.config
     ids, lens = _ragged_prompts(cfg.vocab_size)
     launches, outs, first_logits = {}, {}, {}
+    want = {"rms_norm": (2 * cfg.num_layers + 1) * n_new,
+            "decode_attention": cfg.num_layers * n_new,
+            "paged_decode_attention": cfg.num_layers * n_new}
     for label, page in (("static", None), ("paged", 64)):
         conf = Config().set_model(model)
         conf.max_length = 2048
         if page:
             conf.enable_paged_kv(page)
         pred = create_predictor(conf)
-        pred.generate(ids[:, :16], max_new_tokens=4).cpu()   # warmup
+        pred.generate(ids, max_new_tokens=n_new, lengths=lens).cpu()
         counters = paths[f"generate_{label}"]
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         prefill = pred._prefill_step
@@ -863,42 +996,56 @@ def phase_generate(model, paths, profile=False, n_new=128):
             ev[0].record()
             out = prefill(*a)
             ev[1].record()
-            first_logits[label] = out[0]
+            first_logits.setdefault(label, out[0])
             return out
 
         pred._prefill_step = timed_prefill
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for c in counters:
-            c.launches = 0
-        t0 = time.perf_counter()
-        out = pred.generate(ids, max_new_tokens=n_new, lengths=lens)
-        ev[2].record()
-        toks = out.cpu().numpy()            # the readback ends the wall
-        wall = time.perf_counter() - t0
-        launches[label] = {c.__name__: c.launches for c in counters}
+        runs = {}
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters:
+                c.launches = 0
+            replays0 = pred.stats.replays["decode"]
+            t0 = time.perf_counter()
+            with mode_ctx(mode):
+                out = pred.generate(ids, max_new_tokens=n_new, lengths=lens)
+            ev[2].record()
+            toks = out.cpu().numpy()            # the readback ends the wall
+            wall = time.perf_counter() - t0
+            n = {c.__name__: c.launches for c in counters}
+            replays = pred.stats.replays["decode"] - replays0
+            new = toks[:, ids.shape[1]:]
+            summary = dict(
+                cache=label, mode=mode, layers=cfg.num_layers,
+                prompt_lens=lens.tolist(), new_tokens=int(new.size),
+                wall_s=wall, tokens_per_s=new.size / wall,
+                prefill_ms=ev[0].elapsed_time(ev[1]),
+                decode_ms_per_token=ev[1].elapsed_time(ev[2]) / (n_new - 1),
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                decode_replays=replays, launches=n)
+            log("[generate] " + json.dumps(summary))
+            if new.shape != (8, n_new) or not ((new >= 0)
+                                               & (new < cfg.vocab_size)).all():
+                raise AssertionError(f"bad generate output {new.shape}")
+            for name, k in n.items():
+                if k != want[name]:
+                    raise AssertionError(f"{label} {mode}: {name} launched "
+                                         f"{k} times, expected {want[name]}")
+            if replays != (n_new - 1 if mode == "graphed" else 0):
+                raise AssertionError(f"{label} {mode}: {replays} decode "
+                                     f"replays of {n_new - 1} steps")
+            if mode in runs and not np.array_equal(runs[mode], new):
+                raise AssertionError(f"{label}: two {mode} runs differ")
+            runs[mode] = new
+            launches[label] = n
         del pred._prefill_step
-        new = toks[:, ids.shape[1]:]
-        outs[label] = new
-        summary = dict(
-            cache=label, layers=cfg.num_layers, prompt_lens=lens.tolist(),
-            new_tokens=int(new.size), wall_s=wall,
-            tokens_per_s=new.size / wall,
-            prefill_ms=ev[0].elapsed_time(ev[1]),
-            decode_ms_per_token=ev[1].elapsed_time(ev[2]) / (n_new - 1),
-            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-            stats=repr(pred.stats), launches=launches[label])
-        log("[generate] " + json.dumps(summary))
-        if new.shape != (8, n_new) or not ((new >= 0)
-                                           & (new < cfg.vocab_size)).all():
-            raise AssertionError(f"bad generate output {new.shape}")
-        want = {"rms_norm": (2 * cfg.num_layers + 1) * n_new,
-                "decode_attention": cfg.num_layers * n_new,
-                "paged_decode_attention": cfg.num_layers * n_new}
-        for name, n in launches[label].items():
-            if n != want[name]:
-                raise AssertionError(f"{label}: {name} launched {n} times, "
-                                     f"expected {want[name]}")
+        log(f"[generate] {label}: {pred.stats!r}, graphs "
+            + json.dumps(graphs_summary(pred.stats)))
+        same = runs["graphed"] == runs["eager"]
+        log(f"[generate] {label}: graphed and eager agree on "
+            f"{int(same.sum())} of {same.size} new tokens (bf16)")
+        outs[label] = runs["graphed"]
         if profile:
             profile_decode(pred, ids, lens, label)
         del pred, out
@@ -925,8 +1072,10 @@ def check_generate_attention(model, ids, lens):
     layer's K5 call watched: the 1024-slot prefill and the first decode
     step, each output held against the plain version on the same q, pool,
     tables and lengths, per tile of 64 slots of one (row, head), 2e-2.
-    Runs after the generate path's launches were read."""
+    Runs eagerly (every call seen), after the generate path's launches
+    were read."""
     import paddle_tpu_torch.models.llama as llama
+    from paddle_tpu_torch.core.cuda_graphs import eager
     from paddle_tpu_torch.inference import Config, create_predictor
     from paddle_tpu_torch.ops.kernels import decode_attention as K5
 
@@ -946,7 +1095,9 @@ def check_generate_attention(model, ids, lens):
     conf.enable_paged_kv(64)
     llama.paged_decode_attention = watched
     try:
-        create_predictor(conf).generate(ids, max_new_tokens=2, lengths=lens)
+        with eager():
+            create_predictor(conf).generate(ids, max_new_tokens=2,
+                                            lengths=lens)
     finally:
         llama.paged_decode_attention = k5
     L, tol = model.config.num_layers, TOL[torch.bfloat16]
@@ -959,34 +1110,40 @@ def check_generate_attention(model, ids, lens):
 
 
 def profile_decode(pred, ids, lens, label, steps=16):
-    """A prefill, then ``steps`` decode steps under torch.profiler: the
-    device's busy share of the profiled wall and the device time of one
-    decode step by kernel group."""
+    """``steps`` graphed decode steps under torch.profiler: one generate
+    call of steps + 1 tokens captures its key's graph, a second runs its
+    decode loop (replays only) under the profiler. Prints the device's
+    busy share of the profiled wall and the device time of one decode
+    step by kernel group."""
     from torch.profiler import ProfilerActivity, profile
 
-    from paddle_tpu_torch.inference import GenerationConfig, _sample
+    decode_loop = pred._decode_loop
+    seen = {}
 
-    dev = pred.device
-    M = pred.config.max_length
-    page = pred.config._kv_page_size
-    caches = (pred._paged_caches(lens, steps + 1, M, page, pred.dtype)[0]
-              if page else pred._model._empty_caches(8, M))
-    last, caches = pred._prefill_step(
-        torch.tensor(ids, device=dev), caches,
-        torch.tensor(lens, dtype=torch.int32, device=dev))
-    gen = GenerationConfig()
-    tok0 = _sample(last, gen)
-    pos0 = torch.tensor(lens, dtype=torch.int32, device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pred._decode_loop(tok0, caches, pos0, steps, gen, None)
+    def profiled(*a, **kw):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    log(f"[profile:generate_{label}] {steps} decode steps, "
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = decode_loop(*a, **kw)
+            torch.cuda.synchronize()
+            seen["wall"] = time.perf_counter() - t0
+        seen["prof"] = prof
+        return out
+
+    pred.generate(ids, max_new_tokens=steps + 1, lengths=lens)
+    replays0 = pred.stats.replays["decode"]
+    pred._decode_loop = profiled
+    try:
+        pred.generate(ids, max_new_tokens=steps + 1, lengths=lens)
+    finally:
+        del pred._decode_loop
+    if pred.stats.replays["decode"] - replays0 != steps:
+        raise AssertionError("the profiled decode steps were not replays")
+    wall = seen["wall"]
+    log(f"[profile:generate_{label}] {steps} graphed decode steps, "
         f"{wall * 1e3 / steps:.2f} ms a step on the host clock")
-    _log_profile(prof, wall, f"generate_{label}", per=steps)
+    _log_profile(seen["prof"], wall, f"generate_{label}", per=steps)
 
 
 # -- phases 6 and 7: training ---------------------------------------------
@@ -1226,15 +1383,16 @@ def _log_profile(prof, wall, tag, per=1):
             f"{e.count:7d} calls  {e.key[:90]}")
 
 
-def profile_serve(model, sched, kw):
-    """The same schedule again under torch.profiler: device time by
-    kernel name and the device's busy share of the wall (one stream, so
-    kernel times add up without overlap)."""
+def profile_serve(eng, sched):
+    """The same schedule again on the warmed engine, graphed, under
+    torch.profiler: device time by kernel name and the device's busy
+    share of the wall (one stream, so kernel times add up without
+    overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, wall = serve(model, sched, **kw)
+        wall = serve(eng, sched)[1]
     _log_profile(prof, wall, "serve")
 
 

@@ -16,10 +16,17 @@ dtype, generation defaults), ``create_predictor``, ``_sample``, and the
   from a pool bucketed to a power of two with one trash page, and
   attends through K5.
 
-Where JAX ran the token loop as one compiled ``lax.scan``, the port runs
-an eager Python loop; like the scan it makes no host round-trip per
-token (the EOS ``done`` mask and per-row positions stay on the device),
-and ``stats`` notes each launch site's shape. The predictor serves on
+Where JAX ran the token loop as one ``lax.scan`` jitted per decode key
+with the caches donated, the port runs one ``[B, 1]`` step body over
+static buffers (token, positions, EOS ``done`` mask, output), captured
+as a CUDA graph once per decode key and replayed once per token
+(``core/cuda_graphs.py``; the body runs eagerly on the CPU). Nothing in
+the loop waits for the device. The prefill stays eager. The caches and
+the page table belong to their ``(B, M, page, P, dtype)`` key: the first
+call allocates them zeroed, later calls with the key reuse them as they
+are, which is exact because every position a row attends is written
+first in the same call (see ``generate``). ``stats`` notes each launch
+site's shape and counts captures and replays. The predictor serves on
 its model's device: caches, pools, tables and the sampling generator
 live there too.
 
@@ -30,6 +37,7 @@ factory, and int8/int4 weight-only serving.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Any, List, Optional
 
 import numpy as np
@@ -37,6 +45,7 @@ import torch
 
 from ..core.bucketing import bucket as _bucket
 from ..core.compile_stats import CompileStats
+from ..core.cuda_graphs import StepGraphs
 from ..core.enforce import enforce
 
 __all__ = ["Config", "Predictor", "create_predictor", "GenerationConfig",
@@ -50,7 +59,11 @@ def _sample(logits: torch.Tensor, gen: "GenerationConfig",
     """Greedy / temperature / top-k / top-p sampling of [B, V] logits.
     Greedy is the float32 argmax (first index on ties, as jnp.argmax);
     the stochastic modes draw from ``generator``, which must live on the
-    logits' device."""
+    logits' device. The draw is ``torch.multinomial``'s own one-sample
+    form, argmax(p / q) with q ~ Exp(1), written out: the same numbers
+    from the same generator, without multinomial's checks of its input,
+    which read values back to the host and so cannot be captured in a
+    CUDA graph."""
     lg = logits.float()
     if gen.temperature and gen.temperature > 0:
         lg = lg / gen.temperature
@@ -65,7 +78,8 @@ def _sample(logits: torch.Tensor, gen: "GenerationConfig",
             cutoff = torch.gather(srt, -1, cutoff_idx)
             lg = torch.where(lg < cutoff, torch.full_like(lg, -1e30), lg)
         probs = torch.softmax(lg, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        q = torch.empty_like(probs).exponential_(1, generator=generator)
+        return torch.argmax(probs / q, dim=-1)
     return torch.argmax(lg, dim=-1)
 
 
@@ -145,6 +159,11 @@ class Predictor:
         self._model.eval()
         self._params = list(self._model.parameters())
         self.stats = CompileStats()
+        self._graphs = StepGraphs(self.device, self.stats)
+        # (B, M, page, P, dtype) -> the key's caches, reused across calls
+        self._caches = {}
+        # re-seeded per generate call; the decode graphs read its state
+        self._generator = torch.Generator(device=self.device)
 
     @property
     def device(self) -> torch.device:
@@ -190,34 +209,81 @@ class Predictor:
         return last, caches
 
     @torch.no_grad()
-    def _decode_loop(self, tok0, caches, pos0, n: int,
-                     gen: GenerationConfig, generator) -> torch.Tensor:
-        """``n`` [B, 1] decode steps from tok0 at positions pos0 (an int,
-        or a [B] tensor for ragged rows); returns the new tokens [B, n].
-        With ``eos_token_id`` each row freezes at its eos: every later
-        token of the row is eos. Nothing here waits for the device."""
+    def _decode_loop(self, key, tok0, caches, pos0, n: int,
+                     gen: GenerationConfig) -> torch.Tensor:
+        """``n`` [B, 1] decode steps from tok0 at positions pos0 (int32
+        [B]); returns the new tokens [B, n] (the key's output buffer,
+        which the next call with ``key`` overwrites). With
+        ``eos_token_id`` each row freezes at its eos: every later token
+        of the row is eos. One step body over the key's static buffers,
+        a CUDA graph per decode ``key`` on a card, drawing from the
+        predictor's generator; nothing here waits for the device."""
+        B = tok0.shape[0]
         eos = gen.eos_token_id
-        done = tok0 == eos if eos is not None else None
-        tok, pos, out = tok0, pos0, []
-        for _ in range(n):
-            logits, caches = self._model(tok[:, None], caches=caches,
-                                         offset=pos)
+        model, generator = self._model, self._generator
+
+        def make():
+            kw = {"device": tok0.device}
+            return SimpleNamespace(
+                tok=torch.zeros(B, dtype=torch.int64, **kw),
+                pos=torch.zeros(B, dtype=torch.int32, **kw),
+                done=torch.zeros(B, dtype=torch.bool, **kw),
+                col=torch.zeros(1, dtype=torch.int64, **kw),
+                out=torch.zeros(B, n, dtype=torch.int64, **kw))
+
+        def body(s):
+            logits, _ = model(s.tok[:, None], caches=caches, offset=s.pos)
             tok = _sample(logits[:, -1], gen, generator)
             if eos is not None:
-                tok = torch.where(done, torch.full_like(tok, eos), tok)
-                done = done | (tok == eos)
-            out.append(tok)
-            pos = pos + 1
-        return torch.stack(out, dim=1)
+                tok = torch.where(s.done, torch.full_like(tok, eos), tok)
+                s.done |= tok == eos
+            s.tok.copy_(tok)
+            s.out.index_copy_(1, s.col, tok[:, None])
+            s.pos.add_(1)
+            s.col.add_(1)
+
+        st = self._graphs.buffers("decode", key, make)
+        st.tok.copy_(tok0)
+        st.pos.copy_(pos0)
+        st.col.zero_()
+        if eos is not None:
+            torch.eq(tok0, eos, out=st.done)
+        for _ in range(n):
+            self._graphs.step("decode", key, body, generator)
+        return st.out
+
+    def _key_caches(self, B, M, page, P, dtype):
+        """The caches of one (B, M, page, P, dtype) key: allocated zeroed
+        on the key's first use, then the same tensors, NOT zeroed, for
+        every later call with the key (a decode graph reads the
+        addresses it was captured on). Paged: one pool pair per layer
+        and one [B, npages] table that every layer shares (the port has
+        no donation to keep apart)."""
+        key = (B, M, page, P, str(dtype))
+        caches = self._caches.get(key)
+        if caches is None:
+            cfg = self._model.config
+            if not page:
+                caches = self._model._empty_caches(B, M, dtype)
+            else:
+                shape = (P, cfg.num_kv_heads, page, cfg.head_dim)
+                kw = {"device": self.device, "dtype": dtype}
+                tbl = torch.zeros((B, -(-M // page)), dtype=torch.int32,
+                                  device=self.device)
+                caches = [(torch.zeros(shape, **kw),
+                           torch.zeros(shape, **kw), tbl)
+                          for _ in range(cfg.num_layers)]
+            self._caches[key] = caches
+        return caches
 
     def _paged_caches(self, lengths, n_new, M, page, dtype):
         """Per-row physical pages for len + n_new tokens from a pool of P
         pages, P = bucket(sum(need) + 1) on the power-of-two lattice (as
         the JAX predictor sizes it, so both pick the same tables). Logical
         pages a row does not own map to the trash page P - 1, where
-        prefill's right-pad writes land unattended. One table serves
-        every layer (the port has no donation to keep apart)."""
-        cfg = self._model.config
+        prefill's right-pad writes land unattended. Returns the key's
+        caches (``_key_caches``) with this table written into them, and
+        P."""
         B = len(lengths)
         npages = -(-M // page)
         need = [-(-(int(n) + n_new) // page) for n in lengths]
@@ -227,11 +293,9 @@ class Predictor:
         for b, nb in enumerate(need):
             table[b, :nb] = np.arange(nxt, nxt + nb)
             nxt += nb
-        shape = (P, cfg.num_kv_heads, page, cfg.head_dim)
-        kw = {"device": self.device, "dtype": dtype}
-        tbl = torch.from_numpy(table).to(self.device)
-        return [(torch.zeros(shape, **kw), torch.zeros(shape, **kw), tbl)
-                for _ in range(cfg.num_layers)], P
+        caches = self._key_caches(B, M, page, P, dtype)
+        caches[0][2].copy_(torch.from_numpy(table))
+        return caches, P
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: Optional[int] = None,
@@ -242,7 +306,14 @@ class Predictor:
         (their own rope positions, cache slots and attention frontiers),
         stopping per row at ``eos_token_id`` when set (later slots are
         eos). ``overrides`` replace fields of the config's
-        ``GenerationConfig``."""
+        ``GenerationConfig``.
+
+        The key's caches are reused without zeroing. That is exact: the
+        prefill writes every slot 0..Sb-1 of its rows (or, paged, of the
+        pages it maps; unowned ones map to the trash page), and each
+        decode step writes its row's slot before attending to it, so no
+        slot a row attends holds an earlier call's values; slots past a
+        row's frontier are masked to an exact zero weight."""
         gen = GenerationConfig(**{
             **self.config.generation.__dict__,
             **({"max_new_tokens": max_new_tokens}
@@ -267,27 +338,25 @@ class Predictor:
             caches, P = self._paged_caches(lengths, n_new, M, page,
                                            self.dtype)
         else:
-            caches, P = self._model._empty_caches(B, M, self.dtype), 0
+            caches, P = self._key_caches(B, M, None, 0, self.dtype), 0
         ids_p = np.zeros((B, Sb), np.int64)
         ids_p[:, :S0] = ids
         dev = self.device
+        lengths_t = torch.from_numpy(lengths).to(dev)
         self.stats.note("prefill", (B, Sb, M, page, P, str(self.dtype)))
         last, caches = self._prefill_step(
-            torch.from_numpy(ids_p).to(dev), caches,
-            torch.from_numpy(lengths).to(dev))
-        generator = torch.Generator(device=dev).manual_seed(int(gen.seed))
+            torch.from_numpy(ids_p).to(dev), caches, lengths_t)
+        self._generator.manual_seed(int(gen.seed))
         self.stats.count_tokens(("generate", B, Sb, P), B * n_new)
-        new = [_sample(last, gen, generator)[:, None]]
+        new = [_sample(last, gen, self._generator)[:, None]]
         if n_new > 1:
-            self.stats.note("decode", (B, M, n_new - 1, gen.temperature,
-                                       gen.top_k, gen.top_p,
-                                       gen.eos_token_id, ragged, page, P,
-                                       str(self.dtype)))
-            # ragged rows advance from their own true lengths
-            pos0 = torch.from_numpy(lengths).to(dev) if ragged \
-                else int(lengths.max())
-            new.append(self._decode_loop(new[0][:, 0], caches, pos0,
-                                         n_new - 1, gen, generator))
+            key = (B, M, n_new - 1, gen.temperature, gen.top_k, gen.top_p,
+                   gen.eos_token_id, ragged, page, P, str(self.dtype))
+            self.stats.note("decode", key)
+            # every row advances from its own true length (all equal
+            # when the batch is not ragged)
+            new.append(self._decode_loop(key, new[0][:, 0], caches,
+                                         lengths_t, n_new - 1, gen))
         return torch.cat([torch.from_numpy(ids).long().to(dev), *new], dim=1)
 
 

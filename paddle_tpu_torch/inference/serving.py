@@ -16,11 +16,19 @@ while pages last, eviction and backfill.
   step (K5) ``decode_chunk`` times. Pages are reserved per chunk; a
   page-starved engine preempts the youngest mid-prefill row.
 
-PyTorch runs eagerly: ``decode_chunk`` is a Python loop where JAX used
-``lax.scan``, and the pools are updated in place where JAX donated them.
-``stats`` notes every launch site with its shape key, as the JAX engine
-notes its compiled programs, so a fixed shape lattice after warmup stays
-checkable.
+Where the JAX engine jits the decode-chunk scan and the unified step per
+lattice key with the pools donated, the port captures each round's body
+(the ``decode_chunk`` steps in one graph; the unified ``[B, Sc]``
+forward and its sample in another) as a CUDA graph per key and replays
+it (``core/cuda_graphs.py``; on the CPU the body runs eagerly). A
+round's inputs are static buffers refreshed from the host's arrays
+before it: tokens, positions, chunk ids, starts, valid counts and the
+block table as the scheduler left it. The pools are the engine's own,
+updated in place where JAX donated them. The sampled tokens come back
+to the host once a round. ``stats`` notes every launch site with its
+shape key, as the JAX engine notes its compiled programs, so a fixed
+shape lattice after warmup stays checkable. The legacy per-arrival
+prefill stays eager.
 
 Not ported yet (ROADMAP.md): the prefix cache, speculative decoding,
 host spill, disaggregated phases, shedding and deadlines, request
@@ -31,12 +39,14 @@ from __future__ import annotations
 import time
 from collections import Counter, deque
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..core.bucketing import bucket as _bucket
+from ..core.cuda_graphs import StepGraphs
 from ..core.enforce import enforce
 
 __all__ = ["ServingEngine", "ServingRequest"]
@@ -143,6 +153,9 @@ class ServingEngine:
         self.queue: deque = deque()
         self.finished: Dict[int, ServingRequest] = {}
         self.stats = predictor.stats
+        # the rounds' graphs and static buffers: the engine's own, since
+        # they hold its pools' addresses
+        self._graphs = StepGraphs(self.device, self.stats)
         # launches per round kind: "prefill", "unified", "decode"
         self.rounds: Counter = Counter()
         self.gen = cfg.generation
@@ -296,13 +309,34 @@ class ServingEngine:
         self._page_stalled = stalled
         return feeders, stalled
 
+    def _unified_buffers(self):
+        kw = {"device": self.device}
+        return SimpleNamespace(
+            ids=torch.zeros(self.B, self.Sc, dtype=torch.int64, **kw),
+            starts=torch.zeros(self.B, dtype=torch.int32, **kw),
+            nvalid=torch.zeros(self.B, dtype=torch.int32, **kw),
+            tbl=torch.zeros(self.B, self.npages + 1, dtype=torch.int32, **kw),
+            toks=torch.zeros(self.B, dtype=torch.int64, **kw))
+
+    def _unified_body(self, s):
+        """The unified step on its static buffers: the [B, Sc] forward at
+        per-row (start, valid) metadata, then each row's sample at its
+        LAST valid slot (a decode row's next token, a final chunk's
+        first token; the host ignores the others)."""
+        from . import _sample
+
+        caches = [(kp, vp, s.tbl) for kp, vp in self.pools]
+        logits, _ = self.pred._model(s.ids, caches=caches, offset=s.starts,
+                                     valid=s.nvalid)
+        idx = (s.nvalid.long() - 1).clamp(min=0)
+        last = logits[torch.arange(self.B, device=self.device), idx]
+        s.toks.copy_(_sample(last, self.gen, self._generator))
+
     @torch.no_grad()
     def _unified_round(self, feeders):
         """One unified launch: every feeder writes its next prompt chunk,
         every decode row advances one token, dead rows ride along at
         seq_len 0 — one [B, Sc] forward."""
-        from . import _sample
-
         B = self.B
         ids = np.zeros((B, self.Sc), np.int64)
         starts = np.zeros((B,), np.int32)
@@ -325,21 +359,17 @@ class ServingEngine:
                 nvalid[b] = n
             # stalled/out-of-budget prefill rows and free slots stay at
             # seq_len 0: writes go to the trash column, output ignored
-        tbl = self._tensor(self._extended_tables())
-        caches = [(kp, vp, tbl) for kp, vp in self.pools]
-        self.stats.note("unified",
-                        (B, self.Sc, self.M, self.page, self.P,
-                         self.gen.temperature, self.gen.top_k,
-                         self.gen.top_p, str(self._dtype)))
-        nv_t = self._tensor(nvalid)
-        logits, _ = self.pred._model(self._tensor(ids), caches=caches,
-                                     offset=self._tensor(starts),
-                                     valid=nv_t)
-        # each row samples at its LAST valid slot: a decode row's next
-        # token, a final chunk's first token; others are ignored
-        idx = (nv_t.long() - 1).clamp(min=0)
-        last = logits[torch.arange(B, device=self.device), idx]
-        toks = _sample(last, self.gen, self._generator).cpu().numpy()
+        key = (B, self.Sc, self.M, self.page, self.P, self.gen.temperature,
+               self.gen.top_k, self.gen.top_p, str(self._dtype))
+        self.stats.note("unified", key)
+        st = self._graphs.buffers("unified", key, self._unified_buffers)
+        st.ids.copy_(torch.from_numpy(ids))
+        st.starts.copy_(torch.from_numpy(starts))
+        st.nvalid.copy_(torch.from_numpy(nvalid))
+        st.tbl.copy_(torch.from_numpy(self._extended_tables()))
+        self._graphs.step("unified", key, self._unified_body,
+                          self._generator)
+        toks = st.toks.cpu().numpy()
         self.rounds["unified"] += 1
         now = time.perf_counter()
         fed_tokens = 0
@@ -400,14 +430,34 @@ class ServingEngine:
         elif stalled:
             self._preempt_youngest()
 
+    def _decode_buffers(self):
+        kw = {"device": self.device}
+        return SimpleNamespace(
+            tok=torch.zeros(self.B, dtype=torch.int64, **kw),
+            pos=torch.zeros(self.B, dtype=torch.int32, **kw),
+            tbl=torch.zeros(self.B, self.npages, dtype=torch.int32, **kw),
+            out=torch.zeros(self.B, self.chunk, dtype=torch.int64, **kw))
+
+    def _decode_body(self, s):
+        """``decode_chunk`` [B, 1] steps on the static buffers, each
+        sampled token into its column of ``out``."""
+        from . import _sample
+
+        caches = [(kp, vp, s.tbl) for kp, vp in self.pools]
+        tok, pos = s.tok, s.pos
+        for i in range(self.chunk):
+            logits, _ = self.pred._model(tok[:, None], caches=caches,
+                                         offset=pos)
+            tok = _sample(logits[:, -1], self.gen, self._generator)
+            s.out[:, i] = tok
+            pos = pos + 1
+
     @torch.no_grad()
     def _decode_round(self):
         """``decode_chunk`` [B, 1] decode steps for the whole batch at
         per-row positions. Free slots ride along at position 0 with an
         all-trash table row; stalled mid-prefill rows ride the same way
         (their table rows are masked to trash for this round)."""
-        from . import _sample
-
         active = [b for b in range(self.B) if self.slots[b] is not None
                   and self.slots[b].state == "decode"]
         if not active:
@@ -426,22 +476,16 @@ class ServingEngine:
             if mid_prefill:
                 tbl = self.tables.copy()
                 tbl[mid_prefill, :] = self.trash
-        tbl_t = self._tensor(tbl)
-        caches = [(kp, vp, tbl_t) for kp, vp in self.pools]
-        self.stats.note("serve_decode",
-                        (self.B, self.M, self.chunk, self.P,
-                         self.gen.temperature, self.gen.top_k,
-                         self.gen.top_p, str(self._dtype)))
-        tok_t = self._tensor(tok)
-        pos_t = self._tensor(pos)
-        steps = []
-        for _ in range(self.chunk):
-            logits, _ = self.pred._model(tok_t[:, None], caches=caches,
-                                         offset=pos_t)
-            tok_t = _sample(logits[:, -1], self.gen, self._generator)
-            steps.append(tok_t)
-            pos_t = pos_t + 1
-        toks = torch.stack(steps, dim=1).cpu().numpy()   # [B, chunk]
+        key = (self.B, self.M, self.chunk, self.P, self.gen.temperature,
+               self.gen.top_k, self.gen.top_p, str(self._dtype))
+        self.stats.note("serve_decode", key)
+        st = self._graphs.buffers("serve_decode", key, self._decode_buffers)
+        st.tok.copy_(torch.from_numpy(tok))
+        st.pos.copy_(torch.from_numpy(pos))
+        st.tbl.copy_(torch.from_numpy(tbl))
+        self._graphs.step("serve_decode", key, self._decode_body,
+                          self._generator)
+        toks = st.out.cpu().numpy()                   # [B, chunk]
         self.rounds["decode"] += 1
         emitted = 0
         for b in active:

@@ -32,7 +32,8 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build, dtype_code, ptr, route, stream, want_contiguous
+from . import (_build, counted, dtype_code, ptr, route, stream,
+               want_contiguous)
 
 __all__ = ["PagedRoute", "decode_attention", "decode_attention_dense",
            "paged_attention_dense", "paged_decode_attention", "paged_route"]
@@ -265,7 +266,7 @@ def decode_attention(q, k_cache, v_cache, offset):
     return out
 
 
-decode_attention.launches = 0
+counted(decode_attention)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
@@ -296,4 +297,4 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     return out
 
 
-paged_decode_attention.launches = 0
+counted(paged_decode_attention)

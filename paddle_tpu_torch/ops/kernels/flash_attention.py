@@ -32,7 +32,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build, dtype_code, ptr, route, stream, want_contiguous
+from . import (_build, counted, dtype_code, ptr, route, stream,
+               want_contiguous)
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_lse",
            "flash_attention_bwd", "flash_attention_dense",
@@ -283,5 +284,5 @@ def flash_attention_fwd_lse(q, k, v, causal=False, scale=None,
         return _k1(q, k, v, causal, scale, qseg, kseg)
 
 
-flash_attention_fwd.launches = 0
-flash_attention_bwd.launches = 0
+counted(flash_attention_fwd)
+counted(flash_attention_bwd)

@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from . import _build, ptr, stream
+from . import _build, counted, ptr, stream
 from .decode_attention import (_NEG, _gather_pages, _lib, check_paged_args,
                                paged_route, workspace)
 
@@ -100,4 +100,4 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, starts,
     return out
 
 
-ragged_paged_attention.launches = 0
+counted(ragged_paged_attention)

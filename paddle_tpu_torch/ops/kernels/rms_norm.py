@@ -16,7 +16,8 @@ import functools
 
 import torch
 
-from . import _build, dtype_code, ptr, route, stream, want_contiguous
+from . import (_build, counted, dtype_code, ptr, route, stream,
+               want_contiguous)
 
 __all__ = ["rms_norm", "rms_norm_dense", "rms_norm_grad"]
 
@@ -110,4 +111,4 @@ class _RMSNorm(torch.autograd.Function):
         return dx, dw, None
 
 
-rms_norm.launches = 0
+counted(rms_norm)
