@@ -23,7 +23,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 over tiles of 64 positions of one (batch, head), each tile
                 against its own magnitude. K4 and K5 rows name the body
                 each call ran (wgmma_split, mma, fma), its split count and
-                workspace bytes; the bf16 cases must run the Hopper body
+                workspace bytes; the bf16 cases must run the Hopper body.
+                K8 (the multi-tensor AdamW + clip update) at the train
+                phase's 1.881 B-parameter set (bf16 parameters, f32
+                masters and moments) against its plain version: f32
+                buffers within 1e-6 of each tensor's largest magnitude,
+                bf16 parameters within one ulp; K8, plain and
+                torch._fused_adamw_ timed with CUDA events
 3. parity       a reduced Llama (fp32, TF32 off) served on cuda, graphed
                 and eager, and on cpu with the same weights and arrival
                 schedule, and run through Predictor.generate with static
@@ -58,12 +64,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 plain version per tile, 2e-2
 6. train-parity the reduced Llama trains 3 steps on cuda and on cpu from
                 the same weights and batch: losses and global grad norms
-                within 1e-4 relative
+                within 1e-4 relative; then 5 steps from fresh weights
+                under a GradScaler (2^10) and a warmup + cosine schedule,
+                the third an overflow: clean steps within 1e-4 across
+                devices, the overflow step a bit-exact no-op on both
 7. train        Llama-7B widths cut to 8 layers (bf16 weights, f32 AdamW
                 masters and moments) through ParallelEngine.train_step:
                 12 steps on one fixed 4 x 2048 batch, 2 untimed; finite,
                 falling losses, step time, tokens/s, MFU, peak memory; K3,
-                K1 and K2 must launch in the timed steps. Then one more
+                K1, K2 and K8 must launch in the timed steps. Then one more
                 forward and backward with each layer's attention watched:
                 K1's output and K2's gradients on the model's own bf16
                 activations against the plain version, per tile, 2e-2
@@ -84,6 +93,7 @@ import argparse
 import contextlib
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -370,6 +380,149 @@ def check_flash(dev, results):
                 bound_ms=b_ms, bound_by=b_by, **_k2_split(
                     K1, q, k, v, out, lse, do, causal, qs, ks)))
             del lib_out, qg, kg, vg
+
+
+def _train_shapes(cfg):
+    """The parameter shapes of LlamaForCausalLM(cfg), in its order."""
+    h, m, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kv = cfg.num_kv_heads * cfg.head_dim
+    layer = [(h,), (h, h), (kv, h), (kv, h), (h, h), (h,), (m, h), (m, h),
+             (h, m)]
+    shapes = [(V, h)] + layer * cfg.num_layers + [(h,)]
+    if not cfg.tie_word_embeddings:
+        shapes.append((V, h))
+    assert sum(int(np.prod(s)) for s in shapes) == cfg.num_params()
+    return shapes
+
+
+# the train phase's parameter count: Llama-7B widths x 8 layers
+_FUSED_ADAM_N = 1_881_214_976
+
+
+def check_fused_adam(dev, results):
+    """K8 at the train phase's parameter set: Llama-7B widths x 8 layers,
+    1.881 B bf16 parameters and gradients, f32 masters and moments, the
+    train step's AdamW (decoupled decay 0.01 on every tensor). One call
+    of the kernel against one call of the plain version on two copies of
+    the same seeded buffers (the gradients, read-only, shared), without
+    a clip and with the train step's clip (1.0): the f32 masters and
+    moments within 1e-6 of each tensor's largest magnitude, and the two
+    norms, summed in different orders, within 1e-5. Without the clip
+    both compute the same IEEE operations, and every bf16 parameter must
+    lie within one ulp of the plain one. With it, a last-bit difference
+    of the clip coefficient (from the norm's summation order) would
+    change an update in its last bit, which is many ulps of a parameter
+    the update cancels to near zero; there the bf16 parameters are held
+    within one ulp of each tensor's largest magnitude. Element-wise ulps
+    and whether the buffers are bit-equal are reported. Then
+    K8, the plain version and the library's fused AdamW
+    (torch._fused_adamw_ on f32 gradients, with a foreach global-norm
+    clip) are timed with CUDA events."""
+    from paddle_tpu_torch.models.llama import llama_7b
+    from paddle_tpu_torch.ops.kernels import fused_adam as K8
+
+    cfg = llama_7b(num_layers=8)
+    shapes = _train_shapes(cfg)
+    N = cfg.num_params()
+
+    def buffers(grads=None):
+        g = torch.Generator(device=dev).manual_seed(8)
+        params = [(0.02 * torch.randn(s, device=dev, generator=g)
+                   ).bfloat16() for s in shapes]
+        new = [(1e-3 * torch.randn(s, device=dev, generator=g)).bfloat16()
+               for s in shapes]
+        return dict(
+            params=params, grads=grads or new,
+            masters=[p.float() for p in params],
+            moments1=[1e-4 * torch.randn(s, device=dev, generator=g)
+                      for s in shapes],
+            moments2=[1e-8 * torch.rand(s, device=dev, generator=g)
+                      for s in shapes],
+            decays=[True] * len(shapes))
+
+    kw = dict(lr=3e-4, beta1=0.9, beta2=0.999, epsilon=1e-8,
+              weight_decay=0.01, decoupled=True, step=3)
+    stats = {}
+    for clip in (0.0, 1.0):
+        A = buffers()
+        B = buffers(A["grads"])
+        norm = K8.fused_adam(**A, **kw, clip_norm=clip)
+        rnorm = K8.fused_adam_dense(**B, **kw, clip_norm=clip)
+        torch.cuda.synchronize()
+        rel, ulps, scaled, abs_err = 0.0, 0, 0.0, 0.0
+        for key in ("masters", "moments1", "moments2", "params"):
+            for x, r in zip(A[key], B[key]):
+                d = (x.float() - r.float()).abs().max().item()
+                top = max(r.float().abs().max().item(), 1e-30)
+                abs_err = max(abs_err, d)
+                if x.dtype == torch.float32:
+                    rel = max(rel, d / top)
+                else:
+                    ulps = max(ulps, (x.view(torch.int16).int()
+                                      - r.view(torch.int16).int()
+                                      ).abs().max().item())
+                    # one bf16 ulp at the tensor's largest magnitude
+                    scaled = max(scaled, d / (2.0 ** (math.floor(
+                        math.log2(top)) - 7)))
+        equal = all(torch.equal(x, r) for key in ("masters", "moments1",
+                                                  "moments2", "params")
+                    for x, r in zip(A[key], B[key]))
+        stats[clip] = dict(rel=rel, ulps=ulps, ulps_at_max=scaled,
+                           bit_equal=equal,
+                           abs_err=abs_err, norm_err=(
+                               abs(norm.item() - rnorm.item()) / rnorm.item()
+                               if clip else 0.0))
+        del B
+        if clip == 0.0:
+            del A
+        torch.cuda.empty_cache()
+    log(f"[kernels] fused_adam against its plain version, without and "
+        f"with the clip: {json.dumps(stats)}")
+    s0, s1 = stats[0.0], stats[1.0]
+    if not (s0["ulps"] <= 1 and s1["ulps_at_max"] <= 1
+            and s1["norm_err"] <= 1e-5):
+        raise AssertionError(f"K8 disagrees with its plain version: {stats}")
+    rel = max(s0["rel"], s1["rel"])
+    abs_err = max(s0["abs_err"], s1["abs_err"])
+    norm_err = s1["norm_err"]
+    nbytes = 28 * N
+    b_ms, b_by = bound(nbytes, 30 * N, torch.float32)
+    kw["clip_norm"] = 1.0         # timed as the train step calls it
+    ms = events_ms(lambda: K8.fused_adam(**A, **kw), iters=10, warm=2)
+    plain_ms = events_ms(lambda: K8.fused_adam_dense(**A, **kw), iters=3,
+                         warm=1)
+    g32 = [t.float() for t in A["grads"]]
+    steps = [torch.tensor(3.0, device=dev) for _ in shapes]
+
+    def library():
+        norms = torch._foreach_norm(g32)
+        total = torch.linalg.vector_norm(torch.stack(norms))
+        torch._foreach_mul_(g32, torch.clamp(1.0 / torch.clamp(
+            total, min=1e-6), max=1.0))
+        torch._fused_adamw_(A["masters"], g32, A["moments1"], A["moments2"],
+                            [], steps, lr=3e-4, beta1=0.9, beta2=0.999,
+                            weight_decay=0.01, eps=1e-8, amsgrad=False,
+                            maximize=False)
+
+    library_ms = events_ms(library, iters=5, warm=1)
+    del g32
+    log(f"[kernels] fused_adam: {N / 1e9:.3f}B parameters in "
+        f"{len(shapes)} tensors; bound {nbytes / 1e9:.2f} GB each input "
+        f"and output once = {b_ms:.2f} ms, the two-pass design's "
+        f"{30 * N / 1e9:.2f} GB = {30 * N / HBM_BYTES_PER_S * 1e3:.2f} ms "
+        f"at 3.35 TB/s")
+    results.append(dict(
+        name="fused_adam", shape=[N], tensors=len(shapes), dtype="bfloat16",
+        max_abs_err=abs_err, rel_err=rel, tol=1e-6,
+        bf16_ulps_at_tensor_max=max(s0["ulps_at_max"], s1["ulps_at_max"]),
+        bf16_max_elementwise_ulps=[s0["ulps"], s1["ulps"]],
+        bit_equal=[s0["bit_equal"], s1["bit_equal"]],
+        norm_rel_err=norm_err, ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms,
+        library="torch._fused_adamw_ on f32 grads + foreach global-norm clip",
+        bytes=nbytes, design_bytes=30 * N, bound_ms=b_ms, bound_by=b_by))
+    del A
+    torch.cuda.empty_cache()
 
 
 def _k2_split(K1, q, k, v, out, lse, do, causal, qs, ks):
@@ -1147,20 +1300,29 @@ def profile_decode(pred, ids, lens, label, steps=16):
 
 
 # -- phases 6 and 7: training ---------------------------------------------
-def _trainer(model):
+def _trainer(model, scaler=None):
     """The train step a user builds: AdamW with f32 masters and moments,
-    global-norm clipping, through ParallelEngine.train_step."""
+    global-norm clipping, through ParallelEngine.train_step. With a
+    ``scaler`` (amp.GradScaler) the learning rate follows a warmup and
+    cosine schedule, and the loss is multiplied by the batch's ``k`` (1,
+    or inf to force an overflow)."""
     from paddle_tpu_torch.distributed.engine import ParallelEngine
     from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
     from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
-    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import AdamW, lr
 
-    opt = AdamW(learning_rate=3e-4, weight_decay=0.01, multi_precision=True,
+    rate = 3e-4 if scaler is None else lr.LinearWarmup(
+        lr.CosineAnnealingDecay(3e-4, T_max=8), warmup_steps=2,
+        start_lr=3e-5, end_lr=3e-4)
+    opt = AdamW(learning_rate=rate, weight_decay=0.01, multi_precision=True,
                 grad_clip=ClipGradByGlobalNorm(1.0),
                 parameters=model.parameters())
     crit = LlamaPretrainingCriterion(model.config)
     eng = ParallelEngine(model, opt)
-    return opt, eng.train_step(lambda m, b: crit(m(b["x"]), b["y"]))
+    if scaler is None:
+        return opt, eng.train_step(lambda m, b: crit(m(b["x"]), b["y"]))
+    return opt, eng.train_step(lambda m, b: crit(m(b["x"]), b["y"]) * b["k"],
+                               scaler=scaler)
 
 
 def _lm_batch(seed, B, S, vocab, device):
@@ -1199,6 +1361,66 @@ def phase_train_parity():
                 and abs(ng - nc) <= 1e-4 * abs(nc)):
             raise AssertionError(f"cuda and cpu training differ: {runs}")
     log("[train-parity] cuda == cpu losses and grad norms within 1e-4: OK")
+    train_parity_amp(cfg)
+
+
+def train_parity_amp(cfg):
+    """The same model from fresh weights under a GradScaler (2^10) and a
+    LinearWarmup(CosineAnnealingDecay) schedule, on cuda (K8 runs the
+    loss-scale protocol) and on cpu (its plain version): 5 steps, the
+    third an overflow (the loss times inf). Clean steps' losses and grad
+    norms within 1e-4 across devices; the overflow step must leave every
+    parameter, master and moment bit-equal on both devices, and both
+    scalers must end in the same state."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=6)
+    gpu = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    gpu.load_state_dict(cpu.state_dict())
+    ks = [1.0, 1.0, float("inf"), 1.0, 1.0]
+    runs, scalers = {}, {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        scaler = GradScaler(init_loss_scaling=2.0 ** 10)
+        opt, step = _trainer(model, scaler)
+        batch = _lm_batch(16, 2, 256, cfg.vocab_size, model.device)
+        runs[name] = []
+        for i, k in enumerate(ks):
+            batch["k"] = torch.tensor(k)
+            if k != 1.0:
+                snap = [t.clone() for t in _train_state(model, opt)]
+            loss = float(step(batch))
+            found = scaler.last_found_inf
+            if found != (k != 1.0):
+                raise AssertionError(f"{name} step {i}: found_inf {found}")
+            if k != 1.0:
+                after = _train_state(model, opt)
+                if not all(torch.equal(a, b) for a, b in zip(after, snap)):
+                    raise AssertionError(f"{name}: the overflow step changed "
+                                         "a parameter, master or moment")
+                del snap
+            else:
+                runs[name].append((loss, float(opt.grad_norm)))
+        scalers[name] = scaler.state_dict()
+    log(f"[train-parity] AMP (scaler 2^10, warmup+cosine, step 3 "
+        f"overflows): clean (loss, grad norm) {json.dumps(runs)}, scaler "
+        f"{json.dumps(scalers)}")
+    for (lc, nc), (lg, ng) in zip(runs["cpu"], runs["cuda"]):
+        if not (abs(lg - lc) <= 1e-4 * abs(lc)
+                and abs(ng - nc) <= 1e-4 * abs(nc)):
+            raise AssertionError(f"cuda and cpu AMP training differ: {runs}")
+    if scalers["cpu"] != scalers["cuda"]:
+        raise AssertionError(f"scaler states differ: {scalers}")
+    log("[train-parity] AMP: cuda == cpu within 1e-4, the overflow step a "
+        "bit-exact no-op on both devices: OK")
+
+
+def _train_state(model, opt):
+    """Every parameter, master and moment of a model and its optimizer."""
+    out = [p.detach() for p in model.parameters()]
+    out += list(opt._master_weights.values())
+    out += [t for st in opt._states.values() for t in st.values()]
+    return out
 
 
 def phase_train(counters, profile=False, steps=12, warm=2):
@@ -1356,6 +1578,9 @@ KERNEL_GROUPS = (("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass")),
                                             "fwd_mma", "dq_mma", "dkv_mma",
                                             "fwd_fma", "dq_fma", "dkv_fma")),
                  ("K3 rms_norm", ("rms_norm_kernel",)),
+                 # torch's own reductions are also "reduce_kernel<...>"
+                 ("K8 fused_adam", ("reduce_kernel((anonymous",
+                                    "finalize_kernel(", "update_kernel<")),
                  ("K4/K5/K6 paged or contiguous-cache attention",
                   ("paged_attention", "tile_wgmma_kernel", "merge_splits")))
 
@@ -1429,6 +1654,7 @@ def main():
         decode_attention, paged_decode_attention)
     from paddle_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_fwd)
+    from paddle_tpu_torch.ops.kernels.fused_adam import fused_adam
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
         ragged_paged_attention
     from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm
@@ -1449,6 +1675,7 @@ def main():
         check_attention(dev, results)
         check_decode(dev, results)
         check_flash(dev, results)
+        check_fused_adam(dev, results)
         bad = []
         for r in results:
             log("[kernels] " + json.dumps(r))
@@ -1464,12 +1691,13 @@ def main():
         phase_parity()
     # each path is driven with its kernels' counts set to 0 just before
     # it and read just after: serving runs K3, K4, K5; static-cache
-    # generation K3, K6; paged generation K3, K5; training K3, K1, K2
+    # generation K3, K6; paged generation K3, K5; training K3, K1, K2, K8
     paths = {"serve": [rms_norm, ragged_paged_attention,
                        paged_decode_attention],
              "generate_static": [rms_norm, decode_attention],
              "generate_paged": [rms_norm, paged_decode_attention],
-             "train": [rms_norm, flash_attention_fwd, flash_attention_bwd]}
+             "train": [rms_norm, flash_attention_fwd, flash_attention_bwd,
+                       fused_adam]}
     by_path = {p: {c.__name__: None for c in cs} for p, cs in paths.items()}
     if "serve" in phases or "generate" in phases:
         model = build_7b(args.layers)
@@ -1492,7 +1720,8 @@ def main():
                   "paged_decode_attention": [8, 1, 32, 128],
                   "decode_attention": [8, 1, 32, 128],
                   "flash_attention_fwd": [4, 2048, 32, 128],
-                  "flash_attention_bwd": [4, 2048, 32, 128]}
+                  "flash_attention_bwd": [4, 2048, 32, 128],
+                  "fused_adam": [_FUSED_ADAM_N]}
     flash = "paddle_tpu/ops/pallas/flash_attention.py"
     meta = {
         "rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
@@ -1510,7 +1739,9 @@ def main():
         "flash_attention_fwd": ("paddle_tpu_torch/csrc/flash_attention.cu",
                                 f"{flash}:432", "train"),
         "flash_attention_bwd": ("paddle_tpu_torch/csrc/flash_attention.cu",
-                                f"{flash}:307", "train")}
+                                f"{flash}:307", "train"),
+        "fused_adam": ("paddle_tpu_torch/csrc/fused_adam.cu",
+                       "paddle_tpu/optimizer/__init__.py:211", "train")}
     kernels = []
     for name, (src, repl, path) in meta.items():
         mine = [r for r in results if r["name"] == name]

@@ -11,15 +11,25 @@ Usage, as in the JAX package::
 Where the JAX engine traced forward, backward and update into one
 sharded XLA program, the port runs them eagerly on the model's device:
 ``fn(model, batch)``, ``loss.backward()``, ``optimizer.step()`` (which
-clips) and ``optimizer.clear_grad()``. No ``torch.compile``, no CUDA
-graph. ``eng.stats`` counts the distinct batch signatures (tree
-structure, shapes, dtypes) under "train", as the JAX engine's compile
-counter does.
+clips) and ``optimizer.clear_grad()``; an LR scheduler then advances
+once, as in the JAX engine. No ``torch.compile``, no CUDA graph.
+``eng.stats`` counts the distinct batch signatures (tree structure,
+shapes, dtypes) under "train", as the JAX engine's compile counter
+does.
+
+``train_step(fn, scaler=GradScaler(...))`` runs the JAX engine's AMP
+protocol (``engine.py:752-932``) with the scaler's state on the device
+and no host read inside the step: the scale is capped (2^15 for an f16
+loss, 2^62 otherwise) and seeds the backward; the optimizer's update
+(kernel K8 for Adam and AdamW on CUDA) finds overflow over every
+gradient, unscales them in f32 rounded to their dtype, leaves
+parameters, masters and moments exactly as they were on overflow,
+advances the applied-step count that drives bias correction only on
+applied steps, and keeps the scale's dynamic or static bookkeeping.
 
 Everything above degree 1 raises: a mesh of more than one device
-(ROADMAP.md queue 1, item 8), an AMP ``scaler``, ZeRO, offload,
-quantized or overlapped communication and the memory ledger (items 9
-and 10).
+(ROADMAP.md queue 1, item 8), ZeRO, offload, quantized or overlapped
+communication and the memory ledger (items 9 and 10).
 """
 from __future__ import annotations
 
@@ -28,8 +38,10 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..amp import GradScaler
 from ..core.compile_stats import CompileStats
 from ..models.llama import resolve_device
+from ..optimizer.lr import LRScheduler
 
 __all__ = ["ParallelEngine"]
 
@@ -96,12 +108,20 @@ class ParallelEngine:
     def train_step(self, fn: Callable, batch_specs=None,
                    scaler=None) -> Callable[[Any], torch.Tensor]:
         """``step(batch) -> loss``: ``fn(model, batch)`` (a scalar loss),
-        its backward, the optimizer's step and clear_grad. Array leaves of
-        the batch move to the model's device."""
-        if scaler is not None:
-            raise NotImplementedError(
-                f"ParallelEngine.train_step(scaler=...) (AMP loss scaling) "
-                f"is not ported yet: {_ITEM9_10}")
+        its backward, the optimizer's step and clear_grad, then one step
+        of an LR scheduler. Array leaves of the batch move to the model's
+        device. With an enabled ``amp.GradScaler`` the step runs the loss
+        scaler's protocol on the device (module docstring); the loss
+        returned is unscaled."""
+        if scaler is not None and not isinstance(scaler, GradScaler):
+            raise TypeError(f"train_step(scaler=...) takes an "
+                            f"amp.GradScaler, got {type(scaler).__name__}")
+        use_scaler = scaler is not None and scaler.is_enable()
+        # the scaler's settings key the step, as they key the JAX
+        # engine's executable
+        amp_key = ((scaler._dynamic, scaler._incr_every, scaler._decr_every,
+                    scaler._incr_ratio, scaler._decr_ratio)
+                   if use_scaler else None)
         if batch_specs is not None:
             raise NotImplementedError(
                 f"ParallelEngine.train_step(batch_specs=...) shards over a "
@@ -113,11 +133,28 @@ class ParallelEngine:
             batch, structure, leaves = _map(batch, self._to_device)
             self.stats.note("train", (structure, tuple(
                 (tuple(v.shape), str(v.dtype)) for v in leaves
-                if isinstance(v, torch.Tensor))))
+                if isinstance(v, torch.Tensor)), amp_key))
+            opt = self.optimizer
             loss = fn(self.model, batch)
-            loss.backward()
-            self.optimizer.step()
-            self.optimizer.clear_grad()
+            if use_scaler:
+                # the applied-step count is seeded from the optimizer's
+                # count before this step (the JAX engine's -1)
+                amp = scaler._amp_step(
+                    self.device, 2.0 ** 15 if loss.dtype == torch.float16
+                    else 2.0 ** 62, fallback_step=opt._step_count)
+                # the cap keeps the backward seed itself finite; a power
+                # of two keeps scale and unscale an exact round trip
+                amp.scale.clamp_(max=amp.cap)
+                # loss scaling = seeding the backward with the scale
+                loss.backward(amp.scale.to(loss.dtype).reshape(loss.shape))
+                opt.step(amp=amp)
+                scaler._found_inf_dev = amp.found
+            else:
+                loss.backward()
+                opt.step()
+            opt.clear_grad()
+            if isinstance(opt._lr, LRScheduler):
+                opt._lr.step()   # once per train step, as the JAX engine
             return loss.detach()
 
         return step

@@ -6,12 +6,16 @@ plain embedding and plain bias-free linears, and
 ``parallel_cross_entropy`` is the plain cross entropy. They keep the JAX layers'
 names so models read the same. Note the weight layout: these are
 ``nn.Linear``s, weight ``[out, in]``, where the JAX package stores
-``[in, out]``; ``paddle_tpu_torch.convert`` transposes on load.
+``[in, out]``; ``paddle_tpu_torch.convert`` transposes on load. Under
+``amp.auto_cast`` the linears cast their f32 input and weight to the AMP
+dtype (op ``linear``), as the JAX dispatch hook does.
 """
 from __future__ import annotations
 
 from torch import nn
+from torch.nn import functional as TF
 
+from .....amp import cast_inputs
 from .....nn import functional as F
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
@@ -22,14 +26,19 @@ class VocabParallelEmbedding(nn.Embedding):
     """Token embedding, weight [vocab, hidden] as in the JAX package."""
 
 
-class ColumnParallelLinear(nn.Linear):
+class _Linear(nn.Linear):
+    def forward(self, x):
+        return TF.linear(*cast_inputs("linear", x, self.weight, self.bias))
+
+
+class ColumnParallelLinear(_Linear):
     def __init__(self, in_features: int, out_features: int, device=None,
                  dtype=None):
         super().__init__(in_features, out_features, bias=False,
                          device=device, dtype=dtype)
 
 
-class RowParallelLinear(nn.Linear):
+class RowParallelLinear(_Linear):
     def __init__(self, in_features: int, out_features: int, device=None,
                  dtype=None):
         super().__init__(in_features, out_features, bias=False,

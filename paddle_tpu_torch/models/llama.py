@@ -32,6 +32,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..amp import cast_inputs
 from ..distributed.fleet.layers.mpu import (ColumnParallelLinear,
                                             RowParallelLinear,
                                             VocabParallelEmbedding,
@@ -351,7 +352,8 @@ class LlamaForCausalLM(nn.Module):
 
     def _logits(self, x):
         if self.config.tie_word_embeddings:
-            return x @ self.llama.embed_tokens.weight.t()
+            x, w = cast_inputs("matmul", x, self.llama.embed_tokens.weight)
+            return x @ w.t()
         return self.lm_head(x)
 
     def forward(self, input_ids, caches=None, offset=0, valid=None):

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as _F
 
+from ..amp import cast_inputs
+
 __all__ = ["cross_entropy", "gelu", "layer_norm", "linear"]
 
 
@@ -31,7 +33,10 @@ def gelu(x, approximate=False):
 
 
 def linear(x, weight, bias=None):
-    """Paddle's linear: ``x @ weight + bias`` with weight ``[in, out]``."""
+    """Paddle's linear: ``x @ weight + bias`` with weight ``[in, out]``;
+    under ``amp.auto_cast`` its f32 inputs are cast to the AMP dtype
+    (op ``linear``)."""
+    x, weight, bias = cast_inputs("linear", x, weight, bias)
     out = x @ weight
     return out if bias is None else out + bias
 

@@ -8,12 +8,16 @@ take the plain version on either device (``flash_attn_varlen``). The
 JAX package's ``_use_pallas`` gate and its
 warn-and-fall-back ``try`` are TPU dispatch policy and are not ported:
 a CUDA tensor launches the kernels or raises. Attention dropout is not
-on the kernel path yet and raises.
+on the kernel path yet and raises. Under ``amp.auto_cast`` both cast
+their f32 inputs to the AMP dtype when their op name is in the white
+set (``flash_attention`` is; ``flash_attn_varlen`` only through
+``custom_white_list``), as the JAX dispatch hook does.
 """
 from __future__ import annotations
 
 import torch
 
+from ..amp import cast_inputs
 from .kernels.flash_attention import (flash_attention_dense,
                                        flash_attention_fwd)
 
@@ -29,6 +33,7 @@ def flash_attention(q, k, v, causal=False, dropout=0.0):
     kv head natively."""
     if dropout:
         raise NotImplementedError(_DROPOUT_TODO)
+    q, k, v = cast_inputs("flash_attention", q, k, v)
     return flash_attention_fwd(q, k, v, causal)
 
 
@@ -61,6 +66,7 @@ def flash_attn_varlen(q, k, v, cu_seqlens_q, cu_seqlens_k, causal=False,
     the per-sequence mask. A row that sees no key gives 0, as in K1."""
     if dropout:
         raise NotImplementedError(_DROPOUT_TODO)
+    q, k, v = cast_inputs("flash_attn_varlen", q, k, v)
     Tq, Tk = q.shape[0], k.shape[0]
     qseg = _segments_from_cu(cu_seqlens_q, Tq, q.device)
     kseg = _segments_from_cu(cu_seqlens_k, Tk, q.device)

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import amp
+
 __all__ = ["rotate_half", "fused_rope"]
 
 
@@ -28,10 +30,14 @@ def fused_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
     [1, S, 1, D]. Each output keeps its input's dtype: the tables are
     cast to it, as the serving rope does. (The JAX ``fused_rope``
     multiplies by the f32 tables uncast, which promotes bf16 q/k to
-    f32; in f32 the two are the same.)"""
+    f32; in f32 the two are the same.) Under ``amp.auto_cast`` the port
+    promotes as the JAX one does, so the dtypes that flow on into
+    attention are the JAX package's."""
     out = []
     for x in (q, k):
-        c = _table(cos, position_ids, x.dtype)
-        s = _table(sin, position_ids, x.dtype)
+        dt = (torch.promote_types(x.dtype, cos.dtype) if amp.enabled()
+              else x.dtype)
+        c = _table(cos, position_ids, dt)
+        s = _table(sin, position_ids, dt)
         out.append(x * c + rotate_half(x) * s)
     return out[0], out[1]

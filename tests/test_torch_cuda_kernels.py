@@ -597,3 +597,179 @@ def test_varlen_noncausal_rect_pack_launches_k1(cuda, dtype):
     assert K1.flash_attention_fwd.launches == n + 1
     ref = flash_attn_varlen(q.cpu(), k.cpu(), v.cpu(), cu_q, cu_k)
     assert _scaled(out[None], ref.to(cuda)[None]) <= TOL[dtype]
+
+
+# -- K8: the multi-tensor Adam / AdamW update ---------------------------------
+from paddle_tpu_torch import amp as _amp  # noqa: E402
+from paddle_tpu_torch.ops.kernels import fused_adam as K8  # noqa: E402
+
+K8_KW = dict(lr=1e-2, beta1=0.9, beta2=0.999, epsilon=1e-8,
+             weight_decay=0.05)
+
+
+def _k8_set(dev, shapes, pdt, sdt, master, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = [torch.randn(s, device=dev, generator=g).to(pdt) for s in shapes]
+    return dict(
+        params=params,
+        grads=[(0.1 * torch.randn(s, device=dev, generator=g)).to(pdt)
+               for s in shapes],
+        masters=[p.float().clone() if master else None for p in params],
+        moments1=[(0.01 * torch.randn(s, device=dev, generator=g)).to(sdt)
+                  for s in shapes],
+        moments2=[(1e-4 * torch.rand(s, device=dev, generator=g)).to(sdt)
+                  for s in shapes],
+        decays=[i % 3 != 0 for i in range(len(shapes))])
+
+
+def _k8_clone(s):
+    return {k: [t.clone() if isinstance(t, torch.Tensor) else t for t in v]
+            for k, v in s.items()}
+
+
+def _k8_amp(dev, scale=1024.0):
+    return _amp.AmpStep(torch.tensor([scale], device=dev),
+                        torch.tensor([3, 0, 4], dtype=torch.int32,
+                                     device=dev),
+                        True, 5, 1, 2.0, 0.5, 2.0 ** 62)
+
+
+def _k8_buffers(s):
+    return [t for k in ("params", "masters", "moments1", "moments2")
+            for t in s[k] if t is not None]
+
+
+def _k8_agree(a, b):
+    """f32 buffers within 1e-6 of the reference's largest magnitude; bf16
+    and f16 buffers within one unit in the last place."""
+    torch.cuda.synchronize()
+    for x, r in zip(_k8_buffers(a), _k8_buffers(b)):
+        if x.dtype == torch.float32:
+            err = (x - r).abs().max().item()
+            assert err <= 1e-6 * r.abs().max().item(), err
+        else:
+            ulps = (x.view(torch.int16).int()
+                    - r.view(torch.int16).int()).abs().max().item()
+            assert ulps <= 1, ulps
+
+
+K8_SMALL = [(5,), (7, 3), (64, 33), (1,), (130, 257), (8,), (3, 5, 7),
+            (65536 + 9,)] * 20          # 160 tensors, tails and chunk edges
+
+
+@pytest.mark.parametrize("pdt,sdt,master", [
+    (torch.float32, torch.float32, False),
+    (torch.bfloat16, torch.float32, True),
+    (torch.bfloat16, torch.bfloat16, True),
+    (torch.bfloat16, torch.float32, False),
+    (torch.float16, torch.float32, True),
+    (torch.float32, torch.bfloat16, False)], ids=str)
+@pytest.mark.parametrize("variant", ["adamw_clip", "adam_l1", "amp_clean"])
+def test_fused_adam_many_small_tensors(cuda, pdt, sdt, master, variant):
+    s = _k8_set(cuda, K8_SMALL, pdt, sdt, master, seed=1)
+    ref = _k8_clone(s)
+    kw = dict(K8_KW, decoupled=variant != "adam_l1",
+              l1=variant == "adam_l1",
+              clip_norm=0.5 if variant == "adamw_clip" else 0.0, step=3)
+    amps = [None, None]
+    if variant == "amp_clean":
+        for d in (s, ref):
+            d["grads"] = [(g.float() * 1024.0).to(g.dtype)
+                          for g in d["grads"]]
+        amps = [_k8_amp(cuda), _k8_amp(cuda)]
+    n = K8.fused_adam.launches
+    norm = K8.fused_adam(**s, **kw, amp=amps[0])
+    assert K8.fused_adam.launches == n + 1
+    rnorm = K8.fused_adam_dense(**ref, **kw, amp=amps[1])
+    _k8_agree(s, ref)
+    if norm is not None:
+        assert abs(norm.item() - rnorm.item()) <= 1e-5 * rnorm.item()
+    if variant == "amp_clean":
+        assert torch.equal(amps[0].scale, amps[1].scale)
+        assert torch.equal(amps[0].counts, amps[1].counts)
+        assert amps[0].found.item() == 0.0
+
+
+def test_fused_adam_tensor_over_2_31_bytes(cuda):
+    n = (1 << 31) // 4 + 4099            # f32: over 2^31 bytes, ragged tail
+    s = _k8_set(cuda, [(n,), (300,)], torch.float32, torch.float32, False,
+                seed=2)
+    assert s["params"][0].nbytes > 2 ** 31
+    tail = s["params"][0][-5:].clone()
+    kw = dict(K8_KW, decoupled=True, clip_norm=1.0, step=7)
+    norm = K8.fused_adam(**s, **kw)
+    # the plain version on the same inputs (the same seeded generator)
+    ref = _k8_set(cuda, [(n,), (300,)], torch.float32, torch.float32, False,
+                  seed=2)
+    rnorm = K8.fused_adam_dense(**ref, **kw)
+    assert abs(norm.item() - rnorm.item()) <= 1e-5 * rnorm.item()
+    _k8_agree(s, ref)
+    assert not torch.equal(s["params"][0][-5:], tail)
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16], ids=str)
+def test_fused_adam_overflow_leaves_every_buffer_bit_equal(cuda, pdt):
+    s = _k8_set(cuda, K8_SMALL[:16], pdt, torch.float32,
+                pdt != torch.float32, seed=3)
+    s["grads"][5].view(-1)[2] = float("inf")
+    before = [t.clone() for t in _k8_buffers(s)]
+    a, b = _k8_amp(cuda), _k8_amp(cuda)
+    K8.fused_adam(**s, **K8_KW, decoupled=True, clip_norm=1.0, amp=a)
+    torch.cuda.synchronize()
+    for x, y in zip(_k8_buffers(s), before):
+        assert torch.equal(x, y)
+    assert a.found.item() == 1.0
+    # the bookkeeping of the plain version: decays (decr_every 1), the
+    # applied-step count does not advance, good steps reset
+    K8.fused_adam_dense(**_k8_clone(s), **K8_KW, decoupled=True,
+                        clip_norm=1.0, amp=b)
+    assert a.scale.item() == b.scale.item() == 512.0
+    assert a.counts.tolist() == b.counts.tolist() == [0, 0, 4]
+
+
+def test_fused_adam_norm_is_deterministic(cuda):
+    outs = []
+    for _ in range(2):
+        s = _k8_set(cuda, K8_SMALL, torch.bfloat16, torch.float32, True,
+                    seed=4)
+        norm = K8.fused_adam(**s, **K8_KW, decoupled=True, clip_norm=1.0)
+        outs.append((norm.item(), [t.clone() for t in _k8_buffers(s)]))
+    assert outs[0][0] == outs[1][0]
+    for x, y in zip(outs[0][1], outs[1][1]):
+        assert torch.equal(x, y)
+
+
+def test_fused_adam_layout_and_dtype_raise(cuda):
+    s = _k8_set(cuda, [(16, 8), (4,)], torch.float32, torch.float32, False,
+                seed=5)
+    bad = _k8_clone(s)
+    bad["grads"][0] = bad["grads"][0].t().contiguous().t()
+    with pytest.raises(ValueError, match="contiguous"):
+        K8.fused_adam(**bad, **K8_KW, step=1)
+    bad = _k8_clone(s)
+    buf = torch.zeros(65, device=cuda)
+    bad["params"][1] = buf[1:5]
+    bad["grads"][1] = torch.zeros(65, device=cuda)[1:5]
+    with pytest.raises(ValueError, match="aligned"):
+        K8.fused_adam(**bad, **K8_KW, step=1)
+    bad = _k8_clone(s)
+    bad["moments1"][0] = bad["moments1"][0].cpu()
+    with pytest.raises(ValueError, match="several devices"):
+        K8.fused_adam(**bad, **K8_KW, step=1)
+    bad = _k8_clone(s)
+    bad["params"] = [p.double() for p in bad["params"]]
+    bad["grads"] = [p.double() for p in bad["grads"]]
+    with pytest.raises(TypeError):
+        K8.fused_adam(**bad, **K8_KW, step=1)
+
+
+def test_adamw_on_the_card_launches_k8_each_step(cuda):
+    from paddle_tpu_torch.optimizer import AdamW
+    w = torch.nn.Parameter(torch.randn(64, 64, device=cuda))
+    opt = AdamW(learning_rate=1e-2, parameters=[w])
+    n = K8.fused_adam.launches
+    for _ in range(3):
+        w.grad = torch.randn_like(w)
+        opt.step()
+        opt.clear_grad()
+    assert K8.fused_adam.launches == n + 3
