@@ -9,7 +9,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. build        every kernel from paddle_tpu_torch/csrc/*.cu with nvcc,
                 all sources in parallel; print the build seconds and the
                 flash and paged attention kernels' registers and spills
-                (ptxas -v)
+                (ptxas -v); every K1 tile the build lists
+                (flash_attention_fwd_tiles) must be built with 0 spill
+                bytes
 2. kernels      K3 (RMSNorm, and its gradient), K4 (ragged paged
                 attention), K5 (paged decode attention), K6 (decode
                 attention over the contiguous cache), K1 and K2 (flash
@@ -29,7 +31,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 masters and moments) against its plain version: f32
                 buffers within 1e-6 of each tensor's largest magnitude,
                 bf16 parameters within one ulp; K8, plain and
-                torch._fused_adamw_ timed with CUDA events
+                torch._fused_adamw_ timed with CUDA events. K1 at every
+                built tile (block_q, block_kv) at the train shape [4,
+                2048, 32, 128] and at GQA [4, 2048, 32 / 8, 128], causal
+                bf16, against the plain version and timed; K7's search
+                over the plain version timed as its plain time
 3. parity       a reduced Llama (fp32, TF32 off) served on cuda, graphed
                 and eager, and on cpu with the same weights and arrival
                 schedule, and run through Predictor.generate with static
@@ -76,11 +82,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 forward and backward with each layer's attention watched:
                 K1's output and K2's gradients on the model's own bf16
                 activations against the plain version, per tile, 2e-2
+8. train-autotune
+                the same trainer, seed and batch with FLAGS_use_autotune
+                on and a fresh cache file ($PADDLE_TPU_TORCH_AUTOTUNE_CACHE
+                in a temporary directory): 7 steps, 2 untimed, after 7
+                flag-off steps from the same seed. The first step's
+                forward runs K7: every built K1 tile measured at the train
+                shape (each time finite), the argmin chosen and written to
+                the file; the search's seconds, every candidate's ms, the
+                choice and the step p50 are logged. Losses must equal the
+                flag-off run's as closely as two flag-off runs agree when
+                the default tile wins (bit-equal expected), and lie within
+                1e-2 relative when another wins. One forward and backward
+                from the trained state at each tile: loss and gradient
+                norm within 2e-2 of the default tile's. A second process
+                over the same file makes one K1 call at the train shape
+                with the flag on: 0 measurements, the same tile
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 
-Developer options (the plain run uses none of them): ``--phases`` runs a
+Developer options (the plain run uses none of them; ``--k1-probe`` is
+the second process of train-autotune): ``--phases`` runs a
 subset, ``--layers`` cuts the 7B-width serving and generate runs' depth,
 and ``--profile`` serves the schedule once more (graphed), runs 16 more
 graphed decode steps of each generate run and two more train steps under
@@ -380,6 +403,77 @@ def check_flash(dev, results):
                 bound_ms=b_ms, bound_by=b_by, **_k2_split(
                     K1, q, k, v, out, lse, do, causal, qs, ks)))
             del lib_out, qg, kg, vg
+
+
+# K1's tile cases: (label, B, S, H, KV, D), causal bf16; "train" is the
+# 7B-width train phase's shape, the one K7 searches there
+TILE_CASES = [("train", 4, 2048, 32, 32, 128), ("gqa", 4, 2048, 32, 8, 128)]
+K7_REPS = 5   # measure_flash_blocks' default: 1 + reps K1 launches a tile
+
+
+def check_flash_tiles(dev, results, k7):
+    """K1 at every tile the build lists, against the plain version on the
+    same inputs, each timed from a CUDA graph; and K7's plain time: the
+    search with each candidate's (1 + reps) launches made by the plain
+    version."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import autotune as K7
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    dt = torch.bfloat16
+    tiles = K1.fwd_tiles(128, dt)
+    g = torch.Generator(device=dev).manual_seed(8)
+    for label, B, S, H, KV, D in TILE_CASES:
+        q, k, v, _, _, _ = _flash_inputs(dev, dt, B, S, S, H, KV, D, False,
+                                         g)
+        r_out, r_lse = K1.flash_attention_dense(q, k, v, True)
+        plain_ms = cuda_ms(lambda: K1.flash_attention_dense(q, k, v, True),
+                           iters=3, warm=1)
+        qt, kt, vt, kw = _sdpa_args(q, k, v, True, None, None)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, **kw))
+        (fb, ff), _ = _flash_cost(q, k, True, None, None)
+        b_ms, b_by = bound(fb, ff, dt)
+        for t in tiles:
+            out, lse = K1.flash_attention_fwd_lse(q, k, v, True, blocks=t)
+            eo = _errs(out, r_out)
+            rec = dict(
+                name="flash_attention_fwd", case=f"tile_{label}",
+                blocks=list(t), shape=[B, S, H, D], skv=S, kv_heads=KV,
+                causal=True, dtype="bfloat16", tol=TOL[dt],
+                max_abs_err=eo[0], rel_err=eo[3],
+                lse_abs_err=(lse - r_lse).abs().max().item(),
+                ms=cuda_ms(lambda: K1.flash_attention_fwd_lse(
+                    q, k, v, True, blocks=t)),
+                plain_ms=plain_ms, library_ms=library_ms,
+                library="F.scaled_dot_product_attention forward",
+                bound_ms=b_ms, bound_by=b_by)
+            results.append(rec)
+            if not rec["lse_abs_err"] <= TOL[dt]:
+                raise AssertionError(f"K1 tile {t} lse off by "
+                                     f"{rec['lse_abs_err']} ({label})")
+            if label == "train":
+                k7.setdefault("k1_ms", {})[t] = rec["ms"]
+                k7["k1_bound_ms"] = b_ms
+            del out, lse
+        if label == "train":
+            def plain_measure(cand):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                K1.flash_attention_dense(q, k, v, True)
+                t0.record()
+                for _ in range(K7_REPS):
+                    K1.flash_attention_dense(q, k, v, True)
+                t1.record()
+                t1.synchronize()
+                return t0.elapsed_time(t1) / 1e3 / K7_REPS
+
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                K7.autotune("plain", tiles, plain_measure, K7.AlgoCache(None))
+            k7["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        del q, k, v, r_out, r_lse, qt, kt, vt
 
 
 def _train_shapes(cfg):
@@ -1476,7 +1570,208 @@ def phase_train(counters, profile=False, steps=12, warm=2):
                                                 model.device))
     if profile:
         profile_train(model, opt, batch)
-    return launches
+    return launches, losses
+
+
+def _train_run(cfg, steps, counters=()):
+    """The train phase's trainer from seed 0 on its batch (seed 13):
+    (model, opt, losses, step seconds); ``counters`` are set to 0 just
+    before the first step."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    opt, step = _trainer(model)
+    batch = _lm_batch(13, 4, 2048, cfg.vocab_size, model.device)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    losses, secs = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        secs.append(time.perf_counter() - t0)
+    return model, opt, losses, secs
+
+
+def phase_train_autotune(counters, k7, ref_losses=None, steps=7, warm=2):
+    """The train phase's trainer with FLAGS_use_autotune on, over a fresh
+    cache file: K7 searches K1's tile on the first step's forward, later
+    steps and a second process reuse the choice. Returns the path's
+    launch counts; fills ``k7`` with the search's numbers."""
+    import os
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.models.llama import (LlamaPretrainingCriterion,
+                                               llama_7b)
+    from paddle_tpu_torch.ops.kernels import autotune as K7
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    cfg = llama_7b(dtype="bfloat16", num_layers=8)
+    B, S = 4, 2048
+    tmp = tempfile.mkdtemp(prefix="paddle_tpu_torch_k7_")
+    path = os.path.join(tmp, "autotune.json")
+    os.environ["PADDLE_TPU_TORCH_AUTOTUNE_CACHE"] = path
+    K7.set_cache(None)   # the process cache now reads the fresh file
+    try:
+        _, _, off, _ = _train_run(cfg, steps)
+        torch.cuda.empty_cache()
+        if ref_losses is not None:
+            spread = max(abs(a - b) for a, b in zip(off, ref_losses))
+            log(f"[train-autotune] two flag-off runs (the train phase's "
+                f"first {steps} steps, this one): max loss difference "
+                f"{spread}" + (" (bit-equal)" if spread == 0 else ""))
+        else:
+            spread = 0.0
+        set_flags({"FLAGS_use_autotune": True})
+        n_search, hits = len(K7.search_log), K7.autotune.hits
+        torch.cuda.reset_peak_memory_stats()
+        model, opt, on, secs = _train_run(cfg, steps, counters)
+        launches = {c.__name__: c.launches for c in counters}
+        searches = K7.search_log[n_search:]
+        if len(searches) != 1:
+            raise AssertionError(f"{len(searches)} searches in the flag-on "
+                                 "run, expected one (the first forward)")
+        rec = searches[0]
+        times = rec["times"]
+        chosen = tuple(rec["choice"])
+        cands = K1.fwd_tiles(128, torch.bfloat16)
+        if set(times) != set(cands) or not all(
+                t is not None and math.isfinite(t) and t > 0
+                for t in times.values()):
+            raise AssertionError(f"the search did not time every built "
+                                 f"tile {cands}: {times}")
+        if chosen != min(times, key=times.get):
+            raise AssertionError(f"chose {chosen}, not the argmin: {times}")
+        with open(path) as f:
+            on_disk = json.load(f)
+        if on_disk != {rec["key"]: list(chosen)}:
+            raise AssertionError(f"cache file holds {on_disk}")
+        timed = secs[warm:]
+        L, h = cfg.num_layers, cfg.hidden_size
+        tok_s = B * S * len(timed) / sum(timed)
+        summary = dict(
+            key=rec["key"], search_s=rec["seconds"],
+            candidates_ms={f"{bq}x{bkv}": t * 1e3
+                           for (bq, bkv), t in times.items()},
+            chosen=list(chosen), default=list(cands[0]),
+            first_step_ms=secs[0] * 1e3, step_ms=[t * 1e3 for t in secs],
+            step_ms_p50=float(np.percentile(timed, 50)) * 1e3,
+            tokens_per_s=tok_s,
+            mfu=(6 * cfg.num_params() + 12 * L * h * S) * tok_s / 989e12,
+            losses_on=on, losses_off=off,
+            cache_hits=K7.autotune.hits - hits,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            launches=launches)
+        log("[train-autotune] " + json.dumps(summary))
+        diff = max(abs(a - b) for a, b in zip(on, off))
+        if chosen == cands[0]:
+            if not diff <= spread:
+                raise AssertionError(
+                    f"the default tile won, yet flag-on losses differ from "
+                    f"flag-off by {diff} (two flag-off runs: {spread})")
+            log(f"[train-autotune] default tile chosen: flag-on losses == "
+                f"flag-off within the flag-off spread {spread} (max "
+                f"difference {diff}" + (", bit-equal)" if diff == 0 else ")"))
+        else:
+            rel = max(abs(a - b) / abs(b) for a, b in zip(on, off))
+            if not rel <= 1e-2:
+                raise AssertionError(f"tile {chosen}: flag-on losses differ "
+                                     f"from flag-off by {rel} relative")
+            log(f"[train-autotune] tile {chosen} chosen: flag-on losses "
+                f"within {rel} relative of flag-off (gate 1e-2"
+                + (", bit-equal)" if rel == 0 else ")"))
+        if not all(np.isfinite(on)) or not on[-1] < on[0]:
+            raise AssertionError(f"flag-on losses: {on}")
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"{name} never launched on the "
+                                     "train-autotune path")
+        # a second process over the same file: no measurement, same tile
+        probe = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--k1-probe"],
+            env=dict(os.environ), capture_output=True, text=True,
+            timeout=600)
+        if probe.returncode != 0:
+            raise AssertionError(f"the second process failed "
+                                 f"({probe.returncode}): {probe.stderr[-2000:]}")
+        second = json.loads(probe.stdout.strip().splitlines()[-1])
+        log(f"[train-autotune] second process over the same file: "
+            f"{json.dumps(second)}")
+        if second["measurements"] != 0 or tuple(second["blocks"]) != chosen \
+                or second["key"] != rec["key"]:
+            raise AssertionError(f"the second process measured or chose "
+                                 f"otherwise: {second}")
+        # every tile through the model's path: one forward and backward
+        # from the trained state at each, the tile forced by an in-memory
+        # cache entry
+        crit = LlamaPretrainingCriterion(cfg)
+        batch = _lm_batch(13, B, S, cfg.vocab_size, model.device)
+        per_tile = {}
+        for t in cands:
+            forced = K7.AlgoCache(None)
+            forced.put(rec["key"], t)
+            K7.set_cache(forced)
+            n1 = K1.flash_attention_fwd.launches
+            loss = crit(model(batch["x"]), batch["y"])
+            loss.backward()
+            norm = math.sqrt(sum(float(p.grad.float().pow(2).sum())
+                                 for p in model.parameters()
+                                 if p.grad is not None))
+            opt.clear_grad()
+            if K1.flash_attention_fwd.launches - n1 != cfg.num_layers:
+                raise AssertionError(f"tile {t}: K1 launched "
+                                     f"{K1.flash_attention_fwd.launches - n1}"
+                                     " times in one forward")
+            per_tile[t] = (float(loss), norm)
+        base = per_tile[cands[0]]
+        log("[train-autotune] one forward + backward at each tile (loss, "
+            "grad norm): " + json.dumps({f"{a}x{b}": v for (a, b), v in
+                                         per_tile.items()}))
+        for t, (l, n) in per_tile.items():
+            if not (abs(l - base[0]) <= TOL[torch.bfloat16] * abs(base[0])
+                    and abs(n - base[1]) <= TOL[torch.bfloat16] * base[1]):
+                raise AssertionError(f"tile {t}: (loss, grad norm) {(l, n)} "
+                                     f"against the default's {base}")
+        log(f"[train-autotune] every tile's loss and grad norm within "
+            f"{TOL[torch.bfloat16]} of the default tile's: OK")
+        qe = torch.empty(B, S, cfg.num_heads, cfg.head_dim,
+                         dtype=torch.bfloat16, device=model.device)
+        ke = torch.empty(B, S, cfg.num_kv_heads, cfg.head_dim,
+                         dtype=torch.bfloat16, device=model.device)
+        (fb, ff), _ = _flash_cost(qe, ke, True, None, None)
+        k7.update(search=rec, summary=summary, second=second,
+                  k1_bound_ms=bound(fb, ff, torch.bfloat16)[0])
+        return launches
+    finally:
+        set_flags({"FLAGS_use_autotune": False})
+        K7.set_cache(None)
+        os.environ.pop("PADDLE_TPU_TORCH_AUTOTUNE_CACHE", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def k1_probe():
+    """The second process of train-autotune: one K1 call at the train
+    shape with FLAGS_use_autotune on, over the cache file the environment
+    names. Prints the tile it ran and how many measurements it made."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.ops.kernels import autotune as K7
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    set_flags({"FLAGS_use_autotune": True})
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(4, 2048, 32, 128, generator=g, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    blocks = K1._select_blocks(q, k, True, None)
+    out = K1.flash_attention_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    print(json.dumps(dict(
+        key=K1._autotune_key(q, k, True), blocks=list(blocks),
+        measurements=K7.measure_flash_blocks.launches,
+        k1_launches=K1.flash_attention_fwd.launches,
+        finite=bool(torch.isfinite(out).all()))))
 
 
 def check_train_attention(model, opt, batch):
@@ -1621,17 +1916,86 @@ def profile_serve(eng, sched):
     _log_profile(prof, wall, "serve")
 
 
+def k7_entry(k7, results, launches):
+    """The kernels line's K7 entry. ms: the train-autotune search's wall;
+    plain_ms: the same search with the plain version's launches; bound:
+    (1 + reps) launches of every candidate at K1's bound;
+    candidates_k1_sum_ms: the same launches at each tile's own K1 time
+    from the kernels phase."""
+    search, summary = k7.get("search"), k7.get("summary", {})
+    k1_ms = k7.get("k1_ms", {})
+    tiles = sorted(search["times"]) if search else sorted(k1_ms)
+    errs = [r["max_abs_err"] for r in results
+            if r.get("case") == "tile_train"]
+    b_ms = k7.get("k1_bound_ms")
+    return dict(
+        name="flash_autotune", route="cuda",
+        source="paddle_tpu_torch/ops/kernels/autotune.py",
+        replaces="paddle_tpu/ops/pallas/autotune.py:79",
+        launches=launches, max_abs_err=max(errs, default=None),
+        ms=search["seconds"] * 1e3 if search else None,
+        plain_ms=k7.get("plain_ms"),
+        bound_ms=(len(tiles) * (1 + K7_REPS) * b_ms
+                  if b_ms is not None and tiles else None),
+        bound_by="operations", library_ms=None,
+        library="none: no single PyTorch call searches K1's tiles",
+        candidates=[dict(
+            blocks=list(t),
+            search_ms=(search["times"][t] * 1e3 if search else None),
+            k1_ms=k1_ms.get(t)) for t in tiles],
+        candidates_k1_sum_ms=(sum((1 + K7_REPS) * m for m in k1_ms.values())
+                              if k1_ms else None),
+        choice=summary.get("chosen"), search_s=summary.get("search_s"),
+        cache_hits=summary.get("cache_hits"),
+        second_process=k7.get("second"), reps=K7_REPS,
+        shape=[4, 2048, 32, 128], dtype="bfloat16")
+
+
+def check_tile_spills(_build):
+    """Every K1 tile the library lists is a fwd_wgmma<D, W, BN> instance
+    that ptxas built with 0 spill bytes."""
+    import re
+
+    from paddle_tpu_torch.ops.kernels.flash_attention import fwd_tiles
+
+    built = {}
+    for fn, rep in _build.ptxas_report("flash_attention").items():
+        m = re.search(r"fwd_wgmmaILi(\d+)ELi(\d+)ELi(\d+)E", fn)
+        if m:
+            D, W, BN = map(int, m.groups())
+            built[(D, 64 * W, BN)] = rep
+    bad = []
+    for D in (64, 128):
+        tiles = fwd_tiles(D, torch.bfloat16)
+        log(f"[build] K1 tiles at D={D} bf16 (block_q, block_kv): "
+            + json.dumps({f"{bq}x{bkv}": built.get((D, bq, bkv))
+                          for bq, bkv in tiles}))
+        for bq, bkv in tiles:
+            rep = built.get((D, bq, bkv))
+            if not rep or rep.get("spill_stores", 1) or \
+                    rep.get("spill_loads", 1):
+                bad.append(f"D={D} {bq}x{bkv}: {rep}")
+    if bad:
+        raise AssertionError("K1 tiles built with spills (or not found in "
+                             "the ptxas log): " + "; ".join(bad))
+    log("[build] every listed K1 tile built with 0 spill bytes: OK")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="depth of the 7B-width serving and generate runs")
     ap.add_argument("--phases",
                     default="build,kernels,parity,serve,generate,"
-                            "train-parity,train")
+                            "train-parity,train,train-autotune")
     ap.add_argument("--profile", action="store_true",
                     help="serve the schedule once more, run 16 more decode "
                     "steps of each generate run and two more train steps "
                     "under torch.profiler, and print device time by kernel")
+    ap.add_argument("--k1-probe", action="store_true",
+                    help="the train-autotune phase's second process: one K1 "
+                    "call with FLAGS_use_autotune on, over the cache file "
+                    "$PADDLE_TPU_TORCH_AUTOTUNE_CACHE names")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -1642,6 +2006,9 @@ def main():
         sys.exit("chip_smoke.py: run it from the root of a checkout "
                  "(paddle_tpu_torch/ not found beside it)")
     sys.path.insert(0, str(repo))
+    if args.k1_probe:
+        k1_probe()
+        return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
@@ -1650,6 +2017,7 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
 
     from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels.autotune import measure_flash_blocks
     from paddle_tpu_torch.ops.kernels.decode_attention import (
         decode_attention, paged_decode_attention)
     from paddle_tpu_torch.ops.kernels.flash_attention import (
@@ -1667,14 +2035,17 @@ def main():
     for src in ("flash_attention", "paged_attention"):
         for fn, rep in _build.ptxas_report(src).items():
             log(f"[build] ptxas {fn}: {json.dumps(rep)}")
+    check_tile_spills(_build)
 
     dev = torch.device("cuda", 0)
     results = []
+    k7 = {}   # K7's numbers: the kernels phase's, then train-autotune's
     if "kernels" in phases:
         check_rms(dev, results)
         check_attention(dev, results)
         check_decode(dev, results)
         check_flash(dev, results)
+        check_flash_tiles(dev, results, k7)
         check_fused_adam(dev, results)
         bad = []
         for r in results:
@@ -1697,7 +2068,10 @@ def main():
              "generate_static": [rms_norm, decode_attention],
              "generate_paged": [rms_norm, paged_decode_attention],
              "train": [rms_norm, flash_attention_fwd, flash_attention_bwd,
-                       fused_adam]}
+                       fused_adam],
+             "train_autotune": [rms_norm, flash_attention_fwd,
+                                flash_attention_bwd, fused_adam,
+                                measure_flash_blocks]}
     by_path = {p: {c.__name__: None for c in cs} for p, cs in paths.items()}
     if "serve" in phases or "generate" in phases:
         model = build_7b(args.layers)
@@ -1711,8 +2085,14 @@ def main():
         torch.cuda.empty_cache()
     if "train-parity" in phases:
         phase_train_parity()
+    train_losses = None
     if "train" in phases:
-        by_path["train"] = phase_train(paths["train"], args.profile)
+        by_path["train"], train_losses = phase_train(paths["train"],
+                                                     args.profile)
+        torch.cuda.empty_cache()
+    if "train-autotune" in phases:
+        by_path["train_autotune"] = phase_train_autotune(
+            paths["train_autotune"], k7, train_losses)
 
     # one entry per kernel: the main path's dtype (bf16) at its main shape
     main_shape = {"rms_norm": [2048, 4096],
@@ -1746,7 +2126,7 @@ def main():
     for name, (src, repl, path) in meta.items():
         mine = [r for r in results if r["name"] == name]
         main = [r for r in mine if r["shape"] == main_shape[name]
-                and r["dtype"] == "bfloat16"
+                and r["dtype"] == "bfloat16" and "blocks" not in r
                 and r.get("kv_heads", 32) == 32 and not r.get("diagnostic")]
         row = main[0] if main else {}
         kernels.append(dict(
@@ -1761,6 +2141,8 @@ def main():
             dtype="bfloat16",
             **{k: row[k] for k in ("body", "splits", "workspace_bytes")
                if k in row}))
+    kernels.append(k7_entry(k7, results,
+                            by_path["train_autotune"]["measure_flash_blocks"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

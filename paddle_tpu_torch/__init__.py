@@ -9,3 +9,7 @@ device unless the caller passes ``device="cpu"``; on the CPU every
 kernel wrapper takes its plain PyTorch version. There is no fallback on
 the card: a CUDA tensor launches the kernel or raises.
 """
+
+from .core.flags import get_flags, set_flags
+
+__all__ = ["get_flags", "set_flags"]

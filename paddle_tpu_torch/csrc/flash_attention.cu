@@ -35,7 +35,8 @@
 // Design. No body uses atomics: each output element is owned by one CTA,
 // so the backward is deterministic.
 //   bf16, D = 64 and 128 (the training path): Hopper bodies. A CTA is two
-//     consumer warpgroups of 64 rows and one producer warp. The producer
+//     consumer warpgroups of 64 rows (the forward: W of them, 1 to 3) and
+//     one producer warp. The producer
 //     issues TMA loads (4-D tensor maps over the native layout, 128-byte
 //     swizzle, each tile as 64-column panels, rows past the end zero-
 //     filled) into a two-stage ring of shared-memory tiles, each stage
@@ -46,8 +47,13 @@
 //     tiles that a row's causal frontier, the key or row count, or segment
 //     ids cut; softmax runs in base 2 (exp2 of scores times
 //     scale*log2(e)), lse stays natural.
-//     forward: one CTA per (128 q rows, head, batch row), 128 keys of K and
-//       V a stage up to the block's causal frontier; S = Q K^T, O += P V.
+//     forward: one CTA per (block_q = 64 W q rows, head, batch row),
+//       block_kv = 64 or 128 keys of K and V a stage up to the block's
+//       causal frontier, the softmax in sub-steps of 64 keys; S = Q K^T,
+//       O += P V. The tile is a template
+//       parameter; kFwdTiles lists the built ones (default 128 x 128),
+//       flash_attention_fwd_tiles exports the list, and K7 (the measured
+//       search, ops/kernels/autotune.py) chooses among them.
 //       The q blocks of one head launch together (the K and V they
 //       stream stay in L2), under causal the heaviest (last rows) first.
 //     pre-pass: delta = rowsum(dO o O) and lse * log2(e) into f32 rows
@@ -879,7 +885,8 @@ __global__ void __launch_bounds__(kThreads) dkv_mma(Args a) {
 // ---------------------------------------------------------------------------
 // Hopper bodies (bf16, D = 64 and 128): wgmma on the tensor cores, TMA into
 // a two-stage shared-memory ring guarded by mbarriers, one producer warp
-// and two consumer warpgroups of 64 rows each.
+// and two consumer warpgroups of 64 rows each (the forward: W, its own
+// FwdHop::kConsumers).
 // Layout of a thread's wgmma accumulator d[64 x N] (warp w of the
 // warpgroup, lane = 4 grp + tig): d[4 j + 2 hi + e] is row 16 w + grp +
 // 8 hi, column 8 j + 2 tig + e.
@@ -889,7 +896,7 @@ __global__ void __launch_bounds__(kThreads) dkv_mma(Args a) {
 // with setmaxnreg did not lift that cap in ptxas's allocation (the same
 // spills with and without it, nvcc 12.9), so the bodies are sized to 168
 // instead: see the dk/dv split below.
-constexpr int kConsumers = 256;               // two consumer warpgroups
+constexpr int kConsumers = 256;               // two consumer warpgroups (K2)
 constexpr int kHopThreads = kConsumers + 32;  // and one producer warp
 constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -944,19 +951,61 @@ __device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map,
     hopper::tma_load_4d(dst + p * rows * 64, map, bar, p * 64, hh, r0, b);
 }
 
-// K1 forward: one CTA per (128 q rows, head, batch row); 128 keys a stage
-template <int D>
+// K1 forward: one CTA per (BM = 64 W q rows, head, batch row), W consumer
+// warpgroups of 64 rows and one producer warp; BN keys a stage. The tile
+// (BM, BN) is what K7 (the measured search, ops/kernels/autotune.py)
+// chooses among; kFwdTiles lists the instances that are built.
+template <int D, int W, int BN_>
 struct FwdHop {
-  static constexpr int BM = 128, BN = 128;  // q rows, keys a stage
+  static constexpr int BM = 64 * W, BN = BN_;  // q rows, keys a stage
+  static constexpr int kConsumers = 128 * W;
+  static constexpr int kThreads = kConsumers + 32;
   static constexpr uint32_t QB = tile_bytes<D>(BM), KB = tile_bytes<D>(BN);
   static constexpr int smem = QB + kStages * 2 * KB + 64 + 1024;
+  static_assert(W >= 1 && W <= 3 && (BN == 64 || BN == 128),
+                "K1 tiles: 1 to 3 warpgroups, 64 or 128 keys a stage");
 };
 
-template <int D>
-__global__ void __launch_bounds__(kHopThreads, 1)
+// The built (D, W, BN) instances, each D's default first. Every instance
+// runs the softmax over the same 64-key sub-steps in the same order, so all
+// compute the same bits: a tile changes only the speed. ptxas caps a
+// block's registers a thread by its warpgroups, rounded up (the producer
+// warp counts as one): 255 at W = 1, 168 at W = 2, 128 at W = 3 (nvcc
+// 12.8). An instance that spills is left out (chip_smoke.py's build phase
+// fails on a spill of a listed one): at D = 128, W = 3 spills (o alone is
+// 64 registers a thread), and at D = 64, W = 3 with 128 keys a stage.
+struct FwdTile {
+  int D, W, BN;
+};
+constexpr FwdTile kFwdTiles[] = {
+    {128, 2, 128},  // the default, (0, 0)
+    {128, 1, 64}, {128, 1, 128}, {128, 2, 64},
+    {64, 2, 128},   // the default, (0, 0)
+    {64, 1, 64},  {64, 1, 128},  {64, 2, 64}, {64, 3, 64},
+};
+constexpr int kNumFwdTiles = sizeof(kFwdTiles) / sizeof(kFwdTiles[0]);
+
+// a shared-memory descriptor `base` advanced by `off` (16-byte units),
+// computed where it is used: the empty asm keeps the compiler from
+// computing a whole wgmma batch's descriptors into registers ahead of it
+__device__ __forceinline__ uint64_t desc_at(uint64_t base, uint32_t off) {
+  asm volatile("" : "+l"(base));
+  return base + off;
+}
+
+
+template <int D, int W, int BN>
+__global__ void __launch_bounds__(FwdHop<D, W, BN>::kThreads, 1)
     fwd_wgmma(const __grid_constant__ HopParams P) {
-  using C = FwdHop<D>;
-  constexpr int BM = C::BM, BN = C::BN;
+  using C = FwdHop<D, W, BN>;
+  constexpr int BM = C::BM, kConsumers = C::kConsumers;
+  // A stage of BN = 128 keys runs as two softmax sub-steps of 64, the
+  // second's S = Q K^T issued before the first's softmax, and every wgmma's
+  // descriptors are formed where it is issued (desc_at). Together they keep
+  // the 128 x 128 default within W = 2's 168 registers without a spill; a
+  // one-step 128-key body spills 8 bytes there and runs ~4% faster (the K1
+  // table in PERF.md).
+  constexpr int SN = 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   bf16* sq = reinterpret_cast<bf16*>(smem);
@@ -998,14 +1047,16 @@ __global__ void __launch_bounds__(kHopThreads, 1)
         tma_rows<D>(ks + BN * D, &P.tv, full + ring.s, BN, kvh, k0, b);
       }
     }
-  } else {  // two consumer warpgroups, 64 q rows each
+  } else {  // W consumer warpgroups, 64 q rows each
     const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
     const int w = tid >> 5, lane = tid & 31, grp = lane >> 2, tig = lane & 3;
     const int r0 = q0 + wg * 64;
     const int rA = r0 + w * 16 + grp, rB = rA + 8;
-    const int fA = frontier(a, rA), fB = frontier(a, rB);
-    const int f0 = frontier(a, r0);  // the warpgroup's smallest frontier
+    // the warpgroup's smallest frontier (-1 when its rows start past Sq:
+    // every tile is then masked, and nothing of it is stored)
+    const int f0 = frontier(a, r0);
     const bool seg = a.qseg != nullptr;
+    const int fA = frontier(a, rA), fB = frontier(a, rB);
     const int sA = (seg && rA < a.Sq) ? a.qseg[size_t(b) * a.Sq + rA] : 0;
     const int sB = (seg && rB < a.Sq) ? a.qseg[size_t(b) * a.Sq + rB] : 0;
     const float sl2 = a.scale * kLog2e;  // scores in base 2
@@ -1018,65 +1069,91 @@ __global__ void __launch_bounds__(kHopThreads, 1)
       hopper::mbar_wait(full + ring.s, ring.ph);
       const bf16* ks = skv + ring.s * 2 * BN * D;
       const bf16* vs = ks + BN * D;
-      float sc[BN / 2];
-      hopper::wgmma_fence();
+      // scores of sub-step hs land in s2[hs & 1]; the first goes in here
+      const uint64_t dq0 = kmajor(sq, BM, wg * 64, 0);
+      float s2[2][SN / 2];
+      {
+        hopper::wgmma_fence();
+        const uint64_t dk0 = kmajor(ks, BN, 0, 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ss<BN>(sc, kmajor(sq, BM, wg * 64, kk), kmajor(ks, BN, 0, kk), kk > 0);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_operand(sc);
-      // the mask only where a key past a row's frontier (or a segment
-      // boundary) can fall in the tile; masked scores become -inf, so
-      // their probability is exactly 0 and m never drops below kNeg
-      if (seg || k0 + BN - 1 > f0) {
+        for (int kk = 0; kk < D / 16; ++kk)
+          ss<SN>(s2[0], desc_at(dq0, (kk >> 2) * BM * 8 + (kk & 3) * 2),
+                 desc_at(dk0, (kk >> 2) * BN * 8 + (kk & 3) * 2), kk > 0);
+        hopper::wgmma_commit();
+      }
 #pragma unroll
-        for (int i = 0; i < BN / 2; ++i) {
-          const int key = k0 + 8 * (i >> 2) + 2 * tig + (i & 1);
-          const bool hi = (i >> 1) & 1;
-          bool keep = key <= (hi ? fB : fA);
-          if (seg && keep)
-            keep = a.kseg[size_t(b) * a.Skv + key] == (hi ? sB : sA);
-          if (!keep) sc[i] = neg_inf();
+      for (int hs = 0; hs < BN / SN; ++hs) {
+        const int kh = k0 + hs * SN;  // the sub-step's first key
+        float (&sc)[SN / 2] = s2[hs & 1];
+        hopper::wgmma_wait<0>();
+        hopper::fence_operand(sc);
+        hopper::fence_operand(o);
+        if (hs + 1 < BN / SN) {
+          // the next sub-step's scores run on the tensor cores while this
+          // one's softmax runs
+          float (&sn)[SN / 2] = s2[(hs + 1) & 1];
+          hopper::wgmma_fence();
+          const uint64_t dk1 = kmajor(ks, BN, (hs + 1) * SN, 0);
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            ss<SN>(sn, desc_at(dq0, (kk >> 2) * BM * 8 + (kk & 3) * 2),
+                   desc_at(dk1, (kk >> 2) * BN * 8 + (kk & 3) * 2), kk > 0);
+          hopper::wgmma_commit();
         }
+        // the mask only where a key past a row's frontier (or a segment
+        // boundary) can fall in the tile; masked scores become -inf, so
+        // their probability is exactly 0 and m never drops below kNeg
+        if (seg || kh + SN - 1 > f0) {
+#pragma unroll
+          for (int i = 0; i < SN / 2; ++i) {
+            const int key = kh + 8 * (i >> 2) + 2 * tig + (i & 1);
+            const bool hi = (i >> 1) & 1;
+            bool keep = key <= (hi ? fB : fA);
+            if (seg && keep)
+              keep = a.kseg[size_t(b) * a.Skv + key] == (hi ? sB : sA);
+            if (!keep) sc[i] = neg_inf();
+          }
+        }
+        float bA = neg_inf(), bB = neg_inf();
+#pragma unroll
+        for (int j = 0; j < SN / 8; ++j) {
+          bA = fmaxf(bA, fmaxf(sc[4 * j], sc[4 * j + 1]));
+          bB = fmaxf(bB, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+        }
+        const float nA = fmaxf(mA, quad_max(bA) * sl2);
+        const float nB = fmaxf(mB, quad_max(bB) * sl2);
+        const float cA = exp2f(mA - nA), cB = exp2f(mB - nB);
+        float pA = 0.f, pB = 0.f;
+#pragma unroll
+        for (int j = 0; j < SN / 8; ++j) {
+          sc[4 * j] = exp2f(fmaf(sc[4 * j], sl2, -nA));
+          sc[4 * j + 1] = exp2f(fmaf(sc[4 * j + 1], sl2, -nA));
+          sc[4 * j + 2] = exp2f(fmaf(sc[4 * j + 2], sl2, -nB));
+          sc[4 * j + 3] = exp2f(fmaf(sc[4 * j + 3], sl2, -nB));
+          pA += sc[4 * j] + sc[4 * j + 1];
+          pB += sc[4 * j + 2] + sc[4 * j + 3];
+        }
+        lA = lA * cA + pA;  // per-lane partial sums; the quad adds them last
+        lB = lB * cB + pB;
+        mA = nA;
+        mB = nB;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j] *= cA;
+          o[4 * j + 1] *= cA;
+          o[4 * j + 2] *= cB;
+          o[4 * j + 3] *= cB;
+        }
+        uint32_t pa[SN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < SN / 16; ++kk) to_a(pa[kk], sc, kk);
+        hopper::wgmma_fence();
+        const uint64_t dv0 = mnmajor(vs, BN, hs * (SN / 16));
+#pragma unroll
+        for (int kk = 0; kk < SN / 16; ++kk)
+          rs<D>(o, pa[kk], desc_at(dv0, kk * 128));
+        hopper::wgmma_commit();
       }
-      float bA = neg_inf(), bB = neg_inf();
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        bA = fmaxf(bA, fmaxf(sc[4 * j], sc[4 * j + 1]));
-        bB = fmaxf(bB, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-      }
-      const float nA = fmaxf(mA, quad_max(bA) * sl2);
-      const float nB = fmaxf(mB, quad_max(bB) * sl2);
-      const float cA = exp2f(mA - nA), cB = exp2f(mB - nB);
-      float pA = 0.f, pB = 0.f;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        sc[4 * j] = exp2f(fmaf(sc[4 * j], sl2, -nA));
-        sc[4 * j + 1] = exp2f(fmaf(sc[4 * j + 1], sl2, -nA));
-        sc[4 * j + 2] = exp2f(fmaf(sc[4 * j + 2], sl2, -nB));
-        sc[4 * j + 3] = exp2f(fmaf(sc[4 * j + 3], sl2, -nB));
-        pA += sc[4 * j] + sc[4 * j + 1];
-        pB += sc[4 * j + 2] + sc[4 * j + 3];
-      }
-      lA = lA * cA + pA;  // per-lane partial sums; the quad adds them last
-      lB = lB * cB + pB;
-      mA = nA;
-      mB = nB;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[4 * j] *= cA;
-        o[4 * j + 1] *= cA;
-        o[4 * j + 2] *= cB;
-        o[4 * j + 3] *= cB;
-      }
-      uint32_t pa[BN / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) to_a(pa[kk], sc, kk);
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) rs<D>(o, pa[kk], mnmajor(vs, BN, kk));
-      hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_operand(o);
       hopper::mbar_arrive(empty + ring.s);
@@ -1442,9 +1519,9 @@ bool hop_ok(const Args& a, int dtype) {
   return dtype == 1 && (a.D == 64 || a.D == 128) && a.Sq > 0 && a.Skv > 0;
 }
 
-template <int D>
+template <int D, int W, int BN>
 cudaError_t fwd_hop(const Args& a, cudaStream_t s) {
-  using C = FwdHop<D>;
+  using C = FwdHop<D, W, BN>;
   HopParams p{};
   p.a = a;
   if (!hopper_host::encode_rows(&p.tq, a.q, a.B, a.Sq, a.H, D, C::BM) ||
@@ -1452,11 +1529,27 @@ cudaError_t fwd_hop(const Args& a, cudaStream_t s) {
       !hopper_host::encode_rows(&p.tv, a.v, a.B, a.Skv, a.KV, D, C::BN))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::smem);
+      fwd_wgmma<D, W, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Sq + C::BM - 1) / C::BM, a.H, a.B);
-  fwd_wgmma<D><<<grid, kHopThreads, C::smem, s>>>(p);
+  fwd_wgmma<D, W, BN><<<grid, C::kThreads, C::smem, s>>>(p);
   return cudaGetLastError();
+}
+
+// the Hopper forward at tile (bq, bkv) = (64 W, BN); (0, 0) is the first
+// tile kFwdTiles lists for a.D. A pair not listed for a.D is refused.
+template <int I = 0>
+cudaError_t fwd_hop_tile(const Args& a, int bq, int bkv, cudaStream_t s) {
+  if constexpr (I == kNumFwdTiles) {
+    return cudaErrorInvalidValue;
+  } else {
+    constexpr FwdTile t = kFwdTiles[I];
+    const bool deflt = bq == 0 && bkv == 0;
+    if (a.D == t.D && (deflt || (bq == 64 * t.W && bkv == t.BN)))
+      return fwd_hop<t.D, t.W, t.BN>(a, s);
+    return fwd_hop_tile<I + 1>(a, bq, bkv, s);
+  }
 }
 
 template <typename T, int D>
@@ -1564,9 +1657,11 @@ cudaError_t bwd_f(const Args& a, int parts, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-cudaError_t run_fwd(const Args& a, int dtype, cudaStream_t s) {
-  if (hop_ok(a, dtype))
-    return a.D == 64 ? fwd_hop<64>(a, s) : fwd_hop<128>(a, s);
+cudaError_t run_fwd(const Args& a, int dtype, int bq, int bkv,
+                    cudaStream_t s) {
+  if (hop_ok(a, dtype)) return fwd_hop_tile(a, bq, bkv, s);
+  // the mma and FMA bodies have one tile each: (0, 0)
+  if (bq != 0 || bkv != 0) return cudaErrorInvalidValue;
   if (dtype == 1) {
     switch (a.D) {
       case 16: fwd_mma<16><<<row_grid(a, kRows), kThreads, 0, s>>>(a); break;
@@ -1636,10 +1731,15 @@ cudaError_t run_bwd(const Args& a, int dtype, const void* out, float* work,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out share it). lse [B, H, Sq].
+// (block_q, block_kv): a tile flash_attention_fwd_tiles lists for (D,
+// dtype), or (0, 0) for the body's default; any other pair, or a pair on a
+// call the Hopper body does not take (no key), returns
+// cudaErrorInvalidValue without a launch.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, const void* qseg,
     const void* kseg, void* out, void* lse, int B, int Sq, int Skv, int H,
-    int KV, int D, int causal, float scale, int dtype, void* stream) {
+    int KV, int D, int causal, float scale, int dtype, int block_q,
+    int block_kv, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   Args a{};
   a.q = q;
@@ -1652,7 +1752,26 @@ extern "C" int flash_attention_fwd_launch(
   a.B = B; a.Sq = Sq; a.Skv = Skv; a.H = H; a.KV = KV; a.D = D;
   a.causal = causal;
   a.scale = scale;
-  return static_cast<int>(run_fwd(a, dtype, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      run_fwd(a, dtype, block_q, block_kv, static_cast<cudaStream_t>(stream)));
+}
+
+// The forward's built tiles for (D, dtype) as (block_q, block_kv) pairs in
+// out[2 i], out[2 i + 1], the default first; returns how many there are
+// (at most `max` are written). Only the Hopper body (bf16, D = 64 and 128)
+// has tiles to choose: 0 for any other (D, dtype).
+extern "C" int flash_attention_fwd_tiles(int D, int dtype, int* out, int max) {
+  int n = 0;
+  if (dtype != 1) return 0;
+  for (int i = 0; i < kNumFwdTiles; ++i) {
+    if (kFwdTiles[i].D != D) continue;
+    if (n < max) {
+      out[2 * n] = 64 * kFwdTiles[i].W;
+      out[2 * n + 1] = kFwdTiles[i].BN;
+    }
+    ++n;
+  }
+  return n;
 }
 
 // dq, dk, dv are written whole (every element, zeros where no q row sees a

@@ -29,8 +29,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["SOURCES", "build_all", "check", "library", "nvcc_path",
-           "ptxas_report"]
+__all__ = ["LaunchError", "SOURCES", "build_all", "build_hash", "check",
+           "library", "nvcc_path", "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -56,12 +56,18 @@ def nvcc_path() -> str:
                        "the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _target(name: str) -> Path:
+def build_hash(name: str) -> str:
+    """The 16 hex digits that name ``csrc/<name>.cu``'s build: a hash of
+    its source, every shared header and the nvcc flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(FLAGS).encode())
-    return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def _target(name: str) -> Path:
+    return BUILD / f"{name}-{build_hash(name)}.so"
 
 
 def _start(name: str):
@@ -142,8 +148,12 @@ def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
     return report
 
 
+class LaunchError(RuntimeError):
+    """A C entry point returned a CUDA error code."""
+
+
 def check(rc: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {rc} "
+        raise LaunchError(f"{what}: CUDA launch failed with error {rc} "
                            "(cudaGetLastError after the launch)")

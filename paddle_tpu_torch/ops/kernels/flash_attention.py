@@ -22,6 +22,14 @@ The backward's ``delta = rowsum(dO * O)`` (f32), which the JAX
 ``_fa_bwd`` leaves to XLA, is K2's pre-pass kernel: it writes delta and
 ``lse * log2(e)`` into an f32 workspace ``[2, B, H, Sp]`` (Sp = Sq
 rounded up to 64) that the wrapper allocates.
+
+K1's Hopper body is built at several tiles (block_q, block_kv)
+(``fwd_tiles``). The default is (128, 128); with
+``FLAGS_use_autotune`` on, ``_select_blocks`` has K7 (``autotune.py``)
+measure them at the call's shape and launches the fastest, as the JAX
+``_prep`` does. Every tile computes the same bits (the softmax runs in
+the same 64-key sub-steps), so the choice changes only the speed. K2
+keeps its own tiles, whatever K1 ran.
 """
 from __future__ import annotations
 
@@ -32,12 +40,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import (_build, counted, dtype_code, ptr, route, stream,
+from . import (DTYPE_CODES, _build, counted, dtype_code, ptr, route, stream,
                want_contiguous)
+from . import autotune as _autotune
+from ...core import flags as _flags
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_lse",
            "flash_attention_bwd", "flash_attention_dense",
-           "flash_attention_bwd_dense", "HEAD_DIMS"]
+           "flash_attention_bwd_dense", "fwd_tiles", "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64, 128)
 _NEG = -1e30
@@ -112,8 +122,10 @@ def _lib():
     lib = _build.library("flash_attention")
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_fwd_launch.argtypes = (
-        [vp] * 7 + [i] * 7 + [f, i, vp])
+        [vp] * 7 + [i] * 7 + [f, i, i, i, vp])
     lib.flash_attention_fwd_launch.restype = i
+    lib.flash_attention_fwd_tiles.argtypes = [i, i, ctypes.POINTER(i), i]
+    lib.flash_attention_fwd_tiles.restype = i
     lib.flash_attention_bwd_launch.argtypes = (
         [vp] * 12 + [i] * 7 + [f, i, i, vp])
     lib.flash_attention_bwd_launch.restype = i
@@ -170,20 +182,98 @@ def _opt(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(0) if t is None else ptr(t)
 
 
-def _k1(q, k, v, causal, scale, qseg, kseg):
-    """Launch K1: (out, lse)."""
+@functools.cache
+def fwd_tiles(D: int, dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
+    """K1's built tiles (block_q, block_kv) for head dim ``D`` and
+    ``dtype``, the default first, as the CUDA library lists them
+    (``flash_attention_fwd_tiles``): the Hopper body's instances for bf16
+    at D = 64 and 128, none for the bodies with one tile. Builds the
+    library; a CUDA-only call."""
+    if dtype not in DTYPE_CODES:
+        return ()
+    buf = (ctypes.c_int * 64)()
+    n = _lib().flash_attention_fwd_tiles(int(D), DTYPE_CODES[dtype], buf, 32)
+    return tuple((buf[2 * i], buf[2 * i + 1]) for i in range(min(n, 32)))
+
+
+def _k1(q, k, v, causal, scale, qseg, kseg, blocks=None):
+    """Launch K1: (out, lse). ``blocks`` = (block_q, block_kv), one of
+    ``fwd_tiles``; None is the body's default tile."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     _check_cuda({"q": q, "k": k, "v": v}, D, "flash_attention_fwd")
+    if blocks is not None and tuple(blocks) not in fwd_tiles(D, q.dtype):
+        raise ValueError(f"flash_attention_fwd: tile {tuple(blocks)} is not "
+                         f"built for D={D} {q.dtype}; built: "
+                         f"{list(fwd_tiles(D, q.dtype))}")
+    bq, bkv = (0, 0) if blocks is None else blocks
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     rc = _lib().flash_attention_fwd_launch(
         ptr(q), ptr(k), ptr(v), _opt(qseg), _opt(kseg), ptr(out), ptr(lse),
         B, Sq, Skv, H, KV, D, int(bool(causal)), float(scale),
-        dtype_code(q, "q"), stream(q))
+        dtype_code(q, "q"), int(bq), int(bkv), stream(q))
     _build.check(rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_current_stream_capturing()
+
+
+@functools.cache
+def _card(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device)
+
+
+@functools.cache
+def _k1_build() -> str:
+    """The build hash of the library this process loads (``_lib``)."""
+    return _build.build_hash("flash_attention")
+
+
+def _autotune_key(q, k, causal) -> str:
+    """The JAX ``_prep`` key (``flash:{B}x{Sq}x{H}x{D}:{Skv}:{dtype}:
+    {causal}``, the dtype spelled as JAX spells it), then the port's own
+    fields: the kv heads, the card's name and K1's build hash, so a tile
+    measured on another card or against another K1 build is never
+    reused."""
+    B, Sq, H, D = q.shape
+    dtype = str(q.dtype).replace("torch.", "")
+    return (f"flash:{B}x{Sq}x{H}x{D}:{k.shape[1]}:{dtype}:{bool(causal)}"
+            f":kv{k.shape[2]}:{_card(q.device)}:{_k1_build()}")
+
+
+def _select_blocks(q, k, causal, qseg):
+    """K1's tile for this call (counterpart of the tile choice in the JAX
+    ``_prep``, flash_attention.py:456-477): None (the default tile) with
+    ``FLAGS_use_autotune`` off, on CPU tensors, with segment ids (JAX
+    skips the search under interpret and with segment ids too) or with
+    at most one built tile; otherwise K7's choice, measured at this shape
+    on the first call and cached (``autotune.autotune``). A cache miss
+    while a CUDA graph is being captured raises: a search cannot run
+    inside a capture."""
+    if not (_flags._get("use_autotune", False) and _on_card(q)
+            and qseg is None and q.shape[1] > 0 and k.shape[1] > 0):
+        return None
+    cands = fwd_tiles(q.shape[3], q.dtype)
+    if len(cands) <= 1:
+        return None
+    key = _autotune_key(q, k, causal)
+    cache = _autotune.get_cache()
+    if cache.get(key) is None and _capturing():
+        raise RuntimeError(
+            f"flash_attention_fwd: FLAGS_use_autotune has no tile cached for "
+            f"{key} and a CUDA graph is being captured, where the search "
+            "cannot run; run this shape eagerly once first")
+    return _autotune.autotune(key, cands, _autotune.measure_flash_blocks(
+        tuple(q.shape), k.shape[1], k.shape[2], q.dtype, bool(causal)),
+        cache)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
@@ -247,7 +337,8 @@ def _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg,
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, qseg, kseg):
-        out, lse = _k1(q, k, v, causal, scale, qseg, kseg)
+        out, lse = _k1(q, k, v, causal, scale, qseg, kseg,
+                       _select_blocks(q, k, causal, qseg))
         ctx.save_for_backward(q, k, v, out, lse, qseg, kseg)
         ctx.causal, ctx.scale = causal, scale
         return out
@@ -272,16 +363,21 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None,
 
 
 def flash_attention_fwd_lse(q, k, v, causal=False, scale=None,
-                            q_segment_ids=None, kv_segment_ids=None):
+                            q_segment_ids=None, kv_segment_ids=None,
+                            blocks=None):
     """(out, lse) with no graph: K1's two outputs (the JAX ``_fa_fwd``
-    residuals), for checks and for callers that reuse the lse."""
+    residuals), for checks and for callers that reuse the lse. On CUDA
+    tensors ``blocks`` = (block_q, block_kv) runs K1 at that tile (one of
+    ``fwd_tiles``); None takes the tile ``_select_blocks`` gives."""
     qseg, kseg = _check(q, k, v, q_segment_ids, kv_segment_ids,
                         "flash_attention_fwd")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     with torch.no_grad():
         if route(q, k, v, *_present(qseg, kseg)) == "cpu":
             return flash_attention_dense(q, k, v, causal, scale, qseg, kseg)
-        return _k1(q, k, v, causal, scale, qseg, kseg)
+        if blocks is None:
+            blocks = _select_blocks(q, k, causal, qseg)
+        return _k1(q, k, v, causal, scale, qseg, kseg, blocks)
 
 
 counted(flash_attention_fwd)

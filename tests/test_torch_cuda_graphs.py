@@ -31,6 +31,7 @@ from paddle_tpu_torch.inference import (Config, GenerationConfig,
                                         create_predictor)
 from paddle_tpu_torch.models import llama as tl
 from paddle_tpu_torch.ops import kernels
+from paddle_tpu_torch.ops.kernels import autotune as K7
 from paddle_tpu_torch.ops.kernels import decode_attention as K5
 from paddle_tpu_torch.ops.kernels import flash_attention as K1
 from paddle_tpu_torch.ops.kernels import fused_adam as K8
@@ -259,7 +260,7 @@ def test_every_kernel_wrapper_is_registered():
     assert set(kernels.launch_counts()) == {
         K1.flash_attention_fwd, K1.flash_attention_bwd, K3.rms_norm,
         K4.ragged_paged_attention, K5.decode_attention,
-        K5.paged_decode_attention, K8.fused_adam}
+        K5.paged_decode_attention, K8.fused_adam, K7.measure_flash_blocks}
 
 
 def test_registry_adds_a_recorded_step_once_per_replay():

@@ -599,6 +599,122 @@ def test_varlen_noncausal_rect_pack_launches_k1(cuda, dtype):
     assert _scaled(out[None], ref.to(cuda)[None]) <= TOL[dtype]
 
 
+# -- K1's tiles and K7, the measured tile search --------------------------------
+TILE_CASES = {  # (B, Sq, Skv, H, KV, D, causal, segments), bf16
+    "d128_causal": (2, 256, 256, 4, 4, 128, True, False),
+    "d64_causal": (2, 256, 256, 4, 4, 64, True, False),
+    "d128_full": (1, 200, 200, 4, 4, 128, False, False),
+    "gqa4_d64_full": (2, 192, 192, 8, 2, 64, False, False),
+    "gqa4_d128_causal": (2, 256, 256, 8, 2, 128, True, False),
+    "rect_d128": (2, 100, 300, 4, 2, 128, True, False),
+    "rect_long_q_d64": (1, 300, 130, 4, 4, 64, False, False),
+    # a partial last q tile at every block_q (1000 = 7 * 128 + 104 =
+    # 5 * 192 + 40 = 15 * 64 + 40)
+    "partial_q1000_d128": (1, 1000, 1000, 4, 4, 128, True, False),
+    "partial_q1000_gqa_d64": (1, 1000, 1000, 2, 1, 64, True, False),
+    "segments_d128": (2, 256, 256, 4, 2, 128, True, True),
+    "segments_d64_full": (1, 320, 320, 4, 4, 64, False, True),
+    # causal Sq > Skv: the first rows see no key (output 0, lse -1e30)
+    "zero_key_rows_d128": (2, 192, 70, 4, 4, 128, True, False),
+    "zero_key_rows_d64": (1, 300, 100, 2, 2, 64, True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_k1_every_built_tile(cuda, case):
+    """K1 at each tile the build lists (the default too) against the
+    plain version. Every tile runs the softmax in the same 64-key
+    sub-steps, so all tiles give the same bits, and the default tile
+    (None) is the first listed."""
+    B, Sq, Skv, H, KV, D, causal, segm = TILE_CASES[case]
+    q, k, v, _, qs, ks = _flash(cuda, torch.bfloat16, B, Sq, Skv, H, KV, D,
+                                segm, 11)
+    tiles = K1.fwd_tiles(D, torch.bfloat16)
+    assert len(tiles) >= 3 and tiles[0] == (128, 128)
+    r_out, r_lse = K1.flash_attention_dense(q, k, v, causal, None, qs, ks)
+    outs = {}
+    for t in tiles:
+        n = K1.flash_attention_fwd.launches
+        out, lse = K1.flash_attention_fwd_lse(q, k, v, causal, None, qs, ks,
+                                              blocks=t)
+        assert K1.flash_attention_fwd.launches == n + 1
+        assert _scaled(out, r_out) <= TOL[torch.bfloat16], t
+        assert _err(lse, r_lse) <= TOL[torch.bfloat16], t
+        outs[t] = (out, lse)
+    default = K1.flash_attention_fwd_lse(q, k, v, causal, None, qs, ks)
+    torch.cuda.synchronize()
+    for out, lse in list(outs.values()) + [default]:
+        assert torch.equal(out, outs[tiles[0]][0])
+        assert torch.equal(lse, outs[tiles[0]][1])
+
+
+def test_k1_tiles_listed_and_refused(cuda):
+    import ctypes
+
+    for D in (64, 128):
+        tiles = K1.fwd_tiles(D, torch.bfloat16)
+        assert len(set(tiles)) == len(tiles) >= 3
+        assert all(bq in (64, 128, 192) and bkv in (64, 128)
+                   for bq, bkv in tiles)
+    assert K1.fwd_tiles(128, torch.float32) == ()
+    assert K1.fwd_tiles(32, torch.bfloat16) == ()
+    q, k, v, _, _, _ = _flash(cuda, torch.bfloat16, 1, 128, 128, 2, 2, 128,
+                              False, 3)
+    for bad in ((256, 128), (64, 32), (128, 256)):
+        with pytest.raises(ValueError, match="not built"):
+            K1.flash_attention_fwd_lse(q, k, v, True, blocks=bad)
+    qf = q.float()
+    with pytest.raises(ValueError, match="not built"):
+        K1.flash_attention_fwd_lse(qf, qf, qf, True, blocks=(128, 128))
+    # the C entry refuses an unlisted pair itself, without a launch
+    out = torch.empty_like(q)
+    lse = torch.empty(1, 2, 128, device=cuda)
+    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    rc = K1._lib().flash_attention_fwd_launch(
+        p(q), p(k), p(v), ctypes.c_void_p(0), ctypes.c_void_p(0), p(out),
+        p(lse), 1, 128, 128, 2, 2, 128, 1, 0.1, 1, 256, 128,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert rc != 0
+
+
+def test_k7_search_on_the_card(cuda, tmp_path):
+    """FLAGS_use_autotune on: the first call measures every built tile at
+    the call's shape and caches the argmin in the file; later calls, and
+    a new cache over the file, measure nothing and run that tile."""
+    import json
+
+    from paddle_tpu_torch import get_flags, set_flags
+    from paddle_tpu_torch.ops.kernels import autotune as K7
+
+    q, k, v, _, _, _ = _flash(cuda, torch.bfloat16, 2, 512, 512, 8, 2, 128,
+                              False, 12)
+    path = str(tmp_path / "autotune.json")
+    old = K7.set_cache(K7.AlgoCache(path))
+    flag = get_flags("use_autotune")["use_autotune"]
+    set_flags({"FLAGS_use_autotune": True})
+    try:
+        tiles = K1.fwd_tiles(128, torch.bfloat16)
+        n = K7.measure_flash_blocks.launches
+        chosen = K1._select_blocks(q, k, True, None)
+        rec = K7.search_log[-1]
+        assert K7.measure_flash_blocks.launches == n + len(tiles)
+        assert set(rec["times"]) == set(tiles)
+        assert all(0 < t < float("inf") for t in rec["times"].values())
+        assert chosen == min(rec["times"], key=rec["times"].get)
+        key = K1._autotune_key(q, k, True)
+        assert rec["key"] == key
+        assert json.load(open(path)) == {key: list(chosen)}
+        K7.set_cache(K7.AlgoCache(path))
+        out = K1.flash_attention_fwd(q, k, v, True)
+        assert K7.measure_flash_blocks.launches == n + len(tiles)
+        ref, _ = K1.flash_attention_fwd_lse(q, k, v, True, blocks=chosen)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+    finally:
+        set_flags({"FLAGS_use_autotune": flag})
+        K7.set_cache(old)
+
+
 # -- K8: the multi-tensor Adam / AdamW update ---------------------------------
 from paddle_tpu_torch import amp as _amp  # noqa: E402
 from paddle_tpu_torch.ops.kernels import fused_adam as K8  # noqa: E402
