@@ -35,7 +35,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 built tile (block_q, block_kv) at the train shape [4,
                 2048, 32, 128] and at GQA [4, 2048, 32 / 8, 128], causal
                 bf16, against the plain version and timed; K7's search
-                over the plain version timed as its plain time
+                over the plain version timed as its plain time. K4 and K5
+                also at the llama-68m draft's widths (q [8, 256, 12, 64]
+                and [8, 1, 12, 64], bf16), with bound and SDPA time
 3. parity       a reduced Llama (fp32, TF32 off) served on cuda, graphed
                 and eager, and on cpu with the same weights and arrival
                 schedule, and run through Predictor.generate with static
@@ -43,8 +45,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 every token stream must be equal, across devices, between
                 the two caches and between graphed and eager (with equal
                 launch counts); top-k/top-p sampling from one seed,
-                graphed against eager, equal; a FusedMultiTransformer
-                prefill and 3 decode steps, cuda against cpu, within 1e-4
+                graphed against eager, equal; the prefix cache,
+                speculative decoding (a 1-layer fp32 draft) and the host
+                tier together on a 15-page pool, so that pages are shared,
+                copied on write, reclaimed, spilled and faulted back: cuda
+                graphed, cuda eager and cpu token streams equal, and equal
+                to the plain engine's, with equal counters; a
+                FusedMultiTransformer prefill and 3 decode steps, cuda
+                against cpu, within 1e-4
 4. serve        Llama-7B widths (32 layers, bf16, random weights from a
                 seed) through one ServingEngine: a warmup that captures
                 the unified and decode rounds' CUDA graphs, then 16
@@ -57,7 +65,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 eager serve with every layer's K4 and K5 call watched:
                 each output against the plain version on the engine's
                 own q, pools, tables, starts and lengths, per tile, 2e-2
-5. generate     the same model through Predictor.generate: 8 ragged
+5. serve-prefix-spec
+                the same model and engine settings with prefix_cache=True:
+                alone, with the llama-68m draft (its published widths,
+                bf16, seed 1) at spec_tokens=4, and with the target as its
+                own draft, beside the plain engine. 16 prompts share a
+                1024-token system prompt (each its own 64..512-token
+                suffix), 32 new tokens each; 8 arrive first, 8 once those
+                all decode, one of them the system prompt alone (a full
+                hit). Per configuration: a warmup capturing every graph,
+                then eager, graphed, graphed from an empty cache. Equal
+                tokens, launches of K3, K4 and K5 exactly as the target's
+                and the draft's rounds imply, every graphed round a
+                replay, the pool invariant, >= 16 hit pages per second-
+                wave request, a copy-on-write; self-speculation's tokens
+                against a teacher-forced forward (a token that is not the
+                argmax within 0.5 of its logit). tokens/s, TTFT, TPOT,
+                prefix and spec counters, agreement with the plain serve
+6. generate     the same model through Predictor.generate: 8 ragged
                 prompts of 128..1024 tokens, 128 greedy new tokens with
                 the static cache (K6), then with enable_paged_kv(64) (K5);
                 an untimed graphed call captures the decode graph, then
@@ -68,13 +93,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 an eager paged generation of 2 tokens with every layer's
                 K5 call (the prefill and a decode step) held against the
                 plain version per tile, 2e-2
-6. train-parity the reduced Llama trains 3 steps on cuda and on cpu from
+7. train-parity the reduced Llama trains 3 steps on cuda and on cpu from
                 the same weights and batch: losses and global grad norms
                 within 1e-4 relative; then 5 steps from fresh weights
                 under a GradScaler (2^10) and a warmup + cosine schedule,
                 the third an overflow: clean steps within 1e-4 across
                 devices, the overflow step a bit-exact no-op on both
-7. train        Llama-7B widths cut to 8 layers (bf16 weights, f32 AdamW
+8. train        Llama-7B widths cut to 8 layers (bf16 weights, f32 AdamW
                 masters and moments) through ParallelEngine.train_step:
                 12 steps on one fixed 4 x 2048 batch, 2 untimed; finite,
                 falling losses, step time, tokens/s, MFU, peak memory; K3,
@@ -82,7 +107,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 forward and backward with each layer's attention watched:
                 K1's output and K2's gradients on the model's own bf16
                 activations against the plain version, per tile, 2e-2
-8. train-autotune
+9. train-autotune
                 the same trainer, seed and batch with FLAGS_use_autotune
                 on and a fresh cache file ($PADDLE_TPU_TORCH_AUTOTUNE_CACHE
                 in a temporary directory): 7 steps, 2 untimed, after 7
@@ -114,6 +139,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import itertools
 import json
 import math
@@ -745,6 +771,34 @@ def check_attention(dev, results):
                 library_ms=_sdpa_yardstick(q, kp, vp, tbl, st, nv),
                 library="sdpa on K/V gathered to contiguous, same mask",
                 bound_ms=b_ms, bound_by=b_by))
+    # the 68m draft's widths (12 heads of 64, no GQA; serve-prefix-spec):
+    # its prompt-chunk feed runs K4 on the mixed round above, its
+    # proposal steps K5 on the decode rows, both at D = 64
+    for name, Sq, at, n in (("ragged_paged_attention", 256, starts, lens),
+                            ("paged_decode_attention", 1, dec, [1] * 8)):
+        dt = torch.bfloat16
+        q, kp, vp, tbl, st, nv = _attn_case(dev, dt, 8, Sq, 12, 12, at, n,
+                                            g, D=64)
+        if Sq == 1:
+            run = lambda: K5.paged_decode_attention(q, kp, vp, tbl, st)
+            plain = lambda: K5.paged_attention_dense(q, kp, vp, tbl, st)
+        else:
+            run = lambda: K4.ragged_paged_attention(q, kp, vp, tbl, st, nv)
+            plain = lambda: K4.ragged_paged_attention_dense(q, kp, vp, tbl,
+                                                            st, nv)
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        nb, fl = _attn_cost(q, kp, at, n)
+        b_ms, b_by = bound(nb, fl, dt)
+        results.append(dict(
+            name=name, case="draft_68m", shape=list(q.shape), kv_heads=12,
+            dtype="bfloat16", **K5.paged_route(q, kp, tbl)._asdict(),
+            max_abs_err=(out.float() - ref.float()).abs().max().item(),
+            tol=TOL[dt], ms=cuda_ms(run), plain_ms=cuda_ms(plain, iters=3,
+                                                           warm=1),
+            library_ms=_sdpa_yardstick(q, kp, vp, tbl, st, nv),
+            library="sdpa on K/V gathered to contiguous, same mask",
+            bound_ms=b_ms, bound_by=b_by))
     # diagnostic: the chunk at 1024 alone (two 128-row tiles of 18 and 20
     # 64-key steps a head): the serial key range that bounds the K4 case
     q, kp, vp, tbl, st, nv = _attn_case(dev, torch.bfloat16, 8, 256, 32, 32,
@@ -836,13 +890,23 @@ def check_decode(dev, results):
 
 
 # -- phases 3 and 4: serving ---------------------------------------------------
-def make_engine(model, page, max_length, **engine_kw):
+def make_engine(model, page, max_length, draft=None, **engine_kw):
+    """A ServingEngine over ``model``; with ``draft`` (a model, or
+    ``model`` itself for self-speculation) its predictor is the engine's
+    draft_predictor."""
     from paddle_tpu_torch.inference import (Config, ServingEngine,
                                             create_predictor)
 
-    conf = Config().set_model(model).enable_paged_kv(page)
-    conf.max_length = max_length
-    return ServingEngine(create_predictor(conf), **engine_kw)
+    def predictor(m):
+        conf = Config().set_model(m).enable_paged_kv(page)
+        conf.max_length = max_length
+        return create_predictor(conf)
+
+    pred = predictor(model)
+    if draft is not None:
+        engine_kw["draft_predictor"] = pred if draft is model \
+            else predictor(draft)
+    return ServingEngine(pred, **engine_kw)
 
 
 def serve(eng, schedule):
@@ -938,7 +1002,87 @@ def phase_parity():
     log("[parity] serve: cuda graphed == cuda eager == cpu token streams, "
         "equal launch counts: OK")
     generate_parity(cpu, gpu)
+    prefix_spec_parity(cpu, gpu)
     fused_transformer_parity()
+
+
+def prefix_spec_parity(cpu, gpu):
+    """The prefix cache, speculative decoding (a 1-layer fp32 draft,
+    hidden 256, 4 heads, 2 KV heads, k = 3) and the host tier
+    (host_spill_pages=4) together on the reduced model, with a 15-page
+    pool: three system prompts of 3-4 pages shared by a stream of two-slot
+    requests, so pages are shared, copied on write (a full-prompt hit),
+    reclaimed (LRU), spilled to the host and faulted back. cuda graphed,
+    cuda eager and cpu must commit equal token streams, equal to the plain
+    cpu engine's, and keep equal prefix, spec and spill counters."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    dcfg = LlamaConfig(vocab_size=4096, hidden_size=256, num_layers=1,
+                       num_heads=4, num_kv_heads=2, intermediate_size=704,
+                       max_position_embeddings=1024, dtype="float32")
+    dcpu = LlamaForCausalLM(dcfg, device="cpu", seed=6)
+    dgpu = LlamaForCausalLM(dcfg, device="cuda", seed=0)
+    dgpu.load_state_dict(dcpu.state_dict())
+    sched = prefix_parity_schedule(4096)
+    base = dict(page=64, max_length=1024, max_batch=2, prefill_chunk=128,
+                pool_pages=16)
+    feats = dict(prefix_cache=True, host_spill_pages=4, spec_tokens=3,
+                 debug_invariants=True)
+    plain = [list(r.new_tokens)
+             for r in serve(make_engine(cpu, **base), sched)[0]]
+    runs, stats, counts = {}, {}, {}
+    for dev, model, draft, mode in (("cpu", cpu, dcpu, "eager"),
+                                    ("cuda", gpu, dgpu, "graphed"),
+                                    ("cuda", gpu, dgpu, "eager")):
+        eng = make_engine(model, draft=draft, **base, **feats)
+        with mode_ctx(mode):
+            reqs, _, rounds, replays, launches = serve(eng, sched)
+        eng.check_invariants()
+        runs[dev, mode] = [list(r.new_tokens) for r in reqs]
+        counts[dev, mode] = launches
+        pfx, spec = eng.prefix_cache_stats(), eng.spec_stats()
+        stats[dev, mode] = (pfx, spec, eng.spill_stats())
+        log(f"[parity] prefix+spec+spill {dev} {mode}: rounds "
+            f"{dict(rounds)}, replays {dict(replays)}, prefix {pfx}, spec "
+            f"{spec}, spill {eng.spill_stats()}, launches {launches}")
+        if not (pfx["hits"] and pfx["cow"] and pfx["reclaimed"]
+                and stats[dev, mode][2]["spilled"]
+                and stats[dev, mode][2]["faulted"]):
+            raise AssertionError("the parity schedule must hit, copy on "
+                                 "write, reclaim, spill and fault back")
+        if mode == "graphed" and not all(
+                replays[s] > 0 for s in ("unified_spec", "draft_propose",
+                                         "draft_chunk")):
+            raise AssertionError("the graphed run replayed no spec graph")
+    a, b, c = runs["cpu", "eager"], runs["cuda", "graphed"], \
+        runs["cuda", "eager"]
+    if not a == b == c == plain:
+        raise AssertionError(f"prefix+spec+spill streams differ:\nplain "
+                             f"{plain}\ncpu {a}\ncuda graphed {b}\ncuda "
+                             f"eager {c}")
+    if not stats["cpu", "eager"] == stats["cuda", "graphed"] \
+            == stats["cuda", "eager"]:
+        raise AssertionError(f"prefix, spec or spill counters differ: "
+                             f"{stats}")
+    if counts["cuda", "graphed"] != counts["cuda", "eager"]:
+        raise AssertionError(f"graphed and eager launches differ: {counts}")
+    log("[parity] prefix cache + spec (k 3) + host spill: cuda graphed == "
+        "cuda eager == cpu == plain cpu token streams, equal counters and "
+        "launch counts: OK")
+
+
+def prefix_parity_schedule(vocab):
+    """Two-slot arrivals over four system prompts (4, 3, 4 and 4 pages of
+    64; more than the 15-page pool holds): two first, the rest after 4
+    steps, the last of them the first system prompt alone (a full hit:
+    its refeed copies a page)."""
+    sa, sb, sc, sd = prompts(40, [256, 192, 256, 256], vocab)
+    tail = prompts(41, [40, 30, 100, 20, 60, 10, 10], vocab)
+    cat = np.concatenate
+    first = [cat([sa, tail[0]]), cat([sb, tail[1]])]
+    later = [cat([sc, tail[2]]), cat([sd, tail[3]]), cat([sb, tail[4]]),
+             cat([sa, tail[5]]), cat([sc, tail[6]]), sa.copy()]
+    return first, later, 4, 10
 
 
 def generate_parity(cpu, gpu):
@@ -1204,7 +1348,253 @@ def check_serve_attention(model, kw):
         f"{max(worst['unified'])}, {max(worst['decode'])}): OK")
 
 
-# -- phase 5: generation --------------------------------------------------------
+# -- phase 5: serving with the prefix cache and speculative decoding -----------
+def build_draft_68m():
+    """The draft model at the published widths of JackFram/llama-68m, the
+    usual draft of Llama-7B (its config.json: hidden 768, 2 layers, 12
+    heads of 64, intermediate 3072, vocab 32000, 2048 positions, RMSNorm
+    eps 1e-6), bf16, random weights from seed 1."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=768, num_layers=2,
+                      num_heads=12, intermediate_size=3072,
+                      max_position_embeddings=2048, rms_norm_eps=1e-6,
+                      dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+    log(f"[serve-prefix-spec] draft: llama-68m widths, "
+        f"{cfg.num_params() / 1e6:.1f}M params, bf16, seed 1")
+    return model
+
+
+def prefix_waves(vocab):
+    """Every prompt is one shared 1024-token system prompt (seed 14) and
+    its own suffix of 64..512 tokens (seed 15); 8 prompts a wave, the
+    second wave's first prompt the system prompt alone (a full hit)."""
+    system = prompts(14, [1024], vocab)[0]
+    r = np.random.RandomState(15)
+    ps = [np.concatenate([system, r.randint(1, vocab, (int(n),))])
+          for n in r.randint(64, 513, 16)]
+    ps[8] = system.copy()
+    return ps[:8], ps[8:]
+
+
+def serve_waves(eng, waves, n_new):
+    """Submit the first wave, step until every one of its rows decodes,
+    submit the second and drain. Returns the requests in submission
+    order, the wall seconds, the rounds and graph replays of this run, and
+    the cache-hit pages each second-wave request was admitted with."""
+    first, second = waves
+    rounds0, replays0 = Counter(eng.rounds), Counter(eng.stats.replays)
+    hits = {}
+
+    def step():
+        eng.step()
+        for s in eng.slots:
+            if s is not None:
+                hits.setdefault(s.req.rid, s.hit_pages)
+
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=n_new) for p in first]
+    while eng.queue or any(s is not None and s.state != "decode"
+                           for s in eng.slots):
+        step()
+    later = [eng.submit(p, max_new_tokens=n_new) for p in second]
+    while eng.queue or eng.num_active:
+        step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ([eng.finished[r] for r in rids + later], wall,
+            eng.rounds - rounds0, eng.stats.replays - replays0,
+            [hits[r] for r in later])
+
+
+def drop_cache(eng):
+    """Reclaim every idle cached page, so that each run of a schedule
+    starts from an empty prefix cache and the runs' tokens compare."""
+    while eng._lru:
+        eng._cache_reclaim()
+    eng.check_invariants()
+
+
+def implied_launches(eng, rounds, L, dL):
+    """K3, K4 and K5 launches the rounds imply: per target step K3 twice
+    a layer and once at the end; K4 once a layer a unified or verify
+    round (target) and a chunk feed (draft); K5 once a layer a decode
+    step (target) and each of the k+1 proposal steps (draft)."""
+    target = rounds["unified"] + rounds["unified_spec"]
+    steps = target + eng.chunk * rounds["decode"]
+    proposals = (eng.spec + 1) * rounds["draft_propose"]
+    return {"rms_norm": (2 * L + 1) * steps
+            + (2 * dL + 1) * (proposals + rounds["draft_chunk"]),
+            "ragged_paged_attention": L * target
+            + dL * rounds["draft_chunk"],
+            "paged_decode_attention": L * eng.chunk * rounds["decode"]
+            + dL * proposals}
+
+
+def teacher_forced(model, reqs, tol=0.5):
+    """Every committed token against the target's argmax in one forward
+    of prompt + committed tokens (the training forward, K1): where the
+    two differ, the logits of the two tokens must be within ``tol`` (the
+    bf16 gap between two attention bodies). Returns (mismatches, worst
+    gap, tokens)."""
+    bad, worst, n = 0, 0.0, 0
+    with torch.no_grad():
+        for r in reqs:
+            L = len(r.prompt)
+            ids = torch.tensor(np.concatenate([r.prompt, r.new_tokens[:-1]]),
+                               device=model.device)[None]
+            lg = model(ids)[0, L - 1:].float()
+            got = torch.tensor(r.new_tokens, device=model.device)[:, None]
+            gap = (lg.max(-1).values - lg.gather(1, got)[:, 0]).tolist()
+            bad += sum(g > 0 for g in gap)
+            worst = max(worst, max(gap))
+            n += len(gap)
+    if worst >= tol:
+        raise AssertionError(f"a committed token is {worst} logits below "
+                             f"the teacher-forced argmax (tolerance {tol})")
+    return bad, worst, n
+
+
+def phase_serve_prefix_spec(model, counters, profile=False):
+    """The serve phase's model and engine settings with the prefix cache,
+    and with speculative decoding from the llama-68m draft or from the
+    target itself (k = 4), beside the plain engine, on a schedule of two
+    waves sharing a 1024-token system prompt. Per configuration one
+    engine, warmed up (every graph captured), then eager, graphed,
+    graphed (plain: graphed twice), each run from an empty cache. Fails
+    unless each run launches exactly the K3/K4/K5 its rounds imply and
+    graphed runs replay every round; a configuration's runs commit equal
+    tokens; the invariant holds; every second-wave request hits >= 16
+    pages; a copy-on-write runs; and self-speculation commits the
+    teacher-forced argmax. Returns the launches of the first graphed run
+    with the draft."""
+    cfg = model.config
+    L = cfg.num_layers
+    kw = dict(page=64, max_length=2048, max_batch=8, prefill_chunk=256,
+              prefill_token_budget=256)
+    waves = prefix_waves(cfg.vocab_size)
+    # a full hit of 4 pages (copy-on-write) after its donor: every site
+    warm = ([prompts(16, [256], cfg.vocab_size)[0]],
+            [prompts(16, [256], cfg.vocab_size)[0]])
+    draft = build_draft_68m()
+    pfx = dict(prefix_cache=True, debug_invariants=True)
+    configs = [("plain", None, {}, ("graphed", "graphed")),
+               ("prefix", None, pfx, ("eager", "graphed", "graphed")),
+               ("prefix+draft", draft, dict(spec_tokens=4, **pfx),
+                ("eager", "graphed", "graphed")),
+               ("prefix+self", model, dict(spec_tokens=4, **pfx),
+                ("eager", "graphed", "graphed"))]
+    tokens, result = {}, None
+    for name, dmodel, extra, modes in configs:
+        eng = make_engine(model, draft=dmodel, **kw, **extra)
+        dL = 0 if dmodel is None else dmodel.config.num_layers
+        serve_waves(eng, warm, 6)
+        runs = []
+        for mode in modes:
+            drop_cache(eng)
+            p0, s0 = eng.prefix_cache_stats(), eng.spec_stats()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters:
+                c.launches = 0
+            with mode_ctx(mode):
+                reqs, wall, rounds, replays, hits = serve_waves(eng, waves,
+                                                                32)
+            launches = {c.__name__: c.launches for c in counters}
+            eng.check_invariants()
+            p1, s1 = eng.prefix_cache_stats(), eng.spec_stats()
+            dp = {k: p1[k] - p0[k] for k in ("lookups", "hits", "cow",
+                                             "reclaimed", "registered",
+                                             "skipped_tokens",
+                                             "fed_tokens")}
+            ds = {k: s1[k] - s0[k] for k in ("proposed", "accepted",
+                                             "rounds", "committed")}
+            n_tok = sum(len(r.new_tokens) for r in reqs)
+            ttft = [1e3 * (r.t_first_token - r.t_submit) for r in reqs]
+            tpot = [1e3 * (r.t_finish - r.t_first_token)
+                    / (len(r.new_tokens) - 1) for r in reqs]
+            for r in reqs:
+                if len(r.new_tokens) != 32 or not all(
+                        0 <= t < cfg.vocab_size for t in r.new_tokens):
+                    raise AssertionError(f"{name} request {r.rid}: bad "
+                                         f"output {r.new_tokens}")
+            summary = dict(
+                config=name, mode=mode, layers=L, draft_layers=dL,
+                spec_tokens=eng.spec, requests=len(reqs), new_tokens=n_tok,
+                prompt_tokens=sum(len(r.prompt) for r in reqs),
+                wall_s=wall, tokens_per_s=n_tok / wall,
+                ttft_ms_p50=float(np.percentile(ttft, 50)),
+                ttft_ms_p99=float(np.percentile(ttft, 99)),
+                tpot_ms_p50=float(np.percentile(tpot, 50)),
+                rounds=dict(rounds), graph_replays=dict(replays),
+                second_wave_hit_pages=hits, prefix=dp, spec=ds,
+                accept_rate=(ds["accepted"] / ds["proposed"]
+                             if ds["proposed"] else None),
+                tokens_per_step=(ds["committed"] / ds["rounds"]
+                                 if ds["rounds"] else None),
+                pool_pages=eng.P,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches=launches)
+            log("[serve-prefix-spec] " + json.dumps(summary))
+            want = implied_launches(eng, rounds, L, dL)
+            if launches != want:
+                raise AssertionError(f"{name} {mode} launched {launches}, "
+                                     f"its rounds {dict(rounds)} imply "
+                                     f"{want}")
+            # each graph site and the rounds it runs
+            site_rounds = {"unified": "unified", "unified_spec":
+                           "unified_spec", "serve_decode": "decode",
+                           "draft_propose": "draft_propose",
+                           "draft_chunk": "draft_chunk"}
+            want_replays = ({s: rounds[r] for s, r in site_rounds.items()
+                             if rounds[r]} if mode == "graphed" else {})
+            if dict(replays) != want_replays:
+                raise AssertionError(f"{name} {mode} replayed "
+                                     f"{dict(replays)}, expected "
+                                     f"{want_replays}")
+            if extra.get("prefix_cache"):
+                if min(hits) < 16 or dp["cow"] < 1:
+                    raise AssertionError(f"{name} {mode}: second-wave hit "
+                                         f"pages {hits}, copy-on-writes "
+                                         f"{dp['cow']}")
+            runs.append((mode, reqs, launches))
+        log(f"[serve-prefix-spec] {name} graphs: "
+            + json.dumps(graphs_summary(eng.stats)))
+        first = [list(r.new_tokens) for r in runs[0][1]]
+        if any([list(r.new_tokens) for r in rq] != first or n != runs[0][2]
+               for _, rq, n in runs):
+            raise AssertionError(f"{name}: runs differ in tokens or "
+                                 "launches: " + "; ".join(
+                                     f"{m}: {n}" for m, _, n in runs))
+        graphed = next(rq for m, rq, _ in runs if m == "graphed")
+        tokens[name] = [list(r.new_tokens) for r in graphed]
+        if name == "prefix+self":
+            bad, worst, n = teacher_forced(model, graphed)
+            log(f"[serve-prefix-spec] prefix+self: {bad} of {n} committed "
+                f"tokens are not the teacher-forced argmax, worst logit "
+                f"gap {worst} (< 0.5): OK")
+        if name == "prefix+draft":
+            result = next(n for m, _, n in runs if m == "graphed")
+        if profile and name == "prefix+draft":
+            drop_cache(eng)
+            _profiled(lambda: serve_waves(eng, waves, 32)[1],
+                      "serve-prefix-spec")
+        log(f"[serve-prefix-spec] {name}: {', '.join(modes)} runs commit "
+            f"equal tokens and launches {runs[0][2]}: OK")
+        del eng, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    plain = tokens["plain"]
+    agree = {name: sum(a == b for x, y in zip(toks, plain)
+                       for a, b in zip(x, y))
+             for name, toks in tokens.items() if name != "plain"}
+    log(f"[serve-prefix-spec] tokens equal to the plain bf16 serve's, of "
+        f"{sum(map(len, plain))}: {json.dumps(agree)}")
+    del draft
+    return result
+
+
+# -- phase 6: generation --------------------------------------------------------
 def _ragged_prompts(vocab):
     """8 prompts of RandomState(21).randint(128, 1025, 8) tokens, right-
     padded into one [8, max] array."""
@@ -1393,7 +1783,7 @@ def profile_decode(pred, ids, lens, label, steps=16):
     _log_profile(seen["prof"], wall, f"generate_{label}", per=steps)
 
 
-# -- phases 6 and 7: training ---------------------------------------------
+# -- phases 7 to 9: training ----------------------------------------------
 def _trainer(model, scaler=None):
     """The train step a user builds: AdamW with f32 masters and moments,
     global-norm clipping, through ParallelEngine.train_step. With a
@@ -1904,16 +2294,20 @@ def _log_profile(prof, wall, tag, per=1):
 
 
 def profile_serve(eng, sched):
-    """The same schedule again on the warmed engine, graphed, under
-    torch.profiler: device time by kernel name and the device's busy
-    share of the wall (one stream, so kernel times add up without
-    overlap)."""
+    """The same schedule again on the warmed engine, graphed."""
+    _profiled(lambda: serve(eng, sched)[1], "serve")
+
+
+def _profiled(run, tag):
+    """``run()`` (which returns its wall seconds) under torch.profiler:
+    device time by kernel name and the device's busy share of the wall
+    (one stream, so kernel times add up without overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall = serve(eng, sched)[1]
-    _log_profile(prof, wall, "serve")
+        wall = run()
+    _log_profile(prof, wall, tag)
 
 
 def k7_entry(k7, results, launches):
@@ -1986,12 +2380,13 @@ def main():
     ap.add_argument("--layers", type=int, default=32,
                     help="depth of the 7B-width serving and generate runs")
     ap.add_argument("--phases",
-                    default="build,kernels,parity,serve,generate,"
-                            "train-parity,train,train-autotune")
+                    default="build,kernels,parity,serve,serve-prefix-spec,"
+                            "generate,train-parity,train,train-autotune")
     ap.add_argument("--profile", action="store_true",
-                    help="serve the schedule once more, run 16 more decode "
-                    "steps of each generate run and two more train steps "
-                    "under torch.profiler, and print device time by kernel")
+                    help="serve the schedule once more (and the prefix and "
+                    "draft configuration's), run 16 more decode steps of "
+                    "each generate run and two more train steps under "
+                    "torch.profiler, and print device time by kernel")
     ap.add_argument("--k1-probe", action="store_true",
                     help="the train-autotune phase's second process: one K1 "
                     "call with FLAGS_use_autotune on, over the cache file "
@@ -2061,10 +2456,13 @@ def main():
     if "parity" in phases:
         phase_parity()
     # each path is driven with its kernels' counts set to 0 just before
-    # it and read just after: serving runs K3, K4, K5; static-cache
-    # generation K3, K6; paged generation K3, K5; training K3, K1, K2, K8
+    # it and read just after: serving (with the prefix cache and a draft
+    # too) runs K3, K4, K5; static-cache generation K3, K6; paged
+    # generation K3, K5; training K3, K1, K2, K8
     paths = {"serve": [rms_norm, ragged_paged_attention,
                        paged_decode_attention],
+             "serve_prefix_spec": [rms_norm, ragged_paged_attention,
+                                   paged_decode_attention],
              "generate_static": [rms_norm, decode_attention],
              "generate_paged": [rms_norm, paged_decode_attention],
              "train": [rms_norm, flash_attention_fwd, flash_attention_bwd,
@@ -2073,11 +2471,16 @@ def main():
                                 flash_attention_bwd, fused_adam,
                                 measure_flash_blocks]}
     by_path = {p: {c.__name__: None for c in cs} for p, cs in paths.items()}
-    if "serve" in phases or "generate" in phases:
+    if {"serve", "serve-prefix-spec", "generate"} & set(phases):
         model = build_7b(args.layers)
         if "serve" in phases:
             by_path["serve"] = phase_serve(model, paths["serve"],
                                            args.profile)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "serve-prefix-spec" in phases:
+            by_path["serve_prefix_spec"] = phase_serve_prefix_spec(
+                model, paths["serve_prefix_spec"], args.profile)
         if "generate" in phases:
             by_path.update(("generate_" + k, v) for k, v in phase_generate(
                 model, paths, args.profile).items())

@@ -2,9 +2,9 @@
 (counterpart of ``paddle_tpu/inference/serving.py``).
 
 The scheduler is the JAX engine's, decision for decision, so the two
-commit the same token streams: one fixed page pool with a host-side free
-list and a trash page (id P-1), B batch slots, admission in FIFO order
-while pages last, eviction and backfill.
+commit the same token streams and keep the same counters: one fixed
+page pool with a trash page (id P-1), B batch slots, admission in FIFO
+order while pages last, eviction and backfill.
 
 - Legacy mode (``prefill_chunk=None``): each arrival is prefilled at
   admission at ``[1, Sb]`` (Sb on the power-of-two lattice) through the
@@ -16,31 +16,60 @@ while pages last, eviction and backfill.
   step (K5) ``decode_chunk`` times. Pages are reserved per chunk; a
   page-starved engine preempts the youngest mid-prefill row.
 
-Where the JAX engine jits the decode-chunk scan and the unified step per
-lattice key with the pools donated, the port captures each round's body
-(the ``decode_chunk`` steps in one graph; the unified ``[B, Sc]``
-forward and its sample in another) as a CUDA graph per key and replays
-it (``core/cuda_graphs.py``; on the CPU the body runs eagerly). A
-round's inputs are static buffers refreshed from the host's arrays
-before it: tokens, positions, chunk ids, starts, valid counts and the
-block table as the scheduler left it. The pools are the engine's own,
-updated in place where JAX donated them. The sampled tokens come back
-to the host once a round. ``stats`` notes every launch site with its
-shape key, as the JAX engine notes its compiled programs, so a fixed
-shape lattice after warmup stays checkable. The legacy per-arrival
-prefill stays eager.
+Prefix cache (``prefix_cache=True``, chunked mode): pages are
+ref-counted and content-addressed. A rolling hash per full page-aligned
+prompt chunk keys each completed page; admission maps the longest cached
+prefix into the new row's block table (a reference each, no copy) and
+the chunk planner starts at the first cold chunk. Registered pages are
+immutable: the one write that can land in one, the full-prompt hit's
+refeed of its last token, copies the page first (copy-on-write).
+Released pages that are registered park on an LRU that the allocator
+reclaims, oldest first, under pool pressure. With ``host_spill_pages``
+a reclaimed page's rows go to host memory under the same hash and fault
+back into a fresh page when a later prompt hits it.
 
-Not ported yet (ROADMAP.md): the prefix cache, speculative decoding,
-host spill, disaggregated phases, shedding and deadlines, request
-traces, metrics and the memory and comm ledgers.
+Speculative decoding (``draft_predictor`` + ``spec_tokens=k``, greedy,
+chunked mode): the draft's KV pools share the engine's page ids and
+tables in the draft's geometry and dtype. Each round the draft proposes
+k greedy tokens per decode row (k+1 ``[B, 1]`` steps), ONE verify
+forward on the unified ``[B, Sc]`` shape takes the argmax at every
+position, and the host commits the longest matching run plus one token,
+so the committed ids equal plain greedy decoding's.
+
+Shedding: ``max_queue`` sheds a submit into a full queue
+(``queue_full``), ``admission_deadline_s`` sheds a queued request whose
+wait passed its deadline (``deadline``) before any prefill; shed
+requests land in ``finished`` with no tokens, and ``health()`` reads
+"degraded" for ``degraded_window_s`` after a shed.
+
+Where the JAX engine jits each step per lattice key with the pools
+donated, the port captures each round's body as a CUDA graph per key
+and replays it (``core/cuda_graphs.py``; on the CPU the body runs
+eagerly): the ``decode_chunk`` steps, the unified ``[B, Sc]`` forward
+and its sample, and with speculation the verify step (``unified_spec``),
+the draft's k+1 proposal steps (``draft_propose``) and its prompt-chunk
+feed (``draft_chunk``). A round's inputs are static buffers refreshed
+from the host's arrays before it. The pools are the engine's own,
+updated in place where JAX donated them, so they keep their addresses
+and a page copy, spill or fault between two replays leaves every graph
+valid. ``stats`` notes every launch site with its shape key, as the JAX
+engine notes its compiled programs, so a fixed shape lattice after
+warmup stays checkable. The legacy per-arrival prefill stays eager.
+
+Not ported yet (ROADMAP.md queue 1, item 3): request traces, metrics
+and the memory and comm ledgers (which wait on item 11's
+observability), and disaggregated phases with the router.
 """
 from __future__ import annotations
 
+import inspect
+import os
+import threading
 import time
-from collections import Counter, deque
+from collections import Counter, OrderedDict, deque
 from dataclasses import dataclass, field
 from types import SimpleNamespace
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +79,10 @@ from ..core.cuda_graphs import StepGraphs
 from ..core.enforce import enforce
 
 __all__ = ["ServingEngine", "ServingRequest"]
+
+_ITEM3 = ("ROADMAP.md queue 1, item 3: request traces, metrics and the "
+          "memory and comm ledgers wait on item 11's observability, and "
+          "disaggregated phases come after them")
 
 
 @dataclass
@@ -66,6 +99,14 @@ class ServingRequest:
     t_submit: float = 0.0
     t_first_token: float = 0.0
     t_finish: float = 0.0
+    # why this request was load-shed (None = served); the admission
+    # deadline in the t_submit clock
+    shed_reason: Optional[str] = None
+    deadline: Optional[float] = None
+
+    @property
+    def shed(self) -> bool:
+        return self.shed_reason is not None
 
     @property
     def output_ids(self) -> np.ndarray:
@@ -77,7 +118,8 @@ class ServingRequest:
 class _Slot:
     """Host-side state of one in-flight batch row."""
 
-    __slots__ = ("req", "pages", "pos", "state", "fed", "seq")
+    __slots__ = ("req", "pages", "pos", "state", "fed", "seq", "hashes",
+                 "registered", "hit_pages")
 
     def __init__(self, req: ServingRequest, pages: List[int],
                  state: str = "decode", seq: int = 0):
@@ -90,21 +132,43 @@ class _Slot:
         self.state = state
         self.fed = 0            # prompt tokens already written
         self.seq = seq          # admission order (scheduler fairness)
+        # prefix cache: the rolling hash per full page-aligned prompt
+        # chunk (None with the cache off), the leading pages already
+        # registered, and how many arrived as hits
+        self.hashes: Optional[List[int]] = None
+        self.registered = 0
+        self.hit_pages = 0
 
 
 class ServingEngine:
     """Continuous batching over a Predictor with a paged KV cache.
 
     >>> pred = create_predictor(Config().set_model(m).enable_paged_kv(64))
-    >>> eng = ServingEngine(pred, max_batch=8, prefill_chunk=256)
+    >>> eng = ServingEngine(pred, max_batch=8, prefill_chunk=256,
+    ...                     prefix_cache=True, draft_predictor=draft,
+    ...                     spec_tokens=4)
     >>> rid = eng.submit(prompt_ids, max_new_tokens=64)
     >>> done = eng.run()          # {rid: ServingRequest}
     """
 
     def __init__(self, predictor, max_batch: Optional[int] = None,
                  pool_pages: Optional[int] = None, decode_chunk: int = 1,
+                 trace_ring: int = 256, mem_ledger: bool = False,
+                 max_queue: Optional[int] = None,
+                 admission_deadline_s: Optional[float] = None,
+                 degraded_window_s: float = 30.0,
                  prefill_chunk: Optional[int] = None,
-                 prefill_token_budget: Optional[int] = None):
+                 prefill_token_budget: Optional[int] = None,
+                 prefix_cache: bool = False,
+                 draft_predictor=None, spec_tokens: int = 0,
+                 host_spill_pages: int = 0,
+                 phase: Optional[str] = None,
+                 debug_invariants: bool = False):
+        if trace_ring != 256 or mem_ledger or phase is not None or \
+                pool_pages == "auto":
+            raise NotImplementedError(
+                "ServingEngine's trace_ring, mem_ledger, phase and "
+                f"pool_pages='auto' are not ported: {_ITEM3}")
         cfg = predictor.config
         enforce(cfg._kv_page_size,
                 "ServingEngine serves over the paged KV cache; call "
@@ -126,6 +190,11 @@ class ServingEngine:
             enforce(int(prefill_chunk) >= 1, "prefill_chunk must be >= 1")
             self.Sc = min(_bucket(int(prefill_chunk), lo=self.page),
                           _bucket(self.M, lo=self.page))
+            enforce("valid" in inspect.signature(
+                predictor._model.forward).parameters,
+                "prefill_chunk needs a model whose forward accepts the "
+                "unified ragged metadata kwarg `valid` (see "
+                "models/llama.py)")
             self.prefill_budget = int(prefill_token_budget or self.Sc)
             enforce(self.prefill_budget >= 1,
                     "prefill_token_budget must be >= 1")
@@ -141,6 +210,43 @@ class ServingEngine:
         self.P = _bucket(int(pool_pages or geom), lo=8)
         self.trash = self.P - 1
         self._free_pages = list(range(self.P - 1))
+        # prefix cache: ref-counted, content-addressed pages. _hash_page
+        # maps the rolling prefix hash of a completed page-aligned chunk
+        # to the page holding its KV, _page_hash is the inverse, _lru
+        # holds registered pages at refcount 0 (still hit-able, reclaimed
+        # oldest first). All allocator state moves under one lock.
+        self.prefix = bool(prefix_cache)
+        if self.prefix:
+            enforce(self.chunked,
+                    "prefix_cache needs chunked prefill (prefill_chunk): "
+                    "cache hits are whole page-aligned chunks the chunk "
+                    "planner skips")
+        self._lock = threading.RLock()
+        self._refcount = [0] * self.P
+        self._hash_page: Dict[int, int] = {}
+        self._page_hash: Dict[int, int] = {}
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        self._pfx = {"lookups": 0, "hits": 0, "cow": 0, "reclaimed": 0,
+                     "registered": 0, "skipped_tokens": 0,
+                     "fed_tokens": 0}
+        # host tier: up to host_spill_pages reclaimed pages keep their
+        # rows in host memory under the same prefix hash and fault back
+        # through admission. A hash lives on the device or on the host,
+        # never both. Reclaim only stages (page, hash) under the lock;
+        # _alloc_pages reads the rows after releasing it and before the
+        # pages are handed out, so nothing has rewritten them yet.
+        self.spill_pages = int(host_spill_pages or 0)
+        enforce(self.spill_pages == 0 or self.prefix,
+                "host_spill_pages rides the prefix cache (pages are keyed "
+                "by prefix hash); set prefix_cache=True")
+        self._spilled: "OrderedDict[int, Any]" = OrderedDict()
+        self._spill_pending: List[Tuple[int, int]] = []
+        self._spill_ledger: Dict[Tuple[str, str], int] = {}
+        self._spill_counts = {"spilled": 0, "faulted": 0, "dropped": 0}
+        # pool-accounting invariant checked after every admit, finish
+        # and preempt
+        self.debug = bool(debug_invariants) or bool(int(os.environ.get(
+            "PADDLE_TPU_SERVING_DEBUG", "0") or 0))
         shape = (self.P, mcfg.num_kv_heads, self.page, mcfg.head_dim)
         # pools live on the model's device and are written in place
         self.pools = [(torch.zeros(shape, dtype=self._dtype,
@@ -156,18 +262,84 @@ class ServingEngine:
         # the rounds' graphs and static buffers: the engine's own, since
         # they hold its pools' addresses
         self._graphs = StepGraphs(self.device, self.stats)
-        # launches per round kind: "prefill", "unified", "decode"
+        # launches per round kind: "prefill", "unified", "decode",
+        # "unified_spec", "draft_propose", "draft_chunk"; and "preempted"
         self.rounds: Counter = Counter()
         self.gen = cfg.generation
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(int(self.gen.seed))
         self._next_rid = 0
+        # speculative decoding: the draft's pools share the engine's page
+        # ids and tables (so prefix hits and copy-on-write cover them)
+        self.spec = int(spec_tokens or 0)
+        enforce((draft_predictor is None) == (self.spec == 0),
+                "speculative decoding needs BOTH draft_predictor and "
+                "spec_tokens >= 1 (or neither)")
+        self._draft = draft_predictor
+        if draft_predictor is not None:
+            enforce(self.chunked,
+                    "speculative decoding rides the unified chunked step; "
+                    "set prefill_chunk")
+            enforce(not self.gen.temperature,
+                    "speculative decoding is greedy-verify only "
+                    "(temperature=0): acceptance compares the draft "
+                    "against the target argmax chain")
+            enforce(self.spec >= 1 and self.spec + 1 <= self.Sc,
+                    f"spec_tokens must satisfy 1 <= k <= Sc-1 (k+1 verify "
+                    f"positions ride one [B, {self.Sc}] row)")
+            dcfg = draft_predictor._model.config
+            enforce("valid" in inspect.signature(
+                draft_predictor._model.forward).parameters,
+                "the draft model's forward must accept the unified ragged "
+                "metadata kwarg `valid` (see models/llama.py)")
+            enforce(dcfg.vocab_size == mcfg.vocab_size,
+                    "draft and target models must share a vocabulary")
+            enforce(int(dcfg.max_position_embeddings) >= self.M,
+                    "draft max_position_embeddings must cover the "
+                    "engine's max_length")
+            enforce(draft_predictor.device == self.device,
+                    f"the draft predictor lives on "
+                    f"{draft_predictor.device}, the engine on "
+                    f"{self.device}; move it to the engine's device")
+            self._draft_dtype = draft_predictor.dtype
+            dshape = (self.P, dcfg.num_kv_heads, self.page, dcfg.head_dim)
+            self.draft_pools = [
+                (torch.zeros(dshape, dtype=self._draft_dtype,
+                             device=self.device),
+                 torch.zeros(dshape, dtype=self._draft_dtype,
+                             device=self.device))
+                for _ in range(dcfg.num_layers)]
+        self._spec = {"proposed": 0, "accepted": 0, "rounds": 0,
+                      "committed": 0}
+        if self.prefix:
+            # the JAX engine compiles its page-copy program here with a
+            # trash self-copy; the same no-op copy notes the same keys
+            self._copy_page(self.trash, self.trash)
+        # load shedding at submit (a full queue) and at admission (a
+        # passed deadline), before any prefill is spent
+        self.max_queue = int(max_queue) if max_queue else None
+        self.admission_deadline_s = admission_deadline_s
+        self._degraded_window = float(degraded_window_s)
+        self._last_shed_time: Optional[float] = None
+        # the JAX engine also registers health() with its /healthz
+        # exporter, which waits for ROADMAP item 11
 
     # -- admission -------------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
-               eos_token_id: Optional[int] = None) -> int:
+               eos_token_id: Optional[int] = None,
+               deadline_s: Optional[float] = None,
+               trace_id: Optional[str] = None,
+               parent_span_id: Optional[str] = None) -> int:
         """Queue one request; returns its rid. Admission happens inside
-        step()/run(), when a slot and enough free pages exist."""
+        step()/run(), when a slot and enough free pages exist. With
+        ``max_queue`` set, a full queue sheds the request at once (it
+        lands in ``finished`` with ``shed_reason="queue_full"`` and no
+        tokens); ``deadline_s`` (default: ``admission_deadline_s``)
+        bounds its wait for admission."""
+        if trace_id is not None or parent_span_id is not None:
+            raise NotImplementedError(
+                f"submit's trace_id and parent_span_id are not ported: "
+                f"{_ITEM3}")
         ids = np.asarray(prompt).reshape(-1).astype(np.int64)
         n_new = int(max_new_tokens if max_new_tokens is not None
                     else self.gen.max_new_tokens)
@@ -183,9 +355,37 @@ class ServingEngine:
                 f"the pool only has {self.P - 1}; raise pool_pages")
         rid = self._next_rid
         self._next_rid += 1
-        self.queue.append(ServingRequest(rid, ids, n_new, eos,
-                                         t_submit=time.perf_counter()))
+        now = time.perf_counter()
+        dls = deadline_s if deadline_s is not None \
+            else self.admission_deadline_s
+        req = ServingRequest(rid, ids, n_new, eos, t_submit=now,
+                             deadline=(now + dls) if dls is not None
+                             else None)
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            self._shed(req, "queue_full")
+            return rid
+        self.queue.append(req)
         return rid
+
+    def _shed(self, req: ServingRequest, reason: str):
+        """Load-shed a queued request: it finishes with no tokens and no
+        first-token time."""
+        req.shed_reason = reason
+        req.t_finish = time.perf_counter()
+        self.finished[req.rid] = req
+        self._last_shed_time = req.t_finish
+
+    def health(self) -> str:
+        """"ok", or "degraded" while the engine sheds load (a shed within
+        ``degraded_window_s``, or the admission queue at its bound)."""
+        if self.max_queue is not None and \
+                len(self.queue) >= self.max_queue:
+            return "degraded"
+        if self._last_shed_time is not None and \
+                time.perf_counter() - self._last_shed_time \
+                <= self._degraded_window:
+            return "degraded"
+        return "ok"
 
     def _pages_needed(self, L: int, n_new: int) -> int:
         return -(-(L + n_new) // self.page)
@@ -193,45 +393,342 @@ class ServingEngine:
     def _pages_for(self, tokens: int) -> int:
         return -(-tokens // self.page)
 
+    # -- page accounting (ref-counted pool + prefix cache) ----------------
     def _avail_pages(self) -> int:
-        return len(self._free_pages)
+        """Pages the allocator can produce now: the free list plus the
+        idle registered pages the LRU would yield."""
+        with self._lock:
+            return len(self._free_pages) + len(self._lru)
 
     def _alloc_pages(self, n: int) -> List[int]:
-        return [self._free_pages.pop() for _ in range(n)]
+        """Pop n pages at refcount 1: the free list first, then idle
+        cached pages, oldest first. Callers check _avail_pages. Reclaims
+        staged for host spill are read out after the lock is released
+        and before the pages are handed out."""
+        with self._lock:
+            out = []
+            for _ in range(n):
+                if not self._free_pages:
+                    self._cache_reclaim()
+                pg = self._free_pages.pop()
+                self._refcount[pg] = 1
+                out.append(pg)
+        if self._spill_pending:
+            self._drain_spills()
+        return out
+
+    def _cache_reclaim(self):
+        """Evict the oldest idle cached page: unregister its hash and put
+        it on the free list; with the host tier on, stage it for spill."""
+        with self._lock:
+            enforce(self._lru, "page pool exhausted: allocator asked to "
+                    "reclaim with no idle cached pages")
+            pg, _ = self._lru.popitem(last=False)
+            h = self._page_hash.pop(pg)
+            del self._hash_page[h]
+            self._pfx["reclaimed"] += 1
+            if self.spill_pages:
+                self._spill_pending.append((pg, h))
+            self._free_pages.append(pg)
+
+    def _ref_page(self, pg: int):
+        """Take one reference on a cached page (an admission hit); an
+        idle page leaves the LRU."""
+        with self._lock:
+            self._refcount[pg] += 1
+            if self._refcount[pg] == 1:
+                self._lru.pop(pg, None)
 
     def _release_pages(self, pages: List[int]):
-        self._free_pages.extend(pages)
+        """Drop one reference per page. A registered page that idles parks
+        on the LRU tail (still hit-able); any other goes back to the free
+        list."""
+        with self._lock:
+            for pg in pages:
+                self._refcount[pg] -= 1
+                if self._refcount[pg] > 0:
+                    continue
+                if pg in self._page_hash:
+                    self._lru[pg] = None
+                else:
+                    self._free_pages.append(pg)
 
-    def _admit_plan(self, req: ServingRequest) -> int:
-        """Pages to allocate at admission: the whole len+new footprint in
-        legacy mode, only the first chunk's pages in chunked mode (the
-        rest are reserved per chunk by _plan_chunks)."""
+    def _register_page(self, h: int, pg: int):
+        """Publish a completed page under its prefix hash. The first
+        writer wins, so the maps stay a bijection."""
+        with self._lock:
+            if h in self._hash_page or pg in self._page_hash:
+                return
+            self._hash_page[h] = pg
+            self._page_hash[pg] = h
+            self._pfx["registered"] += 1
+
+    # -- host spill tier -------------------------------------------------
+    def _note_spill(self, direction: str, nbytes: int):
+        # the JAX engine also republishes offload gauges here, which wait
+        # for ROADMAP item 11; the byte ledger is spill_stats'
+        with self._lock:
+            k = ("kv_page", direction)
+            self._spill_ledger[k] = self._spill_ledger.get(k, 0) + nbytes
+
+    @staticmethod
+    def _payload_nbytes(payload) -> int:
+        return sum(a.numel() * a.element_size() for pools in payload
+                   if pools for kv in pools for a in kv)
+
+    @staticmethod
+    def _read_page(pools, pg: int):
+        """Page ``pg`` of every pool in host tensors (pinned on CUDA).
+        The device-to-host copy is synchronous here, as the JAX engine's
+        ``np.asarray`` is: on the stream it follows every write already
+        queued to the page and precedes any later one."""
+        def host(a):
+            out = torch.empty(a.shape[1:], dtype=a.dtype,
+                              pin_memory=a.is_cuda)
+            out.copy_(a[pg])
+            return out
+
+        return [(host(kp), host(vp)) for kp, vp in pools]
+
+    @staticmethod
+    def _write_page(pools, rows, pg: int):
+        for (kp, vp), (hk, hv) in zip(pools, rows):
+            kp[pg].copy_(hk)
+            vp[pg].copy_(hv)
+
+    def _drain_spills(self):
+        """Copy staged reclaimed pages to the host. Runs with the lock
+        released; the staged pages are unwritten until the next step."""
+        with self._lock:
+            pending, self._spill_pending = self._spill_pending, []
+        for pg, h in pending:
+            self.stats.note("page_read", ("target", len(self.pools),
+                                          str(self._dtype)))
+            target = self._read_page(self.pools, pg)
+            draft = None
+            if self._draft is not None:
+                self.stats.note("page_read",
+                                ("draft", len(self.draft_pools),
+                                 str(self._draft_dtype)))
+                draft = self._read_page(self.draft_pools, pg)
+            payload = (target, draft)
+            with self._lock:
+                self._spilled[h] = payload
+                self._spill_counts["spilled"] += 1
+                dropped = 0
+                while len(self._spilled) > self.spill_pages:
+                    self._spilled.popitem(last=False)
+                    dropped += 1
+                self._spill_counts["dropped"] += dropped
+            self._note_spill("d2h", self._payload_nbytes(payload))
+
+    def _fault_spilled(self, req: ServingRequest):
+        """Fault host-spilled prefix pages back before admission: extend
+        the device hit run with spilled hashes, one fresh page each
+        (ordinary allocation, which may itself reclaim and spill colder
+        pages), write the rows back and register the page idle so that
+        _admit_plan pins it like any cached hit."""
+        if not self.spill_pages or not self._spilled:
+            return
+        floor = self._pages_for(min(len(req.prompt), self.Sc)) + 1
+        for h in self._prefix_hashes(req.prompt):
+            with self._lock:
+                if h in self._hash_page:
+                    continue          # the device run keeps extending
+                payload = self._spilled.pop(h, None)
+            if payload is None:
+                return                # run over: neither cached nor spilled
+            if self._avail_pages() <= floor:
+                with self._lock:      # keep it on the host for next time
+                    self._spilled[h] = payload
+                    self._spilled.move_to_end(h, last=False)
+                return
+            [pg] = self._alloc_pages(1)
+            target, draft = payload
+            self.stats.note("page_write", ("target", len(self.pools),
+                                           str(self._dtype)))
+            self._write_page(self.pools, target, pg)
+            if self._draft is not None and draft is not None:
+                self.stats.note("page_write",
+                                ("draft", len(self.draft_pools),
+                                 str(self._draft_dtype)))
+                self._write_page(self.draft_pools, draft, pg)
+            self._register_page(h, pg)
+            self._release_pages([pg])     # idle + registered: hit-able
+            with self._lock:
+                self._spill_counts["faulted"] += 1
+            self._note_spill("h2d", self._payload_nbytes(payload))
+
+    def spill_stats(self) -> Dict[str, Any]:
+        """Host-tier counters: pages spilled, faulted and dropped, the
+        resident host pages and bytes, and the cumulative transfer bytes
+        per direction."""
+        with self._lock:
+            out = dict(self._spill_counts)
+            out["host_pages"] = len(self._spilled)
+            out["host_bytes"] = sum(self._payload_nbytes(p)
+                                    for p in self._spilled.values())
+            out["transfer_bytes"] = {d: v for (_c, d), v
+                                     in self._spill_ledger.items()}
+            return out
+
+    def _prefix_hashes(self, prompt: np.ndarray) -> List[int]:
+        """Rolling hash per FULL page-aligned prompt chunk: h_j covers
+        prompt[:(j+1)*page], so equal hashes mean equal whole prefixes."""
+        page = self.page
+        arr = np.ascontiguousarray(np.asarray(prompt, np.int64))
+        out: List[int] = []
+        h = hash(("paddle_tpu_prefix", page))
+        for j in range(len(arr) // page):
+            h = hash((h, arr[j * page:(j + 1) * page].tobytes()))
+            out.append(h)
+        return out
+
+    def check_invariants(self):
+        """Pool-accounting invariant: the free list, the idle (LRU) pages
+        and the refcounted live pages partition the usable pool; every
+        page's refcount equals the number of slots holding it; the
+        hash<->page maps stay bijective; the host tier owns its hashes
+        alone and keeps under its cap. Raises on any violation."""
+        with self._lock:
+            bad: List[str] = []
+            usable = self.P - 1
+            free, lru = list(self._free_pages), list(self._lru)
+            fs, ls = set(free), set(lru)
+            held = Counter(pg for s in self.slots if s is not None
+                           for pg in s.pages)
+            live = {pg for pg in range(usable) if self._refcount[pg] > 0}
+            if len(fs) != len(free):
+                bad.append("duplicate pages on the free list")
+            if self.trash in fs | ls | live:
+                bad.append("trash page entered circulation")
+            if fs & ls or fs & live or ls & live:
+                bad.append("free/idle/live page sets overlap")
+            if len(free) + len(lru) + len(live) != usable:
+                bad.append(f"free({len(free)}) + idle({len(lru)}) + "
+                           f"live({len(live)}) != pool({usable})")
+            if set(held) != live:
+                bad.append("refcounted pages != pages held by slots")
+            drift = {pg: (int(c), self._refcount[pg])
+                     for pg, c in held.items()
+                     if self._refcount[pg] != c}
+            if drift:
+                bad.append(f"refcount drift (held, rc): {drift}")
+            if len(self._hash_page) != len(self._page_hash) or \
+                    set(self._page_hash) != set(self._hash_page.values()):
+                bad.append("prefix hash maps out of sync")
+            if not ls <= set(self._page_hash):
+                bad.append("LRU page not registered in the cache")
+            if set(self._spilled) & set(self._hash_page):
+                bad.append("hash both device-registered and host-spilled "
+                           "(the tier owns a hash exclusively)")
+            if len(self._spilled) > max(self.spill_pages, 0):
+                bad.append(f"host tier over its cap: "
+                           f"{len(self._spilled)} > {self.spill_pages}")
+            enforce(not bad,
+                    "serving pool invariant violated: " + "; ".join(bad))
+
+    def prefix_cache_stats(self) -> Dict[str, Any]:
+        """Prefix-cache counters: page lookups and hits at admission,
+        prompt tokens skipped and fed, copy-on-writes, LRU reclaims,
+        registrations, and the registered and idle page counts now."""
+        with self._lock:
+            out = dict(self._pfx)
+            out["hit_rate"] = (out["hits"] / out["lookups"]
+                               if out["lookups"] else 0.0)
+            out["registered_pages"] = len(self._page_hash)
+            out["idle_pages"] = len(self._lru)
+            return out
+
+    def spec_stats(self) -> Dict[str, Any]:
+        """Speculative-decoding counters: drafts proposed and accepted,
+        decode-row verify steps, tokens committed, and the two ratios."""
+        out = dict(self._spec)
+        out["accept_rate"] = (out["accepted"] / out["proposed"]
+                              if out["proposed"] else 0.0)
+        out["tokens_per_step"] = (out["committed"] / out["rounds"]
+                                  if out["rounds"] else 0.0)
+        return out
+
+    def _admit_plan(self, req: ServingRequest):
+        """Admission plan, without allocating: (cold pages to allocate
+        now, reserve pages the check must also cover, cache-hit pages,
+        prefix hashes, fed0 = prompt tokens the cache already holds).
+        Legacy: the whole len+new footprint. Chunked: the first chunk's
+        pages past the hit run; the rest are reserved per chunk. A full
+        prompt hit refeeds the last prompt token (fed0 = L-1) so the
+        unified step still samples token 0; its copy-on-write page is
+        the reserve."""
         L = len(req.prompt)
         if not self.chunked:
-            return self._pages_needed(L, req.max_new_tokens)
-        return self._pages_for(min(L, self.Sc))
+            return (self._pages_needed(L, req.max_new_tokens), 0,
+                    [], None, 0)
+        if not self.prefix:
+            return (self._pages_for(min(L, self.Sc)), 0, [], None, 0)
+        hashes = self._prefix_hashes(req.prompt)
+        hits: List[int] = []
+        with self._lock:
+            for h in hashes:
+                pg = self._hash_page.get(h)
+                if pg is None:
+                    break
+                hits.append(pg)
+        k = len(hits)
+        fed0 = k * self.page
+        if fed0 >= L:
+            fed0 = L - 1
+        cold = self._pages_for(min(L, fed0 + self.Sc)) - k
+        reserve = 1 if fed0 < k * self.page else 0
+        return max(cold, 0), reserve, hits, hashes, fed0
 
     def _admit(self):
-        """FIFO-admit queued requests into free slots while pages last."""
+        """FIFO-admit queued requests into free slots while pages last.
+        A request whose admission deadline has passed is shed here,
+        before any prefill is spent on it."""
         while self.queue:
             req = self.queue[0]
+            if req.deadline is not None and \
+                    time.perf_counter() > req.deadline:
+                self.queue.popleft()
+                self._shed(req, "deadline")
+                continue
             if self.chunked and self._page_stalled and self.num_active:
                 return    # backpressure: stalled elders drain first
             free = [b for b in range(self.B) if self.slots[b] is None]
             if not free:
                 return
-            cold = self._admit_plan(req)
-            if cold > self._avail_pages():
+            # host tier first, so the plan sees faulted pages as hits
+            self._fault_spilled(req)
+            cold, reserve, hits, hashes, fed0 = self._admit_plan(req)
+            with self._lock:
+                # idle hit pages count in _avail_pages but the hit itself
+                # is about to pin them: charge them
+                idle_hits = sum(1 for pg in hits
+                                if self._refcount[pg] == 0)
+            if cold + reserve + idle_hits > self._avail_pages():
                 return                    # head-of-line waits for evictions
             self.queue.popleft()
             b = free[0]
-            pages = self._alloc_pages(cold)
+            for pg in hits:
+                self._ref_page(pg)        # pin BEFORE any reclaim can run
+            pages = list(hits) + self._alloc_pages(cold)
             self.tables[b, :] = self.trash
             self.tables[b, :len(pages)] = pages
-            self.slots[b] = _Slot(
+            slot = _Slot(
                 req, pages, state="prefill" if self.chunked else "decode",
                 seq=self._admit_seq)
+            slot.hashes = hashes
+            slot.hit_pages = len(hits)
+            slot.registered = len(hits)
+            slot.fed = fed0
+            self.slots[b] = slot
             self._admit_seq += 1
+            if hashes is not None:
+                self._pfx["lookups"] += len(hashes)
+                self._pfx["hits"] += len(hits)
+                self._pfx["skipped_tokens"] += fed0
+            if self.debug:
+                self.check_invariants()
             if not self.chunked:
                 self._prefill(b)
 
@@ -276,8 +773,9 @@ class ServingEngine:
     def _plan_chunks(self):
         """Pick this round's prefill feeders (admission order) under the
         token budget, reserving pages incrementally: a chunk needs pages
-        up to its own frontier, the LAST chunk also the decode tail.
-        Returns (feeders as (row, n_tokens, is_last), stalled)."""
+        up to its own frontier, the LAST chunk also the decode tail. A
+        page the chunk writes into while shared or registered is copied
+        first. Returns (feeders as (row, n_tokens, is_last), stalled)."""
         feeders: List[tuple] = []
         stalled = False
         budget = self.prefill_budget
@@ -297,17 +795,70 @@ class ServingEngine:
             want_tokens = (L + s.req.max_new_tokens) if last \
                 else (s.fed + n)
             extra = self._pages_for(want_tokens) - len(s.pages)
-            if max(extra, 0) > self._avail_pages():
+            # page-aligned frontiers make this fire only on the full
+            # prompt hit's refeed (position L-1 in the last hit page)
+            cow = self._cow_plan(s, n)
+            if max(extra, 0) + len(cow) > self._avail_pages():
                 stalled = True
                 continue
             if extra > 0:
                 newp = self._alloc_pages(extra)
                 self.tables[b, len(s.pages):len(s.pages) + extra] = newp
                 s.pages.extend(newp)
+            for j in cow:
+                self._cow_page(b, j)
             feeders.append((b, n, last))
             budget -= n
         self._page_stalled = stalled
         return feeders, stalled
+
+    # -- copy-on-write ---------------------------------------------------
+    def _cow_plan(self, s: _Slot, n: int) -> List[int]:
+        """Table columns of ``s`` whose pages the next n-token chunk
+        writes into while shared (refcount > 1) or registered."""
+        if not self.prefix:
+            return []
+        jlo = s.fed // self.page
+        jhi = (s.fed + n - 1) // self.page
+        out: List[int] = []
+        with self._lock:
+            for j in range(jlo, min(jhi, len(s.pages) - 1) + 1):
+                pg = s.pages[j]
+                if self._refcount[pg] > 1 or pg in self._page_hash:
+                    out.append(j)
+        return out
+
+    def _cow_page(self, b: int, j: int):
+        """Replace table column j of row b with a private copy of its
+        page, then drop the reference on the shared original."""
+        s = self.slots[b]
+        old = s.pages[j]
+        [new] = self._alloc_pages(1)
+        self._copy_page(old, new)
+        s.pages[j] = new
+        self.tables[b, j] = new
+        self._release_pages([old])
+        self._pfx["cow"] += 1
+
+    def _copy_page(self, src: int, dst: int):
+        """Copy one physical page in every pool, and in every draft pool
+        when speculation is on (they share page ids). In place: the page
+        ids are host ints that index views, so nothing reads the device,
+        and the copies queue on the current stream, the one the round
+        graphs replay on, ahead of the next round's replay. The pools
+        keep their addresses, so every captured graph stays valid."""
+        self.stats.note("page_copy",
+                        ("target", len(self.pools), str(self._dtype)))
+        for kp, vp in self.pools:
+            kp[dst].copy_(kp[src])
+            vp[dst].copy_(vp[src])
+        if self._draft is not None:
+            self.stats.note("page_copy",
+                            ("draft", len(self.draft_pools),
+                             str(self._draft_dtype)))
+            for kp, vp in self.draft_pools:
+                kp[dst].copy_(kp[src])
+                vp[dst].copy_(vp[src])
 
     def _unified_buffers(self):
         kw = {"device": self.device}
@@ -332,25 +883,149 @@ class ServingEngine:
         last = logits[torch.arange(self.B, device=self.device), idx]
         s.toks.copy_(_sample(last, self.gen, self._generator))
 
+    # -- speculative decoding --------------------------------------------
+    def _propose_key(self):
+        return (self.B, self.spec, self.M, self.page, self.P,
+                str(self._draft_dtype))
+
+    def _propose_buffers(self):
+        kw = {"device": self.device}
+        return SimpleNamespace(
+            tok=torch.zeros(self.B, dtype=torch.int64, **kw),
+            pos=torch.zeros(self.B, dtype=torch.int32, **kw),
+            tbl=torch.zeros(self.B, self.npages, dtype=torch.int32, **kw),
+            out=torch.zeros(self.B, self.spec + 1, dtype=torch.int64, **kw))
+
+    def _propose_body(self, s):
+        """k+1 greedy [B, 1] draft steps: the last one writes the k-th
+        proposal's KV, so a fully accepted run leaves no gap in the
+        draft cache (its emission is discarded). Positions clamp at M-1:
+        a row near its token budget drafts past its horizon, and the
+        host never accepts those lanes."""
+        model = self._draft._model
+        caches = [(kp, vp, s.tbl) for kp, vp in self.draft_pools]
+        tok, pos = s.tok, s.pos
+        for i in range(self.spec + 1):
+            logits, _ = model(tok[:, None], caches=caches, offset=pos)
+            tok = torch.argmax(logits[:, -1].float(), dim=-1)
+            s.out[:, i] = tok
+            pos = (pos + 1).clamp(max=self.M - 1)
+
+    def _propose(self, k_use: Dict[int, int]):
+        """Run the draft's proposal steps for this round's decode rows;
+        the [B, k+1] proposals stay on the device, where the verify step
+        reads them. Also writes each row's last committed token into the
+        draft KV (the draft cache stays one committed token behind the
+        target's). The JAX step runs the rows at valid 0 or 1 through
+        the ragged kernel; here rows that do not propose get an all-trash
+        table row (their writes land in the trash page, their outputs
+        are never read) and the steps attend through the decode kernel
+        (K5), which gives a proposing row the same keys."""
+        B = self.B
+        tok = np.zeros((B,), np.int64)
+        pos = np.zeros((B,), np.int32)
+        tbl = np.full((B, self.npages), self.trash, np.int32)
+        for b, ku in k_use.items():
+            if ku <= 0:
+                continue
+            s = self.slots[b]
+            tok[b] = s.req.new_tokens[-1]
+            pos[b] = s.pos + len(s.req.new_tokens) - 1
+            tbl[b] = self.tables[b]
+        key = self._propose_key()
+        self.stats.note("draft_propose", key)
+        st = self._graphs.buffers("draft_propose", key,
+                                  self._propose_buffers)
+        st.tok.copy_(torch.from_numpy(tok))
+        st.pos.copy_(torch.from_numpy(pos))
+        st.tbl.copy_(torch.from_numpy(tbl))
+        self._graphs.step("draft_propose", key, self._propose_body)
+        self.rounds["draft_propose"] += 1
+
+    def _spec_buffers(self):
+        s = self._unified_buffers()
+        kw = {"device": self.device}
+        # slots 1..k of a decode row that take a proposal
+        s.dmask = torch.zeros(self.B, self.spec, dtype=torch.bool, **kw)
+        s.props = self._graphs.buffers("draft_propose", self._propose_key(),
+                                       self._propose_buffers).out
+        # [0]: the argmax at every slot; [1]: the ids it verified
+        s.out = torch.zeros(2, self.B, self.Sc, dtype=torch.int64, **kw)
+        return s
+
+    def _spec_body(self, s):
+        """The verify step: the proposals into slots 1..k of their decode
+        rows, the same [B, Sc] forward as the unified step, and the
+        greedy argmax at EVERY slot, so a decode row feeding its last
+        token and k proposals gets all k+1 verify tokens at once."""
+        k = self.spec
+        s.ids[:, 1:k + 1] = torch.where(s.dmask, s.props[:, :k],
+                                        s.ids[:, 1:k + 1])
+        caches = [(kp, vp, s.tbl) for kp, vp in self.pools]
+        logits, _ = self.pred._model(s.ids, caches=caches, offset=s.starts,
+                                     valid=s.nvalid)
+        s.out[0].copy_(torch.argmax(logits.float(), dim=-1))
+        s.out[1].copy_(s.ids)
+
+    def _draft_chunk_body(self, s):
+        """The prompt chunks through the draft's layers, writing its KV.
+        Its logits are never read (XLA drops them from the JAX step), so
+        the LM head is not run."""
+        caches = [(kp, vp, s.tbl) for kp, vp in self.draft_pools]
+        self._draft._model.llama(s.ids, caches, offset=s.starts,
+                                 valid=s.nvalid)
+
+    def _draft_feed(self, feeders, ids: np.ndarray, starts: np.ndarray,
+                    tbl: np.ndarray):
+        """Mirror this round's prompt chunks into the draft pools (decode
+        rows at valid 0: their draft KV advances in _propose). Hit pages
+        already hold the draft KV of the request that fed them first:
+        the pools share page ids."""
+        nvf = np.zeros((self.B,), np.int32)
+        for b, n, _last in feeders:
+            nvf[b] = n
+        key = (self.B, self.Sc, self.M, self.page, self.P,
+               str(self._draft_dtype))
+        self.stats.note("draft_chunk", key)
+        st = self._graphs.buffers("draft_chunk", key,
+                                  self._unified_buffers)
+        st.ids.copy_(torch.from_numpy(ids))
+        st.starts.copy_(torch.from_numpy(starts))
+        st.nvalid.copy_(torch.from_numpy(nvf))
+        st.tbl.copy_(torch.from_numpy(tbl))
+        self._graphs.step("draft_chunk", key, self._draft_chunk_body)
+        self.rounds["draft_chunk"] += 1
+
     @torch.no_grad()
     def _unified_round(self, feeders):
         """One unified launch: every feeder writes its next prompt chunk,
-        every decode row advances one token, dead rows ride along at
-        seq_len 0 — one [B, Sc] forward."""
+        every decode row advances one token (plain) or up to k+1
+        (speculative: its last token and k proposals verified in the same
+        launch), dead rows ride along at seq_len 0 — one [B, Sc]
+        forward."""
         B = self.B
+        spec = self._draft is not None
         ids = np.zeros((B, self.Sc), np.int64)
         starts = np.zeros((B,), np.int32)
         nvalid = np.zeros((B,), np.int32)
         feed = {b: n for b, n, _last in feeders}
         decode_rows = []
+        k_use: Dict[int, int] = {}
         for b in range(B):
             s = self.slots[b]
             if s is None:
                 continue
             if s.state == "decode":
+                # spec: draft up to k tokens, never past the row's budget
+                # (its last token is never an input)
+                ku = 0
+                if spec:
+                    ku = max(0, min(self.spec, s.req.max_new_tokens
+                                    - len(s.req.new_tokens) - 1))
+                k_use[b] = ku
                 ids[b, 0] = s.req.new_tokens[-1]
                 starts[b] = s.pos + len(s.req.new_tokens) - 1
-                nvalid[b] = 1
+                nvalid[b] = 1 + ku
                 decode_rows.append(b)
             elif b in feed:
                 n = feed[b]
@@ -359,18 +1034,42 @@ class ServingEngine:
                 nvalid[b] = n
             # stalled/out-of-budget prefill rows and free slots stay at
             # seq_len 0: writes go to the trash column, output ignored
-        key = (B, self.Sc, self.M, self.page, self.P, self.gen.temperature,
-               self.gen.top_k, self.gen.top_p, str(self._dtype))
-        self.stats.note("unified", key)
-        st = self._graphs.buffers("unified", key, self._unified_buffers)
+        tbl = self._extended_tables()
+        if spec:
+            if any(k_use[b] > 0 for b in decode_rows):
+                self._propose(k_use)
+            dmask = np.zeros((B, self.spec), bool)
+            for b in decode_rows:
+                dmask[b, :k_use[b]] = True
+            key = (B, self.Sc, self.M, self.page, self.P, str(self._dtype))
+            site, make, body = "unified_spec", self._spec_buffers, \
+                self._spec_body
+        else:
+            key = (B, self.Sc, self.M, self.page, self.P,
+                   self.gen.temperature, self.gen.top_k, self.gen.top_p,
+                   str(self._dtype))
+            site, make, body = "unified", self._unified_buffers, \
+                self._unified_body
+        self.stats.note(site, key)
+        st = self._graphs.buffers(site, key, make)
         st.ids.copy_(torch.from_numpy(ids))
         st.starts.copy_(torch.from_numpy(starts))
         st.nvalid.copy_(torch.from_numpy(nvalid))
-        st.tbl.copy_(torch.from_numpy(self._extended_tables()))
-        self._graphs.step("unified", key, self._unified_body,
-                          self._generator)
-        toks = st.toks.cpu().numpy()
-        self.rounds["unified"] += 1
+        st.tbl.copy_(torch.from_numpy(tbl))
+        if spec:
+            st.dmask.copy_(torch.from_numpy(dmask))
+        # the verify step is greedy: it draws nothing from the generator
+        self._graphs.step(site, key, body, None if spec else self._generator)
+        self.rounds[site] += 1
+        # mirror the chunks into the draft pools BEFORE commits can
+        # retire a feeder (its registered pages must carry draft KV)
+        if spec and feeders:
+            self._draft_feed(feeders, ids, starts, tbl)
+        if spec:
+            out = st.out.cpu().numpy()        # the round's one host read
+            toks, ids = out[0], out[1]        # [B, Sc] each
+        else:
+            toks = st.toks.cpu().numpy()      # [B]
         now = time.perf_counter()
         fed_tokens = 0
         for b, n, last_chunk in feeders:
@@ -378,8 +1077,16 @@ class ServingEngine:
             req = s.req
             s.fed += n
             fed_tokens += n
+            if self.prefix and s.hashes:
+                # pages wholly behind the fed frontier now hold final,
+                # immutable KV: publish them under their prefix hash
+                full = s.fed // self.page
+                for j in range(s.registered, full):
+                    self._register_page(s.hashes[j], s.pages[j])
+                s.registered = max(s.registered, full)
             if last_chunk:
-                tok0 = int(toks[b])
+                tok0 = int(toks[b, nvalid[b] - 1]) if spec \
+                    else int(toks[b])
                 req.new_tokens.append(tok0)
                 req.t_first_token = now
                 s.state = "decode"
@@ -387,22 +1094,47 @@ class ServingEngine:
                         (req.eos_token_id is not None
                          and tok0 == req.eos_token_id):
                     self._finish(b)
+        if self.prefix:
+            self._pfx["fed_tokens"] += fed_tokens
         emitted = 0
         for b in decode_rows:
             req = self.slots[b].req
-            t = int(toks[b])
-            req.new_tokens.append(t)
-            emitted += 1
-            if len(req.new_tokens) >= req.max_new_tokens or \
-                    (req.eos_token_id is not None and t == req.eos_token_id):
-                self._finish(b)
-        self.stats.count_tokens(("unified", self.Sc, self.P),
+            if spec:
+                # greedy verify: toks[b, i] is the target argmax after
+                # input i, so proposal i is accepted iff it equals the
+                # previous committed token's argmax; commit the accepted
+                # run plus one token
+                ku = k_use[b]
+                seq = [int(toks[b, 0])]
+                for i in range(1, ku + 1):
+                    if int(ids[b, i]) != seq[-1]:
+                        break
+                    seq.append(int(toks[b, i]))
+                self._spec["proposed"] += ku
+                self._spec["accepted"] += len(seq) - 1
+            else:
+                seq = [int(toks[b])]
+            for t in seq:
+                req.new_tokens.append(t)
+                emitted += 1
+                if len(req.new_tokens) >= req.max_new_tokens or \
+                        (req.eos_token_id is not None
+                         and t == req.eos_token_id):
+                    self._finish(b)
+                    break           # rest of the run is discarded
+        if spec and decode_rows:
+            # one verify step per decode row a round, so committed/rounds
+            # is tokens per step: 1.0 at zero acceptance
+            self._spec["rounds"] += len(decode_rows)
+            self._spec["committed"] += emitted
+        self.stats.count_tokens((site, self.Sc, self.P),
                                 fed_tokens + emitted)
 
     def _preempt_youngest(self):
         """Deadlock breaker: bounce the YOUNGEST mid-prefill row (no token
         sampled yet, so restarting its prefill is exact) back to the
-        queue head. The oldest row is never preempted."""
+        queue head. The oldest row is never preempted. Pages it shares
+        with elder rows or the cache survive (refcount-aware release)."""
         rows = [b for b in range(self.B)
                 if self.slots[b] is not None
                 and self.slots[b].state == "prefill"]
@@ -415,15 +1147,18 @@ class ServingEngine:
         self.slots[b] = None
         self.queue.appendleft(s.req)
         self.rounds["preempted"] += 1
+        if self.debug:
+            self.check_invariants()
 
     def _chunked_round(self):
         """One chunked-mode tick: feed chunks through the unified step
         when any are ready (decode rows ride along); otherwise run the
-        decode step; preempt only when nothing can move."""
+        decode step, except in spec mode, where decode rows always take
+        the unified verify step; preempt only when nothing can move."""
         feeders, stalled = self._plan_chunks()
         has_decode = any(s is not None and s.state == "decode"
                          for s in self.slots)
-        if feeders:
+        if feeders or (self._draft is not None and has_decode):
             self._unified_round(feeders)
         elif has_decode:
             self._decode_round()
@@ -503,14 +1238,17 @@ class ServingEngine:
                                 emitted)
 
     def _finish(self, b: int):
-        """Evict a finished row: pages back to the free list, table row
-        to all-trash, slot open for backfill."""
+        """Evict a finished row: one reference dropped per page
+        (registered pages park on the LRU, the rest return to the free
+        list), table row to all-trash, slot open for backfill."""
         slot = self.slots[b]
         self._release_pages(slot.pages)
         self.tables[b, :] = self.trash
         self.slots[b] = None
         slot.req.t_finish = time.perf_counter()
         self.finished[slot.req.rid] = slot.req
+        if self.debug:
+            self.check_invariants()
 
     # -- driving ---------------------------------------------------------
     @property

@@ -188,6 +188,94 @@ def test_replay_reads_a_backfilled_table(model):
     assert out["graphed"] == out["eager"]
 
 
+@pytest.fixture(scope="module")
+def draft_model(cuda):
+    cfg = LlamaConfig(vocab_size=512, hidden_size=128, num_layers=1,
+                      num_heads=2, num_kv_heads=1, intermediate_size=256,
+                      max_position_embeddings=512, dtype="float32")
+    return LlamaForCausalLM(cfg, device=cuda, seed=2)
+
+
+def _engine(model, **kw):
+    conf = Config().set_model(model).enable_paged_kv(16)
+    conf.max_length = 512
+    return ServingEngine(create_predictor(conf), max_batch=2,
+                         prefill_chunk=64, prefix_cache=True,
+                         debug_invariants=True, **kw)
+
+
+SYS = np.random.RandomState(30).randint(1, 512, (64,))   # 4 pages of 16
+
+
+def _shared_prefix_run(eng):
+    """A 64-token system prompt: the first request is it plus a tail, the
+    later ones share it (one a full hit, whose refeed copies a page)."""
+    tails = [np.random.RandomState(31 + i).randint(1, 512, (L,))
+             for i, L in enumerate([20, 0, 45, 7])]
+    prompts = [np.concatenate([SYS, t]) for t in tails]
+    rids = [eng.submit(prompts[0], max_new_tokens=9)]
+    for _ in range(3):
+        eng.step()
+    rids += [eng.submit(p, max_new_tokens=n)
+             for p, n in zip(prompts[1:], [7, 11, 5])]
+    done = eng.run()
+    return [list(done[r].new_tokens) for r in rids]
+
+
+def test_spec_prefix_graphs_replay_equal_eager(model, draft_model):
+    """The verify step (unified_spec), the draft's proposal steps
+    (draft_propose) and its chunk feed (draft_chunk) replay their graphs
+    with the eager run's tokens and launches, over shared pages and a
+    copy-on-write; the committed tokens equal the plain engine's."""
+    spec = dict(draft_predictor=create_predictor(
+        Config().set_model(draft_model).enable_paged_kv(16)), spec_tokens=3)
+    eng = _engine(model, **spec)
+    toks, n = _counted(lambda: _shared_prefix_run(eng))
+    ref_eng = _engine(model, **spec)
+    with eager():
+        ref, n_ref = _counted(lambda: _shared_prefix_run(ref_eng))
+    plain_eng = _engine(model)
+    with eager():
+        plain = _shared_prefix_run(plain_eng)
+    assert toks == ref == plain
+    assert n == n_ref
+    for site in ("unified_spec", "draft_propose", "draft_chunk"):
+        assert eng.stats.captures[site] == eng.stats.keys(site) == 1
+        assert eng.stats.replays[site] == eng.rounds[site] - 1 > 0
+        assert ref_eng.stats.replays[site] == 0
+    assert eng.rounds["decode"] == eng.rounds["unified"] == 0
+    assert eng.prefix_cache_stats()["cow"] >= 1
+    assert eng.prefix_cache_stats()["hits"] >= 3 * 4
+    eng.check_invariants()
+
+
+def test_cow_between_replays_keeps_graphs_valid(model):
+    """A copy-on-write after the unified and decode graphs were captured
+    writes the pools in place between two replays: the later replays
+    read the copied page and the tokens equal an eager engine's."""
+    eng = _engine(model)
+    seen = []
+    copy_page = eng._copy_page
+
+    def watched(src, dst):
+        if src != dst:            # not the constructor's no-op copy
+            seen.append((eng.stats.captures["unified"],
+                         eng.stats.replays["unified"],
+                         eng.stats.replays["serve_decode"]))
+        copy_page(src, dst)
+
+    eng._copy_page = watched
+    toks = _shared_prefix_run(eng)
+    with eager():
+        ref = _shared_prefix_run(_engine(model))
+    assert toks == ref
+    assert seen and eng.prefix_cache_stats()["cow"] == len(seen)
+    # each copy came after the captures and between replays
+    assert all(cap == 1 and rep + dec > 0 for cap, rep, dec in seen)
+    assert eng.stats.replays["unified"] > seen[-1][1]
+
+
+# last: a failed capture on purpose
 def test_capture_failure_raises(cuda):
     """A body that reads a value back to the host cannot be captured: the
     step raises, keeps no graph, and the launch counters stay as they
