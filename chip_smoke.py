@@ -24,8 +24,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 gradient are held to the tolerance as a relative L2 error
                 over tiles of 64 positions of one (batch, head), each tile
                 against its own magnitude. K4 and K5 rows name the body
-                each call ran (wgmma_split, mma, fma), its split count and
-                workspace bytes; the bf16 cases must run the Hopper body.
+                each call ran (wgmma_split, f32_tile, mma, fma), its split
+                count and workspace bytes; the bf16 cases must run the
+                Hopper body. K6 rows name their route too (bf16 at D = 128
+                must run wgmma_split), and K5 over the same keys (the
+                cache cut into 64-key pages) must give K6's bits, bf16
+                and fp32.
                 K8 (the multi-tensor AdamW + clip update) at the train
                 phase's 1.881 B-parameter set (bf16 parameters, f32
                 masters and moments) against its plain version: f32
@@ -89,7 +93,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 four measured calls, eager, graphed, graphed, eager:
                 prefill and per-token decode ms, tokens/s, peak memory,
                 exact launch counts of K6, K5 and K3, every graphed
-                decode step a replay, graphed-eager token agreement; then
+                decode step a replay, graphed-eager token agreement; the
+                static and paged runs must give equal tokens and equal
+                prefill logits (K6 and K5 run one body); then
                 an eager paged generation of 2 tokens with every layer's
                 K5 call (the prefill and a decode step) held against the
                 plain version per tile, 2e-2
@@ -848,6 +854,19 @@ def _k6_cost(B, Sq, H, KV, M, offs, D, isz):
     return nbytes, 4 * D * H * pairs
 
 
+def _as_pages(c, page=64):
+    """A contiguous cache [B, KV, M, D] cut into pages [B * n, KV, page, D]
+    (each row's pages in order, the last padded with zeros) and its
+    tables [B, n]: K5 then reads the same keys as K6."""
+    B, KV, M, D = c.shape
+    n = -(-M // page)
+    c = torch.nn.functional.pad(c, (0, 0, 0, n * page - M))
+    pages = c.reshape(B, KV, n, page, D).transpose(1, 2).reshape(
+        B * n, KV, page, D).contiguous()
+    tbl = torch.arange(B * n, dtype=torch.int32, device=c.device)
+    return pages, tbl.reshape(B, n)
+
+
 def check_decode(dev, results):
     import torch.nn.functional as F
 
@@ -855,16 +874,25 @@ def check_decode(dev, results):
 
     g = torch.Generator(device=dev).manual_seed(6)
     D = 128
+    first = len(results)
     for label, B, Sq, H, KV, M, off in _k6_cases():
         offs = off if isinstance(off, list) else [off] * B
         for dt in (torch.bfloat16, torch.float32):
             q = torch.randn(B, Sq, H, D, device=dev, generator=g).to(dt)
             k = torch.randn(B, KV, M, D, device=dev, generator=g).to(dt)
             v = torch.randn(B, KV, M, D, device=dev, generator=g).to(dt)
-            o = torch.tensor(off, dtype=torch.int32, device=dev) \
-                if isinstance(off, list) else off
+            o = torch.tensor(offs, dtype=torch.int32, device=dev)
             out = K6.decode_attention(q, k, v, o)
             ref = K6.decode_attention_dense(q, k, v, o)
+            # K5 over the same keys runs the same body, tiles and splits
+            kp, tbl = _as_pages(k)
+            vp, _ = _as_pages(v)
+            k5 = K6.paged_decode_attention(q, kp, vp, tbl, o)
+            k5_body = K6.paged_route(q, kp, tbl).body
+            k5_ms = cuda_ms(lambda: K6.paged_decode_attention(q, kp, vp, tbl,
+                                                              o))
+            del kp, vp
+            torch.cuda.synchronize()
             e = _errs(out, ref)
             b_ms, b_by = bound(*_k6_cost(B, Sq, H, KV, M, offs, D,
                                          q.element_size()), dt)
@@ -876,7 +904,10 @@ def check_decode(dev, results):
             results.append(dict(
                 name="decode_attention", case=label, shape=[B, Sq, H, D],
                 cache_len=M, kv_heads=KV, dtype=str(dt)[6:],
-                offsets=off, max_abs_err=e[0], ref_max_abs=e[1],
+                offsets=off, **K6.decode_route(q, k)._asdict(),
+                k5_same_keys_equal=bool(torch.equal(out, k5)),
+                k5_body=k5_body, k5_ms=k5_ms,
+                max_abs_err=e[0], ref_max_abs=e[1],
                 rel_err=e[3], tol=TOL[dt],
                 ms=cuda_ms(lambda: K6.decode_attention(q, k, v, o)),
                 plain_ms=cuda_ms(lambda: K6.decode_attention_dense(
@@ -886,7 +917,17 @@ def check_decode(dev, results):
                 library="F.scaled_dot_product_attention on the cache, same "
                         "boolean mask, enable_gqa",
                 bound_ms=b_ms, bound_by=b_by))
-            del q, k, v, out, ref, qt, mask
+            del q, k, v, out, ref, qt, mask, k5
+    # K6 on the Hopper body in bf16 at D = 128, and K5's bits on its keys
+    for r in results[first:]:
+        if r["dtype"] == "bfloat16" and r["body"] != "wgmma_split":
+            raise AssertionError(f"decode_attention {r['case']} ran the "
+                                 f"{r['body']} body, not wgmma_split")
+        if not r["k5_same_keys_equal"] or r["k5_body"] != r["body"]:
+            raise AssertionError(
+                f"decode_attention {r['case']} {r['dtype']}: K5 over the "
+                f"same keys ({r['k5_body']}) does not give K6's "
+                f"({r['body']}) bits")
 
 
 # -- phases 3 and 4: serving ---------------------------------------------------
@@ -1686,20 +1727,23 @@ def phase_generate(model, paths, profile=False, n_new=128):
         if profile:
             profile_decode(pred, ids, lens, label)
         del pred, out
-    agree = int((outs["static"] == outs["paged"]).sum())
     same = outs["static"] == outs["paged"]
     first = [int(np.argmin(r)) if not r.all() else n_new for r in same]
-    log(f"[generate] static and paged agree on {agree} of "
-        f"{outs['static'].size} new tokens, each row up to new token "
-        f"{first} (bf16, K6 and K5 run different bodies: informational)")
-    # the first new token's logits from the two caches' prefills: their
-    # difference against each row's gap between its two best tokens
+    log(f"[generate] static and paged agree on {int(same.sum())} of "
+        f"{same.size} new tokens, each row up to new token {first} (bf16; "
+        f"K6 and K5 run one body over the same keys)")
+    # the first new token's logits from the two caches' prefills
     a, b = (first_logits[k].float() for k in ("static", "paged"))
     top2 = a.topk(2, dim=-1).values
     log("[generate] prefill logits, static vs paged: max |diff| per row "
         f"{(a - b).abs().amax(-1).tolist()}, static top-2 gap per row "
         f"{(top2[:, 0] - top2[:, 1]).tolist()}, logit RMS "
         f"{a.pow(2).mean().sqrt().item()}")
+    if not same.all() or not torch.equal(first_logits["static"],
+                                         first_logits["paged"]):
+        raise AssertionError("bf16 static and paged generation differ: K6 "
+                             "and K5 over the same keys must give the same "
+                             "bits")
     check_generate_attention(model, ids, lens)
     return launches
 
@@ -2267,7 +2311,8 @@ KERNEL_GROUPS = (("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass")),
                  ("K8 fused_adam", ("reduce_kernel((anonymous",
                                     "finalize_kernel(", "update_kernel<")),
                  ("K4/K5/K6 paged or contiguous-cache attention",
-                  ("paged_attention", "tile_wgmma_kernel", "merge_splits")))
+                  ("paged_attention", "tile_wgmma_kernel", "merge_splits",
+                   "f32_tile_kernel")))
 
 
 def _log_profile(prof, wall, tag, per=1):

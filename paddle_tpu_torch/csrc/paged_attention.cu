@@ -21,25 +21,35 @@
 // of a wider table is fine); starts and seq_lens [B] int32. K6's caches
 // are [B, KV, M, D]: key t of (b, kv) sits at ((b * KV + kv) * M + t) * D,
 // and M (the caller's max length) need not be a multiple of the 8-key or
-// 64-key steps, so every K6 load is bounded by M and keys past it are
-// masked. Query head h reads KV head h / (H / KV) (GQA). A tile's rows
-// are (slot, q head of the group) pairs r = slot * G + g.
+// 64-key steps, so every K6 load is bounded by M, keys past it are
+// masked, and a row's frontier is clamped at M - 1 (a row at or past the
+// end of the cache sees the whole cache, as the plain version's does).
+// Query head h reads KV head h / (H / KV) (GQA). A tile's rows are (slot,
+// q head of the group) pairs r = slot * G + g.
 //
 // Bound on this card: bytes. Each (row, KV head) must read the K and V
 // pages its frontier reaches once: sum over rows b of 2 * KV * (start_b +
 // last_live_slot_b + 1) * D * itemsize, plus q and out once. The flops (4
 // * D per (q head, key) pair) stay below the tensor-core rate even for a
-// 256-slot chunk.
+// 256-slot chunk; in fp32 (no tensor cores) a long prefill is bound by
+// them instead.
 //
-// Routes (paged_attention_plan tells the caller which one a shape takes;
-// all three are hand-written bodies of this file):
-//   wgmma_split  bf16, D = 64 or 128, pages that divide 64 or are a
-//                multiple of it: every K4 and K5 call of the serving and
-//                paged-generation paths, chunks and decode rows alike.
+// Routes (paged_attention_plan and decode_attention_plan tell the caller
+// which one a shape takes; all four are hand-written bodies of this
+// file, and K4, K5 and K6 follow one rule):
+//   wgmma_split  bf16, D = 64 or 128, and for K4/K5 pages that divide 64
+//                or are a multiple of it: every K4, K5 and K6 call of the
+//                serving and generation paths, chunks, prefills and
+//                decode rows alike. K6 reads its cache as a pool of B
+//                pages of M keys (direct addressing, no table), so K6 and
+//                K5 over the same keys run the same tiles and splits and
+//                give the same bits.
+//   f32_tile     fp32 with >= 16 rows (Sq * G) a KV head: 64 rows a CTA,
+//                K and V staged in shared memory 64 keys at a time.
 //   mma          bf16 with other head dims (16, 32) or pages, >= 16 rows:
-//                the mma.sync tile below (and every K6 prefill).
-//   fma          everything else (fp32, D up to 256, K6 decode).
-// K6 always takes mma or fma.
+//                the mma.sync tile below.
+//   fma          everything else (fp32 and bf16 decode rows, D up to
+//                256).
 //
 // The Hopper body (design):
 //   One CTA per (128 rows, KV head, batch row): two consumer warpgroups of
@@ -47,29 +57,44 @@
 //   over each pool, boxes of min(page, 64) keys x 64 columns of one (page,
 //   KV head) plane with the 128-byte swizzle, so a 64-key tile is 64 /
 //   page boxes (or a part of one page) laid out as the wgmma descriptors
-//   expect. The producer reads the block table 32 entries at a time and
-//   issues each tile's K and V into a 4-stage ring guarded by mbarriers, so
-//   a page is read once for the tile's 128 rows (the G q heads of a KV
-//   head share it). Q is staged once in shared memory (swizzled by hand,
-//   zero for dead rows). S = Q K^T runs from shared memory (SS), P V with P
-//   from registers (RS). Online softmax in f32, base 2; masks are -inf
-//   scores written only on tiles a row's frontier cuts. Tried on the H100
-//   and not kept, each no faster: overlapping a warpgroup's softmax with
-//   its pending P V (ptxas serialised the wgmmas, C7515), ping-pong issue
-//   between the two warpgroups, and thin tiles whose two warpgroups take
-//   alternate key tiles (decode rows are bound by the pool's bytes).
+//   expect. K6's map is the cache [B, KV, M, D] itself, a pool whose page
+//   is M keys and whose page id is the batch row: one 64-key box a panel
+//   at the key itself, keys past M filled with zeros by TMA (out of
+//   bounds) and masked. The producer reads the block table 32 entries at
+//   a time (K6 has none) and issues each tile's K and V into a 4-stage
+//   ring guarded by mbarriers, so a page is read once for the tile's 128
+//   rows (the G q heads of a KV head share it). Q is staged once in shared
+//   memory (swizzled by hand, zero for dead rows). S = Q K^T runs from
+//   shared memory (SS), P V with P from registers (RS). Online softmax in
+//   f32, base 2; masks are -inf scores written only on tiles a row's
+//   frontier cuts. Tried on the H100 and not kept, each no faster:
+//   overlapping a warpgroup's softmax with its pending P V (ptxas
+//   serialised the wgmmas, C7515), ping-pong issue between the two
+//   warpgroups, and thin tiles whose two warpgroups take alternate key
+//   tiles (decode rows are bound by the pool's bytes).
 //   Split-K (flash-decoding) for thin tiles: the last live tile of a (batch
 //   row, KV head) with at most 16 live rows -- a decode row and its G q
 //   heads, a short chunk -- splits its key range into 512-key pieces. The
 //   grid's split axis is sized from what the host knows (npages * page /
-//   512), so no device-to-host read is needed and a CUDA graph can capture
-//   the call; a split past its tile's frontier exits at once. Each split
-//   writes f32 partials (m in base 2, l, unnormalised acc) to a workspace
-//   the wrapper allocates, nsplit * B * KV * 16 * (D + 2) * 4 bytes (8.5 MB
-//   at [8, 256, 32, 128] over 2048 keys); a merge kernel combines them in
-//   split order (deterministic: no atomics). Full tiles walk their range
-//   in one CTA and write their output directly. Dead slots are written 0
-//   by split 0.
+//   512, K6: M / 512), so no device-to-host read is needed and a CUDA
+//   graph can capture the call; a split past its tile's frontier exits at
+//   once. Each split writes f32 partials (m in base 2, l, unnormalised
+//   acc) to a workspace the wrapper allocates, nsplit * B * KV * 16 * (D +
+//   2) * 4 bytes (8.5 MB at [8, 256, 32, 128] over 2048 keys); a merge
+//   kernel combines them in split order (deterministic: no atomics). Full
+//   tiles walk their range in one CTA and write their output directly.
+//   Dead slots are written 0 by split 0.
+//
+// fp32 tile: one CTA of 256 threads per (64 rows, KV head, batch row).
+// Each 64-key K and V block is copied once into shared memory (cp.async,
+// zero-filled past M and past D; K swizzled by 16-byte chunks so a
+// quarter-warp's reads of 8 keys hit 8 bank groups) and serves all 64
+// rows, where the FMA body reads them again for every 8 rows. Thread (ty,
+// tx) holds rows 4 ty .. 4 ty + 3, the scores of keys tx + 16 j and the
+// output columns tx * CW + 16 CW n, all in f32 registers; P goes through
+// shared memory in the K block's place. Plain f32 FMA: no TF32, whose
+// 10-bit mantissa would miss the fp32 gate (1e-4). The V block's copy
+// overlaps S = Q K^T.
 //
 // FMA body: one CTA of 4 warps per (tile of up to 8
 // (slot, q-head-in-group) rows, KV head, batch row). The tile's rows
@@ -108,6 +133,7 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -609,26 +635,285 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
-template <bool kContig>
-int run(const Args& a, int dtype, void* stream) {
-  if (a.B <= 0 || a.Sq <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int R = a.Sq * (a.H / a.KV);
-  cudaError_t e;
-  if (dtype == 1 && R >= 16 && a.D == 128)
-    e = launch_mma<128, kContig>(a, s);
-  else if (dtype == 1 && R >= 16 && a.D == 64)
-    e = launch_mma<64, kContig>(a, s);
-  else if (dtype == 1 && R >= 16 && a.D == 32)
-    e = launch_mma<32, kContig>(a, s);
-  else if (dtype == 1 && R >= 16 && a.D == 16)
-    e = launch_mma<16, kContig>(a, s);
-  else
-    e = dtype == 0 ? launch<float, kContig>(a, s)
-                   : launch<__nv_bfloat16, kContig>(a, s);
-  return static_cast<int>(e);
+// ---------------------------------------------------------------------------
+// fp32 tile (K4, K5 and K6 with >= 16 rows a KV head): 64 (slot, q-head)
+// rows per CTA of 256 threads, K and V staged in shared memory 64 keys at
+// a time (see the header). DP is the head dim padded to the instance (16,
+// 32, 64, 128, 256); columns past D stage as zeros and are not written.
+// ---------------------------------------------------------------------------
+constexpr int kF32Rows = 64;
+constexpr int kF32Keys = 64;
+constexpr int kF32Threads = 256;
+constexpr int kF32MinRows = 16;  // fewer rows a KV head take the FMA body
+
+template <int DP>
+struct F32Cfg {
+  static constexpr int CW = DP >= 64 ? 4 : DP / 16;  // adjacent columns
+  static constexpr int NC = DP / (16 * CW);          // groups of them
+  static constexpr int RC = DP / 4;                  // 16-byte chunks a row
+  static constexpr int SW = RC < 8 ? RC - 1 : 7;     // K's chunk swizzle
+  static constexpr int KE = kF32Keys * DP > kF32Rows * kF32Keys
+                                ? kF32Keys * DP
+                                : kF32Rows * kF32Keys;  // K block, or P
+  static constexpr int smem = (2 * kF32Rows * DP + KE) * 4;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// float offset of chunk ch of key row r in the swizzled K block
+template <int DP>
+__device__ __forceinline__ int k_chunk(int r, int ch) {
+  return r * DP + ((ch ^ (r & F32Cfg<DP>::SW)) << 2);
+}
+
+// float offset of (row, key) in the P block: 16 chunks of 4 keys a row,
+// chunk c at c ^ (row % 8)
+__device__ __forceinline__ int p_at(int row, int key) {
+  return row * kF32Keys + ((((key >> 2) ^ (row & 7))) << 2) + (key & 3);
+}
+
+// keys k0 .. k0 + 63 of (b, kv) from `src` into `dst` (K swizzled, V in
+// order); keys at or past klim and columns past D are zeros
+template <int DP, bool kContig>
+__device__ __forceinline__ void f32_stage(float* dst, const float* src,
+                                          const Args& a, int b, int kv,
+                                          int k0, int klim, bool swz) {
+  constexpr int RC = F32Cfg<DP>::RC;
+#pragma unroll 1
+  for (int c = threadIdx.x; c < kF32Keys * RC; c += kF32Threads) {
+    const int r = c / RC, ch = c % RC;
+    const bool ok = k0 + r < klim && ch * 4 < a.D;
+    const float* from =
+        ok ? src + key_offset<kContig>(a, b, kv, k0 + r) + ch * 4 : src;
+    cp_async16(dst + (swz ? k_chunk<DP>(r, ch) : r * DP + ch * 4), from, ok);
+  }
+}
+
+template <int CW>
+__device__ __forceinline__ void ld_cols(float (&v)[CW], const float* p) {
+  if constexpr (CW == 4) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    v[0] = u.x;
+    v[1] = u.y;
+    v[2] = u.z;
+    v[3] = u.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < CW; ++c) v[c] = p[c];
+  }
+}
+
+template <int DP, bool kContig>
+__global__ void __launch_bounds__(kF32Threads, DP >= 256 ? 1 : 2)
+    f32_tile_kernel(Args a) {
+  using C = F32Cfg<DP>;
+  constexpr int CW = C::CW, NC = C::NC;
+  extern __shared__ float4 f32_smem[];
+  float* sq = reinterpret_cast<float*>(f32_smem);  // [64][DP]
+  float* sv = sq + kF32Rows * DP;                  // [64][DP]
+  float* sk = sv + kF32Rows * DP;                  // [64][DP] K, then P
+  const float* q = static_cast<const float*>(a.q);
+  const float* kp = static_cast<const float*>(a.k_pool);
+  const float* vp = static_cast<const float*>(a.v_pool);
+  float* out = static_cast<float*>(a.out);
+
+  const int G = a.H / a.KV;
+  const int R = a.Sq * G;
+  const int b = blockIdx.z, kv = blockIdx.y;
+  // the longest key ranges (the last tiles) first
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kF32Rows;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int start = a.starts[b];
+  const int nv = a.seq_lens ? a.seq_lens[b] : a.Sq;
+  const int nrows = min(kF32Rows, R - r0);
+  const int last_live = min((r0 + nrows - 1) / G, nv - 1);
+  const int klim = key_limit<kContig>(a);
+
+  if (last_live < r0 / G) {  // every slot of this tile is dead
+    for (int idx = tid; idx < nrows * a.D; idx += kF32Threads)
+      out[row_offset(a, b, kv, G, r0 + idx / a.D) + idx % a.D] = 0.f;
+    return;
+  }
+
+#pragma unroll 1
+  for (int c = tid; c < kF32Rows * C::RC; c += kF32Threads) {
+    const int i = c / C::RC, ch = c % C::RC;
+    const bool ok = i < nrows && (r0 + i) / G < nv && ch * 4 < a.D;
+    cp_async16(sq + i * DP + ch * 4,
+               ok ? q + row_offset(a, b, kv, G, r0 + i) + ch * 4 : q, ok);
+  }
+
+  int qp[4];  // last key row 4 ty + i sees; -1 when dead
+  float m[4], l[4], acc[4][NC * CW];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * ty + i;
+    qp[i] = (r < nrows && (r0 + r) / G < nv)
+                ? min(start + (r0 + r) / G, klim - 1)
+                : -1;
+    m[i] = kNeg;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC * CW; ++c) acc[i][c] = 0.f;
+  }
+  const float sl2 = a.scale * kLog2e;
+  const int nkeys = min(start + last_live + 1, klim);
+
+  for (int k0 = 0; k0 < nkeys; k0 += kF32Keys) {
+    f32_stage<DP, kContig>(sk, kp, a, b, kv, k0, klim, true);
+    cp_async_commit();  // (with Q on the first block)
+    f32_stage<DP, kContig>(sv, vp, a, b, kv, k0, klim, false);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int ch = 0; ch < C::RC; ++ch) {
+      float4 kk[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kk[j] = *reinterpret_cast<const float4*>(sk +
+                                                 k_chunk<DP>(tx + 16 * j, ch));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(
+            sq + (4 * ty + i) * DP + ch * 4);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float t = s[i][j];
+          t = fmaf(qv.x, kk[j].x, t);
+          t = fmaf(qv.y, kk[j].y, t);
+          t = fmaf(qv.z, kk[j].z, t);
+          s[i][j] = fmaf(qv.w, kk[j].w, t);
+        }
+      }
+    }
+    __syncthreads();  // every read of the K block is done: P takes it
+
+    // online softmax over this block, base 2; a row's max over the 16
+    // threads of its ty (lanes differing in bits 0..3)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = kNeg;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool vis = k0 + tx + 16 * j <= qp[i];
+        s[i][j] = vis ? s[i][j] * sl2 : kNeg;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float nm = fmaxf(m[i], mx);
+      const float corr = exp2f(m[i] - nm);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = tx + 16 * j;
+        const float p = k0 + key <= qp[i] ? exp2f(s[i][j] - nm) : 0.f;
+        ps += p;
+        sk[p_at(4 * ty + i, key)] = p;
+      }
+      l[i] = l[i] * corr + ps;  // this thread's keys; summed at the end
+      m[i] = nm;
+#pragma unroll
+      for (int c = 0; c < NC * CW; ++c) acc[i][c] *= corr;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // V and every row's P are in place
+
+#pragma unroll 2
+    for (int k4 = 0; k4 < kF32Keys; k4 += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(sk +
+                                                 p_at(4 * ty + i, k4));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* vrow = sv + (k4 + e) * DP + tx * CW;
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          float v[CW];
+          ld_cols<CW>(v, vrow + 16 * CW * n);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = e == 0 ? pv[i].x
+                            : e == 1 ? pv[i].y
+                            : e == 2 ? pv[i].z
+                                     : pv[i].w;
+#pragma unroll
+            for (int c = 0; c < CW; ++c)
+              acc[i][n * CW + c] = fmaf(p, v[c], acc[i][n * CW + c]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next block's copies overwrite K/P and V
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float L = l[i];
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) L += __shfl_xor_sync(0xffffffffu, L, o);
+    const int r = 4 * ty + i;
+    if (r >= nrows) continue;
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    float* o = out + row_offset(a, b, kv, G, r0 + r);
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const int c0 = tx * CW + 16 * CW * n;
+      if (c0 >= a.D) continue;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) o[c0 + c] = acc[i][n * CW + c] * inv;
+    }
+  }
+}
+
+template <int DP, bool kContig>
+cudaError_t launch_f32_dp(const Args& a, cudaStream_t s) {
+  constexpr int smem = F32Cfg<DP>::smem;
+  cudaError_t e = cudaFuncSetAttribute(
+      f32_tile_kernel<DP, kContig>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int R = a.Sq * (a.H / a.KV);
+  dim3 grid((R + kF32Rows - 1) / kF32Rows, a.KV, a.B);
+  f32_tile_kernel<DP, kContig><<<grid, kF32Threads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kContig>
+cudaError_t launch_f32(const Args& a, cudaStream_t s) {
+  if (a.D <= 16) return launch_f32_dp<16, kContig>(a, s);
+  if (a.D <= 32) return launch_f32_dp<32, kContig>(a, s);
+  if (a.D <= 64) return launch_f32_dp<64, kContig>(a, s);
+  if (a.D <= 128) return launch_f32_dp<128, kContig>(a, s);
+  if (a.D <= 256) return launch_f32_dp<256, kContig>(a, s);
+  return cudaErrorInvalidValue;
+}
 
 // ---------------------------------------------------------------------------
 // Hopper body (bf16, D = 64 and 128): TMA page loads, split-K, wgmma.
@@ -650,12 +935,12 @@ constexpr int kThin = 16;        // a tile with at most this many live rows
 constexpr int kSplitKeys = 512;  // keys a split
 constexpr int kConsumers = 256;
 constexpr int kHopThreads = kConsumers + 32;  // and one producer warp
-constexpr float kLog2e = 1.4426950408889634f;
 
-enum Route { kRouteFma = 0, kRouteMma = 1, kRouteWgmma = 2 };
+enum Route { kRouteFma = 0, kRouteMma = 1, kRouteWgmma = 2, kRouteF32 = 3 };
 
 struct SplitParams {
-  CUtensorMap tk, tv;  // the pools: boxes of min(page, 64) keys x 64 columns
+  CUtensorMap tk, tv;  // the pools (K6: the caches as B pages of M keys):
+                       // boxes of min(page, 64) keys x 64 columns
   Args a;
   float* ws;           // acc [nsplit][B][KV][kThin][D], then (m, l) [...][2]
   int nsplit;
@@ -663,9 +948,10 @@ struct SplitParams {
 
 // The work of one (row tile, KV head, batch row): rows [r0, r0 + nrows) of
 // the KV head's R = Sq * G, the first nl of them live; f the last key the
-// tile's live rows see; nsp its number of splits (1: the tile writes its
-// output directly). Only the last live tile of a (batch row, KV head) can
-// be thin. The tile kernel and the merge compute it the same way.
+// tile's live rows see (K6: at most M - 1); nsp its number of splits (1:
+// the tile writes its output directly). Only the last live tile of a
+// (batch row, KV head) can be thin. The tile kernel and the merge compute
+// it the same way.
 struct Plan {
   int r0, nrows, nl, f, nsp;
 };
@@ -681,7 +967,8 @@ __device__ __forceinline__ Plan make_plan(const Args& a, int b, int tile,
   p.r0 = tile * kTileRows;
   p.nrows = min(kTileRows, a.Sq * G - p.r0);
   p.nl = min(max(live_slots(a, b) * G - p.r0, 0), p.nrows);
-  p.f = p.nl > 0 ? a.starts[b] + (p.r0 + p.nl - 1) / G : -1;
+  const int klim = a.tables ? INT_MAX : a.M;  // K6: the cache length
+  p.f = p.nl > 0 ? min(a.starts[b] + (p.r0 + p.nl - 1) / G, klim - 1) : -1;
   p.nsp = (p.nl > 0 && p.nl <= kThin && nsplit > 1)
               ? min(max(p.f, 0) / kSplitKeys + 1, nsplit)
               : 1;
@@ -717,14 +1004,26 @@ struct PageWindow {
 
 // TMA the [64, D] K and V tiles of keys k0 .. k0 + 63 of (b, kv) into kdst
 // and vdst (D / 64 swizzled panels each) on barrier `bar`: 64 / page boxes
-// of one page each, or one box inside a larger page. Called by a whole
-// warp; lane 0 issues.
-template <int D>
+// of one page each, or one box inside a larger page; K6 (kContig): one box
+// at key k0 of page b, no table, keys past M zero-filled. Called by a
+// whole warp; lane 0 issues.
+template <int D, bool kContig>
 __device__ __forceinline__ void load_tile(bf16* kdst, bf16* vdst,
                                           const SplitParams& P, uint64_t* bar,
                                           int b, int kv, int k0,
                                           PageWindow& win, int lane) {
   const Args& a = P.a;
+  if constexpr (kContig) {
+    if (lane == 0) {
+#pragma unroll
+      for (int p = 0; p < D / 64; ++p) {
+        const int off = p * kTileKeys * 64;
+        hopper::tma_load_4d(kdst + off, &P.tk, bar, p * 64, k0, kv, b);
+        hopper::tma_load_4d(vdst + off, &P.tv, bar, p * 64, k0, kv, b);
+      }
+    }
+    return;
+  }
   const int box = min(a.page, kTileKeys);
   for (int j = 0; j < kTileKeys; j += box) {
     const int key = k0 + j;
@@ -750,7 +1049,7 @@ struct TileCfg {
   static constexpr int smem = QE * 2 + kTileStages * 2 * TB + 128 + 1024;
 };
 
-template <int D>
+template <int D, bool kContig>
 __global__ void __launch_bounds__(kHopThreads, 1)
     tile_wgmma_kernel(const __grid_constant__ SplitParams P) {
   using C = TileCfg<D>;
@@ -814,8 +1113,8 @@ __global__ void __launch_bounds__(kHopThreads, 1)
       hopper::mbar_wait(empty + st, ((t / kTileStages) & 1) ^ 1);
       if (lane == 0) hopper::mbar_arrive_tx(full + st, 2 * C::TB);
       bf16* kt = skv + st * 2 * C::TE;
-      load_tile<D>(kt, kt + C::TE, P, full + st, b, kv, kb + t * kTileKeys,
-                   win, lane);
+      load_tile<D, kContig>(kt, kt + C::TE, P, full + st, b, kv,
+                            kb + t * kTileKeys, win, lane);
     }
     return;
   }
@@ -838,12 +1137,15 @@ __global__ void __launch_bounds__(kHopThreads, 1)
   hopper::named_sync(1 + wg, 128);
 
   // rows (in the tile) of this lane; a dead row borrows the last live
-  // row's frontier, so it needs no mask of its own (its output is dropped)
+  // row's frontier, so it needs no mask of its own (its output is dropped).
+  // K6 clamps each frontier at M - 1: keys past M are TMA's zeros.
   const int rA = wg * 64 + w * 16 + grp, rB = rA + 8;
   const int start = a.starts[b];
-  const int fA = start + (pl.r0 + min(rA, pl.nl - 1)) / G;
-  const int fB = start + (pl.r0 + min(rB, pl.nl - 1)) / G;
-  const int f0 = start + (pl.r0 + wg * 64) / G;  // the warpgroup's smallest
+  const int fmax = key_limit<kContig>(a) - 1;
+  const int fA = min(start + (pl.r0 + min(rA, pl.nl - 1)) / G, fmax);
+  const int fB = min(start + (pl.r0 + min(rB, pl.nl - 1)) / G, fmax);
+  // the warpgroup's smallest
+  const int f0 = min(start + (pl.r0 + wg * 64) / G, fmax);
   const float sl2 = a.scale * kLog2e;
   float o[D / 2], sc[kTileKeys / 2];
   uint32_t pa[kTileKeys / 16][4];
@@ -1002,16 +1304,21 @@ bool tma_pages(int page) {
   return page % 8 == 0 && (page % kTileKeys == 0 || kTileKeys % page == 0);
 }
 
-HostPlan plan_for(const Args& a, int dtype) {
+// The route of a K4/K5 (contig = false) or K6 (contig = true) call; K6
+// takes the Hopper body with its cache as B pages of M keys.
+HostPlan plan_for(const Args& a, int dtype, bool contig) {
   HostPlan h{kRouteFma, 1, 0};
   const int R = a.Sq * (a.H / a.KV);
-  if (dtype == 1 && (a.D == 64 || a.D == 128) && tma_pages(a.page) &&
-      a.npages > 0 && a.P > 0) {
+  const bool hopper_pages =
+      contig ? a.M > 0 : tma_pages(a.page) && a.npages > 0 && a.P > 0;
+  if (dtype == 1 && (a.D == 64 || a.D == 128) && hopper_pages) {
     h.route = kRouteWgmma;
-    h.nsplit = int(((long long)a.npages * a.page + kSplitKeys - 1) /
-                   kSplitKeys);
+    const long long keys = contig ? a.M : (long long)a.npages * a.page;
+    h.nsplit = int((keys + kSplitKeys - 1) / kSplitKeys);
     if (h.nsplit > 1)
       h.ws_bytes = (long long)h.nsplit * a.B * a.KV * kThin * (a.D + 2) * 4;
+  } else if (dtype == 0 && R >= kF32MinRows) {
+    h.route = kRouteF32;
   } else if (dtype == 1 && R >= 16 &&
              (a.D == 16 || a.D == 32 || a.D == 64 || a.D == 128)) {
     h.route = kRouteMma;
@@ -1019,48 +1326,80 @@ HostPlan plan_for(const Args& a, int dtype) {
   return h;
 }
 
-template <int D>
+template <int D, bool kContig>
 cudaError_t launch_wgmma(const Args& a, const HostPlan& h, float* ws,
                          cudaStream_t s) {
   SplitParams p{};
   p.a = a;
   p.ws = ws;
   p.nsplit = h.nsplit;
-  const int box = a.page < kTileKeys ? a.page : kTileKeys;
-  if (!hopper_host::encode_pool(&p.tk, a.k_pool, a.P, a.KV, a.page, D, box) ||
-      !hopper_host::encode_pool(&p.tv, a.v_pool, a.P, a.KV, a.page, D, box))
+  // K6: the caches [B, KV, M, D] as a pool of B pages of M keys, 64-key
+  // boxes (TMA fills what lies past M with zeros)
+  const int pages = kContig ? a.B : a.P;
+  const int page = kContig ? a.M : a.page;
+  const int box = page < kTileKeys && !kContig ? page : kTileKeys;
+  if (!hopper_host::encode_pool(&p.tk, a.k_pool, pages, a.KV, page, D,
+                                box) ||
+      !hopper_host::encode_pool(&p.tv, a.v_pool, pages, a.KV, page, D, box))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      tile_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      TileCfg<D>::smem);
+      tile_wgmma_kernel<D, kContig>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, TileCfg<D>::smem);
   if (e != cudaSuccess) return e;
   const int ntiles = (a.Sq * (a.H / a.KV) + kTileRows - 1) / kTileRows;
   const dim3 grid(ntiles + h.nsplit - 1, a.KV, a.B);
-  tile_wgmma_kernel<D><<<grid, kHopThreads, TileCfg<D>::smem, s>>>(p);
+  tile_wgmma_kernel<D, kContig><<<grid, kHopThreads, TileCfg<D>::smem, s>>>(
+      p);
   e = cudaGetLastError();
   if (e != cudaSuccess || h.nsplit == 1) return e;
   merge_splits<<<dim3(1, a.KV, a.B), kMergeThreads, 0, s>>>(p);
   return cudaGetLastError();
 }
 
-// K4 and K5: the Hopper body where the plan routes there, else run<false>
-int run_paged(const Args& a, int dtype, float* ws, void* stream) {
+// K4, K5 (kContig = false) and K6 (true): the planned body, or an error
+template <bool kContig>
+int run(const Args& a, int dtype, float* ws, void* stream) {
   if (a.B <= 0 || a.Sq <= 0) return 0;
-  const HostPlan h = plan_for(a, dtype);
-  if (h.route != kRouteWgmma) return run<false>(a, dtype, stream);
-  if (h.nsplit > 1 && ws == nullptr) return int(cudaErrorInvalidValue);
+  const HostPlan h = plan_for(a, dtype, kContig);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(a.D == 128 ? launch_wgmma<128>(a, h, ws, s)
-                                     : launch_wgmma<64>(a, h, ws, s));
+  cudaError_t e;
+  switch (h.route) {
+    case kRouteWgmma:
+      if (h.nsplit > 1 && ws == nullptr) return int(cudaErrorInvalidValue);
+      e = a.D == 128 ? launch_wgmma<128, kContig>(a, h, ws, s)
+                     : launch_wgmma<64, kContig>(a, h, ws, s);
+      break;
+    case kRouteF32:
+      e = launch_f32<kContig>(a, s);
+      break;
+    case kRouteMma:
+      e = a.D == 128  ? launch_mma<128, kContig>(a, s)
+          : a.D == 64 ? launch_mma<64, kContig>(a, s)
+          : a.D == 32 ? launch_mma<32, kContig>(a, s)
+                      : launch_mma<16, kContig>(a, s);
+      break;
+    default:
+      e = dtype == 0 ? launch<float, kContig>(a, s)
+                     : launch<__nv_bfloat16, kContig>(a, s);
+  }
+  return static_cast<int>(e);
+}
+
+void write_plan(const HostPlan& h, long long* out) {
+  out[0] = h.route;
+  out[1] = h.nsplit;
+  out[2] = h.route == kRouteWgmma ? kSplitKeys : 0;
+  out[3] = h.ws_bytes;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it).
-// paged_attention_plan: the route a K4/K5 call of this shape takes and its
-// split workspace: out = {route (0 fma, 1 mma, 2 wgmma_split), splits,
-// keys a split, workspace bytes}. The launch takes a
-// workspace of at least that many bytes (null when 0).
+// dtype: 0 = float32, 1 = bfloat16 (q, caches and out share it).
+// paged_attention_plan / decode_attention_plan: the route a K4/K5 or K6
+// call of this shape takes and its split workspace: out = {route (0 fma,
+// 1 mma, 2 wgmma_split, 3 f32_tile), splits, keys a split, workspace
+// bytes}. The launch takes a workspace of at least that many bytes (null
+// when 0).
 extern "C" int paged_attention_plan(int B, int Sq, int H, int KV, int D,
                                     int page, int npages, int P, int dtype,
                                     long long* out) {
@@ -1073,11 +1412,20 @@ extern "C" int paged_attention_plan(int B, int Sq, int H, int KV, int D,
   a.page = page;
   a.npages = npages;
   a.P = P;
-  const HostPlan h = plan_for(a, dtype);
-  out[0] = h.route;
-  out[1] = h.nsplit;
-  out[2] = h.route == kRouteWgmma ? kSplitKeys : 0;
-  out[3] = h.ws_bytes;
+  write_plan(plan_for(a, dtype, false), out);
+  return 0;
+}
+
+extern "C" int decode_attention_plan(int B, int Sq, int H, int KV, int D,
+                                     int M, int dtype, long long* out) {
+  Args a{};
+  a.B = B;
+  a.Sq = Sq;
+  a.H = H;
+  a.KV = KV;
+  a.D = D;
+  a.M = M;
+  write_plan(plan_for(a, dtype, true), out);
   return 0;
 }
 
@@ -1089,7 +1437,7 @@ extern "C" int ragged_paged_attention_launch(
   Args a{q, k_pool, v_pool, static_cast<const int*>(tables),
          static_cast<const int*>(starts), static_cast<const int*>(seq_lens),
          out, B, Sq, H, KV, D, page, npages, tbl_stride, P, 0, scale};
-  return run_paged(a, dtype, static_cast<float*>(ws), stream);
+  return run<false>(a, dtype, static_cast<float*>(ws), stream);
 }
 
 extern "C" int paged_decode_attention_launch(
@@ -1100,18 +1448,18 @@ extern "C" int paged_decode_attention_launch(
   Args a{q, k_pool, v_pool, static_cast<const int*>(tables),
          static_cast<const int*>(lengths), nullptr, out, B, Sq, H, KV, D,
          page, npages, tbl_stride, P, 0, scale};
-  return run_paged(a, dtype, static_cast<float*>(ws), stream);
+  return run<false>(a, dtype, static_cast<float*>(ws), stream);
 }
 
 // K6: q [B, Sq, H, D] at offsets[b] .. offsets[b] + Sq - 1 against the
-// contiguous caches [B, KV, M, D]
+// contiguous caches [B, KV, M, D]; ws as decode_attention_plan sizes it
 extern "C" int decode_attention_launch(const void* q, const void* k_cache,
                                        const void* v_cache,
-                                       const void* offsets, void* out, int B,
-                                       int Sq, int H, int KV, int D, int M,
-                                       float scale, int dtype,
+                                       const void* offsets, void* out,
+                                       void* ws, int B, int Sq, int H, int KV,
+                                       int D, int M, float scale, int dtype,
                                        void* stream) {
   Args a{q, k_cache, v_cache, nullptr, static_cast<const int*>(offsets),
          nullptr, out, B, Sq, H, KV, D, 0, 0, 0, 0, M, scale};
-  return run<true>(a, dtype, stream);
+  return run<true>(a, dtype, static_cast<float*>(ws), stream);
 }

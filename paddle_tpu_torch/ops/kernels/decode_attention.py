@@ -13,11 +13,16 @@ static-cache generation (``LlamaForCausalLM.generate``, static
 ``Predictor.generate``, ``FusedMultiTransformer``), at a scalar or
 per-row ``offset``. Both launch the bodies of ``csrc/paged_attention.cu``
 (whose header gives the bound and the design): K5 is K4 with every slot
-live, and K6 is K5 with direct addressing. K4 and K5 in bf16 at head dims
-64 and 128 take the Hopper body ``wgmma_split`` (TMA page loads, wgmma,
-split-K over long key ranges with a merge kernel); fp32, other head dims
-and K6 take the older ``mma`` and ``fma`` bodies. ``paged_route`` says
-which body a call takes, with its split count and workspace bytes.
+live, and K6 is K5 with direct addressing. K4, K5 and K6 follow one
+rule. bf16 at head dims 64 and 128 takes the Hopper body
+``wgmma_split`` (TMA loads, wgmma, split-K over long key ranges with a
+merge kernel); K6 reads its cache through TMA as a pool of B pages of M
+keys, so K6 and K5 over the same keys give the same bits. fp32 with at
+least 16 rows a KV head (Sq * H / KV) takes ``f32_tile`` (64 rows a CTA,
+K and V staged in shared memory, f32 FMA); other bf16 head dims take
+``mma``, and the rest (decode rows in fp32, bf16 at D 16/32 below 16
+rows) ``fma``. ``paged_route`` and ``decode_route`` say which body a
+call takes, with its split count and workspace bytes.
 
 ``paged_attention_dense``, ``decode_attention_dense`` and
 ``_dense_ragged`` are the plain versions (gather the pages or take the
@@ -36,7 +41,8 @@ from . import (_build, counted, dtype_code, ptr, route, stream,
                want_contiguous)
 
 __all__ = ["PagedRoute", "decode_attention", "decode_attention_dense",
-           "paged_attention_dense", "paged_decode_attention", "paged_route"]
+           "decode_route", "paged_attention_dense", "paged_decode_attention",
+           "paged_route"]
 
 _NEG = -1e30
 
@@ -183,11 +189,11 @@ def _lib():
     return _build.library("paged_attention")
 
 
-_BODIES = ("fma", "mma", "wgmma_split")
+_BODIES = ("fma", "mma", "wgmma_split", "f32_tile")
 
 
 class PagedRoute(NamedTuple):
-    """The body a K4/K5 call takes (``csrc/paged_attention.cu``), its
+    """The body a K4/K5/K6 call takes (``csrc/paged_attention.cu``), its
     number of key splits, the keys a split covers and the bytes of its
     f32 split workspace."""
     body: str
@@ -196,15 +202,25 @@ class PagedRoute(NamedTuple):
     workspace_bytes: int
 
 
-@functools.lru_cache(maxsize=256)
-def _plan(B, Sq, H, KV, D, page, npages, P, code):
-    fn = _lib().paged_attention_plan
-    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+@functools.lru_cache(maxsize=512)
+def _plan(entry, *shape):
+    """The C plan ``entry`` (paged_attention_plan or decode_attention_plan)
+    of one call shape: route, splits, keys a split, workspace bytes."""
+    fn = getattr(_lib(), entry)
+    fn.argtypes = [ctypes.c_int] * len(shape) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_longlong * 4)()
-    fn(B, Sq, H, KV, D, page, npages, P, code, ctypes.cast(out,
-                                                           ctypes.c_void_p))
+    fn(*shape, ctypes.cast(out, ctypes.c_void_p))
     return PagedRoute(_BODIES[out[0]], int(out[1]), int(out[2]), int(out[3]))
+
+
+def decode_route(q, k_cache):
+    """The route a K6 launch on these CUDA tensors takes (the C library's
+    own plan: builds the library on first use)."""
+    B, Sq, H, D = q.shape
+    KV, M = k_cache.shape[1], k_cache.shape[2]
+    return _plan("decode_attention_plan", B, Sq, H, KV, D, M,
+                 dtype_code(q, "decode_route"))
 
 
 def paged_route(q, k_pool, block_tables):
@@ -212,8 +228,8 @@ def paged_route(q, k_pool, block_tables):
     library's own plan: builds the library on first use)."""
     B, Sq, H, D = q.shape
     P, KV, page, _ = k_pool.shape
-    return _plan(B, Sq, H, KV, D, page, block_tables.shape[1], P,
-                 dtype_code(q, "paged_route"))
+    return _plan("paged_attention_plan", B, Sq, H, KV, D, page,
+                 block_tables.shape[1], P, dtype_code(q, "paged_route"))
 
 
 def workspace(route, like):
@@ -235,7 +251,7 @@ def _decode_fn():
 @functools.cache
 def _cache_fn():
     fn = _lib().decode_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -259,8 +275,10 @@ def decode_attention(q, k_cache, v_cache, offset):
     B, Sq, H, D = q.shape
     KV, M = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
+    ws = workspace(decode_route(q, k_cache), q)
     rc = _cache_fn()(ptr(q), ptr(k_cache), ptr(v_cache), ptr(off), ptr(out),
-                     B, Sq, H, KV, D, M, 1.0 / math.sqrt(D), code, stream(q))
+                     ptr(ws), B, Sq, H, KV, D, M, 1.0 / math.sqrt(D), code,
+                     stream(q))
     _build.check(rc, "decode_attention")
     decode_attention.launches += 1
     return out

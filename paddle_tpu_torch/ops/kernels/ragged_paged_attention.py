@@ -11,8 +11,9 @@ engine's unified ``[B, Sc]`` chunked-prefill step. The CUDA source,
 with its bound and design, is ``csrc/paged_attention.cu``; in bf16 at head
 dims 64 and 128 a call takes its Hopper body (``wgmma_split``), which
 splits the long key ranges of decode rows and merges the f32 partials in a
-second kernel of the same call (``decode_attention.paged_route`` names the
-body, split count and workspace bytes).
+second kernel of the same call; in fp32 a call of >= 16 rows a KV head
+takes ``f32_tile`` (``decode_attention.paged_route`` names the body,
+split count and workspace bytes).
 
 ``ragged_paged_attention_dense`` is the plain version: gather the
 pages, doubly-ragged f32 dense mask, zero the dead slots.

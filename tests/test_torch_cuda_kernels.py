@@ -225,6 +225,14 @@ K6 = {  # (B, Sq, H, KV, D, M, offsets: int or per-row list)
     "sq300_rows_gqa2_m1000": (2, 300, 4, 2, 128, 1000, [0, 700]),
     "sq300_scalar_mha_m300": (1, 300, 2, 2, 64, 300, 0),
     "sq40_rows_d16_m77": (2, 40, 2, 1, 16, 77, [0, 37]),
+    # below one 64-key tile; rows past the end of the cache see all of it
+    "sq1_rows_mha_m50": (3, 1, 4, 4, 128, 50, [0, 17, 49]),
+    "sq16_rows_mha_m50_past_end": (2, 16, 4, 4, 64, 50, [40, 49]),
+    # 4 splits of 512 over M = 2047, a row at M - 1
+    "sq1_rows_gqa4_m2047": (4, 1, 8, 2, 128, 2047, [0, 511, 512, 2046]),
+    # Sq 300 at ragged offsets, one at M - Sq; GQA
+    "sq300_rows_gqa4_m2047": (2, 300, 8, 2, 128, 2047, [1747, 401]),
+    "sq300_rows_gqa8_m100": (2, 300, 8, 1, 64, 100, [0, 37]),
 }
 
 
@@ -240,8 +248,9 @@ def _contig(cuda, dtype, B, Sq, H, KV, D, M, off, seed):
 @pytest.mark.parametrize("case", sorted(K6))
 def test_decode_attention_kernel(cuda, case, dtype):
     """K6 against its plain version: scalar and per-row offsets, Sq 1 to
-    300 (the FMA body and the bf16 tensor-core tile), GQA, and cache
-    lengths that are no multiple of the 8- or 64-key steps."""
+    300 (bf16 on wgmma_split, fp32 on f32_tile or the FMA body, D = 16 on
+    mma), GQA, cache lengths below one tile and no multiple of the 8- or
+    64-key steps, rows at and past the end of the cache."""
     q, k, v, off = _contig(cuda, dtype, *K6[case], 9)
     n = K5.decode_attention.launches
     out = K5.decode_attention(q, k, v, off)
@@ -256,9 +265,9 @@ def test_decode_attention_kernel(cuda, case, dtype):
 def test_contiguous_cache_as_pages_gives_k5(cuda, sq, dtype):
     """The counterpart of JAX test_paged_vs_contiguous_cache: a contiguous
     cache cut into pages, each row's pages in order, gives K6 and K5 the
-    same keys in the same order. In fp32 one body serves both, so their
-    outputs are identical; in bf16 K5 runs the Hopper bodies, whose sums
-    run in another order, so the two agree within the bf16 gate."""
+    same keys in the same order. One body serves both in each dtype
+    (wgmma_split in bf16; fma or f32_tile in fp32) with the same tiles and
+    splits, so their outputs are identical."""
     B, H, KV, D, page, npages = 3, 8, 2, 128, 64, 5
     q, k, v, _ = _contig(cuda, dtype, B, sq, H, KV, D, page * npages, 0, 10)
     off = torch.tensor([0, 100, page * npages - sq], dtype=torch.int32,
@@ -273,12 +282,91 @@ def test_contiguous_cache_as_pages_gives_k5(cuda, sq, dtype):
     a = K5.decode_attention(q, k, v, off)
     b = K5.paged_decode_attention(q, pages(k), pages(v), tbl, off)
     torch.cuda.synchronize()
-    if dtype == torch.float32:  # one body (fma) serves both
-        assert torch.equal(a, b)
-    else:  # K5's bf16 Hopper bodies sum in another order than K6's
-        ref = K5.decode_attention_dense(q, k, v, off)
-        assert _scaled(a, b) <= TOL[dtype]
-        assert _scaled(b, ref) <= TOL[dtype]
+    assert K5.decode_route(q, k).body == K5.paged_route(q, pages(k),
+                                                        tbl).body
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_decode_route(cuda, dtype):
+    """K6's route: wgmma_split for bf16 at D = 64 / 128 whatever M and Sq
+    (ceil(M / 512) splits), f32_tile for fp32 with >= 16 rows a KV head,
+    fma for fp32 decode rows, mma for bf16 at D = 16 with >= 16 rows; K4
+    and K5 take f32_tile by the same rule."""
+    def route(Sq, H, KV, D, M):
+        q = torch.empty(2, Sq, H, D, device=cuda, dtype=dtype)
+        return K5.decode_route(q, torch.empty(2, KV, M, D, device=cuda,
+                                              dtype=dtype))
+    for Sq, H, KV, D, M in [(1, 32, 32, 128, 2048), (1, 32, 8, 128, 2048),
+                            (1024, 32, 32, 128, 2048), (16, 4, 4, 64, 50),
+                            (300, 8, 2, 64, 2047), (4, 8, 2, 128, 100)]:
+        r = route(Sq, H, KV, D, M)
+        rows = Sq * H // KV
+        if dtype == torch.bfloat16:
+            assert r.body == "wgmma_split" and r.split_len == 512
+            assert r.splits == -(-M // 512)
+            assert r.workspace_bytes == (0 if r.splits == 1 else
+                                         r.splits * 2 * KV * 16 * (D + 2) * 4)
+        else:
+            assert r.body == ("f32_tile" if rows >= 16 else "fma")
+            assert r.splits == 1 and r.workspace_bytes == 0
+    assert route(40, 2, 1, 16, 77).body == (
+        "mma" if dtype == torch.bfloat16 else "f32_tile")
+    q, kp, vp, tbl = _paged(cuda, dtype, 2, 16, 8, 2, 128, 16, 4, 1)
+    assert K5.paged_route(q, kp, tbl).body == (
+        "wgmma_split" if dtype == torch.bfloat16 else "f32_tile")
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("sq", [1, 40])
+def test_decode_attention_graph_replay_new_offsets(cuda, sq, dtype):
+    """A K6 call captured in a CUDA graph (the split workspace included)
+    and replayed after its offsets changed in place equals an eager call
+    at the new offsets, bit for bit."""
+    q, k, v, off = _contig(cuda, dtype, 4, sq, 8, 2, 128, 2047,
+                           [5, 600, 1500, 2047 - sq], 12)
+    call = lambda: K5.decode_attention(q, k, v, off)
+    if dtype == torch.bfloat16:
+        assert K5.decode_route(q, k).splits == 4
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    off.copy_(torch.tensor([1999, 0, 511, 1024], dtype=torch.int32,
+                           device=cuda))
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, call())
+    assert _scaled(out, K5.decode_attention_dense(q, k, v, off)) \
+        <= TOL[dtype]
+
+
+@pytest.mark.parametrize("geom", ["mha_d128_p8", "gqa2_d256_p16",
+                                  "gqa4_d64_p64", "gqa2_d16_p8"])
+@pytest.mark.parametrize("kernel", ["ragged", "decode"])
+def test_f32_tile_paged_bodies(cuda, kernel, geom):
+    """fp32 K4 and K5 with >= 16 rows a KV head run f32_tile: partial
+    64-row tiles, chunks straddling pages, dead slots exactly 0, against
+    the plain versions within 1e-4."""
+    H, KV, D, page = GEOMS[geom]
+    B, Sq, npages = 4, 40, 192 // page
+    q, kp, vp, tbl = _paged(cuda, torch.float32, B, Sq, H, KV, D, page,
+                            npages, 13)
+    M = npages * page
+    assert K5.paged_route(q, kp, tbl).body == "f32_tile"
+    st = torch.tensor([0, 70, M - Sq, 9], dtype=torch.int32, device=cuda)
+    if kernel == "ragged":
+        nv = torch.tensor([40, 1, 33, 0], dtype=torch.int32, device=cuda)
+        out = K4.ragged_paged_attention(q, kp, vp, tbl, st, nv)
+        ref = K4.ragged_paged_attention_dense(q, kp, vp, tbl, st, nv)
+        assert (out[3] == 0).all() and (out[2, 33:] == 0).all() \
+            and (out[1, 1:] == 0).all()
+    else:
+        out = K5.paged_decode_attention(q, kp, vp, tbl, st)
+        ref = K5.paged_attention_dense(q, kp, vp, tbl, st)
+    assert _err(out, ref) <= TOL[torch.float32]
 
 
 def test_fused_ops_launch_k6_on_the_card(cuda):

@@ -10,6 +10,14 @@ in float32 torch and holds the result against the port's plain versions
 and the JAX Pallas kernels in interpret mode, within 1e-4. Small split
 lengths and tiles make many splits at CPU sizes: rows whose keys end
 before a split, dead slots, rows of several q heads (GQA) sharing a tile.
+
+K6 runs the same body over the contiguous cache [B, KV, M, D] with direct
+addressing: the cache is a pool of B pages of M keys, the split axis has
+ceil(M / split_len) entries, every frontier is clamped at M - 1, and the
+keys of the last tile past M are zeros (TMA's out-of-bounds fill) hidden
+by the mask. The emulation takes that cache too (``tbl=None``) and is held
+against the JAX ``decode_attention`` in interpret mode and the port's
+``decode_attention_dense``.
 """
 import math
 
@@ -54,26 +62,41 @@ def _inputs(H, KV, seed):
 
 
 def split_k_emulation(q, kp, vp, tbl, starts, seq_lens, tile_rows, thin,
-                      split_len):
+                      split_len, tile_keys=None):
     """The kernels' plan and merge in float32: rows r = slot * G + g of a
     KV head in tiles of ``tile_rows``; the last live tile splits when it
     has at most ``thin`` live rows; split s covers keys [s * split_len,
     (s + 1) * split_len), the last one up to the tile's frontier; each
     split's (m, l, acc), then the merge in split order, 8 splits at a time
     as the merge kernel loads them. Dead slots are 0.
+    With ``tbl=None`` kp and vp are K6's contiguous caches [B, KV, M, D],
+    read directly: ceil(M / split_len) splits and frontiers clamped at
+    M - 1. With ``tile_keys`` (a divisor of ``split_len``) the last split
+    reads whole tiles of that many keys, as the kernel does: keys past the
+    cache are zeros (TMA's fill past M), hidden by the mask.
     Returns the output and the number of splits each tile took."""
     Bq, S, H, Dq = q.shape
     KV = kp.shape[1]
     G = H // KV
     R = S * G
-    nsplit = -(-tbl.shape[1] * kp.shape[2] // split_len)
+    contig = tbl is None
+    nkeys = kp.shape[2] if contig else tbl.shape[1] * kp.shape[2]
+    nsplit = -(-nkeys // split_len)
+    flim = nkeys - 1 if contig else math.inf       # the frontier's limit
     sl2 = LOG2E / math.sqrt(Dq)
     out = torch.zeros_like(q)
     taken = []
     for b in range(Bq):
         nv = min(max(int(seq_lens[b]), 0), S)
-        keys = torch.cat([kp[int(p)] for p in tbl[b]], 1)  # [KV, M, D]
-        vals = torch.cat([vp[int(p)] for p in tbl[b]], 1)
+        if contig:  # direct addressing
+            keys, vals = kp[b], vp[b]
+        else:
+            keys = torch.cat([kp[int(p)] for p in tbl[b]], 1)  # [KV, M, D]
+            vals = torch.cat([vp[int(p)] for p in tbl[b]], 1)
+        if tile_keys:  # zeros past the last key, to a whole tile
+            pad = -(-(nkeys + split_len) // tile_keys) * tile_keys - nkeys
+            keys = torch.nn.functional.pad(keys, (0, 0, 0, pad))
+            vals = torch.nn.functional.pad(vals, (0, 0, 0, pad))
         for kv in range(KV):
             ntiles = -(-R // tile_rows)
             last = (nv * G - 1) // tile_rows if nv else -1
@@ -84,7 +107,8 @@ def split_k_emulation(q, kp, vp, tbl, starts, seq_lens, tile_rows, thin,
                     continue
                 rows = torch.arange(r0, r0 + nl)
                 slot, g = rows // G, rows % G
-                fr = int(starts[b]) + slot                      # [nl]
+                fr = torch.clamp(int(starts[b]) + slot,
+                                 max=flim)                      # [nl]
                 f = int(fr.max())
                 nsp = (min(f // split_len + 1, nsplit)
                        if t == last and nl <= thin and nsplit > 1 else 1)
@@ -94,6 +118,8 @@ def split_k_emulation(q, kp, vp, tbl, starts, seq_lens, tile_rows, thin,
                 for s in range(nsp):
                     kb = s * split_len if nsp > 1 else 0
                     ke = f + 1 if s == nsp - 1 else (s + 1) * split_len
+                    if tile_keys and s == nsp - 1:  # whole tiles
+                        ke = kb + -(-(ke - kb) // tile_keys) * tile_keys
                     pos = torch.arange(kb, ke)
                     sc = (qr @ keys[kv, kb:ke].T) * sl2         # base 2
                     vis = pos[None, :] <= fr[:, None]
@@ -192,3 +218,76 @@ def test_split_k_row_without_keys_in_a_split_is_exact():
     # computation over keys 0..15 up to float rounding of the merge
     assert (emu[0, 0] - one[0, 0]).abs().max().item() < 1e-5
     assert (emu[0, 2:] == 0).all() and (emu[1:] == 0).all()
+
+
+# -- K6: the same body over the contiguous cache ------------------------------
+# (offsets per row, Sq, M); M = 104 is no multiple of either split length
+# (16, 24), M = 100 none of the emulated tile (8 keys) either; "past_end"
+# has rows at and past M (their frontier is clamped at M - 1: they see the
+# whole cache)
+CONTIG = {
+    "decode_rows": ([0, 47, 48, 103], 1, 104),
+    "ragged_chunks_to_the_end": ([0, 30, 88, 5], 16, 104),
+    "past_end": ([95, 100, 103, 0], 16, 104),
+    "m100_decode": ([99, 23, 64, 0], 1, 100),
+}
+
+
+def _contig_inputs(H, KV, Sq, M, seed):
+    r = np.random.RandomState(seed)
+    return (r.randn(B, Sq, H, D).astype(np.float32),
+            r.randn(B, KV, M, D).astype(np.float32),
+            r.randn(B, KV, M, D).astype(np.float32))
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+@pytest.mark.parametrize("heads", sorted(HEADS))
+@pytest.mark.parametrize("case", sorted(CONTIG))
+def test_split_k_contiguous_cache_matches_plain_and_pallas(case, heads,
+                                                           route):
+    """K6 on the Hopper body: direct addressing, ragged offsets, M no
+    multiple of the tile or the split length, frontiers clamped at M - 1,
+    GQA; against decode_attention_dense and the JAX Pallas kernel (where
+    its block picker takes M: pick_block(100) is 0)."""
+    offs, sq, M = CONTIG[case]
+    H, KV = HEADS[heads]
+    q, k, v = _contig_inputs(H, KV, sq, M, 17)
+    tile_rows, thin, split_len = ROUTES[route]
+    st = np.asarray(offs, np.int32)
+    emu, taken = split_k_emulation(_t(q), _t(k), _t(v), None, st,
+                                   np.full(B, sq, np.int32), tile_rows, thin,
+                                   split_len, tile_keys=8)
+    plain = tda.decode_attention_dense(_t(q), _t(k), _t(v), _t(st))
+    assert (emu - plain).abs().max().item() < TOL
+    if M % 8 == 0:
+        pallas = np.asarray(jda.decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(st),
+            interpret=True))
+        assert np.abs(emu.numpy() - pallas).max() < TOL
+    if sq == 1:                  # decode rows split (K6's nsplit from M)
+        assert max(taken) == -(-M // split_len) > 1
+
+
+def test_contiguous_cache_as_pages_gives_the_same_plan():
+    """K6 over a cache and K5 over the same keys cut into pages (each
+    row's pages in order, the last page padded with zeros) run the same
+    tiles and splits: the emulated outputs are equal bit for bit."""
+    H, KV = HEADS["gqa_g2"]
+    M, page = 100, 8
+    q, k, v = _contig_inputs(H, KV, 1, M, 19)
+    st = np.asarray([99, 0, 40, 63], np.int32)
+    ones = np.ones(B, np.int32)
+    npg = -(-M // page)
+
+    def pages(c):
+        c = np.pad(c, ((0, 0), (0, 0), (0, npg * page - M), (0, 0)))
+        return c.reshape(B, KV, npg, page, D).transpose(0, 2, 1, 3, 4) \
+                .reshape(B * npg, KV, page, D)
+
+    tbl = np.arange(B * npg, dtype=np.int32).reshape(B, npg)
+    a, ta = split_k_emulation(_t(q), _t(k), _t(v), None, st, ones, 8, 8, 48,
+                              tile_keys=8)
+    b, tb = split_k_emulation(_t(q), _t(pages(k)), _t(pages(v)), _t(tbl), st,
+                              ones, 8, 8, 48, tile_keys=8)
+    assert ta == tb and max(ta) == 3
+    assert torch.equal(a, b)
