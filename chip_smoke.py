@@ -11,8 +11,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 flash and paged attention kernels' registers and spills
                 (ptxas -v); every K1 tile the build lists
                 (flash_attention_fwd_tiles) must be built with 0 spill
-                bytes
-2. kernels      K3 (RMSNorm, and its gradient), K4 (ragged paged
+                bytes, and so must every K9 kernel (weight_only_linear);
+                K9's routes and dynamic shared memory at the main shapes
+2. kernels      K9 (the int8 / int4 weight-only linear) against its plain
+                version: int8 and int4, bf16 and fp32 x, M = 1, 8, 16,
+                17, 2048 at (K, N) = (4096, 4096), (4096, 11008), (11008,
+                4096) and (200, 72), with and without a bias (gate: the
+                largest difference over the output's largest magnitude,
+                bf16 2e-2, fp32 1e-4); the cases without a bias timed
+                with their bound, plain and F.linear times (the weights
+                rotated through copies larger than the L2).
+                K3 (RMSNorm, and its gradient), K4 (ragged paged
                 attention), K5 (paged decode attention), K6 (decode
                 attention over the contiguous cache), K1 and K2 (flash
                 attention forward and backward) against their plain
@@ -56,7 +65,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 graphed, cuda eager and cpu token streams equal, and equal
                 to the plain engine's, with equal counters; a
                 FusedMultiTransformer prefill and 3 decode steps, cuda
-                against cpu, within 1e-4
+                against cpu, within 1e-4; weight-only generation (int8
+                and int4, static and paged) cuda graphed against cpu:
+                equal quantized weights, equal token streams, K9 launched
 4. serve        Llama-7B widths (32 layers, bf16, random weights from a
                 seed) through one ServingEngine: a warmup that captures
                 the unified and decode rounds' CUDA graphs, then 16
@@ -99,13 +110,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 an eager paged generation of 2 tokens with every layer's
                 K5 call (the prefill and a decode step) held against the
                 plain version per tile, 2e-2
-7. train-parity the reduced Llama trains 3 steps on cuda and on cpu from
+7. weight-only  the same model quantized in place to int8 (every
+                projection; the LM head stays bf16): Predictor.generate
+                static and paged as in phase 6 (eager, graphed, graphed,
+                eager; equal tokens, static == paged), then phase 4's
+                serve schedule graphed twice; K9 launches exactly 7 a
+                layer a step beside the other kernels' counts; decode ms
+                a token, prefill ms, tokens/s, TTFT, TPOT and peak memory
+                printed beside the bf16 runs of the same call; a
+                teacher-forced forward with every K9 call held against
+                its plain version on the same activations and int8
+                weights (2e-2), and its logits against an all-plain
+                forward (printed); the share of tokens equal to bf16's
+                (not gated). Then the model rebuilt from its seed and
+                quantized to int4: static generation, graphed
+8. train-parity the reduced Llama trains 3 steps on cuda and on cpu from
                 the same weights and batch: losses and global grad norms
                 within 1e-4 relative; then 5 steps from fresh weights
                 under a GradScaler (2^10) and a warmup + cosine schedule,
                 the third an overflow: clean steps within 1e-4 across
                 devices, the overflow step a bit-exact no-op on both
-8. train        Llama-7B widths cut to 8 layers (bf16 weights, f32 AdamW
+9. train        Llama-7B widths cut to 8 layers (bf16 weights, f32 AdamW
                 masters and moments) through ParallelEngine.train_step:
                 12 steps on one fixed 4 x 2048 batch, 2 untimed; finite,
                 falling losses, step time, tokens/s, MFU, peak memory; K3,
@@ -113,7 +138,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 forward and backward with each layer's attention watched:
                 K1's output and K2's gradients on the model's own bf16
                 activations against the plain version, per tile, 2e-2
-9. train-autotune
+10. train-autotune
                 the same trainer, seed and batch with FLAGS_use_autotune
                 on and a fresh cache file ($PADDLE_TPU_TORCH_AUTOTUNE_CACHE
                 in a temporary directory): 7 steps, 2 untimed, after 7
@@ -135,11 +160,11 @@ The line before the last is {"kernels": [...]}; the last line is
 
 Developer options (the plain run uses none of them; ``--k1-probe`` is
 the second process of train-autotune): ``--phases`` runs a
-subset, ``--layers`` cuts the 7B-width serving and generate runs' depth,
-and ``--profile`` serves the schedule once more (graphed), runs 16 more
-graphed decode steps of each generate run and two more train steps under
-torch.profiler, and prints the device's busy share of those profiled runs
-and their time by kernel.
+subset, ``--layers`` cuts the 7B-width serving, generate and weight-only
+runs' depth, and ``--profile`` serves the schedule once more (graphed),
+runs 16 more graphed decode steps of each generate run (the weight-only
+ones too) and two more train steps under torch.profiler, and prints the
+device's busy share of those profiled runs and their time by kernel.
 """
 from __future__ import annotations
 
@@ -930,6 +955,77 @@ def check_decode(dev, results):
                 f"({r['body']}) bits")
 
 
+# K9 cases: M rows against (K, N); the first three are the main path's
+# (q/k/v/o, gate/up, down at llama_7b widths), (200, 72) is ragged
+WO_ROWS = (1, 8, 16, 17, 2048)
+WO_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (200, 72))
+
+
+def check_weight_only(dev, results):
+    """K9 against its plain version: int8 and int4, bf16 and fp32 x, M
+    in WO_ROWS at every (K, N) of WO_SHAPES, with and without a bias;
+    the error gate is the largest difference over the output's largest
+    magnitude. Cases without a bias are timed (a CUDA graph of 20 calls,
+    the weights rotated through copies that together exceed the 50 MB
+    L2, as 224 different projections a decode step do): K9, the plain
+    version, and F.linear on a bf16 (or fp32) weight holding the same
+    values, the projection K9 replaces, which the port never calls."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.nn.quant import weight_quantize
+    from paddle_tpu_torch.ops.kernels import weight_only_linear as K9
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    for K, N in WO_SHAPES:
+        w = torch.randn(N, K, device=dev, generator=g) * 0.02
+        for bits in (8, 4):
+            int4 = bits == 4
+            q, s = weight_quantize(w.T, f"weight_only_int{bits}")
+            wq = (K9.unpack_int4(q) if int4 else q).float() * s[:, None]
+            qs = [q] + [q.clone() for _ in range(
+                min(15, int(120e6 // q.nbytes)))]
+            for dt in (torch.bfloat16, torch.float32):
+                wl = wq.to(dt)
+                ls = [wl] + [wl.clone() for _ in range(
+                    min(15, int(120e6 // wl.nbytes)))]
+                for M in WO_ROWS:
+                    x = torch.randn(M, K, device=dev, generator=g).to(dt)
+                    plan = K9.weight_only_route(M, N, K, int4, dt)
+                    for bias in (False, True):
+                        b = (torch.randn(N, device=dev, generator=g).to(dt)
+                             if bias else None)
+                        out = K9.weight_only_linear(x, q, s, b, int4)
+                        ref = K9.weight_only_linear_dense(x, q, s, b, int4)
+                        torch.cuda.synchronize()
+                        err = (out.float() - ref.float()).abs().max().item()
+                        top = ref.float().abs().max().item()
+                        rec = dict(
+                            name="weight_only_linear", shape=[M, K, N],
+                            dtype=str(dt)[6:], bits=bits, bias=bias,
+                            body=plan.body, splits=plan.splits,
+                            max_abs_err=err, ref_max_abs=top,
+                            rel_err=err / top if top else err, tol=TOL[dt])
+                        if not bias:
+                            nbytes = (q.nbytes + x.nbytes + s.nbytes
+                                      + M * N * x.element_size())
+                            b_ms, b_by = bound(nbytes, 2 * M * N * K, dt)
+                            qi, li = itertools.cycle(qs), itertools.cycle(ls)
+                            rec.update(
+                                ms=cuda_ms(lambda: K9.weight_only_linear(
+                                    x, next(qi), s, None, int4)),
+                                plain_ms=cuda_ms(
+                                    lambda: K9.weight_only_linear_dense(
+                                        x, next(qi), s, None, int4)),
+                                library_ms=cuda_ms(
+                                    lambda: F.linear(x, next(li))),
+                                library=f"torch.nn.functional.linear, "
+                                f"{str(dt)[6:]} weight of the same values",
+                                bound_ms=b_ms, bound_by=b_by)
+                        results.append(rec)
+            del qs, ls
+    torch.cuda.empty_cache()
+
+
 # -- phases 3 and 4: serving ---------------------------------------------------
 def make_engine(model, page, max_length, draft=None, **engine_kw):
     """A ServingEngine over ``model``; with ``draft`` (a model, or
@@ -1219,6 +1315,54 @@ def fused_transformer_parity():
         raise AssertionError("FusedMultiTransformer cuda and cpu differ")
 
 
+def weight_only_parity():
+    """Weight-only Predictor.generate on the reduced fp32 Llama (TF32
+    off), int8 and int4, static and paged caches, on cuda (graphed) and
+    on cpu from the same weights: the quantized weights and scales must
+    be equal bit for bit across the devices, every token stream equal,
+    and the cuda runs must launch K9."""
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import weight_only_linear as K9
+
+    cfg = LlamaConfig(vocab_size=4096, hidden_size=1024, num_layers=2,
+                      num_heads=8, num_kv_heads=2, intermediate_size=2816,
+                      max_position_embeddings=1024, dtype="float32")
+    lens = [40, 200, 130]
+    ids = np.zeros((3, max(lens)), np.int64)
+    for b, p in enumerate(prompts(9, lens, 4096)):
+        ids[b, :len(p)] = p
+    for algo in ("weight_only_int8", "weight_only_int4"):
+        cpu = LlamaForCausalLM(cfg, device="cpu", seed=5)
+        gpu = LlamaForCausalLM(cfg, device="cuda", seed=0)
+        gpu.load_state_dict(cpu.state_dict())
+        outs, n = {}, {}
+        for page in (None, 64):
+            for dev, m in (("cpu", cpu), ("cuda", gpu)):
+                conf = Config().set_model(m).enable_weight_only(algo)
+                if page:
+                    conf.enable_paged_kv(page)
+                n0 = K9.weight_only_linear.launches
+                outs[dev, page] = create_predictor(conf).generate(
+                    ids, max_new_tokens=12, lengths=lens).cpu().numpy()
+                n[dev, page] = K9.weight_only_linear.launches - n0
+        sc, sg = cpu.state_dict(), gpu.state_dict()
+        differ = [k for k in sc if not torch.equal(sc[k], sg[k].cpu())]
+        if differ:
+            raise AssertionError(f"{algo}: cpu and cuda quantized "
+                                 f"differently: {differ[:4]}")
+        first = outs["cpu", None]
+        if not all(np.array_equal(first, o) for o in outs.values()):
+            raise AssertionError(f"{algo} generate streams differ: {outs}")
+        if not (n["cuda", None] > 0 and n["cuda", 64] > 0):
+            raise AssertionError(f"{algo}: cuda generation launched K9 "
+                                 f"{n} times")
+        log(f"[parity] weight-only {algo[12:]} generate (fp32, graphed): "
+            f"quantized state equal on both devices, static == paged, "
+            f"cuda == cpu token streams, K9 launches {n['cuda', None]} / "
+            f"{n['cuda', 64]}: OK")
+
+
 def build_7b(layers):
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
 
@@ -1233,12 +1377,15 @@ def build_7b(layers):
     return model
 
 
-def phase_serve(model, counters, profile=False):
+def phase_serve(model, counters, profile=False,
+                modes=("eager", "graphed", "graphed", "eager"), tag="serve"):
     """The 7B-width serve: one engine, warmed up (its unified and decode
-    graphs are captured there), then the measured schedule four times,
-    eager, graphed, graphed, eager. Every run must commit the same tokens
-    and launch exactly the kernels its rounds imply; graphed runs replay
-    every round. Returns the launches of a graphed run."""
+    graphs are captured there), then the measured schedule in ``modes``
+    (eager, graphed, graphed, eager). Every run must commit the same
+    tokens and launch exactly the kernels its rounds imply (K9 seven
+    times a layer a step when it is among ``counters``); graphed runs
+    replay every round. Returns the launches of a graphed run and the
+    runs' summaries."""
     cfg = model.config
     L = cfg.num_layers
     kw = dict(page=64, max_length=2048, max_batch=8, prefill_chunk=256,
@@ -1250,8 +1397,8 @@ def phase_serve(model, counters, profile=False):
     lens = np.random.RandomState(11).randint(64, 1537, 16)
     sched = (prompts(12, lens[:8], cfg.vocab_size),
              prompts(13, lens[8:], cfg.vocab_size), 4, 32)
-    runs = []
-    for mode in ("eager", "graphed", "graphed", "eager"):
+    runs, summaries = [], []
+    for mode in modes:
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
             c.launches = 0
@@ -1278,13 +1425,17 @@ def phase_serve(model, counters, profile=False):
             pool_pages=eng.P,
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
             launches=launches)
-        log("[serve] " + json.dumps(summary))
+        log(f"[{tag}] " + json.dumps(summary))
+        summaries.append(summary)
         # what the rounds imply: K4 once a layer a unified round, K5 once
-        # a layer a decode step, K3 twice a layer and once at the end
+        # a layer a decode step, K3 twice a layer and once at the end, K9
+        # once a projection a step
         steps = rounds["unified"] + eng.chunk * rounds["decode"]
         want = {"rms_norm": (2 * L + 1) * steps,
                 "ragged_paged_attention": L * rounds["unified"],
                 "paged_decode_attention": L * eng.chunk * rounds["decode"]}
+        if "weight_only_linear" in launches:
+            want["weight_only_linear"] = 7 * L * steps
         if launches != want:
             raise AssertionError(f"{mode} serve launched {launches}, its "
                                  f"rounds {dict(rounds)} imply {want}")
@@ -1295,16 +1446,18 @@ def phase_serve(model, counters, profile=False):
             raise AssertionError(f"{mode} serve replayed {dict(replays)}, "
                                  f"expected {want_replays}")
         runs.append((mode, [list(r.new_tokens) for r in reqs], launches))
-    log("[serve] graphs: " + json.dumps(graphs_summary(eng.stats)))
+    log(f"[{tag}] graphs: " + json.dumps(graphs_summary(eng.stats)))
     if any(toks != runs[0][1] or n != runs[0][2] for _, toks, n in runs):
-        raise AssertionError("serve runs differ in tokens or launches: "
+        raise AssertionError(f"{tag} runs differ in tokens or launches: "
                              + "; ".join(f"{m}: {n}" for m, _, n in runs))
-    log("[serve] eager, graphed, graphed, eager: equal token streams and "
+    log(f"[{tag}] {', '.join(modes)}: equal token streams and "
         f"launches {runs[0][2]}: OK")
-    check_serve_attention(model, kw)
+    if tag == "serve":
+        check_serve_attention(model, kw)
     if profile:
-        profile_serve(eng, sched)
-    return runs[1][2]
+        profile_serve(eng, sched, tag)
+    graphed = next(n for m, _, n in runs if m == "graphed")
+    return graphed, summaries
 
 
 def check_serve_attention(model, kw):
@@ -1646,27 +1799,32 @@ def _ragged_prompts(vocab):
     return ids, lens
 
 
-def phase_generate(model, paths, profile=False, n_new=128):
+def phase_generate(model, paths, profile=False, n_new=128,
+                   caches=(("static", None), ("paged", 64)),
+                   modes=("eager", "graphed", "graphed", "eager"),
+                   tag="generate"):
     """Predictor.generate over the 7B-width model: the same ragged prompts
     with the static cache (K6), then with enable_paged_kv(64) (K5). For
     each, one untimed graphed call (its decode graph is captured there),
-    then four measured calls, eager, graphed, graphed, eager."""
+    then the measured calls in ``modes`` (eager, graphed, graphed,
+    eager). Returns the launches by cache and the runs' summaries."""
     from paddle_tpu_torch.inference import Config, create_predictor
 
     cfg = model.config
     ids, lens = _ragged_prompts(cfg.vocab_size)
-    launches, outs, first_logits = {}, {}, {}
+    launches, outs, first_logits, summaries = {}, {}, {}, []
     want = {"rms_norm": (2 * cfg.num_layers + 1) * n_new,
             "decode_attention": cfg.num_layers * n_new,
-            "paged_decode_attention": cfg.num_layers * n_new}
-    for label, page in (("static", None), ("paged", 64)):
+            "paged_decode_attention": cfg.num_layers * n_new,
+            "weight_only_linear": 7 * cfg.num_layers * n_new}
+    for label, page in caches:
         conf = Config().set_model(model)
         conf.max_length = 2048
         if page:
             conf.enable_paged_kv(page)
         pred = create_predictor(conf)
         pred.generate(ids, max_new_tokens=n_new, lengths=lens).cpu()
-        counters = paths[f"generate_{label}"]
+        counters = paths[f"{tag}_{label}"]
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         prefill = pred._prefill_step
 
@@ -1679,7 +1837,7 @@ def phase_generate(model, paths, profile=False, n_new=128):
 
         pred._prefill_step = timed_prefill
         runs = {}
-        for mode in ("eager", "graphed", "graphed", "eager"):
+        for mode in modes:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             for c in counters:
@@ -1702,7 +1860,8 @@ def phase_generate(model, paths, profile=False, n_new=128):
                 decode_ms_per_token=ev[1].elapsed_time(ev[2]) / (n_new - 1),
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                 decode_replays=replays, launches=n)
-            log("[generate] " + json.dumps(summary))
+            log(f"[{tag}] " + json.dumps(summary))
+            summaries.append(summary)
             if new.shape != (8, n_new) or not ((new >= 0)
                                                & (new < cfg.vocab_size)).all():
                 raise AssertionError(f"bad generate output {new.shape}")
@@ -1718,24 +1877,27 @@ def phase_generate(model, paths, profile=False, n_new=128):
             runs[mode] = new
             launches[label] = n
         del pred._prefill_step
-        log(f"[generate] {label}: {pred.stats!r}, graphs "
+        log(f"[{tag}] {label}: {pred.stats!r}, graphs "
             + json.dumps(graphs_summary(pred.stats)))
-        same = runs["graphed"] == runs["eager"]
-        log(f"[generate] {label}: graphed and eager agree on "
-            f"{int(same.sum())} of {same.size} new tokens (bf16)")
+        if "eager" in runs:
+            same = runs["graphed"] == runs["eager"]
+            log(f"[{tag}] {label}: graphed and eager agree on "
+                f"{int(same.sum())} of {same.size} new tokens (bf16)")
         outs[label] = runs["graphed"]
         if profile:
-            profile_decode(pred, ids, lens, label)
+            profile_decode(pred, ids, lens, f"{tag}_{label}")
         del pred, out
+    if len(outs) < 2:
+        return launches, summaries, outs
     same = outs["static"] == outs["paged"]
     first = [int(np.argmin(r)) if not r.all() else n_new for r in same]
-    log(f"[generate] static and paged agree on {int(same.sum())} of "
+    log(f"[{tag}] static and paged agree on {int(same.sum())} of "
         f"{same.size} new tokens, each row up to new token {first} (bf16; "
         f"K6 and K5 run one body over the same keys)")
     # the first new token's logits from the two caches' prefills
     a, b = (first_logits[k].float() for k in ("static", "paged"))
     top2 = a.topk(2, dim=-1).values
-    log("[generate] prefill logits, static vs paged: max |diff| per row "
+    log(f"[{tag}] prefill logits, static vs paged: max |diff| per row "
         f"{(a - b).abs().amax(-1).tolist()}, static top-2 gap per row "
         f"{(top2[:, 0] - top2[:, 1]).tolist()}, logit RMS "
         f"{a.pow(2).mean().sqrt().item()}")
@@ -1744,8 +1906,9 @@ def phase_generate(model, paths, profile=False, n_new=128):
         raise AssertionError("bf16 static and paged generation differ: K6 "
                              "and K5 over the same keys must give the same "
                              "bits")
-    check_generate_attention(model, ids, lens)
-    return launches
+    if tag == "generate":
+        check_generate_attention(model, ids, lens)
+    return launches, summaries, outs
 
 
 def check_generate_attention(model, ids, lens):
@@ -1822,12 +1985,160 @@ def profile_decode(pred, ids, lens, label, steps=16):
     if pred.stats.replays["decode"] - replays0 != steps:
         raise AssertionError("the profiled decode steps were not replays")
     wall = seen["wall"]
-    log(f"[profile:generate_{label}] {steps} graphed decode steps, "
+    log(f"[profile:{label}] {steps} graphed decode steps, "
         f"{wall * 1e3 / steps:.2f} ms a step on the host clock")
-    _log_profile(seen["prof"], wall, f"generate_{label}", per=steps)
+    _log_profile(seen["prof"], wall, label, per=steps)
 
 
-# -- phases 7 to 9: training ----------------------------------------------
+# -- phase 7: weight-only serving ------------------------------------------------
+def _graphed(summaries, **match):
+    """The graphed summaries that match ``match``."""
+    return [s for s in summaries if s["mode"] == "graphed"
+            and all(s.get(k) == v for k, v in match.items())]
+
+
+def _beside(tag, ours, bf16, keys):
+    """One line: each metric of the quantized runs beside bf16's (the
+    graphed runs of the same call; 'not run' when bf16's phase did not
+    run)."""
+    line = {}
+    for k in keys:
+        line[k] = dict(weight_only=[s[k] for s in ours],
+                       bf16=[s[k] for s in bf16] or "not run")
+    log(f"[{tag}] beside bf16 (graphed runs): " + json.dumps(line))
+
+
+def wo_teacher_forced(model, ids, lens, new, rows=(0, 1)):
+    """One forward of the quantized model over prompt + generated tokens
+    (the training forward) per row, with every K9 call watched: its
+    output against the plain version on the same activations and int8
+    weights, per call, the largest difference over the output's largest
+    magnitude, bf16 gate 2e-2. The same forward with K9's plain version
+    throughout gives the end-to-end logit difference and the argmax
+    agreement, printed and not gated: one rounding of a bf16 projection
+    output that falls the other way grows through 32 layers of random
+    weights. Also where the committed token is not the argmax of K9's
+    teacher-forced logits, its logit gap."""
+    from paddle_tpu_torch.nn import quant
+    from paddle_tpu_torch.ops.kernels import weight_only_linear as K9
+
+    kernel = quant.k9_linear
+    per_call = []
+
+    def plain(x, q, s, b=None, int4=False):
+        return K9.weight_only_linear_dense(x, q, s, b, int4)
+
+    def watched(x, q, s, b=None, int4=False):
+        out = kernel(x, q, s, b, int4)
+        ref = plain(x, q, s, b, int4).float()
+        per_call.append(((out.float() - ref).abs().max()
+                         / ref.abs().max().clamp_min(1e-30)).item())
+        return out
+
+    e2e, agree, bad, gap, n = 0.0, [], 0, 0.0, 0
+    with torch.no_grad():
+        for b in rows:
+            seq = np.concatenate([ids[b, :lens[b]], new[b, :-1]])
+            t = torch.tensor(seq, device=model.device)[None]
+            calls = len(per_call)
+            quant.k9_linear = watched
+            try:
+                a = model(t)[0].float()
+                quant.k9_linear = plain
+                r = model(t)[0].float()
+            finally:
+                quant.k9_linear = kernel
+            if len(per_call) - calls != 7 * model.config.num_layers:
+                raise AssertionError("the teacher-forced forward did not go "
+                                     "through K9 once a projection")
+            e2e = max(e2e, ((a - r).norm(dim=-1) / r.norm(dim=-1)).max()
+                      .item())
+            agree.append((a.argmax(-1) == r.argmax(-1)).float().mean()
+                         .item())
+            lg = a[lens[b] - 1:]
+            got = torch.tensor(new[b], device=model.device)[:, None]
+            g = lg.max(-1).values - lg.gather(1, got)[:, 0]
+            bad += int((g > 0).sum())
+            gap = max(gap, g.max().item())
+            n += len(new[b])
+    worst = max(per_call)
+    log(f"[weight-only] teacher-forced forward of rows {list(rows)}: "
+        f"{len(per_call)} K9 calls against the plain version on the same "
+        f"activations and int8 weights, worst {worst} (gate "
+        f"{TOL[torch.bfloat16]}); logits against an all-plain forward: "
+        f"worst per-position relative L2 {e2e}, argmax agreement "
+        f"{agree} (not gated); committed tokens not the K9 argmax: {bad} "
+        f"of {n}, largest logit gap {gap}")
+    if not worst <= TOL[torch.bfloat16]:
+        raise AssertionError(f"weight-only forward: a K9 call differs from "
+                             f"its plain version by {worst}")
+
+
+def phase_weight_only(model, paths, bf16, profile=False):
+    """Weight-only int8 serving on the 7B-width model: quantized in place
+    (every projection; the LM head kept bf16), then Predictor.generate
+    static and paged (eager, graphed, graphed, eager), a teacher-forced
+    logit check and the token agreement with bf16's, then the serve
+    schedule graphed twice. K9 must launch 7 times a layer a step, with
+    the other kernels as before. Returns the launches by path."""
+    from paddle_tpu_torch.nn.quant import quantize_for_serving
+
+    cfg = model.config
+    t0 = time.perf_counter()
+    quantize_for_serving(model, "weight_only_int8", ("lm_head",))
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    qbytes = sum(p.nbytes for n, p in model.named_parameters()
+                 if n.endswith("weight_quant"))
+    log(f"[weight-only] int8: {7 * cfg.num_layers} projections quantized "
+        f"in place in {time.perf_counter() - t0:.1f}s ({qbytes / 1e9:.3f} "
+        f"GB of int8 weights; the LM head stays bf16)")
+    launches, summaries, outs = phase_generate(
+        model, paths, profile, tag="weight_only_generate")
+    for label in ("static", "paged"):
+        _beside(f"weight-only generate {label}",
+                _graphed(summaries, cache=label),
+                _graphed(bf16["generate"], cache=label),
+                ("decode_ms_per_token", "prefill_ms", "tokens_per_s",
+                 "peak_mem_gib"))
+    ids, lens = _ragged_prompts(cfg.vocab_size)
+    wo_teacher_forced(model, ids, lens, outs["static"])
+    ref = bf16["generate_outs"].get("static")
+    if ref is not None:
+        same = outs["static"] == ref
+        log(f"[weight-only] int8 static generation equals bf16's on "
+            f"{int(same.sum())} of {same.size} new tokens (not gated)")
+    by_path = {f"weight_only_generate_{k}": v for k, v in launches.items()}
+    by_path["weight_only_serve"], served = phase_serve(
+        model, paths["weight_only_serve"], profile,
+        modes=("graphed", "graphed"), tag="weight-only serve")
+    _beside("weight-only serve", served, _graphed(bf16["serve"]),
+            ("tokens_per_s", "ttft_ms_p50", "ttft_ms_p99", "tpot_ms_p50",
+             "peak_mem_gib"))
+    return by_path
+
+
+def phase_weight_only_int4(model, paths, bf16, profile=False):
+    """int4 on the same weights (the model rebuilt from its seed):
+    static-cache Predictor.generate, graphed."""
+    from paddle_tpu_torch.nn.quant import quantize_for_serving
+
+    quantize_for_serving(model, "weight_only_int4", ("lm_head",))
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, summaries, _ = phase_generate(
+        model, paths, profile, caches=(("static", None),),
+        modes=("graphed",), tag="weight_only_int4_generate")
+    _beside("weight-only int4 generate static", summaries,
+            _graphed(bf16["generate"], cache="static"),
+            ("decode_ms_per_token", "prefill_ms", "tokens_per_s",
+             "peak_mem_gib"))
+    return {"weight_only_int4_generate_static": launches["static"]}
+
+
+# -- phases 8 to 10: training ---------------------------------------------
 def _trainer(model, scaler=None):
     """The train step a user builds: AdamW with f32 masters and moments,
     global-norm clipping, through ParallelEngine.train_step. With a
@@ -2312,7 +2623,9 @@ KERNEL_GROUPS = (("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass")),
                                     "finalize_kernel(", "update_kernel<")),
                  ("K4/K5/K6 paged or contiguous-cache attention",
                   ("paged_attention", "tile_wgmma_kernel", "merge_splits",
-                   "f32_tile_kernel")))
+                   "f32_tile_kernel")),
+                 ("K9 weight_only_linear", ("::gemv_kernel<", "::tile_kernel<",
+                                            "::split_sum_kernel<")))
 
 
 def _log_profile(prof, wall, tag, per=1):
@@ -2338,9 +2651,9 @@ def _log_profile(prof, wall, tag, per=1):
             f"{e.count:7d} calls  {e.key[:90]}")
 
 
-def profile_serve(eng, sched):
+def profile_serve(eng, sched, tag="serve"):
     """The same schedule again on the warmed engine, graphed."""
-    _profiled(lambda: serve(eng, sched)[1], "serve")
+    _profiled(lambda: serve(eng, sched)[1], tag)
 
 
 def _profiled(run, tag):
@@ -2390,6 +2703,28 @@ def k7_entry(k7, results, launches):
         shape=[4, 2048, 32, 128], dtype="bfloat16")
 
 
+def check_k9_build(_build):
+    """Every K9 kernel built with 0 spill bytes; each route's dynamic
+    shared memory at the main path's shapes."""
+    from paddle_tpu_torch.ops.kernels import weight_only_linear as K9
+
+    rep = _build.ptxas_report("weight_only_linear")
+    bad = {fn: r for fn, r in rep.items()
+           if r.get("spill_stores", 1) or r.get("spill_loads", 1)}
+    if not rep or bad:
+        raise AssertionError(f"K9 built with spills (or no ptxas log): {bad}")
+    smem = {}
+    for M, dt in ((8, torch.bfloat16), (2048, torch.bfloat16),
+                  (2048, torch.float32)):
+        for K, N in WO_SHAPES[:3]:
+            for int4 in (False, True):
+                plan = K9.weight_only_route(M, N, K, int4, dt)
+                smem[f"M{M} {str(dt)[6:]} K{K} N{N} int{4 if int4 else 8}"] \
+                    = dict(plan._asdict(), smem=K9.route_smem(plan, int4))
+    log(f"[build] K9 routes and dynamic shared memory: {json.dumps(smem)}")
+    log(f"[build] every K9 kernel ({len(rep)}) built with 0 spill bytes: OK")
+
+
 def check_tile_spills(_build):
     """Every K1 tile the library lists is a fwd_wgmma<D, W, BN> instance
     that ptxas built with 0 spill bytes."""
@@ -2423,10 +2758,12 @@ def check_tile_spills(_build):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
-                    help="depth of the 7B-width serving and generate runs")
+                    help="depth of the 7B-width serving, generate and "
+                    "weight-only runs")
     ap.add_argument("--phases",
                     default="build,kernels,parity,serve,serve-prefix-spec,"
-                            "generate,train-parity,train,train-autotune")
+                            "generate,weight-only,train-parity,train,"
+                            "train-autotune")
     ap.add_argument("--profile", action="store_true",
                     help="serve the schedule once more (and the prefix and "
                     "draft configuration's), run 16 more decode steps of "
@@ -2466,21 +2803,25 @@ def main():
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
         ragged_paged_attention
     from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm
+    from paddle_tpu_torch.ops.kernels.weight_only_linear import \
+        weight_only_linear
 
     t0 = time.perf_counter()
     _build.build_all()
     log(f"[build] {len(_build.SOURCES)} sources in "
         f"{time.perf_counter() - t0:.1f}s")
-    # registers and spills of the attention kernels (nvcc -Xptxas -v)
-    for src in ("flash_attention", "paged_attention"):
+    # registers and spills of the attention kernels and K9 (nvcc -Xptxas -v)
+    for src in ("flash_attention", "paged_attention", "weight_only_linear"):
         for fn, rep in _build.ptxas_report(src).items():
             log(f"[build] ptxas {fn}: {json.dumps(rep)}")
     check_tile_spills(_build)
+    check_k9_build(_build)
 
     dev = torch.device("cuda", 0)
     results = []
     k7 = {}   # K7's numbers: the kernels phase's, then train-autotune's
     if "kernels" in phases:
+        check_weight_only(dev, results)
         check_rms(dev, results)
         check_attention(dev, results)
         check_decode(dev, results)
@@ -2500,10 +2841,12 @@ def main():
         log("[kernels] every case within tolerance: OK")
     if "parity" in phases:
         phase_parity()
+        weight_only_parity()
     # each path is driven with its kernels' counts set to 0 just before
     # it and read just after: serving (with the prefix cache and a draft
     # too) runs K3, K4, K5; static-cache generation K3, K6; paged
-    # generation K3, K5; training K3, K1, K2, K8
+    # generation K3, K5; weight-only serving and generation K9 beside
+    # those; training K3, K1, K2, K8
     paths = {"serve": [rms_norm, ragged_paged_attention,
                        paged_decode_attention],
              "serve_prefix_spec": [rms_norm, ragged_paged_attention,
@@ -2514,23 +2857,49 @@ def main():
                        fused_adam],
              "train_autotune": [rms_norm, flash_attention_fwd,
                                 flash_attention_bwd, fused_adam,
-                                measure_flash_blocks]}
+                                measure_flash_blocks],
+             "weight_only_generate_static": [rms_norm, decode_attention,
+                                             weight_only_linear],
+             "weight_only_generate_paged": [rms_norm, paged_decode_attention,
+                                            weight_only_linear],
+             "weight_only_serve": [rms_norm, ragged_paged_attention,
+                                   paged_decode_attention,
+                                   weight_only_linear],
+             "weight_only_int4_generate_static": [rms_norm,
+                                                  decode_attention,
+                                                  weight_only_linear]}
     by_path = {p: {c.__name__: None for c in cs} for p, cs in paths.items()}
-    if {"serve", "serve-prefix-spec", "generate"} & set(phases):
+    # the bf16 runs' summaries, printed beside the weight-only ones
+    bf16 = {"serve": [], "generate": [], "generate_outs": {}}
+    if {"serve", "serve-prefix-spec", "generate", "weight-only"} & \
+            set(phases):
         model = build_7b(args.layers)
         if "serve" in phases:
-            by_path["serve"] = phase_serve(model, paths["serve"],
-                                           args.profile)
+            by_path["serve"], bf16["serve"] = phase_serve(
+                model, paths["serve"], args.profile)
             gc.collect()
             torch.cuda.empty_cache()
         if "serve-prefix-spec" in phases:
             by_path["serve_prefix_spec"] = phase_serve_prefix_spec(
                 model, paths["serve_prefix_spec"], args.profile)
         if "generate" in phases:
-            by_path.update(("generate_" + k, v) for k, v in phase_generate(
-                model, paths, args.profile).items())
+            launches, bf16["generate"], bf16["generate_outs"] = \
+                phase_generate(model, paths, args.profile)
+            by_path.update(("generate_" + k, v) for k, v in launches.items())
+        if "weight-only" in phases:
+            # quantizes the shared model in place: after every bf16 path
+            by_path.update(phase_weight_only(model, paths, bf16,
+                                             args.profile))
         del model
+        gc.collect()
         torch.cuda.empty_cache()
+        if "weight-only" in phases:
+            model = build_7b(args.layers)
+            by_path.update(phase_weight_only_int4(model, paths, bf16,
+                                                  args.profile))
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
     if "train-parity" in phases:
         phase_train_parity()
     train_losses = None
@@ -2549,7 +2918,8 @@ def main():
                   "decode_attention": [8, 1, 32, 128],
                   "flash_attention_fwd": [4, 2048, 32, 128],
                   "flash_attention_bwd": [4, 2048, 32, 128],
-                  "fused_adam": [_FUSED_ADAM_N]}
+                  "fused_adam": [_FUSED_ADAM_N],
+                  "weight_only_linear": [8, 4096, 11008]}
     flash = "paddle_tpu/ops/pallas/flash_attention.py"
     meta = {
         "rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
@@ -2569,13 +2939,17 @@ def main():
         "flash_attention_bwd": ("paddle_tpu_torch/csrc/flash_attention.cu",
                                 f"{flash}:307", "train"),
         "fused_adam": ("paddle_tpu_torch/csrc/fused_adam.cu",
-                       "paddle_tpu/optimizer/__init__.py:211", "train")}
+                       "paddle_tpu/optimizer/__init__.py:211", "train"),
+        "weight_only_linear": ("paddle_tpu_torch/csrc/weight_only_linear.cu",
+                               "paddle_tpu/nn/quant.py:78",
+                               "weight_only_serve")}
     kernels = []
     for name, (src, repl, path) in meta.items():
         mine = [r for r in results if r["name"] == name]
         main = [r for r in mine if r["shape"] == main_shape[name]
                 and r["dtype"] == "bfloat16" and "blocks" not in r
-                and r.get("kv_heads", 32) == 32 and not r.get("diagnostic")]
+                and r.get("kv_heads", 32) == 32 and not r.get("diagnostic")
+                and r.get("bits", 8) == 8 and not r.get("bias")]
         row = main[0] if main else {}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=repl,

@@ -16,6 +16,11 @@ imports JAX.
 np.ndarray}`` with the linears transposed back to ``[in, out]``, for
 comparing parameters with the JAX package after training steps
 (bf16 parameters come out as float32 arrays, which numpy can hold).
+
+A model quantized for serving (``nn.quant.quantize_for_serving``) carries
+``*.weight_quant`` (int8, ``[out, in]`` in both packages, so never
+transposed; int4 packed ``[out, in // 2]``) and ``*.weight_scale`` (f32)
+both ways bit for bit: int8 stays int8.
 """
 from __future__ import annotations
 
@@ -67,6 +72,7 @@ def export_jax_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:
     linear = _linear_weights(model)
     out = {}
     for name, p in model.named_parameters():
-        arr = p.detach().float().cpu().numpy()
+        p = p.detach()
+        arr = (p.float() if p.is_floating_point() else p).cpu().numpy()
         out[name] = np.ascontiguousarray(arr.T if name in linear else arr)
     return out

@@ -30,9 +30,14 @@ site's shape and counts captures and replays. The predictor serves on
 its model's device: caches, pools, tables and the sampling generator
 live there too.
 
-Not ported (they raise ``NotImplementedError`` naming their ROADMAP.md
+``Config.enable_weight_only`` serves int8 / int4 weights: the predictor
+swaps the model's linears for ``nn.quant.WeightOnlyLinear`` (in place,
+after the dtype cast, the LM head kept by default), whose projections
+run kernel K9 on the card.
+
+Not ported (it raises ``NotImplementedError`` naming its ROADMAP.md
 item): weight loading from ``params_file`` / ``model_dir`` with a model
-factory, and int8/int4 weight-only serving.
+factory.
 """
 from __future__ import annotations
 
@@ -113,6 +118,8 @@ class Config:
         self.max_length: Optional[int] = None
         self.generation = GenerationConfig()
         self._kv_page_size: Optional[int] = None
+        self._weight_only_algo: Optional[str] = None
+        self._weight_only_skip = ("lm_head",)
 
     def set_model(self, model) -> "Config":
         """Serve a live ``nn.Module``."""
@@ -127,11 +134,18 @@ class Config:
 
     def enable_weight_only(self, algo: str = "weight_only_int8",
                            skip=("lm_head",)) -> "Config":
-        raise NotImplementedError(
-            "int8/int4 weight-only serving is not ported: it needs a "
-            "kernel that reads the quantized weights (dequantising per "
-            "call in torch ops would give up the byte saving); "
-            "ROADMAP.md queue 1, item 1.1")
+        """Serve with int8 / int4 weights (``nn.quant.quantize_for_serving``):
+        decode reads the weights' bytes, so it gains with the byte
+        shrink. ``skip`` keeps layers whose names hold one of its
+        fragments (default: the LM head) in full precision."""
+        if algo not in ("weight_only_int8", "weight_only_int4"):
+            raise ValueError(
+                f"enable_weight_only supports weight_only_int8/int4, got "
+                f"{algo!r} (llm.int8 is the functional nn.quant."
+                f"llm_int8_linear, not a serving swap)")
+        self._weight_only_algo = algo
+        self._weight_only_skip = tuple(skip)
+        return self
 
     def enable_paged_kv(self, page_size: int = 64) -> "Config":
         """Serve with a paged (block-table) KV cache. The attention
@@ -156,7 +170,16 @@ class Predictor:
         self._model = config._model
         if config.dtype:
             self._model.to(_DTYPES[config.dtype])
+        if config._weight_only_algo:
+            # after the cast, as the JAX predictor's _build_model does:
+            # a later cast would round the f32 scales
+            from ..nn.quant import quantize_for_serving
+
+            quantize_for_serving(self._model, config._weight_only_algo,
+                                 config._weight_only_skip)
         self._model.eval()
+        # the embedding comes first: device and dtype read it, never an
+        # int8 weight
         self._params = list(self._model.parameters())
         self.stats = CompileStats()
         self._graphs = StepGraphs(self.device, self.stats)

@@ -1,0 +1,204 @@
+"""K9: the int8 / int4 weight-only linear (a port-only kernel: the
+counterpart of the fusion XLA makes of ``paddle_tpu/nn/quant.py``
+``weight_only_linear`` :78, where the int8 convert folds into the
+matmul's operand read; there is no ``pallas_call`` to port).
+
+``weight_only_linear(x, q, scale, bias, int4)`` computes
+
+    y[..., n] = ((sum_k x[..., k] * q[n, k]) * scale[n] + bias[n]).to(x.dtype)
+
+over the integer weights (int8 ``[N, K]``, or int4 packed two a byte into
+``[N, K/2]``, the even k in the low nibble), an f32 sum, then the scale,
+then the bias in f32, then one rounding, as the JAX function does. On
+CUDA tensors it launches the kernels of ``csrc/weight_only_linear.cu``
+(its header gives the bound and the design), which read the quantized
+bytes and never write a dequantized copy; on CPU tensors it runs
+``weight_only_linear_dense``, the plain version. ``weight_only_route``
+says which body a launch takes: ``gemv`` (bf16 ``x``, M <= 16: a
+streaming pass over the weights, converted in registers into mma.sync
+fragments), ``tile`` (bf16 ``x``, M > 16: mma.sync over weight tiles
+converted to bf16 in shared memory) or ``fma`` (f32 ``x`` at any M, 16
+rows a block: f32 FMAs, no TF32, so the card's fp32 runs match the
+CPU's). ``gemv`` and ``fma`` split K where the columns alone would not
+fill the card, and add the slices' sums in slice order. The
+wrapper allocates with ``torch.empty`` only, launches on the current
+stream, chooses its route from the shapes and never synchronises, so a
+CUDA graph captures it whole.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import (_build, counted, dtype_code, ptr, route, stream,
+               want_contiguous)
+
+__all__ = ["WeightOnlyRoute", "route_smem", "unpack_int4",
+           "weight_only_linear", "weight_only_linear_dense",
+           "weight_only_route"]
+
+_SMS = 132               # H100 SXM
+_SMEM_CAP = 96 * 1024    # bytes of staged x a gemv / fma block may hold
+_FMA_ROWS = (1, 4, 8, 16)    # rows a block (csrc launch_fma)
+_GEMV_BATCH = 8          # k blocks a gemv warp loads at once (kGemvBatch)
+_BODIES = {"fma": 0, "tile": 1, "gemv": 2}
+
+
+class WeightOnlyRoute(NamedTuple):
+    body: str      # "gemv", "tile" or "fma"
+    rows: int      # rows a block (gemv 8 or 16; fma 1, 4, 8 or 16; tile 128)
+    splits: int    # K slices (gemv, fma)
+    ks: int        # k a slice covers
+
+
+def unpack_int4(q: torch.Tensor) -> torch.Tensor:
+    """[N, K/2] packed int8 -> [N, K] int8 in -8..7: the low nibble
+    sign-extended by ``(q << 4) >> 4`` (torch's int8 left shift wraps, as
+    XLA's does), the high one by the arithmetic ``q >> 4``."""
+    lo = (q << 4) >> 4
+    hi = q >> 4
+    return torch.stack([lo, hi], dim=-1).reshape(q.shape[0],
+                                                 q.shape[1] * 2)
+
+
+def weight_only_linear_dense(x: torch.Tensor, q: torch.Tensor,
+                             scale: torch.Tensor,
+                             bias: Optional[torch.Tensor] = None,
+                             int4: bool = False) -> torch.Tensor:
+    """Plain version: ``((x.float() @ q.float().T) * scale + bias)
+    .to(x.dtype)``, int4 unpacked first."""
+    qi = unpack_int4(q) if int4 else q
+    out = (x.float() @ qi.float().T) * scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def weight_only_route(M: int, N: int, K: int, int4: bool,
+                      dtype: torch.dtype) -> WeightOnlyRoute:
+    """The body, rows a block, K slices and slice length a launch at
+    these shapes takes (shapes alone decide it)."""
+    w = 32 if int4 else 16                 # weights in a lane's 16 bytes
+    if dtype == torch.bfloat16:
+        if M > 16:
+            return WeightOnlyRoute("tile", 128, 1, K)
+        # 64 columns a block, a k block of 4 w; x staged as bf16, a pitch
+        # of ks + 8. Two blocks an SM are resident (256 threads at ~100
+        # registers), and a block takes about its k blocks plus a batch
+        # (staging x, the epilogue): take the split count with the least
+        # waves x that, so the last wave is not a sliver (fewest splits
+        # on a tie)
+        mr = 8 if M <= 8 else 16
+        step = 4 * w
+        steps = -(-K // step)
+        cols = -(-N // 64)
+        max_steps = max(1, (_SMEM_CAP // (2 * mr) - 8) // step)
+        best = None
+        for want in range(1, steps + 1):
+            per = -(-steps // want)
+            if per > max_steps:
+                continue
+            splits = -(-steps // per)
+            cost = -(-cols * splits // (2 * _SMS)) * (per + _GEMV_BATCH)
+            if best is None or cost < best[0]:
+                best = (cost, splits, per)
+        return WeightOnlyRoute("gemv", mr, best[1], best[2] * step)
+    else:
+        # 4 warps of 4 or 8 columns, steps of 32 w; x staged as f32 with 4
+        # floats of padding a lane chunk
+        mr = next(r for r in _FMA_ROWS if r >= min(M, 16))
+        step = 32 * w
+        blocks = -(-N // (4 * (4 if mr == 16 else 8))) * -(-M // mr)
+        max_steps = max(1, _SMEM_CAP // (mr * 32 * (w + 4) * 4))
+        target = 3 * _SMS
+        body = "fma"
+    steps = -(-K // step)
+    splits = min(steps, max(-(-steps // max_steps), -(-target // blocks)))
+    per = -(-steps // splits)
+    return WeightOnlyRoute(body, mr, -(-steps // per), per * step)
+
+
+@functools.cache
+def _lib():
+    fn = _build.library("weight_only_linear").weight_only_linear_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def route_smem(plan: WeightOnlyRoute, int4: bool) -> int:
+    """Dynamic shared memory (bytes) a launch on ``plan`` takes (the C
+    library's own count: builds the library on first use)."""
+    fn = _build.library("weight_only_linear").weight_only_linear_smem
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return fn(_BODIES[plan.body], plan.rows, plan.ks, int(int4))
+
+
+def _check(x, q, scale, bias, int4):
+    K = x.shape[-1]
+    if q.dtype != torch.int8 or q.dim() != 2:
+        raise TypeError(f"weight_only_linear: weight must be a 2-D int8 "
+                        f"tensor, got {q.dtype} {tuple(q.shape)}")
+    dtype_code(x, "weight_only_linear x")
+    if int4 and K % 2:
+        raise ValueError(f"weight_only_linear: int4 needs an even input "
+                         f"dimension, got K = {K}")
+    kq = 2 * q.shape[1] if int4 else q.shape[1]
+    if kq != K:
+        raise ValueError(f"weight_only_linear: x has K = {K}, the "
+                         f"{'int4' if int4 else 'int8'} weight "
+                         f"{tuple(q.shape)} covers {kq}")
+    N = q.shape[0]
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (N,):
+        raise TypeError(f"weight_only_linear: scale must be float32 [{N}], "
+                        f"got {scale.dtype} {tuple(scale.shape)}")
+    if bias is not None and (tuple(bias.shape) != (N,) or bias.dtype
+                             not in (x.dtype, torch.float32)):
+        raise TypeError(f"weight_only_linear: bias must be [{N}] in "
+                        f"{x.dtype} or float32, got {bias.dtype} "
+                        f"{tuple(bias.shape)}")
+
+
+def weight_only_linear(x: torch.Tensor, q: torch.Tensor,
+                       scale: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None,
+                       int4: bool = False) -> torch.Tensor:
+    """x [..., K] (bf16 or f32) times the quantized weight, scaled, plus
+    bias: [..., N] in x's dtype. ``q`` int8 [N, K] or, with ``int4``,
+    packed [N, K/2]; ``scale`` f32 [N]; ``bias`` [N] in x's dtype or f32,
+    or None."""
+    _check(x, q, scale, bias, int4)
+    tensors = (x, q, scale) + ((bias,) if bias is not None else ())
+    if route(*tensors) == "cpu":
+        return weight_only_linear_dense(x, q, scale, bias, int4)
+    for t, name in zip(tensors, ("x", "weight", "scale", "bias")):
+        want_contiguous(t, f"weight_only_linear {name}")
+    K, N = x.shape[-1], q.shape[0]
+    M = x.numel() // K if K else 0
+    out = torch.empty(*x.shape[:-1], N, dtype=x.dtype, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    plan = weight_only_route(M, N, K, int4, x.dtype)
+    work = (torch.empty(plan.splits, M, N, dtype=torch.float32,
+                        device=x.device) if plan.splits > 1 else None)
+    align = 32 if int4 else 16
+    vec = int(K % align == 0 and all(t.data_ptr() % 16 == 0
+                                     for t in (x, q)))
+    bias_code = -1 if bias is None else dtype_code(bias, "bias")
+    rc = _lib()(ptr(x), ptr(q), ptr(scale),
+                ptr(bias) if bias is not None else None, ptr(out),
+                ptr(work) if work is not None else None, M, N, K, int(int4),
+                dtype_code(x, "x"), bias_code, _BODIES[plan.body],
+                plan.rows, plan.splits, plan.ks, vec, stream(x))
+    _build.check(rc, "weight_only_linear")
+    weight_only_linear.launches += 1
+    return out
+
+
+counted(weight_only_linear)

@@ -37,6 +37,7 @@ from paddle_tpu_torch.ops.kernels import flash_attention as K1
 from paddle_tpu_torch.ops.kernels import fused_adam as K8
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as K4
 from paddle_tpu_torch.ops.kernels import rms_norm as K3
+from paddle_tpu_torch.ops.kernels import weight_only_linear as K9
 
 
 @pytest.fixture(scope="module")
@@ -260,7 +261,8 @@ def test_every_kernel_wrapper_is_registered():
     assert set(kernels.launch_counts()) == {
         K1.flash_attention_fwd, K1.flash_attention_bwd, K3.rms_norm,
         K4.ragged_paged_attention, K5.decode_attention,
-        K5.paged_decode_attention, K8.fused_adam, K7.measure_flash_blocks}
+        K5.paged_decode_attention, K8.fused_adam, K7.measure_flash_blocks,
+        K9.weight_only_linear}
 
 
 def test_registry_adds_a_recorded_step_once_per_replay():

@@ -192,17 +192,20 @@ class TestDevicePolicy:
 
     def test_unported_paths_raise(self, models):
         """Weight loading from a params file or model directory and
-        weight-only serving still raise, naming their ROADMAP items;
-        generate and the contiguous cache are ported
-        (tests/test_torch_generate.py)."""
+        ``llm_int8_linear`` still raise, naming their ROADMAP items;
+        generate, the contiguous cache and weight-only serving are ported
+        (tests/test_torch_generate.py, tests/test_torch_weight_only.py)."""
         from paddle_tpu_torch.inference import Config
+        from paddle_tpu_torch.nn.quant import llm_int8_linear
 
         _, tm, _ = models
         for kw in ({"params_file": "model.pdparams"}, {"model_dir": "m"}):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 Config(**kw)
         conf = Config().set_model(tm)
-        for call in (lambda: conf.enable_weight_only(),
+        for call in (lambda: llm_int8_linear(torch.zeros(1, 4),
+                                             torch.zeros(2, 4,
+                                                         dtype=torch.int8)),
                      lambda: conf.set_model_factory(lambda: tm),
                      lambda: conf.set_params_file("model.pdparams")):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
