@@ -11,16 +11,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 flash and paged attention kernels' registers and spills
                 (ptxas -v); every K1 tile the build lists
                 (flash_attention_fwd_tiles) must be built with 0 spill
-                bytes, and so must every K9 kernel (weight_only_linear);
-                K9's routes and dynamic shared memory at the main shapes
+                bytes, and so must every K9 kernel (weight_only_linear),
+                with no wgmma serialised by ptxas; K9's routes, their
+                dynamic shared memory (the wrapper's count must equal the
+                C library's) and the wgmma body's registers
 2. kernels      K9 (the int8 / int4 weight-only linear) against its plain
                 version: int8 and int4, bf16 and fp32 x, M = 1, 8, 16,
-                17, 2048 at (K, N) = (4096, 4096), (4096, 11008), (11008,
-                4096) and (200, 72), with and without a bias (gate: the
-                largest difference over the output's largest magnitude,
-                bf16 2e-2, fp32 1e-4); the cases without a bias timed
-                with their bound, plain and F.linear times (the weights
-                rotated through copies larger than the L2).
+                17, 2048, 8192 at (K, N) = (4096, 4096), (4096, 11008),
+                (11008, 4096), (4128, 200) (the TMA edge: K not a
+                multiple of 64, N not of 128) and (200, 72), with and
+                without a bias (gate: the largest difference over the
+                output's largest magnitude, bf16 2e-2, fp32 1e-4); the
+                cases without a bias timed with their bound, plain and
+                F.linear times (the weights rotated through copies larger
+                than the L2). bf16 M > 16 must run the wgmma body at
+                every (K, N) but (200, 72), which TMA cannot address; the
+                wgmma body has its own entry in the kernels line
+                (weight_only_linear_wgmma, at [2048, 4096] x [11008,
+                4096], its launches counted on its own).
                 K3 (RMSNorm, and its gradient), K4 (ragged paged
                 attention), K5 (paged decode attention), K6 (decode
                 attention over the contiguous cache), K1 and K2 (flash
@@ -115,12 +123,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 static and paged as in phase 6 (eager, graphed, graphed,
                 eager; equal tokens, static == paged), then phase 4's
                 serve schedule graphed twice; K9 launches exactly 7 a
-                layer a step beside the other kernels' counts; decode ms
+                layer a step beside the other kernels' counts, its wgmma
+                body (bf16, M > 16) exactly 7 a layer a prefill and a
+                unified round; decode ms
                 a token, prefill ms, tokens/s, TTFT, TPOT and peak memory
                 printed beside the bf16 runs of the same call; a
-                teacher-forced forward with every K9 call held against
-                its plain version on the same activations and int8
-                weights (2e-2), and its logits against an all-plain
+                teacher-forced forward with every K9 call (all on the
+                wgmma body) held against its plain version on the same
+                activations and int8 weights (2e-2), and its logits
+                against an all-plain
                 forward (printed); the share of tokens equal to bf16's
                 (not gated). Then the model rebuilt from its seed and
                 quantized to int4: static generation, graphed
@@ -956,9 +967,12 @@ def check_decode(dev, results):
 
 
 # K9 cases: M rows against (K, N); the first three are the main path's
-# (q/k/v/o, gate/up, down at llama_7b widths), (200, 72) is ragged
-WO_ROWS = (1, 8, 16, 17, 2048)
-WO_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (200, 72))
+# (q/k/v/o, gate/up, down at llama_7b widths; M = 8 decode, 2048 unified
+# rounds, 8192 prefill), (4128, 200) the wgmma body's TMA edge, (200, 72)
+# ragged (rows of 200 bytes: the tile body)
+WO_ROWS = (1, 8, 16, 17, 2048, 8192)
+WO_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4128, 200),
+             (200, 72))
 
 
 def check_weight_only(dev, results):
@@ -994,7 +1008,10 @@ def check_weight_only(dev, results):
                     for bias in (False, True):
                         b = (torch.randn(N, device=dev, generator=g).to(dt)
                              if bias else None)
+                        nw = K9.weight_only_linear_wgmma.launches
                         out = K9.weight_only_linear(x, q, s, b, int4)
+                        ran = ("wgmma" if K9.weight_only_linear_wgmma.launches
+                               > nw else plan.body)
                         ref = K9.weight_only_linear_dense(x, q, s, b, int4)
                         torch.cuda.synchronize()
                         err = (out.float() - ref.float()).abs().max().item()
@@ -1002,7 +1019,7 @@ def check_weight_only(dev, results):
                         rec = dict(
                             name="weight_only_linear", shape=[M, K, N],
                             dtype=str(dt)[6:], bits=bits, bias=bias,
-                            body=plan.body, splits=plan.splits,
+                            body=ran, splits=plan.splits,
                             max_abs_err=err, ref_max_abs=top,
                             rel_err=err / top if top else err, tol=TOL[dt])
                         if not bias:
@@ -1024,6 +1041,18 @@ def check_weight_only(dev, results):
                         results.append(rec)
             del qs, ls
     torch.cuda.empty_cache()
+    # bf16 M > 16 must run the wgmma body wherever TMA can address the
+    # operands: every (K, N) here but the ragged (200, 72)
+    for r in results:
+        if r["name"] != "weight_only_linear" or r["dtype"] != "bfloat16":
+            continue
+        M, K, N = r["shape"]
+        want = ("gemv" if M <= 16 else "tile" if (K, N) == (200, 72)
+                else "wgmma")
+        if r["body"] != want:
+            raise AssertionError(f"weight_only_linear {r['shape']} int"
+                                 f"{r['bits']} ran the {r['body']} body, "
+                                 f"not {want}")
 
 
 # -- phases 3 and 4: serving ---------------------------------------------------
@@ -1436,6 +1465,8 @@ def phase_serve(model, counters, profile=False,
                 "paged_decode_attention": L * eng.chunk * rounds["decode"]}
         if "weight_only_linear" in launches:
             want["weight_only_linear"] = 7 * L * steps
+            # the unified rounds' [8, 256] rows run the wgmma body
+            want["weight_only_linear_wgmma"] = 7 * L * rounds["unified"]
         if launches != want:
             raise AssertionError(f"{mode} serve launched {launches}, its "
                                  f"rounds {dict(rounds)} imply {want}")
@@ -1816,7 +1847,9 @@ def phase_generate(model, paths, profile=False, n_new=128,
     want = {"rms_norm": (2 * cfg.num_layers + 1) * n_new,
             "decode_attention": cfg.num_layers * n_new,
             "paged_decode_attention": cfg.num_layers * n_new,
-            "weight_only_linear": 7 * cfg.num_layers * n_new}
+            "weight_only_linear": 7 * cfg.num_layers * n_new,
+            # the prefill's 8 x Sb rows: the wgmma body, once a projection
+            "weight_only_linear_wgmma": 7 * cfg.num_layers}
     for label, page in caches:
         conf = Config().set_model(model)
         conf.max_length = 2048
@@ -2036,6 +2069,7 @@ def wo_teacher_forced(model, ids, lens, new, rows=(0, 1)):
         return out
 
     e2e, agree, bad, gap, n = 0.0, [], 0, 0.0, 0
+    nw = K9.weight_only_linear_wgmma.launches
     with torch.no_grad():
         for b in rows:
             seq = np.concatenate([ids[b, :lens[b]], new[b, :-1]])
@@ -2062,8 +2096,12 @@ def wo_teacher_forced(model, ids, lens, new, rows=(0, 1)):
             gap = max(gap, g.max().item())
             n += len(new[b])
     worst = max(per_call)
+    if K9.weight_only_linear_wgmma.launches - nw != len(per_call):
+        raise AssertionError("the teacher-forced forward's K9 calls did not "
+                             "all run the wgmma body")
     log(f"[weight-only] teacher-forced forward of rows {list(rows)}: "
-        f"{len(per_call)} K9 calls against the plain version on the same "
+        f"{len(per_call)} K9 calls (the wgmma body) against the plain "
+        f"version on the same "
         f"activations and int8 weights, worst {worst} (gate "
         f"{TOL[torch.bfloat16]}); logits against an all-plain forward: "
         f"worst per-position relative L2 {e2e}, argmax agreement "
@@ -2625,6 +2663,7 @@ KERNEL_GROUPS = (("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass")),
                   ("paged_attention", "tile_wgmma_kernel", "merge_splits",
                    "f32_tile_kernel")),
                  ("K9 weight_only_linear", ("::gemv_kernel<", "::tile_kernel<",
+                                            "::wgmma_kernel<",
                                             "::split_sum_kernel<")))
 
 
@@ -2704,8 +2743,12 @@ def k7_entry(k7, results, launches):
 
 
 def check_k9_build(_build):
-    """Every K9 kernel built with 0 spill bytes; each route's dynamic
-    shared memory at the main path's shapes."""
+    """Every K9 kernel built with 0 spill bytes and no wgmma serialised
+    by ptxas; each route's dynamic shared memory at the main path's
+    shapes and the TMA edge, the wrapper's count equal to the C
+    library's; the wgmma body's registers."""
+    import ctypes
+
     from paddle_tpu_torch.ops.kernels import weight_only_linear as K9
 
     rep = _build.ptxas_report("weight_only_linear")
@@ -2713,16 +2756,38 @@ def check_k9_build(_build):
            if r.get("spill_stores", 1) or r.get("spill_loads", 1)}
     if not rep or bad:
         raise AssertionError(f"K9 built with spills (or no ptxas log): {bad}")
+    text = _build._target("weight_only_linear").with_suffix(".log") \
+        .read_text()
+    serial = [ln for ln in text.splitlines() if "serialized" in ln]
+    if serial:
+        raise AssertionError(f"K9: ptxas serialised wgmma: {serial}")
+    wg = {fn[-40:]: r for fn, r in rep.items() if "wgmma_kernel" in fn}
+    if len(wg) != 2:
+        raise AssertionError(f"K9's wgmma body (int8, int4) not built: {wg}")
+    c_smem = _build.library("weight_only_linear").weight_only_linear_smem
+    c_smem.argtypes = [ctypes.c_int] * 4
+    c_smem.restype = ctypes.c_int
     smem = {}
     for M, dt in ((8, torch.bfloat16), (2048, torch.bfloat16),
-                  (2048, torch.float32)):
-        for K, N in WO_SHAPES[:3]:
+                  (8192, torch.bfloat16), (2048, torch.float32)):
+        for K, N in WO_SHAPES[:4]:
             for int4 in (False, True):
                 plan = K9.weight_only_route(M, N, K, int4, dt)
+                ours = K9.route_smem(plan, int4)
+                theirs = c_smem(K9._BODIES[plan.body], plan.rows, plan.ks,
+                                int(int4))
+                if ours != theirs:
+                    raise AssertionError(f"K9 {plan}: the wrapper counts "
+                                         f"{ours} bytes of shared memory, "
+                                         f"the library {theirs}")
                 smem[f"M{M} {str(dt)[6:]} K{K} N{N} int{4 if int4 else 8}"] \
-                    = dict(plan._asdict(), smem=K9.route_smem(plan, int4))
-    log(f"[build] K9 routes and dynamic shared memory: {json.dumps(smem)}")
-    log(f"[build] every K9 kernel ({len(rep)}) built with 0 spill bytes: OK")
+                    = dict(plan._asdict(), smem=ours,
+                           grid=K9.route_grid(plan, M, N))
+    log(f"[build] K9 routes, dynamic shared memory and grids: "
+        f"{json.dumps(smem)}")
+    log(f"[build] K9 wgmma body (int8, int4): {json.dumps(wg)}")
+    log(f"[build] every K9 kernel ({len(rep)}) built with 0 spill bytes "
+        f"and no serialised wgmma: OK")
 
 
 def check_tile_spills(_build):
@@ -2803,8 +2868,8 @@ def main():
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
         ragged_paged_attention
     from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm
-    from paddle_tpu_torch.ops.kernels.weight_only_linear import \
-        weight_only_linear
+    from paddle_tpu_torch.ops.kernels.weight_only_linear import (
+        weight_only_linear, weight_only_linear_wgmma)
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -2846,7 +2911,8 @@ def main():
     # it and read just after: serving (with the prefix cache and a draft
     # too) runs K3, K4, K5; static-cache generation K3, K6; paged
     # generation K3, K5; weight-only serving and generation K9 beside
-    # those; training K3, K1, K2, K8
+    # those (its wgmma body counted on its own too); training K3, K1, K2,
+    # K8
     paths = {"serve": [rms_norm, ragged_paged_attention,
                        paged_decode_attention],
              "serve_prefix_spec": [rms_norm, ragged_paged_attention,
@@ -2859,15 +2925,19 @@ def main():
                                 flash_attention_bwd, fused_adam,
                                 measure_flash_blocks],
              "weight_only_generate_static": [rms_norm, decode_attention,
-                                             weight_only_linear],
+                                             weight_only_linear,
+                                             weight_only_linear_wgmma],
              "weight_only_generate_paged": [rms_norm, paged_decode_attention,
-                                            weight_only_linear],
+                                            weight_only_linear,
+                                            weight_only_linear_wgmma],
              "weight_only_serve": [rms_norm, ragged_paged_attention,
                                    paged_decode_attention,
-                                   weight_only_linear],
+                                   weight_only_linear,
+                                   weight_only_linear_wgmma],
              "weight_only_int4_generate_static": [rms_norm,
                                                   decode_attention,
-                                                  weight_only_linear]}
+                                                  weight_only_linear,
+                                                  weight_only_linear_wgmma]}
     by_path = {p: {c.__name__: None for c in cs} for p, cs in paths.items()}
     # the bf16 runs' summaries, printed beside the weight-only ones
     bf16 = {"serve": [], "generate": [], "generate_outs": {}}
@@ -2919,7 +2989,8 @@ def main():
                   "flash_attention_fwd": [4, 2048, 32, 128],
                   "flash_attention_bwd": [4, 2048, 32, 128],
                   "fused_adam": [_FUSED_ADAM_N],
-                  "weight_only_linear": [8, 4096, 11008]}
+                  "weight_only_linear": [8, 4096, 11008],
+                  "weight_only_linear_wgmma": [2048, 4096, 11008]}
     flash = "paddle_tpu/ops/pallas/flash_attention.py"
     meta = {
         "rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
@@ -2942,10 +3013,16 @@ def main():
                        "paddle_tpu/optimizer/__init__.py:211", "train"),
         "weight_only_linear": ("paddle_tpu_torch/csrc/weight_only_linear.cu",
                                "paddle_tpu/nn/quant.py:78",
-                               "weight_only_serve")}
+                               "weight_only_serve"),
+        # K9's wgmma body (bf16 M > 16: the unified rounds and prefill)
+        "weight_only_linear_wgmma": (
+            "paddle_tpu_torch/csrc/weight_only_linear.cu",
+            "paddle_tpu/nn/quant.py:78", "weight_only_serve")}
     kernels = []
     for name, (src, repl, path) in meta.items():
-        mine = [r for r in results if r["name"] == name]
+        # the wgmma body's rows are K9's own, at M > 16 in bf16
+        mine = [r for r in results if r["name"] == name or (
+            name == "weight_only_linear_wgmma" and r.get("body") == "wgmma")]
         main = [r for r in mine if r["shape"] == main_shape[name]
                 and r["dtype"] == "bfloat16" and "blocks" not in r
                 and r.get("kv_heads", 32) == 32 and not r.get("diagnostic")

@@ -17,9 +17,11 @@
 // Bound on this card. Decode rows (M <= 16): bytes. The weights are read
 // once: N*K bytes int8, N*K/2 int4, against 2*M*N*K flops; at [8, 4096] x
 // [11008, 4096] int8 that is 45.4 MB, 13.5 us at 3.35 TB/s. Prefill and
-// unified rows (M = 2048): operations, 2*M*N*K over 989 TFLOP/s bf16.
+// unified rows (M = 2048 .. 8192): operations, 2*M*N*K over 989 TFLOP/s
+// bf16 (0.187 ms at [2048, 4096] x [11008, 4096]).
 //
-// Three bodies, chosen by the wrapper from the shapes alone:
+// Four bodies, chosen by the wrapper from the shapes and the pointers'
+// alignment alone:
 //
 // gemv_kernel (bf16 x, M <= 16): a streaming pass over the weights on the
 //   tensor cores. A block of 8 warps owns 64 output columns (an n8 tile a
@@ -36,12 +38,28 @@
 //   scale + bias epilogue runs there, or, with more than one K slice,
 //   split_sum_kernel adds the slices' partial sums in slice order
 //   (deterministic) and runs it.
-// tile_kernel (bf16 x, M > 16): 128 x 128 output tiles, 8 warps of 64 x 32,
-//   K in steps of 64. cp.async brings x's bf16 tile and the int8 (or
-//   packed int4) weight tile into a 3-stage ring; each step the block
-//   converts the weight tile exactly into a bf16 tile in shared memory
-//   (every int8 and int4 value is exact in bf16) and runs mma.sync
-//   m16n8k16 with f32 accumulators; scale and bias in the epilogue.
+// wgmma_kernel (bf16 x, M > 16, rows of a multiple of 16 bytes and
+//   16-byte-aligned x and q, as TMA needs): y^T = W x^T on the tensor
+//   cores, in 128 x 256 tiles of (weight rows, x rows), K in steps of 64.
+//   TMA brings x's bf16 panel and the weight bytes into a ring of 4
+//   slots (zeros past M, N and K: no masks on loads). The weights must
+//   become bf16 before the tensor cores can take them; a bf16 GEMM does not
+//   pay that conversion, and neither the ALU work nor shared-memory
+//   traffic for it may stand between two wgmmas. So the weights are
+//   wgmma's A operand, which Hopper reads from registers: each thread
+//   converts its own A fragments (the same exact magic-number conversion)
+//   straight from the raw bytes while the previous step's m64n256k16
+//   wgmmas run. Converting into a bf16 tile in shared memory for every
+//   warpgroup to read would add a 16 KB store, a proxy fence and a
+//   block-wide barrier to every step and a third more shared-memory
+//   traffic, and measured 20% slower (PERF.md).
+// tile_kernel (bf16 x, M > 16 where TMA cannot address the operands):
+//   128 x 128 output tiles, 8 warps of 64 x 32, K in steps of 64. cp.async
+//   brings x's bf16 tile and the int8 (or packed int4) weight tile into a
+//   3-stage ring; each step the block converts the weight tile exactly
+//   into a bf16 tile in shared memory (every int8 and int4 value is exact
+//   in bf16) and runs mma.sync m16n8k16 with f32 accumulators; scale and
+//   bias in the epilogue.
 // fma_kernel (f32 x, every M in groups of up to 16 rows; the parity path):
 //   f32 FMAs, no TF32, so the card's fp32 results follow the CPU's. A
 //   block of 4 warps owns 4*CPW columns and one K slice; it stages x as
@@ -50,13 +68,17 @@
 //   weight rows, converts them as above and does the FMAs; a halving
 //   butterfly reduces the CPW x MR sums of a lane across the warp.
 //
-// Ragged M, N and K are masked (zero fill). Rows whose byte length is not
-// a multiple of 16 (or unaligned pointers) take element-wise loads instead
-// of 16-byte ones (the wrapper's `vec` flag); nothing routes around the
+// Ragged M, N and K are masked (zero fill). In the gemv, tile and fma
+// bodies, rows whose byte length is not a multiple of 16 (or unaligned
+// pointers) take element-wise loads instead of 16-byte ones (the wrapper's
+// `vec` flag); the wgmma body refuses them (cudaErrorInvalidValue: the
+// wrapper routes such shapes to the tile body). Nothing routes around the
 // kernel. The launch function returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -542,6 +564,237 @@ cudaError_t launch_tile(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// -- wgmma body (bf16 x, M > 16, operands TMA can address) -------------------
+// The product runs transposed, y^T tile = W tile x^T, so that the weights
+// are wgmma's A operand, which may come from registers: each thread
+// converts its own weights straight from the raw bytes into A-fragment
+// registers, and no converted tile is written to shared memory, read back
+// by every warpgroup, or fenced and guarded by a barrier.
+//
+// One CTA: 128 weight rows (two warpgroups of 64) x 256 x rows (wgmma's
+// n), K in steps of 64. A ring of kWgStages slots holds, per step, the x
+// panel [256, 64] (bf16, 128-byte swizzle, K-major: wgmma's B as TMA
+// writes it) and the weight bytes [128, 64] int8 (64-byte swizzle) or
+// [128, 32] int4 (32-byte swizzle), both brought by TMA (zeros past M, N
+// and K). Each step, every thread:
+//
+//   issues wgmma(kt)        m64n256k16 x 4, A = fragments `cur`
+//   waits for wgmma(kt - 1) its fragments `nxt` and its ring slot are free
+//   barrier                 then thread 0 refills the slot of step kt - 1
+//                           with step kt + kWgStages - 1
+//   converts step kt + 1    raw bytes -> `nxt`, while wgmma(kt) runs
+//
+// The accumulators hold y^T: thread (warp w, lane 4 g + t) of warpgroup
+// wg has weight rows 64 wg + 16 w + g (+ 8) against x rows 8 j + 2 t (+ 1).
+constexpr int kWgRows = 256;        // x rows a CTA (wgmma's n)
+constexpr int kWgCols = 128;        // weight rows a CTA: 64 a warpgroup
+constexpr int kWgThreads = 256;
+constexpr int kWgStages = 4;        // ring slots of (x, weight bytes)
+constexpr int kWgGroupRows = 2048;  // x rows a raster group keeps in L2
+
+template <bool INT4>
+struct Wg {
+  static constexpr int QB = INT4 ? kBK / 2 : kBK;      // weight bytes a row
+  static constexpr uint32_t XT = kWgRows * kBK * 2;    // x tile
+  static constexpr uint32_t QT = kWgCols * QB;         // raw weight tile
+  static constexpr int smem = kWgStages * (XT + QT) + kWgStages * 8 + 1024;
+  static_assert(smem <= 232448, "wgmma body: shared memory over 227 KB");
+};
+
+struct WgParams {
+  CUtensorMap tx, tq;  // x bf16 rows (swizzled panels), q byte rows
+  Args a;
+};
+
+// the A fragments of one step (4 k16 blocks) for rows r0 and r0 + 8 of
+// the raw weight tile (TMA's 64-byte swizzle for int8 rows of 64 bytes:
+// 16-byte chunk c of row r at c ^ ((r >> 1) & 3); the 32-byte swizzle for
+// int4 rows of 32: c ^ ((r >> 2) & 1)): f[kk] = {(r0, k 2t, 2t + 1), (r0 +
+// 8, same), (r0, 2t + 8, 2t + 9), (r0 + 8, same)} of block kk, t = lane % 4,
+// each pair converted exactly (group_f32's magic number) and packed to
+// bf16x2. The 8 rows a warp reads at once fall in distinct banks.
+template <bool INT4>
+__device__ __forceinline__ void frag_step(const unsigned char* q, int r0,
+                                          int tig, uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if constexpr (!INT4) {
+      const int sel = 2 * (tig & 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            q + r * 64 + ((kk ^ ((r >> 1) & 3)) << 4));
+        // bytes 2t, 2t + 1 and 2t + 8, 2t + 9 of the block, as b + 128
+        const uint32_t lo = ((tig >> 1) ? v.y : v.x) ^ 0x80808080u;
+        const uint32_t hi = ((tig >> 1) ? v.w : v.z) ^ 0x80808080u;
+        f[kk][h] = pack_hi(magic(lo, sel) - 8388736.f,
+                           magic(lo, sel + 1) - 8388736.f);
+        f[kk][h + 2] = pack_hi(magic(hi, sel) - 8388736.f,
+                               magic(hi, sel + 1) - 8388736.f);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {  // a 16-byte chunk: blocks 2c, 2c + 1
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            q + r * 32 + ((c ^ ((r >> 2) & 1)) << 4));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // byte t holds k = 2t (low nibble) and 2t + 1; byte 4 + t the
+          // same 8 further on; nibble s as s + 8
+          const uint32_t w0 = (e ? v.z : v.x) ^ 0x88888888u;
+          const uint32_t w1 = (e ? v.w : v.y) ^ 0x88888888u;
+          f[2 * c + e][h] =
+              pack_hi(magic(w0 & 0x0F0F0F0Fu, tig) - 8388616.f,
+                      magic((w0 >> 4) & 0x0F0F0F0Fu, tig) - 8388616.f);
+          f[2 * c + e][h + 2] =
+              pack_hi(magic(w1 & 0x0F0F0F0Fu, tig) - 8388616.f,
+                      magic((w1 >> 4) & 0x0F0F0F0Fu, tig) - 8388616.f);
+        }
+      }
+    }
+  }
+}
+
+// keep A fragments in their registers until here: a wgmma reading them
+// may still run
+__device__ __forceinline__ void fence_frag(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(f[i][j])::"memory");
+}
+
+template <bool INT4>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    wgmma_kernel(const __grid_constant__ WgParams P) {
+  using C = Wg<INT4>;
+  extern __shared__ unsigned char wg_smem_raw[];
+  unsigned char* xs = hopper::align1024(wg_smem_raw);  // [stages] x panels
+  unsigned char* qs = xs + kWgStages * C::XT;          // [stages] raw bytes
+  uint64_t* full = reinterpret_cast<uint64_t*>(qs + kWgStages * C::QT);
+  const Args& a = P.a;
+  // grouped raster: the CTAs in flight share a group's kWgGroupRows rows
+  // of x (kept in L2) and walk the weight tiles, each read once a group
+  constexpr int G = kWgGroupRows / kWgRows;
+  const int mt = (a.M + kWgRows - 1) / kWgRows;
+  const int nt = (a.N + kWgCols - 1) / kWgCols;
+  const int g0 = static_cast<int>(blockIdx.x) / (G * nt) * G;
+  const int gsz = min(mt - g0, G);
+  const int local = static_cast<int>(blockIdx.x) % (G * nt);
+  const int m0 = (g0 + local % gsz) * kWgRows, n0 = local / gsz * kWgCols;
+  const int steps = (a.K + kBK - 1) / kBK;
+  const int t = threadIdx.x;
+
+  // step kt into its ring slot (thread 0 only)
+  auto load = [&](int kt) {
+    const int s = kt % kWgStages;
+    hopper::mbar_arrive_tx(full + s, C::XT + C::QT);
+    hopper::tma_load_4d(xs + s * C::XT, &P.tx, full + s, kt * kBK, 0, m0, 0);
+    hopper::tma_load_2d(qs + s * C::QT, &P.tq, full + s, kt * C::QB, n0);
+  };
+  if (t == 0) {
+    for (int s = 0; s < kWgStages; ++s) hopper::mbar_init(full + s, 1);
+    hopper::mbar_fence_init();
+    for (int kt = 0; kt < min(steps, kWgStages - 1); ++kt) load(kt);
+  }
+  __syncthreads();
+
+  const int wg = t >> 7, w = (t & 127) >> 5;
+  const int grp = (t & 31) >> 2, tig = t & 3;
+  const int r0 = wg * 64 + 16 * w + grp;  // this thread's weight rows r0, +8
+  float acc[2 * kWgRows / 4];
+  hopper::zero(acc);
+  uint32_t fa[4][4], fb[4][4];
+  hopper::mbar_wait(full, 0);
+  frag_step<INT4>(qs, r0, tig, fa);
+
+  auto step = [&](int kt, uint32_t(&cur)[4][4], uint32_t(&nxt)[4][4]) {
+    const bf16* xt =
+        reinterpret_cast<const bf16*>(xs + (kt % kWgStages) * C::XT);
+    hopper::fence_operand(acc);
+    fence_frag(cur);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      hopper::wgmma_rs256(acc, cur[kk], hopper::kmajor(xt, kWgRows, 0, kk),
+                          kt > 0 || kk > 0);
+    hopper::wgmma_commit();
+    hopper::fence_operand(acc);
+    hopper::wgmma_wait<1>();
+    fence_frag(nxt);
+    hopper::fence_operand(acc);
+    if (kt + kWgStages - 1 < steps) {
+      __syncthreads();  // every warp is past wgmma(kt - 1)
+      if (t == 0) load(kt + kWgStages - 1);
+    }
+    if (kt + 1 < steps) {
+      const int s1 = (kt + 1) % kWgStages;
+      hopper::mbar_wait(full + s1, ((kt + 1) / kWgStages) & 1);
+      frag_step<INT4>(qs + s1 * C::QT, r0, tig, nxt);
+    }
+  };
+  for (int kt = 0; kt < steps; kt += 2) {
+    step(kt, fa, fb);
+    if (kt + 1 < steps) step(kt + 1, fb, fa);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_operand(acc);
+  fence_frag(fa);
+  fence_frag(fb);
+
+  // acc[4 j + 2 hi + e]: weight row r0 + 8 hi (column n of y), x row 8 j +
+  // 2 tig + e (row m of y)
+  bf16* out = static_cast<bf16*>(a.out);
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int n = n0 + r0 + 8 * hi;
+    if (n >= a.N) continue;
+    // epilogue()'s arithmetic with this column's scale and bias read once
+    const float sc = a.scale[n];
+    float bs = 0.f;
+    if (a.bias_code == 0)
+      bs = static_cast<const float*>(a.bias)[n];
+    else if (a.bias_code == 1)
+      bs = __bfloat162float(static_cast<const bf16*>(a.bias)[n]);
+#pragma unroll
+    for (int j = 0; j < kWgRows / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + 8 * j + 2 * tig + e;
+        if (m >= a.M) continue;
+        float y = __fmul_rn(acc[4 * j + 2 * hi + e], sc);
+        if (a.bias_code >= 0) y = __fadd_rn(y, bs);
+        store(out + static_cast<size_t>(m) * a.N + n, y);
+      }
+  }
+}
+
+// the wgmma body's launch: K a multiple of 16 (int8) or 32 (int4), so every
+// row is a multiple of 16 bytes, and x and q 16-byte aligned (the tensor
+// maps refuse anything else)
+template <bool INT4>
+cudaError_t launch_wgmma(const Args& a, cudaStream_t s) {
+  using C = Wg<INT4>;
+  WgParams p{};
+  p.a = a;
+  const int rowbytes = INT4 ? a.K / 2 : a.K;
+  if (a.K % (INT4 ? 32 : 16) ||
+      !hopper_host::encode_rows(&p.tx, a.x, 1, a.M, 1, a.K, kWgRows) ||
+      !hopper_host::encode_u8_rows(&p.tq, a.q, a.N, rowbytes, kWgCols, C::QB,
+                                   INT4 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                        : CU_TENSOR_MAP_SWIZZLE_64B))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      wgmma_kernel<INT4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::smem);
+  if (e != cudaSuccess) return e;
+  const int tiles = ((a.M + kWgRows - 1) / kWgRows) *
+                    ((a.N + kWgCols - 1) / kWgCols);
+  wgmma_kernel<INT4><<<tiles, kWgThreads, C::smem, s>>>(p);
+  return cudaGetLastError();
+}
+
 // -- gemv body (bf16 x, M <= 16) ---------------------------------------------
 // Tensor cores with the weights converted in registers: a lane's 16 loaded
 // bytes (16 int8 or 32 int4 weights of one row) are its B fragments of 4
@@ -726,9 +979,10 @@ cudaError_t launch_gemv(const Args& a, int mr, cudaStream_t s) {
 
 // dynamic shared memory of a launch (bytes): the fma body's staged f32 x,
 // the tile body's ring and converted weight tile, the gemv body's staged
-// bf16 x
+// bf16 x, the wgmma body's ring, converted tiles and barriers
 extern "C" int weight_only_linear_smem(int body, int mr, int ks, int int4) {
   if (body == 1) return int4 ? Tile<true>::smem : Tile<false>::smem;
+  if (body == 3) return int4 ? Wg<true>::smem : Wg<false>::smem;
   if (body == 2) return mr * (ks + 8) * 2;
   return int4 ? mr * (ks / Pack<true>::W) * Pack<true>::LP * 4
               : mr * (ks / Pack<false>::W) * Pack<false>::LP * 4;
@@ -737,7 +991,8 @@ extern "C" int weight_only_linear_smem(int body, int mr, int ks, int int4) {
 // body: 0 fma (f32 x; mr rows a block: 1, 4, 8 or 16; `splits` slices of
 // `ks` k each, ks a multiple of the step, 512 int8 / 1024 int4), 1 tile
 // (bf16 x, M > 16), 2 gemv (bf16 x, M <= mr, mr 8 or 16; ks a multiple of
-// 64 int8 / 128 int4). dtype: 0 f32, 1 bf16 (x and out). bias_code: -1
+// 64 int8 / 128 int4), 3 wgmma (bf16 x, M > 16, K a multiple of 16 int8 /
+// 32 int4, x and q 16-byte aligned). dtype: 0 f32, 1 bf16 (x and out). bias_code: -1
 // none, 0 f32, 1 bf16. work: f32 [splits, M, N] when splits > 1.
 extern "C" int weight_only_linear_launch(
     const void* x, const void* q, const void* scale, const void* bias,
@@ -749,8 +1004,11 @@ extern "C" int weight_only_linear_launch(
   Args a{x, static_cast<const int8_t*>(q), static_cast<const float*>(scale),
          bias, out, static_cast<float*>(work), M, N, K, bias_code, splits,
          ks, vec};
-  if (body == 1) {
+  if (body == 1 || body == 3) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (body == 3)
+      return static_cast<int>(int4 ? launch_wgmma<true>(a, s)
+                                   : launch_wgmma<false>(a, s));
     return static_cast<int>(int4 ? launch_tile<true>(a, s)
                                  : launch_tile<false>(a, s));
   }

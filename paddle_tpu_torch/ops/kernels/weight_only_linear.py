@@ -16,14 +16,21 @@ bytes and never write a dequantized copy; on CPU tensors it runs
 ``weight_only_linear_dense``, the plain version. ``weight_only_route``
 says which body a launch takes: ``gemv`` (bf16 ``x``, M <= 16: a
 streaming pass over the weights, converted in registers into mma.sync
-fragments), ``tile`` (bf16 ``x``, M > 16: mma.sync over weight tiles
-converted to bf16 in shared memory) or ``fma`` (f32 ``x`` at any M, 16
-rows a block: f32 FMAs, no TF32, so the card's fp32 runs match the
-CPU's). ``gemv`` and ``fma`` split K where the columns alone would not
-fill the card, and add the slices' sums in slice order. The
-wrapper allocates with ``torch.empty`` only, launches on the current
-stream, chooses its route from the shapes and never synchronises, so a
-CUDA graph captures it whole.
+fragments), ``wgmma`` (bf16 ``x``, M > 16: TMA brings x and the weight
+bytes into a ring in shared memory, and the product runs transposed on
+wgmma with the weights, converted straight into registers, as its A
+operand while the previous step's wgmma runs), ``tile``
+(bf16 ``x``, M > 16 where TMA cannot address the operands: K not a
+multiple of 16 bytes of weights a row, or a pointer not 16-byte
+aligned; mma.sync over weight tiles converted in shared memory) or
+``fma`` (f32 ``x`` at any M, 16 rows a block: f32 FMAs, no TF32, so the
+card's fp32 runs match the CPU's). ``gemv`` and ``fma`` split K where
+the columns alone would not fill the card, and add the slices' sums in
+slice order. The wrapper allocates with ``torch.empty`` only, launches
+on the current stream, chooses its route from the shapes and the
+pointers' alignment and never synchronises, so a CUDA graph captures it
+whole. ``weight_only_linear_wgmma.launches`` counts the launches that
+took the ``wgmma`` body (beside the wrapper's own count of all).
 """
 from __future__ import annotations
 
@@ -36,20 +43,24 @@ import torch
 from . import (_build, counted, dtype_code, ptr, route, stream,
                want_contiguous)
 
-__all__ = ["WeightOnlyRoute", "route_smem", "unpack_int4",
+__all__ = ["WeightOnlyRoute", "route_grid", "route_smem", "unpack_int4",
            "weight_only_linear", "weight_only_linear_dense",
-           "weight_only_route"]
+           "weight_only_linear_wgmma", "weight_only_route"]
 
 _SMS = 132               # H100 SXM
 _SMEM_CAP = 96 * 1024    # bytes of staged x a gemv / fma block may hold
 _FMA_ROWS = (1, 4, 8, 16)    # rows a block (csrc launch_fma)
 _GEMV_BATCH = 8          # k blocks a gemv warp loads at once (kGemvBatch)
-_BODIES = {"fma": 0, "tile": 1, "gemv": 2}
+_BODIES = {"fma": 0, "tile": 1, "gemv": 2, "wgmma": 3}
+_TILE = 128              # tile: rows and columns a block; wgmma: columns
+_WG_ROWS = 256           # wgmma: rows a block
+_BK = 64                 # tile and wgmma: k a step
 
 
 class WeightOnlyRoute(NamedTuple):
-    body: str      # "gemv", "tile" or "fma"
-    rows: int      # rows a block (gemv 8 or 16; fma 1, 4, 8 or 16; tile 128)
+    body: str      # "gemv", "wgmma", "tile" or "fma"
+    rows: int      # rows a block (gemv 8 or 16; fma 1, 4, 8 or 16; tile
+                   # 128; wgmma 256)
     splits: int    # K slices (gemv, fma)
     ks: int        # k a slice covers
 
@@ -79,13 +90,18 @@ def weight_only_linear_dense(x: torch.Tensor, q: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def weight_only_route(M: int, N: int, K: int, int4: bool,
-                      dtype: torch.dtype) -> WeightOnlyRoute:
+                      dtype: torch.dtype,
+                      aligned: bool = True) -> WeightOnlyRoute:
     """The body, rows a block, K slices and slice length a launch at
-    these shapes takes (shapes alone decide it)."""
+    these shapes takes; ``aligned``: x and the weight start on 16 bytes
+    (torch's allocations do). Shapes and alignment alone decide it."""
     w = 32 if int4 else 16                 # weights in a lane's 16 bytes
     if dtype == torch.bfloat16:
         if M > 16:
-            return WeightOnlyRoute("tile", 128, 1, K)
+            # TMA needs rows of a multiple of 16 bytes and aligned bases
+            if aligned and K % w == 0:
+                return WeightOnlyRoute("wgmma", _WG_ROWS, 1, K)
+            return WeightOnlyRoute("tile", _TILE, 1, K)
         # 64 columns a block, a k block of 4 w; x staged as bf16, a pitch
         # of ks + 8. Two blocks an SM are resident (256 threads at ~100
         # registers), and a block takes about its k blocks plus a batch
@@ -132,12 +148,37 @@ def _lib():
 
 
 def route_smem(plan: WeightOnlyRoute, int4: bool) -> int:
-    """Dynamic shared memory (bytes) a launch on ``plan`` takes (the C
-    library's own count: builds the library on first use)."""
-    fn = _build.library("weight_only_linear").weight_only_linear_smem
-    fn.argtypes = [ctypes.c_int] * 4
-    fn.restype = ctypes.c_int
-    return fn(_BODIES[plan.body], plan.rows, plan.ks, int(int4))
+    """Dynamic shared memory (bytes) a launch on ``plan`` takes, from the
+    kernels' constants (``weight_only_linear_smem`` in the C library is
+    the kernels' own count; chip_smoke.py holds the two equal)."""
+    w = 32 if int4 else 16
+    qb = _BK // 2 if int4 else _BK        # weight bytes a row a k step
+    if plan.body == "fma":
+        return plan.rows * (plan.ks // w) * (w + 4) * 4
+    if plan.body == "gemv":
+        return plan.rows * (plan.ks + 8) * 2
+    if plan.body == "tile":               # 3 stages, rows padded by 8
+        return 3 * _TILE * (_BK + 8) * 2 + 3 * _TILE * qb \
+            + _TILE * (_BK + 8) * 2
+    # wgmma: 4 ring slots of (x, weight bytes), 4 mbarriers, 1024 bytes
+    # to align the swizzled panels
+    return 4 * (_WG_ROWS * _BK * 2 + _TILE * qb) + 4 * 8 + 1024
+
+
+def route_grid(plan: WeightOnlyRoute, M: int, N: int) -> tuple:
+    """The launch grid (x, y, z) of ``plan`` at M rows and N columns, as
+    the C launch functions form it: gemv (column blocks of 64, splits),
+    fma (column blocks of 16 or 32, splits, row blocks), tile (column
+    blocks, row blocks of 128), wgmma (one block a 256 x 128 tile)."""
+    cdiv = lambda a, b: -(-a // b)        # noqa: E731
+    if plan.body == "gemv":
+        return (cdiv(N, 64), plan.splits, 1)
+    if plan.body == "fma":
+        return (cdiv(N, 4 * (4 if plan.rows >= 16 else 8)), plan.splits,
+                cdiv(M, plan.rows))
+    if plan.body == "tile":
+        return (cdiv(N, _TILE), cdiv(M, _TILE), 1)
+    return (cdiv(M, _WG_ROWS) * cdiv(N, _TILE), 1, 1)
 
 
 def _check(x, q, scale, bias, int4):
@@ -184,12 +225,11 @@ def weight_only_linear(x: torch.Tensor, q: torch.Tensor,
     out = torch.empty(*x.shape[:-1], N, dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return out
-    plan = weight_only_route(M, N, K, int4, x.dtype)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, q))
+    plan = weight_only_route(M, N, K, int4, x.dtype, aligned)
     work = (torch.empty(plan.splits, M, N, dtype=torch.float32,
                         device=x.device) if plan.splits > 1 else None)
-    align = 32 if int4 else 16
-    vec = int(K % align == 0 and all(t.data_ptr() % 16 == 0
-                                     for t in (x, q)))
+    vec = int(K % (32 if int4 else 16) == 0 and aligned)
     bias_code = -1 if bias is None else dtype_code(bias, "bias")
     rc = _lib()(ptr(x), ptr(q), ptr(scale),
                 ptr(bias) if bias is not None else None, ptr(out),
@@ -198,7 +238,18 @@ def weight_only_linear(x: torch.Tensor, q: torch.Tensor,
                 plan.rows, plan.splits, plan.ks, vec, stream(x))
     _build.check(rc, "weight_only_linear")
     weight_only_linear.launches += 1
+    if plan.body == "wgmma":
+        weight_only_linear_wgmma.launches += 1
     return out
 
 
+def weight_only_linear_wgmma() -> None:
+    """The launch counter of K9's ``wgmma`` body and nothing more:
+    ``weight_only_linear`` adds one to ``weight_only_linear_wgmma.launches``
+    beside its own count where a launch takes that body, so a run shows
+    that its bf16 M > 16 calls went through it (CUDA-graph replays count
+    it through ``add_launches``, as every counter)."""
+
+
 counted(weight_only_linear)
+counted(weight_only_linear_wgmma)

@@ -262,7 +262,7 @@ def test_every_kernel_wrapper_is_registered():
         K1.flash_attention_fwd, K1.flash_attention_bwd, K3.rms_norm,
         K4.ragged_paged_attention, K5.decode_attention,
         K5.paged_decode_attention, K8.fused_adam, K7.measure_flash_blocks,
-        K9.weight_only_linear}
+        K9.weight_only_linear, K9.weight_only_linear_wgmma}
 
 
 def test_registry_adds_a_recorded_step_once_per_replay():

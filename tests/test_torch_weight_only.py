@@ -234,28 +234,52 @@ def test_k9_wrapper_checks_raise():
     assert K9.weight_only_linear.launches == n
 
 
+SMEM_CAP = 232448          # dynamic shared memory a block may take (227 KB)
+K9_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4128, 200),
+             (200, 72))  # (K, N): the main path's three, a TMA edge, ragged
+
+
 @pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
 def test_k9_routes_cover_k_and_fit(int4):
-    """The wrapper's plan, from the shapes alone: bf16 M > 16 takes the
-    tile body, bf16 M <= 16 the gemv body, f32 the fma body; the slices
-    of gemv and fma cover K once in whole steps, within the staging
-    budget (96 KB of x a block)."""
+    """The wrapper's plan, from the shapes and the pointers' alignment:
+    bf16 M > 16 takes the wgmma body wherever TMA can address the
+    operands (K a multiple of 16 weights int8 / 32 int4, 16-byte-aligned
+    x and weight) and the tile body elsewhere; bf16 M <= 16 the gemv
+    body; f32 the fma body. The slices of gemv and fma cover K once in
+    whole steps, within the staging budget (96 KB of x a block); every
+    route's dynamic shared memory fits the 227 KB a block may take, and
+    its grid covers M and N."""
     w = 32 if int4 else 16
-    for M in (1, 3, 8, 9, 16, 17, 2048):
-        for K, N in ((4096, 4096), (4096, 11008), (11008, 4096), (200, 72)):
+    for M in (1, 3, 8, 9, 16, 17, 100, 300, 2048, 8192):
+        for K, N in K9_SHAPES:
             for dt in (torch.bfloat16, torch.float32):
                 r = K9.weight_only_route(M, N, K, int4, dt)
+                assert K9.route_smem(r, int4) <= SMEM_CAP
+                gx, gy, gz = K9.route_grid(r, M, N)
                 if dt == torch.bfloat16 and M > 16:
-                    assert r.body == "tile"
+                    want = "wgmma" if K % w == 0 else "tile"
+                    assert r.body == want, (M, K, N, r)
+                    assert r.rows == (256 if want == "wgmma" else 128)
+                    assert K9.weight_only_route(M, N, K, int4, dt,
+                                                False).body == "tile"
+                    if r.body == "tile":
+                        assert gx * 128 >= N and gy * 128 >= M and gz == 1
+                    else:
+                        assert gx == -(-M // 256) * -(-N // 128)
+                        assert (gy, gz) == (1, 1)
                     continue
                 if dt == torch.bfloat16:
                     assert r.body == "gemv" and r.rows == (8 if M <= 8
                                                            else 16)
                     step, smem = 4 * w, r.rows * (r.ks + 8) * 2
+                    assert gx * 64 >= N and gz == 1
                 else:
                     assert r.body == "fma" and r.rows in (1, 4, 8, 16)
                     step = 32 * w
                     smem = r.rows * (r.ks // w) * (w + 4) * 4
+                    cols = 4 * (4 if r.rows >= 16 else 8)
+                    assert gx * cols >= N and gz * r.rows >= M
+                assert gy == r.splits and K9.route_smem(r, int4) == smem
                 assert r.rows >= min(M, 16) and r.ks % step == 0
                 assert r.splits * r.ks >= K > (r.splits - 1) * r.ks
                 assert smem <= 96 * 1024 or r.ks == step
@@ -265,6 +289,43 @@ def test_k9_routes_cover_k_and_fit(int4):
     assert (r.body, r.rows, r.splits, r.ks) == ("gemv", 8, 4, 2752)
     r = K9.weight_only_route(8, 4096, 4096, False, torch.float32)
     assert (r.body, r.rows, r.splits, r.ks) == ("fma", 8, 4, 1024)
+    # the TMA edge: 16 weights a row more than a multiple of 64 still
+    # routes to wgmma; 8 more (int8: 8 bytes) does not
+    assert K9.weight_only_route(300, 200, 4112, int4,
+                                torch.bfloat16).body == ("tile" if int4
+                                                         else "wgmma")
+    assert K9.weight_only_route(300, 200, 4104, int4,
+                                torch.bfloat16).body == "tile"
+
+
+def _wgmma_tile(block, M, N, bm=256, group=8):
+    """The (m0, n0) output tile of wgmma block ``block``: the kernel's
+    grouped raster (groups of 8 m tiles of 256 rows, m fastest inside a
+    group)."""
+    mt, nt = -(-M // bm), -(-N // 128)
+    per = group * nt
+    g0 = block // per * group
+    gsz = min(mt - g0, group)
+    local = block % per
+    return (g0 + local % gsz) * bm, local // gsz * 128
+
+
+@pytest.mark.parametrize("M,N", [(17, 72), (300, 200), (2048, 4096),
+                                 (2048, 11008), (2100, 11008),
+                                 (8192, 4096)])
+def test_k9_wgmma_raster_covers_every_tile_once(M, N):
+    """The wgmma body's grid (route_grid) with its grouped raster visits
+    every 256 x 128 tile of the [M, N] output exactly once, and a group's
+    blocks, launched together, read at most 2048 rows of x."""
+    plan = K9.weight_only_route(M, N, 4096, False, torch.bfloat16)
+    assert plan.body == "wgmma" and plan.rows == 256
+    blocks = K9.route_grid(plan, M, N)[0]
+    tiles = [_wgmma_tile(b, M, N) for b in range(blocks)]
+    want = {(m, n) for m in range(0, M, 256) for n in range(0, N, 128)}
+    assert len(tiles) == len(want) and set(tiles) == want
+    nt = -(-N // 128)
+    for first in range(0, blocks, 8 * nt):
+        assert len({m for m, _ in tiles[first:first + 8 * nt]}) <= 8
 
 
 # ---------------------------------------------------------------------------

@@ -22,9 +22,16 @@ from paddle_tpu_torch.ops.kernels import weight_only_linear as K9
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# chip_smoke.py's cases, plus M = 3 (the 4-row gemv body)
+# chip_smoke.py's cases, plus M = 3 (the 4-row gemv body); (4128, 200) is
+# the TMA edge: K not a multiple of 64, N not of 128
 ROWS = [1, 3, 8, 16, 17, 2048]
-SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (200, 72)]  # (K, N)
+SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4128, 200),
+          (200, 72)]  # (K, N)
+# the wgmma body (bf16, M > 16): the main path's rows and (K, N), and the
+# TMA edge at ragged M
+WGMMA_ROWS = [17, 100, 2048, 8192]
+WGMMA_CASES = ([(M, K, N) for M in WGMMA_ROWS for K, N in SHAPES[:3]]
+               + [(300, 4128, 200), (8192, 4128, 200)])
 
 
 @pytest.fixture
@@ -37,6 +44,8 @@ def cuda():
 
 
 def _case(dev, M, K, N, int4, dtype, bias, seed=0):
+    """x, q, scale and a bias (None, in x's dtype, or ``bias`` itself
+    when it is a dtype)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(M, K, device=dev, generator=g).to(dtype)
     w = torch.randn(N, K, device=dev, generator=g) * 0.02
@@ -44,7 +53,8 @@ def _case(dev, M, K, N, int4, dtype, bias, seed=0):
 
     q, s = weight_quantize(w.T, "weight_only_int4" if int4
                            else "weight_only_int8")
-    b = (torch.randn(N, device=dev, generator=g).to(dtype) if bias
+    bdt = bias if isinstance(bias, torch.dtype) else dtype
+    b = (torch.randn(N, device=dev, generator=g).to(bdt) if bias
          else None)
     return x, q, s, b
 
@@ -71,6 +81,45 @@ def test_k9_matches_plain(cuda, M, kn, int4, dtype, bias):
     assert _rel(out, ref) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("bias", [None, torch.bfloat16, torch.float32],
+                         ids=["nobias", "bf16bias", "f32bias"])
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("mkn", WGMMA_CASES,
+                         ids=lambda c: "m{}k{}n{}".format(*c))
+def test_k9_wgmma_body_matches_plain(cuda, mkn, int4, bias):
+    """bf16 M > 16 at the main path's (K, N) and the TMA edge runs the
+    wgmma body (its counter advances once) within bf16 2e-2 of the plain
+    version, with no bias, a bf16 bias and an f32 bias."""
+    M, K, N = mkn
+    x, q, s, b = _case(cuda, M, K, N, int4, torch.bfloat16, bias, seed=M)
+    assert K9.weight_only_route(M, N, K, int4, torch.bfloat16).body \
+        == "wgmma"
+    n = K9.weight_only_linear_wgmma.launches
+    out = K9.weight_only_linear(x, q, s, b, int4)
+    assert K9.weight_only_linear_wgmma.launches == n + 1
+    ref = K9.weight_only_linear_dense(x, q, s, b, int4)
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+def test_k9_unaligned_input_takes_tile_body(cuda, int4):
+    """x starting 2 bytes past a 16-byte boundary: TMA cannot address it,
+    so the launch takes the tile body (the wgmma counter stays) and still
+    matches the plain version."""
+    M, K, N = 300, 4096, 200
+    x, q, s, b = _case(cuda, M, K, N, int4, torch.bfloat16, True)
+    flat = torch.empty(M * K + 8, device=cuda, dtype=torch.bfloat16)
+    xu = flat[1:1 + M * K].view(M, K)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 == 2
+    n, nw = K9.weight_only_linear.launches, K9.weight_only_linear_wgmma.launches
+    out = K9.weight_only_linear(xu, q, s, b, int4)
+    assert K9.weight_only_linear.launches == n + 1
+    assert K9.weight_only_linear_wgmma.launches == nw
+    ref = K9.weight_only_linear_dense(x, q, s, b, int4)
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+
+
 @pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
 def test_k9_batched_input_and_bf16_bias_on_f32(cuda, int4):
     """x [B, S, K] (the model's layout) and an f32 bias under bf16 x."""
@@ -83,25 +132,32 @@ def test_k9_batched_input_and_bf16_bias_on_f32(cuda, int4):
     assert _rel(out, ref) <= TOL[torch.bfloat16]
 
 
-@pytest.mark.parametrize("M", [8, 2048], ids=["gemv", "tile"])
-def test_k9_graph_replay_equals_eager(cuda, M):
-    """A capture of K9 (split K at M = 8) replays to the eager call's
-    bits; the launch counter advances through add_launches, once a
-    replay."""
-    x, q, s, b = _case(cuda, M, 4096, 4096, False, torch.bfloat16, True)
-    eager_out = K9.weight_only_linear(x, q, s, b)
+@pytest.mark.parametrize("M,K,N,int4", [(8, 4096, 4096, False),
+                                        (2048, 4096, 4096, False),
+                                        (2048, 4096, 11008, True),
+                                        (300, 4128, 200, False)],
+                         ids=["gemv", "wgmma", "wgmma_int4", "wgmma_edge"])
+def test_k9_graph_replay_equals_eager(cuda, M, K, N, int4):
+    """A capture of K9 (split K at M = 8; the wgmma body's tensor maps
+    at M > 16) replays to the eager call's bits; the launch counter
+    advances through add_launches, once a replay."""
+    x, q, s, b = _case(cuda, M, K, N, int4, torch.bfloat16, True)
+    eager_out = K9.weight_only_linear(x, q, s, b, int4)
     static_x = x.clone()
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
-        K9.weight_only_linear(static_x, q, s, b)        # warm on the side
+        K9.weight_only_linear(static_x, q, s, b, int4)  # warm on the side
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
     n0 = K9.weight_only_linear.launches
     with kernels.recording_launches() as rec:
         with torch.cuda.graph(graph):
-            out = K9.weight_only_linear(static_x, q, s, b)
-    assert rec == {K9.weight_only_linear: 1}
+            out = K9.weight_only_linear(static_x, q, s, b, int4)
+    want = {K9.weight_only_linear: 1}
+    if M > 16:
+        want[K9.weight_only_linear_wgmma] = 1
+    assert rec == want
     assert K9.weight_only_linear.launches == n0
     for _ in range(3):
         graph.replay()
