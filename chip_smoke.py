@@ -12,9 +12,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 (ptxas -v); every K1 tile the build lists
                 (flash_attention_fwd_tiles) must be built with 0 spill
                 bytes, and so must every K9 kernel (weight_only_linear),
-                with no wgmma serialised by ptxas; K9's routes, their
-                dynamic shared memory (the wrapper's count must equal the
-                C library's) and the wgmma body's registers
+                the gemv body's gemv_cluster_kernel (8 / 16 rows, int8 /
+                int4, and its read-only form) included, with no wgmma
+                serialised by ptxas; K9's routes, their dynamic shared
+                memory (the wrapper's count must equal the C library's)
+                and the wgmma and gemv bodies' registers
 2. kernels      K9 (the int8 / int4 weight-only linear) against its plain
                 version: int8 and int4, bf16 and fp32 x, M = 1, 8, 16,
                 17, 2048, 8192 at (K, N) = (4096, 4096), (4096, 11008),
@@ -28,7 +30,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 every (K, N) but (200, 72), which TMA cannot address; the
                 wgmma body has its own entry in the kernels line
                 (weight_only_linear_wgmma, at [2048, 4096] x [11008,
-                4096], its launches counted on its own).
+                4096], its launches counted on its own). bf16 M <= 16
+                must run the gemv body in one kernel launch a call
+                (torch.profiler's count); each K9 row names its splits,
+                cluster size and kernels a call. The read ceiling of the
+                gemv body at the decode shapes, int8 and int4: its own
+                grid and loads reading the weight bytes and nothing else,
+                and a coalesced stream of the same bytes, timed as K9.
                 K3 (RMSNorm, and its gradient), K4 (ragged paged
                 attention), K5 (paged decode attention), K6 (decode
                 attention over the contiguous cache), K1 and K2 (flash
@@ -989,6 +997,7 @@ def check_weight_only(dev, results):
     from paddle_tpu_torch.nn.quant import weight_quantize
     from paddle_tpu_torch.ops.kernels import weight_only_linear as K9
 
+    one_launch = gemv_launches(dev)
     g = torch.Generator(device=dev).manual_seed(3)
     for K, N in WO_SHAPES:
         w = torch.randn(N, K, device=dev, generator=g) * 0.02
@@ -1020,8 +1029,14 @@ def check_weight_only(dev, results):
                             name="weight_only_linear", shape=[M, K, N],
                             dtype=str(dt)[6:], bits=bits, bias=bias,
                             body=ran, splits=plan.splits,
+                            cluster=K9.route_cluster(plan)[1],
+                            kernels=K9.route_kernels(plan),
                             max_abs_err=err, ref_max_abs=top,
                             rel_err=err / top if top else err, tol=TOL[dt])
+                        if dt == torch.bfloat16 and (M, K, N, bits) in \
+                                one_launch:
+                            rec["kernels_profiled"] = one_launch[
+                                M, K, N, bits]
                         if not bias:
                             nbytes = (q.nbytes + x.nbytes + s.nbytes
                                       + M * N * x.element_size())
@@ -1042,7 +1057,8 @@ def check_weight_only(dev, results):
             del qs, ls
     torch.cuda.empty_cache()
     # bf16 M > 16 must run the wgmma body wherever TMA can address the
-    # operands: every (K, N) here but the ragged (200, 72)
+    # operands: every (K, N) here but the ragged (200, 72); bf16 M <= 16
+    # the gemv body in one kernel launch (torch.profiler's count)
     for r in results:
         if r["name"] != "weight_only_linear" or r["dtype"] != "bfloat16":
             continue
@@ -1053,6 +1069,104 @@ def check_weight_only(dev, results):
             raise AssertionError(f"weight_only_linear {r['shape']} int"
                                  f"{r['bits']} ran the {r['body']} body, "
                                  f"not {want}")
+
+
+def gemv_launches(dev, calls=4):
+    """bf16 M <= 16 runs K9's gemv body in one kernel launch a call: at
+    the decode shapes (WO_SHAPES[:3]), int8 and int4, M = 1, 8 and 16,
+    ``calls`` calls on distinct x each match the plain version, and
+    torch.profiler holds ``calls`` CUDA kernel records, every one the
+    gemv body's (no split-sum pass). Taken before any timing: a profile
+    taken after the CUDA-graph timings here has come back one kernel
+    record short of the calls that ran. Returns the kernels a call by
+    (M, K, N, bits)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.nn.quant import weight_quantize
+    from paddle_tpu_torch.ops.kernels import weight_only_linear as K9
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for K, N in WO_SHAPES[:3]:
+        w = torch.randn(N, K, device=dev, generator=g) * 0.02
+        for bits in (8, 4):
+            int4 = bits == 4
+            q, s = weight_quantize(w.T, f"weight_only_int{bits}")
+            for M in (1, 8, 16):
+                xs = [torch.randn(M, K, device=dev, generator=g).to(
+                    torch.bfloat16) for _ in range(calls)]
+                K9.weight_only_linear(xs[0], q, s, None, int4)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    ys = [K9.weight_only_linear(x, q, s, None, int4)
+                          for x in xs]
+                    torch.cuda.synchronize()
+                kern = [e for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA]
+                n = sum(e.count for e in kern)
+                for x, y in zip(xs, ys):
+                    ref = K9.weight_only_linear_dense(x, q, s, None, int4)
+                    err = (y.float() - ref.float()).abs().max().item()
+                    if not err <= TOL[torch.bfloat16] * ref.float().abs() \
+                            .max().item():
+                        raise AssertionError(f"K9 gemv [{M}, {K}, {N}] int"
+                                             f"{bits}: a call is off by {err}")
+                if n != calls or not all("gemv_cluster_kernel" in e.key
+                                         for e in kern):
+                    raise AssertionError(
+                        f"K9 gemv [{M}, {K}, {N}] int{bits}: {calls} calls "
+                        f"launched {[(e.key, e.count) for e in kern]}")
+                out[M, K, N, bits] = n / calls
+    log(f"[kernels] K9 gemv: one kernel a call at the decode shapes, int8 "
+        f"and int4, M = 1, 8, 16 ({len(out)} cases, torch.profiler): OK")
+    return out
+
+
+def read_ceiling(dev):
+    """K9's GEMV against a pure read of its weight bytes at the decode
+    shapes (WO_SHAPES[:3], int8 and int4): (a) form "gemv": the gemv
+    body's grid, cluster, cp.async ring and loads at the route M = 8
+    takes, and nothing else; (b) form "stream": a coalesced stream of the
+    same bytes, one block a 32 KB piece. Timed as the K9 rows are
+    (cuda_ms, the bytes rotated through copies that together exceed the
+    L2); the bound is the bytes over 3.35 TB/s."""
+    import ctypes
+
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import weight_only_linear as K9
+
+    fn = _build.library("weight_only_linear").weight_only_read_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sink = torch.zeros(256, dtype=torch.int32, device=dev)
+    out = []
+    for K, N in WO_SHAPES[:3]:
+        for bits in (8, 4):
+            int4 = bits == 4
+            q = torch.randint(-128, 128, (N, K // 2 if int4 else K),
+                              dtype=torch.int8, device=dev)
+            qs = [q] + [q.clone() for _ in range(
+                min(15, int(120e6 // q.nbytes)))]
+            plan = K9.weight_only_route(8, N, K, int4, torch.bfloat16)
+            for form in ("gemv", "stream"):
+                qi = itertools.cycle(qs)
+
+                def call():
+                    rc = fn(next(qi).data_ptr(), sink.data_ptr(), N, K,
+                            int(int4), plan.rows, plan.splits, plan.ks,
+                            0 if form == "gemv" else 1,
+                            torch.cuda.current_stream().cuda_stream)
+                    _build.check(rc, "weight_only_read")
+                ms = cuda_ms(call)
+                b_ms = q.nbytes / HBM_BYTES_PER_S * 1e3
+                out.append(dict(name="weight_only_read", form=form,
+                                shape=[K, N], bits=bits, bytes=q.nbytes,
+                                splits=plan.splits, ms=ms, bound_ms=b_ms,
+                                tb_per_s=q.nbytes / ms / 1e9))
+            del qs
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- phases 3 and 4: serving ---------------------------------------------------
@@ -2662,7 +2776,8 @@ KERNEL_GROUPS = (("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass")),
                  ("K4/K5/K6 paged or contiguous-cache attention",
                   ("paged_attention", "tile_wgmma_kernel", "merge_splits",
                    "f32_tile_kernel")),
-                 ("K9 weight_only_linear", ("::gemv_kernel<", "::tile_kernel<",
+                 ("K9 weight_only_linear", ("::gemv_cluster_kernel<",
+                                            "::tile_kernel<",
                                             "::wgmma_kernel<",
                                             "::split_sum_kernel<")))
 
@@ -2764,11 +2879,19 @@ def check_k9_build(_build):
     wg = {fn[-40:]: r for fn, r in rep.items() if "wgmma_kernel" in fn}
     if len(wg) != 2:
         raise AssertionError(f"K9's wgmma body (int8, int4) not built: {wg}")
+    # gemv_cluster_kernel<MR, INT4, READ>: MR 8 / 16, int8 / int4, the
+    # body and its read-only form
+    gv = {fn[-40:]: r for fn, r in rep.items()
+          if "gemv_cluster_kernel" in fn}
+    if len(gv) != 8:
+        raise AssertionError(f"K9's gemv body (8 / 16 rows, int8 / int4, "
+                             f"its read form) not built: {gv}")
     c_smem = _build.library("weight_only_linear").weight_only_linear_smem
     c_smem.argtypes = [ctypes.c_int] * 4
     c_smem.restype = ctypes.c_int
     smem = {}
-    for M, dt in ((8, torch.bfloat16), (2048, torch.bfloat16),
+    for M, dt in ((8, torch.bfloat16), (16, torch.bfloat16),
+                  (2048, torch.bfloat16),
                   (8192, torch.bfloat16), (2048, torch.float32)):
         for K, N in WO_SHAPES[:4]:
             for int4 in (False, True):
@@ -2786,6 +2909,7 @@ def check_k9_build(_build):
     log(f"[build] K9 routes, dynamic shared memory and grids: "
         f"{json.dumps(smem)}")
     log(f"[build] K9 wgmma body (int8, int4): {json.dumps(wg)}")
+    log(f"[build] K9 gemv body: {json.dumps(gv)}")
     log(f"[build] every K9 kernel ({len(rep)}) built with 0 spill bytes "
         f"and no serialised wgmma: OK")
 
@@ -2893,6 +3017,8 @@ def main():
         check_flash(dev, results)
         check_flash_tiles(dev, results, k7)
         check_fused_adam(dev, results)
+        for r in read_ceiling(dev):
+            log("[kernels] read ceiling " + json.dumps(r))
         bad = []
         for r in results:
             log("[kernels] " + json.dumps(r))
@@ -3038,8 +3164,8 @@ def main():
             bound_ms=row.get("bound_ms"), bound_by=row.get("bound_by"),
             library_ms=row.get("library_ms"), shape=main_shape[name],
             dtype="bfloat16",
-            **{k: row[k] for k in ("body", "splits", "workspace_bytes")
-               if k in row}))
+            **{k: row[k] for k in ("body", "splits", "cluster", "kernels",
+                                   "workspace_bytes") if k in row}))
     kernels.append(k7_entry(k7, results,
                             by_path["train_autotune"]["measure_flash_blocks"]))
     print(json.dumps({"kernels": kernels}))

@@ -23,21 +23,18 @@
 // Four bodies, chosen by the wrapper from the shapes and the pointers'
 // alignment alone:
 //
-// gemv_kernel (bf16 x, M <= 16): a streaming pass over the weights on the
-//   tensor cores. A block of 8 warps owns 64 output columns (an n8 tile a
-//   warp) and one slice of K (split K). It stages its M x K-slice of x as
-//   bf16 in shared memory with cp.async (zeros past M and K). Each lane
-//   loads 16 bytes of one weight row per k block, a batch of 8 blocks at a
-//   time (512 contiguous bytes a row), the next batch in flight while the
-//   current one computes, and converts them exactly (the 2^23 magic number: a byte
-//   permute and a subtraction, then the high halves, no I2F) into its
-//   mma.sync m16n8k16 B fragments under a permutation of k that the A
-//   fragments read from the staged x follow. Rows past M are zeros in the
-//   16-row A tile; a weight is converted once whatever M is, so the pass
-//   stays bound by the weight bytes. Sums stay in the C fragments; the
-//   scale + bias epilogue runs there, or, with more than one K slice,
-//   split_sum_kernel adds the slices' partial sums in slice order
-//   (deterministic) and runs it.
+// gemv_cluster_kernel (bf16 x, M <= 16): a streaming pass over the weights
+//   in one launch. y^T = W x^T on mma.sync m16n8k16, the weights the A
+//   operand, converted in registers straight from the raw bytes (int8: the
+//   2^23 magic number below; int4: bf16 pairs straight from the nibbles,
+//   128 + n - 136, exact too), x staged in shared memory as B. A block of 4
+//   warps owns 128 weight rows (two 16-row tiles a warp, each its own C
+//   fragments) and one K slice; each lane keeps 5 blocks of its weights in
+//   flight through a private cp.async ring in shared memory, and the first
+//   go out before the wait on the previous kernel (programmatic dependent
+//   launch). The K slices (at most 8) of a column block run as one cluster
+//   and add their partial sums in slice order through distributed shared
+//   memory before one epilogue: no second launch, no f32 workspace.
 // wgmma_kernel (bf16 x, M > 16, rows of a multiple of 16 bytes and
 //   16-byte-aligned x and q, as TMA needs): y^T = W x^T on the tensor
 //   cores, in 128 x 256 tiles of (weight rows, x rows), K in steps of 64.
@@ -73,7 +70,8 @@
 // pointers) take element-wise loads instead of 16-byte ones (the wrapper's
 // `vec` flag); the wgmma body refuses them (cudaErrorInvalidValue: the
 // wrapper routes such shapes to the tile body). Nothing routes around the
-// kernel. The launch function returns cudaGetLastError().
+// kernel. The launch function returns cudaGetLastError() (or the launch's
+// own error: a refused cluster launch raises in the wrapper).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -132,6 +130,17 @@ __device__ __forceinline__ float4 group_f32(const uint4& v, int g) {
   }
 }
 
+// 16 bytes read once: no L1 allocation; the L2 fetches the 256 bytes
+// around them, so a row's next 16-byte pieces (other lanes, the next k
+// blocks) hit
+__device__ __forceinline__ uint4 ld_stream16(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
 // 16 bytes of row `row` of q from byte `off`; zeros past the row or N.
 // vec: rows are a multiple of 16 bytes and q is 16-byte aligned
 __device__ __forceinline__ uint4 load_q16(const int8_t* q, int row, int N,
@@ -139,14 +148,7 @@ __device__ __forceinline__ uint4 load_q16(const int8_t* q, int row, int N,
   uint4 v = make_uint4(0, 0, 0, 0);
   if (row >= N || off >= rowbytes) return v;
   const int8_t* p = q + static_cast<size_t>(row) * rowbytes + off;
-  if (vec) {
-    // read once: no L1 allocation; the L2 fetches the 256 bytes around it,
-    // so a row's next 16-byte pieces (other lanes, the next k blocks) hit
-    asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-        : "l"(p));
-    return v;
-  }
+  if (vec) return ld_stream16(p);
   uint32_t w[4] = {0, 0, 0, 0};
   for (int i = 0; i < 16 && off + i < rowbytes; ++i)
     w[i >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(p[i]))
@@ -796,32 +798,68 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t s) {
 }
 
 // -- gemv body (bf16 x, M <= 16) ---------------------------------------------
-// Tensor cores with the weights converted in registers: a lane's 16 loaded
-// bytes (16 int8 or 32 int4 weights of one row) are its B fragments of 4
-// (8) m16n8k16 steps under a permutation of k that the A fragments follow.
-// Lane (g, t) = (lane / 4, lane % 4) holds row n0 + g at k = kb + W t .. +W,
-// W = 16 (int8) or 32 (int4); in step i its fragment pairs (2t, 2t + 1)
-// and (2t + 8, 2t + 9) are k = kb + W t + 4i + {0, 1} and + {2, 3}, so it
-// reads x rows g and g + 8 at the same k. A k block is KB = 4 W: the 4
-// lanes of a row cover it. Loads go out a batch of kGemvBatch k blocks at
-// a time (512 contiguous bytes of each of the warp's 8 rows), the next
-// batch in flight while the current one computes.
-constexpr int kGemvWarps = 8;
-constexpr int kGemvThreads = 32 * kGemvWarps;
-constexpr int kGemvCols = kGemvWarps * 8;   // one n8 tile a warp
-constexpr int kGemvBatch = 8;               // k blocks a batch
+// The product runs transposed, y^T = W x^T, on mma.sync m16n8k16: 16 weight
+// rows are the A operand and the x rows B's n8 (rows 9 .. 16 a second n8
+// tile that reuses each A fragment), so no half of a product is empty and a
+// staged x value is read once per 16 weight rows.
+//
+// A CTA of kGvWarps warps owns kGvCols weight rows (kGvTiles 16-row tiles a
+// warp, each with its own C fragments) and one K slice. A k block is
+// kGvBlockBytes weight bytes a row (64 int8 or 128 int4 weights): lane (g,
+// t) = (lane / 4, lane % 4) takes bytes 16 t .. 16 t + 15 of the block of
+// rows g and g + 8 of each tile and converts them exactly into its A
+// fragments under a permutation of k that its B fragments, 16-byte reads of
+// the x slice staged in shared memory, follow (gemv_block).
+//
+// Bytes in flight: each lane copies its own pieces with cp.async (read
+// once: L2 only, the L2 fetching the 256 bytes around) into a private ring
+// of kGvStages blocks in shared memory, kGvStages - 1 blocks ahead of the
+// one it converts, so the depth costs no registers and no barrier. x is
+// staged in windows of at most kGvXBytes (one window at the decode shapes).
+// The first blocks go out before griddepcontrol.wait: launched with
+// programmatic stream serialisation, a call's weight reads overlap the
+// tail of the kernel before it; x and the outputs wait for that kernel.
+//
+// The K slices of a column block run as one thread-block cluster (cluster
+// dimension = splits along y, at most kGvMaxSplits). Each CTA leaves its
+// partial sums in its own shared memory; after a cluster barrier, the CTA of
+// rank c sums each column's slices in slice order (rank 0, 1, ...) through
+// distributed shared memory for rows m = c, c + splits, ..., and runs the
+// epilogue once: one launch a call, no f32 workspace, and the order
+// split_sum_kernel used, so the sum is deterministic.
+constexpr int kGvWarps = 4;
+constexpr int kGvThreads = 32 * kGvWarps;
+constexpr int kGvMinBlocks = 512 / kGvThreads;     // CTAs an SM (registers)
+constexpr int kGvTiles = 2;                        // 16-row tiles a warp
+constexpr int kGvCols = 16 * kGvTiles * kGvWarps;  // weight rows a CTA
+constexpr int kGvPieces = 2 * kGvTiles;            // 16-byte pieces a lane
+constexpr int kGvStages = 6;                       // k blocks in flight a lane
+constexpr int kGvBlockBytes = 64;                  // a k block: bytes a row
+constexpr int kGvRingBytes = kGvStages * kGvPieces * kGvThreads * 16;
+constexpr int kGvXBytes = 48 * 1024;               // staged x a window, max
+constexpr int kGvMaxSplits = 8;                    // portable cluster size
+constexpr int kGvPartPitch = kGvCols + 4;          // floats a row of partials
 
 template <bool INT4>
-struct GemvPack {
-  static constexpr int W = INT4 ? 32 : 16;   // weights a lane a k block
-  static constexpr int KB = 4 * W;           // k a block covers
-  static constexpr int STEPS = W / 4;        // mma steps a k block
+struct Gv {
+  static constexpr int KB = INT4 ? 128 : 64;  // k a block
 };
 
-// bf16 pitch of a staged x row: ks + 8, so consecutive rows start 16 bytes
-// apart modulo 128 and a quarter warp's 16-byte reads of rows g, g + 1 hit
-// distinct banks
-__device__ __forceinline__ int gemv_pitch(int ks) { return ks + 8; }
+// k blocks of x a window stages: the slice's, or as many as kGvXBytes holds
+__host__ __device__ __forceinline__ int gemv_window(int mr, int ks, int kb) {
+  const int cap = kGvXBytes / (mr * kb * 2);
+  return ks / kb < cap ? ks / kb : cap;
+}
+
+// dynamic shared memory: the ring, then the staged x window (bf16, a pitch
+// of 8 more), whose room takes the partial sums [mr][kGvPartPitch] f32
+// after the last product; the read form needs the ring alone
+inline int gemv_smem(int mr, int ks, bool int4, bool read) {
+  const int kb = int4 ? Gv<true>::KB : Gv<false>::KB;
+  const int xb = mr * (gemv_window(mr, ks, kb) * kb + 8) * 2;
+  const int pb = mr * kGvPartPitch * 4;
+  return kGvRingBytes + (read ? 0 : xb > pb ? xb : pb);
+}
 
 // 16-byte chunk p of a staged row lies at chunk p ^ swz(p): with int4 a lane
 // reads chunks 4t .. 4t + 3 of a 128-k block, and t >= 2 would otherwise
@@ -831,169 +869,345 @@ __device__ __forceinline__ int gemv_chunk(int p) {
   return INT4 ? p ^ (((p >> 3) & 1) << 1) : p;
 }
 
-// the weights of k blocks b * kGemvBatch .. + kGemvBatch of row n (zeros
-// past the slice)
-template <bool INT4>
-__device__ __forceinline__ void gemv_load(uint4 (&w)[kGemvBatch],
-                                          const Args& a, int n, int k0,
-                                          int t, int b, int nkb) {
-  using P = GemvPack<INT4>;
-  const int rowbytes = INT4 ? a.K / 2 : a.K;
-#pragma unroll
-  for (int d = 0; d < kGemvBatch; ++d) {
-    const int kb = b * kGemvBatch + d;
-    const int k = k0 + kb * P::KB + P::W * t;
-    w[d] = kb < nkb ? load_q16(a.q, n, a.N, INT4 ? k / 2 : k, rowbytes,
-                               a.vec)
-                    : make_uint4(0, 0, 0, 0);
-  }
+__device__ __forceinline__ void cp_async16_stream(void* dst, const void* src,
+                                                  bool ok) {
+  // read once (L2 only); the L2 fetches the 256 bytes around it
+  asm volatile(
+      "cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(ok ? 16 : 0)
+      : "memory");
 }
 
-template <int MR, bool INT4>
-__device__ __forceinline__ void gemv_batch(float (&acc)[4],
-                                           const uint4 (&w)[kGemvBatch],
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// the low nibbles of bytes 0 and 2 of u (signed 4-bit) as bf16 pairs, exact:
+// 128 + (s ^ 8) - 136
+__device__ __forceinline__ uint32_t pair_s4(uint32_t u) {
+  return fma_bf16x2((u & 0x000F000Fu) ^ 0x43084308u, 0x3F803F80u,
+                    0xC308C308u);
+}
+
+// one k block of a warp: w holds rows g and g + 8 of each tile, bl is the
+// block's index in the staged window. int8: step i takes the lane's weights
+// at lane-local k 4i .. 4i + 3 (group_f32) as the pairs (2t, 2t + 1), (2t +
+// 8, 2t + 9). int4: each word of 8 nibbles (k 8h .. 8h + 7) makes two steps
+// of bf16 pairs straight from the nibbles, (0, 4), (1, 5) then (2, 6), (3,
+// 7), and the x pairs are permuted to match
+template <int NT, bool INT4>
+__device__ __forceinline__ void gemv_block(float (&acc)[kGvTiles][NT][4],
+                                           const uint4 (&w)[kGvTiles][2],
                                            const bf16* xs, int pitch, int g,
-                                           int t, int b, int nkb) {
-  using P = GemvPack<INT4>;
+                                           int t, int bl) {
+  constexpr int KB = Gv<INT4>::KB;
 #pragma unroll
-  for (int d = 0; d < kGemvBatch; ++d) {
-    const int kb = b * kGemvBatch + d;
-    if (kb >= nkb) break;
-    // A: this lane's W values of rows g and g + 8 (16-byte reads)
-    uint32_t xa[2][P::W / 2];
+  for (int hs = 0; hs < KB / 32; ++hs) {  // a 16-byte chunk of x
+    const int c = gemv_chunk<INT4>(bl * (KB / 8) + (KB / 32) * t + hs);
+    uint4 xv[NT];
 #pragma unroll
-    for (int h = 0; h < P::W / 8; ++h) {
-      const int c = gemv_chunk<INT4>(kb * (P::KB / 8) + (P::W / 8) * t + h);
-      const uint4 lo = *reinterpret_cast<const uint4*>(xs + g * pitch + 8 * c);
-      uint4 hi = make_uint4(0, 0, 0, 0);
-      if constexpr (MR > 8)
-        hi = *reinterpret_cast<const uint4*>(xs + (g + 8) * pitch + 8 * c);
-      xa[0][4 * h] = lo.x;
-      xa[0][4 * h + 1] = lo.y;
-      xa[0][4 * h + 2] = lo.z;
-      xa[0][4 * h + 3] = lo.w;
-      xa[1][4 * h] = hi.x;
-      xa[1][4 * h + 1] = hi.y;
-      xa[1][4 * h + 2] = hi.z;
-      xa[1][4 * h + 3] = hi.w;
-    }
+    for (int j = 0; j < NT; ++j)
+      xv[j] = *reinterpret_cast<const uint4*>(xs + (g + 8 * j) * pitch +
+                                              8 * c);
 #pragma unroll
-    for (int i = 0; i < P::STEPS; ++i) {
-      const float4 f = group_f32<INT4>(w[d], i);
-      const uint32_t af[4] = {xa[0][2 * i], xa[1][2 * i], xa[0][2 * i + 1],
-                              xa[1][2 * i + 1]};
-      mma_bf16(acc, af, pack_hi(f.x, f.y), pack_hi(f.z, f.w));
+    for (int e = 0; e < 2; ++e) {
+      if constexpr (INT4) {
+        uint32_t b0[NT], b1[NT];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint32_t x0 = e ? xv[j].y : xv[j].x;
+          const uint32_t x1 = e ? xv[j].w : xv[j].z;
+          b0[j] = __byte_perm(x0, x1, 0x5410);
+          b1[j] = __byte_perm(x0, x1, 0x7632);
+        }
+#pragma unroll
+        for (int r = 0; r < kGvTiles; ++r) {
+          const uint32_t u0 = word(w[r][0], hs) >> (8 * e);
+          const uint32_t u1 = word(w[r][1], hs) >> (8 * e);
+          const uint32_t af[4] = {pair_s4(u0), pair_s4(u1), pair_s4(u0 >> 4),
+                                  pair_s4(u1 >> 4)};
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_bf16(acc[r][j], af, b0[j], b1[j]);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < kGvTiles; ++r) {
+          const float4 f0 = group_f32<INT4>(w[r][0], 2 * hs + e);
+          const float4 f1 = group_f32<INT4>(w[r][1], 2 * hs + e);
+          const uint32_t af[4] = {pack_hi(f0.x, f0.y), pack_hi(f1.x, f1.y),
+                                  pack_hi(f0.z, f0.w), pack_hi(f1.z, f1.w)};
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            mma_bf16(acc[r][j], af, e ? xv[j].z : xv[j].x,
+                     e ? xv[j].w : xv[j].y);
+        }
+      }
     }
   }
 }
 
-template <int MR, bool INT4>
-__global__ void __launch_bounds__(kGemvThreads) gemv_kernel(const Args a) {
-  using P = GemvPack<INT4>;
-  extern __shared__ __align__(16) unsigned char gemv_smem[];
-  bf16* xs = reinterpret_cast<bf16*>(gemv_smem);   // [MR][ks + 8]
-  const bf16* x = static_cast<const bf16*>(a.x);
+// READ: the same grid, cluster and weight loads and nothing else
+// (chip_smoke.py's read ceiling): the loaded words are XOR-ed into a sum
+// kept live by a store that never happens in practice
+template <int MR, bool INT4, bool READ>
+__global__ void __launch_bounds__(kGvThreads, kGvMinBlocks)
+    gemv_cluster_kernel(const Args a) {
+  constexpr int KB = Gv<INT4>::KB;
+  constexpr int NT = MR / 8;
+  extern __shared__ __align__(16) unsigned char gv_smem[];
+  // [stage][piece][thread]: a lane's pieces are its own, so its cp.async
+  // groups alone order them (no barrier)
+  uint4* ring = reinterpret_cast<uint4*>(gv_smem) + threadIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int k0 = blockIdx.y * a.ks;
   const int nk = min(a.ks, a.K - k0);
-  const int nkb = (nk + P::KB - 1) / P::KB;
-  const int nbatch = (nkb + kGemvBatch - 1) / kGemvBatch;
-  const int pitch = gemv_pitch(a.ks);
-  const int n0 = blockIdx.x * kGemvCols + warp * 8;
+  const int nkb = (nk + KB - 1) / KB;
+  const int rowbytes = INT4 ? a.K / 2 : a.K;
+  const int n0 = blockIdx.x * kGvCols;
+  const int row = n0 + warp * 16 * kGvTiles + g;  // tile r: row + 16 r (+ 8)
+  const int boff = (INT4 ? k0 / 2 : k0) + 16 * t;  // this lane's byte, block 0
+  const bool vec = a.vec;
 
-  // the first batch of weights is in flight while x is staged
-  uint4 wa[kGemvBatch], wb[kGemvBatch];
-  gemv_load<INT4>(wa, a, n0 + g, k0, t, 0, nkb);
-
-  // stage x rows 0 .. MR - 1, k0 .. k0 + nkb * KB (zeros past M and K)
-  const int chunks = nkb * P::KB / 8;
-  for (int i = threadIdx.x; i < MR * chunks; i += kGemvThreads) {
-    const int r = i / chunks, c = i - r * chunks;
-    const int k = k0 + 8 * c;
-    bf16* dst = xs + r * pitch + 8 * gemv_chunk<INT4>(c);
-    if (a.vec) {
-      const bool ok = r < a.M && 8 * c < nk;
-      cp_async16(dst, ok ? x + static_cast<size_t>(r) * a.K + k : x, ok);
-    } else {
-      for (int e = 0; e < 8; ++e)
-        dst[e] = (r < a.M && 8 * c + e < nk)
-                     ? x[static_cast<size_t>(r) * a.K + k + e]
-                     : __float2bfloat16(0.f);
+  // block b's pieces into its ring slot, one cp.async group (zeros past
+  // the slice, K and N; element by element without vec)
+  auto issue = [&](int b) {
+    if (b < nkb) {
+      uint4* slot = ring + (b % kGvStages) * kGvPieces * kGvThreads;
+      const int off = boff + kGvBlockBytes * b;
+#pragma unroll
+      for (int p = 0; p < kGvPieces; ++p) {
+        const int rn = row + 16 * (p >> 1) + 8 * (p & 1);
+        if (vec) {
+          const bool ok = rn < a.N && off < rowbytes;
+          cp_async16_stream(slot + p * kGvThreads,
+                            ok ? a.q + static_cast<size_t>(rn) * rowbytes + off
+                               : a.q,
+                            ok);
+        } else {
+          slot[p * kGvThreads] = load_q16(a.q, rn, a.N, off, rowbytes, false);
+        }
+      }
     }
+    cp_async_commit();
+  };
+  auto fetch = [&](uint4(&w)[kGvTiles][2], int b) {
+    const uint4* slot = ring + (b % kGvStages) * kGvPieces * kGvThreads;
+#pragma unroll
+    for (int p = 0; p < kGvPieces; ++p)
+      w[p >> 1][p & 1] = slot[p * kGvThreads];
+  };
+
+  if constexpr (READ) {
+    for (int s = 0; s < kGvStages - 1; ++s) issue(s);
+    uint32_t sum = 0;
+    for (int b = 0; b < nkb; ++b) {
+      cp_async_wait<kGvStages - 2>();
+      uint4 w[kGvTiles][2];
+      fetch(w, b);
+      issue(b + kGvStages - 1);
+#pragma unroll
+      for (int r = 0; r < kGvTiles; ++r)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          sum ^= w[r][h].x ^ w[r][h].y ^ w[r][h].z ^ w[r][h].w;
+    }
+    if (sum == 0x9E3779B9u) static_cast<uint32_t*>(a.out)[threadIdx.x] = sum;
+    return;
   }
-  cp_async_commit();
+
+  const int wk = gemv_window(MR, a.ks, KB);  // k blocks a window
+  const int pitch = wk * KB + 8;
+  bf16* xs = reinterpret_cast<bf16*>(gv_smem + kGvRingBytes);
+  float* part = reinterpret_cast<float*>(xs);  // after the last product
+  const bf16* x = static_cast<const bf16*>(a.x);
+  // x rows 0 .. MR - 1 of the window's k blocks wb .. wb + wk (zeros past
+  // M and the slice), one cp.async group
+  auto stage = [&](int wb) {
+    const int chunks = wk * (KB / 8);
+    for (int i = threadIdx.x; i < MR * chunks; i += kGvThreads) {
+      const int r = i / chunks, c = i - r * chunks;
+      const int kk = wb * KB + 8 * c;  // k inside the slice
+      const size_t src = static_cast<size_t>(r) * a.K + k0 + kk;
+      bf16* dst = xs + r * pitch + 8 * gemv_chunk<INT4>(c);
+      if (vec) {
+        const bool ok = r < a.M && kk < nk;
+        cp_async16(dst, ok ? x + src : x, ok);
+      } else {
+        for (int e = 0; e < 8; ++e)
+          dst[e] = (r < a.M && kk + e < nk) ? x[src + e]
+                                            : __float2bfloat16(0.f);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the weights read nothing an earlier kernel of the stream writes: the
+  // first kGvStages - 1 blocks go out before the wait on that kernel
+  // (programmatic dependent launch), then the next kernel may start;
+  // x and the outputs only after the wait
+  for (int s = 0; s < kGvStages - 1; ++s) issue(s);
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  stage(0);
   cp_async_wait<0>();
   __syncthreads();
 
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int b = 0; b < nbatch; b += 2) {
-    if (b + 1 < nbatch) gemv_load<INT4>(wb, a, n0 + g, k0, t, b + 1, nkb);
-    gemv_batch<MR, INT4>(acc, wa, xs, pitch, g, t, b, nkb);
-    if (b + 1 < nbatch) {
-      if (b + 2 < nbatch) gemv_load<INT4>(wa, a, n0 + g, k0, t, b + 2, nkb);
-      gemv_batch<MR, INT4>(acc, wb, xs, pitch, g, t, b + 1, nkb);
-    }
-  }
-
-  // C fragment: rows g and g + 8, columns 2t and 2t + 1 of the n8 tile
+  float acc[kGvTiles][NT][4];
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int r = g + 8 * (e >> 1);
-    const int n = n0 + 2 * t + (e & 1);
-    if (r >= a.M || n >= a.N) continue;
-    const size_t o = static_cast<size_t>(r) * a.N + n;
-    if (a.splits > 1)
-      a.work[static_cast<size_t>(blockIdx.y) * a.M * a.N + o] = acc[e];
-    else
-      store(static_cast<bf16*>(a.out) + o,
-            epilogue(acc[e], a.scale, a.bias, a.bias_code, n));
+  for (int r = 0; r < kGvTiles; ++r)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][j][e] = 0.f;
+  int wb = 0;
+  for (int b = 0; b < nkb; ++b) {
+    if (b == wb + wk) {  // the next x window (long K only)
+      cp_async_wait<0>();
+      __syncthreads();  // every warp is done with the last window
+      wb = b;
+      stage(wb);
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    uint4 w[kGvTiles][2];
+    fetch(w, b);
+    issue(b + kGvStages - 1);
+    gemv_block<NT, INT4>(acc, w, xs, pitch, g, t, b - wb);
+    cp_async_wait<kGvStages - 2>();  // block b + 1 has landed
   }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with x: its room takes the sums
+
+  // C fragment (r, j): weight rows 16 r + g (+ 8), x rows 8 j + 2 t (+ 1)
+#pragma unroll
+  for (int r = 0; r < kGvTiles; ++r)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        part[(8 * j + 2 * t + (e & 1)) * kGvPartPitch + warp * 16 * kGvTiles +
+             16 * r + g + 8 * (e >> 1)] = acc[r][j][e];
+  hopper::cluster_sync();
+  // this CTA's share of the outputs: rows m = rank, rank + splits, ... of
+  // every column; each sum's slices loaded first, then added in order
+  const int rank = static_cast<int>(hopper::cluster_rank());
+  const int mine = rank < a.M ? (a.M - rank + a.splits - 1) / a.splits : 0;
+  for (int i = threadIdx.x; i < mine * kGvCols; i += kGvThreads) {
+    const int m = rank + a.splits * (i / kGvCols), col = i % kGvCols;
+    const int n = n0 + col;
+    if (n >= a.N) continue;
+    const float* p = part + m * kGvPartPitch + col;
+    float v[kGvMaxSplits];
+#pragma unroll
+    for (int c = 0; c < kGvMaxSplits; ++c)
+      v[c] = c < a.splits ? hopper::ld_cluster(p, c) : 0.f;
+    float sum = v[0];
+#pragma unroll
+    for (int c = 1; c < kGvMaxSplits; ++c)
+      if (c < a.splits) sum += v[c];
+    store(static_cast<bf16*>(a.out) + static_cast<size_t>(m) * a.N + n,
+          epilogue(sum, a.scale, a.bias, a.bias_code, n));
+  }
+  hopper::cluster_sync();  // no CTA leaves while another reads its sums
 }
 
-template <int MR, bool INT4>
+template <int MR, bool INT4, bool READ>
 cudaError_t launch_gemv_mr(const Args& a, cudaStream_t s) {
-  const int smem = MR * (a.ks + 8) * 2;
+  const int smem = gemv_smem(MR, a.ks, INT4, READ);
+  void (*kern)(const Args) = gemv_cluster_kernel<MR, INT4, READ>;
   cudaError_t e = cudaFuncSetAttribute(
-      gemv_kernel<MR, INT4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((a.N + kGemvCols - 1) / kGemvCols, a.splits);
-  gemv_kernel<MR, INT4><<<grid, kGemvThreads, smem, s>>>(a);
-  if (a.splits > 1) {
-    const size_t mn = static_cast<size_t>(a.M) * a.N;
-    split_sum_kernel<bf16><<<static_cast<unsigned>((mn + 255) / 256), 256,
-                             0, s>>>(a);
-  }
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = a.splits;
+  attr[0].val.clusterDim.z = 1;
+  // programmatic dependent launch: the blocks may start while the kernel
+  // before them finishes; they wait for it before touching x and out
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.N + kGvCols - 1) / kGvCols, a.splits, 1);
+  cfg.blockDim = dim3(kGvThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = READ ? 1 : 2;
+  e = cudaLaunchKernelEx(&cfg, kern, a);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <bool INT4>
+template <bool INT4, bool READ = false>
 cudaError_t launch_gemv(const Args& a, int mr, cudaStream_t s) {
-  if (mr == 8) return launch_gemv_mr<8, INT4>(a, s);
-  if (mr == 16) return launch_gemv_mr<16, INT4>(a, s);
+  if (mr == 8) return launch_gemv_mr<8, INT4, READ>(a, s);
+  if (mr == 16) return launch_gemv_mr<16, INT4, READ>(a, s);
   return cudaErrorInvalidValue;
+}
+
+// -- read ceiling (chip_smoke.py): a coalesced stream of the same bytes ----
+// Consecutive threads read consecutive 16 bytes; a block reads
+// kStreamUnroll pieces of kStreamThreads * 16 bytes, all in flight at once.
+constexpr int kStreamThreads = 256;
+constexpr int kStreamUnroll = 8;
+
+__global__ void __launch_bounds__(kStreamThreads)
+    read_stream_kernel(const int8_t* q, size_t chunks, uint32_t* sink) {
+  const size_t base = static_cast<size_t>(blockIdx.x) * kStreamThreads *
+                          kStreamUnroll + threadIdx.x;
+  uint4 v[kStreamUnroll];
+#pragma unroll
+  for (int u = 0; u < kStreamUnroll; ++u) {
+    const size_t i = base + static_cast<size_t>(u) * kStreamThreads;
+    v[u] = i < chunks ? ld_stream16(q + 16 * i) : make_uint4(0, 0, 0, 0);
+  }
+  uint32_t sum = 0;
+#pragma unroll
+  for (int u = 0; u < kStreamUnroll; ++u)
+    sum ^= v[u].x ^ v[u].y ^ v[u].z ^ v[u].w;
+  if (sum == 0x9E3779B9u) sink[threadIdx.x] = sum;
 }
 
 }  // namespace
 
 // dynamic shared memory of a launch (bytes): the fma body's staged f32 x,
 // the tile body's ring and converted weight tile, the gemv body's staged
-// bf16 x, the wgmma body's ring, converted tiles and barriers
+// bf16 x window and partial sums, the wgmma body's ring and barriers
 extern "C" int weight_only_linear_smem(int body, int mr, int ks, int int4) {
   if (body == 1) return int4 ? Tile<true>::smem : Tile<false>::smem;
   if (body == 3) return int4 ? Wg<true>::smem : Wg<false>::smem;
-  if (body == 2) return mr * (ks + 8) * 2;
+  if (body == 2) return gemv_smem(mr, ks, int4, false);
   return int4 ? mr * (ks / Pack<true>::W) * Pack<true>::LP * 4
               : mr * (ks / Pack<false>::W) * Pack<false>::LP * 4;
 }
 
+namespace {
+// K slices a split body (fma 0, gemv 2) refuses: ks not a whole number of
+// its steps, slices that do not cover K exactly once, a gemv cluster over
+// kGvMaxSplits
+bool bad_slices(int body, int K, int int4, int splits, int ks) {
+  const int step = body == 2 ? (int4 ? Gv<true>::KB : Gv<false>::KB)
+                             : (int4 ? Pack<true>::STEP : Pack<false>::STEP);
+  return ks <= 0 || ks % step || splits < 1 ||
+         static_cast<long long>(splits) * ks < K ||
+         static_cast<long long>(splits - 1) * ks >= K ||
+         (body == 2 && splits > kGvMaxSplits);
+}
+}  // namespace
+
 // body: 0 fma (f32 x; mr rows a block: 1, 4, 8 or 16; `splits` slices of
 // `ks` k each, ks a multiple of the step, 512 int8 / 1024 int4), 1 tile
-// (bf16 x, M > 16), 2 gemv (bf16 x, M <= mr, mr 8 or 16; ks a multiple of
-// 64 int8 / 128 int4), 3 wgmma (bf16 x, M > 16, K a multiple of 16 int8 /
-// 32 int4, x and q 16-byte aligned). dtype: 0 f32, 1 bf16 (x and out). bias_code: -1
-// none, 0 f32, 1 bf16. work: f32 [splits, M, N] when splits > 1.
+// (bf16 x, M > 16), 2 gemv (bf16 x, M <= mr, mr 8 or 16; at most 8 slices
+// of a multiple of 64 int8 / 128 int4 k, one cluster), 3 wgmma (bf16 x, M >
+// 16, K a multiple of 16 int8 / 32 int4, x and q 16-byte aligned). dtype: 0
+// f32, 1 bf16 (x and out). bias_code: -1 none, 0 f32, 1 bf16. work: f32
+// [splits, M, N] when the fma body has splits > 1 (no other body takes it).
 extern "C" int weight_only_linear_launch(
     const void* x, const void* q, const void* scale, const void* bias,
     void* out, void* work, int M, int N, int K, int int4, int dtype,
@@ -1012,14 +1226,9 @@ extern "C" int weight_only_linear_launch(
     return static_cast<int>(int4 ? launch_tile<true>(a, s)
                                  : launch_tile<false>(a, s));
   }
-  const int step = body == 2 ? (int4 ? GemvPack<true>::KB
-                                     : GemvPack<false>::KB)
-                             : (int4 ? Pack<true>::STEP : Pack<false>::STEP);
-  if ((body != 0 && body != 2) || dtype != (body == 2 ? 1 : 0) || ks <= 0 ||
-      ks % step || splits < 1 ||
-      static_cast<long long>(splits) * ks < K ||
-      static_cast<long long>(splits - 1) * ks >= K ||
-      (body == 2 && M > mr) || (splits > 1 && work == nullptr))
+  if ((body != 0 && body != 2) || dtype != (body == 2 ? 1 : 0) ||
+      bad_slices(body, K, int4, splits, ks) || (body == 2 && M > mr) ||
+      (body == 0 && splits > 1 && work == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (body == 2)
@@ -1027,4 +1236,33 @@ extern "C" int weight_only_linear_launch(
   else
     e = int4 ? launch_fma<true>(a, mr, s) : launch_fma<false>(a, mr, s);
   return static_cast<int>(e);
+}
+
+// The read ceiling chip_smoke.py measures the gemv body against: the
+// weight bytes of q [N, K] (int8, or int4 packed [N, K / 2]; 16-byte rows
+// and base) read and nothing else. form 0: the gemv body's grid, cluster
+// and loads at the slices (mr, splits, ks) it would take; form 1: a
+// coalesced stream of the same bytes, a block a 32 KB piece. sink: 256
+// uint32, written only if an XOR of the bytes hits a constant.
+extern "C" int weight_only_read_launch(const void* q, void* sink, int N,
+                                       int K, int int4, int mr, int splits,
+                                       int ks, int form, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rowbytes = int4 ? K / 2 : K;
+  if (N <= 0 || rowbytes % 16 || reinterpret_cast<uintptr_t>(q) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (form == 1) {
+    const size_t chunks = static_cast<size_t>(N) * rowbytes / 16;
+    const size_t per = static_cast<size_t>(kStreamThreads) * kStreamUnroll;
+    read_stream_kernel<<<static_cast<unsigned>((chunks + per - 1) / per),
+                         kStreamThreads, 0, s>>>(
+        static_cast<const int8_t*>(q), chunks, static_cast<uint32_t*>(sink));
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (form != 0 || bad_slices(2, K, int4, splits, ks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{nullptr, static_cast<const int8_t*>(q), nullptr, nullptr, sink,
+         nullptr, mr, N, K, -1, splits, ks, 1};
+  return static_cast<int>(int4 ? launch_gemv<true, true>(a, mr, s)
+                               : launch_gemv<false, true>(a, mr, s));
 }

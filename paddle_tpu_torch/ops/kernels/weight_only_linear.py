@@ -15,27 +15,31 @@ CUDA tensors it launches the kernels of ``csrc/weight_only_linear.cu``
 bytes and never write a dequantized copy; on CPU tensors it runs
 ``weight_only_linear_dense``, the plain version. ``weight_only_route``
 says which body a launch takes: ``gemv`` (bf16 ``x``, M <= 16: a
-streaming pass over the weights, converted in registers into mma.sync
-fragments), ``wgmma`` (bf16 ``x``, M > 16: TMA brings x and the weight
-bytes into a ring in shared memory, and the product runs transposed on
-wgmma with the weights, converted straight into registers, as its A
-operand while the previous step's wgmma runs), ``tile``
-(bf16 ``x``, M > 16 where TMA cannot address the operands: K not a
-multiple of 16 bytes of weights a row, or a pointer not 16-byte
-aligned; mma.sync over weight tiles converted in shared memory) or
-``fma`` (f32 ``x`` at any M, 16 rows a block: f32 FMAs, no TF32, so the
-card's fp32 runs match the CPU's). ``gemv`` and ``fma`` split K where
-the columns alone would not fill the card, and add the slices' sums in
-slice order. The wrapper allocates with ``torch.empty`` only, launches
-on the current stream, chooses its route from the shapes and the
-pointers' alignment and never synchronises, so a CUDA graph captures it
-whole. ``weight_only_linear_wgmma.launches`` counts the launches that
-took the ``wgmma`` body (beside the wrapper's own count of all).
+streaming pass over the weights in one launch, the weights converted in
+registers into mma.sync A fragments against x as B; up to 8 K slices run
+as one thread-block cluster and add their sums in slice order through
+distributed shared memory; launched with programmatic dependent launch, so
+its first weight reads overlap the previous kernel's tail), ``wgmma``
+(bf16 ``x``, M > 16: TMA brings x and the weight bytes into a ring in
+shared memory, and the product runs transposed on wgmma with the weights,
+converted straight into registers, as its A operand while the previous
+step's wgmma runs), ``tile`` (bf16 ``x``, M > 16 where TMA cannot address
+the operands: K not a multiple of 16 bytes of weights a row, or a pointer
+not 16-byte aligned; mma.sync over weight tiles converted in shared
+memory) or ``fma`` (f32 ``x`` at any M, 16 rows a block: f32 FMAs, no
+TF32, so the card's fp32 runs match the CPU's; where it splits K a second
+kernel adds the slices' sums in slice order). The wrapper allocates with
+``torch.empty`` only, launches on the current stream, chooses its route
+from the shapes and the pointers' alignment and never synchronises, so a
+CUDA graph captures it whole. ``weight_only_linear_wgmma.launches``
+counts the launches that took the ``wgmma`` body (beside the wrapper's
+own count of all).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -43,14 +47,25 @@ import torch
 from . import (_build, counted, dtype_code, ptr, route, stream,
                want_contiguous)
 
-__all__ = ["WeightOnlyRoute", "route_grid", "route_smem", "unpack_int4",
+__all__ = ["WeightOnlyRoute", "route_cluster", "route_grid", "route_kernels",
+           "route_smem", "unpack_int4",
            "weight_only_linear", "weight_only_linear_dense",
            "weight_only_linear_wgmma", "weight_only_route"]
 
 _SMS = 132               # H100 SXM
-_SMEM_CAP = 96 * 1024    # bytes of staged x a gemv / fma block may hold
+_SMEM_CAP = 96 * 1024    # bytes of staged x an fma block may hold
 _FMA_ROWS = (1, 4, 8, 16)    # rows a block (csrc launch_fma)
-_GEMV_BATCH = 8          # k blocks a gemv warp loads at once (kGemvBatch)
+_SM_SMEM = 228 * 1024    # shared memory an SM holds (1 KB of it a block's)
+_GV_COLS = 128           # gemv: weight rows (output columns) a block
+_GV_SPLITS = 8           # gemv: K slices, one cluster, at most
+_GV_PER_SM = 4           # gemv: blocks an SM holds at most (registers)
+_GV_PACK = 0.9           # gemv: share of the SMs' block slots the clusters
+                         # fill (a cluster's blocks share one GPC)
+_GV_FIXED = 8            # gemv: a block's cost beyond its k blocks, in k
+                         # blocks (the first loads, x, the cluster sum)
+_GV_RING = 6 * 4 * 128 * 16  # gemv: the cp.async ring, 6 k blocks of 4
+                         # 16-byte pieces a thread (kGvRingBytes)
+_GV_X_BYTES = 48 * 1024  # gemv: staged x a window at most (kGvXBytes)
 _BODIES = {"fma": 0, "tile": 1, "gemv": 2, "wgmma": 3}
 _TILE = 128              # tile: rows and columns a block; wgmma: columns
 _WG_ROWS = 256           # wgmma: rows a block
@@ -102,27 +117,27 @@ def weight_only_route(M: int, N: int, K: int, int4: bool,
             if aligned and K % w == 0:
                 return WeightOnlyRoute("wgmma", _WG_ROWS, 1, K)
             return WeightOnlyRoute("tile", _TILE, 1, K)
-        # 64 columns a block, a k block of 4 w; x staged as bf16, a pitch
-        # of ks + 8. Two blocks an SM are resident (256 threads at ~100
-        # registers), and a block takes about its k blocks plus a batch
-        # (staging x, the epilogue): take the split count with the least
-        # waves x that, so the last wave is not a sliver (fewest splits
-        # on a tie)
+        # 128 columns a block, a k block of 64 weight bytes a row, K cut
+        # into at most 8 slices that run as one cluster. A launch takes
+        # its waves (blocks over the slots its shared memory leaves) times
+        # a block's k blocks plus a fixed cost; take the split count with
+        # the least (the most splits on a tie; PERF.md §6 has the sweep)
         mr = 8 if M <= 8 else 16
-        step = 4 * w
-        steps = -(-K // step)
-        cols = -(-N // 64)
-        max_steps = max(1, (_SMEM_CAP // (2 * mr) - 8) // step)
+        kb = 4 * w                          # 64 int8 / 128 int4 weights
+        steps = -(-K // kb)
+        cols = -(-N // _GV_COLS)
         best = None
-        for want in range(1, steps + 1):
+        for want in range(1, min(_GV_SPLITS, steps) + 1):
             per = -(-steps // want)
-            if per > max_steps:
-                continue
-            splits = -(-steps // per)
-            cost = -(-cols * splits // (2 * _SMS)) * (per + _GEMV_BATCH)
-            if best is None or cost < best[0]:
-                best = (cost, splits, per)
-        return WeightOnlyRoute("gemv", mr, best[1], best[2] * step)
+            plan = WeightOnlyRoute("gemv", mr, -(-steps // per), per * kb)
+            per_sm = min(_GV_PER_SM,
+                         _SM_SMEM // (route_smem(plan, int4) + 1024))
+            waves = math.ceil(cols * plan.splits
+                              / (_GV_PACK * _SMS * per_sm))
+            cost = waves * (per + _GV_FIXED)
+            if best is None or cost <= best[0]:
+                best = (cost, plan)
+        return best[1]
     else:
         # 4 warps of 4 or 8 columns, steps of 32 w; x staged as f32 with 4
         # floats of padding a lane chunk
@@ -155,8 +170,11 @@ def route_smem(plan: WeightOnlyRoute, int4: bool) -> int:
     qb = _BK // 2 if int4 else _BK        # weight bytes a row a k step
     if plan.body == "fma":
         return plan.rows * (plan.ks // w) * (w + 4) * 4
-    if plan.body == "gemv":
-        return plan.rows * (plan.ks + 8) * 2
+    if plan.body == "gemv":   # the ring; the x window, later the sums
+        kb = 4 * w
+        window = min(plan.ks // kb, _GV_X_BYTES // (plan.rows * kb * 2))
+        return _GV_RING + max(plan.rows * (window * kb + 8) * 2,
+                              plan.rows * (_GV_COLS + 4) * 4)
     if plan.body == "tile":               # 3 stages, rows padded by 8
         return 3 * _TILE * (_BK + 8) * 2 + 3 * _TILE * qb \
             + _TILE * (_BK + 8) * 2
@@ -167,18 +185,32 @@ def route_smem(plan: WeightOnlyRoute, int4: bool) -> int:
 
 def route_grid(plan: WeightOnlyRoute, M: int, N: int) -> tuple:
     """The launch grid (x, y, z) of ``plan`` at M rows and N columns, as
-    the C launch functions form it: gemv (column blocks of 64, splits),
-    fma (column blocks of 16 or 32, splits, row blocks), tile (column
-    blocks, row blocks of 128), wgmma (one block a 256 x 128 tile)."""
+    the C launch functions form it: gemv (column blocks of 128, splits:
+    one cluster of ``route_cluster`` a column block), fma (column blocks
+    of 16 or 32, splits, row blocks), tile (column blocks, row blocks of
+    128), wgmma (one block a 256 x 128 tile)."""
     cdiv = lambda a, b: -(-a // b)        # noqa: E731
     if plan.body == "gemv":
-        return (cdiv(N, 64), plan.splits, 1)
+        return (cdiv(N, _GV_COLS), plan.splits, 1)
     if plan.body == "fma":
         return (cdiv(N, 4 * (4 if plan.rows >= 16 else 8)), plan.splits,
                 cdiv(M, plan.rows))
     if plan.body == "tile":
         return (cdiv(N, _TILE), cdiv(M, _TILE), 1)
     return (cdiv(M, _WG_ROWS) * cdiv(N, _TILE), 1, 1)
+
+
+def route_cluster(plan: WeightOnlyRoute) -> tuple:
+    """The thread-block cluster (x, y, z) a launch on ``plan`` forms: the
+    gemv body's K slices of a column block are one cluster; the other
+    bodies launch no cluster."""
+    return (1, plan.splits, 1) if plan.body == "gemv" else (1, 1, 1)
+
+
+def route_kernels(plan: WeightOnlyRoute) -> int:
+    """Kernels a call on ``plan`` launches: two where the fma body splits
+    K (its slices' sums are added by a second kernel), else one."""
+    return 2 if plan.body == "fma" and plan.splits > 1 else 1
 
 
 def _check(x, q, scale, bias, int4):
@@ -228,7 +260,8 @@ def weight_only_linear(x: torch.Tensor, q: torch.Tensor,
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, q))
     plan = weight_only_route(M, N, K, int4, x.dtype, aligned)
     work = (torch.empty(plan.splits, M, N, dtype=torch.float32,
-                        device=x.device) if plan.splits > 1 else None)
+                        device=x.device) if route_kernels(plan) > 1
+            else None)
     vec = int(K % (32 if int4 else 16) == 0 and aligned)
     bias_code = -1 if bias is None else dtype_code(bias, "bias")
     rc = _lib()(ptr(x), ptr(q), ptr(scale),

@@ -236,7 +236,8 @@ def test_k9_wrapper_checks_raise():
 
 SMEM_CAP = 232448          # dynamic shared memory a block may take (227 KB)
 K9_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4128, 200),
-             (200, 72))  # (K, N): the main path's three, a TMA edge, ragged
+             (200, 72), (65536, 256))  # (K, N): the main path's three, a
+# TMA edge, ragged, and a K whose gemv slices stage x in several windows
 
 
 @pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
@@ -246,9 +247,12 @@ def test_k9_routes_cover_k_and_fit(int4):
     operands (K a multiple of 16 weights int8 / 32 int4, 16-byte-aligned
     x and weight) and the tile body elsewhere; bf16 M <= 16 the gemv
     body; f32 the fma body. The slices of gemv and fma cover K once in
-    whole steps, within the staging budget (96 KB of x a block); every
-    route's dynamic shared memory fits the 227 KB a block may take, and
-    its grid covers M and N."""
+    whole steps; gemv takes at most 8, one cluster a column block of
+    128 (route_grid and route_cluster describe that launch), stages x in
+    windows of at most 48 KB and launches one kernel; fma stays within
+    96 KB of staged x a block and adds its slices in a second kernel.
+    Every route's dynamic shared memory fits the 227 KB a block may
+    take, and its grid covers M and N."""
     w = 32 if int4 else 16
     for M in (1, 3, 8, 9, 16, 17, 100, 300, 2048, 8192):
         for K, N in K9_SHAPES:
@@ -271,22 +275,44 @@ def test_k9_routes_cover_k_and_fit(int4):
                 if dt == torch.bfloat16:
                     assert r.body == "gemv" and r.rows == (8 if M <= 8
                                                            else 16)
-                    step, smem = 4 * w, r.rows * (r.ks + 8) * 2
-                    assert gx * 64 >= N and gz == 1
+                    step = 4 * w
+                    # the cp.async ring (6 blocks of 4 16-byte pieces a
+                    # thread), then the x window, whose room later takes
+                    # the f32 partial sums
+                    window = min(r.ks // step,
+                                 48 * 1024 // (r.rows * step * 2))
+                    smem = 6 * 4 * 128 * 16 + max(
+                        r.rows * (window * step + 8) * 2, r.rows * 132 * 4)
+                    assert window * r.rows * step * 2 <= 48 * 1024
+                    assert 1 <= r.splits <= 8
+                    assert gx * 128 >= N > (gx - 1) * 128 and gz == 1
+                    assert K9.route_cluster(r) == (1, r.splits, 1)
+                    assert K9.route_kernels(r) == 1
                 else:
                     assert r.body == "fma" and r.rows in (1, 4, 8, 16)
                     step = 32 * w
                     smem = r.rows * (r.ks // w) * (w + 4) * 4
                     cols = 4 * (4 if r.rows >= 16 else 8)
                     assert gx * cols >= N and gz * r.rows >= M
+                    assert smem <= 96 * 1024 or r.ks == step
+                    assert K9.route_cluster(r) == (1, 1, 1)
+                    assert K9.route_kernels(r) == (2 if r.splits > 1
+                                                   else 1)
                 assert gy == r.splits and K9.route_smem(r, int4) == smem
                 assert r.rows >= min(M, 16) and r.ks % step == 0
                 assert r.splits * r.ks >= K > (r.splits - 1) * r.ks
-                assert smem <= 96 * 1024 or r.ks == step
+    # the decode shapes: the split count with the least waves x (k blocks
+    # a slice + 8), a wave the blocks the SMs hold at the launch's shared
+    # memory; at 16 rows the larger x window leaves 2 blocks an SM, so 8
+    # slices of K = 11008 would need a second wave
+    r = K9.weight_only_route(16, 4096, 11008, False, torch.bfloat16)
+    assert (r.body, r.rows, r.splits, r.ks) == ("gemv", 16, 7, 1600)
+    r = K9.weight_only_route(8, 4096, 4096, False, torch.bfloat16)
+    assert (r.body, r.rows, r.splits, r.ks) == ("gemv", 8, 8, 512)
     r = K9.weight_only_route(8, 11008, 4096, False, torch.bfloat16)
-    assert (r.body, r.rows, r.splits, r.ks) == ("gemv", 8, 3, 1408)
+    assert (r.body, r.rows, r.splits, r.ks) == ("gemv", 8, 4, 1024)
     r = K9.weight_only_route(8, 4096, 11008, False, torch.bfloat16)
-    assert (r.body, r.rows, r.splits, r.ks) == ("gemv", 8, 4, 2752)
+    assert (r.body, r.rows, r.splits, r.ks) == ("gemv", 8, 8, 1408)
     r = K9.weight_only_route(8, 4096, 4096, False, torch.float32)
     assert (r.body, r.rows, r.splits, r.ks) == ("fma", 8, 4, 1024)
     # the TMA edge: 16 weights a row more than a multiple of 64 still
@@ -296,6 +322,82 @@ def test_k9_routes_cover_k_and_fit(int4):
                                                          else "wgmma")
     assert K9.weight_only_route(300, 200, 4104, int4,
                                 torch.bfloat16).body == "tile"
+
+
+def _gemv_int8_group(word, i):
+    """group_f32<false>: the 4 signed bytes of a word as floats, through
+    the 2^23 magic number (byte ^ 0x80 in the low mantissa bits, minus
+    2^23 + 128), k 4i .. 4i + 3 of the lane's 16 bytes."""
+    u = int(word) ^ 0x80808080
+    mag = np.array([0x4B000000 | ((u >> (8 * b)) & 0xFF) for b in range(4)],
+                   np.uint32).view(np.float32)
+    return mag - np.float32(8388736.0)
+
+
+def _gemv_int4_pair(u):
+    """pair_s4: the low nibbles of bytes 0 and 2 of u as bf16 (128 + (s ^
+    8)), minus 136 (exact in bf16)."""
+    bits = np.array([(((u >> s) & 0xF) ^ 0x8) | 0x4300 for s in (0, 16)],
+                    np.uint32) << 16
+    return bits.view(np.float32) - np.float32(136.0)
+
+
+def _gemv_block_emulated(rows, x, int4):
+    """What one warp's 16-row tile accumulates over one k block in
+    gemv_block: every lane's A fragments (its 16 bytes of rows g and g + 8,
+    converted as the kernel does) and B fragments (its x values, permuted
+    as the kernel does) placed by mma.sync m16n8k16's layout (a0 = A[g][2t,
+    2t + 1], a1 = A[g + 8][...], a2 = A[g][2t + 8, 2t + 9], a3 = A[g + 8]
+    [...]; b0 = B[2t, 2t + 1][g], b1 = B[2t + 8, 2t + 9][g]) and
+    multiplied step by step."""
+    kb = 128 if int4 else 64
+    d = np.zeros((16, 8))
+    for step in range(kb // 16):
+        a_mat, b_mat = np.zeros((16, 16)), np.zeros((16, 8))
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            w0, w1 = (np.frombuffer(rows[r, 16 * t:16 * t + 16].tobytes(),
+                                    "<u4") for r in (g, g + 8))
+            xl = x[g, kb // 4 * t:kb // 4 * (t + 1)]  # lane-local k
+            if int4:
+                hs, e = divmod(step, 2)
+                u0, u1 = int(w0[hs]) >> (8 * e), int(w1[hs]) >> (8 * e)
+                a = [_gemv_int4_pair(u0), _gemv_int4_pair(u1),
+                     _gemv_int4_pair(u0 >> 4), _gemv_int4_pair(u1 >> 4)]
+                xc = xl[8 * hs:8 * hs + 8]
+                b = [(xc[2 * e], xc[4 + 2 * e]),
+                     (xc[2 * e + 1], xc[5 + 2 * e])]
+            else:
+                f0 = _gemv_int8_group(w0[step], step)
+                f1 = _gemv_int8_group(w1[step], step)
+                a = [f0[:2], f1[:2], f0[2:], f1[2:]]
+                b = [xl[4 * step:4 * step + 2], xl[4 * step + 2:4 * step + 4]]
+            a_mat[g, 2 * t:2 * t + 2] = a[0]
+            a_mat[g + 8, 2 * t:2 * t + 2] = a[1]
+            a_mat[g, 2 * t + 8:2 * t + 10] = a[2]
+            a_mat[g + 8, 2 * t + 8:2 * t + 10] = a[3]
+            b_mat[2 * t:2 * t + 2, g] = b[0]
+            b_mat[2 * t + 8:2 * t + 10, g] = b[1]
+        d += a_mat @ b_mat
+    return d
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+def test_k9_gemv_fragments_cover_the_block(int4):
+    """The gemv body's fragment layout, modelled on the CPU: over one k
+    block (64 bytes a row: 64 int8 or 128 int4 weights) the lanes' A
+    fragments (the weights, converted exactly: int8 by group_f32's magic
+    number, int4 as bf16 pairs straight from the nibbles) and B fragments
+    (x, permuted to the same k) multiply to exactly W x^T of the tile,
+    every byte value included."""
+    r = np.random.RandomState(7)
+    rows = r.randint(0, 256, (16, 64)).astype(np.uint8)
+    rows.reshape(-1)[:256] = np.arange(256, dtype=np.uint8)
+    x = r.randint(-9, 10, (8, 128 if int4 else 64)).astype(np.float64)
+    q = torch.from_numpy(rows.view(np.int8).copy())
+    w = (K9.unpack_int4(q) if int4 else q).numpy().astype(np.float64)
+    np.testing.assert_array_equal(_gemv_block_emulated(rows, x, int4),
+                                  w @ x.T)
 
 
 def _wgmma_tile(block, M, N, bm=256, group=8):

@@ -22,11 +22,14 @@ from paddle_tpu_torch.ops.kernels import weight_only_linear as K9
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# chip_smoke.py's cases, plus M = 3 (the 4-row gemv body); (4128, 200) is
-# the TMA edge: K not a multiple of 64, N not of 128
+# chip_smoke.py's cases, plus M = 3; (4128, 200) is the TMA edge: K not
+# a multiple of 64, N not of 128
 ROWS = [1, 3, 8, 16, 17, 2048]
 SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4128, 200),
           (200, 72)]  # (K, N)
+# the gemv body (bf16, M <= 16): every M at the decode shapes, the ragged
+# two and a K whose slices stage x in several windows
+GEMV_SHAPES = SHAPES + [(65536, 256)]
 # the wgmma body (bf16, M > 16): the main path's rows and (K, N), and the
 # TMA edge at ragged M
 WGMMA_ROWS = [17, 100, 2048, 8192]
@@ -101,6 +104,95 @@ def test_k9_wgmma_body_matches_plain(cuda, mkn, int4, bias):
     assert _rel(out, ref) <= TOL[torch.bfloat16]
 
 
+_QUANTIZED = {}
+
+
+def _gemv_case(dev, M, K, N, int4, bias):
+    """x [M, K] (seeded by M) and a bias over one quantized weight a
+    (K, N, int4), made once."""
+    if (K, N, int4) not in _QUANTIZED:
+        _QUANTIZED.clear()
+        _, q, s, _ = _case(dev, 1, K, N, int4, torch.bfloat16, None)
+        _QUANTIZED[K, N, int4] = q, s
+    q, s = _QUANTIZED[K, N, int4]
+    g = torch.Generator(device=dev).manual_seed(M)
+    x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+    b = (torch.randn(N, device=dev, generator=g).to(bias) if bias
+         else None)
+    return x, q, s, b
+
+
+@pytest.mark.parametrize("bias", [None, torch.bfloat16, torch.float32],
+                         ids=["nobias", "bf16bias", "f32bias"])
+@pytest.mark.parametrize("M", range(1, 17))
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("kn", GEMV_SHAPES, ids=lambda s: f"k{s[0]}n{s[1]}")
+def test_k9_gemv_body_matches_plain(cuda, kn, int4, M, bias):
+    """bf16 M <= 16 runs the gemv body (one cluster a column block, the
+    K slices summed through distributed shared memory) within bf16 2e-2
+    of the plain version: every M from 1 to 16 at the decode shapes, the
+    ragged ones and a K staged in several x windows, with no bias, a bf16
+    bias and an f32 bias; and a second call gives the same bits (the
+    slices are summed in slice order)."""
+    K, N = kn
+    x, q, s, b = _gemv_case(cuda, M, K, N, int4, bias)
+    plan = K9.weight_only_route(M, N, K, int4, torch.bfloat16)
+    assert plan.body == "gemv" and K9.route_kernels(plan) == 1
+    n = K9.weight_only_linear.launches
+    out = K9.weight_only_linear(x, q, s, b, int4)
+    assert K9.weight_only_linear.launches == n + 1
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (M, N)
+    ref = K9.weight_only_linear_dense(x, q, s, b, int4)
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+    assert torch.equal(K9.weight_only_linear(x, q, s, b, int4), out)
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("kn", SHAPES[:3], ids=lambda s: f"k{s[0]}n{s[1]}")
+def test_k9_gemv_one_kernel_a_call(cuda, kn, int4, M):
+    """A bf16 M <= 16 call launches exactly one kernel (torch.profiler's
+    count of the CUDA kernels of 4 calls): no split-sum pass. A short
+    profile may hold fewer kernel records than ran, never more, so it is
+    taken again (at most 3 times) until it holds one a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    K, N = kn
+    x, q, s, b = _gemv_case(cuda, M, K, N, int4, torch.bfloat16)
+    K9.weight_only_linear(x, q, s, b, int4)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                K9.weight_only_linear(x, q, s, b, int4)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert all("gemv_cluster_kernel" in e.key for e in kern), \
+            [e.key for e in kern]
+        if sum(e.count for e in kern) >= 4:
+            break
+    assert sum(e.count for e in kern) == 4, [(e.key, e.count) for e in kern]
+
+
+@pytest.mark.parametrize("M", [8, 16])
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+def test_k9_gemv_unaligned_input(cuda, int4, M):
+    """x starting 2 bytes past a 16-byte boundary: the gemv body stages
+    it element by element and still matches the plain version."""
+    K, N = 4096, 4096
+    x, q, s, b = _gemv_case(cuda, M, K, N, int4, torch.bfloat16)
+    flat = torch.empty(M * K + 8, device=cuda, dtype=torch.bfloat16)
+    xu = flat[1:1 + M * K].view(M, K)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 == 2
+    assert K9.weight_only_route(M, N, K, int4, torch.bfloat16,
+                                False).body == "gemv"
+    out = K9.weight_only_linear(xu, q, s, b, int4)
+    ref = K9.weight_only_linear_dense(x, q, s, b, int4)
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+
+
 @pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
 def test_k9_unaligned_input_takes_tile_body(cuda, int4):
     """x starting 2 bytes past a 16-byte boundary: TMA cannot address it,
@@ -133,14 +225,18 @@ def test_k9_batched_input_and_bf16_bias_on_f32(cuda, int4):
 
 
 @pytest.mark.parametrize("M,K,N,int4", [(8, 4096, 4096, False),
+                                        (8, 4096, 11008, True),
+                                        (16, 11008, 4096, False),
+                                        (3, 200, 72, True),
                                         (2048, 4096, 4096, False),
                                         (2048, 4096, 11008, True),
                                         (300, 4128, 200, False)],
-                         ids=["gemv", "wgmma", "wgmma_int4", "wgmma_edge"])
+                         ids=["gemv", "gemv_int4", "gemv_m16", "gemv_ragged",
+                              "wgmma", "wgmma_int4", "wgmma_edge"])
 def test_k9_graph_replay_equals_eager(cuda, M, K, N, int4):
-    """A capture of K9 (split K at M = 8; the wgmma body's tensor maps
-    at M > 16) replays to the eager call's bits; the launch counter
-    advances through add_launches, once a replay."""
+    """A capture of K9 (the gemv body's cluster launch at M <= 16; the
+    wgmma body's tensor maps at M > 16) replays to the eager call's bits;
+    the launch counter advances through add_launches, once a replay."""
     x, q, s, b = _case(cuda, M, K, N, int4, torch.bfloat16, True)
     eager_out = K9.weight_only_linear(x, q, s, b, int4)
     static_x = x.clone()
