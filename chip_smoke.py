@@ -66,7 +66,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 bf16, against the plain version and timed; K7's search
                 over the plain version timed as its plain time. K4 and K5
                 also at the llama-68m draft's widths (q [8, 256, 12, 64]
-                and [8, 1, 12, 64], bf16), with bound and SDPA time
+                and [8, 1, 12, 64], bf16), with bound and SDPA time.
+                K1 and K2 with attention dropout (p = 0.1, one seed)
+                against the plain version with the same seed, causal: at
+                gpt_1p3b's shape [4, 2048, 16, 128] and GQA D = 64 in bf16
+                (2e-2 per tile), fp32 D = 64 (1e-4); at the GPT shape both
+                timed with and without dropout (CUDA graphs of 20 calls)
+                beside the plain version and SDPA with and without
+                dropout_p (the bound: the same operations as without
+                dropout). The mask read back bit for bit: with V's rows
+                the identity, K1's output is non-zero exactly where the
+                mask keeps, and with dO's rows the identity K2's dV is
+                too (D = 64, 128 bf16, fp32, causal and not). The repo's
+                Philox4x32-10 (csrc/philox.cuh) against curand's
+                curand_Philox4x32_10 on 65536 counter/key pairs
 3. parity       a reduced Llama (fp32, TF32 off) served on cuda, graphed
                 and eager, and on cpu with the same weights and arrival
                 schedule, and run through Predictor.generate with static
@@ -173,6 +186,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 norm within 2e-2 of the default tile's. A second process
                 over the same file makes one K1 call at the train shape
                 with the flag on: 0 measurements, the same tile
+11. gpt-parity  a reduced GPT (2 layers, hidden 512, 8 heads: D = 64,
+                vocab 4096, fp32) with attention dropout 0.1 trains 3
+                AdamW steps on cuda (K1/K2's dropout kernels) and on cpu
+                from the same weights and seed: equal masks by
+                construction, losses and global grad norms within 1e-4
+                relative; with dropout 0 its cached forward (prefill 64,
+                8 single-token steps) cuda against cpu within 1e-4
+12. train-gpt   gpt_1p3b at full width and depth (24 layers, hidden
+                2048, 16 heads, vocab 50304, 1.316 B parameters; bf16
+                weights, f32 AdamW masters and moments, clip 1.0): 12
+                steps on one fixed 4 x 2048 batch, 2 untimed, with dropout
+                0 and then with hidden and attention dropout 0.1; finite,
+                falling losses, step ms p50, tokens/s, MFU, peak memory;
+                K1 and K2 exactly 24 launches a timed step, K8 one, the
+                dropout variants 24 a step in the second run only; then
+                each layer's attention watched (K1's output and K2's
+                gradients against the plain version, 2e-2)
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -550,6 +580,212 @@ def check_flash_tiles(dev, results, k7):
                 K7.autotune("plain", tiles, plain_measure, K7.AlgoCache(None))
             k7["plain_ms"] = (time.perf_counter() - t0) * 1e3
         del q, k, v, r_out, r_lse, qt, kt, vt
+
+
+# attention dropout (K1/K2's dropout variant): (label, B, S, H, KV, D,
+# dtype); "gpt" is gpt_1p3b's training shape, the train-gpt phase's
+DROPOUT_P = 0.1
+DROPOUT_SEED = 0x5EED_0123_4567_89AB
+DROPOUT_CASES = [("gpt", 4, 2048, 16, 16, 128, torch.bfloat16),
+                 ("gqa_d64", 2, 1024, 16, 4, 64, torch.bfloat16),
+                 ("f32_d64", 2, 512, 8, 8, 64, torch.float32)]
+
+
+def check_flash_dropout(dev, results):
+    """K1 and K2 with attention dropout (p = 0.1, one seed) against the
+    plain version with the same seed, per 64-position tile (bf16 2e-2,
+    fp32 1e-4), causal; at the GPT shape K1 and K2 are timed with and
+    without dropout (CUDA graphs of 20 calls), beside the plain version
+    and F.scaled_dot_product_attention with and without dropout_p (timed
+    with events: the yardstick only, the port never calls it). The bound
+    is the same operations as without dropout. Then the mask read back
+    from the kernels (``check_dropout_mask``) and the hash against curand
+    (``check_philox``)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    p, seed = DROPOUT_P, DROPOUT_SEED
+    g = torch.Generator(device=dev).manual_seed(11)
+    for label, B, S, H, KV, D, dt in DROPOUT_CASES:
+        q, k, v, do, _, _ = _flash_inputs(dev, dt, B, S, S, H, KV, D, False,
+                                          g)
+        n0 = (K1.flash_attention_fwd_dropout.launches,
+              K1.flash_attention_bwd_dropout.launches)
+        out, lse = K1.flash_attention_fwd_lse(q, k, v, True, dropout=p,
+                                              seed=seed)
+        grads = K1.flash_attention_bwd(q, k, v, out, lse, do, True,
+                                       dropout=p, seed=seed)
+        if (K1.flash_attention_fwd_dropout.launches,
+                K1.flash_attention_bwd_dropout.launches) != (n0[0] + 1,
+                                                             n0[1] + 1):
+            raise AssertionError("the dropout calls did not count one "
+                                 "launch of each dropout variant")
+        r_out, r_lse = K1.flash_attention_dense(q, k, v, True, dropout=p,
+                                                seed=seed)
+        r_grads = K1.flash_attention_bwd_dense(q, k, v, do, True,
+                                               dropout=p, seed=seed)
+        eo = _errs(out, r_out)
+        eg = [_errs(a, b) for a, b in zip(grads, r_grads)]
+        (fb, ff), (bb, bf) = _flash_cost(q, k, True, None, None)
+        base = dict(case=label, shape=[B, S, H, D], skv=S, kv_heads=KV,
+                    causal=True, dropout=p, dtype=str(dt)[6:], tol=TOL[dt])
+        fwd = dict(base, name="flash_attention_fwd_dropout", bytes=fb,
+                   flops=ff, max_abs_err=eo[0], ref_max_abs=eo[1],
+                   rel_err=eo[3],
+                   lse_abs_err=(lse - r_lse).abs().max().item())
+        bwd = dict(base, name="flash_attention_bwd_dropout", bytes=bb,
+                   flops=bf, max_abs_err=max(e[0] for e in eg),
+                   rel_err=max(e[3] for e in eg))
+        if label == "gpt":
+            qt, kt, vt, kw = _sdpa_args(q, k, v, True, None, None)
+            qg, kg, vg = (t.detach().requires_grad_(True)
+                          for t in (qt, kt, vt))
+            dot = do.transpose(1, 2).contiguous()
+            lib = {}
+            for name, dp in (("", 0.0), ("_dropout", p)):
+                o = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=dp,
+                                                   **kw)
+                lib["fwd" + name] = events_ms(
+                    lambda dp=dp: F.scaled_dot_product_attention(
+                        qt, kt, vt, dropout_p=dp, **kw))
+                lib["bwd" + name] = events_ms(lambda o=o: torch.autograd.grad(
+                    o, (qg, kg, vg), dot, retain_graph=True))
+                del o
+            for rec, which in ((fwd, "fwd"), (bwd, "bwd")):
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    *((fb, ff) if which == "fwd" else (bb, bf)), dt)
+                rec["library_ms"] = lib[which + "_dropout"]
+                rec["library_no_dropout_ms"] = lib[which]
+                rec["library"] = "F.scaled_dot_product_attention " + (
+                    "forward" if which == "fwd" else
+                    "backward (autograd.grad on a kept graph)") + \
+                    f", dropout_p={p}"
+            fwd["ms"] = cuda_ms(lambda: K1.flash_attention_fwd_lse(
+                q, k, v, True, dropout=p, seed=seed))
+            fwd["no_dropout_ms"] = cuda_ms(lambda: K1.flash_attention_fwd_lse(
+                q, k, v, True))
+            fwd["plain_ms"] = cuda_ms(lambda: K1.flash_attention_dense(
+                q, k, v, True, dropout=p, seed=seed), iters=3, warm=1)
+            bwd["ms"] = cuda_ms(lambda: K1.flash_attention_bwd(
+                q, k, v, out, lse, do, True, dropout=p, seed=seed))
+            out0, lse0 = K1.flash_attention_fwd_lse(q, k, v, True)
+            bwd["no_dropout_ms"] = cuda_ms(lambda: K1.flash_attention_bwd(
+                q, k, v, out0, lse0, do, True))
+            bwd["plain_ms"] = events_ms(lambda: K1.flash_attention_bwd_dense(
+                q, k, v, do, True, dropout=p, seed=seed), iters=3, warm=1)
+            fwd["plain_no_dropout_ms"] = cuda_ms(
+                lambda: K1.flash_attention_dense(q, k, v, True), iters=3,
+                warm=1)
+            bwd["plain_no_dropout_ms"] = events_ms(
+                lambda: K1.flash_attention_bwd_dense(q, k, v, do, True),
+                iters=3, warm=1)
+            del qg, kg, vg, out0, lse0
+        results += [fwd, bwd]
+        if not fwd["lse_abs_err"] <= TOL[dt]:
+            raise AssertionError(f"K1 dropout lse off by "
+                                 f"{fwd['lse_abs_err']} ({label})")
+        del q, k, v, do, out, lse, grads, r_out, r_lse, r_grads
+        torch.cuda.empty_cache()
+    check_dropout_mask(dev)
+    check_philox(dev)
+
+
+def check_dropout_mask(dev):
+    """The mask read back from the kernels, bit for bit. With Skv <= D
+    and V's rows the identity (v[j] = e_j), K1 gives out[i, j] = P_ij
+    M_ij / (1 - p) / l: non-zero exactly where the mask keeps a visible
+    pair. With dO's rows the identity too (Sq <= D) and one query head a
+    KV head, K2's dV[j, i] = P_ij M_ij / (1 - p): the same read through
+    the dk/dv body, on S^T. Both must equal the plain version's mask
+    (``dropout_mask.dropout_keep``) over the visible pairs, causal and
+    not, bf16 at D = 64 and 128 (GQA in the forward) and fp32."""
+    from paddle_tpu_torch.ops.kernels import dropout_mask as DM
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    summary = []
+    for D, dt, KV in ((128, torch.bfloat16, 2), (64, torch.bfloat16, 4),
+                      (64, torch.float32, 4)):
+        for causal in (True, False):
+            B, S, H = 2, D, 4
+            seed = DROPOUT_SEED + D + int(causal)
+            eye = torch.eye(D, device=dev, dtype=dt)
+            q = torch.randn(B, S, H, D, device=dev, generator=g).to(dt)
+            k = torch.randn(B, S, KV, D, device=dev, generator=g).to(dt)
+            v = eye[:S, None, :].expand(S, KV, D)[None].expand(
+                B, S, KV, D).contiguous()
+            keep = DM.dropout_keep(seed, DROPOUT_P, B, H, S, S, dev)
+            vis = torch.ones(S, S, dtype=torch.bool, device=dev)
+            if causal:
+                vis = vis.tril()
+            out, lse = K1.flash_attention_fwd_lse(q, k, v, causal,
+                                                  dropout=DROPOUT_P,
+                                                  seed=seed)
+            got = (out[..., :S] != 0).permute(0, 2, 1, 3)   # [B, H, S, S]
+            fwd_bad = int(((got != keep) & vis).sum().item())
+            fwd_vis_zero = int((got & ~vis).sum().item())
+            # dV, one query head a KV head
+            km, vm = k[:, :, :1].expand(B, S, H, D).contiguous(), \
+                v[:, :, :1].expand(B, S, H, D).contiguous()
+            outm, lsem = K1.flash_attention_fwd_lse(q, km, vm, causal,
+                                                    dropout=DROPOUT_P,
+                                                    seed=seed)
+            dout = eye[:S, None, :].expand(S, H, D)[None].expand(
+                B, S, H, D).contiguous()
+            _, _, dv = K1.flash_attention_bwd(q, km, vm, outm, lsem, dout,
+                                              causal, dropout=DROPOUT_P,
+                                              seed=seed)
+            gotv = (dv[..., :S] != 0).permute(0, 2, 3, 1)   # [B, H, i, j]
+            bwd_bad = int(((gotv != keep) & vis).sum().item())
+            summary.append(dict(D=D, dtype=str(dt)[6:], kv_heads=KV,
+                                causal=causal, visible=int(vis.sum()) * B * H,
+                                kept=int((keep & vis).sum().item()),
+                                fwd_mismatch=fwd_bad,
+                                fwd_masked_nonzero=fwd_vis_zero,
+                                dv_mismatch=bwd_bad))
+    log("[kernels] dropout mask read back from K1's output and K2's dV "
+        "against the plain mask: " + json.dumps(summary))
+    if any(r["fwd_mismatch"] or r["fwd_masked_nonzero"] or r["dv_mismatch"]
+           for r in summary):
+        raise AssertionError(f"the kernels' dropout mask differs from the "
+                             f"plain mask: {summary}")
+    log("[kernels] the recovered masks equal the plain mask bit for bit: OK")
+
+
+def check_philox(dev):
+    """csrc/philox.cuh against curand's curand_Philox4x32_10 on a grid of
+    counters and keys (random ones and the all-zero / all-one corners),
+    and the plain int64 Philox on the CPU and on the card against both."""
+    from paddle_tpu_torch.ops.kernels import dropout_mask as DM
+
+    rs = np.random.RandomState(3)
+    n = 1 << 16
+    ctr = rs.randint(0, 2 ** 32, size=(n, 4), dtype=np.uint64).astype(
+        np.int64)
+    key = rs.randint(0, 2 ** 32, size=(n, 2), dtype=np.uint64).astype(
+        np.int64)
+    ctr[:4], key[:4] = 0, 0
+    ctr[4:8], key[4:8] = 2 ** 32 - 1, 2 ** 32 - 1
+    ctr[8:64, 0] = np.arange(56)            # the layout's small counters
+    ctr, key = torch.from_numpy(ctr), torch.from_numpy(key)
+    mine, theirs = DM.philox_check(ctr, key)
+    plain = {}
+    for where in ("cpu", dev):
+        c = ctr.to(where)
+        words = [torch.stack(DM.philox4x32_10(
+            c[i:i + 1, 0], c[i:i + 1, 1], c[i:i + 1, 2], c[i:i + 1, 3],
+            int(key[i, 0]), int(key[i, 1]))) for i in range(64)]
+        plain[str(where)] = torch.cat(words, 1).T.cpu()
+    diff = int((mine != theirs).any(1).sum().item())
+    pdiff = sum(int((w != theirs[:64].cpu()).any(1).sum().item())
+                for w in plain.values())
+    log(f"[kernels] philox.cuh vs curand_Philox4x32_10 on {n} counter/key "
+        f"pairs: {diff} differ; the plain int64 Philox (cpu and cuda) on "
+        f"64 of them: {pdiff} differ")
+    if diff or pdiff:
+        raise AssertionError("the repo's Philox4x32-10 differs from curand's")
+    log("[kernels] Philox4x32-10 equal to curand's: OK")
 
 
 def _train_shapes(cfg):
@@ -2291,12 +2527,13 @@ def phase_weight_only_int4(model, paths, bf16, profile=False):
 
 
 # -- phases 8 to 10: training ---------------------------------------------
-def _trainer(model, scaler=None):
+def _trainer(model, scaler=None, crit=None):
     """The train step a user builds: AdamW with f32 masters and moments,
     global-norm clipping, through ParallelEngine.train_step. With a
     ``scaler`` (amp.GradScaler) the learning rate follows a warmup and
     cosine schedule, and the loss is multiplied by the batch's ``k`` (1,
-    or inf to force an overflow)."""
+    or inf to force an overflow). ``crit``: the model's criterion
+    (default: Llama's)."""
     from paddle_tpu_torch.distributed.engine import ParallelEngine
     from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
     from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
@@ -2308,7 +2545,7 @@ def _trainer(model, scaler=None):
     opt = AdamW(learning_rate=rate, weight_decay=0.01, multi_precision=True,
                 grad_clip=ClipGradByGlobalNorm(1.0),
                 parameters=model.parameters())
-    crit = LlamaPretrainingCriterion(model.config)
+    crit = crit or LlamaPretrainingCriterion(model.config)
     eng = ParallelEngine(model, opt)
     if scaler is None:
         return opt, eng.train_step(lambda m, b: crit(m(b["x"]), b["y"]))
@@ -2649,6 +2886,282 @@ def phase_train_autotune(counters, k7, ref_losses=None, steps=7, warm=2):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phases 11 and 12: GPT at degree 1 ---------------------------------------
+def phase_gpt_parity():
+    """A reduced GPT (2 layers, hidden 512, 8 heads: head dim 64, vocab
+    4096, fp32, TF32 off) with attention dropout 0.1 and hidden dropout 0
+    trains 3 AdamW steps on cuda (K1/K2's dropout kernels, fp32 bodies)
+    and on cpu (their plain version) from the same weights and seed: the
+    attention masks are equal by construction (one Philox seed a call from
+    the model's CPU generator), so losses and global grad norms must agree
+    within 1e-4 relative. Then, with dropout 0, the cached forward (a
+    prefill of 64 tokens, then 8 single-token steps) on cuda against cpu
+    within 1e-4 of the logits' largest magnitude."""
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
+                                             GPTPretrainingCriterion)
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shape = dict(vocab_size=4096, hidden_size=512, num_layers=2,
+                 num_heads=8, max_position_embeddings=512)
+    cfg = GPTConfig(**shape, attention_dropout=0.1, hidden_dropout=0.0)
+    runs = {}
+    nd = K1.flash_attention_fwd_dropout.launches
+    for dev in ("cpu", "cuda"):
+        model = GPTForCausalLM(cfg, device=dev, seed=5)
+        if dev == "cuda":
+            model.load_state_dict(cpu_state)
+        else:
+            cpu_state = {k: v.clone() for k, v in model.state_dict().items()}
+        opt, step = _trainer(model, crit=GPTPretrainingCriterion(cfg))
+        batch = _lm_batch(17, 2, 256, cfg.vocab_size, model.device)
+        runs[dev] = [(float(step(batch)), float(opt.grad_norm))
+                     for _ in range(3)]
+        del model, opt, step
+    drops = K1.flash_attention_fwd_dropout.launches - nd
+    log(f"[gpt-parity] attention dropout 0.1, (loss, grad norm) per step: "
+        f"{json.dumps(runs)}; K1 dropout launches on cuda {drops}")
+    if drops != 3 * cfg.num_layers:
+        raise AssertionError(f"cuda training ran {drops} K1 dropout "
+                             f"launches, not {3 * cfg.num_layers}")
+    for (lc, nc), (lg, ng) in zip(runs["cpu"], runs["cuda"]):
+        if not (abs(lg - lc) <= 1e-4 * abs(lc)
+                and abs(ng - nc) <= 1e-4 * abs(nc)):
+            raise AssertionError(f"cuda and cpu GPT training differ: {runs}")
+    log("[gpt-parity] cuda == cpu losses and grad norms within 1e-4 with "
+        "attention dropout on: OK")
+    plain = GPTConfig(**shape)
+    ids = np.random.RandomState(18).randint(0, plain.vocab_size, (2, 72))
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        model = GPTForCausalLM(plain, device=dev, seed=6).eval()
+        model.load_state_dict(cpu_state)
+        caches = [(torch.zeros(2, 0, 8, 64, device=dev),) * 2
+                  for _ in range(plain.num_layers)]
+        out, pos = [], 0
+        with torch.no_grad():
+            for chunk in [ids[:, :64]] + [ids[:, i:i + 1]
+                                          for i in range(64, 72)]:
+                lg, caches = model(torch.tensor(chunk, device=dev), caches,
+                                   position_offset=pos)
+                out.append(lg.cpu())
+                pos += chunk.shape[1]
+        logits[dev] = torch.cat(out, 1)
+    err = ((logits["cuda"] - logits["cpu"]).abs().max()
+           / logits["cpu"].abs().max()).item()
+    log(f"[gpt-parity] cached forward (prefill 64, 8 single-token steps), "
+        f"cuda vs cpu logits: {err:.3e} of the largest")
+    if not err <= 1e-4:
+        raise AssertionError(f"cached GPT forward differs: {err}")
+    log("[gpt-parity] cached forward cuda == cpu within 1e-4: OK")
+
+
+def _gpt_run(dropout, counters, steps, warm):
+    """gpt_1p3b at full width and depth, bf16, through the trainer: one
+    fixed 4 x 2048 batch, ``steps`` steps, ``counters`` set to 0 before
+    step ``warm``. Returns (model, opt, summary)."""
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+                                             GPTPretrainingCriterion,
+                                             gpt_1p3b)
+
+    cfg = gpt_1p3b(dtype="bfloat16", hidden_dropout=dropout,
+                   attention_dropout=dropout)
+    B, S = 4, 2048
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+    opt, step = _trainer(model, crit=GPTPretrainingCriterion(cfg))
+    batch = _lm_batch(19, B, S, cfg.vocab_size, model.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for i in range(steps):
+        if i == warm:
+            for c in counters:
+                c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        secs.append(time.perf_counter() - t0)
+    timed = secs[warm:]
+    tok_s = B * S * len(timed) / sum(timed)
+    L, h = cfg.num_layers, cfg.hidden_size
+    flops_per_token = 6 * cfg.num_params() + 12 * L * h * S
+    summary = dict(
+        config="gpt_1p3b", dropout=dropout, params=cfg.num_params(),
+        layers=L, hidden=h, heads=cfg.num_heads, vocab=cfg.vocab_size,
+        batch=[B, S], steps=steps, untimed=warm, losses=losses,
+        step_ms=[t * 1e3 for t in secs],
+        step_ms_p50=float(np.percentile(timed, 50)) * 1e3,
+        tokens_per_s=tok_s, mfu=flops_per_token * tok_s / 989e12,
+        grad_norm_last=float(opt.grad_norm),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches={c.__name__: c.launches for c in counters})
+    return model, opt, summary
+
+
+def phase_train_gpt(counters, steps=12, warm=2):
+    """gpt_1p3b (24 layers, hidden 2048, 16 heads, vocab 50304, 1.316 B
+    parameters; bf16 weights, AdamW with f32 masters and moments, clip
+    1.0): 12 steps on one fixed 4 x 2048 batch, 2 untimed, first with the
+    config's defaults (dropout 0), then with hidden and attention dropout
+    0.1. Each run: finite, falling losses; step ms p50, tokens/s, MFU
+    ((6 N + 12 L h S) tokens/s / 989e12) and peak memory; in the timed
+    steps K1 and K2 exactly 24 launches a step, K8 one, and the dropout
+    variants 24 a step in the second run and none in the first; then one
+    forward and backward with each layer's attention watched (K1's output
+    and K2's gradients against the plain version, 2e-2). Returns the
+    launches of each run by path name."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+    from paddle_tpu_torch.ops.kernels.fused_adam import fused_adam
+
+    out = {}
+    for dropout, path in ((0.0, "train_gpt"), (0.1, "train_gpt_dropout")):
+        model, opt, summary = _gpt_run(dropout, counters, steps, warm)
+        log(f"[train-gpt] " + json.dumps(summary))
+        losses, launches = summary["losses"], summary["launches"]
+        n, L = steps - warm, model.config.num_layers
+        want = {K1.flash_attention_fwd.__name__: L * n,
+                K1.flash_attention_bwd.__name__: L * n,
+                fused_adam.__name__: n,
+                K1.flash_attention_fwd_dropout.__name__:
+                    L * n if dropout else 0,
+                K1.flash_attention_bwd_dropout.__name__:
+                    L * n if dropout else 0}
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite GPT training loss: {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"GPT loss did not fall: {losses}")
+        if launches != want:
+            raise AssertionError(f"train-gpt launches {launches}, expected "
+                                 f"{want}")
+        check_gpt_attention(model, opt, _lm_batch(20, 4, 2048,
+                                                  model.config.vocab_size,
+                                                  model.device))
+        out[path] = launches
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("[train-gpt] both runs: finite, falling losses and the expected "
+        "launches: OK")
+    return out
+
+
+def _grads_with_delta(q, k, v, do, delta, causal, p, seed):
+    """The attention gradients (dq, dk, dv) written out for a given delta
+    [B, H, Sq] (MHA), as K2 computes them: dS = P o (dP o Z - delta) with
+    dP = dO V^T, Z the dropout factor (1 without dropout), dq = scale
+    r(dS) K, dk = scale r(dS)^T Q, dv = r(P o Z)^T dO, where r rounds to
+    the inputs' dtype (bf16 P and dS before their products, as the TPU
+    kernel rounds them: flash_attention.py:249, :291, :297) and the
+    products accumulate in f32. With delta = rowsum(dO o O) from K1's
+    bf16 output it is K2's function; autograd through the plain version
+    takes the exact f32 delta and unrounded P and dS."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    B, S, H, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    s = qf @ kf.transpose(-1, -2) * scale
+    if causal:
+        s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool,
+                                      device=q.device).tril(), -1e30)
+    P = torch.softmax(s, -1)
+    del s
+    Z = (K1._dropout_factor(seed, p, B, H, H, S, S, q.device).reshape(
+        B, H, S, S) if p else None)
+    dP = dof @ vf.transpose(-1, -2)
+    if Z is not None:
+        dP.mul_(Z)
+    dS = (P * (dP - delta[..., None])).to(q.dtype).float()
+    del dP
+    dq = (dS @ kf * scale).transpose(1, 2)
+    dk = (dS.transpose(-1, -2) @ qf * scale).transpose(1, 2)
+    del dS
+    if Z is not None:
+        P.mul_(Z)
+    P = P.to(q.dtype).float()
+    dv = (P.transpose(-1, -2) @ dof).transpose(1, 2)
+    return dq, dk, dv
+
+
+def check_gpt_attention(model, opt, batch):
+    """One more forward and backward of the trained GPT in train mode with
+    every layer's attention call watched: each call's seed is drawn from
+    the model's generator as the layer would draw it, then K1's output
+    against the plain version with the same seed, and K2's dq, dk, dv
+    against the gradients written out with the delta K2 takes (rowsum of
+    dO times K1's bf16 output; ``_grads_with_delta``), per tile, 2e-2.
+    The trained model's last layers attend over keys and values nearly
+    equal across positions (GPT's k and v carry biases), so dP - delta
+    and the sums over keys nearly cancel: there the roundings K2 makes
+    as the TPU kernel does (delta from the bf16 output, bf16 P and dS)
+    are most of dq and dk, and autograd's exact gradients are not the
+    function the kernels compute (on an H100: tile errors of 580 for dq
+    at the last layer against autograd, at absolute differences of
+    1.3e-10, and 0.042 with the bf16 delta alone under dropout). The
+    autograd gradients' errors are printed beside for the first and last
+    layer."""
+    import paddle_tpu_torch.models.gpt as gpt
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.ops.kernels import dropout_mask as DM
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    kernel_path = gpt.flash_attention
+    seen = []
+
+    def watched(q, k, v, causal=False, dropout=0.0, generator=None):
+        seed = DM.draw_seed(generator) if dropout else None
+        out = kernel_path(q, k, v, causal=causal, dropout=dropout, seed=seed)
+        rec = dict(q=q.detach(), k=k.detach(), v=v.detach(),
+                   out=out.detach(), causal=causal, p=dropout, seed=seed)
+        for key, t in (("do", out), ("dq", q), ("dk", k), ("dv", v)):
+            t.register_hook(lambda g, key=key: rec.__setitem__(key, g))
+        seen.append(rec)
+        return out
+
+    crit = GPTPretrainingCriterion(model.config)
+    gpt.flash_attention = watched
+    try:
+        crit(model(batch["x"]), batch["y"]).backward()
+    finally:
+        gpt.flash_attention = kernel_path
+    opt.clear_grad()
+    worst = 0.0
+    for i, r in enumerate(seen):
+        kw = dict(dropout=r["p"], seed=r["seed"])
+        with torch.no_grad():
+            r_out = K1.flash_attention_dense(r["q"], r["k"], r["v"],
+                                             r["causal"], **kw)[0]
+            delta = (r["do"].float() * r["out"].float()).sum(-1).transpose(
+                1, 2)
+            ref = _grads_with_delta(r["q"], r["k"], r["v"], r["do"], delta,
+                                    r["causal"], r["p"], r["seed"])
+        errs = {"out": _errs(r["out"], r_out)}
+        errs.update((n, _errs(r[n], g)) for n, g in zip(("dq", "dk", "dv"),
+                                                        ref))
+        worst = max([worst] + [e[3] for e in errs.values()])
+        if i in (0, len(seen) - 1):
+            auto = K1.flash_attention_bwd_dense(r["q"], r["k"], r["v"],
+                                                r["do"], r["causal"], **kw)
+            log(f"[train-gpt] layer {i} attention (dropout {r['p']}), "
+                "kernel path vs plain (K2's delta; autograd's exact delta "
+                "beside): " + json.dumps(
+                    {n: dict(max_abs_err=e[0], ref_max_abs=e[1],
+                             rel_err=e[3]) for n, e in errs.items()} | {
+                        "autograd_" + n: dict(rel_err=_errs(r[n], g)[3])
+                        for n, g in zip(("dq", "dk", "dv"), auto)}))
+            del auto
+        del r_out, ref
+        seen[i] = None
+    if not (len(seen) == model.config.num_layers
+            and worst <= TOL[torch.bfloat16]):
+        raise AssertionError(f"train-gpt attention: {len(seen)} layers "
+                             f"watched, worst tile error {worst}")
+    log(f"[train-gpt] every layer's K1 output and K2 gradients within "
+        f"{TOL[torch.bfloat16]} of the plain version (worst tile {worst}): "
+        "OK")
+
+
 def k1_probe():
     """The second process of train-autotune: one K1 call at the train
     shape with FLAGS_use_autotune on, over the cache file the environment
@@ -2921,12 +3434,19 @@ def check_tile_spills(_build):
 
     from paddle_tpu_torch.ops.kernels.flash_attention import fwd_tiles
 
-    built = {}
+    built, drop = {}, {}
     for fn, rep in _build.ptxas_report("flash_attention").items():
-        m = re.search(r"fwd_wgmmaILi(\d+)ELi(\d+)ELi(\d+)E", fn)
+        m = re.search(r"fwd_wgmmaILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", fn)
         if m:
-            D, W, BN = map(int, m.groups())
-            built[(D, 64 * W, BN)] = rep
+            D, W, BN, kd = map(int, m.groups())
+            (drop if kd else built)[(D, 64 * W, BN)] = rep
+        m = re.search(r"(dq|dkv)_wgmmaILi(\d+)ELb1E", fn)
+        if m:
+            drop[(m.group(1), int(m.group(2)))] = rep
+    # the dropout instances (the default tiles, dq and dk/dv): their
+    # spills are recorded, not gated
+    log("[build] dropout instances (K1 default tiles, K2 dq and dk/dv): "
+        + json.dumps({str(k): v for k, v in drop.items()}))
     bad = []
     for D in (64, 128):
         tiles = fwd_tiles(D, torch.bfloat16)
@@ -2952,7 +3472,7 @@ def main():
     ap.add_argument("--phases",
                     default="build,kernels,parity,serve,serve-prefix-spec,"
                             "generate,weight-only,train-parity,train,"
-                            "train-autotune")
+                            "train-autotune,gpt-parity,train-gpt")
     ap.add_argument("--profile", action="store_true",
                     help="serve the schedule once more (and the prefix and "
                     "draft configuration's), run 16 more decode steps of "
@@ -2987,7 +3507,8 @@ def main():
     from paddle_tpu_torch.ops.kernels.decode_attention import (
         decode_attention, paged_decode_attention)
     from paddle_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention_bwd, flash_attention_fwd)
+        flash_attention_bwd, flash_attention_bwd_dropout, flash_attention_fwd,
+        flash_attention_fwd_dropout)
     from paddle_tpu_torch.ops.kernels.fused_adam import fused_adam
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
         ragged_paged_attention
@@ -3016,6 +3537,7 @@ def main():
         check_decode(dev, results)
         check_flash(dev, results)
         check_flash_tiles(dev, results, k7)
+        check_flash_dropout(dev, results)
         check_fused_adam(dev, results)
         for r in read_ceiling(dev):
             log("[kernels] read ceiling " + json.dumps(r))
@@ -3050,6 +3572,10 @@ def main():
              "train_autotune": [rms_norm, flash_attention_fwd,
                                 flash_attention_bwd, fused_adam,
                                 measure_flash_blocks],
+             # GPT (LayerNorm, no K3): both runs of train-gpt read these
+             "train_gpt": [flash_attention_fwd, flash_attention_bwd,
+                           fused_adam, flash_attention_fwd_dropout,
+                           flash_attention_bwd_dropout],
              "weight_only_generate_static": [rms_norm, decode_attention,
                                              weight_only_linear,
                                              weight_only_linear_wgmma],
@@ -3106,6 +3632,11 @@ def main():
     if "train-autotune" in phases:
         by_path["train_autotune"] = phase_train_autotune(
             paths["train_autotune"], k7, train_losses)
+    if "gpt-parity" in phases:
+        phase_gpt_parity()
+    by_path["train_gpt_dropout"] = dict(by_path["train_gpt"])
+    if "train-gpt" in phases:
+        by_path.update(phase_train_gpt(paths["train_gpt"]))
 
     # one entry per kernel: the main path's dtype (bf16) at its main shape
     main_shape = {"rms_norm": [2048, 4096],
@@ -3114,6 +3645,8 @@ def main():
                   "decode_attention": [8, 1, 32, 128],
                   "flash_attention_fwd": [4, 2048, 32, 128],
                   "flash_attention_bwd": [4, 2048, 32, 128],
+                  "flash_attention_fwd_dropout": [4, 2048, 16, 128],
+                  "flash_attention_bwd_dropout": [4, 2048, 16, 128],
                   "fused_adam": [_FUSED_ADAM_N],
                   "weight_only_linear": [8, 4096, 11008],
                   "weight_only_linear_wgmma": [2048, 4096, 11008]}
@@ -3135,6 +3668,13 @@ def main():
                                 f"{flash}:432", "train"),
         "flash_attention_bwd": ("paddle_tpu_torch/csrc/flash_attention.cu",
                                 f"{flash}:307", "train"),
+        # K1/K2's dropout variants, on gpt_1p3b's second train-gpt run
+        "flash_attention_fwd_dropout": (
+            "paddle_tpu_torch/csrc/flash_attention.cu", f"{flash}:432",
+            "train_gpt_dropout"),
+        "flash_attention_bwd_dropout": (
+            "paddle_tpu_torch/csrc/flash_attention.cu", f"{flash}:307",
+            "train_gpt_dropout"),
         "fused_adam": ("paddle_tpu_torch/csrc/fused_adam.cu",
                        "paddle_tpu/optimizer/__init__.py:211", "train"),
         "weight_only_linear": ("paddle_tpu_torch/csrc/weight_only_linear.cu",
@@ -3151,7 +3691,8 @@ def main():
             name == "weight_only_linear_wgmma" and r.get("body") == "wgmma")]
         main = [r for r in mine if r["shape"] == main_shape[name]
                 and r["dtype"] == "bfloat16" and "blocks" not in r
-                and r.get("kv_heads", 32) == 32 and not r.get("diagnostic")
+                and ("kv_heads" not in r or r["kv_heads"] == r["shape"][2])
+                and not r.get("diagnostic")
                 and r.get("bits", 8) == 8 and not r.get("bias")]
         row = main[0] if main else {}
         kernels.append(dict(

@@ -22,6 +22,19 @@
 // rounded to bf16 before their products (flash_attention.py:137, :249,
 // :291, :297), as the TPU kernel does.
 //
+// Attention dropout (the JAX _sdpa_raw's, after the softmax; entries
+// flash_attention_fwd_dropout_launch and _bwd_dropout_launch): the
+// bodies built with kDrop multiply each probability by M / (1 - p) in f32,
+// at the (row, key) the causal mask already computes, before its bf16 round;
+// l and lse stay over the undropped P; K2 scales dP = dO V^T by the same
+// factor and dv takes the dropped P (delta = rowsum(dO o O) is unchanged).
+// M is Philox4x32-10 keyed by the call's seed over (batch row, query head,
+// query row, key column / 4) (philox.cuh): four keys a hash, one hash shared
+// by the lanes that hold those keys (a thread pair in the row-major bodies,
+// a lane quad in dk/dv's S^T), so every body masks the same elements. Built
+// for the Hopper bodies (K1 at its default tiles) and the fp32 bodies; the
+// bf16 mma.sync bodies (D = 16, 32) refuse it.
+//
 // Shape limits (the wrapper raises on anything else): D in {16, 32, 64,
 // 128}; H a multiple of KV; any Sq, Skv >= 0 (partial tiles are masked);
 // 16-byte aligned, contiguous tensors; bf16 or f32.
@@ -84,6 +97,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -110,7 +124,36 @@ struct Args {
   int B, Sq, Skv, H, KV, D, causal;
   int Sp;                // delta rows, padded: [B, H, Sp]
   float scale;
+  // attention dropout (the bodies built with kDrop): the Philox key (the
+  // call's seed), the keep test's bound floor(p 2^32) and 1 / (1 - p);
+  // philox.cuh gives the counter layout
+  uint32_t seed0, seed1, threshold;
+  float keep_scale;
 };
+
+// the keep bits of keys 4 g .. 4 g + 3 of (b, h, row): bit i keeps 4 g + i
+__device__ __forceinline__ uint32_t drop_nibble(const Args& a, int b, int h,
+                                                int row, int g) {
+  return philox::keep_nibble(a.seed0, a.seed1, b, h, row, g, a.threshold);
+}
+
+// The keep bits of this thread's accumulator elements of one 8-key column
+// block j (keys key8 + 2 tig + e, rows rA and rB) of an mma/wgmma row-major
+// accumulator: the thread pair (tig, tig ^ 1) shares one 4-key Philox group,
+// so the even thread hashes row A and the odd one row B, and they swap
+// nibbles. Bit e is (row A, key e), bit 2 + e (row B, key e).
+__device__ __forceinline__ uint32_t drop_pair_bits(const Args& a, int b,
+                                                   int h, int rA, int rB,
+                                                   int key8, int tig) {
+  const int odd = tig & 1;
+  uint32_t v = drop_nibble(a, b, h, odd ? rB : rA, (key8 >> 2) + (tig >> 1))
+               << (4 * odd);
+  v |= __shfl_xor_sync(0xffffffffu, v, 1);
+  // row A's nibble in bits 0..3, row B's in 4..7; this thread's keys are
+  // 2 odd + e of the group
+  const uint32_t sh = 2 * odd;
+  return ((v >> sh) & 3u) | (((v >> (4 + sh)) & 3u) << 2);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -144,7 +187,7 @@ __device__ __forceinline__ size_t k_off(const Args& a, int b, int j, int kv) {
 constexpr int kTR = 4;
 constexpr int kKB = 8;
 
-template <int NI>
+template <int NI, bool kDrop>
 __global__ void __launch_bounds__(kThreads) fwd_fma(Args a) {
   const float* __restrict__ q = static_cast<const float*>(a.q);
   const float* __restrict__ k = static_cast<const float*>(a.k);
@@ -214,7 +257,16 @@ __global__ void __launch_bounds__(kThreads) fwd_fma(Args a) {
         s[kk] = keep[kk] ? expf(s[kk] - mx) : 0.f;
         psum += s[kk];
       }
-      l[i] = l[i] * corr + psum;
+      l[i] = l[i] * corr + psum;  // over the undropped probabilities
+      if constexpr (kDrop) {
+        // keys k0 .. k0 + 7 are two whole Philox groups (k0 % 8 == 0)
+        const uint32_t bits =
+            drop_nibble(a, b, h, r0 + i, k0 >> 2) |
+            (drop_nibble(a, b, h, r0 + i, (k0 >> 2) + 1) << 4);
+#pragma unroll
+        for (int kk = 0; kk < kKB; ++kk)
+          s[kk] *= ((bits >> kk) & 1u) ? a.keep_scale : 0.f;
+      }
 #pragma unroll
       for (int n = 0; n < NI; ++n) {
         float x = acc[i][n] * corr;
@@ -240,7 +292,7 @@ __global__ void __launch_bounds__(kThreads) fwd_fma(Args a) {
   }
 }
 
-template <int NI>
+template <int NI, bool kDrop>
 __global__ void __launch_bounds__(kThreads) dq_fma(Args a) {
   const float* __restrict__ q = static_cast<const float*>(a.q);
   const float* __restrict__ k = static_cast<const float*>(a.k);
@@ -294,6 +346,10 @@ __global__ void __launch_bounds__(kThreads) dq_fma(Args a) {
 #pragma unroll
     for (int i = 0; i < kTR; ++i) {
       if (fr[i] < k0) continue;
+      uint32_t bits = 0xFFu;
+      if constexpr (kDrop)
+        bits = drop_nibble(a, b, h, r0 + i, k0 >> 2) |
+               (drop_nibble(a, b, h, r0 + i, (k0 >> 2) + 1) << 4);
 #pragma unroll
       for (int kk = 0; kk < kKB; ++kk) {
         float ps = 0.f, pd = 0.f;
@@ -304,7 +360,8 @@ __global__ void __launch_bounds__(kThreads) dq_fma(Args a) {
         }
         const bool keep = k0 + kk <= fr[i] && (!a.qseg || qs[i] == ks[kk]);
         const float s = warp_sum(ps) * a.scale;
-        const float dp = warp_sum(pd);
+        float dp = warp_sum(pd);
+        if constexpr (kDrop) dp *= ((bits >> kk) & 1u) ? a.keep_scale : 0.f;
         const float p = keep ? expf(s - lse[i]) : 0.f;
         const float ds = p * (dp - dl[i]);
 #pragma unroll
@@ -325,7 +382,7 @@ __global__ void __launch_bounds__(kThreads) dq_fma(Args a) {
   }
 }
 
-template <int NI>
+template <int NI, bool kDrop>
 __global__ void __launch_bounds__(kThreads) dkv_fma(Args a) {
   const float* __restrict__ q = static_cast<const float*>(a.q);
   const float* __restrict__ k = static_cast<const float*>(a.k);
@@ -374,6 +431,8 @@ __global__ void __launch_bounds__(kThreads) dkv_fma(Args a) {
         qf[n] = d < a.D ? q[o + d] : 0.f;
         df[n] = d < a.D ? dout[o + d] : 0.f;
       }
+      // keys j0 .. j0 + 3 are one Philox group (j0 % 4 == 0)
+      const uint32_t bits = kDrop ? drop_nibble(a, b, h, r, j0 >> 2) : 0xFu;
 #pragma unroll
       for (int i = 0; i < kTR; ++i) {
         const int j = j0 + i;
@@ -386,12 +445,18 @@ __global__ void __launch_bounds__(kThreads) dkv_fma(Args a) {
           pd += df[n] * vr[i][n];
         }
         const float s = warp_sum(ps) * a.scale;
-        const float dp = warp_sum(pd);
+        float dp = warp_sum(pd);
         const float p = expf(s - lse);
+        // dropout: dv takes the dropped, scaled P; dP = dO V^T is scaled
+        // the same way before dS = P (dP - delta)
+        const float z =
+            ((bits >> i) & 1u) ? (kDrop ? a.keep_scale : 1.f) : 0.f;
+        dp *= z;
         const float ds = p * (dp - dl);
+        const float pz = p * z;
 #pragma unroll
         for (int n = 0; n < NI; ++n) {
-          av[i][n] += p * df[n];
+          av[i][n] += pz * df[n];
           ak[i][n] += ds * qf[n];
         }
       }
@@ -994,7 +1059,7 @@ __device__ __forceinline__ uint64_t desc_at(uint64_t base, uint32_t off) {
 }
 
 
-template <int D, int W, int BN>
+template <int D, int W, int BN, bool kDrop>
 __global__ void __launch_bounds__(FwdHop<D, W, BN>::kThreads, 1)
     fwd_wgmma(const __grid_constant__ HopParams P) {
   using C = FwdHop<D, W, BN>;
@@ -1144,6 +1209,18 @@ __global__ void __launch_bounds__(FwdHop<D, W, BN>::kThreads, 1)
           o[4 * j + 2] *= cB;
           o[4 * j + 3] *= cB;
         }
+        if constexpr (kDrop) {
+          // l summed the undropped P (as the JAX _sdpa_raw drops after the
+          // softmax); O takes P M / (1 - p), in f32 before the bf16 round
+#pragma unroll
+          for (int j = 0; j < SN / 8; ++j) {
+            const uint32_t bits = drop_pair_bits(a, b, h, rA, rB, kh + 8 * j,
+                                                 tig);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[4 * j + e] *= ((bits >> e) & 1u) ? a.keep_scale : 0.f;
+          }
+        }
         uint32_t pa[SN / 16][4];
 #pragma unroll
         for (int kk = 0; kk < SN / 16; ++kk) to_a(pa[kk], sc, kk);
@@ -1185,7 +1262,7 @@ struct DqHop {
   static constexpr int smem = 2 * QB + kStages * 2 * KB + 64 + 1024;
 };
 
-template <int D>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kHopThreads, 1)
     dq_wgmma(const __grid_constant__ HopParams P) {
   using C = DqHop<D>;
@@ -1278,6 +1355,17 @@ __global__ void __launch_bounds__(kHopThreads, 1)
           if (!keep) sc[i] = neg_inf();
         }
       }
+      // dropout: dP = (dO V^T) M / (1 - p)
+      if constexpr (kDrop) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const uint32_t bits = drop_pair_bits(a, b, h, rA, rB, k0 + 8 * j,
+                                               tig);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * j + e] *= ((bits >> e) & 1u) ? a.keep_scale : 0.f;
+        }
+      }
       // dS = P (dP - delta), P = exp2(S scale log2(e) - lse2), kept in sc
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) {
@@ -1324,7 +1412,7 @@ struct DkvHop {
       2 * KB + kStages * (2 * QB + 2 * VB) + 64 + 1024;
 };
 
-template <int D>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kHopThreads, 1)
     dkv_wgmma(const __grid_constant__ HopParams P) {
   using C = DkvHop<D>;
@@ -1432,12 +1520,42 @@ __global__ void __launch_bounds__(kHopThreads, 1)
           if (!keep) st[i] = neg_inf();
         }
       }
+      // dropout on S^T: rows are keys jA, jB (column jA & 3 = grp & 3 of
+      // their Philox groups), columns q rows. The four lanes grp & 3 = 0..3
+      // (same tig, same grp >> 2) share each group: lane c hashes the pair
+      // c = 2 hi + e, (key jA or jB, q row q0 + 8 jj + 2 tig + e), and the
+      // quad gathers the four nibbles. Bit i of `kbits` is element i's.
+      uint32_t kbits = 0xFFFFFFFFu;
+      if constexpr (kDrop) {
+        const int cq = grp & 3;
+        const int h = kvh * G + g;
+        kbits = 0u;
+#pragma unroll
+        for (int jj = 0; jj < BQ / 8; ++jj) {
+          const int r = q0 + 8 * jj + 2 * tig + (cq & 1);
+          uint32_t v = drop_nibble(a, b, h, r, ((cq >> 1) ? jB : jA) >> 2)
+                       << (4 * cq);
+          v |= __shfl_xor_sync(0xffffffffu, v, 4);
+          v |= __shfl_xor_sync(0xffffffffu, v, 8);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            kbits |= ((v >> (4 * e + cq)) & 1u) << (4 * jj + e);
+        }
+      }
+      // P^T (dropout: P^T M / (1 - p), for dv) and dS^T = P^T (dP^T - delta)
+      // (dropout: dP^T M / (1 - p))
 #pragma unroll
       for (int i = 0; i < BQ / 2; ++i) {
         const int c = 8 * (i >> 2) + 2 * tig + (i & 1);
         const float p = exp2f(fmaf(st[i], sl2, -vl[c]));
-        st[i] = p;
-        dpt[i] = p * (dpt[i] - vd[c]);
+        if constexpr (kDrop) {
+          const float z = ((kbits >> i) & 1u) ? a.keep_scale : 0.f;
+          st[i] = p * z;
+          dpt[i] = p * (dpt[i] * z - vd[c]);
+        } else {
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - vd[c]);
+        }
       }
       // one product after the other, so that P^T's registers are free
       // before dS^T's fragments are made
@@ -1519,7 +1637,7 @@ bool hop_ok(const Args& a, int dtype) {
   return dtype == 1 && (a.D == 64 || a.D == 128) && a.Sq > 0 && a.Skv > 0;
 }
 
-template <int D, int W, int BN>
+template <int D, int W, int BN, bool kDrop = false>
 cudaError_t fwd_hop(const Args& a, cudaStream_t s) {
   using C = FwdHop<D, W, BN>;
   HopParams p{};
@@ -1529,11 +1647,11 @@ cudaError_t fwd_hop(const Args& a, cudaStream_t s) {
       !hopper_host::encode_rows(&p.tv, a.v, a.B, a.Skv, a.KV, D, C::BN))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      fwd_wgmma<D, W, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_wgmma<D, W, BN, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Sq + C::BM - 1) / C::BM, a.H, a.B);
-  fwd_wgmma<D, W, BN><<<grid, C::kThreads, C::smem, s>>>(p);
+  fwd_wgmma<D, W, BN, kDrop><<<grid, C::kThreads, C::smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -1562,7 +1680,7 @@ cudaError_t prepass(const Args& a, const void* out, float* work,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kDrop>
 cudaError_t dq_hop(const Args& a, const float* work, cudaStream_t s) {
   using C = DqHop<D>;
   HopParams p{};
@@ -1575,14 +1693,15 @@ cudaError_t dq_hop(const Args& a, const float* work, cudaStream_t s) {
       !hopper_host::encode_rows(&p.tv, a.v, a.B, a.Skv, a.KV, D, C::BN))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::smem);
+      dq_wgmma<D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Sq + C::BM - 1) / C::BM, a.H, a.B);
-  dq_wgmma<D><<<grid, kHopThreads, C::smem, s>>>(p);
+  dq_wgmma<D, kDrop><<<grid, kHopThreads, C::smem, s>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kDrop>
 cudaError_t dkv_hop(const Args& a, const float* work, cudaStream_t s) {
   using C = DkvHop<D>;
   HopParams p{};
@@ -1596,10 +1715,11 @@ cudaError_t dkv_hop(const Args& a, const float* work, cudaStream_t s) {
       !hopper_host::encode_f32_rows(&p.tdelta, delta, a.B * a.H, a.Sp, C::BQ))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::smem);
+      dkv_wgmma<D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Skv + C::BN - 1) / C::BN, a.KV, a.B);
-  dkv_wgmma<D><<<grid, kHopThreads, C::smem, s>>>(p);
+  dkv_wgmma<D, kDrop><<<grid, kHopThreads, C::smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -1629,36 +1749,77 @@ cudaError_t bwd_mma(const Args& a, int parts, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kDrop>
 cudaError_t bwd_hop(const Args& a, const float* work, int parts,
                     cudaStream_t s) {
   if (parts & 2) {
-    cudaError_t e = dq_hop<D>(a, work, s);
+    cudaError_t e = dq_hop<D, kDrop>(a, work, s);
     if (e != cudaSuccess) return e;
   }
-  return (parts & 4) ? dkv_hop<D>(a, work, s) : cudaSuccess;
+  return (parts & 4) ? dkv_hop<D, kDrop>(a, work, s) : cudaSuccess;
 }
 
-template <int NI>
+template <int NI, bool kDrop>
 cudaError_t fwd_f(const Args& a, cudaStream_t s) {
-  fwd_fma<NI><<<row_grid(a, kWarps * kTR), kThreads, 0, s>>>(a);
+  fwd_fma<NI, kDrop><<<row_grid(a, kWarps * kTR), kThreads, 0, s>>>(a);
   return cudaGetLastError();
 }
 
-template <int NI>
+template <int NI, bool kDrop>
 cudaError_t bwd_f(const Args& a, int parts, cudaStream_t s) {
   if ((parts & 2) && a.Sq > 0) {
-    dq_fma<NI><<<row_grid(a, kWarps * kTR), kThreads, 0, s>>>(a);
+    dq_fma<NI, kDrop><<<row_grid(a, kWarps * kTR), kThreads, 0, s>>>(a);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   if (!(parts & 4) || a.Skv <= 0) return cudaSuccess;
-  dkv_fma<NI><<<key_grid(a, kWarps * kTR), kThreads, 0, s>>>(a);
+  dkv_fma<NI, kDrop><<<key_grid(a, kWarps * kTR), kThreads, 0, s>>>(a);
   return cudaGetLastError();
 }
 
-cudaError_t run_fwd(const Args& a, int dtype, int bq, int bkv,
+// the fp32 bodies at NI = D / 32 head-dim elements a lane (at least 1)
+template <bool kDrop>
+cudaError_t fwd_f32(const Args& a, cudaStream_t s) {
+  switch (a.D) {
+    case 16:
+    case 32: return fwd_f<1, kDrop>(a, s);
+    case 64: return fwd_f<2, kDrop>(a, s);
+    case 128: return fwd_f<4, kDrop>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool kDrop>
+cudaError_t bwd_f32(const Args& a, int parts, cudaStream_t s) {
+  switch (a.D) {
+    case 16:
+    case 32: return bwd_f<1, kDrop>(a, parts, s);
+    case 64: return bwd_f<2, kDrop>(a, parts, s);
+    case 128: return bwd_f<4, kDrop>(a, parts, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Dropout runs in the Hopper bodies (bf16, D = 64 and 128, K1 at its
+// default tile) and the fp32 bodies. The bf16 mma.sync bodies (D = 16 and
+// 32) are not built with it: a dropout call there is refused, unless it has
+// no (row, key) pair to drop (no q row, or no key).
+bool drop_refused(const Args& a, int dtype) {
+  return dtype == 1 && !hop_ok(a, dtype) && a.Sq > 0 && a.Skv > 0;
+}
+
+cudaError_t run_fwd(const Args& a, int dtype, int bq, int bkv, bool drop,
                     cudaStream_t s) {
+  if (drop) {
+    // the dropout instances are the default tiles'
+    if (bq != 0 || bkv != 0 || drop_refused(a, dtype))
+      return cudaErrorInvalidValue;
+    if (hop_ok(a, dtype))
+      return a.D == 64 ? fwd_hop<64, 2, 128, true>(a, s)
+                       : fwd_hop<128, 2, 128, true>(a, s);
+    if (dtype == 0) return fwd_f32<true>(a, s);
+    // bf16 with no key: every row outputs 0, with or without dropout
+  }
   if (hop_ok(a, dtype)) return fwd_hop_tile(a, bq, bkv, s);
   // the mma and FMA bodies have one tile each: (0, 0)
   if (bq != 0 || bkv != 0) return cudaErrorInvalidValue;
@@ -1672,13 +1833,7 @@ cudaError_t run_fwd(const Args& a, int dtype, int bq, int bkv,
     }
     return cudaGetLastError();
   }
-  switch (a.D) {
-    case 16:
-    case 32: return fwd_f<1>(a, s);
-    case 64: return fwd_f<2>(a, s);
-    case 128: return fwd_f<4>(a, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return fwd_f32<false>(a, s);
 }
 
 cudaError_t run_prepass(const Args& a, int dtype, const void* out,
@@ -1702,14 +1857,20 @@ cudaError_t run_prepass(const Args& a, int dtype, const void* out,
 }
 
 cudaError_t run_bwd(const Args& a, int dtype, const void* out, float* work,
-                    int parts, cudaStream_t s) {
+                    int parts, bool drop, cudaStream_t s) {
+  if (drop && drop_refused(a, dtype)) return cudaErrorInvalidValue;
   if ((parts & 1) && a.Sq > 0) {
     cudaError_t e = run_prepass(a, dtype, out, work, s);
     if (e != cudaSuccess) return e;
   }
-  if (hop_ok(a, dtype))
-    return a.D == 64 ? bwd_hop<64>(a, work, parts, s)
-                     : bwd_hop<128>(a, work, parts, s);
+  if (hop_ok(a, dtype)) {
+    if (drop)
+      return a.D == 64 ? bwd_hop<64, true>(a, work, parts, s)
+                       : bwd_hop<128, true>(a, work, parts, s);
+    return a.D == 64 ? bwd_hop<64, false>(a, work, parts, s)
+                     : bwd_hop<128, false>(a, work, parts, s);
+  }
+  if (drop && dtype == 0) return bwd_f32<true>(a, parts, s);
   if (dtype == 1) {
     switch (a.D) {
       case 16: return bwd_mma<16>(a, parts, s);
@@ -1719,13 +1880,7 @@ cudaError_t run_bwd(const Args& a, int dtype, const void* out, float* work,
       default: return cudaErrorInvalidValue;
     }
   }
-  switch (a.D) {
-    case 16:
-    case 32: return bwd_f<1>(a, parts, s);
-    case 64: return bwd_f<2>(a, parts, s);
-    case 128: return bwd_f<4>(a, parts, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return bwd_f32<false>(a, parts, s);
 }
 
 }  // namespace
@@ -1735,11 +1890,14 @@ cudaError_t run_bwd(const Args& a, int dtype, const void* out, float* work,
 // dtype), or (0, 0) for the body's default; any other pair, or a pair on a
 // call the Hopper body does not take (no key), returns
 // cudaErrorInvalidValue without a launch.
-extern "C" int flash_attention_fwd_launch(
-    const void* q, const void* k, const void* v, const void* qseg,
-    const void* kseg, void* out, void* lse, int B, int Sq, int Skv, int H,
-    int KV, int D, int causal, float scale, int dtype, int block_q,
-    int block_kv, void* stream) {
+namespace {
+
+int fwd_launch(const void* q, const void* k, const void* v, const void* qseg,
+               const void* kseg, void* out, void* lse, int B, int Sq, int Skv,
+               int H, int KV, int D, int causal, float scale, int dtype,
+               int block_q, int block_kv, bool drop, uint32_t seed0,
+               uint32_t seed1, uint32_t threshold, float keep_scale,
+               void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   Args a{};
   a.q = q;
@@ -1752,8 +1910,38 @@ extern "C" int flash_attention_fwd_launch(
   a.B = B; a.Sq = Sq; a.Skv = Skv; a.H = H; a.KV = KV; a.D = D;
   a.causal = causal;
   a.scale = scale;
-  return static_cast<int>(
-      run_fwd(a, dtype, block_q, block_kv, static_cast<cudaStream_t>(stream)));
+  a.seed0 = seed0; a.seed1 = seed1; a.threshold = threshold;
+  a.keep_scale = keep_scale;
+  return static_cast<int>(run_fwd(a, dtype, block_q, block_kv, drop,
+                                  static_cast<cudaStream_t>(stream)));
+}
+
+}  // namespace
+
+extern "C" int flash_attention_fwd_launch(
+    const void* q, const void* k, const void* v, const void* qseg,
+    const void* kseg, void* out, void* lse, int B, int Sq, int Skv, int H,
+    int KV, int D, int causal, float scale, int dtype, int block_q,
+    int block_kv, void* stream) {
+  return fwd_launch(q, k, v, qseg, kseg, out, lse, B, Sq, Skv, H, KV, D,
+                    causal, scale, dtype, block_q, block_kv, false, 0, 0, 0,
+                    1.f, stream);
+}
+
+// K1 with attention dropout (the JAX _sdpa_raw's, after the softmax): O =
+// (P M / (1 - p)) V with l and lse over the undropped P. The mask M is
+// Philox4x32-10 keyed by (seed0, seed1) over the counter layout of
+// philox.cuh; an element is kept iff its word >= threshold = floor(p 2^32);
+// keep_scale = 1 / (1 - p). The default tile only; the bf16 D = 16 and 32
+// bodies refuse it (cudaErrorInvalidValue, no launch).
+extern "C" int flash_attention_fwd_dropout_launch(
+    const void* q, const void* k, const void* v, const void* qseg,
+    const void* kseg, void* out, void* lse, int B, int Sq, int Skv, int H,
+    int KV, int D, int causal, float scale, int dtype, unsigned seed0,
+    unsigned seed1, unsigned threshold, float keep_scale, void* stream) {
+  return fwd_launch(q, k, v, qseg, kseg, out, lse, B, Sq, Skv, H, KV, D,
+                    causal, scale, dtype, 0, 0, true, seed0, seed1, threshold,
+                    keep_scale, stream);
 }
 
 // The forward's built tiles for (D, dtype) as (block_q, block_kv) pairs in
@@ -1779,12 +1967,15 @@ extern "C" int flash_attention_fwd_tiles(int D, int dtype, int* out, int max) {
 // pre-pass writes lse * log2(e) and delta = rowsum(dout * out) there.
 // `parts` selects the launches: 1 the pre-pass, 2 the dq kernel, 4 the
 // dk/dv kernel (7: the whole backward).
-extern "C" int flash_attention_bwd_launch(
-    const void* q, const void* k, const void* v, const void* out,
-    const void* dout, const void* lse, void* work, const void* qseg,
-    const void* kseg, void* dq, void* dk, void* dv, int B, int Sq, int Skv,
-    int H, int KV, int D, int causal, float scale, int dtype, int parts,
-    void* stream) {
+namespace {
+
+int bwd_launch(const void* q, const void* k, const void* v, const void* out,
+               const void* dout, const void* lse, void* work,
+               const void* qseg, const void* kseg, void* dq, void* dk,
+               void* dv, int B, int Sq, int Skv, int H, int KV, int D,
+               int causal, float scale, int dtype, int parts, bool drop,
+               uint32_t seed0, uint32_t seed1, uint32_t threshold,
+               float keep_scale, void* stream) {
   if (B <= 0 || H <= 0 || (Sq <= 0 && Skv <= 0)) return 0;
   Args a{};
   a.q = q;
@@ -1803,6 +1994,37 @@ extern "C" int flash_attention_bwd_launch(
   a.Sp = (Sq + kPad - 1) / kPad * kPad;
   a.causal = causal;
   a.scale = scale;
+  a.seed0 = seed0; a.seed1 = seed1; a.threshold = threshold;
+  a.keep_scale = keep_scale;
   return static_cast<int>(run_bwd(a, dtype, out, static_cast<float*>(work),
-                                  parts, static_cast<cudaStream_t>(stream)));
+                                  parts, drop,
+                                  static_cast<cudaStream_t>(stream)));
+}
+
+}  // namespace
+
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, void* work, const void* qseg,
+    const void* kseg, void* dq, void* dk, void* dv, int B, int Sq, int Skv,
+    int H, int KV, int D, int causal, float scale, int dtype, int parts,
+    void* stream) {
+  return bwd_launch(q, k, v, out, dout, lse, work, qseg, kseg, dq, dk, dv, B,
+                    Sq, Skv, H, KV, D, causal, scale, dtype, parts, false, 0,
+                    0, 0, 1.f, stream);
+}
+
+// K2 of K1's dropout call, from the same seed, threshold and keep_scale:
+// dV = (P M / (1 - p))^T dO, dP = (dO V^T) M / (1 - p), dS = P (dP - delta)
+// with delta = rowsum(dO o O) from the pre-pass (still exact with dropout).
+extern "C" int flash_attention_bwd_dropout_launch(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, void* work, const void* qseg,
+    const void* kseg, void* dq, void* dk, void* dv, int B, int Sq, int Skv,
+    int H, int KV, int D, int causal, float scale, int dtype, int parts,
+    unsigned seed0, unsigned seed1, unsigned threshold, float keep_scale,
+    void* stream) {
+  return bwd_launch(q, k, v, out, dout, lse, work, qseg, kseg, dq, dk, dv, B,
+                    Sq, Skv, H, KV, D, causal, scale, dtype, parts, true,
+                    seed0, seed1, threshold, keep_scale, stream);
 }

@@ -1,0 +1,60 @@
+// Philox4x32-10, the counter-based generator of attention dropout's mask
+// (Salmon, Moraes, Dror and Shaw, "Parallel random numbers: as easy as 1, 2,
+// 3", SC'11; the function curand exports as curand_Philox4x32_10). Written
+// out here: the kernels never include curand. Its plain PyTorch twin is
+// paddle_tpu_torch/ops/kernels/dropout_mask.py, which computes the same
+// words with int64 tensor ops, so the two masks are equal bit for bit.
+//
+// The counter layout (the one definition; dropout_mask.py's docstring
+// repeats it): the key is the call's 64-bit seed, k = {seed_lo, seed_hi};
+// the element (batch row b, query head h, query row r, key column c) takes
+// counter {c >> 2, r, h, b} and of its four output words the one numbered
+// c & 3. The element is kept iff that word >= threshold = floor(p * 2^32),
+// which keeps it with probability 1 - p to within 2^-32; a kept
+// probability is scaled by keep_scale = 1 / (1 - p) in f32.
+#pragma once
+
+#include <stdint.h>
+
+namespace philox {
+
+constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;  // multipliers
+constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;  // key bumps
+
+// the ten rounds, the key bumped between them
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
+                                               uint32_t k1) {
+  // the bumped keys are recomputed at each call (two adds a round) rather
+  // than hoisted out of a kernel's loops into 18 registers
+  asm volatile("" : "+r"(k0), "+r"(k1));
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
+    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    k0 += kW0;
+    k1 += kW1;
+  }
+  return c;
+}
+
+// the keep bits of keys 4 g .. 4 g + 3 of (b, h, row): bit i keeps key
+// 4 g + i
+__device__ __forceinline__ uint32_t keep_nibble(uint32_t k0, uint32_t k1,
+                                                int b, int h, int row, int g,
+                                                uint32_t threshold) {
+  const uint4 w = philox4x32_10(
+      make_uint4(uint32_t(g), uint32_t(row), uint32_t(h), uint32_t(b)), k0,
+      k1);
+  return uint32_t(w.x >= threshold) | (uint32_t(w.y >= threshold) << 1) |
+         (uint32_t(w.z >= threshold) << 2) | (uint32_t(w.w >= threshold) << 3);
+}
+
+// does (b, h, row, col) keep its probability?
+__device__ __forceinline__ bool keep(uint32_t k0, uint32_t k1, int b, int h,
+                                     int row, int col, uint32_t threshold) {
+  return (keep_nibble(k0, k1, b, h, row, col >> 2, threshold) >> (col & 3)) &
+         1u;
+}
+
+}  // namespace philox

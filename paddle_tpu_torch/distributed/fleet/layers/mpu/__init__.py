@@ -1,5 +1,6 @@
 from .mp_layers import (ColumnParallelLinear, RowParallelLinear,
-                        VocabParallelEmbedding, parallel_cross_entropy)
+                        VocabParallelEmbedding, mp_active,
+                        parallel_cross_entropy)
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding", "parallel_cross_entropy"]
+           "VocabParallelEmbedding", "mp_active", "parallel_cross_entropy"]

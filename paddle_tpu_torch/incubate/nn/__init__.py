@@ -1,9 +1,11 @@
 """Incubating NN ops and layers (counterpart of
 ``paddle_tpu/incubate/nn``): the fused cache-KV attention functions in
-``functional`` and the ``FusedMultiTransformer`` decoder stack.
-``FusedMultiHeadAttention`` and ``FusedFeedForward`` are training layers
-with attention dropout and are not ported (ROADMAP.md queue 1, item 1.3)."""
+``functional``, the training blocks ``FusedMultiHeadAttention`` (causal
+attention with attention dropout inside K1/K2) and ``FusedFeedForward``,
+and the ``FusedMultiTransformer`` decoder stack."""
 from . import functional  # noqa: F401
-from .layer import FusedMultiTransformer  # noqa: F401
+from .layer import (FusedFeedForward, FusedMultiHeadAttention,  # noqa: F401
+                    FusedMultiTransformer)
 
-__all__ = ["functional", "FusedMultiTransformer"]
+__all__ = ["functional", "FusedMultiHeadAttention", "FusedFeedForward",
+           "FusedMultiTransformer"]

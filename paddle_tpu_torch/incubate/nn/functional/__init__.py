@@ -14,8 +14,9 @@
 Caches are written in place and also returned, where the JAX functions
 return updated copies. The knobs neither package serves (in-kernel
 rotary, quantisation, packing metadata, tensor-parallel rings, masks)
-raise, as in the JAX package; so does dropout in training, which the
-port has not put on the kernel path (ROADMAP.md queue 1, item 2.5).
+raise, as in the JAX package. ``fused_multi_transformer``'s dropout in
+training is the JAX function's: ``nn.functional.dropout`` after each
+block's output projection (masks from ``generator``, on x's device).
 """
 from __future__ import annotations
 
@@ -112,14 +113,17 @@ def fused_multi_transformer(x, ln_scales, ln_biases, qkv_weights,
                             rotary_emb_dims=0, activation="gelu",
                             training=False, mode="upscale_in_train",
                             trans_qkvw=True, ring_id=-1, name=None,
-                            num_heads=None):
+                            num_heads=None, generator=None):
     """Stateless form of the FusedMultiTransformer stack. qkv_weights per
     layer: the reference 4-D layout [3, H, D, h] (qkv-major; [h, 3, H, D]
     when not ``trans_qkvw``), or 2-D [3h, h] ([h, 3h] when not
     ``trans_qkvw``, head-major with q, k, v inside each head; pass
     ``num_heads`` or caches). Caches: per layer (k, v) [B, H, M, D] or
     one [2, B, H, M, D] tensor, written at ``time_step`` (an int or a
-    [B] tensor). Returns out, or (out, caches) when caches are passed."""
+    [B] tensor). With ``training`` and ``dropout_rate``, each block's
+    output is dropped (``mode``) before its residual, as in the JAX
+    function, the masks drawn from ``generator``. Returns out, or (out,
+    caches) when caches are passed."""
     for knob, kname in ((pre_caches, "pre_caches"), (seq_lens, "seq_lens"),
                         (rotary_embs, "rotary_embs"),
                         (attn_mask, "attn_mask")):
@@ -132,10 +136,6 @@ def fused_multi_transformer(x, ln_scales, ln_biases, qkv_weights,
             "rotary (rotary_emb_dims != 0) is not served")
     enforce(ring_id == -1, "fused_multi_transformer: ring_id tensor "
             "parallelism is not ported (ROADMAP.md queue 1, item 8)")
-    enforce(not (dropout_rate and training),
-            "fused_multi_transformer: dropout in training is not ported "
-            "(ROADMAP.md queue 1, item 2.5); at inference it is the "
-            "identity")
     offset = 0 if time_step is None else time_step
     act = _ACT[activation]
     B, S, h = x.shape
@@ -168,14 +168,18 @@ def fused_multi_transformer(x, ln_scales, ln_biases, qkv_weights,
             cache = (cache_kvs[i][0], cache_kvs[i][1])
             new_caches.append(cache)
         out = _attention(q, k, v, cache, offset).reshape(B, S, h)
-        x = residual + F.linear(out, linear_weights[i], linear_biases[i])
+        out = F.linear(out, linear_weights[i], linear_biases[i])
+        x = residual + F.dropout(out, dropout_rate, training=training,
+                                 mode=mode, generator=generator)
         if not pre_layer_norm:
             x = F.layer_norm(x, ln_scales[i], ln_biases[i], epsilon)
         residual = x
         f = F.layer_norm(x, ffn_ln_scales[i], ffn_ln_biases[i], epsilon) \
             if pre_layer_norm else x
         f = act(F.linear(f, ffn1_weights[i], ffn1_biases[i]))
-        x = residual + F.linear(f, ffn2_weights[i], ffn2_biases[i])
+        f = F.linear(f, ffn2_weights[i], ffn2_biases[i])
+        x = residual + F.dropout(f, dropout_rate, training=training,
+                                 mode=mode, generator=generator)
         if not pre_layer_norm:
             x = F.layer_norm(x, ffn_ln_scales[i], ffn_ln_biases[i], epsilon)
     return (x, new_caches) if cache_kvs is not None else x

@@ -1,3 +1,6 @@
-from .fused_transformer import FusedMultiTransformer  # noqa: F401
+from .fused_transformer import (FusedFeedForward,  # noqa: F401
+                                FusedMultiHeadAttention,
+                                FusedMultiTransformer)
 
-__all__ = ["FusedMultiTransformer"]
+__all__ = ["FusedMultiHeadAttention", "FusedFeedForward",
+           "FusedMultiTransformer"]

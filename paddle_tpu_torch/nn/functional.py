@@ -1,6 +1,6 @@
 """Functional ops (counterpart of ``paddle_tpu/nn/functional.py``): the
-hard-label cross entropy the Llama training step uses, and the layer
-norm, exact GELU and Paddle-layout linear of the fused inference ops."""
+hard-label cross entropy the Llama and GPT training steps use, dropout,
+and the layer norm, GELU and Paddle-layout linear of the fused ops."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +8,9 @@ from torch.nn import functional as _F
 
 from ..amp import cast_inputs
 
-__all__ = ["cross_entropy", "gelu", "layer_norm", "linear"]
+__all__ = ["cross_entropy", "dropout", "gelu", "layer_norm", "linear"]
+
+_MODES = ("upscale_in_train", "downscale_in_infer")
 
 
 def layer_norm(x, weight=None, bias=None, epsilon=1e-5, begin_norm_axis=-1):
@@ -39,6 +41,40 @@ def linear(x, weight, bias=None):
     x, weight, bias = cast_inputs("linear", x, weight, bias)
     out = x @ weight
     return out if bias is None else out + bias
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None, generator=None):
+    """Dropout as the JAX ``dropout`` (ops/nn_ops.py:510-517): identity
+    when not ``training`` or p = 0, in either mode (the JAX package does
+    not scale in inference); otherwise each element is kept with
+    probability 1 - p, the mask drawn with ``torch.rand(..., generator=
+    generator)`` on x's device (the default generator when None). Kept
+    elements are x / (1 - p) under "upscale_in_train" and x under
+    "downscale_in_infer"; dropped ones 0, in x's dtype. ``axis`` (which
+    the JAX package accepts and ignores) raises when given: ROADMAP.md
+    queue 1, item 2.11."""
+    if axis is not None:
+        raise NotImplementedError(
+            "dropout(axis=...): the JAX package accepts and ignores axis; "
+            "the port raises on it (ROADMAP.md queue 1, item 2.11)")
+    if mode not in _MODES:
+        raise ValueError(f"dropout: mode must be one of {_MODES}, got "
+                         f"{mode!r}")
+    p = float(p)
+    if not 0.0 <= p <= 1.0:
+        raise ValueError(f"dropout: p must lie in [0, 1], got {p}")
+    if not training or p == 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if mode == "downscale_in_infer":
+        return torch.where(mask, x, torch.zeros_like(x))
+    if keep == 0.0:             # everything dropped: x / 0 never enters
+        return x * mask
+    # 1 - p rounded to x's dtype first, as JAX's weakly typed scalar is
+    keep = float(torch.tensor(keep, dtype=x.dtype))
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,

@@ -23,6 +23,22 @@ The backward's ``delta = rowsum(dO * O)`` (f32), which the JAX
 ``lse * log2(e)`` into an f32 workspace ``[2, B, H, Sp]`` (Sp = Sq
 rounded up to 64) that the wrapper allocates.
 
+**Attention dropout** (``dropout`` p > 0 with a 64-bit ``seed``): the
+dropout of the JAX ``_sdpa_raw`` (ops/nn_ops.py:693-702), computed
+inside K1 and K2. The forward gives O = (P o M / (1 - p)) V with l and
+lse over the undropped P (it drops after the softmax); the backward
+dV = (P o M / (1 - p))^T dO, dP = (dO V^T) o M / (1 - p) and
+dS = P o (dP - delta), delta = rowsum(dO o O) still exact. The mask M
+is Philox4x32-10 over (seed, batch row, query head, query row, key
+column) (``dropout_mask.py`` gives the counter layout), so the kernels
+and the plain version, which draws it with ``dropout_mask.dropout_keep``
+and applies it in f32 as the kernels do before their bf16 round, mask
+the same elements bit for bit. The dropout kernels are the default
+tiles' instances (K7's choice is not consulted) and the Hopper and fp32
+bodies; bf16 at D = 16 and 32 raises (ROADMAP.md queue 1, item 2.11).
+``flash_attention_fwd_dropout`` / ``flash_attention_bwd_dropout`` count
+the dropout launches, which K1's and K2's own counters count too.
+
 K1's Hopper body is built at several tiles (block_q, block_kv)
 (``fwd_tiles``). The default is (128, 128); with
 ``FLAGS_use_autotune`` on, ``_select_blocks`` has K7 (``autotune.py``)
@@ -43,11 +59,15 @@ import torch
 from . import (DTYPE_CODES, _build, counted, dtype_code, ptr, route, stream,
                want_contiguous)
 from . import autotune as _autotune
+from . import dropout_mask as _dm
 from ...core import flags as _flags
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_lse",
            "flash_attention_bwd", "flash_attention_dense",
-           "flash_attention_bwd_dense", "fwd_tiles", "HEAD_DIMS"]
+           "flash_attention_bwd_dense", "flash_attention_fwd_dropout",
+           "flash_attention_bwd_dropout", "fwd_tiles", "HEAD_DIMS"]
+
+_ITEM_2_11 = "ROADMAP.md queue 1, item 2.11"
 
 HEAD_DIMS = (16, 32, 64, 128)
 _NEG = -1e30
@@ -70,13 +90,25 @@ def _keep_mask(Sq, Skv, causal, qseg, kseg, device, keep=None):
     return keep
 
 
+def _dropout_factor(seed, p, B, H, KV, Sq, Skv, device):
+    """f32 [B, KV, rep, Sq, Skv]: 1 / (1 - p) where the Philox mask keeps,
+    0 where it drops (the GQA layout of the plain version's scores)."""
+    keep = _dm.dropout_keep(seed, p, B, H, Sq, Skv, device)
+    # 1.0 * f32(1 / (1 - p)): no host tensor, so a CUDA graph can capture it
+    return keep.float().mul_(_dm.keep_scale(p)).reshape(
+        B, KV, H // KV, Sq, Skv)
+
+
 def flash_attention_dense(q, k, v, causal=False, scale=None,
-                          q_segment_ids=None, kv_segment_ids=None, keep=None
+                          q_segment_ids=None, kv_segment_ids=None, keep=None,
+                          dropout=0.0, seed=None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: (out [B, Sq, H, D] in q's dtype, lse [B, H, Sq] f32).
     ``keep`` is an optional boolean [B or 1, Sq, Skv] mask (True =
     attend) on top of the causal and segment masks; the kernels take no
-    such mask.
+    such mask. ``dropout`` p > 0 with ``seed`` drops probabilities after
+    the softmax by the Philox mask, kept ones scaled by 1 / (1 - p) in
+    f32 (module docstring); l and lse stay over the undropped P.
 
     The GQA broadcast of the JAX ``_gqa_sdpa`` (ops/attention.py:31): q
     reshapes to [B, KV, rep, Sq, D] and the kv planes broadcast over rep,
@@ -100,6 +132,8 @@ def flash_attention_dense(q, k, v, causal=False, scale=None,
     if keep is not None:
         p = p * keep
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if dropout:
+        p = p * _dropout_factor(seed, dropout, B, H, KV, Sq, Skv, q.device)
     out = torch.matmul(p, vf) / l
     lse = (m + torch.log(l)).reshape(B, H, Sq)
     out = out.reshape(B, H, Sq, D).transpose(1, 2).to(q.dtype)
@@ -107,13 +141,15 @@ def flash_attention_dense(q, k, v, causal=False, scale=None,
 
 
 def flash_attention_bwd_dense(q, k, v, dout, causal=False, scale=None,
-                              q_segment_ids=None, kv_segment_ids=None):
+                              q_segment_ids=None, kv_segment_ids=None,
+                              dropout=0.0, seed=None):
     """Plain backward: (dq, dk, dv) by autograd through
     ``flash_attention_dense``."""
     with torch.enable_grad():
         qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
         out, _ = flash_attention_dense(qq, kk, vv, causal, scale,
-                                       q_segment_ids, kv_segment_ids)
+                                       q_segment_ids, kv_segment_ids,
+                                       dropout=dropout, seed=seed)
         return torch.autograd.grad(out, (qq, kk, vv), dout)
 
 
@@ -129,7 +165,30 @@ def _lib():
     lib.flash_attention_bwd_launch.argtypes = (
         [vp] * 12 + [i] * 7 + [f, i, i, vp])
     lib.flash_attention_bwd_launch.restype = i
+    u = ctypes.c_uint
+    lib.flash_attention_fwd_dropout_launch.argtypes = (
+        [vp] * 7 + [i] * 7 + [f, i, u, u, u, f, vp])
+    lib.flash_attention_fwd_dropout_launch.restype = i
+    lib.flash_attention_bwd_dropout_launch.argtypes = (
+        [vp] * 12 + [i] * 7 + [f, i, i, u, u, u, f, vp])
+    lib.flash_attention_bwd_dropout_launch.restype = i
     return lib
+
+
+def _drop_args(q, dropout, seed, what):
+    """The dropout kernels' (seed0, seed1, threshold, keep_scale), after
+    the checks; None without dropout."""
+    if not dropout:
+        return None
+    if seed is None:
+        raise ValueError(f"{what}: attention dropout needs a seed "
+                         "(dropout_mask.draw_seed)")
+    if q.dtype == torch.bfloat16 and q.shape[3] in (16, 32):
+        raise NotImplementedError(
+            f"{what}: attention dropout at bf16 head dim {q.shape[3]} (the "
+            f"mma.sync bodies) is not built: {_ITEM_2_11}")
+    lo, hi = _dm.split_seed(seed)
+    return (lo, hi, _dm.threshold(dropout), _dm.keep_scale(dropout))
 
 
 def _check(q, k, v, qseg, kseg, what):
@@ -196,12 +255,16 @@ def fwd_tiles(D: int, dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
     return tuple((buf[2 * i], buf[2 * i + 1]) for i in range(min(n, 32)))
 
 
-def _k1(q, k, v, causal, scale, qseg, kseg, blocks=None):
+def _k1(q, k, v, causal, scale, qseg, kseg, blocks=None, drop=None):
     """Launch K1: (out, lse). ``blocks`` = (block_q, block_kv), one of
-    ``fwd_tiles``; None is the body's default tile."""
+    ``fwd_tiles``; None is the body's default tile. ``drop`` is
+    ``_drop_args``'s tuple for the dropout kernel (default tile only)."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     _check_cuda({"q": q, "k": k, "v": v}, D, "flash_attention_fwd")
+    if drop is not None and blocks is not None:
+        raise ValueError("flash_attention_fwd: the dropout kernel runs at "
+                         "the default tile only")
     if blocks is not None and tuple(blocks) not in fwd_tiles(D, q.dtype):
         raise ValueError(f"flash_attention_fwd: tile {tuple(blocks)} is not "
                          f"built for D={D} {q.dtype}; built: "
@@ -209,12 +272,19 @@ def _k1(q, k, v, causal, scale, qseg, kseg, blocks=None):
     bq, bkv = (0, 0) if blocks is None else blocks
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    rc = _lib().flash_attention_fwd_launch(
-        ptr(q), ptr(k), ptr(v), _opt(qseg), _opt(kseg), ptr(out), ptr(lse),
-        B, Sq, Skv, H, KV, D, int(bool(causal)), float(scale),
-        dtype_code(q, "q"), int(bq), int(bkv), stream(q))
+    args = (ptr(q), ptr(k), ptr(v), _opt(qseg), _opt(kseg), ptr(out),
+            ptr(lse), B, Sq, Skv, H, KV, D, int(bool(causal)), float(scale),
+            dtype_code(q, "q"))
+    if drop is None:
+        rc = _lib().flash_attention_fwd_launch(*args, int(bq), int(bkv),
+                                               stream(q))
+    else:
+        rc = _lib().flash_attention_fwd_dropout_launch(*args, *drop,
+                                                       stream(q))
     _build.check(rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    if drop is not None:
+        flash_attention_fwd_dropout.launches += 1
     return out, lse
 
 
@@ -277,9 +347,11 @@ def _select_blocks(q, k, causal, qseg):
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
-                        q_segment_ids=None, kv_segment_ids=None):
+                        q_segment_ids=None, kv_segment_ids=None,
+                        dropout=0.0, seed=None):
     """K2: (dq, dk, dv) of ``out = flash_attention(q, k, v)`` for the
-    output gradient ``dout``, from K1's ``out`` and ``lse``. CPU tensors
+    output gradient ``dout``, from K1's ``out`` and ``lse`` (with
+    ``dropout`` and ``seed``: those of K1's dropout call). CPU tensors
     take ``flash_attention_bwd_dense``; CUDA tensors launch the
     pre-pass, the dq and the dk/dv kernels."""
     qseg, kseg = _check(q, k, v, q_segment_ids, kv_segment_ids,
@@ -288,7 +360,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     if route(q, k, v, out, lse, dout, *_present(qseg, kseg)) == "cpu":
         return flash_attention_bwd_dense(q, k, v, dout, causal, scale, qseg,
-                                         kseg)
+                                         kseg, dropout, seed)
+    drop = _drop_args(q, dropout, seed, "flash_attention_bwd")
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and "
                          f"dout {tuple(dout.shape)} must have q's shape")
@@ -303,8 +376,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
     dout = dout.contiguous()    # autograd may hand any strides
     _check_cuda({"q": q, "k": k, "v": v, "out": out, "dout": dout}, D,
                 "flash_attention_bwd")
-    dq, dk, dv, _ = _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg)
+    dq, dk, dv, _ = _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg,
+                        drop=drop)
     flash_attention_bwd.launches += 1
+    if drop is not None:
+        flash_attention_bwd_dropout.launches += 1
     return dq, dk, dv
 
 
@@ -313,11 +389,12 @@ PAD = 64                     # workspace rows are padded to this
 
 
 def _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg,
-        parts=PREPASS | DQ | DKV, work=None):
+        parts=PREPASS | DQ | DKV, work=None, drop=None):
     """Launch the ``parts`` of K2 on checked CUDA tensors: (dq, dk, dv,
     work). ``work`` is the pre-pass's f32 workspace [2, B, H, Sp]
     (allocated when None); a launch without PREPASS reads the workspace
-    an earlier one wrote."""
+    an earlier one wrote. ``drop``: ``_drop_args``'s tuple of K1's
+    dropout call, or None."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     if work is None:
@@ -325,60 +402,102 @@ def _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg,
         work = torch.empty(2, B, H, Sp, dtype=torch.float32,
                            device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    rc = _lib().flash_attention_bwd_launch(
-        ptr(q), ptr(k), ptr(v), ptr(out), ptr(dout), ptr(lse), ptr(work),
-        _opt(qseg), _opt(kseg), ptr(dq), ptr(dk), ptr(dv), B, Sq, Skv, H,
-        KV, D, int(bool(causal)), float(scale), dtype_code(q, "q"),
-        int(parts), stream(q))
+    args = (ptr(q), ptr(k), ptr(v), ptr(out), ptr(dout), ptr(lse), ptr(work),
+            _opt(qseg), _opt(kseg), ptr(dq), ptr(dk), ptr(dv), B, Sq, Skv, H,
+            KV, D, int(bool(causal)), float(scale), dtype_code(q, "q"),
+            int(parts))
+    if drop is None:
+        rc = _lib().flash_attention_bwd_launch(*args, stream(q))
+    else:
+        rc = _lib().flash_attention_bwd_dropout_launch(*args, *drop,
+                                                       stream(q))
     _build.check(rc, "flash_attention_bwd")
     return dq, dk, dv, work
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, qseg, kseg):
-        out, lse = _k1(q, k, v, causal, scale, qseg, kseg,
-                       _select_blocks(q, k, causal, qseg))
+    def forward(ctx, q, k, v, causal, scale, qseg, kseg, dropout, seed):
+        drop = _drop_args(q, dropout, seed, "flash_attention_fwd")
+        blocks = None if drop else _select_blocks(q, k, causal, qseg)
+        out, lse = _k1(q, k, v, causal, scale, qseg, kseg, blocks, drop)
         ctx.save_for_backward(q, k, v, out, lse, qseg, kseg)
         ctx.causal, ctx.scale = causal, scale
+        ctx.dropout, ctx.seed = dropout, seed
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, qseg, kseg = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal,
-                                         ctx.scale, qseg, kseg)
-        return dq, dk, dv, None, None, None, None
+                                         ctx.scale, qseg, kseg, ctx.dropout,
+                                         ctx.seed)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None,
-                        q_segment_ids=None, kv_segment_ids=None):
-    """[B, Sq, H, D] attention output, differentiable in q, k and v."""
+                        q_segment_ids=None, kv_segment_ids=None,
+                        dropout=0.0, seed=None):
+    """[B, Sq, H, D] attention output, differentiable in q, k and v; with
+    ``dropout`` p > 0 and a 64-bit ``seed``, attention dropout (module
+    docstring)."""
     qseg, kseg = _check(q, k, v, q_segment_ids, kv_segment_ids,
                         "flash_attention_fwd")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    dropout = float(dropout)
+    if dropout:
+        _dm.threshold(dropout)      # p in [0, 1)
+        if seed is None:
+            raise ValueError("flash_attention_fwd: attention dropout needs "
+                             "a seed (dropout_mask.draw_seed)")
     if route(q, k, v, *_present(qseg, kseg)) == "cpu":
-        return flash_attention_dense(q, k, v, causal, scale, qseg, kseg)[0]
-    return _FlashAttention.apply(q, k, v, bool(causal), scale, qseg, kseg)
+        return flash_attention_dense(q, k, v, causal, scale, qseg, kseg,
+                                     dropout=dropout, seed=seed)[0]
+    return _FlashAttention.apply(q, k, v, bool(causal), scale, qseg, kseg,
+                                 dropout, seed)
 
 
 def flash_attention_fwd_lse(q, k, v, causal=False, scale=None,
                             q_segment_ids=None, kv_segment_ids=None,
-                            blocks=None):
+                            blocks=None, dropout=0.0, seed=None):
     """(out, lse) with no graph: K1's two outputs (the JAX ``_fa_fwd``
     residuals), for checks and for callers that reuse the lse. On CUDA
     tensors ``blocks`` = (block_q, block_kv) runs K1 at that tile (one of
-    ``fwd_tiles``); None takes the tile ``_select_blocks`` gives."""
+    ``fwd_tiles``); None takes the tile ``_select_blocks`` gives (the
+    default tile with dropout)."""
     qseg, kseg = _check(q, k, v, q_segment_ids, kv_segment_ids,
                         "flash_attention_fwd")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     with torch.no_grad():
         if route(q, k, v, *_present(qseg, kseg)) == "cpu":
-            return flash_attention_dense(q, k, v, causal, scale, qseg, kseg)
-        if blocks is None:
+            return flash_attention_dense(q, k, v, causal, scale, qseg, kseg,
+                                         dropout=dropout, seed=seed)
+        drop = _drop_args(q, float(dropout), seed, "flash_attention_fwd")
+        if blocks is None and drop is None:
             blocks = _select_blocks(q, k, causal, qseg)
-        return _k1(q, k, v, causal, scale, qseg, kseg, blocks)
+        return _k1(q, k, v, causal, scale, qseg, kseg, blocks, drop)
+
+
+def flash_attention_fwd_dropout(q, k, v, dropout, seed, causal=False,
+                                scale=None, q_segment_ids=None,
+                                kv_segment_ids=None):
+    """K1's dropout variant: ``flash_attention_fwd`` with ``dropout`` and
+    ``seed``. Its counter counts the variant's launches (wherever they are
+    made from); K1's counter counts them too."""
+    return flash_attention_fwd(q, k, v, causal, scale, q_segment_ids,
+                               kv_segment_ids, dropout=dropout, seed=seed)
+
+
+def flash_attention_bwd_dropout(q, k, v, out, lse, dout, dropout, seed,
+                                causal=False, scale=None, q_segment_ids=None,
+                                kv_segment_ids=None):
+    """K2's dropout variant: ``flash_attention_bwd`` with ``dropout`` and
+    ``seed``; counted as ``flash_attention_fwd_dropout`` is."""
+    return flash_attention_bwd(q, k, v, out, lse, dout, causal, scale,
+                               q_segment_ids, kv_segment_ids, dropout, seed)
 
 
 counted(flash_attention_fwd)
 counted(flash_attention_bwd)
+counted(flash_attention_fwd_dropout)
+counted(flash_attention_bwd_dropout)

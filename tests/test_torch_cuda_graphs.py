@@ -259,7 +259,9 @@ def test_write_cache_per_row_offsets_match_int_path_row_by_row():
 # ---------------------------------------------------------------------------
 def test_every_kernel_wrapper_is_registered():
     assert set(kernels.launch_counts()) == {
-        K1.flash_attention_fwd, K1.flash_attention_bwd, K3.rms_norm,
+        K1.flash_attention_fwd, K1.flash_attention_bwd,
+        K1.flash_attention_fwd_dropout, K1.flash_attention_bwd_dropout,
+        K3.rms_norm,
         K4.ragged_paged_attention, K5.decode_attention,
         K5.paged_decode_attention, K8.fused_adam, K7.measure_flash_blocks,
         K9.weight_only_linear, K9.weight_only_linear_wgmma}

@@ -567,6 +567,127 @@ def test_flash_attention_autograd_and_launch_counts(cuda):
         assert _scaled(a, b) <= TOL[torch.bfloat16]
 
 
+DROP_CASES = ["mha_d128_causal", "gqa4_d64_causal", "mha_d64_full",
+              "rect_d128", "segments_d128", "edge129_d128",
+              "causal_sq_gt_skv_d128"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", DROP_CASES)
+def test_flash_attention_dropout_kernels(cuda, case, dtype):
+    """K1 and K2 with attention dropout (p = 0.2) against the plain
+    version with the same seed; GQA, segment ids and rectangular causal
+    cases included. Each call counts one launch of its dropout variant."""
+    B, Sq, Skv, H, KV, D, causal, segm = FLASH[case]
+    q, k, v, do, qs, ks = _flash(cuda, dtype, B, Sq, Skv, H, KV, D, segm, 9)
+    kw = dict(dropout=0.2, seed=0xD0_0D + Sq)
+    n = (K1.flash_attention_fwd_dropout.launches,
+         K1.flash_attention_bwd_dropout.launches)
+    out, lse = K1.flash_attention_fwd_lse(q, k, v, causal, None, qs, ks, **kw)
+    grads = K1.flash_attention_bwd(q, k, v, out, lse, do, causal, None, qs,
+                                   ks, **kw)
+    assert (K1.flash_attention_fwd_dropout.launches,
+            K1.flash_attention_bwd_dropout.launches) == (n[0] + 1, n[1] + 1)
+    r_out, r_lse = K1.flash_attention_dense(q, k, v, causal, None, qs, ks,
+                                            **kw)
+    assert _scaled(out, r_out) <= TOL[dtype]
+    assert _err(lse, r_lse) <= TOL[dtype]
+    r_grads = K1.flash_attention_bwd_dense(q, k, v, do, causal, None, qs, ks,
+                                           **kw)
+    for a, b in zip(grads, r_grads):
+        assert _scaled(a, b) <= TOL[dtype]
+    # the no-dropout call differs: the mask is applied
+    assert not torch.equal(out, K1.flash_attention_fwd_lse(
+        q, k, v, causal, None, qs, ks)[0])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dropout_mask_reads_back_bit_exact(cuda, D, causal, dtype):
+    """V's rows the identity: K1's output is non-zero exactly where the
+    plain mask keeps a visible pair; dO's rows the identity too: K2's dV,
+    computed on S^T, gives the same mask."""
+    from paddle_tpu_torch.ops.kernels import dropout_mask as DM
+
+    B, S, H, p, seed = 2, D, 4, 0.25, 0xABCDEF + D
+    g = torch.Generator(device=cuda).manual_seed(D)
+    eye = torch.eye(D, device=cuda, dtype=dtype)
+    q = torch.randn(B, S, H, D, device=cuda, generator=g).to(dtype)
+    k = torch.randn(B, S, H, D, device=cuda, generator=g).to(dtype)
+    v = eye[None, :, None, :].expand(B, S, H, D).contiguous()
+    keep = DM.dropout_keep(seed, p, B, H, S, S, cuda)
+    vis = torch.ones(S, S, dtype=torch.bool, device=cuda)
+    vis = vis.tril() if causal else vis
+    out, lse = K1.flash_attention_fwd_lse(q, k, v, causal, dropout=p,
+                                          seed=seed)
+    got = (out != 0).permute(0, 2, 1, 3)
+    assert torch.equal(got & vis, keep & vis)
+    _, _, dv = K1.flash_attention_bwd(q, k, v, out, lse, v, causal,
+                                      dropout=p, seed=seed)
+    assert torch.equal((dv != 0).permute(0, 2, 3, 1) & vis, keep & vis)
+    # the plain mask is the same bits on either device
+    assert torch.equal(DM.dropout_keep(seed, p, B, H, S, S).to(cuda), keep)
+
+
+def test_philox_matches_curand(cuda):
+    from paddle_tpu_torch.ops.kernels import dropout_mask as DM
+
+    rs = np.random.RandomState(4)
+    ctr = torch.from_numpy(rs.randint(0, 2 ** 32, (4096, 4),
+                                      dtype=np.uint64).astype(np.int64))
+    key = torch.from_numpy(rs.randint(0, 2 ** 32, (4096, 2),
+                                      dtype=np.uint64).astype(np.int64))
+    ctr[0], key[0] = 0, 0
+    mine, theirs = DM.philox_check(ctr, key)
+    assert torch.equal(mine, theirs)
+    assert tuple(mine[0].tolist()) == (0x6627E8D5, 0xE169C58D, 0xBC57AC4C,
+                                       0x9B00DBD8)
+    for i in (1, 2, 3):
+        words = DM.philox4x32_10(*(ctr[i:i + 1, j] for j in range(4)),
+                                 int(key[i, 0]), int(key[i, 1]))
+        assert [int(w) for w in words] == mine[i].tolist()
+
+
+@pytest.mark.parametrize("D", [16, 32])
+def test_dropout_on_the_mma_bodies_raises(cuda, D):
+    """bf16 D = 16 and 32 run the mma.sync bodies, which are not built
+    with dropout: the wrapper raises naming the ROADMAP item (fp32 at the
+    same widths runs)."""
+    q, k, v, do, _, _ = _flash(cuda, torch.bfloat16, 1, 32, 32, 2, 2, D,
+                               False, 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        K1.flash_attention_fwd(q, k, v, True, dropout=0.1, seed=1)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = K1.flash_attention_fwd(qf, kf, vf, True, dropout=0.1, seed=1)
+    ref = K1.flash_attention_dense(qf, kf, vf, True, dropout=0.1, seed=1)[0]
+    assert _scaled(out, ref) <= TOL[torch.float32]
+
+
+def test_attention_dropout_entry_on_the_card(cuda):
+    """ops.attention.flash_attention with a generator: the call draws one
+    seed and launches the dropout kernel, never the dense path; the
+    gradient flows through K2's dropout variant."""
+    from paddle_tpu_torch.ops import attention as tattn
+    from paddle_tpu_torch.ops.kernels import dropout_mask as DM
+
+    q, k, v, do, _, _ = _flash(cuda, torch.bfloat16, 2, 128, 128, 4, 2, 64,
+                               False, 2)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    n = (K1.flash_attention_fwd_dropout.launches,
+         K1.flash_attention_bwd_dropout.launches)
+    out = tattn.flash_attention(q, k, v, True, 0.1,
+                                generator=torch.Generator().manual_seed(3))
+    out.backward(do)
+    assert (K1.flash_attention_fwd_dropout.launches,
+            K1.flash_attention_bwd_dropout.launches) == (n[0] + 1, n[1] + 1)
+    seed = DM.draw_seed(torch.Generator().manual_seed(3))
+    ref = K1.flash_attention_bwd_dense(q, k, v, do, True, dropout=0.1,
+                                       seed=seed)
+    for a, b in zip((q.grad, k.grad, v.grad), ref):
+        assert _scaled(a, b) <= TOL[torch.bfloat16]
+
+
 def test_flash_attention_limits_raise_on_the_card(cuda):
     q = torch.randn(1, 16, 2, 96, device=cuda)
     with pytest.raises(ValueError, match="head dim 96"):

@@ -196,12 +196,19 @@ def test_flash_attn_varlen_routes_to_k1(causal, shared, monkeypatch):
 
 
 def test_dropout_raises_naming_roadmap():
+    """Attention dropout runs (tests/test_torch_dropout.py); what still
+    raises names its ROADMAP item: the bf16 D = 16 / 32 bodies' dropout
+    (the check the CUDA route makes before a launch) and
+    ``dropout(axis=...)``."""
     x = torch.zeros(1, 8, 2, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.flash_attention(x, x, x, causal=True, dropout=0.1)
+        tfa._drop_args(x.bfloat16(), 0.1, 7, "flash_attention_fwd")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.flash_attn_varlen(x[0], x[0], x[0], [0, 8], [0, 8],
-                                dropout=0.1)
+        tfa._drop_args(torch.zeros(1, 8, 2, 32).bfloat16(), 0.1, 7,
+                       "flash_attention_bwd")
+    from paddle_tpu_torch.nn import functional as tF
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tF.dropout(x, 0.1, axis=0)
 
 
 def test_wrapper_rejects_bad_shapes():
