@@ -203,6 +203,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 dropout variants 24 a step in the second run only; then
                 each layer's attention watched (K1's output and K2's
                 gradients against the plain version, 2e-2)
+13. varlen      a causal pack at gpt_1p3b's attention widths (16 heads, D
+                = 128, bf16): 8 sequences of 2048, 1792, ..., 256 keys
+                (Tk 9216), each q the last half of its sequence (Tq 4608),
+                so q and k boundaries differ. flash_attn_unpadded forward
+                and backward, without and with dropout 0.1: K1/K2 with
+                the frontier arrays launched once each (their varlen
+                counters), flash_attention_dense called 0 times on CUDA;
+                output and gradients against the plain version on the
+                same ranges, per 64-position tile, 2e-2; K1/K2 timed at
+                the pack with their bound (visible pairs x 4 D flops a
+                head forward, 10 D backward; library: none). The same in
+                fp32 at a small pack (1e-4). The pack's dropout mask read
+                back bit for bit (Tk <= D: identity V and dO rows), bf16
+                and fp32. bf16 dropout on the mma.sync bodies: gpt_tiny's
+                [8, 128, 4, 16] and [4, 512, 8, 32] against the plain
+                version (2e-2), timed beside SDPA with dropout_p, and
+                their masks read back at D = 16 and 32
+14. train-surface
+                gpt_1p3b trained 4 untimed + 4 timed steps on a 4 x 2048
+                batch by cross_entropy(label_smoothing=0.1), every 97th
+                label ignored: finite, falling losses, K1/K2 24 launches
+                a step and K8 one, the loss within 1e-5 of torch's f32
+                evaluation of the same formula; one step under
+                collect_operator_stats (bf16 matmuls and 24 K1 / K2
+                calls counted), one clean step under the tensor checker
+                (its ms beside the plain step's), and one with a NaN in a
+                weight, which must raise FloatingPointError naming an op.
+                Embedding(50304, 2048, sparse=True) f32 on the batch's
+                ids: SGD and lazy Adam 5 steps, card against cpu (1e-5);
+                Adam densified against dense-gradient Adam (1e-6); SGD
+                with a global-norm clip over sparse and dense gradients
+                against the all-dense model (1e-6). gpt_tiny in bf16 with
+                hidden and attention dropout 0.1 (D = 16): 3 AdamW steps,
+                finite losses, the dropout variants once a layer a step
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -691,7 +725,9 @@ def check_flash_dropout(dev, results):
     check_philox(dev)
 
 
-def check_dropout_mask(dev):
+def check_dropout_mask(dev, cases=((128, torch.bfloat16, 2),
+                                   (64, torch.bfloat16, 4),
+                                   (64, torch.float32, 4)), tag="kernels"):
     """The mask read back from the kernels, bit for bit. With Skv <= D
     and V's rows the identity (v[j] = e_j), K1 gives out[i, j] = P_ij
     M_ij / (1 - p) / l: non-zero exactly where the mask keeps a visible
@@ -699,14 +735,14 @@ def check_dropout_mask(dev):
     KV head, K2's dV[j, i] = P_ij M_ij / (1 - p): the same read through
     the dk/dv body, on S^T. Both must equal the plain version's mask
     (``dropout_mask.dropout_keep``) over the visible pairs, causal and
-    not, bf16 at D = 64 and 128 (GQA in the forward) and fp32."""
+    not, at ``cases`` (D, dtype, KV heads): bf16 at D = 64 and 128 (GQA in
+    the forward) and fp32 by default."""
     from paddle_tpu_torch.ops.kernels import dropout_mask as DM
     from paddle_tpu_torch.ops.kernels import flash_attention as K1
 
     g = torch.Generator(device=dev).manual_seed(12)
     summary = []
-    for D, dt, KV in ((128, torch.bfloat16, 2), (64, torch.bfloat16, 4),
-                      (64, torch.float32, 4)):
+    for D, dt, KV in cases:
         for causal in (True, False):
             B, S, H = 2, D, 4
             seed = DROPOUT_SEED + D + int(causal)
@@ -744,13 +780,13 @@ def check_dropout_mask(dev):
                                 fwd_mismatch=fwd_bad,
                                 fwd_masked_nonzero=fwd_vis_zero,
                                 dv_mismatch=bwd_bad))
-    log("[kernels] dropout mask read back from K1's output and K2's dV "
+    log(f"[{tag}] dropout mask read back from K1's output and K2's dV "
         "against the plain mask: " + json.dumps(summary))
     if any(r["fwd_mismatch"] or r["fwd_masked_nonzero"] or r["dv_mismatch"]
            for r in summary):
         raise AssertionError(f"the kernels' dropout mask differs from the "
                              f"plain mask: {summary}")
-    log("[kernels] the recovered masks equal the plain mask bit for bit: OK")
+    log(f"[{tag}] the recovered masks equal the plain mask bit for bit: OK")
 
 
 def check_philox(dev):
@@ -3162,6 +3198,511 @@ def check_gpt_attention(model, opt, batch):
         "OK")
 
 
+# -- phase 13: varlen packs on K1/K2 with per-sequence frontiers -----------
+# gpt_1p3b's attention widths; k lengths 2048, 1792, ..., 256, each q the
+# last half of its sequence (chunked prefill, a packed continuation)
+VARLEN_K = [2048 - 256 * i for i in range(8)]
+VARLEN_SEED = 0x5EED_7AC5_0F0F_1234
+TINY_SHAPE = [8, 128, 4, 16]    # gpt_tiny's attention in train-surface
+
+
+def _varlen_pack(dev, dt, k_lens, H, D, seed):
+    """q, k, v, dO [T, H, D] of a pack whose q holds the last half of each
+    sequence, and its cu_seqlens."""
+    q_lens = [n // 2 for n in k_lens]
+    cu_q = [0] + list(itertools.accumulate(q_lens))
+    cu_k = [0] + list(itertools.accumulate(k_lens))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda n: torch.randn(n, H, D, device=dev, generator=g).to(dt)  # noqa: E731
+    return mk(cu_q[-1]), mk(cu_k[-1]), mk(cu_k[-1]), mk(cu_q[-1]), cu_q, cu_k
+
+
+def _varlen_cost(qr, H, D, isz, Tq, Tk):
+    """Bytes and flops the pack's data needs: its visible (row, key) pairs
+    (from the frontier arrays) times 4 D flops a head forward and 10 D
+    backward; q, k, v, out (and dO, dq, dk, dv) once each, lse and the
+    two frontier arrays."""
+    pairs = int((qr[..., 1] - qr[..., 0] + 1).clamp_min(0).sum().item())
+    qb, kb, side = Tq * H * D * isz, Tk * H * D * isz, H * Tq * 4
+    side += 8 * (Tq + Tk)
+    return ((2 * qb + 2 * kb + side, 4 * D * H * pairs),
+            (4 * qb + 4 * kb + side, 10 * D * H * pairs), pairs)
+
+
+def _expect_launches(launches, want, what):
+    """Fail unless each counter of ``want`` read ``launches`` its count."""
+    got = {k: launches.get(k) for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def varlen_main_path(q, k, v, do, cu_q, cu_k, p, counters):
+    """The user's entry point, flash_attn_unpadded, forward and backward,
+    with ``counters`` set to 0 just before and read just after, and the
+    plain version watched: its CUDA calls are counted (there must be
+    none). Returns (out, (dq, dk, dv), launches, dense CUDA calls)."""
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    dense, cuda_calls = K1.flash_attention_dense, []
+
+    def watched(q, *a, **kw):
+        if q.is_cuda:
+            cuda_calls.append(1)
+        return dense(q, *a, **kw)
+
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    for c in counters:
+        c.launches = 0
+    K1.flash_attention_dense = watched
+    try:
+        out, soft = PF.flash_attn_unpadded(
+            qg, kg, vg, cu_q, cu_k, causal=True, dropout=p,
+            seed=VARLEN_SEED if p else None)
+        out.backward(do)
+        torch.cuda.synchronize()
+    finally:
+        K1.flash_attention_dense = dense
+    if soft is not None:
+        raise AssertionError("flash_attn_unpadded returned a softmax")
+    return (out.detach(), (qg.grad, kg.grad, vg.grad),
+            {c.__name__: c.launches for c in counters}, len(cuda_calls))
+
+
+def check_varlen_pack(dev, results, dt, k_lens, H, D, p, counters,
+                      timed=False):
+    """One pack through ``varlen_main_path``, then K1's output and K2's
+    gradients against the plain version on the same frontier arrays, per
+    64-position tile (bf16 2e-2, fp32 1e-4). Appends the forward and
+    backward rows (timed at the pack: CUDA graphs of the K1 and K2
+    calls, the plain version by events; library "none": no PyTorch call
+    takes cu_seqlens). Returns the main path's launches."""
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    q, k, v, do, cu_q, cu_k = _varlen_pack(dev, dt, k_lens, H, D,
+                                           13 + len(k_lens))
+    Tq, Tk = q.shape[0], k.shape[0]
+    out, grads, launches, dense_calls = varlen_main_path(
+        q, k, v, do, cu_q, cu_k, p, counters)
+    _expect_launches(launches, {
+        "flash_attention_fwd": 1, "flash_attention_bwd": 1,
+        "flash_attention_fwd_varlen": 1, "flash_attention_bwd_varlen": 1,
+        "flash_attention_fwd_dropout": int(bool(p)),
+        "flash_attention_bwd_dropout": int(bool(p))}, "varlen main path")
+    if dense_calls:
+        raise AssertionError(f"varlen main path: flash_attention_dense ran "
+                             f"{dense_calls} times on CUDA")
+    seed = VARLEN_SEED if p else None
+    qr, kr = A.varlen_ranges(cu_q, cu_k, Tq, Tk, True, dev)
+    q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
+    kw = dict(dropout=p, seed=seed, q_ranges=qr)
+    r_out = K1.flash_attention_dense(q4, k4, v4, **kw)[0]
+    eo = _errs(out[None], r_out)
+    del r_out
+    r_grads = K1.flash_attention_bwd_dense(q4, k4, v4, do4, **kw)
+    eg = [_errs(a[None], b) for a, b in zip(grads, r_grads)]
+    del r_grads
+    (fb, ff), (bb, bf), pairs = _varlen_cost(qr, H, D, q.element_size(), Tq,
+                                             Tk)
+    base = dict(case=f"varlen{len(k_lens)}", shape=[1, Tq, H, D], skv=Tk,
+                kv_heads=H, causal=True, dropout=p, dtype=str(dt)[6:],
+                tol=TOL[dt], k_lens=k_lens, visible_pairs=pairs,
+                launches_main_path=launches)
+    fwd = dict(base, name="flash_attention_fwd_varlen", bytes=fb, flops=ff,
+               max_abs_err=eo[0], ref_max_abs=eo[1], rel_err=eo[3])
+    bwd = dict(base, name="flash_attention_bwd_varlen", bytes=bb, flops=bf,
+               max_abs_err=max(e[0] for e in eg),
+               ref_max_abs=[e[1] for e in eg], rel_err=max(e[3] for e in eg))
+    if timed:
+        kk = dict(dropout=p, seed=seed, q_ranges=qr, kv_ranges=kr)
+        o4, lse = K1.flash_attention_fwd_lse(q4, k4, v4, **kk)
+        for rec, (nb, nf) in ((fwd, (fb, ff)), (bwd, (bb, bf))):
+            rec["bound_ms"], rec["bound_by"] = bound(nb, nf, dt)
+            rec["library_ms"] = None
+            rec["library"] = "none: no PyTorch call takes cu_seqlens"
+        fwd["ms"] = cuda_ms(lambda: K1.flash_attention_fwd_lse(q4, k4, v4,
+                                                               **kk))
+        fwd["plain_ms"] = events_ms(lambda: K1.flash_attention_dense(
+            q4, k4, v4, **kw), iters=3, warm=1)
+        bwd["ms"] = cuda_ms(lambda: K1.flash_attention_bwd(
+            q4, k4, v4, o4, lse, do4, **kk))
+        bwd["plain_ms"] = events_ms(lambda: K1.flash_attention_bwd_dense(
+            q4, k4, v4, do4, **kw), iters=3, warm=1)
+        del o4, lse
+    for rec in (fwd, bwd):
+        log("[varlen] " + json.dumps(rec))
+        if not rec["rel_err"] <= rec["tol"]:
+            raise AssertionError(f"{rec['name']} {rec['case']} p={p} "
+                                 f"{rec['dtype']}: {rec['rel_err']} > "
+                                 f"{rec['tol']}")
+    results += [fwd, bwd]
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_varlen_mask(dev):
+    """The dropout mask read back bit for bit through the frontier arrays:
+    a causal pack of 8 sequences whose q and k boundaries differ (k 28,
+    24, ..., 6 keys, each q the last half: Tk = 124 <= D), V's rows the
+    identity, so K1's output is non-zero exactly where the plain mask
+    (batch row 0, packed rows and keys) keeps a pair the frontiers let
+    through; dO's rows the identity too, K2's dV gives it on S^T. bf16 at
+    D = 128 and fp32 at D = 128."""
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops.kernels import dropout_mask as DM
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    k_lens = [28, 24, 20, 16, 12, 10, 8, 6]
+    summary = []
+    for dt in (torch.bfloat16, torch.float32):
+        D, H, P = 128, 4, DROPOUT_P
+        q, k, _, _, cu_q, cu_k = _varlen_pack(dev, dt, k_lens, H, D, 31)
+        Tq, Tk = q.shape[0], k.shape[0]
+        eye = torch.eye(D, device=dev, dtype=dt)
+        v = eye[:Tk, None, :].expand(Tk, H, D).contiguous()
+        qr, kr = A.varlen_ranges(cu_q, cu_k, Tq, Tk, True, dev)
+        vis = K1.ranges_keep(qr, Tk)[:, None]               # [1, 1, Tq, Tk]
+        keep = DM.dropout_keep(VARLEN_SEED, P, 1, H, Tq, Tk, dev)
+        kw = dict(dropout=P, seed=VARLEN_SEED, q_ranges=qr, kv_ranges=kr)
+        out, lse = K1.flash_attention_fwd_lse(q[None], k[None], v[None],
+                                              **kw)
+        got = (out[..., :Tk] != 0).permute(0, 2, 1, 3)
+        dout = eye[:Tq, None, :].expand(Tq, H, D)[None].contiguous()
+        _, _, dv = K1.flash_attention_bwd(q[None], k[None], v[None], out, lse,
+                                          dout, **kw)
+        gotv = (dv[..., :Tq] != 0).permute(0, 2, 3, 1)
+        summary.append(dict(
+            dtype=str(dt)[6:], visible=int(vis.sum()) * H,
+            kept=int((keep & vis).sum().item()),
+            fwd_mismatch=int(((got != keep) & vis).sum().item()),
+            fwd_masked_nonzero=int((got & ~vis).sum().item()),
+            dv_mismatch=int(((gotv != keep) & vis).sum().item())))
+    log("[varlen] dropout mask of a causal pack (k lengths "
+        f"{k_lens}, q the last halves) read back from K1's output and K2's "
+        "dV: " + json.dumps(summary))
+    if any(r["fwd_mismatch"] or r["fwd_masked_nonzero"] or r["dv_mismatch"]
+           for r in summary):
+        raise AssertionError(f"the pack's dropout mask differs: {summary}")
+
+
+def check_mma_dropout(dev, results):
+    """bf16 attention dropout on the mma.sync bodies: gpt_tiny's training
+    shape [8, 128, 4, 16] and a D = 32 head [4, 512, 8, 32], causal, p =
+    0.1, K1 and K2 against the plain version with the same seed (2e-2
+    per tile), timed beside the plain version and SDPA with dropout_p
+    (events; the yardstick only), then the mask read back at D = 16 and
+    32 (``check_dropout_mask``)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    p, seed, dt = DROPOUT_P, DROPOUT_SEED + 16, torch.bfloat16
+    for B, S, H, D in (TINY_SHAPE, [4, 512, 8, 32]):
+        q, k, v, do, _, _ = _flash_inputs(dev, dt, B, S, S, H, H, D, False, g)
+        kw = dict(dropout=p, seed=seed)
+        out, lse = K1.flash_attention_fwd_lse(q, k, v, True, **kw)
+        grads = K1.flash_attention_bwd(q, k, v, out, lse, do, True, **kw)
+        eo = _errs(out, K1.flash_attention_dense(q, k, v, True, **kw)[0])
+        eg = [_errs(a, b) for a, b in zip(grads, K1.flash_attention_bwd_dense(
+            q, k, v, do, True, **kw))]
+        (fb, ff), (bb, bf) = _flash_cost(q, k, True, None, None)
+        qt, kt, vt, skw = _sdpa_args(q, k, v, True, None, None)
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        o = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=p, **skw)
+        dot = do.transpose(1, 2).contiguous()
+        base = dict(case=f"mma_d{D}", shape=[B, S, H, D], skv=S, kv_heads=H,
+                    causal=True, dropout=p, dtype="bfloat16", tol=TOL[dt],
+                    body="mma")
+        fwd = dict(base, name="flash_attention_fwd_dropout_mma", bytes=fb,
+                   flops=ff, max_abs_err=eo[0], rel_err=eo[3],
+                   lse_abs_err=(lse - K1.flash_attention_dense(
+                       q, k, v, True, **kw)[1]).abs().max().item(),
+                   ms=cuda_ms(lambda: K1.flash_attention_fwd_lse(
+                       q, k, v, True, **kw)),
+                   plain_ms=cuda_ms(lambda: K1.flash_attention_dense(
+                       q, k, v, True, **kw), iters=3, warm=1),
+                   library_ms=events_ms(lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, dropout_p=p, **skw)),
+                   library=f"F.scaled_dot_product_attention forward, "
+                           f"dropout_p={p}")
+        bwd = dict(base, name="flash_attention_bwd_dropout_mma", bytes=bb,
+                   flops=bf, max_abs_err=max(e[0] for e in eg),
+                   rel_err=max(e[3] for e in eg),
+                   ms=cuda_ms(lambda: K1.flash_attention_bwd(
+                       q, k, v, out, lse, do, True, **kw)),
+                   plain_ms=events_ms(lambda: K1.flash_attention_bwd_dense(
+                       q, k, v, do, True, **kw), iters=3, warm=1),
+                   library_ms=events_ms(lambda: torch.autograd.grad(
+                       o, (qg, kg, vg), dot, retain_graph=True)),
+                   library=f"backward of F.scaled_dot_product_attention "
+                           f"(autograd.grad on a kept graph), dropout_p={p}")
+        for rec, (nb, nf) in ((fwd, (fb, ff)), (bwd, (bb, bf))):
+            rec["bound_ms"], rec["bound_by"] = bound(nb, nf, dt)
+            log("[varlen] " + json.dumps(rec))
+            if not (rec["rel_err"] <= rec["tol"]
+                    and rec.get("lse_abs_err", 0.0) <= rec["tol"]):
+                raise AssertionError(f"{rec['name']} {rec['shape']}: "
+                                     f"{rec['rel_err']} > {rec['tol']}")
+        results += [fwd, bwd]
+        del o, qg, kg, vg
+    check_dropout_mask(dev, ((16, torch.bfloat16, 2),
+                             (32, torch.bfloat16, 4)), tag="varlen")
+
+
+def phase_varlen(dev, results, counters):
+    """Phase 13: the gpt_1p3b-width pack (H 16, D 128, bf16; Tq 4608, Tk
+    9216) through flash_attn_unpadded without and with dropout 0.1,
+    checked and timed; the same checks in fp32 at a small pack (k 160,
+    96, 64, 32; H 4, D 64, 1e-4); the pack's mask read back; the mma
+    bodies' dropout instances. Returns the launches by path."""
+    out = {}
+    for p, path in ((0.0, "varlen"), (DROPOUT_P, "varlen_dropout")):
+        out[path] = check_varlen_pack(dev, results, torch.bfloat16, VARLEN_K,
+                                      16, 128, p, counters, timed=True)
+        check_varlen_pack(dev, results, torch.float32, [160, 96, 64, 32], 4,
+                          64, p, counters)
+    check_varlen_mask(dev)
+    check_mma_dropout(dev, results)
+    log("[varlen] every pack within tolerance, on K1/K2 with the frontier "
+        "arrays and never the plain version: OK")
+    return out
+
+
+# -- phase 14: the rest of the degree-1 training surface ---------------------
+SPARSE_SHAPE = (50304, 2048)    # Embedding(sparse=True) at GPT's vocab
+
+
+def _smoothed_ce(logits, labels, eps):
+    """torch's own f32 cross entropy with label smoothing, mean over the
+    labels that are not -100: the JAX formula's value (smoothing over
+    n_class, the mean over valid labels), computed another way."""
+    return torch.nn.functional.cross_entropy(
+        logits.float().reshape(-1, logits.shape[-1]), labels.reshape(-1),
+        ignore_index=-100, label_smoothing=eps)
+
+
+def surface_gpt(counters, steps=8, warm=4):
+    """14.1 and 14.2: gpt_1p3b trained by the trainer on cross_entropy with
+    label smoothing 0.1 and every 97th label at ignore_index; then one
+    step under collect_operator_stats, one under the tensor checker, and
+    one with a NaN in a weight that must raise."""
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
+    from paddle_tpu_torch.nn import functional as PF
+
+    cfg = gpt_1p3b(dtype="bfloat16")
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+    crit = lambda logits, y: PF.cross_entropy(logits, y,  # noqa: E731
+                                              label_smoothing=0.1)
+    opt, step = _trainer(model, crit=crit)
+    batch = _lm_batch(21, 4, 2048, cfg.vocab_size, model.device)
+    batch["y"].view(-1)[::97] = -100
+    losses, secs = [], []
+    for i in range(steps):
+        if i == warm:
+            for c in counters:
+                c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        secs.append(time.perf_counter() - t0)
+    launches = {c.__name__: c.launches for c in counters}
+    n, L = steps - warm, cfg.num_layers
+    want = {"flash_attention_fwd": L * n, "flash_attention_bwd": L * n,
+            "fused_adam": n}
+    with torch.no_grad():
+        logits = model(batch["x"])
+        ours = float(PF.cross_entropy(logits, batch["y"],
+                                      label_smoothing=0.1))
+        ref = float(_smoothed_ce(logits, batch["y"], 0.1))
+    del logits
+    rel = abs(ours - ref) / abs(ref)
+    log("[train-surface] gpt_1p3b, cross_entropy(label_smoothing=0.1, "
+        f"{int((batch['y'] == -100).sum())} labels ignored): " + json.dumps(
+            dict(losses=losses, step_ms=[t * 1e3 for t in secs],
+                 step_ms_p50=float(np.percentile(secs[warm:], 50)) * 1e3,
+                 launches=launches, loss_port=ours, loss_torch_f32=ref,
+                 rel=rel)))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train-surface losses: {losses}")
+    _expect_launches(launches, want, "train-surface gpt_1p3b")
+    if rel > 1e-5:
+        raise AssertionError(f"train-surface: loss off by {rel}")
+    base_ms = secs[-1] * 1e3
+    debugging.enable_operator_stats_collection()
+    try:
+        step(batch)
+        torch.cuda.synchronize()
+    finally:
+        stats = debugging.disable_operator_stats_collection()
+    mm = {op: n for op, by in stats.items() for dt, n in by.items()
+          if dt == "bfloat16" and op in ("mm", "addmm", "bmm", "matmul")}
+    k12 = {op: dict(stats.get(op, {})) for op in ("flash_attention_fwd",
+                                                   "flash_attention_bwd")}
+    log(f"[train-surface] operator stats of one step: {len(stats)} ops; "
+        f"bf16 matmuls {json.dumps(mm)}; K1/K2 {json.dumps(k12)}")
+    if not mm or any(sum(v.values()) != L for v in k12.values()):
+        raise AssertionError(f"operator stats miss the bf16 matmuls or K1/K2 "
+                             f"({L} each): {mm}, {k12}")
+    checker = debugging.TensorCheckerConfig()
+    debugging.enable_tensor_checker(checker)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        checked_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        debugging.disable_tensor_checker()
+    log(f"[train-surface] a clean step under the tensor checker: no raise, "
+        f"{checked_ms:.1f} ms (without it {base_ms:.1f} ms)")
+    with torch.no_grad():    # written with the checker off: it is a NaN
+        model.gpt.layers[1].mlp.fc1.weight.view(-1)[7] = float("nan")
+    debugging.enable_tensor_checker(checker)
+    try:
+        try:
+            step(batch)
+        except FloatingPointError as e:
+            log(f"[train-surface] a NaN in layer 1's fc1 weight: {e}")
+            if "op '" not in str(e):
+                raise AssertionError(f"the checker's error names no op: {e}")
+        else:
+            raise AssertionError("a NaN weight passed the tensor checker")
+    finally:
+        debugging.disable_tensor_checker()
+    return launches
+
+
+def surface_sparse(dev):
+    """14.3: Embedding(50304, 2048, sparse=True) (f32) on the ids of a
+    4 x 2048 batch. SGD (rate 1) and Adam(lazy_mode=True) (rate 0.01), 5
+    steps each, card against CPU within 1e-5, and Adam(lazy_mode=False)
+    against the dense-gradient Adam within 1e-6, on the loss sum(e(ids) *
+    G) for a fixed G: its
+    weight gradient (G's rows summed over repeated ids) is the same on
+    both sides, where a forward through a matmul would hand Adam, which
+    turns a gradient's rounding near zero into a whole step
+    (g / (|g| + eps)), cuBLAS's and MKL's rounding to compare. SGD with
+    ClipGradByGlobalNorm over the sparse embedding and a dense Linear
+    (the same loss + sum((Linear(X) - T)^2) / 8 for a fixed X) against
+    the all-dense model within 1e-6 (weights and global norm). Weights
+    are compared as the repo's optimizer checks compare them (K8's,
+    tests/test_torch_fused_optimizer.py): the largest difference over the
+    tensor's largest magnitude. On the card a repeated id's gradient sums
+    by atomics, so its rounding, and the weights' last bits, vary from
+    run to run (3.0e-7 and 1.2e-6 of the largest change in two runs)."""
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn.common import Embedding
+    from paddle_tpu_torch.optimizer import SGD, Adam
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    V, Hd = SPARSE_SHAPE
+    ids = torch.tensor(np.random.RandomState(22).randint(0, V, (4, 2048)))
+    G = torch.tensor(np.random.RandomState(27).randn(4, 2048, Hd).astype(
+        np.float32))
+    X = torch.tensor(np.random.RandomState(23).randn(4, 2048, 8).astype(
+        np.float32))
+    T = torch.tensor(np.random.RandomState(26).randn(4, 2048, 1).astype(
+        np.float32))
+    w0 = Embedding(V, Hd, padding_idx=-1, generator=torch.Generator(
+        ).manual_seed(24)).weight.detach()
+
+    def run(where, sparse, make, clip=None, steps=5):
+        emb = Embedding(V, Hd, padding_idx=-1, sparse=sparse, device=where)
+        with torch.no_grad():
+            emb.weight.copy_(w0.to(where))
+        lin = None if clip is None else torch.nn.Linear(8, 1, device=where)
+        params = list(emb.parameters())
+        if lin is not None:
+            with torch.no_grad():
+                lin.weight.fill_(0.5)
+                lin.bias.fill_(0.1)
+            params += list(lin.parameters())
+        opt = make(params, clip)
+        x = ids.to(where)
+        for _ in range(steps):
+            loss = (emb(x) * G.to(where)).sum()
+            if lin is not None:
+                loss = loss + (lin(X.to(where)) - T.to(where)).square(
+                    ).sum() / 8
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+        return emb.weight.detach().cpu(), opt.grad_norm
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    sgd = lambda ps, c: SGD(1.0, parameters=ps, grad_clip=c)  # noqa: E731
+    lazy = lambda ps, c: Adam(0.01, parameters=ps,  # noqa: E731
+                              lazy_mode=True)
+    dense_adam = lambda ps, c: Adam(0.01, parameters=ps)  # noqa: E731
+    out = {name: rel(run(dev, True, make)[0], run("cpu", True, make)[0])
+           for name, make in (("sgd_card_vs_cpu", sgd),
+                              ("adam_lazy_card_vs_cpu", lazy))}
+    out["adam_densified_vs_dense"] = rel(run(dev, True, dense_adam)[0],
+                                         run(dev, False, dense_adam)[0])
+    (a, na), (b, nb) = (run(dev, sp, sgd, ClipGradByGlobalNorm(1.0))
+                        for sp in (True, False))
+    out["clip_mixed_vs_dense"] = dict(weights=rel(a, b),
+                                      norms=[float(na), float(nb)])
+    log("[train-surface] sparse embedding 50304 x 2048 f32: "
+        + json.dumps(out))
+    if not (out["sgd_card_vs_cpu"] <= 1e-5
+            and out["adam_lazy_card_vs_cpu"] <= 1e-5
+            and out["adam_densified_vs_dense"] <= 1e-6
+            and out["clip_mixed_vs_dense"]["weights"] <= 1e-6
+            and abs(float(na) - float(nb)) <= 1e-6 * float(nb)):
+        raise AssertionError(f"train-surface sparse: {out}")
+
+
+def surface_tiny_dropout(counters, steps=3):
+    """14.4: gpt_tiny in bf16 with hidden and attention dropout 0.1 (head
+    dim 16: the mma.sync bodies' dropout instances), 3 AdamW steps on an
+    8 x 128 batch: finite losses, the dropout variants launched once a
+    layer a step each way."""
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+                                             GPTPretrainingCriterion,
+                                             gpt_tiny)
+
+    cfg = gpt_tiny(dtype="bfloat16", hidden_dropout=0.1,
+                   attention_dropout=0.1)
+    model = GPTForCausalLM(cfg, device="cuda", seed=3)
+    opt, step = _trainer(model, crit=GPTPretrainingCriterion(cfg))
+    batch = _lm_batch(25, TINY_SHAPE[0], TINY_SHAPE[1], cfg.vocab_size,
+                      model.device)
+    for c in counters:
+        c.launches = 0
+    losses = [float(step(batch)) for _ in range(steps)]
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"[train-surface] gpt_tiny bf16, dropout 0.1 (D = 16): losses "
+        f"{losses}, launches {launches}")
+    n = steps * cfg.num_layers
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"gpt_tiny with dropout: losses {losses}")
+    _expect_launches(launches, {"flash_attention_fwd_dropout": n,
+                                "flash_attention_bwd_dropout": n},
+                     "gpt_tiny with dropout")
+    return launches
+
+
+def phase_train_surface(dev, paths):
+    """Phase 14 (14.1 to 14.4 above). Returns the launches by path."""
+    out = {"train_surface": surface_gpt(paths["train_surface"])}
+    gc.collect()
+    torch.cuda.empty_cache()
+    surface_sparse(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train_surface_tiny"] = surface_tiny_dropout(
+        paths["train_surface_tiny"])
+    log("[train-surface] cross_entropy options, operator stats, the tensor "
+        "checker, sparse embedding updates and D = 16 dropout training: OK")
+    return out
+
+
 def k1_probe():
     """The second process of train-autotune: one K1 call at the train
     shape with FLAGS_use_autotune on, over the cache file the environment
@@ -3435,18 +3976,40 @@ def check_tile_spills(_build):
     from paddle_tpu_torch.ops.kernels.flash_attention import fwd_tiles
 
     built, drop = {}, {}
+
+    def label(body, D, kd, kr=0):
+        return f"{body} D={D}" + " dropout" * kd + " ranges" * kr
+
     for fn, rep in _build.ptxas_report("flash_attention").items():
-        m = re.search(r"fwd_wgmmaILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", fn)
+        m = re.search(r"fwd_wgmmaILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])E",
+                      fn)
         if m:
-            D, W, BN, kd = map(int, m.groups())
-            (drop if kd else built)[(D, 64 * W, BN)] = rep
-        m = re.search(r"(dq|dkv)_wgmmaILi(\d+)ELb1E", fn)
+            D, W, BN, kd, kr = map(int, m.groups())
+            if kd or kr:
+                drop[label("fwd_wgmma", D, kd, kr)] = rep
+            else:
+                built[(D, 64 * W, BN)] = rep
+        m = re.search(r"(dq|dkv)_wgmmaILi(\d+)ELb([01])ELb([01])E", fn)
+        if m and (m.group(3) == "1" or m.group(4) == "1"):
+            drop[label(m.group(1) + "_wgmma", m.group(2), int(m.group(3)),
+                       int(m.group(4)))] = rep
+        m = re.search(r"(fwd|dq|dkv)_mmaILi(\d+)ELb1E", fn)
         if m:
-            drop[(m.group(1), int(m.group(2)))] = rep
-    # the dropout instances (the default tiles, dq and dk/dv): their
-    # spills are recorded, not gated
-    log("[build] dropout instances (K1 default tiles, K2 dq and dk/dv): "
-        + json.dumps({str(k): v for k, v in drop.items()}))
+            drop[label(m.group(1) + "_mma", m.group(2), 1)] = rep
+    # the dropout instances (the Hopper bodies: K1's default tiles, K2's
+    # dq and dk/dv; the bf16 mma.sync bodies at D = 16 and 32) and the
+    # Hopper bodies' frontier-array instances: their spills are recorded,
+    # not gated
+    log("[build] dropout and frontier-array instances (K1 default tiles, "
+        "K2 dq and dk/dv, the mma bodies at D = 16 / 32): "
+        + json.dumps(drop))
+    want = [label(f"{b}_mma", D, 1) for b in ("fwd", "dq", "dkv")
+            for D in (16, 32)] + [
+        label(f"{b}_wgmma", D, kd, 1) for b in ("fwd", "dq", "dkv")
+        for D in (64, 128) for kd in (0, 1)]
+    if sorted(set(want) - set(drop)):
+        raise AssertionError(f"instances not built: "
+                             f"{sorted(set(want) - set(drop))}")
     bad = []
     for D in (64, 128):
         tiles = fwd_tiles(D, torch.bfloat16)
@@ -3472,7 +4035,8 @@ def main():
     ap.add_argument("--phases",
                     default="build,kernels,parity,serve,serve-prefix-spec,"
                             "generate,weight-only,train-parity,train,"
-                            "train-autotune,gpt-parity,train-gpt")
+                            "train-autotune,gpt-parity,train-gpt,varlen,"
+                            "train-surface")
     ap.add_argument("--profile", action="store_true",
                     help="serve the schedule once more (and the prefix and "
                     "draft configuration's), run 16 more decode steps of "
@@ -3507,8 +4071,9 @@ def main():
     from paddle_tpu_torch.ops.kernels.decode_attention import (
         decode_attention, paged_decode_attention)
     from paddle_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention_bwd, flash_attention_bwd_dropout, flash_attention_fwd,
-        flash_attention_fwd_dropout)
+        flash_attention_bwd, flash_attention_bwd_dropout,
+        flash_attention_bwd_varlen, flash_attention_fwd,
+        flash_attention_fwd_dropout, flash_attention_fwd_varlen)
     from paddle_tpu_torch.ops.kernels.fused_adam import fused_adam
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
         ragged_paged_attention
@@ -3576,6 +4141,19 @@ def main():
              "train_gpt": [flash_attention_fwd, flash_attention_bwd,
                            fused_adam, flash_attention_fwd_dropout,
                            flash_attention_bwd_dropout],
+             # the varlen pack through flash_attn_unpadded (both runs)
+             "varlen": [flash_attention_fwd, flash_attention_bwd,
+                        flash_attention_fwd_varlen,
+                        flash_attention_bwd_varlen,
+                        flash_attention_fwd_dropout,
+                        flash_attention_bwd_dropout],
+             "train_surface": [flash_attention_fwd, flash_attention_bwd,
+                               fused_adam],
+             # gpt_tiny in bf16 with dropout: the mma bodies' kDrop
+             "train_surface_tiny": [flash_attention_fwd, flash_attention_bwd,
+                                    flash_attention_fwd_dropout,
+                                    flash_attention_bwd_dropout,
+                                    fused_adam],
              "weight_only_generate_static": [rms_norm, decode_attention,
                                              weight_only_linear,
                                              weight_only_linear_wgmma],
@@ -3637,6 +4215,13 @@ def main():
     by_path["train_gpt_dropout"] = dict(by_path["train_gpt"])
     if "train-gpt" in phases:
         by_path.update(phase_train_gpt(paths["train_gpt"]))
+        gc.collect()
+        torch.cuda.empty_cache()
+    by_path["varlen_dropout"] = dict(by_path["varlen"])
+    if "varlen" in phases:
+        by_path.update(phase_varlen(dev, results, paths["varlen"]))
+    if "train-surface" in phases:
+        by_path.update(phase_train_surface(dev, paths))
 
     # one entry per kernel: the main path's dtype (bf16) at its main shape
     main_shape = {"rms_norm": [2048, 4096],
@@ -3647,6 +4232,10 @@ def main():
                   "flash_attention_bwd": [4, 2048, 32, 128],
                   "flash_attention_fwd_dropout": [4, 2048, 16, 128],
                   "flash_attention_bwd_dropout": [4, 2048, 16, 128],
+                  "flash_attention_fwd_varlen": [1, 4608, 16, 128],
+                  "flash_attention_bwd_varlen": [1, 4608, 16, 128],
+                  "flash_attention_fwd_dropout_mma": TINY_SHAPE,
+                  "flash_attention_bwd_dropout_mma": TINY_SHAPE,
                   "fused_adam": [_FUSED_ADAM_N],
                   "weight_only_linear": [8, 4096, 11008],
                   "weight_only_linear_wgmma": [2048, 4096, 11008]}
@@ -3675,6 +4264,22 @@ def main():
         "flash_attention_bwd_dropout": (
             "paddle_tpu_torch/csrc/flash_attention.cu", f"{flash}:307",
             "train_gpt_dropout"),
+        # K1/K2 with the per-sequence frontiers: the varlen pack (phase 13)
+        "flash_attention_fwd_varlen": (
+            "paddle_tpu_torch/csrc/flash_attention.cu", f"{flash}:432",
+            "varlen"),
+        "flash_attention_bwd_varlen": (
+            "paddle_tpu_torch/csrc/flash_attention.cu", f"{flash}:307",
+            "varlen"),
+        # the mma bodies' dropout instances (bf16, D = 16 / 32), counted by
+        # the dropout variants' counters on gpt_tiny's run (phase 14.4),
+        # where only the D = 16 mma body runs
+        "flash_attention_fwd_dropout_mma": (
+            "paddle_tpu_torch/csrc/flash_attention.cu", f"{flash}:432",
+            "train_surface_tiny", "flash_attention_fwd_dropout"),
+        "flash_attention_bwd_dropout_mma": (
+            "paddle_tpu_torch/csrc/flash_attention.cu", f"{flash}:307",
+            "train_surface_tiny", "flash_attention_bwd_dropout"),
         "fused_adam": ("paddle_tpu_torch/csrc/fused_adam.cu",
                        "paddle_tpu/optimizer/__init__.py:211", "train"),
         "weight_only_linear": ("paddle_tpu_torch/csrc/weight_only_linear.cu",
@@ -3685,7 +4290,8 @@ def main():
             "paddle_tpu_torch/csrc/weight_only_linear.cu",
             "paddle_tpu/nn/quant.py:78", "weight_only_serve")}
     kernels = []
-    for name, (src, repl, path) in meta.items():
+    for name, (src, repl, path, *counter) in meta.items():
+        counter = counter[0] if counter else name
         # the wgmma body's rows are K9's own, at M > 16 in bf16
         mine = [r for r in results if r["name"] == name or (
             name == "weight_only_linear_wgmma" and r.get("body") == "wgmma")]
@@ -3697,9 +4303,9 @@ def main():
         row = main[0] if main else {}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=repl,
-            launches=by_path[path][name],
-            launches_by_path={p: n[name] for p, n in by_path.items()
-                              if name in n},
+            launches=by_path[path][counter],
+            launches_by_path={p: n[counter] for p, n in by_path.items()
+                              if counter in n},
             max_abs_err=max((r["max_abs_err"] for r in mine), default=None),
             ms=row.get("ms"), plain_ms=row.get("plain_ms"),
             bound_ms=row.get("bound_ms"), bound_by=row.get("bound_by"),

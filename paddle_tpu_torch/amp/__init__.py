@@ -31,7 +31,7 @@ from typing import List, Optional, Set, Tuple
 
 import torch
 
-__all__ = ["auto_cast", "amp_guard", "decorate", "GradScaler",
+__all__ = ["auto_cast", "amp_guard", "debugging", "decorate", "GradScaler",
            "white_list", "black_list", "cast_inputs",
            "is_bfloat16_supported", "is_float16_supported"]
 
@@ -381,3 +381,6 @@ def is_float16_supported(device=None) -> bool:
         return (torch.cuda.is_available()
                 and torch.cuda.get_device_capability(dev) >= (5, 3))
     return True
+
+
+from . import debugging  # noqa: E402,F401  (after the names it uses)

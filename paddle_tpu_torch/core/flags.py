@@ -8,8 +8,12 @@ overrides the default when the flag is defined; names may carry the
 ``FLAGS_`` prefix; bools take "1", "true", "yes" and "on" (any case);
 an unknown name raises ``ValueError``.
 
-The port reads one flag, ``use_autotune`` (the measured K1 tile search,
-``ops/kernels/autotune.py``). Every other flag names the ROADMAP.md item
+The port reads two flags: ``use_autotune`` (the measured K1 tile
+search, ``ops/kernels/autotune.py``) and ``check_nan_inf`` (setting it
+installs ``amp/debugging.py``'s scan of every op's floating outputs:
+aten ops through a dispatch mode, the kernels through their counted
+wrappers; a non-finite value raises ``FloatingPointError`` naming the
+op). Every other flag names the ROADMAP.md item
 that would make the port read it, and setting it to anything but its
 default, by ``set_flags`` or by the environment, raises
 ``NotImplementedError``: no flag is accepted and then ignored.
@@ -91,6 +95,8 @@ def set_flags(flags: Dict[str, Any]) -> None:
             if flag is None:
                 raise ValueError(f"unknown flag '{key}'")
             flag.value = flag.checked(_coerce(value, flag.dtype))
+            if name == "check_nan_inf":
+                _check_nan_inf_set(flag.value)
 
 
 def get_flags(flags: Union[str, Iterable[str]]) -> Dict[str, Any]:
@@ -112,16 +118,21 @@ def _get(name: str, default: Any = None) -> Any:
     return flag.value if flag is not None else default
 
 
+def _check_nan_inf_set(value: bool) -> None:
+    """FLAGS_check_nan_inf's effect: amp.debugging's hooks in or out."""
+    from ..amp import debugging
+    debugging._install_checker(bool(value))
+
+
 # ---------------------------------------------------------------------------
 # The JAX package's nine flags, same names and defaults.
 # ---------------------------------------------------------------------------
-_ITEM2 = "ROADMAP.md queue 1, item 2: amp/debugging.py, the nan/inf checker"
 _ITEM2_2 = ("ROADMAP.md queue 1, item 2.2: the Paddle Tensor and op-dispatch "
             "scaffold")
 _ITEM11 = "ROADMAP.md queue 1, item 11: watchdog.py"
 
 define_flag("check_nan_inf", False, "Scan outputs of every eager op for "
-            "NaN/Inf.", _ITEM2)
+            "NaN/Inf.")
 define_flag("benchmark", False, "Block on each eager op for timing "
             "accuracy.", _ITEM2_2)
 define_flag("eager_op_jit_cache", True, "Cache per-op jitted executables "
@@ -140,3 +151,6 @@ define_flag("enable_async_trace", False, "Enable collective watchdog "
             "tracing.", _ITEM11)
 define_flag("tpu_matmul_precision", "default", "Default matmul precision "
             "(default|high|highest).", _ITEM2_2)
+
+if _get("check_nan_inf"):       # set from the environment
+    _check_nan_inf_set(True)

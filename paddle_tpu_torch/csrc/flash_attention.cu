@@ -22,18 +22,30 @@
 // rounded to bf16 before their products (flash_attention.py:137, :249,
 // :291, :297), as the TPU kernel does.
 //
+// Per-sequence frontiers (varlen packs, the JAX flash_attn_varlen's
+// per-sequence bottom-right mask, ops/attention.py:149-166): two optional
+// int32 pair arrays replace the rule above. qrange [B, Sq] holds each q
+// row's visible keys as (first, last) packed key, krange [B, Skv] each
+// key's (first, last) q row that sees it; first > last: none. In a pack the
+// pairs one row sees, and the rows one key is seen by, are contiguous, so
+// one range test is the whole mask (causal and segment ids are not read
+// with them). Every body takes them: the row-major ones (forward, dq) read
+// qrange, the key-major ones (dk/dv) krange, and each CTA's loop runs over
+// the union of its rows' (keys') ranges only, so a pack skips the key
+// tiles of other sequences. Null pointers keep the rule.
+//
 // Attention dropout (the JAX _sdpa_raw's, after the softmax; entries
 // flash_attention_fwd_dropout_launch and _bwd_dropout_launch): the
 // bodies built with kDrop multiply each probability by M / (1 - p) in f32,
-// at the (row, key) the causal mask already computes, before its bf16 round;
+// at the (row, key) the mask already computes, before its bf16 round;
 // l and lse stay over the undropped P; K2 scales dP = dO V^T by the same
 // factor and dv takes the dropped P (delta = rowsum(dO o O) is unchanged).
 // M is Philox4x32-10 keyed by the call's seed over (batch row, query head,
 // query row, key column / 4) (philox.cuh): four keys a hash, one hash shared
 // by the lanes that hold those keys (a thread pair in the row-major bodies,
 // a lane quad in dk/dv's S^T), so every body masks the same elements. Built
-// for the Hopper bodies (K1 at its default tiles) and the fp32 bodies; the
-// bf16 mma.sync bodies (D = 16, 32) refuse it.
+// for every body: the Hopper ones (K1 at its default tiles), the bf16
+// mma.sync ones (D = 16, 32) and the fp32 ones.
 //
 // Shape limits (the wrapper raises on anything else): D in {16, 32, 64,
 // 128}; H a multiple of KV; any Sq, Skv >= 0 (partial tiles are masked);
@@ -129,6 +141,11 @@ struct Args {
   // philox.cuh gives the counter layout
   uint32_t seed0, seed1, threshold;
   float keep_scale;
+  // per-sequence frontiers (null: the causal / segment rule): qrange[b, r]
+  // = (first, last) key row r sees, krange[b, j] = (first, last) q row
+  // that sees key j; first > last: none
+  const int2* qrange;
+  const int2* krange;
 };
 
 // the keep bits of keys 4 g .. 4 g + 3 of (b, h, row): bit i keeps 4 g + i
@@ -155,6 +172,32 @@ __device__ __forceinline__ uint32_t drop_pair_bits(const Args& a, int b,
   return ((v >> sh) & 3u) | (((v >> (4 + sh)) & 3u) << 2);
 }
 
+// The keep bits of a thread's S^T accumulator elements (rows keys jA and
+// jB = jA + 8, columns q rows q0 + 8 jj + 2 tig + e, NQ q rows): bit
+// 4 jj + 2 hi + e is element (key hi ? jB : jA, row q0 + 8 jj + 2 tig + e).
+// The four lanes grp & 3 = 0..3 (same tig, same grp >> 2) hold the four
+// keys of each Philox group (jA & 3 = grp & 3): lane c hashes the pair
+// c = 2 hi + e, and the quad gathers the four nibbles.
+template <int NQ>
+__device__ __forceinline__ uint32_t drop_quad_bits(const Args& a, int b,
+                                                   int h, int q0, int jA,
+                                                   int jB, int grp, int tig) {
+  const int cq = grp & 3;
+  uint32_t kbits = 0u;
+#pragma unroll
+  for (int jj = 0; jj < NQ / 8; ++jj) {
+    const int r = q0 + 8 * jj + 2 * tig + (cq & 1);
+    uint32_t v = drop_nibble(a, b, h, r, ((cq >> 1) ? jB : jA) >> 2)
+                 << (4 * cq);
+    v |= __shfl_xor_sync(0xffffffffu, v, 4);
+    v |= __shfl_xor_sync(0xffffffffu, v, 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      kbits |= ((v >> (4 * e + cq)) & 1u) << (4 * jj + e);
+  }
+  return kbits;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -167,10 +210,102 @@ __device__ __forceinline__ int warp_max(int v) {
   return v;
 }
 
-// last key row r may attend (-1: none); rows past Sq see nothing
-__device__ __forceinline__ int frontier(const Args& a, int r) {
-  if (r >= a.Sq) return -1;
-  return a.causal ? min(a.Skv - a.Sq + r, a.Skv - 1) : a.Skv - 1;
+__device__ __forceinline__ int warp_min(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// A span [x, y] of keys (or q rows); x > y is empty, and kNone the empty
+// one the helpers return.
+__device__ __forceinline__ int2 kNone() { return make_int2(0, -1); }
+
+__device__ __forceinline__ bool has(int2 s) { return s.x <= s.y; }
+
+// the keys row r attends, before segment ids: qrange's entry, or keys <=
+// r + Skv - Sq causal (the bottom-right rule), every key otherwise; rows
+// past Sq see none
+__device__ __forceinline__ int2 row_span(const Args& a, int b, int r) {
+  if (r >= a.Sq) return kNone();
+  if (a.qrange) {
+    const int2 s = a.qrange[size_t(b) * a.Sq + r];
+    return make_int2(max(s.x, 0), min(s.y, a.Skv - 1));
+  }
+  return make_int2(0, a.causal ? min(a.Skv - a.Sq + r, a.Skv - 1)
+                               : a.Skv - 1);
+}
+
+// the q rows that attend key j, before segment ids (row_span's inverse)
+__device__ __forceinline__ int2 key_span(const Args& a, int b, int j) {
+  if (j >= a.Skv) return kNone();
+  if (a.krange) {
+    const int2 s = a.krange[size_t(b) * a.Skv + j];
+    return make_int2(max(s.x, 0), min(s.y, a.Sq - 1));
+  }
+  return make_int2(a.causal ? max(0, j - (a.Skv - a.Sq)) : 0, a.Sq - 1);
+}
+
+// the union of two spans, empty ones ignored
+__device__ __forceinline__ int2 join(int2 s, int2 t) {
+  if (!has(t)) return s;
+  if (!has(s)) return t;
+  return make_int2(min(s.x, t.x), max(s.y, t.y));
+}
+
+// the union of a warp's spans (kNone when all are empty)
+__device__ __forceinline__ int2 warp_join(int2 s) {
+  const int lo = warp_min(has(s) ? s.x : 0x7fffffff);
+  const int hi = warp_max(has(s) ? s.y : -1);
+  return lo <= hi ? make_int2(lo, hi) : kNone();
+}
+
+// The union of the spans of rows [s0, s0 + n) (kKeys false: the keys they
+// attend, row_span) or of keys [s0, s0 + n) (kKeys true: the q rows that
+// see them, key_span). Without the frontier arrays it has a closed form;
+// with them the block reduces its entries, so every thread of the block
+// must call it (it synchronises the block twice).
+template <bool kKeys>
+__device__ int2 block_span(const Args& a, int b, int s0, int n) {
+  if (!(kKeys ? a.krange : a.qrange)) {
+    if (kKeys)
+      return s0 < a.Skv ? make_int2(key_span(a, b, s0).x, a.Sq - 1) : kNone();
+    return make_int2(0, row_span(a, b, min(s0 + n, a.Sq) - 1).y);
+  }
+  __shared__ int red[2];
+  if (threadIdx.x == 0) {
+    red[0] = 0x7fffffff;
+    red[1] = -1;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int2 s = kKeys ? key_span(a, b, s0 + i) : row_span(a, b, s0 + i);
+    if (has(s)) {
+      atomicMin(red, s.x);
+      atomicMax(red + 1, s.y);
+    }
+  }
+  __syncthreads();
+  return red[0] <= red[1] ? make_int2(red[0], red[1]) : kNone();
+}
+
+__device__ __forceinline__ int2 rows_span(const Args& a, int b, int r0,
+                                          int n) {
+  return block_span<false>(a, b, r0, n);
+}
+
+__device__ __forceinline__ int2 keys_span(const Args& a, int b, int j0,
+                                          int n) {
+  return block_span<true>(a, b, j0, n);
+}
+
+// the first of a loop's steps of `step` keys (or rows) over span s
+__device__ __forceinline__ int first_step(int2 s, int step) {
+  return has(s) ? s.x / step * step : 0;
+}
+
+// does span s hold the whole step [k0, k0 + n)? (else it needs a mask)
+__device__ __forceinline__ bool covers(int2 s, int k0, int n) {
+  return s.x <= k0 && k0 + n - 1 <= s.y;
 }
 
 __device__ __forceinline__ size_t q_off(const Args& a, int b, int r, int h) {
@@ -200,13 +335,14 @@ __global__ void __launch_bounds__(kThreads) fwd_fma(Args a) {
   const int kvh = h / (a.H / a.KV);
 
   float qr[kTR][NI], acc[kTR][NI], m[kTR], l[kTR];
-  int fr[kTR], qs[kTR];
-  int kend = 0;
+  int2 sp[kTR];
+  int qs[kTR];
+  int2 wsp = kNone();  // the warp's keys
 #pragma unroll
   for (int i = 0; i < kTR; ++i) {
     const int r = r0 + i;
-    fr[i] = frontier(a, r);
-    kend = max(kend, fr[i] + 1);
+    sp[i] = row_span(a, b, r);
+    wsp = join(wsp, sp[i]);
     qs[i] = (a.qseg && r < a.Sq) ? a.qseg[size_t(b) * a.Sq + r] : 0;
     m[i] = kNeg;
     l[i] = 0.f;
@@ -218,7 +354,7 @@ __global__ void __launch_bounds__(kThreads) fwd_fma(Args a) {
       acc[i][n] = 0.f;
     }
   }
-  for (int k0 = 0; k0 < kend; k0 += kKB) {
+  for (int k0 = first_step(wsp, kKB); k0 <= wsp.y; k0 += kKB) {
     float kf[kKB][NI], vf[kKB][NI];
     int ks[kKB];
 #pragma unroll
@@ -236,7 +372,8 @@ __global__ void __launch_bounds__(kThreads) fwd_fma(Args a) {
     }
 #pragma unroll
     for (int i = 0; i < kTR; ++i) {
-      if (fr[i] < k0) continue;  // warp-uniform
+      // warp-uniform: the row sees none of these keys
+      if (sp[i].y < k0 || sp[i].x > k0 + kKB - 1) continue;
       float s[kKB];
       bool keep[kKB];
       float mx = m[i];
@@ -246,7 +383,8 @@ __global__ void __launch_bounds__(kThreads) fwd_fma(Args a) {
 #pragma unroll
         for (int n = 0; n < NI; ++n) part += qr[i][n] * kf[kk][n];
         const float dot = warp_sum(part);
-        keep[kk] = k0 + kk <= fr[i] && (!a.qseg || qs[i] == ks[kk]);
+        keep[kk] = k0 + kk >= sp[i].x && k0 + kk <= sp[i].y &&
+                   (!a.qseg || qs[i] == ks[kk]);
         s[kk] = keep[kk] ? dot * a.scale : kNeg;
         mx = fmaxf(mx, s[kk]);
       }
@@ -306,14 +444,15 @@ __global__ void __launch_bounds__(kThreads) dq_fma(Args a) {
   const int kvh = h / (a.H / a.KV);
 
   float qr[kTR][NI], dr[kTR][NI], acc[kTR][NI], lse[kTR], dl[kTR];
-  int fr[kTR], qs[kTR];
-  int kend = 0;
+  int2 sp[kTR];
+  int qs[kTR];
+  int2 wsp = kNone();  // the warp's keys
 #pragma unroll
   for (int i = 0; i < kTR; ++i) {
     const int r = r0 + i;
     const bool live = r < a.Sq;
-    fr[i] = frontier(a, r);
-    kend = max(kend, fr[i] + 1);
+    sp[i] = row_span(a, b, r);
+    wsp = join(wsp, sp[i]);
     qs[i] = (a.qseg && live) ? a.qseg[size_t(b) * a.Sq + r] : 0;
     const size_t st = (size_t(b) * a.H + h) * a.Sq + r;
     lse[i] = live ? a.lse_in[st] : 0.f;
@@ -327,7 +466,7 @@ __global__ void __launch_bounds__(kThreads) dq_fma(Args a) {
       acc[i][n] = 0.f;
     }
   }
-  for (int k0 = 0; k0 < kend; k0 += kKB) {
+  for (int k0 = first_step(wsp, kKB); k0 <= wsp.y; k0 += kKB) {
     float kf[kKB][NI], vf[kKB][NI];
     int ks[kKB];
 #pragma unroll
@@ -345,7 +484,7 @@ __global__ void __launch_bounds__(kThreads) dq_fma(Args a) {
     }
 #pragma unroll
     for (int i = 0; i < kTR; ++i) {
-      if (fr[i] < k0) continue;
+      if (sp[i].y < k0 || sp[i].x > k0 + kKB - 1) continue;  // warp-uniform
       uint32_t bits = 0xFFu;
       if constexpr (kDrop)
         bits = drop_nibble(a, b, h, r0 + i, k0 >> 2) |
@@ -358,7 +497,8 @@ __global__ void __launch_bounds__(kThreads) dq_fma(Args a) {
           ps += qr[i][n] * kf[kk][n];
           pd += dr[i][n] * vf[kk][n];
         }
-        const bool keep = k0 + kk <= fr[i] && (!a.qseg || qs[i] == ks[kk]);
+        const bool keep = k0 + kk >= sp[i].x && k0 + kk <= sp[i].y &&
+                          (!a.qseg || qs[i] == ks[kk]);
         const float s = warp_sum(ps) * a.scale;
         float dp = warp_sum(pd);
         if constexpr (kDrop) dp *= ((bits >> kk) & 1u) ? a.keep_scale : 0.f;
@@ -395,14 +535,17 @@ __global__ void __launch_bounds__(kThreads) dkv_fma(Args a) {
   const int j0 = (blockIdx.x * kWarps + warp) * kTR;
   if (j0 >= a.Skv) return;
   const int G = a.H / a.KV;
-  const int qoff = a.Skv - a.Sq;
 
   float kr[kTR][NI], vr[kTR][NI], ak[kTR][NI], av[kTR][NI];
   int ks[kTR];
+  int2 sp[kTR];
+  int2 wsp = kNone();  // the q rows that see the warp's keys
 #pragma unroll
   for (int i = 0; i < kTR; ++i) {
     const int j = j0 + i;
     const bool ok = j < a.Skv;
+    sp[i] = key_span(a, b, j);
+    wsp = join(wsp, sp[i]);
     ks[i] = (a.kseg && ok) ? a.kseg[size_t(b) * a.Skv + j] : 0;
     const size_t o = ok ? k_off(a, b, j, kvh) : 0;
 #pragma unroll
@@ -413,12 +556,9 @@ __global__ void __launch_bounds__(kThreads) dkv_fma(Args a) {
       ak[i][n] = av[i][n] = 0.f;
     }
   }
-  // the first q row that sees key j0 (the warp's smallest key)
-  const int rstart = a.causal ? max(0, j0 - qoff) : 0;
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
-    for (int r = rstart; r < a.Sq; ++r) {
-      const int fr = frontier(a, r);
+    for (int r = wsp.x; r <= wsp.y; ++r) {
       const int qs = a.qseg ? a.qseg[size_t(b) * a.Sq + r] : 0;
       const size_t st = (size_t(b) * a.H + h) * a.Sq + r;
       const float lse = a.lse_in[st];
@@ -435,8 +575,7 @@ __global__ void __launch_bounds__(kThreads) dkv_fma(Args a) {
       const uint32_t bits = kDrop ? drop_nibble(a, b, h, r, j0 >> 2) : 0xFu;
 #pragma unroll
       for (int i = 0; i < kTR; ++i) {
-        const int j = j0 + i;
-        if (j > fr || j >= a.Skv) continue;  // warp-uniform
+        if (r < sp[i].x || r > sp[i].y) continue;  // warp-uniform
         if (a.qseg && qs != ks[i]) continue;
         float ps = 0.f, pd = 0.f;
 #pragma unroll
@@ -545,7 +684,7 @@ constexpr int kDqKeys = 32;   // keys per dq stage
 constexpr int kKvRows = 64;   // keys per dk/dv CTA (16 per warp)
 constexpr int kKvQ = 32;      // q rows per dk/dv stage
 
-template <int D>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads) fwd_mma(Args a) {
   constexpr int KT = D / 16, NT = D / 8, LD = D + 8;
   __shared__ __align__(16) bf16 sk[kFwdKeys * LD];
@@ -561,11 +700,11 @@ __global__ void __launch_bounds__(kThreads) fwd_mma(Args a) {
   const int grp = lane >> 2, tig = lane & 3;
   const int kvh = h / (a.H / a.KV);
   const int rA = q0 + warp * 16 + grp, rB = rA + 8;
-  const int fA = frontier(a, rA), fB = frontier(a, rB);
-  const int wmax = warp_max(max(fA, fB));
+  const int2 spA = row_span(a, b, rA), spB = row_span(a, b, rB);
+  const int2 wsp = warp_join(join(spA, spB));  // the warp's keys
+  const int2 bsp = rows_span(a, b, q0, kRows);  // the block's
   const int sA = (a.qseg && rA < a.Sq) ? a.qseg[size_t(b) * a.Sq + rA] : 0;
   const int sB = (a.qseg && rB < a.Sq) ? a.qseg[size_t(b) * a.Sq + rB] : 0;
-  const int kend = frontier(a, min(q0 + kRows, a.Sq) - 1) + 1;
   const size_t oA = rA < a.Sq ? q_off(a, b, rA, h) : 0;
   const size_t oB = rB < a.Sq ? q_off(a, b, rB, h) : 0;
 
@@ -583,7 +722,7 @@ __global__ void __launch_bounds__(kThreads) fwd_mma(Args a) {
   for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
   float mA = kNeg, mB = kNeg, lA = 0.f, lB = 0.f;
 
-  for (int k0 = 0; k0 < kend; k0 += kFwdKeys) {
+  for (int k0 = first_step(bsp, kFwdKeys); k0 <= bsp.y; k0 += kFwdKeys) {
     __syncthreads();  // the previous stage's readers are done
     stage<D, kFwdKeys, LD>(sk, k, b, k0, a.Skv, a.KV, kvh);
     stage<D, kFwdKeys, LD>(sv, v, b, k0, a.Skv, a.KV, kvh);
@@ -592,7 +731,8 @@ __global__ void __launch_bounds__(kThreads) fwd_mma(Args a) {
                               ? a.kseg[size_t(b) * a.Skv + k0 + threadIdx.x]
                               : 0;
     __syncthreads();
-    if (wmax < k0) continue;  // warp-uniform: no row of it sees this block
+    // warp-uniform: no row of it sees this block
+    if (wsp.y < k0 || wsp.x > k0 + kFwdKeys - 1) continue;
 
     float s[kFwdKeys / 8][4];
 #pragma unroll
@@ -611,8 +751,10 @@ __global__ void __launch_bounds__(kThreads) fwd_mma(Args a) {
       for (int e = 0; e < 2; ++e) {
         const int kl = t * 8 + tig * 2 + e;
         const int key = k0 + kl;
-        const bool kA = key <= fA && (!a.qseg || sseg[kl] == sA);
-        const bool kB = key <= fB && (!a.qseg || sseg[kl] == sB);
+        const bool kA = key >= spA.x && key <= spA.y &&
+                        (!a.qseg || sseg[kl] == sA);
+        const bool kB = key >= spB.x && key <= spB.y &&
+                        (!a.qseg || sseg[kl] == sB);
         keepA |= unsigned(kA) << (2 * t + e);
         keepB |= unsigned(kB) << (2 * t + e);
         s[t][e] = kA ? s[t][e] * a.scale : kNeg;
@@ -646,6 +788,17 @@ __global__ void __launch_bounds__(kThreads) fwd_mma(Args a) {
       acc[t][1] *= cA;
       acc[t][2] *= cB;
       acc[t][3] *= cB;
+    }
+    if constexpr (kDrop) {
+      // l summed the undropped P; O takes P M / (1 - p), in f32 before the
+      // bf16 round (s[t] is the row-major accumulator of keys k0 + 8 t)
+#pragma unroll
+      for (int t = 0; t < kFwdKeys / 8; ++t) {
+        const uint32_t bits = drop_pair_bits(a, b, h, rA, rB, k0 + 8 * t, tig);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[t][e] *= ((bits >> e) & 1u) ? a.keep_scale : 0.f;
+      }
     }
 #pragma unroll
     for (int u = 0; u < kFwdKeys / 16; ++u) {
@@ -683,7 +836,7 @@ __global__ void __launch_bounds__(kThreads) fwd_mma(Args a) {
   }
 }
 
-template <int D>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads) dq_mma(Args a) {
   constexpr int KT = D / 16, NT = D / 8, LD = D + 8;
   constexpr int NS = kDqKeys / 8;  // score n-tiles
@@ -701,8 +854,9 @@ __global__ void __launch_bounds__(kThreads) dq_mma(Args a) {
   const int grp = lane >> 2, tig = lane & 3;
   const int kvh = h / (a.H / a.KV);
   const int rA = q0 + warp * 16 + grp, rB = rA + 8;
-  const int fA = frontier(a, rA), fB = frontier(a, rB);
-  const int wmax = warp_max(max(fA, fB));
+  const int2 spA = row_span(a, b, rA), spB = row_span(a, b, rB);
+  const int2 wsp = warp_join(join(spA, spB));  // the warp's keys
+  const int2 bsp = rows_span(a, b, q0, kRows);  // the block's
   const int sA = (a.qseg && rA < a.Sq) ? a.qseg[size_t(b) * a.Sq + rA] : 0;
   const int sB = (a.qseg && rB < a.Sq) ? a.qseg[size_t(b) * a.Sq + rB] : 0;
   const size_t st = (size_t(b) * a.H + h) * a.Sq;
@@ -711,7 +865,6 @@ __global__ void __launch_bounds__(kThreads) dq_mma(Args a) {
   const size_t sp = (size_t(b) * a.H + h) * a.Sp;
   const float dlA = rA < a.Sq ? a.delta[sp + rA] : 0.f;
   const float dlB = rB < a.Sq ? a.delta[sp + rB] : 0.f;
-  const int kend = frontier(a, min(q0 + kRows, a.Sq) - 1) + 1;
   const size_t oA = rA < a.Sq ? q_off(a, b, rA, h) : 0;
   const size_t oB = rB < a.Sq ? q_off(a, b, rB, h) : 0;
 
@@ -732,7 +885,7 @@ __global__ void __launch_bounds__(kThreads) dq_mma(Args a) {
 #pragma unroll
   for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
 
-  for (int k0 = 0; k0 < kend; k0 += kDqKeys) {
+  for (int k0 = first_step(bsp, kDqKeys); k0 <= bsp.y; k0 += kDqKeys) {
     __syncthreads();
     stage<D, kDqKeys, LD>(sk, k, b, k0, a.Skv, a.KV, kvh);
     stage<D, kDqKeys, LD>(sv, v, b, k0, a.Skv, a.KV, kvh);
@@ -741,7 +894,7 @@ __global__ void __launch_bounds__(kThreads) dq_mma(Args a) {
                               ? a.kseg[size_t(b) * a.Skv + k0 + threadIdx.x]
                               : 0;
     __syncthreads();
-    if (wmax < k0) continue;
+    if (wsp.y < k0 || wsp.x > k0 + kDqKeys - 1) continue;  // warp-uniform
 
     float s[NS][4], dp[NS][4];
 #pragma unroll
@@ -756,6 +909,16 @@ __global__ void __launch_bounds__(kThreads) dq_mma(Args a) {
         mma_bf16(dp[t], da[ks], ld32(vrow + ks * 16), ld32(vrow + ks * 16 + 8));
       }
     }
+    // dropout: dP = (dO V^T) M / (1 - p)
+    if constexpr (kDrop) {
+#pragma unroll
+      for (int t = 0; t < NS; ++t) {
+        const uint32_t bits = drop_pair_bits(a, b, h, rA, rB, k0 + 8 * t, tig);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[t][e] *= ((bits >> e) & 1u) ? a.keep_scale : 0.f;
+      }
+    }
     // dS = P (dP - delta), P = exp(S scale - lse), kept in s
 #pragma unroll
     for (int t = 0; t < NS; ++t) {
@@ -763,8 +926,10 @@ __global__ void __launch_bounds__(kThreads) dq_mma(Args a) {
       for (int e = 0; e < 2; ++e) {
         const int kl = t * 8 + tig * 2 + e;
         const int key = k0 + kl;
-        const bool kA = key <= fA && (!a.qseg || sseg[kl] == sA);
-        const bool kB = key <= fB && (!a.qseg || sseg[kl] == sB);
+        const bool kA = key >= spA.x && key <= spA.y &&
+                        (!a.qseg || sseg[kl] == sA);
+        const bool kB = key >= spB.x && key <= spB.y &&
+                        (!a.qseg || sseg[kl] == sB);
         const float pA = kA ? expf(s[t][e] * a.scale - lseA) : 0.f;
         const float pB = kB ? expf(s[t][2 + e] * a.scale - lseB) : 0.f;
         s[t][e] = pA * (dp[t][e] - dlA);
@@ -804,7 +969,7 @@ constexpr int dkv_smem_bytes() {
   return (2 * kKvRows + 2 * kKvQ) * (D + 8) * 2 + 3 * kKvQ * 4;
 }
 
-template <int D>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads) dkv_mma(Args a) {
   constexpr int KT = D / 16, NT = D / 8, LD = D + 8;
   constexpr int NS = kKvQ / 8;  // score n-tiles (q rows)
@@ -827,9 +992,10 @@ __global__ void __launch_bounds__(kThreads) dkv_mma(Args a) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int grp = lane >> 2, tig = lane & 3;
   const int G = a.H / a.KV;
-  const int qoff = a.Skv - a.Sq;
   const int jA = j0 + warp * 16 + grp, jB = jA + 8;
-  const int wmin = j0 + warp * 16;  // the warp's smallest key
+  const int2 ksA = key_span(a, b, jA), ksB = key_span(a, b, jB);
+  const int2 wsp = warp_join(join(ksA, ksB));  // the warp's q rows
+  const int2 bsp = keys_span(a, b, j0, kKvRows);  // the block's
   const int gA = (a.kseg && jA < a.Skv) ? a.kseg[size_t(b) * a.Skv + jA] : 0;
   const int gB = (a.kseg && jB < a.Skv) ? a.kseg[size_t(b) * a.Skv + jB] : 0;
 
@@ -844,12 +1010,9 @@ __global__ void __launch_bounds__(kThreads) dkv_mma(Args a) {
   }
   const bf16* kr = sk + (warp * 16 + grp) * LD + tig * 2;
   const bf16* vr = sv + (warp * 16 + grp) * LD + tig * 2;
-  // q blocks before the first row that sees key j0 are skipped
-  const int qfirst = a.causal ? max(0, j0 - qoff) / kKvQ * kKvQ : 0;
-
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
-    for (int q0 = qfirst; q0 < a.Sq; q0 += kKvQ) {
+    for (int q0 = first_step(bsp, kKvQ); q0 <= bsp.y; q0 += kKvQ) {
       __syncthreads();  // the previous stage's readers are done
       stage<D, kKvQ, LD>(sq, q, b, q0, a.Sq, a.H, h);
       stage<D, kKvQ, LD>(sdo, dout, b, q0, a.Sq, a.H, h);
@@ -862,8 +1025,8 @@ __global__ void __launch_bounds__(kThreads) dkv_mma(Args a) {
         sseg[threadIdx.x] = (a.qseg && ok) ? a.qseg[size_t(b) * a.Sq + r] : 0;
       }
       __syncthreads();
-      // warp-uniform: the block's last row cannot see the warp's keys
-      if (frontier(a, min(q0 + kKvQ, a.Sq) - 1) < wmin) continue;
+      // warp-uniform: no row of the block sees the warp's keys
+      if (wsp.y < q0 || wsp.x > q0 + kKvQ - 1) continue;
 
       float s[NS][4], dp[NS][4];
 #pragma unroll
@@ -887,22 +1050,34 @@ __global__ void __launch_bounds__(kThreads) dkv_mma(Args a) {
           mma_bf16(dp[t], fv, ld32(drow + ks * 16), ld32(drow + ks * 16 + 8));
         }
       }
-      // P^T and dS^T: rows are keys (jA, jB), columns q rows; p kept in s,
-      // ds in dp
+      // dropout on S^T (bit 4 t + 2 hi + e of kbits: s[t][2 hi + e])
+      uint32_t kbits = 0xFFFFFFFFu;
+      if constexpr (kDrop)
+        kbits = drop_quad_bits<kKvQ>(a, b, h, q0, jA, jB, grp, tig);
+      // P^T and dS^T: rows are keys (jA, jB), columns q rows; p kept in s
+      // (dropout: P^T M / (1 - p), for dv), ds in dp (dropout: dP^T
+      // M / (1 - p) before delta)
 #pragma unroll
       for (int t = 0; t < NS; ++t) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int rl = t * 8 + tig * 2 + e;
-          const int fr = frontier(a, q0 + rl);
-          const bool kA = jA <= fr && (!a.qseg || sseg[rl] == gA);
-          const bool kB = jB <= fr && (!a.qseg || sseg[rl] == gB);
+          const int r = q0 + rl;
+          const bool kA = r >= ksA.x && r <= ksA.y &&
+                          (!a.qseg || sseg[rl] == gA);
+          const bool kB = r >= ksB.x && r <= ksB.y &&
+                          (!a.qseg || sseg[rl] == gB);
           const float pA = kA ? expf(s[t][e] * a.scale - slse[rl]) : 0.f;
           const float pB = kB ? expf(s[t][2 + e] * a.scale - slse[rl]) : 0.f;
-          s[t][e] = pA;
-          s[t][2 + e] = pB;
-          dp[t][e] = pA * (dp[t][e] - sdl[rl]);
-          dp[t][2 + e] = pB * (dp[t][2 + e] - sdl[rl]);
+          float zA = 1.f, zB = 1.f;
+          if constexpr (kDrop) {
+            zA = ((kbits >> (4 * t + e)) & 1u) ? a.keep_scale : 0.f;
+            zB = ((kbits >> (4 * t + 2 + e)) & 1u) ? a.keep_scale : 0.f;
+          }
+          s[t][e] = pA * zA;
+          s[t][2 + e] = pB * zB;
+          dp[t][e] = pA * (dp[t][e] * zA - sdl[rl]);
+          dp[t][2 + e] = pB * (dp[t][2 + e] * zB - sdl[rl]);
         }
       }
 #pragma unroll
@@ -975,6 +1150,115 @@ struct HopParams {
   const float* lse2;            // dq: padded lse * log2(e)
   const float* delta2;          // dq: padded delta
 };
+
+// The Hopper bodies are built twice: for the rule (kRange false: causal,
+// the key and row counts and segment ids, with the registers the rule
+// needs) and for the frontier arrays (kRange true, the default tiles only).
+// RowKeys<kRange> is a thread's mask in the row-major bodies (its rows rA,
+// rB = rA + 8; the rule also keeps its warpgroup's first row r0, whose
+// frontier decides which tiles need a mask), KeyRows<kRange> in the
+// key-major dk/dv body (its keys jA, jB = jA + 8).
+
+// last key row r may attend under the rule (-1: none); rows past Sq see
+// nothing
+__device__ __forceinline__ int frontier(const Args& a, int r) {
+  if (r >= a.Sq) return -1;
+  return a.causal ? min(a.Skv - a.Sq + r, a.Skv - 1) : a.Skv - 1;
+}
+
+template <bool kRange>
+struct RowKeys;
+
+template <>
+struct RowKeys<false> {
+  int fA, fB, f0;
+  __device__ __forceinline__ RowKeys(const Args& a, int, int r0, int rA,
+                                     int rB)
+      : fA(frontier(a, rA)), fB(frontier(a, rB)), f0(frontier(a, r0)) {}
+  // may a key of [k0, k0 + n) be past one of the thread's rows' frontier?
+  __device__ __forceinline__ bool partial(int k0, int n) const {
+    return k0 + n - 1 > f0;
+  }
+  __device__ __forceinline__ bool sees(bool hi, int key) const {
+    return key <= (hi ? fB : fA);
+  }
+};
+
+template <>
+struct RowKeys<true> {
+  int2 A, B;
+  __device__ __forceinline__ RowKeys(const Args& a, int b, int, int rA,
+                                     int rB)
+      : A(row_span(a, b, rA)), B(row_span(a, b, rB)) {}
+  __device__ __forceinline__ bool partial(int k0, int n) const {
+    return !covers(make_int2(max(A.x, B.x), min(A.y, B.y)), k0, n);
+  }
+  __device__ __forceinline__ bool sees(bool hi, int key) const {
+    const int2 s = hi ? B : A;
+    return key >= s.x && key <= s.y;
+  }
+};
+
+template <bool kRange>
+struct KeyRows;
+
+template <>
+struct KeyRows<false> {
+  int jA, jB, jmax;  // jmax: the warpgroup's last key
+  __device__ __forceinline__ KeyRows(const Args&, int, int jA_, int jmax_)
+      : jA(jA_), jB(jA_ + 8), jmax(jmax_) {}
+  // may a row of [q0, q0 + n) not see one of the thread's keys?
+  __device__ __forceinline__ bool partial(const Args& a, int q0,
+                                          int n) const {
+    return q0 + n > a.Sq || jmax >= a.Skv ||
+           (a.causal && jmax > q0 + a.Skv - a.Sq);
+  }
+  __device__ __forceinline__ bool sees(const Args& a, bool hi, int r) const {
+    const int j = hi ? jB : jA;
+    return r < a.Sq && j < a.Skv && (!a.causal || j <= r + a.Skv - a.Sq);
+  }
+};
+
+template <>
+struct KeyRows<true> {
+  int2 A, B;
+  __device__ __forceinline__ KeyRows(const Args& a, int b, int jA, int)
+      : A(key_span(a, b, jA)), B(key_span(a, b, jA + 8)) {}
+  __device__ __forceinline__ bool partial(const Args&, int q0, int n) const {
+    return !covers(make_int2(max(A.x, B.x), min(A.y, B.y)), q0, n);
+  }
+  __device__ __forceinline__ bool sees(const Args&, bool hi, int r) const {
+    const int2 s = hi ? B : A;
+    return r >= s.x && r <= s.y;
+  }
+};
+
+// the keys (kRange: from a multiple of `step`) that rows [q0, q0 + n) see,
+// as [begin, end)
+template <bool kRange>
+__device__ __forceinline__ int2 rows_steps(const Args& a, int b, int q0,
+                                           int n, int step) {
+  if constexpr (kRange) {
+    const int2 s = rows_span(a, b, q0, n);
+    return make_int2(first_step(s, step), s.y + 1);
+  } else {
+    return make_int2(0, frontier(a, min(q0 + n, a.Sq) - 1) + 1);
+  }
+}
+
+// the q rows (from a multiple of `step`) that see keys [j0, j0 + n), as
+// [begin, end)
+template <bool kRange>
+__device__ __forceinline__ int2 keys_steps(const Args& a, int b, int j0,
+                                           int n, int step) {
+  if constexpr (kRange) {
+    const int2 s = keys_span(a, b, j0, n);
+    return make_int2(first_step(s, step), s.y + 1);
+  } else {
+    return make_int2(a.causal ? max(0, j0 - (a.Skv - a.Sq)) / step * step : 0,
+                     a.Sq);
+  }
+}
 
 // the tile helpers shared with the paged-attention bodies (hopper.cuh)
 using hopper::align1024;
@@ -1059,7 +1343,7 @@ __device__ __forceinline__ uint64_t desc_at(uint64_t base, uint32_t off) {
 }
 
 
-template <int D, int W, int BN, bool kDrop>
+template <int D, int W, int BN, bool kDrop, bool kRange>
 __global__ void __launch_bounds__(FwdHop<D, W, BN>::kThreads, 1)
     fwd_wgmma(const __grid_constant__ HopParams P) {
   using C = FwdHop<D, W, BN>;
@@ -1086,8 +1370,11 @@ __global__ void __launch_bounds__(FwdHop<D, W, BN>::kThreads, 1)
   const int qb = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = qb * BM;
   const int kvh = h / (a.H / a.KV);
-  // keys [0, kend) reach the block's last row
-  const int kend = frontier(a, min(q0 + BM, a.Sq) - 1) + 1;
+  // the keys the block's rows see, [kbeg, kend), kbeg a multiple of 64:
+  // every tile runs the same 64-key softmax sub-steps (a step no row sees
+  // changes nothing)
+  const int2 ks_ = rows_steps<kRange>(a, b, q0, BM, SN);
+  const int kbeg = ks_.x, kend = ks_.y;
   if (threadIdx.x == 0) {
     hopper::mbar_init(bars, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -1103,7 +1390,7 @@ __global__ void __launch_bounds__(FwdHop<D, W, BN>::kThreads, 1)
       hopper::mbar_arrive_tx(bars, C::QB);
       tma_rows<D>(sq, &P.tq, bars, BM, h, q0, b);
       Ring ring;
-      for (int k0 = 0; k0 < kend; k0 += BN, ring.next()) {
+      for (int k0 = kbeg; k0 < kend; k0 += BN, ring.next()) {
         // parity ph ^ 1: the first round passes, as the slot starts empty
         hopper::mbar_wait(empty + ring.s, ring.ph ^ 1);
         hopper::mbar_arrive_tx(full + ring.s, 2 * C::KB);
@@ -1117,11 +1404,10 @@ __global__ void __launch_bounds__(FwdHop<D, W, BN>::kThreads, 1)
     const int w = tid >> 5, lane = tid & 31, grp = lane >> 2, tig = lane & 3;
     const int r0 = q0 + wg * 64;
     const int rA = r0 + w * 16 + grp, rB = rA + 8;
-    // the warpgroup's smallest frontier (-1 when its rows start past Sq:
-    // every tile is then masked, and nothing of it is stored)
-    const int f0 = frontier(a, r0);
     const bool seg = a.qseg != nullptr;
-    const int fA = frontier(a, rA), fB = frontier(a, rB);
+    // the thread's rows' keys (none past Sq: every tile is then masked,
+    // and nothing of it is stored)
+    const RowKeys<kRange> mk(a, b, r0, rA, rB);
     const int sA = (seg && rA < a.Sq) ? a.qseg[size_t(b) * a.Sq + rA] : 0;
     const int sB = (seg && rB < a.Sq) ? a.qseg[size_t(b) * a.Sq + rB] : 0;
     const float sl2 = a.scale * kLog2e;  // scores in base 2
@@ -1130,7 +1416,7 @@ __global__ void __launch_bounds__(FwdHop<D, W, BN>::kThreads, 1)
     float mA = kNeg, mB = kNeg, lA = 0.f, lB = 0.f;
     hopper::mbar_wait(bars, 0);
     Ring ring;
-    for (int k0 = 0; k0 < kend; k0 += BN, ring.next()) {
+    for (int k0 = kbeg; k0 < kend; k0 += BN, ring.next()) {
       hopper::mbar_wait(full + ring.s, ring.ph);
       const bf16* ks = skv + ring.s * 2 * BN * D;
       const bf16* vs = ks + BN * D;
@@ -1165,15 +1451,15 @@ __global__ void __launch_bounds__(FwdHop<D, W, BN>::kThreads, 1)
                    desc_at(dk1, (kk >> 2) * BN * 8 + (kk & 3) * 2), kk > 0);
           hopper::wgmma_commit();
         }
-        // the mask only where a key past a row's frontier (or a segment
+        // the mask only where a key outside a row's span (or a segment
         // boundary) can fall in the tile; masked scores become -inf, so
         // their probability is exactly 0 and m never drops below kNeg
-        if (seg || kh + SN - 1 > f0) {
+        if (seg || mk.partial(kh, SN)) {
 #pragma unroll
           for (int i = 0; i < SN / 2; ++i) {
             const int key = kh + 8 * (i >> 2) + 2 * tig + (i & 1);
             const bool hi = (i >> 1) & 1;
-            bool keep = key <= (hi ? fB : fA);
+            bool keep = mk.sees(hi, key);
             if (seg && keep)
               keep = a.kseg[size_t(b) * a.Skv + key] == (hi ? sB : sA);
             if (!keep) sc[i] = neg_inf();
@@ -1262,7 +1548,7 @@ struct DqHop {
   static constexpr int smem = 2 * QB + kStages * 2 * KB + 64 + 1024;
 };
 
-template <int D, bool kDrop>
+template <int D, bool kDrop, bool kRange>
 __global__ void __launch_bounds__(kHopThreads, 1)
     dq_wgmma(const __grid_constant__ HopParams P) {
   using C = DqHop<D>;
@@ -1281,8 +1567,9 @@ __global__ void __launch_bounds__(kHopThreads, 1)
   const int qb = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = qb * BM;
   const int kvh = h / (a.H / a.KV);
-  // keys [0, kend) reach the block's last row
-  const int kend = frontier(a, min(q0 + BM, a.Sq) - 1) + 1;
+  // the keys the block's rows see, [kbeg, kend)
+  const int2 ks_ = rows_steps<kRange>(a, b, q0, BM, BN);
+  const int kbeg = ks_.x, kend = ks_.y;
   if (threadIdx.x == 0) {
     hopper::mbar_init(bars, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -1299,7 +1586,7 @@ __global__ void __launch_bounds__(kHopThreads, 1)
       tma_rows<D>(sq, &P.tq, bars, BM, h, q0, b);
       tma_rows<D>(sdo, &P.tdo, bars, BM, h, q0, b);
       Ring ring;
-      for (int k0 = 0; k0 < kend; k0 += BN, ring.next()) {
+      for (int k0 = kbeg; k0 < kend; k0 += BN, ring.next()) {
         // parity ph ^ 1: the first round passes, as the slot starts empty
         hopper::mbar_wait(empty + ring.s, ring.ph ^ 1);
         hopper::mbar_arrive_tx(full + ring.s, 2 * C::KB);
@@ -1313,8 +1600,7 @@ __global__ void __launch_bounds__(kHopThreads, 1)
     const int w = tid >> 5, lane = tid & 31, grp = lane >> 2, tig = lane & 3;
     const int r0 = q0 + wg * 64;
     const int rA = r0 + w * 16 + grp, rB = rA + 8;
-    const int fA = frontier(a, rA), fB = frontier(a, rB);
-    const int f0 = frontier(a, r0);
+    const RowKeys<kRange> mk(a, b, r0, rA, rB);
     const bool seg = a.qseg != nullptr;
     const int sA = (seg && rA < a.Sq) ? a.qseg[size_t(b) * a.Sq + rA] : 0;
     const int sB = (seg && rB < a.Sq) ? a.qseg[size_t(b) * a.Sq + rB] : 0;
@@ -1328,7 +1614,7 @@ __global__ void __launch_bounds__(kHopThreads, 1)
     zero(dq);
     hopper::mbar_wait(bars, 0);
     Ring ring;
-    for (int k0 = 0; k0 < kend; k0 += BN, ring.next()) {
+    for (int k0 = kbeg; k0 < kend; k0 += BN, ring.next()) {
       hopper::mbar_wait(full + ring.s, ring.ph);
       const bf16* ks = skv + ring.s * 2 * BN * D;
       const bf16* vs = ks + BN * D;
@@ -1344,12 +1630,12 @@ __global__ void __launch_bounds__(kHopThreads, 1)
       hopper::wgmma_wait<0>();
       hopper::fence_operand(sc);
       hopper::fence_operand(dp);
-      if (seg || k0 + BN - 1 > f0) {
+      if (seg || mk.partial(k0, BN)) {
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) {
           const int key = k0 + 8 * (i >> 2) + 2 * tig + (i & 1);
           const bool hi = (i >> 1) & 1;
-          bool keep = key <= (hi ? fB : fA);
+          bool keep = mk.sees(hi, key);
           if (seg && keep)
             keep = a.kseg[size_t(b) * a.Skv + key] == (hi ? sB : sA);
           if (!keep) sc[i] = neg_inf();
@@ -1412,7 +1698,7 @@ struct DkvHop {
       2 * KB + kStages * (2 * QB + 2 * VB) + 64 + 1024;
 };
 
-template <int D, bool kDrop>
+template <int D, bool kDrop, bool kRange>
 __global__ void __launch_bounds__(kHopThreads, 1)
     dkv_wgmma(const __grid_constant__ HopParams P) {
   using C = DkvHop<D>;
@@ -1435,8 +1721,9 @@ __global__ void __launch_bounds__(kHopThreads, 1)
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int j0 = blockIdx.x * BN;
   const int G = a.H / a.KV;
-  const int qoff = a.Skv - a.Sq;
-  const int qfirst = a.causal ? max(0, j0 - qoff) / BQ * BQ : 0;
+  // the q rows that see the block's keys, [qfirst, qend)
+  const int2 qs_ = keys_steps<kRange>(a, b, j0, BN, BQ);
+  const int qfirst = qs_.x, qend = qs_.y;
   if (threadIdx.x == 0) {
     hopper::mbar_init(bars, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -1454,7 +1741,7 @@ __global__ void __launch_bounds__(kHopThreads, 1)
       tma_rows<D>(sv, &P.tv, bars, BN, kvh, j0, b);
       Ring ring;
       for (int h = kvh * G; h < (kvh + 1) * G; ++h) {
-        for (int q0 = qfirst; q0 < a.Sq; q0 += BQ, ring.next()) {
+        for (int q0 = qfirst; q0 < qend; q0 += BQ, ring.next()) {
           uint64_t* bar = full + ring.s;
           hopper::mbar_wait(empty + ring.s, ring.ph ^ 1);
           hopper::mbar_arrive_tx(bar, 2 * C::QB + 2 * C::VB);
@@ -1473,7 +1760,8 @@ __global__ void __launch_bounds__(kHopThreads, 1)
     const int k0 = C::kSplit ? 0 : wg * 64;  // the warpgroup's first key row
     const int c0 = C::kSplit ? wg * DW : 0;  // and first dk, dv column
     const int jA = j0 + k0 + w * 16 + grp, jB = jA + 8;
-    const int jmax = j0 + k0 + 63;  // the warpgroup's last key
+    // the q rows that see the thread's keys (none past Skv)
+    const KeyRows<kRange> mk(a, b, jA, j0 + k0 + 63);
     const bool seg = a.qseg != nullptr;
     const int gA = (seg && jA < a.Skv) ? a.kseg[size_t(b) * a.Skv + jA] : 0;
     const int gB = (seg && jB < a.Skv) ? a.kseg[size_t(b) * a.Skv + jB] : 0;
@@ -1485,7 +1773,7 @@ __global__ void __launch_bounds__(kHopThreads, 1)
     Ring ring;
     // the producer's order: each head of the group, then its q blocks
     for (int g = 0; g < G; ++g)
-    for (int q0 = qfirst; q0 < a.Sq; q0 += BQ, ring.next()) {
+    for (int q0 = qfirst; q0 < qend; q0 += BQ, ring.next()) {
       hopper::mbar_wait(full + ring.s, ring.ph);
       const bf16* qs = sqd + ring.s * 2 * BQ * D;
       const bf16* dos = qs + BQ * D;
@@ -1503,45 +1791,26 @@ __global__ void __launch_bounds__(kHopThreads, 1)
       hopper::fence_operand(st);
       hopper::fence_operand(dpt);
       // rows (keys) jA, jB; columns q rows q0 + 8 j + 2 tig + e. The mask
-      // only where a tile holds rows past Sq, keys past Skv, pairs past the
-      // causal frontier or segments, as -inf scores (probability 0: lse2 is
-      // finite, pad rows' 0 included), in a loop of its own: the per-element
-      // tests inside the exp loop cost more than the tiles that need them
-      if (seg || q0 + BQ > a.Sq || jmax >= a.Skv ||
-          (a.causal && jmax > q0 + qoff)) {
+      // only where a tile holds rows outside the keys' spans (rows past Sq,
+      // keys past Skv, pairs past the frontier) or segments, as -inf scores
+      // (probability 0: lse2 is finite, pad rows' 0 included), in a loop of
+      // its own: the per-element tests inside the exp loop cost more than
+      // the tiles that need them
+      if (seg || mk.partial(a, q0, BQ)) {
 #pragma unroll
         for (int i = 0; i < BQ / 2; ++i) {
           const int r = q0 + 8 * (i >> 2) + 2 * tig + (i & 1);
           const bool hi = (i >> 1) & 1;
-          const int j = hi ? jB : jA;
-          bool keep = r < a.Sq && j < a.Skv && (!a.causal || j <= r + qoff);
+          bool keep = mk.sees(a, hi, r);
           if (seg && keep)
             keep = a.qseg[size_t(b) * a.Sq + r] == (hi ? gB : gA);
           if (!keep) st[i] = neg_inf();
         }
       }
-      // dropout on S^T: rows are keys jA, jB (column jA & 3 = grp & 3 of
-      // their Philox groups), columns q rows. The four lanes grp & 3 = 0..3
-      // (same tig, same grp >> 2) share each group: lane c hashes the pair
-      // c = 2 hi + e, (key jA or jB, q row q0 + 8 jj + 2 tig + e), and the
-      // quad gathers the four nibbles. Bit i of `kbits` is element i's.
+      // dropout on S^T: bit i of `kbits` is element i's (drop_quad_bits)
       uint32_t kbits = 0xFFFFFFFFu;
-      if constexpr (kDrop) {
-        const int cq = grp & 3;
-        const int h = kvh * G + g;
-        kbits = 0u;
-#pragma unroll
-        for (int jj = 0; jj < BQ / 8; ++jj) {
-          const int r = q0 + 8 * jj + 2 * tig + (cq & 1);
-          uint32_t v = drop_nibble(a, b, h, r, ((cq >> 1) ? jB : jA) >> 2)
-                       << (4 * cq);
-          v |= __shfl_xor_sync(0xffffffffu, v, 4);
-          v |= __shfl_xor_sync(0xffffffffu, v, 8);
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            kbits |= ((v >> (4 * e + cq)) & 1u) << (4 * jj + e);
-        }
-      }
+      if constexpr (kDrop)
+        kbits = drop_quad_bits<BQ>(a, b, kvh * G + g, q0, jA, jB, grp, tig);
       // P^T (dropout: P^T M / (1 - p), for dv) and dS^T = P^T (dP^T - delta)
       // (dropout: dP^T M / (1 - p))
 #pragma unroll
@@ -1637,7 +1906,7 @@ bool hop_ok(const Args& a, int dtype) {
   return dtype == 1 && (a.D == 64 || a.D == 128) && a.Sq > 0 && a.Skv > 0;
 }
 
-template <int D, int W, int BN, bool kDrop = false>
+template <int D, int W, int BN, bool kDrop = false, bool kRange = false>
 cudaError_t fwd_hop(const Args& a, cudaStream_t s) {
   using C = FwdHop<D, W, BN>;
   HopParams p{};
@@ -1647,11 +1916,12 @@ cudaError_t fwd_hop(const Args& a, cudaStream_t s) {
       !hopper_host::encode_rows(&p.tv, a.v, a.B, a.Skv, a.KV, D, C::BN))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      fwd_wgmma<D, W, BN, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_wgmma<D, W, BN, kDrop, kRange>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Sq + C::BM - 1) / C::BM, a.H, a.B);
-  fwd_wgmma<D, W, BN, kDrop><<<grid, C::kThreads, C::smem, s>>>(p);
+  fwd_wgmma<D, W, BN, kDrop, kRange><<<grid, C::kThreads, C::smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -1680,7 +1950,7 @@ cudaError_t prepass(const Args& a, const void* out, float* work,
   return cudaGetLastError();
 }
 
-template <int D, bool kDrop>
+template <int D, bool kDrop, bool kRange>
 cudaError_t dq_hop(const Args& a, const float* work, cudaStream_t s) {
   using C = DqHop<D>;
   HopParams p{};
@@ -1693,15 +1963,15 @@ cudaError_t dq_hop(const Args& a, const float* work, cudaStream_t s) {
       !hopper_host::encode_rows(&p.tv, a.v, a.B, a.Skv, a.KV, D, C::BN))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      dq_wgmma<D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dq_wgmma<D, kDrop, kRange>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Sq + C::BM - 1) / C::BM, a.H, a.B);
-  dq_wgmma<D, kDrop><<<grid, kHopThreads, C::smem, s>>>(p);
+  dq_wgmma<D, kDrop, kRange><<<grid, kHopThreads, C::smem, s>>>(p);
   return cudaGetLastError();
 }
 
-template <int D, bool kDrop>
+template <int D, bool kDrop, bool kRange>
 cudaError_t dkv_hop(const Args& a, const float* work, cudaStream_t s) {
   using C = DkvHop<D>;
   HopParams p{};
@@ -1715,11 +1985,12 @@ cudaError_t dkv_hop(const Args& a, const float* work, cudaStream_t s) {
       !hopper_host::encode_f32_rows(&p.tdelta, delta, a.B * a.H, a.Sp, C::BQ))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      dkv_wgmma<D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkv_wgmma<D, kDrop, kRange>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Skv + C::BN - 1) / C::BN, a.KV, a.B);
-  dkv_wgmma<D, kDrop><<<grid, kHopThreads, C::smem, s>>>(p);
+  dkv_wgmma<D, kDrop, kRange><<<grid, kHopThreads, C::smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -1732,31 +2003,83 @@ dim3 key_grid(const Args& a, int keys_per_cta) {
 }
 
 
-template <int D>
+template <int D, bool kDrop>
 cudaError_t bwd_mma(const Args& a, int parts, cudaStream_t s) {
   if ((parts & 2) && a.Sq > 0) {
-    dq_mma<D><<<row_grid(a, kRows), kThreads, 0, s>>>(a);
+    dq_mma<D, kDrop><<<row_grid(a, kRows), kThreads, 0, s>>>(a);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   if (!(parts & 4) || a.Skv <= 0) return cudaSuccess;
   constexpr int bytes = dkv_smem_bytes<D>();
   cudaError_t e;
-  e = cudaFuncSetAttribute(dkv_mma<D>,
+  e = cudaFuncSetAttribute(dkv_mma<D, kDrop>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  dkv_mma<D><<<key_grid(a, kKvRows), kThreads, bytes, s>>>(a);
+  dkv_mma<D, kDrop><<<key_grid(a, kKvRows), kThreads, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
-template <int D, bool kDrop>
+// the bf16 mma.sync bodies: D = 16 and 32, and D = 64 and 128 when a call
+// has no q row or no key (the Hopper bodies need both). Dropout instances
+// at D = 16 and 32 only: with no row or no key there is nothing to drop.
+cudaError_t fwd_mma_launch(const Args& a, bool drop, cudaStream_t s) {
+  const dim3 grid = row_grid(a, kRows);
+  switch (a.D) {
+    case 16:
+      if (drop) fwd_mma<16, true><<<grid, kThreads, 0, s>>>(a);
+      else fwd_mma<16, false><<<grid, kThreads, 0, s>>>(a);
+      break;
+    case 32:
+      if (drop) fwd_mma<32, true><<<grid, kThreads, 0, s>>>(a);
+      else fwd_mma<32, false><<<grid, kThreads, 0, s>>>(a);
+      break;
+    case 64: fwd_mma<64, false><<<grid, kThreads, 0, s>>>(a); break;
+    case 128: fwd_mma<128, false><<<grid, kThreads, 0, s>>>(a); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_mma_launch(const Args& a, bool drop, int parts,
+                           cudaStream_t s) {
+  switch (a.D) {
+    case 16: return drop ? bwd_mma<16, true>(a, parts, s)
+                         : bwd_mma<16, false>(a, parts, s);
+    case 32: return drop ? bwd_mma<32, true>(a, parts, s)
+                         : bwd_mma<32, false>(a, parts, s);
+    case 64: return bwd_mma<64, false>(a, parts, s);
+    case 128: return bwd_mma<128, false>(a, parts, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int D, bool kDrop, bool kRange>
 cudaError_t bwd_hop(const Args& a, const float* work, int parts,
                     cudaStream_t s) {
   if (parts & 2) {
-    cudaError_t e = dq_hop<D, kDrop>(a, work, s);
+    cudaError_t e = dq_hop<D, kDrop, kRange>(a, work, s);
     if (e != cudaSuccess) return e;
   }
-  return (parts & 4) ? dkv_hop<D, kDrop>(a, work, s) : cudaSuccess;
+  return (parts & 4) ? dkv_hop<D, kDrop, kRange>(a, work, s) : cudaSuccess;
+}
+
+// the Hopper backward's instance: (D, dropout, frontier arrays)
+template <int D>
+cudaError_t bwd_hop_any(const Args& a, const float* work, int parts,
+                        bool drop, cudaStream_t s) {
+  if (a.qrange)
+    return drop ? bwd_hop<D, true, true>(a, work, parts, s)
+                : bwd_hop<D, false, true>(a, work, parts, s);
+  return drop ? bwd_hop<D, true, false>(a, work, parts, s)
+              : bwd_hop<D, false, false>(a, work, parts, s);
+}
+
+// the Hopper forward with the frontier arrays: the default tiles only
+template <int D, int W, int BN>
+cudaError_t fwd_hop_range(const Args& a, bool drop, cudaStream_t s) {
+  return drop ? fwd_hop<D, W, BN, true, true>(a, s)
+              : fwd_hop<D, W, BN, false, true>(a, s);
 }
 
 template <int NI, bool kDrop>
@@ -1800,39 +2123,31 @@ cudaError_t bwd_f32(const Args& a, int parts, cudaStream_t s) {
   }
 }
 
-// Dropout runs in the Hopper bodies (bf16, D = 64 and 128, K1 at its
-// default tile) and the fp32 bodies. The bf16 mma.sync bodies (D = 16 and
-// 32) are not built with it: a dropout call there is refused, unless it has
-// no (row, key) pair to drop (no q row, or no key).
-bool drop_refused(const Args& a, int dtype) {
-  return dtype == 1 && !hop_ok(a, dtype) && a.Sq > 0 && a.Skv > 0;
-}
-
+// Dropout runs in every body: the Hopper ones (bf16, D = 64 and 128, K1
+// at its default tile), the bf16 mma.sync ones (D = 16 and 32) and the fp32
+// ones. A call with no q row or no key has no pair to drop.
 cudaError_t run_fwd(const Args& a, int dtype, int bq, int bkv, bool drop,
                     cudaStream_t s) {
+  drop = drop && a.Skv > 0;
+  if (a.qrange && hop_ok(a, dtype)) {
+    // the frontier arrays' instances are the default tiles'
+    if (bq != 0 || bkv != 0) return cudaErrorInvalidValue;
+    return a.D == 64 ? fwd_hop_range<64, 2, 128>(a, drop, s)
+                     : fwd_hop_range<128, 2, 128>(a, drop, s);
+  }
   if (drop) {
     // the dropout instances are the default tiles'
-    if (bq != 0 || bkv != 0 || drop_refused(a, dtype))
-      return cudaErrorInvalidValue;
+    if (bq != 0 || bkv != 0) return cudaErrorInvalidValue;
     if (hop_ok(a, dtype))
       return a.D == 64 ? fwd_hop<64, 2, 128, true>(a, s)
                        : fwd_hop<128, 2, 128, true>(a, s);
     if (dtype == 0) return fwd_f32<true>(a, s);
-    // bf16 with no key: every row outputs 0, with or without dropout
+    return fwd_mma_launch(a, true, s);
   }
   if (hop_ok(a, dtype)) return fwd_hop_tile(a, bq, bkv, s);
   // the mma and FMA bodies have one tile each: (0, 0)
   if (bq != 0 || bkv != 0) return cudaErrorInvalidValue;
-  if (dtype == 1) {
-    switch (a.D) {
-      case 16: fwd_mma<16><<<row_grid(a, kRows), kThreads, 0, s>>>(a); break;
-      case 32: fwd_mma<32><<<row_grid(a, kRows), kThreads, 0, s>>>(a); break;
-      case 64: fwd_mma<64><<<row_grid(a, kRows), kThreads, 0, s>>>(a); break;
-      case 128: fwd_mma<128><<<row_grid(a, kRows), kThreads, 0, s>>>(a); break;
-      default: return cudaErrorInvalidValue;
-    }
-    return cudaGetLastError();
-  }
+  if (dtype == 1) return fwd_mma_launch(a, false, s);
   return fwd_f32<false>(a, s);
 }
 
@@ -1858,34 +2173,23 @@ cudaError_t run_prepass(const Args& a, int dtype, const void* out,
 
 cudaError_t run_bwd(const Args& a, int dtype, const void* out, float* work,
                     int parts, bool drop, cudaStream_t s) {
-  if (drop && drop_refused(a, dtype)) return cudaErrorInvalidValue;
+  drop = drop && a.Sq > 0 && a.Skv > 0;
   if ((parts & 1) && a.Sq > 0) {
     cudaError_t e = run_prepass(a, dtype, out, work, s);
     if (e != cudaSuccess) return e;
   }
-  if (hop_ok(a, dtype)) {
-    if (drop)
-      return a.D == 64 ? bwd_hop<64, true>(a, work, parts, s)
-                       : bwd_hop<128, true>(a, work, parts, s);
-    return a.D == 64 ? bwd_hop<64, false>(a, work, parts, s)
-                     : bwd_hop<128, false>(a, work, parts, s);
-  }
-  if (drop && dtype == 0) return bwd_f32<true>(a, parts, s);
-  if (dtype == 1) {
-    switch (a.D) {
-      case 16: return bwd_mma<16>(a, parts, s);
-      case 32: return bwd_mma<32>(a, parts, s);
-      case 64: return bwd_mma<64>(a, parts, s);
-      case 128: return bwd_mma<128>(a, parts, s);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  return bwd_f32<false>(a, parts, s);
+  if (hop_ok(a, dtype))
+    return a.D == 64 ? bwd_hop_any<64>(a, work, parts, drop, s)
+                     : bwd_hop_any<128>(a, work, parts, drop, s);
+  if (dtype == 1) return bwd_mma_launch(a, drop, parts, s);
+  return drop ? bwd_f32<true>(a, parts, s) : bwd_f32<false>(a, parts, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out share it). lse [B, H, Sq].
+// qrange int32 [B, Sq, 2] and krange [B, Skv, 2]: the per-sequence
+// frontiers (both or neither; null: the causal / segment rule).
 // (block_q, block_kv): a tile flash_attention_fwd_tiles lists for (D,
 // dtype), or (0, 0) for the body's default; any other pair, or a pair on a
 // call the Hopper body does not take (no key), returns
@@ -1893,7 +2197,8 @@ cudaError_t run_bwd(const Args& a, int dtype, const void* out, float* work,
 namespace {
 
 int fwd_launch(const void* q, const void* k, const void* v, const void* qseg,
-               const void* kseg, void* out, void* lse, int B, int Sq, int Skv,
+               const void* kseg, const void* qrange, const void* krange,
+               void* out, void* lse, int B, int Sq, int Skv,
                int H, int KV, int D, int causal, float scale, int dtype,
                int block_q, int block_kv, bool drop, uint32_t seed0,
                uint32_t seed1, uint32_t threshold, float keep_scale,
@@ -1905,6 +2210,8 @@ int fwd_launch(const void* q, const void* k, const void* v, const void* qseg,
   a.v = v;
   a.qseg = static_cast<const int*>(qseg);
   a.kseg = static_cast<const int*>(kseg);
+  a.qrange = static_cast<const int2*>(qrange);
+  a.krange = static_cast<const int2*>(krange);
   a.out = out;
   a.lse = static_cast<float*>(lse);
   a.B = B; a.Sq = Sq; a.Skv = Skv; a.H = H; a.KV = KV; a.D = D;
@@ -1920,28 +2227,28 @@ int fwd_launch(const void* q, const void* k, const void* v, const void* qseg,
 
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, const void* qseg,
-    const void* kseg, void* out, void* lse, int B, int Sq, int Skv, int H,
-    int KV, int D, int causal, float scale, int dtype, int block_q,
-    int block_kv, void* stream) {
-  return fwd_launch(q, k, v, qseg, kseg, out, lse, B, Sq, Skv, H, KV, D,
-                    causal, scale, dtype, block_q, block_kv, false, 0, 0, 0,
-                    1.f, stream);
+    const void* kseg, const void* qrange, const void* krange, void* out,
+    void* lse, int B, int Sq, int Skv, int H, int KV, int D, int causal,
+    float scale, int dtype, int block_q, int block_kv, void* stream) {
+  return fwd_launch(q, k, v, qseg, kseg, qrange, krange, out, lse, B, Sq,
+                    Skv, H, KV, D, causal, scale, dtype, block_q, block_kv,
+                    false, 0, 0, 0, 1.f, stream);
 }
 
 // K1 with attention dropout (the JAX _sdpa_raw's, after the softmax): O =
 // (P M / (1 - p)) V with l and lse over the undropped P. The mask M is
 // Philox4x32-10 keyed by (seed0, seed1) over the counter layout of
 // philox.cuh; an element is kept iff its word >= threshold = floor(p 2^32);
-// keep_scale = 1 / (1 - p). The default tile only; the bf16 D = 16 and 32
-// bodies refuse it (cudaErrorInvalidValue, no launch).
+// keep_scale = 1 / (1 - p). The default tile only.
 extern "C" int flash_attention_fwd_dropout_launch(
     const void* q, const void* k, const void* v, const void* qseg,
-    const void* kseg, void* out, void* lse, int B, int Sq, int Skv, int H,
-    int KV, int D, int causal, float scale, int dtype, unsigned seed0,
-    unsigned seed1, unsigned threshold, float keep_scale, void* stream) {
-  return fwd_launch(q, k, v, qseg, kseg, out, lse, B, Sq, Skv, H, KV, D,
-                    causal, scale, dtype, 0, 0, true, seed0, seed1, threshold,
-                    keep_scale, stream);
+    const void* kseg, const void* qrange, const void* krange, void* out,
+    void* lse, int B, int Sq, int Skv, int H, int KV, int D, int causal,
+    float scale, int dtype, unsigned seed0, unsigned seed1,
+    unsigned threshold, float keep_scale, void* stream) {
+  return fwd_launch(q, k, v, qseg, kseg, qrange, krange, out, lse, B, Sq,
+                    Skv, H, KV, D, causal, scale, dtype, 0, 0, true, seed0,
+                    seed1, threshold, keep_scale, stream);
 }
 
 // The forward's built tiles for (D, dtype) as (block_q, block_kv) pairs in
@@ -1971,7 +2278,8 @@ namespace {
 
 int bwd_launch(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const void* lse, void* work,
-               const void* qseg, const void* kseg, void* dq, void* dk,
+               const void* qseg, const void* kseg, const void* qrange,
+               const void* krange, void* dq, void* dk,
                void* dv, int B, int Sq, int Skv, int H, int KV, int D,
                int causal, float scale, int dtype, int parts, bool drop,
                uint32_t seed0, uint32_t seed1, uint32_t threshold,
@@ -1987,6 +2295,8 @@ int bwd_launch(const void* q, const void* k, const void* v, const void* out,
             size_t(B) * H * ((Sq + kPad - 1) / kPad * kPad);
   a.qseg = static_cast<const int*>(qseg);
   a.kseg = static_cast<const int*>(kseg);
+  a.qrange = static_cast<const int2*>(qrange);
+  a.krange = static_cast<const int2*>(krange);
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
@@ -2006,12 +2316,12 @@ int bwd_launch(const void* q, const void* k, const void* v, const void* out,
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* work, const void* qseg,
-    const void* kseg, void* dq, void* dk, void* dv, int B, int Sq, int Skv,
-    int H, int KV, int D, int causal, float scale, int dtype, int parts,
-    void* stream) {
-  return bwd_launch(q, k, v, out, dout, lse, work, qseg, kseg, dq, dk, dv, B,
-                    Sq, Skv, H, KV, D, causal, scale, dtype, parts, false, 0,
-                    0, 0, 1.f, stream);
+    const void* kseg, const void* qrange, const void* krange, void* dq,
+    void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, int D,
+    int causal, float scale, int dtype, int parts, void* stream) {
+  return bwd_launch(q, k, v, out, dout, lse, work, qseg, kseg, qrange,
+                    krange, dq, dk, dv, B, Sq, Skv, H, KV, D, causal, scale,
+                    dtype, parts, false, 0, 0, 0, 1.f, stream);
 }
 
 // K2 of K1's dropout call, from the same seed, threshold and keep_scale:
@@ -2020,11 +2330,12 @@ extern "C" int flash_attention_bwd_launch(
 extern "C" int flash_attention_bwd_dropout_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* work, const void* qseg,
-    const void* kseg, void* dq, void* dk, void* dv, int B, int Sq, int Skv,
-    int H, int KV, int D, int causal, float scale, int dtype, int parts,
-    unsigned seed0, unsigned seed1, unsigned threshold, float keep_scale,
-    void* stream) {
-  return bwd_launch(q, k, v, out, dout, lse, work, qseg, kseg, dq, dk, dv, B,
-                    Sq, Skv, H, KV, D, causal, scale, dtype, parts, true,
-                    seed0, seed1, threshold, keep_scale, stream);
+    const void* kseg, const void* qrange, const void* krange, void* dq,
+    void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, int D,
+    int causal, float scale, int dtype, int parts, unsigned seed0,
+    unsigned seed1, unsigned threshold, float keep_scale, void* stream) {
+  return bwd_launch(q, k, v, out, dout, lse, work, qseg, kseg, qrange,
+                    krange, dq, dk, dv, B, Sq, Skv, H, KV, D, causal, scale,
+                    dtype, parts, true, seed0, seed1, threshold, keep_scale,
+                    stream);
 }

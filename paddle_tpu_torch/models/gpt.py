@@ -318,6 +318,15 @@ class GPTForCausalLM(nn.Module):
             return self._logits(x), new_caches
         return self._logits(self.gpt(input_ids))
 
+    @property
+    def aux_loss(self) -> torch.Tensor:
+        """The MoE blocks' load-balance losses of the last forward (the
+        JAX property, models/gpt.py:378-391): a dense model has none, so
+        an f32 0 on the model's device, and ``loss + model.aux_loss``
+        trains as ``loss`` does. The MoE sum waits on ROADMAP.md queue 1,
+        item 10 (``num_experts > 0`` raises at construction)."""
+        return torch.zeros((), device=self.device)
+
 
 class GPTPretrainingCriterion(nn.Module):
     """Shift-by-one LM loss: the mean over tokens of

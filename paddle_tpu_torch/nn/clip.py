@@ -8,7 +8,9 @@ The optimizers call it from their ``_fused_update``. On CUDA, Adam and
 AdamW fold ``ClipGradByGlobalNorm`` into kernel K8
 (``ops/kernels/fused_adam.py``); ``ClipGradByNorm`` and
 ``ClipGradByValue`` run here in torch before it, where XLA fused them in
-the JAX package.
+the JAX package. With sparse (SelectedRows) gradients the optimizer
+passes their squared norm as ``extra_sq`` and scales their values by
+the same ``coefficient``, as the JAX step does.
 """
 from __future__ import annotations
 
@@ -46,8 +48,13 @@ class ClipGradByGlobalNorm(ClipGradBase):
         return torch.clamp(self.clip_norm / torch.clamp(norm, min=1e-6),
                            max=1.0)
 
-    def apply_values(self, grads):
-        norm = global_norm(grads)
+    def apply_values(self, grads, extra_sq=0.0):
+        """``extra_sq``: the squared norm of gradients clipped elsewhere
+        under the same global norm (the optimizer's merged SelectedRows
+        gradients)."""
+        norm = torch.sqrt(torch.as_tensor(
+            sum(torch.sum(torch.square(g.float())) for g in grads)
+            + extra_sq))
         coef = self.coefficient(norm)
         return [(g.float() * coef).to(g.dtype) for g in grads], norm
 

@@ -1,14 +1,33 @@
-"""Functional ops (counterpart of ``paddle_tpu/nn/functional.py``): the
-hard-label cross entropy the Llama and GPT training steps use, dropout,
-and the layer norm, GELU and Paddle-layout linear of the fused ops."""
+"""Functional ops (counterpart of ``paddle_tpu/nn/functional.py``):
+cross entropy with every option of the JAX ``cross_entropy_loss``,
+dropout, embedding, Paddle's attention entry points
+(``scaled_dot_product_attention``, ``flash_attention``,
+``flash_attn_unpadded``) and the layer norm, GELU and Paddle-layout
+linear of the fused ops.
+
+The attention entry points return what the JAX ones return (``(out,
+None)`` for the flash pair, ``return_softmax`` or not) and run K1/K2
+through ``ops/attention.py``. Their dropout is the kernels' Philox mask:
+it takes a ``generator=`` (a CPU ``torch.Generator``) or a ``seed=``
+where the JAX functions draw a key from the global RNG.
+``fixed_seed_offset`` and ``rng_name`` (which the JAX functions accept
+and ignore) raise when given."""
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.nn import functional as _F
 
 from ..amp import cast_inputs
+from ..ops import attention as _attn
+from ..ops.kernels.flash_attention import flash_attention_fwd
 
-__all__ = ["cross_entropy", "dropout", "gelu", "layer_norm", "linear"]
+__all__ = ["cross_entropy", "dropout", "embedding", "flash_attention",
+           "flash_attn_unpadded", "gelu", "layer_norm", "linear",
+           "scaled_dot_product_attention"]
+
+_ITEM_2_13 = "ROADMAP.md queue 1, item 2.13"
 
 _MODES = ("upscale_in_train", "downscale_in_infer")
 
@@ -77,33 +96,156 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` [V, D] at the ids ``x``; with ``padding_idx``,
+    positions holding that id give zeros (their gradient too), as the
+    JAX ``embedding`` (ops/nn_ops.py:521) multiplies by the mask (the id
+    is compared as given: the layer normalises a negative one). With
+    ``sparse`` the weight's gradient is a sparse COO tensor of the
+    looked-up rows (``nn/sparse_embedding.py``), where the JAX functional
+    ignores the flag and only its layer takes it."""
+    if sparse:
+        from .sparse_embedding import sparse_embedding
+        return sparse_embedding(x, weight, padding_idx)
+    out = _F.embedding(x, weight)
+    if padding_idx is not None:
+        out = out * (x != padding_idx)[..., None].to(out.dtype)
+    return out
+
+
+def _no_rng_knobs(what, fixed_seed_offset, rng_name):
+    if fixed_seed_offset is not None or rng_name:
+        raise NotImplementedError(
+            f"{what}: fixed_seed_offset / rng_name (which the JAX package "
+            "accepts and ignores) are not taken; give generator= or seed= "
+            "for the dropout mask (ROADMAP.md queue 3, reference-side "
+            "divergences)")
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None, generator=None,
+                                 seed=None):
+    """Attention over [batch, seqlen, num_heads, head_dim] (the JAX
+    ``scaled_dot_product_attention``, ops/nn_ops.py:672). Without a mask
+    it runs K1/K2 (``is_causal``: the bottom-right rule, as the JAX op's
+    ``tril(k=Sk - S)``), k and v may carry fewer heads, and a row that
+    sees no key gives 0. With a bool (True = attend) or additive
+    ``attn_mask`` it runs the JAX formula in torch ops, as the JAX
+    package runs it in XLA: f32 scores, -inf where masked, a softmax
+    (a row with no key is NaN there too), the output in q's dtype.
+    ``dropout_p`` (in training) needs ``generator=`` or ``seed=``; with a
+    mask it raises (the kernels' Philox mask is the port's only attention
+    dropout)."""
+    p = float(dropout_p) if training else 0.0
+    if attn_mask is None:
+        seed = _attn._dropout_seed(p, generator, seed)
+        q, k, v = cast_inputs("scaled_dot_product_attention", query, key,
+                              value)
+        return flash_attention_fwd(q, k, v, bool(is_causal), dropout=p,
+                                   seed=seed)
+    if p:
+        raise NotImplementedError(
+            "scaled_dot_product_attention: dropout with an attn_mask is not "
+            f"ported ({_ITEM_2_13}): the port's attention dropout is K1/K2's "
+            "Philox mask, and K1/K2 take no mask tensor")
+    q, k, v = cast_inputs("scaled_dot_product_attention", query, key, value)
+    S, D = q.shape[1], q.shape[3]
+    qf, kf, vf = (t.transpose(1, 2).float() for t in (q, k, v))
+    scores = qf @ kf.transpose(-1, -2) * (1.0 / math.sqrt(D))
+    if is_causal:
+        keep = torch.ones(S, kf.shape[2], dtype=torch.bool,
+                          device=q.device).tril(kf.shape[2] - S)
+        scores = scores.masked_fill(~keep, float("-inf"))
+    if attn_mask.dtype == torch.bool:
+        scores = scores.masked_fill(~attn_mask, float("-inf"))
+    else:
+        scores = scores + attn_mask
+    out = torch.softmax(scores, -1) @ vf
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None,
+                    rng_name="", training=True, name=None, generator=None,
+                    seed=None):
+    """Paddle's ``flash_attention`` over [batch, seqlen, num_heads,
+    head_dim]: K1/K2 (``ops/attention.flash_attention``); ``(out, None)``
+    with or without ``return_softmax``, as the JAX function returns."""
+    _no_rng_knobs("flash_attention", fixed_seed_offset, rng_name)
+    p = float(dropout) if training else 0.0
+    return _attn.flash_attention(query, key, value, causal=bool(causal),
+                                 dropout=p, generator=generator,
+                                 seed=seed), None
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q=None, max_seqlen_k=None, scale=None,
+                        dropout=0.0, causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None, generator=None, seed=None):
+    """Paddle's packed varlen flash attention: q/k/v [total_tokens, H, D],
+    boundaries ``cu_seqlens_*``; K1/K2 with each sequence's own frontier
+    (``ops/attention.flash_attn_varlen``). ``max_seqlen_*`` are hints
+    the pack does not need. Returns ``(out, None)``."""
+    _no_rng_knobs("flash_attn_unpadded", fixed_seed_offset, rng_name)
+    p = float(dropout) if training else 0.0
+    return _attn.flash_attn_varlen(query, key, value, cu_seqlens_q,
+                                   cu_seqlens_k, causal=bool(causal),
+                                   scale=scale, dropout=p,
+                                   generator=generator, seed=seed), None
+
+
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
-                  label_smoothing=0.0, use_softmax=True):
-    """Softmax cross entropy with hard labels (the hard-label part of the
-    JAX ``cross_entropy_loss``, ops/nn_ops.py:561): f32 log-softmax over
-    ``axis`` whatever the logits' dtype, labels equal to
-    ``ignore_index`` contribute 0, ``reduction`` "mean" divides by the
-    count of the other labels (at least 1). Soft labels, class weights,
-    label smoothing and ``use_softmax=False`` are not ported yet."""
-    if soft_label or weight is not None or label_smoothing or not use_softmax:
+                  label_smoothing=0.0, use_softmax=True, name=None):
+    """Softmax cross entropy, the JAX ``cross_entropy_loss``'s formula
+    (ops/nn_ops.py:561-592), written out rather than ``F.cross_entropy``,
+    which differs in three places:
+
+    - f32 log-softmax over ``axis`` whatever the logits' dtype;
+    - hard labels: a label equal to ``ignore_index`` contributes 0 and is
+      not valid; ``label_smoothing`` eps targets (1 - eps) one-hot + eps /
+      n_class before any weight; ``weight`` [n_class] multiplies each
+      loss by ``weight[label]`` and makes the mean's denominator
+      ``sum(weight[label] * valid)`` (at least 1);
+    - soft labels (``label`` a distribution over ``axis``): every row is
+      valid, ``weight`` is not read (as there).
+
+    ``reduction`` "mean" divides the sum by the valid count (at least 1).
+    ``use_softmax=False`` raises: the JAX functional accepts it and
+    applies the softmax anyway (ROADMAP.md queue 3)."""
+    if not use_softmax:
         raise NotImplementedError(
-            "cross_entropy: soft labels, class weights, label smoothing and "
-            "use_softmax=False are not ported yet (ROADMAP.md queue 1, "
-            "item 2)")
+            "cross_entropy(use_softmax=False): the JAX package accepts and "
+            "ignores it (its loss always takes the softmax); the port "
+            "raises (ROADMAP.md queue 3, reference-side divergences)")
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"cross_entropy: unknown reduction {reduction!r}")
     ax = axis % input.dim()
     logp = torch.log_softmax(input.float(), dim=ax)
-    lbl = label
-    if lbl.dim() == input.dim():
-        lbl = lbl.squeeze(ax)
-    valid = lbl != ignore_index
-    safe = torch.where(valid, lbl, torch.zeros_like(lbl)).long()
-    picked = torch.gather(logp, ax, safe.unsqueeze(ax)).squeeze(ax)
-    loss = -picked * valid.float()
+    n_class = input.shape[ax]
+    if soft_label:
+        loss = -(label * logp).sum(ax)
+        valid = torch.ones_like(loss)
+    else:
+        lbl = label.squeeze(ax) if label.dim() == input.dim() else label
+        valid = (lbl != ignore_index).float()
+        safe = torch.where(lbl == ignore_index, torch.zeros_like(lbl),
+                           lbl).long()
+        if label_smoothing > 0.0:
+            onehot = _F.one_hot(safe, n_class).to(logp.dtype).movedim(-1, ax)
+            target = onehot * (1 - label_smoothing) + label_smoothing / n_class
+            loss = -(target * logp).sum(ax) * valid
+        else:
+            picked = torch.gather(logp, ax, safe.unsqueeze(ax)).squeeze(ax)
+            loss = -picked * valid
+        if weight is not None:
+            w = weight[safe]
+            loss = loss * w
+            valid = w * valid
     if reduction == "mean":
-        return loss.sum() / valid.float().sum().clamp_min(1.0)
+        return loss.sum() / valid.sum().clamp_min(1.0)
     if reduction == "sum":
         return loss.sum()
     return loss

@@ -12,6 +12,12 @@ This module holds the checks the wrappers share, the ctypes argument
 helpers and the registry of launch counters; ``_build.py`` builds and
 loads the libraries.
 
+``amp/debugging.py`` watches the kernels through ``counted``'s
+wrapper: its ctypes launches are invisible to a torch dispatch mode, so
+with operator stats or ``FLAGS_check_nan_inf`` on it sets ``after_call``,
+which the wrapper calls with the kernel's name, arguments and result.
+Off, ``after_call`` is None and the wrapper only tests it.
+
 A CUDA graph replay does not run the wrappers, so their counters would
 miss its launches. ``recording_launches`` records what a capture counted
 (and takes it back off the counters: a capture launches nothing), and
@@ -21,7 +27,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Callable, Dict, Iterator, List
+import functools
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 
@@ -32,14 +39,26 @@ __all__ = ["DTYPE_CODES", "add_launches", "counted", "dtype_code",
 # every kernel wrapper with a launch counter, in registration order
 _COUNTED: List[Callable] = []
 
+# amp.debugging's hook: called as after_call(name, args, result) after
+# every counted wrapper returns, or None
+after_call: Optional[Callable] = None
+
 
 def counted(fn: Callable) -> Callable:
-    """Give the kernel wrapper ``fn`` its counter ``fn.launches`` (which
-    the wrapper adds one to where it launches its kernel, and nowhere
-    else) and enter it in the registry."""
-    fn.launches = 0
-    _COUNTED.append(fn)
-    return fn
+    """The kernel wrapper ``fn`` wrapped for ``after_call``, with its
+    counter ``.launches`` (which ``fn`` adds one to, through its module's
+    name for it, where it launches its kernel and nowhere else), entered
+    in the registry. Its module rebinds the name: ``f = counted(f)``."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        if after_call is not None:
+            after_call(wrapper.__name__, args, out)
+        return out
+
+    wrapper.launches = 0
+    _COUNTED.append(wrapper)
+    return wrapper
 
 
 def launch_counts() -> Dict[Callable, int]:

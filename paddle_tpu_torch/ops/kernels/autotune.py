@@ -186,4 +186,4 @@ def measure_flash_blocks(q_shape, kv_len: int, kv_heads: int, dtype,
     return measure
 
 
-counted(measure_flash_blocks)
+measure_flash_blocks = counted(measure_flash_blocks)

@@ -284,7 +284,7 @@ def decode_attention(q, k_cache, v_cache, offset):
     return out
 
 
-counted(decode_attention)
+decode_attention = counted(decode_attention)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
@@ -315,4 +315,4 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     return out
 
 
-counted(paged_decode_attention)
+paged_decode_attention = counted(paged_decode_attention)

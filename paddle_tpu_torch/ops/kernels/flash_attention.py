@@ -34,10 +34,24 @@ column) (``dropout_mask.py`` gives the counter layout), so the kernels
 and the plain version, which draws it with ``dropout_mask.dropout_keep``
 and applies it in f32 as the kernels do before their bf16 round, mask
 the same elements bit for bit. The dropout kernels are the default
-tiles' instances (K7's choice is not consulted) and the Hopper and fp32
-bodies; bf16 at D = 16 and 32 raises (ROADMAP.md queue 1, item 2.11).
+tiles' instances (K7's choice is not consulted) of every body: the
+Hopper ones, the bf16 ``mma.sync`` ones (D = 16 and 32) and the fp32 ones.
 ``flash_attention_fwd_dropout`` / ``flash_attention_bwd_dropout`` count
 the dropout launches, which K1's and K2's own counters count too.
+
+**Per-sequence frontiers** (``q_ranges`` int32 [B, Sq, 2] and
+``kv_ranges`` [B, Skv, 2], given together): each q row's visible keys as
+(first, last) key index, and each key's (first, last) q row that sees
+it; first > last means none. They are the whole mask (``causal`` must be
+False and no segment ids are given with them), and they are how a varlen
+pack with its own per-sequence bottom-right frontier
+(``ops/attention.py`` ``varlen_ranges``) runs on K1/K2: every body takes
+them and skips the key tiles (K2's dk/dv: the q tiles) outside them.
+The plain version builds its keep-mask from ``q_ranges``.
+``flash_attention_fwd_varlen`` / ``flash_attention_bwd_varlen`` count
+the launches that carry them, which K1's and K2's counters count too.
+Their Hopper instances are built apart from the rule's (which keep their
+registers) and at the default tiles only, like the dropout ones.
 
 K1's Hopper body is built at several tiles (block_q, block_kv)
 (``fwd_tiles``). The default is (128, 128); with
@@ -65,9 +79,9 @@ from ...core import flags as _flags
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_lse",
            "flash_attention_bwd", "flash_attention_dense",
            "flash_attention_bwd_dense", "flash_attention_fwd_dropout",
-           "flash_attention_bwd_dropout", "fwd_tiles", "HEAD_DIMS"]
-
-_ITEM_2_11 = "ROADMAP.md queue 1, item 2.11"
+           "flash_attention_bwd_dropout", "flash_attention_fwd_varlen",
+           "flash_attention_bwd_varlen", "ranges_keep", "fwd_tiles",
+           "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64, 128)
 _NEG = -1e30
@@ -90,6 +104,14 @@ def _keep_mask(Sq, Skv, causal, qseg, kseg, device, keep=None):
     return keep
 
 
+def ranges_keep(q_ranges, Skv):
+    """[B, Sq, Skv] keep-mask of per-row key ranges ``q_ranges`` [B, Sq,
+    2] (first, last): key j is kept iff first <= j <= last."""
+    j = torch.arange(Skv, device=q_ranges.device)
+    lo, hi = q_ranges[..., :1].long(), q_ranges[..., 1:].long()
+    return (j >= lo) & (j <= hi)
+
+
 def _dropout_factor(seed, p, B, H, KV, Sq, Skv, device):
     """f32 [B, KV, rep, Sq, Skv]: 1 / (1 - p) where the Philox mask keeps,
     0 where it drops (the GQA layout of the plain version's scores)."""
@@ -100,15 +122,14 @@ def _dropout_factor(seed, p, B, H, KV, Sq, Skv, device):
 
 
 def flash_attention_dense(q, k, v, causal=False, scale=None,
-                          q_segment_ids=None, kv_segment_ids=None, keep=None,
-                          dropout=0.0, seed=None
+                          q_segment_ids=None, kv_segment_ids=None,
+                          dropout=0.0, seed=None, q_ranges=None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: (out [B, Sq, H, D] in q's dtype, lse [B, H, Sq] f32).
-    ``keep`` is an optional boolean [B or 1, Sq, Skv] mask (True =
-    attend) on top of the causal and segment masks; the kernels take no
-    such mask. ``dropout`` p > 0 with ``seed`` drops probabilities after
-    the softmax by the Philox mask, kept ones scaled by 1 / (1 - p) in
-    f32 (module docstring); l and lse stay over the undropped P.
+    ``q_ranges`` (the per-sequence frontiers, module docstring) masks as
+    ``ranges_keep``. ``dropout`` p > 0 with ``seed`` drops probabilities
+    after the softmax by the Philox mask, kept ones scaled by 1 / (1 - p)
+    in f32 (module docstring); l and lse stay over the undropped P.
 
     The GQA broadcast of the JAX ``_gqa_sdpa`` (ops/attention.py:31): q
     reshapes to [B, KV, rep, Sq, D] and the kv planes broadcast over rep,
@@ -124,7 +145,8 @@ def flash_attention_dense(q, k, v, causal=False, scale=None,
     vf = v.transpose(1, 2).float()[:, :, None]
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale   # [B, KV, rep, Sq, Skv]
     keep = _keep_mask(Sq, Skv, causal, q_segment_ids, kv_segment_ids,
-                      q.device, keep)
+                      q.device, None if q_ranges is None
+                      else ranges_keep(q_ranges, Skv))
     if keep is not None:
         s = s.masked_fill(~keep, _NEG)
     m = s.amax(dim=-1, keepdim=True).detach()
@@ -142,14 +164,15 @@ def flash_attention_dense(q, k, v, causal=False, scale=None,
 
 def flash_attention_bwd_dense(q, k, v, dout, causal=False, scale=None,
                               q_segment_ids=None, kv_segment_ids=None,
-                              dropout=0.0, seed=None):
+                              dropout=0.0, seed=None, q_ranges=None):
     """Plain backward: (dq, dk, dv) by autograd through
     ``flash_attention_dense``."""
     with torch.enable_grad():
         qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
         out, _ = flash_attention_dense(qq, kk, vv, causal, scale,
                                        q_segment_ids, kv_segment_ids,
-                                       dropout=dropout, seed=seed)
+                                       dropout=dropout, seed=seed,
+                                       q_ranges=q_ranges)
         return torch.autograd.grad(out, (qq, kk, vv), dout)
 
 
@@ -158,24 +181,24 @@ def _lib():
     lib = _build.library("flash_attention")
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_fwd_launch.argtypes = (
-        [vp] * 7 + [i] * 7 + [f, i, i, i, vp])
+        [vp] * 9 + [i] * 7 + [f, i, i, i, vp])
     lib.flash_attention_fwd_launch.restype = i
     lib.flash_attention_fwd_tiles.argtypes = [i, i, ctypes.POINTER(i), i]
     lib.flash_attention_fwd_tiles.restype = i
     lib.flash_attention_bwd_launch.argtypes = (
-        [vp] * 12 + [i] * 7 + [f, i, i, vp])
+        [vp] * 14 + [i] * 7 + [f, i, i, vp])
     lib.flash_attention_bwd_launch.restype = i
     u = ctypes.c_uint
     lib.flash_attention_fwd_dropout_launch.argtypes = (
-        [vp] * 7 + [i] * 7 + [f, i, u, u, u, f, vp])
+        [vp] * 9 + [i] * 7 + [f, i, u, u, u, f, vp])
     lib.flash_attention_fwd_dropout_launch.restype = i
     lib.flash_attention_bwd_dropout_launch.argtypes = (
-        [vp] * 12 + [i] * 7 + [f, i, i, u, u, u, f, vp])
+        [vp] * 14 + [i] * 7 + [f, i, i, u, u, u, f, vp])
     lib.flash_attention_bwd_dropout_launch.restype = i
     return lib
 
 
-def _drop_args(q, dropout, seed, what):
+def _drop_args(dropout, seed, what):
     """The dropout kernels' (seed0, seed1, threshold, keep_scale), after
     the checks; None without dropout."""
     if not dropout:
@@ -183,12 +206,26 @@ def _drop_args(q, dropout, seed, what):
     if seed is None:
         raise ValueError(f"{what}: attention dropout needs a seed "
                          "(dropout_mask.draw_seed)")
-    if q.dtype == torch.bfloat16 and q.shape[3] in (16, 32):
-        raise NotImplementedError(
-            f"{what}: attention dropout at bf16 head dim {q.shape[3]} (the "
-            f"mma.sync bodies) is not built: {_ITEM_2_11}")
     lo, hi = _dm.split_seed(seed)
     return (lo, hi, _dm.threshold(dropout), _dm.keep_scale(dropout))
+
+
+def _check_ranges(q, k, causal, qseg, qr, kr, what):
+    """The frontier arrays as contiguous int32 (or None, None)."""
+    if qr is None and kr is None:
+        return None, None
+    if qr is None or kr is None:
+        raise ValueError(f"{what}: q_ranges and kv_ranges must be given "
+                         "together")
+    if causal or qseg is not None:
+        raise ValueError(f"{what}: q_ranges / kv_ranges are the whole mask; "
+                         "give them without causal and segment ids")
+    B, Sq, Skv = q.shape[0], q.shape[1], k.shape[1]
+    if tuple(qr.shape) != (B, Sq, 2) or tuple(kr.shape) != (B, Skv, 2):
+        raise ValueError(f"{what}: q_ranges {tuple(qr.shape)} and kv_ranges "
+                         f"{tuple(kr.shape)} must be [B, Sq, 2], [B, Skv, 2]")
+    return (qr.to(torch.int32).contiguous(),
+            kr.to(torch.int32).contiguous())
 
 
 def _check(q, k, v, qseg, kseg, what):
@@ -255,16 +292,18 @@ def fwd_tiles(D: int, dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
     return tuple((buf[2 * i], buf[2 * i + 1]) for i in range(min(n, 32)))
 
 
-def _k1(q, k, v, causal, scale, qseg, kseg, blocks=None, drop=None):
+def _k1(q, k, v, causal, scale, qseg, kseg, blocks=None, drop=None,
+        qr=None, kr=None):
     """Launch K1: (out, lse). ``blocks`` = (block_q, block_kv), one of
     ``fwd_tiles``; None is the body's default tile. ``drop`` is
-    ``_drop_args``'s tuple for the dropout kernel (default tile only)."""
+    ``_drop_args``'s tuple for the dropout kernel (default tile only);
+    ``qr``, ``kr`` the frontier arrays (``_check_ranges``)."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     _check_cuda({"q": q, "k": k, "v": v}, D, "flash_attention_fwd")
-    if drop is not None and blocks is not None:
-        raise ValueError("flash_attention_fwd: the dropout kernel runs at "
-                         "the default tile only")
+    if (drop is not None or qr is not None) and blocks is not None:
+        raise ValueError("flash_attention_fwd: the dropout and frontier-array "
+                         "kernels run at the default tile only")
     if blocks is not None and tuple(blocks) not in fwd_tiles(D, q.dtype):
         raise ValueError(f"flash_attention_fwd: tile {tuple(blocks)} is not "
                          f"built for D={D} {q.dtype}; built: "
@@ -272,9 +311,9 @@ def _k1(q, k, v, causal, scale, qseg, kseg, blocks=None, drop=None):
     bq, bkv = (0, 0) if blocks is None else blocks
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    args = (ptr(q), ptr(k), ptr(v), _opt(qseg), _opt(kseg), ptr(out),
-            ptr(lse), B, Sq, Skv, H, KV, D, int(bool(causal)), float(scale),
-            dtype_code(q, "q"))
+    args = (ptr(q), ptr(k), ptr(v), _opt(qseg), _opt(kseg), _opt(qr),
+            _opt(kr), ptr(out), ptr(lse), B, Sq, Skv, H, KV, D,
+            int(bool(causal)), float(scale), dtype_code(q, "q"))
     if drop is None:
         rc = _lib().flash_attention_fwd_launch(*args, int(bq), int(bkv),
                                                stream(q))
@@ -285,6 +324,8 @@ def _k1(q, k, v, causal, scale, qseg, kseg, blocks=None, drop=None):
     flash_attention_fwd.launches += 1
     if drop is not None:
         flash_attention_fwd_dropout.launches += 1
+    if qr is not None:
+        flash_attention_fwd_varlen.launches += 1
     return out, lse
 
 
@@ -322,8 +363,9 @@ def _autotune_key(q, k, causal) -> str:
 def _select_blocks(q, k, causal, qseg):
     """K1's tile for this call (counterpart of the tile choice in the JAX
     ``_prep``, flash_attention.py:456-477): None (the default tile) with
-    ``FLAGS_use_autotune`` off, on CPU tensors, with segment ids (JAX
-    skips the search under interpret and with segment ids too) or with
+    ``FLAGS_use_autotune`` off, on CPU tensors, with segment ids or
+    frontier arrays (``qseg`` is either; JAX skips the search under
+    interpret and with segment ids too) or with
     at most one built tile; otherwise K7's choice, measured at this shape
     on the first call and cached (``autotune.autotune``). A cache miss
     while a CUDA graph is being captured raises: a search cannot run
@@ -348,20 +390,25 @@ def _select_blocks(q, k, causal, qseg):
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
                         q_segment_ids=None, kv_segment_ids=None,
-                        dropout=0.0, seed=None):
+                        dropout=0.0, seed=None, q_ranges=None,
+                        kv_ranges=None):
     """K2: (dq, dk, dv) of ``out = flash_attention(q, k, v)`` for the
     output gradient ``dout``, from K1's ``out`` and ``lse`` (with
-    ``dropout`` and ``seed``: those of K1's dropout call). CPU tensors
+    ``dropout`` and ``seed``: those of K1's dropout call; with the
+    frontier arrays: K1's). CPU tensors
     take ``flash_attention_bwd_dense``; CUDA tensors launch the
     pre-pass, the dq and the dk/dv kernels."""
     qseg, kseg = _check(q, k, v, q_segment_ids, kv_segment_ids,
                         "flash_attention_bwd")
+    qr, kr = _check_ranges(q, k, causal, qseg, q_ranges, kv_ranges,
+                           "flash_attention_bwd")
     B, Sq, H, D = q.shape
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
-    if route(q, k, v, out, lse, dout, *_present(qseg, kseg)) == "cpu":
+    if route(q, k, v, out, lse, dout,
+             *_present(qseg, kseg, qr, kr)) == "cpu":
         return flash_attention_bwd_dense(q, k, v, dout, causal, scale, qseg,
-                                         kseg, dropout, seed)
-    drop = _drop_args(q, dropout, seed, "flash_attention_bwd")
+                                         kseg, dropout, seed, qr)
+    drop = _drop_args(dropout, seed, "flash_attention_bwd")
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and "
                          f"dout {tuple(dout.shape)} must have q's shape")
@@ -377,10 +424,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
     _check_cuda({"q": q, "k": k, "v": v, "out": out, "dout": dout}, D,
                 "flash_attention_bwd")
     dq, dk, dv, _ = _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg,
-                        drop=drop)
+                        drop=drop, qr=qr, kr=kr)
     flash_attention_bwd.launches += 1
     if drop is not None:
         flash_attention_bwd_dropout.launches += 1
+    if qr is not None:
+        flash_attention_bwd_varlen.launches += 1
     return dq, dk, dv
 
 
@@ -389,12 +438,12 @@ PAD = 64                     # workspace rows are padded to this
 
 
 def _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg,
-        parts=PREPASS | DQ | DKV, work=None, drop=None):
+        parts=PREPASS | DQ | DKV, work=None, drop=None, qr=None, kr=None):
     """Launch the ``parts`` of K2 on checked CUDA tensors: (dq, dk, dv,
     work). ``work`` is the pre-pass's f32 workspace [2, B, H, Sp]
     (allocated when None); a launch without PREPASS reads the workspace
     an earlier one wrote. ``drop``: ``_drop_args``'s tuple of K1's
-    dropout call, or None."""
+    dropout call, or None; ``qr``, ``kr``: the frontier arrays."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     if work is None:
@@ -403,9 +452,9 @@ def _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg,
                            device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     args = (ptr(q), ptr(k), ptr(v), ptr(out), ptr(dout), ptr(lse), ptr(work),
-            _opt(qseg), _opt(kseg), ptr(dq), ptr(dk), ptr(dv), B, Sq, Skv, H,
-            KV, D, int(bool(causal)), float(scale), dtype_code(q, "q"),
-            int(parts))
+            _opt(qseg), _opt(kseg), _opt(qr), _opt(kr), ptr(dq), ptr(dk),
+            ptr(dv), B, Sq, Skv, H, KV, D, int(bool(causal)), float(scale),
+            dtype_code(q, "q"), int(parts))
     if drop is None:
         rc = _lib().flash_attention_bwd_launch(*args, stream(q))
     else:
@@ -417,32 +466,39 @@ def _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg,
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, qseg, kseg, dropout, seed):
-        drop = _drop_args(q, dropout, seed, "flash_attention_fwd")
-        blocks = None if drop else _select_blocks(q, k, causal, qseg)
-        out, lse = _k1(q, k, v, causal, scale, qseg, kseg, blocks, drop)
-        ctx.save_for_backward(q, k, v, out, lse, qseg, kseg)
+    def forward(ctx, q, k, v, causal, scale, qseg, kseg, dropout, seed, qr,
+                kr):
+        drop = _drop_args(dropout, seed, "flash_attention_fwd")
+        blocks = None if drop else _select_blocks(
+            q, k, causal, qr if qseg is None else qseg)
+        out, lse = _k1(q, k, v, causal, scale, qseg, kseg, blocks, drop, qr,
+                       kr)
+        ctx.save_for_backward(q, k, v, out, lse, qseg, kseg, qr, kr)
         ctx.causal, ctx.scale = causal, scale
         ctx.dropout, ctx.seed = dropout, seed
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse, qseg, kseg = ctx.saved_tensors
+        q, k, v, out, lse, qseg, kseg, qr, kr = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal,
                                          ctx.scale, qseg, kseg, ctx.dropout,
-                                         ctx.seed)
-        return dq, dk, dv, None, None, None, None, None, None
+                                         ctx.seed, qr, kr)
+        return (dq, dk, dv) + (None,) * 8
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None,
                         q_segment_ids=None, kv_segment_ids=None,
-                        dropout=0.0, seed=None):
+                        dropout=0.0, seed=None, q_ranges=None,
+                        kv_ranges=None):
     """[B, Sq, H, D] attention output, differentiable in q, k and v; with
-    ``dropout`` p > 0 and a 64-bit ``seed``, attention dropout (module
+    ``dropout`` p > 0 and a 64-bit ``seed``, attention dropout; with
+    ``q_ranges`` and ``kv_ranges``, the per-sequence frontiers (module
     docstring)."""
     qseg, kseg = _check(q, k, v, q_segment_ids, kv_segment_ids,
                         "flash_attention_fwd")
+    qr, kr = _check_ranges(q, k, causal, qseg, q_ranges, kv_ranges,
+                           "flash_attention_fwd")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     dropout = float(dropout)
     if dropout:
@@ -450,16 +506,18 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None,
         if seed is None:
             raise ValueError("flash_attention_fwd: attention dropout needs "
                              "a seed (dropout_mask.draw_seed)")
-    if route(q, k, v, *_present(qseg, kseg)) == "cpu":
+    if route(q, k, v, *_present(qseg, kseg, qr, kr)) == "cpu":
         return flash_attention_dense(q, k, v, causal, scale, qseg, kseg,
-                                     dropout=dropout, seed=seed)[0]
+                                     dropout=dropout, seed=seed,
+                                     q_ranges=qr)[0]
     return _FlashAttention.apply(q, k, v, bool(causal), scale, qseg, kseg,
-                                 dropout, seed)
+                                 dropout, seed, qr, kr)
 
 
 def flash_attention_fwd_lse(q, k, v, causal=False, scale=None,
                             q_segment_ids=None, kv_segment_ids=None,
-                            blocks=None, dropout=0.0, seed=None):
+                            blocks=None, dropout=0.0, seed=None,
+                            q_ranges=None, kv_ranges=None):
     """(out, lse) with no graph: K1's two outputs (the JAX ``_fa_fwd``
     residuals), for checks and for callers that reuse the lse. On CUDA
     tensors ``blocks`` = (block_q, block_kv) runs K1 at that tile (one of
@@ -467,15 +525,19 @@ def flash_attention_fwd_lse(q, k, v, causal=False, scale=None,
     default tile with dropout)."""
     qseg, kseg = _check(q, k, v, q_segment_ids, kv_segment_ids,
                         "flash_attention_fwd")
+    qr, kr = _check_ranges(q, k, causal, qseg, q_ranges, kv_ranges,
+                           "flash_attention_fwd")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     with torch.no_grad():
-        if route(q, k, v, *_present(qseg, kseg)) == "cpu":
+        if route(q, k, v, *_present(qseg, kseg, qr, kr)) == "cpu":
             return flash_attention_dense(q, k, v, causal, scale, qseg, kseg,
-                                         dropout=dropout, seed=seed)
-        drop = _drop_args(q, float(dropout), seed, "flash_attention_fwd")
+                                         dropout=dropout, seed=seed,
+                                         q_ranges=qr)
+        drop = _drop_args(float(dropout), seed, "flash_attention_fwd")
         if blocks is None and drop is None:
-            blocks = _select_blocks(q, k, causal, qseg)
-        return _k1(q, k, v, causal, scale, qseg, kseg, blocks, drop)
+            blocks = _select_blocks(q, k, causal,
+                                    qr if qseg is None else qseg)
+        return _k1(q, k, v, causal, scale, qseg, kseg, blocks, drop, qr, kr)
 
 
 def flash_attention_fwd_dropout(q, k, v, dropout, seed, causal=False,
@@ -497,7 +559,29 @@ def flash_attention_bwd_dropout(q, k, v, out, lse, dout, dropout, seed,
                                q_segment_ids, kv_segment_ids, dropout, seed)
 
 
-counted(flash_attention_fwd)
-counted(flash_attention_bwd)
-counted(flash_attention_fwd_dropout)
-counted(flash_attention_bwd_dropout)
+def flash_attention_fwd_varlen(q, k, v, q_ranges, kv_ranges, scale=None,
+                               dropout=0.0, seed=None):
+    """K1 with the per-sequence frontiers: ``flash_attention_fwd`` with
+    ``q_ranges`` and ``kv_ranges``. Its counter counts the launches that
+    carry them (wherever they are made from); K1's counter counts them
+    too."""
+    return flash_attention_fwd(q, k, v, False, scale, dropout=dropout,
+                               seed=seed, q_ranges=q_ranges,
+                               kv_ranges=kv_ranges)
+
+
+def flash_attention_bwd_varlen(q, k, v, out, lse, dout, q_ranges, kv_ranges,
+                               scale=None, dropout=0.0, seed=None):
+    """K2 with the per-sequence frontiers; counted as
+    ``flash_attention_fwd_varlen`` is."""
+    return flash_attention_bwd(q, k, v, out, lse, dout, False, scale,
+                               dropout=dropout, seed=seed, q_ranges=q_ranges,
+                               kv_ranges=kv_ranges)
+
+
+flash_attention_fwd = counted(flash_attention_fwd)
+flash_attention_bwd = counted(flash_attention_bwd)
+flash_attention_fwd_dropout = counted(flash_attention_fwd_dropout)
+flash_attention_bwd_dropout = counted(flash_attention_bwd_dropout)
+flash_attention_fwd_varlen = counted(flash_attention_fwd_varlen)
+flash_attention_bwd_varlen = counted(flash_attention_bwd_varlen)

@@ -273,4 +273,4 @@ def fused_adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     return out[0:1] if reduce else None
 
 
-counted(fused_adam)
+fused_adam = counted(fused_adam)

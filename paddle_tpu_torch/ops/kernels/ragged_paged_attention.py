@@ -101,4 +101,4 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, starts,
     return out
 
 
-counted(ragged_paged_attention)
+ragged_paged_attention = counted(ragged_paged_attention)

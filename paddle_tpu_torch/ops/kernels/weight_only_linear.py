@@ -284,5 +284,5 @@ def weight_only_linear_wgmma() -> None:
     it through ``add_launches``, as every counter)."""
 
 
-counted(weight_only_linear)
-counted(weight_only_linear_wgmma)
+weight_only_linear = counted(weight_only_linear)
+weight_only_linear_wgmma = counted(weight_only_linear_wgmma)

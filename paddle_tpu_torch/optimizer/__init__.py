@@ -27,10 +27,20 @@ parameters key ``state_dict`` and reach ``apply_decay_param_fun`` by
 their structured name, the others by ``param_{i}``, as the JAX package
 keys unnamed parameters.
 
-Not ported, and raising: sparse (SelectedRows) gradients and
-``lazy_mode`` (ROADMAP.md queue 1, item 2), AdamW's ``lr_ratio`` and
-Lamb's ``exclude_from_weight_decay_fn`` (both stored and never read by
-the JAX package).
+Sparse gradients (the sparse COO ``.grad`` that ``Embedding(sparse=True)``
+leaves) take the JAX step's sparse path (``optimizer/__init__.py:110-175``
+there): each is merged into a ``SelectedRows``; a global-norm clip counts
+them into the one norm and scales their values by the same coefficient
+(per-tensor clips leave them alone, as there); then SGD, and Adam / AdamW
+with ``lazy_mode=True``, update only the touched rows (and their f32
+masters) by index on the device, and every other optimizer, lazy-less
+Adam / AdamW included, densifies the gradient and updates it with the
+dense parameters (K8 for Adam / AdamW on CUDA). A loss scaler with sparse
+gradients raises (the JAX step has no such path).
+
+Not ported, and raising: AdamW's ``lr_ratio`` and Lamb's
+``exclude_from_weight_decay_fn`` (both stored and never read by the JAX
+package).
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..framework.selected_rows import SelectedRows, merge_selected_rows
 from ..nn.clip import ClipGradBase, ClipGradByGlobalNorm, global_norm
 from ..ops.kernels.fused_adam import bias_correction, fused_adam
 from . import lr
@@ -47,8 +58,6 @@ from .lr import LRScheduler
 __all__ = ["Optimizer", "SGD", "Momentum", "LarsMomentum", "Adam", "AdamW",
            "Adagrad", "Adadelta", "Adamax", "ASGD", "Rprop", "RMSProp",
            "Lamb", "lr"]
-
-_TODO = "not ported yet (ROADMAP.md queue 1, item 2)"
 
 
 def _f32(x: float) -> float:
@@ -166,16 +175,72 @@ class Optimizer:
         params = self._collect()
         if not params:
             return
-        for p in params:
-            if p.grad.is_sparse:
-                raise NotImplementedError(
-                    f"sparse (SelectedRows) gradients are {_TODO}")
+        sparse = [p for p in params if p.grad.is_sparse]
+        if sparse and amp is not None:
+            raise NotImplementedError(
+                "a loss scaler with sparse (SelectedRows) gradients: the JAX "
+                "step has no such path")
         self._step_count += 1
+        lr_v = _f32(self.get_lr())
+        if sparse:
+            self.grad_norm = self._sparse_step(params, lr_v)
+            return
+        self.grad_norm = self._update(params, [p.grad for p in params], lr_v,
+                                      amp)
+
+    def _update(self, params, grads, lr, amp=None, clipped=False):
+        """``_fused_update`` of ``params`` with their states and masters."""
         states = [self._param_state(p) for p in params]
         masters = [self._master_weights.get(id(p)) for p in params]
-        self.grad_norm = self._fused_update(
-            params, [p.grad for p in params], states, masters,
-            _f32(self.get_lr()), self._step_count, amp)
+        return self._fused_update(params, grads, states, masters, lr,
+                                  self._step_count, amp, clipped)
+
+    def _sparse_step(self, params, lr) -> Optional[torch.Tensor]:
+        """The step with sparse gradients (module docstring): the clip in
+        torch over dense and merged sparse gradients together, the row
+        updates, then the dense update of the rest, clip done."""
+        dense = [p for p in params if not p.grad.is_sparse]
+        grads = [p.grad for p in dense]
+        merged = [(p, merge_selected_rows(SelectedRows.from_coo(p.grad)))
+                  for p in params if p.grad.is_sparse]
+        clip, norm = self._grad_clip, None
+        if isinstance(clip, ClipGradByGlobalNorm):
+            sparse_sq = sum(torch.sum(torch.square(sr.values.float()))
+                            for _, sr in merged)
+            grads, norm = clip.apply_values(grads, extra_sq=sparse_sq)
+            coef = clip.coefficient(norm)
+            merged = [(p, SelectedRows(sr.rows, (sr.values.float() * coef).to(
+                sr.dtype), sr.height)) for p, sr in merged]
+        elif clip is not None:
+            grads, norm = clip.apply_values(grads)
+        for p, sr in merged:
+            if self._row_update(p):
+                self._sparse_update(p, sr, lr, self._step_count)
+            else:
+                dense.append(p)
+                grads.append(sr.to_dense())
+        if dense:
+            dnorm = self._update(dense, grads, lr, clipped=True)
+            norm = dnorm if norm is None else norm
+        return norm
+
+    def _row_update(self, p) -> bool:
+        """Whether ``p``'s sparse gradient updates its rows in place
+        (``_sparse_update``); the default densifies it."""
+        return False
+
+    def _sparse_update(self, p, sr, lr, step):
+        """Update the rows ``sr.rows`` of ``p`` (and of its f32 master) from
+        the merged SelectedRows ``sr``; the optimizers that update by row
+        override it."""
+        raise NotImplementedError
+
+    def _rows_written(self, p, pin, rows, new_rows):
+        """Write updated rows into ``pin`` (the master or the parameter)
+        and, from a master, into the parameter in its dtype."""
+        pin.index_copy_(0, rows, new_rows.to(pin.dtype))
+        if pin is not p:
+            p.index_copy_(0, rows, pin.index_select(0, rows).to(p.dtype))
 
     def _clip_values(self, grads):
         clip = self._grad_clip
@@ -184,14 +249,16 @@ class Optimizer:
         return clip.apply_values(grads)
 
     def _fused_update(self, params, grads, states, masters, lr, step,
-                      amp=None) -> Optional[torch.Tensor]:
+                      amp=None, clipped=False) -> Optional[torch.Tensor]:
         """Clip and update every parameter (in place); returns the global
         gradient norm where one is computed. The torch version: the AMP
-        unscale, the clip, then ``_update_rule`` per parameter."""
+        unscale, the clip (not when ``clipped``: the caller has clipped),
+        then ``_update_rule`` per parameter."""
         found = None
         if amp is not None:
             grads, found = amp.unscale(list(grads))
-        grads, norm = self._clip_values(list(grads))
+        grads, norm = ((list(grads), None) if clipped
+                       else self._clip_values(list(grads)))
         if amp is not None:
             if norm is None:
                 norm = global_norm(grads).reshape(1)
@@ -266,6 +333,19 @@ class SGD(Optimizer):
             g = g + self._decay_term(p.float())
         return p - (lr * g).to(p.dtype), state
 
+    def _row_update(self, p):
+        return True
+
+    def _sparse_update(self, p, sr, lr, step):
+        """Row-wise SGD (the JAX ``SGD._sparse_update``): only the looked-up
+        rows move; weight decay, when set, applies to those rows."""
+        pin = self._master_weights.get(id(p), p)
+        old = pin.index_select(0, sr.rows)
+        g = sr.values.float()
+        if self._weight_decay:
+            g = g + self._decay_term(old.float())
+        self._rows_written(p, pin, sr.rows, old - (lr * g).to(old.dtype))
+
 
 class Momentum(Optimizer):
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
@@ -290,21 +370,22 @@ class Momentum(Optimizer):
 
 class Adam(Optimizer):
     """Adam with L2 (or L1) weight decay added to the gradient. Its
-    update is K8 on CUDA tensors and K8's plain version on the CPU."""
+    update is K8 on CUDA tensors and K8's plain version on the CPU.
+    ``lazy_mode`` updates a sparse gradient's rows only, moments
+    included (``_sparse_update``); without it a sparse gradient is
+    densified."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=False,
                  state_dtype=None, name=None):
-        if lazy_mode:
-            raise NotImplementedError(
-                f"lazy_mode (SelectedRows row updates) is {_TODO}")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, multi_precision, state_dtype)
         self._beta1 = float(beta1)
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
         self._decoupled = False
+        self._lazy_mode = bool(lazy_mode)
 
     def _state_shapes(self):
         return ("moment1", "moment2")
@@ -312,9 +393,39 @@ class Adam(Optimizer):
     def _decays(self, p) -> bool:
         return bool(self._weight_decay)
 
+    def _row_update(self, p):
+        return self._lazy_mode
+
+    def _sparse_update(self, p, sr, lr, step):
+        """Lazy Adam (the JAX ``Adam._sparse_update``, the reference's lazy
+        path): moments and parameter move at the touched rows only,
+        gathered and written back by index; the decay (L2 / L1 into the
+        gradient, AdamW's decoupled into the update) reads those rows."""
+        st = self._param_state(p)
+        pin = self._master_weights.get(id(p), p)
+        rows = sr.rows
+        pf = pin.index_select(0, rows).float()
+        g = sr.values.float()
+        decays = self._decays(p)
+        if decays and not self._decoupled:
+            g = g + self._decay_term(pf)
+        m = (_f32(self._beta1) * st["moment1"].index_select(0, rows).float()
+             + _f32(1 - self._beta1) * g)
+        v = (_f32(self._beta2) * st["moment2"].index_select(0, rows).float()
+             + _f32(1 - self._beta2) * torch.square(g))
+        upd = (m / bias_correction(self._beta1, step)) / (
+            torch.sqrt(v / bias_correction(self._beta2, step))
+            + _f32(self._epsilon))
+        if decays and self._decoupled:
+            upd = upd + self._decay_term(pf)
+        old = pin.index_select(0, rows)
+        self._rows_written(p, pin, rows, old + (-lr * upd).to(old.dtype))
+        st["moment1"].index_copy_(0, rows, m.to(st["moment1"].dtype))
+        st["moment2"].index_copy_(0, rows, v.to(st["moment2"].dtype))
+
     def _fused_update(self, params, grads, states, masters, lr, step,
-                      amp=None):
-        clip = self._grad_clip
+                      amp=None, clipped=False):
+        clip = None if clipped else self._grad_clip
         pre_found = None
         clip_norm = 0.0
         if isinstance(clip, ClipGradByGlobalNorm):
@@ -347,8 +458,8 @@ class AdamW(Adam):
                  name=None):
         if lr_ratio is not None:
             raise NotImplementedError(
-                f"AdamW(lr_ratio=...) is {_TODO} (the JAX package ignores "
-                "it)")
+                "AdamW(lr_ratio=...) is not ported: the JAX package stores "
+                "it and never reads it (ROADMAP.md queue 1, item 2)")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          weight_decay, grad_clip, lazy_mode, multi_precision,
                          state_dtype, name)

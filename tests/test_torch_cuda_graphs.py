@@ -261,6 +261,7 @@ def test_every_kernel_wrapper_is_registered():
     assert set(kernels.launch_counts()) == {
         K1.flash_attention_fwd, K1.flash_attention_bwd,
         K1.flash_attention_fwd_dropout, K1.flash_attention_bwd_dropout,
+        K1.flash_attention_fwd_varlen, K1.flash_attention_bwd_varlen,
         K3.rms_norm,
         K4.ragged_paged_attention, K5.decode_attention,
         K5.paged_decode_attention, K8.fused_adam, K7.measure_flash_blocks,

@@ -602,7 +602,7 @@ def test_flash_attention_dropout_kernels(cuda, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_dropout_mask_reads_back_bit_exact(cuda, D, causal, dtype):
     """V's rows the identity: K1's output is non-zero exactly where the
@@ -649,19 +649,168 @@ def test_philox_matches_curand(cuda):
         assert [int(w) for w in words] == mine[i].tolist()
 
 
-@pytest.mark.parametrize("D", [16, 32])
-def test_dropout_on_the_mma_bodies_raises(cuda, D):
-    """bf16 D = 16 and 32 run the mma.sync bodies, which are not built
-    with dropout: the wrapper raises naming the ROADMAP item (fp32 at the
-    same widths runs)."""
-    q, k, v, do, _, _ = _flash(cuda, torch.bfloat16, 1, 32, 32, 2, 2, D,
-                               False, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K1.flash_attention_fwd(q, k, v, True, dropout=0.1, seed=1)
-    qf, kf, vf = q.float(), k.float(), v.float()
-    out = K1.flash_attention_fwd(qf, kf, vf, True, dropout=0.1, seed=1)
-    ref = K1.flash_attention_dense(qf, kf, vf, True, dropout=0.1, seed=1)[0]
-    assert _scaled(out, ref) <= TOL[torch.float32]
+MMA_DROP = {  # (B, Sq, Skv, H, KV, D, causal, segments): the mma.sync bodies
+    "d16_causal": (2, 130, 130, 4, 4, 16, True, False),
+    "d32_gqa_rect": (2, 70, 200, 8, 2, 32, True, False),
+    "d16_segments_full": (1, 96, 96, 4, 2, 16, False, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MMA_DROP))
+def test_dropout_on_the_mma_bodies(cuda, case):
+    """bf16 D = 16 and 32 run the mma.sync bodies' dropout instances:
+    forward and backward against the plain version with the same seed,
+    each call one launch of the dropout variants."""
+    B, Sq, Skv, H, KV, D, causal, segm = MMA_DROP[case]
+    q, k, v, do, qs, ks = _flash(cuda, torch.bfloat16, B, Sq, Skv, H, KV, D,
+                                 segm, 1)
+    kw = dict(dropout=0.15, seed=0xBEEF + D)
+    n = (K1.flash_attention_fwd_dropout.launches,
+         K1.flash_attention_bwd_dropout.launches)
+    out, lse = K1.flash_attention_fwd_lse(q, k, v, causal, None, qs, ks, **kw)
+    grads = K1.flash_attention_bwd(q, k, v, out, lse, do, causal, None, qs,
+                                   ks, **kw)
+    assert (K1.flash_attention_fwd_dropout.launches,
+            K1.flash_attention_bwd_dropout.launches) == (n[0] + 1, n[1] + 1)
+    r_out, r_lse = K1.flash_attention_dense(q, k, v, causal, None, qs, ks,
+                                            **kw)
+    assert _scaled(out, r_out) <= TOL[torch.bfloat16]
+    assert _err(lse, r_lse) <= TOL[torch.bfloat16]
+    r_grads = K1.flash_attention_bwd_dense(q, k, v, do, causal, None, qs, ks,
+                                           **kw)
+    for a, b in zip(grads, r_grads):
+        assert _scaled(a, b) <= TOL[torch.bfloat16]
+
+
+# varlen packs: (cu_seqlens_q, cu_seqlens_k, Tq, Tk); "chunked" gives each
+# q the last part of its sequence, "padded" leaves tokens past both packs,
+# "short_q" has a sequence with more q than k tokens (rows that see no key)
+PACKS = {
+    "chunked": ([0, 64, 96, 200], [0, 150, 230, 400], 200, 400),
+    "padded": ([0, 30, 100], [0, 50, 170], 110, 190),
+    "short_q": ([0, 70, 90, 140], [0, 40, 170, 200], 140, 200),
+    "same": ([0, 33, 128, 160], [0, 33, 128, 160], 160, 160),
+}
+
+
+def _k2_function(q, k, v, do, out, keep, p=0.0, seed=None):
+    """(dq, dk, dv) as K2 computes them, written out in f32 for [1, S, H,
+    D] inputs and a keep-mask [1, Sq, Skv]: delta = rowsum(dO o O) from
+    K1's output ``out``, P and dS rounded to the inputs' dtype before
+    their products (as the TPU kernel rounds them), the dropout factor Z
+    on dP and, for dv, on P. Autograd through the plain version takes the
+    exact delta and unrounded P and dS; where a row sees one key or two
+    (a sequence with more q than k tokens), dP - delta nearly cancels and
+    those roundings are most of dq, kernel or not."""
+    H, KV, D = q.shape[2], k.shape[2], q.shape[3]
+    rep = H // KV
+    qf, dof, of = (t[0].float().transpose(0, 1) for t in (q, do, out))
+    kf, vf = (t[0].float().transpose(0, 1).repeat_interleave(rep, 0)
+              for t in (k, v))
+    s = (qf @ kf.transpose(-1, -2) / D ** 0.5).masked_fill(~keep, -1e30)
+    P = torch.softmax(s, -1) * keep
+    Z = (K1._dropout_factor(seed, p, 1, H, H, q.shape[1], k.shape[1],
+                            q.device)[0, :, 0] if p else 1.0)
+    dP = dof @ vf.transpose(-1, -2) * Z
+    dS = (P * (dP - (dof * of).sum(-1, keepdim=True))).to(q.dtype).float()
+    dq = dS @ kf / D ** 0.5
+    dk = (dS.transpose(-1, -2) @ qf / D ** 0.5).reshape(KV, rep, -1, D)
+    dv = ((P * Z).to(q.dtype).float().transpose(-1, -2) @ dof).reshape(
+        KV, rep, -1, D)
+    return (dq.transpose(0, 1)[None], dk.sum(1).transpose(0, 1)[None],
+            dv.sum(1).transpose(0, 1)[None])
+
+
+def _pack(cuda, dtype, name, H, KV, D, seed):
+    cu_q, cu_k, Tq, Tk = PACKS[name]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, device=cuda, generator=g).to(dtype)
+    return (mk(Tq, H, D), mk(Tk, KV, D), mk(Tk, KV, D), mk(Tq, H, D), cu_q,
+            cu_k)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("D,KV", [(16, 2), (32, 4), (64, 2), (128, 4)])
+@pytest.mark.parametrize("pack", sorted(PACKS))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("p", [0.0, 0.2])
+def test_varlen_pack_runs_k1_k2_with_frontiers(cuda, pack, causal, D, KV,
+                                               dtype, p, monkeypatch):
+    """Every varlen pack, causal with its own q and k boundaries included,
+    with or without dropout, runs K1 and K2 with the frontier arrays
+    (their launch counters), never the dense plain version; K1 matches
+    that plain version on the same ranges, K2 the gradients written out
+    with K2's delta and roundings (``_k2_function``), and the CPU route
+    gives the same output."""
+    from paddle_tpu_torch.ops import attention as tattn
+
+    calls = []
+    dense = K1.flash_attention_dense
+    monkeypatch.setattr(K1, "flash_attention_dense", lambda *a, **kw: (
+        calls.append(1), dense(*a, **kw))[1])
+    q, k, v, do, cu_q, cu_k = _pack(cuda, dtype, pack, 8, KV, D, 3)
+    kw = dict(dropout=p, seed=0x5EED + D if p else None)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    n = (K1.flash_attention_fwd_varlen.launches,
+         K1.flash_attention_bwd_varlen.launches)
+    out = tattn.flash_attn_varlen(q, k, v, cu_q, cu_k, causal, **kw)
+    out.backward(do)
+    assert (K1.flash_attention_fwd_varlen.launches,
+            K1.flash_attention_bwd_varlen.launches) == (n[0] + 1, n[1] + 1)
+    assert not calls
+    monkeypatch.setattr(K1, "flash_attention_dense", dense)
+    qr, kr = tattn.varlen_ranges(cu_q, cu_k, q.shape[0], k.shape[0], causal,
+                                 cuda)
+    q4, k4, v4 = (t.detach()[None] for t in (q, k, v))
+    r_out = dense(q4, k4, v4, dropout=p, seed=kw["seed"], q_ranges=qr)[0]
+    assert _scaled(out.detach()[None], r_out) <= TOL[dtype]
+    ref = _k2_function(q4, k4, v4, do[None], out.detach()[None],
+                       K1.ranges_keep(qr, k.shape[0]), p, kw["seed"])
+    # a row that sees one key ("short_q") has dq = 0 in exact arithmetic
+    # (dS = z dP - delta cancels), so both sides give rounding noise there
+    # (in fp32 it differs between f32 and f64 by a tile error of 110 at
+    # D = 32, p = 0.2): those rows are held to TOL of the largest |dq|,
+    # the rest per tile
+    one = (qr[0, :, 0] == qr[0, :, 1])[None, :, None, None]
+    dq, ref_dq = q.grad[None], ref[0]
+    assert _err(dq.masked_fill(~one, 0), 0 * dq) <= TOL[dtype] * _err(
+        ref_dq, 0 * ref_dq)
+    grads = (dq.masked_fill(one, 0), k.grad[None], v.grad[None])
+    for a, b in zip(grads, (ref_dq.masked_fill(one, 0),) + ref[1:]):
+        assert _scaled(a, b) <= TOL[dtype]
+    cpu = tattn.flash_attn_varlen(*(t.detach().cpu() for t in (q, k, v)),
+                                  cu_q, cu_k, causal, **kw)
+    assert _scaled(out.detach()[None], cpu.to(cuda)[None]) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_varlen_dropout_mask_reads_back_bit_exact(cuda, D):
+    """A causal pack with differing boundaries, V's rows the identity:
+    K1's output is non-zero exactly where the plain mask (batch row 0,
+    packed rows and keys) keeps a pair the frontiers let through, and K2's
+    dV (dO's rows the identity) gives the same mask on S^T."""
+    from paddle_tpu_torch.ops import attention as tattn
+    from paddle_tpu_torch.ops.kernels import dropout_mask as DM
+
+    cu_q, cu_k = [0, D // 4, D // 2], [0, D // 2, D]
+    Tq, Tk, H, p, seed = D // 2, D, 2, 0.3, 0xFACE + D
+    g = torch.Generator(device=cuda).manual_seed(D)
+    eye = torch.eye(D, device=cuda, dtype=torch.bfloat16)
+    q = torch.randn(1, Tq, H, D, device=cuda, generator=g).bfloat16()
+    k = torch.randn(1, Tk, H, D, device=cuda, generator=g).bfloat16()
+    v = eye[None, :Tk, None, :].expand(1, Tk, H, D).contiguous()
+    qr, kr = tattn.varlen_ranges(cu_q, cu_k, Tq, Tk, True, cuda)
+    vis = K1.ranges_keep(qr, Tk)[:, None]                 # [1, 1, Tq, Tk]
+    keep = DM.dropout_keep(seed, p, 1, H, Tq, Tk, cuda)
+    kw = dict(dropout=p, seed=seed, q_ranges=qr, kv_ranges=kr)
+    out, lse = K1.flash_attention_fwd_lse(q, k, v, **kw)
+    got = (out[..., :Tk] != 0).permute(0, 2, 1, 3)
+    assert torch.equal(got & vis, keep & vis)
+    assert not (got & ~vis).any()
+    dout = eye[None, :Tq, None, :].expand(1, Tq, H, D).contiguous()
+    _, _, dv = K1.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert torch.equal((dv[..., :Tq] != 0).permute(0, 2, 3, 1) & vis,
+                       keep & vis)
 
 
 def test_attention_dropout_entry_on_the_card(cuda):
@@ -792,8 +941,8 @@ def test_tiny_training_bf16_attention_grads(cuda):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_varlen_noncausal_rect_pack_launches_k1(cuda, dtype):
-    """A non-causal varlen pack with Tq != Tk is segment ids alone: K1
-    serves it on the card, and it matches the CPU route."""
+    """A non-causal varlen pack with Tq != Tk: K1 serves it on the card
+    (with the pack's frontier arrays), and it matches the CPU route."""
     from paddle_tpu_torch.ops.attention import flash_attn_varlen
 
     g = torch.Generator(device=cuda).manual_seed(8)
@@ -879,8 +1028,9 @@ def test_k1_tiles_listed_and_refused(cuda):
     out = torch.empty_like(q)
     lse = torch.empty(1, 2, 128, device=cuda)
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    null = ctypes.c_void_p(0)
     rc = K1._lib().flash_attention_fwd_launch(
-        p(q), p(k), p(v), ctypes.c_void_p(0), ctypes.c_void_p(0), p(out),
+        p(q), p(k), p(v), null, null, null, null, p(out),
         p(lse), 1, 128, 128, 2, 2, 128, 1, 0.1, 1, 256, 128,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     assert rc != 0

@@ -278,8 +278,7 @@ def test_varlen_dropout_is_the_packed_mask():
 def test_attention_dropout_needs_a_generator_or_seed():
     """Attention dropout needs a generator or a seed (the JAX _sdpa_raw
     needs a dropout_key); the kernels' arguments are the seed's words,
-    floor(p 2^32) and 1 / (1 - p) (the bf16 D = 16 / 32 refusal:
-    test_torch_flash_attention.py::test_dropout_raises_naming_roadmap)."""
+    floor(p 2^32) and 1 / (1 - p), at every head dim and dtype."""
     x = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError, match="generator"):
         tattn.flash_attention(x, x, x, causal=True, dropout=0.1)
@@ -288,9 +287,9 @@ def test_attention_dropout_needs_a_generator_or_seed():
                                 dropout=0.1)
     with pytest.raises(ValueError, match="seed"):
         K1.flash_attention_fwd(x, x, x, True, dropout=0.1)
-    assert K1._drop_args(x, 0.1, 3 + (5 << 32), "f") == (
+    assert K1._drop_args(0.1, 3 + (5 << 32), "f") == (
         3, 5, DM.threshold(0.1), DM.keep_scale(0.1))
-    assert K1._drop_args(x.bfloat16(), 0.0, None, "f") is None
+    assert K1._drop_args(0.0, None, "f") is None
 
 
 def test_cuda_request_without_a_card_raises():

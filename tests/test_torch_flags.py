@@ -2,7 +2,8 @@
 the JAX package's (``paddle_tpu.core.flags``) on the CPU: the same names,
 defaults and types, the ``FLAGS_`` prefix, the environment override read
 when a flag is defined, the bool spellings and the errors on unknown
-names. The port reads only ``use_autotune``; every other flag raises
+names. The port reads ``use_autotune`` and ``check_nan_inf`` (which
+installs ``amp.debugging``'s checker); every other flag raises
 ``NotImplementedError`` when set to anything but its default. Every test
 restores the flags it sets, in both packages.
 """
@@ -112,7 +113,7 @@ def test_unknown_names_raise():
             mod.define_flag("use_autotune", False)
 
 
-UNREAD = {"check_nan_inf": True, "benchmark": True,
+UNREAD = {"benchmark": True,
           "eager_op_jit_cache": False, "use_pallas_kernels": False,
           "allocator_strategy": "torch", "collective_timeout_s": 60.0,
           "enable_async_trace": True, "tpu_matmul_precision": "highest"}
@@ -120,7 +121,8 @@ UNREAD = {"check_nan_inf": True, "benchmark": True,
 
 @pytest.mark.parametrize("name", sorted(UNREAD))
 def test_flags_the_port_does_not_read_raise(name):
-    assert set(UNREAD) | {"use_autotune"} == set(tflags._REGISTRY)
+    assert set(UNREAD) | {"use_autotune", "check_nan_inf"} == set(
+        tflags._REGISTRY)
     default = tflags._REGISTRY[name].default
     # the default is accepted, by either spelling
     tflags.set_flags({name: default, "FLAGS_" + name: default})
@@ -140,3 +142,35 @@ def test_unread_flag_from_the_environment_raises(monkeypatch):
     monkeypatch.setenv("FLAGS_port_todo_flag", "0")
     tflags.define_flag("port_todo_flag", False, "", tflags._ITEM2_2)
     assert tflags.get_flags("port_todo_flag") == {"port_todo_flag": False}
+
+
+def test_check_nan_inf_is_read_in_both_packages():
+    """FLAGS_check_nan_inf: set, both packages raise FloatingPointError
+    naming the op whose output is not finite (the port installs
+    amp.debugging's hooks, the JAX package scans at its dispatch); unset,
+    neither does, and the port's hooks are gone."""
+    import jax.numpy as jnp
+    import torch
+
+    from paddle_tpu import ops as jops
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.ops import kernels
+
+    x = torch.tensor([1.0, 0.0])
+    try:
+        for spelling in ("FLAGS_check_nan_inf", "check_nan_inf"):
+            tflags.set_flags({spelling: True})
+            jflags.set_flags({spelling: True})
+            assert kernels.after_call is not None
+            with pytest.raises(FloatingPointError, match="op 'div'"):
+                x / x
+            with pytest.raises(FloatingPointError, match="op 'divide'"):
+                jops.divide(paddle_tpu.to_tensor(jnp.ones(2)),
+                            paddle_tpu.to_tensor(jnp.asarray([1.0, 0.0])))
+            tflags.set_flags({spelling: False})
+            jflags.set_flags({spelling: False})
+            assert kernels.after_call is None and debugging._mode is None
+            assert torch.isnan((x / x)[1])
+    finally:
+        tflags.set_flags({"check_nan_inf": False})
+        jflags.set_flags({"check_nan_inf": False})

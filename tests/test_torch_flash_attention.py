@@ -176,39 +176,42 @@ def test_flash_attn_varlen_matches_jax(causal, shared):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("shared", sorted(VARLEN_PACKS))
 def test_flash_attn_varlen_routes_to_k1(causal, shared, monkeypatch):
-    """K1 (with segment ids) serves every non-causal pack and the causal
-    pack that shares its boundaries; only causal packs with their own
-    boundaries take the plain per-sequence mask."""
+    """Every pack, causal with its own boundaries included, routes to the
+    K1/K2 wrapper with the pack's frontier arrays (``varlen_ranges``) and
+    no causal flag or segment ids; the CPU route then takes the plain
+    version on those ranges."""
     calls = []
-    for name in ("flash_attention_fwd", "flash_attention_dense"):
-        fn = getattr(tattn, name)
-        monkeypatch.setattr(tattn, name, lambda *a, _f=fn, _n=name, **kw: (
-            calls.append(_n), _f(*a, **kw))[1])
+    fn = tattn.flash_attention_fwd
+    monkeypatch.setattr(tattn, "flash_attention_fwd", lambda *a, **kw: (
+        calls.append((a[3], kw)), fn(*a, **kw))[1])
     q, k, v, cu_q, cu_k = _varlen_case(shared)
     tattn.flash_attn_varlen(_t(q), _t(k), _t(v), cu_q, cu_k, causal=causal)
-    k1 = not causal or shared == "same_pack"
-    assert calls == ["flash_attention_fwd" if k1 else "flash_attention_dense"]
+    (flag, kw), = calls
+    assert flag is False and "q_segment_ids" not in kw
+    qr, kr = tattn.varlen_ranges(cu_q, cu_k, q.shape[0], k.shape[0], causal,
+                                 "cpu")
+    assert torch.equal(kw["q_ranges"], qr) and torch.equal(kw["kv_ranges"],
+                                                           kr)
     # equal boundaries given as separate arrays are the same pack
     calls.clear()
     tattn.flash_attn_varlen(_t(q), _t(q), _t(q), cu_q, cu_q.copy(),
                             causal=True)
-    assert calls == ["flash_attention_fwd"]
+    assert len(calls) == 1 and "q_ranges" in calls[0][1]
 
 
 def test_dropout_raises_naming_roadmap():
-    """Attention dropout runs (tests/test_torch_dropout.py); what still
-    raises names its ROADMAP item: the bf16 D = 16 / 32 bodies' dropout
-    (the check the CUDA route makes before a launch) and
-    ``dropout(axis=...)``."""
+    """Attention dropout runs at every head dim and dtype
+    (tests/test_torch_dropout.py; the bf16 D = 16 / 32 kernels on the
+    card); what still raises names its ROADMAP item:
+    ``dropout(axis=...)`` and ``Dropout(axis=...)``."""
     x = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa._drop_args(x.bfloat16(), 0.1, 7, "flash_attention_fwd")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa._drop_args(torch.zeros(1, 8, 2, 32).bfloat16(), 0.1, 7,
-                       "flash_attention_bwd")
+    assert tfa._drop_args(0.1, 7, "flash_attention_fwd") is not None
     from paddle_tpu_torch.nn import functional as tF
+    from paddle_tpu_torch.nn.common import Dropout
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tF.dropout(x, 0.1, axis=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Dropout(0.1, axis=1)
 
 
 def test_wrapper_rejects_bad_shapes():

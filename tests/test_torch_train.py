@@ -222,5 +222,7 @@ class TestOptimizer:
         # LRScheduler still raises
         with pytest.raises(TypeError, match="LRScheduler"):
             AdamW(learning_rate=lambda: 0.1, parameters=model.parameters())
+        # lazy_mode is ported (tests/test_torch_sparse.py); AdamW's lr_ratio,
+        # which the JAX package stores and never reads, still raises
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            AdamW(parameters=model.parameters(), lazy_mode=True)
+            AdamW(parameters=model.parameters(), lr_ratio=lambda p: 0.5)
