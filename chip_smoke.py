@@ -213,13 +213,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 output and gradients against the plain version on the
                 same ranges, per 64-position tile, 2e-2; K1/K2 timed at
                 the pack with their bound (visible pairs x 4 D flops a
-                head forward, 10 D backward; library: none). The same in
+                head forward, 10 D backward) and the library's varlen
+                flash forward and backward (aten._flash_attention_forward
+                / _backward on the cu_seqlens, varlen_attn's op; first
+                held to the plain version at p = 0, 2e-2). The same in
                 fp32 at a small pack (1e-4). The pack's dropout mask read
                 back bit for bit (Tk <= D: identity V and dO rows), bf16
                 and fp32. bf16 dropout on the mma.sync bodies: gpt_tiny's
                 [8, 128, 4, 16] and [4, 512, 8, 32] against the plain
-                version (2e-2), timed beside SDPA with dropout_p, and
-                their masks read back at D = 16 and 32
+                version (2e-2), timed beside SDPA with dropout_p (CUDA
+                graphs), and their masks read back at D = 16 and 32
 14. train-surface
                 gpt_1p3b trained 4 untimed + 4 timed steps on a 4 x 2048
                 batch by cross_entropy(label_smoothing=0.1), every 97th
@@ -231,12 +234,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 (its ms beside the plain step's), and one with a NaN in a
                 weight, which must raise FloatingPointError naming an op.
                 Embedding(50304, 2048, sparse=True) f32 on the batch's
-                ids: SGD and lazy Adam 5 steps, card against cpu (1e-5);
-                Adam densified against dense-gradient Adam (1e-6); SGD
-                with a global-norm clip over sparse and dense gradients
-                against the all-dense model (1e-6). gpt_tiny in bf16 with
-                hidden and attention dropout 0.1 (D = 16): 3 AdamW steps,
-                finite losses, the dropout variants once a layer a step
+                ids: SGD and lazy Adam 5 steps, card against cpu (1e-5,
+                lazy Adam's moments at the looked-up rows too); Adam
+                densified against dense-gradient Adam (1e-6, weights and
+                moments); SGD with a global-norm clip over sparse and
+                dense gradients against the all-dense model (1e-6).
+                gpt_tiny in bf16 with hidden and attention dropout 0.1 (D
+                = 16): 3 AdamW steps, finite losses, the dropout variants
+                once a layer a step. The host cost of the kernels'
+                counted wrapper with amp.debugging off (ns a call)
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -3229,6 +3235,43 @@ def _varlen_cost(qr, H, D, isz, Tq, Tk):
             (4 * qb + 4 * kb + side, 10 * D * H * pairs), pairs)
 
 
+def _varlen_library(q, k, v, do, cu_q, cu_k, p, r_out=None, r_grads=None):
+    """The library's yardstick for a causal pack: PyTorch's varlen flash
+    forward and backward (``torch.ops.aten._flash_attention_forward`` /
+    ``_backward``, the op ``torch.nn.attention.varlen.varlen_attn`` runs,
+    which fixes dropout at 0) on the pack's cu_seqlens, causal by
+    FlashAttention's bottom-right rule per sequence. Given the plain
+    version's output and gradients (p = 0), its own are first held to
+    them (2e-2 per tile), so the yardstick provably computes the same
+    mask. Returns the forward and backward calls, each one PyTorch call
+    (the backward on one forward's residuals)."""
+    dev = q.device
+    cq, ck = (torch.tensor(c, dtype=torch.int32, device=dev)
+              for c in (cu_q, cu_k))
+    mq, mk = (max(b - a for a, b in zip(c, c[1:])) for c in (cu_q, cu_k))
+    aten = torch.ops.aten
+
+    def fwd():
+        return aten._flash_attention_forward(q, k, v, cq, ck, mq, mk, p,
+                                             True, False)
+
+    f = fwd()
+
+    def bwd():
+        return aten._flash_attention_backward(do, q, k, v, f[0], f[1], cq, ck,
+                                              mq, mk, p, True, f[2], f[3])
+
+    if r_out is not None:
+        errs = [_errs(f[0][None], r_out)[3]] + [
+            _errs(a[None], b)[3] for a, b in zip(bwd()[:3], r_grads)]
+        log(f"[varlen] the library's varlen flash against the plain version "
+            f"(out, dq, dk, dv; per-tile relative): {errs}")
+        if not max(errs) <= TOL[torch.bfloat16]:
+            raise AssertionError(f"the library's varlen flash computes "
+                                 f"another mask: {errs}")
+    return fwd, bwd
+
+
 def _expect_launches(launches, want, what):
     """Fail unless each counter of ``want`` read ``launches`` its count."""
     got = {k: launches.get(k) for k in want}
@@ -3275,8 +3318,9 @@ def check_varlen_pack(dev, results, dt, k_lens, H, D, p, counters,
     gradients against the plain version on the same frontier arrays, per
     64-position tile (bf16 2e-2, fp32 1e-4). Appends the forward and
     backward rows (timed at the pack: CUDA graphs of the K1 and K2
-    calls, the plain version by events; library "none": no PyTorch call
-    takes cu_seqlens). Returns the main path's launches."""
+    calls, the plain version by events, the library's varlen flash
+    forward and backward by CUDA graphs, ``_varlen_library``). Returns
+    the main path's launches."""
     from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.ops.kernels import flash_attention as K1
 
@@ -3299,10 +3343,13 @@ def check_varlen_pack(dev, results, dt, k_lens, H, D, p, counters,
     kw = dict(dropout=p, seed=seed, q_ranges=qr)
     r_out = K1.flash_attention_dense(q4, k4, v4, **kw)[0]
     eo = _errs(out[None], r_out)
-    del r_out
     r_grads = K1.flash_attention_bwd_dense(q4, k4, v4, do4, **kw)
     eg = [_errs(a[None], b) for a, b in zip(grads, r_grads)]
-    del r_grads
+    if timed:   # the yardstick held to the plain version on the pack at
+        # p = 0 (the same op and pack carry the dropout pack's time)
+        lib_fwd, lib_bwd = _varlen_library(
+            q, k, v, do, cu_q, cu_k, p, *(() if p else (r_out, r_grads)))
+    del r_out, r_grads
     (fb, ff), (bb, bf), pairs = _varlen_cost(qr, H, D, q.element_size(), Tq,
                                              Tk)
     base = dict(case=f"varlen{len(k_lens)}", shape=[1, Tq, H, D], skv=Tk,
@@ -3317,10 +3364,15 @@ def check_varlen_pack(dev, results, dt, k_lens, H, D, p, counters,
     if timed:
         kk = dict(dropout=p, seed=seed, q_ranges=qr, kv_ranges=kr)
         o4, lse = K1.flash_attention_fwd_lse(q4, k4, v4, **kk)
-        for rec, (nb, nf) in ((fwd, (fb, ff)), (bwd, (bb, bf))):
+        lib = (f"torch.ops.aten._flash_attention_{{}} on cu_seqlens, causal "
+               f"(FlashAttention's bottom-right rule per sequence), "
+               f"dropout_p={p}: the op torch.nn.attention.varlen.varlen_attn "
+               f"runs (at dropout 0)")
+        for rec, (nb, nf), name, f in ((fwd, (fb, ff), "forward", lib_fwd),
+                                       (bwd, (bb, bf), "backward", lib_bwd)):
             rec["bound_ms"], rec["bound_by"] = bound(nb, nf, dt)
-            rec["library_ms"] = None
-            rec["library"] = "none: no PyTorch call takes cu_seqlens"
+            rec["library_ms"] = cuda_ms(f)
+            rec["library"] = lib.format(name)
         fwd["ms"] = cuda_ms(lambda: K1.flash_attention_fwd_lse(q4, k4, v4,
                                                                **kk))
         fwd["plain_ms"] = events_ms(lambda: K1.flash_attention_dense(
@@ -3391,8 +3443,10 @@ def check_mma_dropout(dev, results):
     shape [8, 128, 4, 16] and a D = 32 head [4, 512, 8, 32], causal, p =
     0.1, K1 and K2 against the plain version with the same seed (2e-2
     per tile), timed beside the plain version and SDPA with dropout_p
-    (events; the yardstick only), then the mask read back at D = 16 and
-    32 (``check_dropout_mask``)."""
+    (CUDA graphs, as the kernels: at these shapes a call is tens of
+    microseconds, below what events around eager launches can time; the
+    yardstick only), then the mask read back at D = 16 and 32
+    (``check_dropout_mask``)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.kernels import flash_attention as K1
@@ -3410,8 +3464,12 @@ def check_mma_dropout(dev, results):
         (fb, ff), (bb, bf) = _flash_cost(q, k, True, None, None)
         qt, kt, vt, skw = _sdpa_args(q, k, v, True, None, None)
         qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
-        o = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=p, **skw)
         dot = do.transpose(1, 2).contiguous()
+        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, dropout_p=p, **skw))
+        lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qg, kg, vg, dropout_p=p, **skw),
+            (qg, kg, vg), dot))
         base = dict(case=f"mma_d{D}", shape=[B, S, H, D], skv=S, kv_heads=H,
                     causal=True, dropout=p, dtype="bfloat16", tol=TOL[dt],
                     body="mma")
@@ -3423,10 +3481,9 @@ def check_mma_dropout(dev, results):
                        q, k, v, True, **kw)),
                    plain_ms=cuda_ms(lambda: K1.flash_attention_dense(
                        q, k, v, True, **kw), iters=3, warm=1),
-                   library_ms=events_ms(lambda: F.scaled_dot_product_attention(
-                       qt, kt, vt, dropout_p=p, **skw)),
+                   library_ms=lib_fwd,
                    library=f"F.scaled_dot_product_attention forward, "
-                           f"dropout_p={p}")
+                           f"dropout_p={p} (CUDA graph)")
         bwd = dict(base, name="flash_attention_bwd_dropout_mma", bytes=bb,
                    flops=bf, max_abs_err=max(e[0] for e in eg),
                    rel_err=max(e[3] for e in eg),
@@ -3434,10 +3491,11 @@ def check_mma_dropout(dev, results):
                        q, k, v, out, lse, do, True, **kw)),
                    plain_ms=events_ms(lambda: K1.flash_attention_bwd_dense(
                        q, k, v, do, True, **kw), iters=3, warm=1),
-                   library_ms=events_ms(lambda: torch.autograd.grad(
-                       o, (qg, kg, vg), dot, retain_graph=True)),
-                   library=f"backward of F.scaled_dot_product_attention "
-                           f"(autograd.grad on a kept graph), dropout_p={p}")
+                   library_ms=lib_fwd_bwd - lib_fwd,
+                   library_fwd_bwd_ms=lib_fwd_bwd,
+                   library=f"backward of F.scaled_dot_product_attention, "
+                           f"dropout_p={p}: a CUDA graph of the forward and "
+                           f"autograd.grad less one of the forward")
         for rec, (nb, nf) in ((fwd, (fb, ff)), (bwd, (bb, bf))):
             rec["bound_ms"], rec["bound_by"] = bound(nb, nf, dt)
             log("[varlen] " + json.dumps(rec))
@@ -3446,7 +3504,7 @@ def check_mma_dropout(dev, results):
                 raise AssertionError(f"{rec['name']} {rec['shape']}: "
                                      f"{rec['rel_err']} > {rec['tol']}")
         results += [fwd, bwd]
-        del o, qg, kg, vg
+        del qg, kg, vg
     check_dropout_mask(dev, ((16, torch.bfloat16, 2),
                              (32, torch.bfloat16, 4)), tag="varlen")
 
@@ -3592,7 +3650,12 @@ def surface_sparse(dev):
     tests/test_torch_fused_optimizer.py): the largest difference over the
     tensor's largest magnitude. On the card a repeated id's gradient sums
     by atomics, so its rounding, and the weights' last bits, vary from
-    run to run (3.0e-7 and 1.2e-6 of the largest change in two runs)."""
+    run to run (3.0e-7 and 1.2e-6 of the largest change in two runs).
+    Adam's step hardly depends on its gradient's scale (m / sqrt(v)), so
+    both Adam comparisons also hold its moments at the looked-up rows to
+    the same bars, over their own largest magnitudes: the moments are
+    linear (moment1) and quadratic (moment2) in the gradient, so a wrong
+    scale (a repeated id counted twice, say) shows there."""
     from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
     from paddle_tpu_torch.nn.common import Embedding
     from paddle_tpu_torch.optimizer import SGD, Adam
@@ -3606,8 +3669,9 @@ def surface_sparse(dev):
         np.float32))
     T = torch.tensor(np.random.RandomState(26).randn(4, 2048, 1).astype(
         np.float32))
-    w0 = Embedding(V, Hd, padding_idx=-1, generator=torch.Generator(
-        ).manual_seed(24)).weight.detach()
+    w0 = Embedding(V, Hd, padding_idx=-1, device="cpu",
+                   generator=torch.Generator().manual_seed(24)).weight.detach()
+    touched = ids.unique()
 
     def run(where, sparse, make, clip=None, steps=5):
         emb = Embedding(V, Hd, padding_idx=-1, sparse=sparse, device=where)
@@ -3630,29 +3694,40 @@ def surface_sparse(dev):
             loss.backward()
             opt.step()
             opt.clear_grad()
-        return emb.weight.detach().cpu(), opt.grad_norm
+        st = opt.state_dict()
+        moments = {m: st[f"param_0.{m}"][touched.to(where)].cpu()
+                   for m in ("moment1", "moment2") if f"param_0.{m}" in st}
+        return emb.weight.detach().cpu(), opt.grad_norm, moments
 
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max())
+
+    def rel_moments(a, b):
+        return {m: rel(a[2][m], b[2][m]) for m in ("moment1", "moment2")}
 
     sgd = lambda ps, c: SGD(1.0, parameters=ps, grad_clip=c)  # noqa: E731
     lazy = lambda ps, c: Adam(0.01, parameters=ps,  # noqa: E731
                               lazy_mode=True)
     dense_adam = lambda ps, c: Adam(0.01, parameters=ps)  # noqa: E731
-    out = {name: rel(run(dev, True, make)[0], run("cpu", True, make)[0])
-           for name, make in (("sgd_card_vs_cpu", sgd),
-                              ("adam_lazy_card_vs_cpu", lazy))}
-    out["adam_densified_vs_dense"] = rel(run(dev, True, dense_adam)[0],
-                                         run(dev, False, dense_adam)[0])
-    (a, na), (b, nb) = (run(dev, sp, sgd, ClipGradByGlobalNorm(1.0))
-                        for sp in (True, False))
+    out = {"sgd_card_vs_cpu": rel(run(dev, True, sgd)[0],
+                                  run("cpu", True, sgd)[0])}
+    a, b = run(dev, True, lazy), run("cpu", True, lazy)
+    out["adam_lazy_card_vs_cpu"] = rel(a[0], b[0])
+    out["adam_lazy_moments_card_vs_cpu"] = rel_moments(a, b)
+    a, b = run(dev, True, dense_adam), run(dev, False, dense_adam)
+    out["adam_densified_vs_dense"] = rel(a[0], b[0])
+    out["adam_densified_moments_vs_dense"] = rel_moments(a, b)
+    (a, na, _), (b, nb, _) = (run(dev, sp, sgd, ClipGradByGlobalNorm(1.0))
+                              for sp in (True, False))
     out["clip_mixed_vs_dense"] = dict(weights=rel(a, b),
                                       norms=[float(na), float(nb)])
     log("[train-surface] sparse embedding 50304 x 2048 f32: "
         + json.dumps(out))
     if not (out["sgd_card_vs_cpu"] <= 1e-5
             and out["adam_lazy_card_vs_cpu"] <= 1e-5
+            and max(out["adam_lazy_moments_card_vs_cpu"].values()) <= 1e-5
             and out["adam_densified_vs_dense"] <= 1e-6
+            and max(out["adam_densified_moments_vs_dense"].values()) <= 1e-6
             and out["clip_mixed_vs_dense"]["weights"] <= 1e-6
             and abs(float(na) - float(nb)) <= 1e-6 * float(nb)):
         raise AssertionError(f"train-surface sparse: {out}")
@@ -3688,8 +3763,39 @@ def surface_tiny_dropout(counters, steps=3):
     return launches
 
 
+def surface_hook_cost(calls=200000):
+    """14.5: the host cost of ``counted``'s wrapper with amp.debugging off
+    (``after_call`` None): a wrapped no-op against the bare one, each
+    timed over ``calls`` calls (best of 3) on the host's clock."""
+    from paddle_tpu_torch.ops import kernels
+
+    def noop(*a):
+        return a
+
+    wrapped = kernels.hooked(noop)
+    if kernels.after_call is not None:
+        raise AssertionError("amp.debugging's hook is still installed")
+    x = torch.empty(1, device="cuda")
+
+    def best(fn):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(x, x, x)
+            ts.append(time.perf_counter() - t0)
+        return min(ts) / calls * 1e9
+
+    bare, hooked = best(noop), best(wrapped)
+    log(f"[train-surface] counted's wrapper with the hooks off: "
+        f"{hooked - bare:.1f} ns a kernel call over the bare call "
+        f"({hooked:.1f} vs {bare:.1f} ns, a no-op body, {calls} calls, "
+        f"best of 3, host clock)")
+
+
 def phase_train_surface(dev, paths):
-    """Phase 14 (14.1 to 14.4 above). Returns the launches by path."""
+    """Phase 14 (14.1 to 14.5 above). Returns the launches by path."""
+    surface_hook_cost()
     out = {"train_surface": surface_gpt(paths["train_surface"])}
     gc.collect()
     torch.cuda.empty_cache()

@@ -12,14 +12,15 @@ __all__ = ["Dropout", "Embedding"]
 
 class Embedding(nn.Module):
     """A lookup table ``weight`` [num_embeddings, embedding_dim] (the JAX
-    ``Embedding``, nn/common.py:37-62): N(0, 1) at init (from
-    ``generator``, a ``torch.Generator`` on ``device``; None: the default
-    one), a negative ``padding_idx`` normalised to ``num_embeddings +
-    padding_idx`` and its row zeroed at init. The forward is
-    ``F.embedding`` (padding positions give zeros) or, with ``sparse``,
-    the sparse-gradient lookup, whose weight gradient holds only the
-    looked-up rows (``nn/sparse_embedding.py``). ``weight_attr`` (a
-    ParamAttr) raises: the port has no ParamAttr (ROADMAP.md queue 1,
+    ``Embedding``, nn/common.py:37-62) on ``device`` (CUDA unless the
+    caller names another, as every entry point of the port): N(0, 1) at
+    init (from ``generator``, a ``torch.Generator`` on that device; None:
+    the default one), a negative ``padding_idx`` normalised to
+    ``num_embeddings + padding_idx`` and its row zeroed at init. The
+    forward is ``F.embedding`` (padding positions give zeros) or, with
+    ``sparse``, the sparse-gradient lookup, whose weight gradient holds
+    only the looked-up rows (``nn/sparse_embedding.py``). ``weight_attr``
+    (a ParamAttr) raises: the port has no ParamAttr (ROADMAP.md queue 1,
     item 2.2)."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
@@ -36,8 +37,10 @@ class Embedding(nn.Module):
                              or padding_idx >= 0
                              else num_embeddings + padding_idx)
         self._sparse = bool(sparse)
+        # models/ imports this module: its resolve_device is fetched here
+        from ..models.llama import resolve_device
         w = torch.randn(num_embeddings, embedding_dim, generator=generator,
-                        device=device)
+                        device=resolve_device(device))
         if self._padding_idx is not None:
             w[self._padding_idx] = 0.0
         self.weight = nn.Parameter(w.to(dtype or torch.float32))

@@ -16,7 +16,12 @@ loads the libraries.
 wrapper: its ctypes launches are invisible to a torch dispatch mode, so
 with operator stats or ``FLAGS_check_nan_inf`` on it sets ``after_call``,
 which the wrapper calls with the kernel's name, arguments and result.
-Off, ``after_call`` is None and the wrapper only tests it.
+Off, ``after_call`` is None and the wrapper only tests it: one Python
+frame and one test a kernel call (``chip_smoke.py`` times it).
+
+A ``LaunchCounter`` counts a variant of a kernel (K1's launches that
+carry the per-sequence frontiers) that has no entry point of its own:
+the kernel's wrapper adds one to it beside its own counter.
 
 A CUDA graph replay does not run the wrappers, so their counters would
 miss its launches. ``recording_launches`` records what a capture counted
@@ -32,23 +37,22 @@ from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 
-__all__ = ["DTYPE_CODES", "add_launches", "counted", "dtype_code",
-           "launch_counts", "ptr", "recording_launches", "route", "stream",
-           "want_contiguous"]
+__all__ = ["DTYPE_CODES", "LaunchCounter", "add_launches", "counted",
+           "dtype_code", "hooked", "launch_counts", "ptr",
+           "recording_launches", "route", "stream", "want_contiguous"]
 
-# every kernel wrapper with a launch counter, in registration order
-_COUNTED: List[Callable] = []
+# every launch counter (kernel wrappers and LaunchCounters), in
+# registration order
+_COUNTED: List = []
 
 # amp.debugging's hook: called as after_call(name, args, result) after
 # every counted wrapper returns, or None
 after_call: Optional[Callable] = None
 
 
-def counted(fn: Callable) -> Callable:
-    """The kernel wrapper ``fn`` wrapped for ``after_call``, with its
-    counter ``.launches`` (which ``fn`` adds one to, through its module's
-    name for it, where it launches its kernel and nowhere else), entered
-    in the registry. Its module rebinds the name: ``f = counted(f)``."""
+def hooked(fn: Callable) -> Callable:
+    """``fn`` wrapped for ``after_call`` (``counted``'s wrapper, not
+    registered)."""
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
         out = fn(*args, **kwargs)
@@ -56,23 +60,45 @@ def counted(fn: Callable) -> Callable:
             after_call(wrapper.__name__, args, out)
         return out
 
+    return wrapper
+
+
+def counted(fn: Callable) -> Callable:
+    """The kernel wrapper ``fn`` wrapped for ``after_call``, with its
+    counter ``.launches`` (which ``fn`` adds one to, through its module's
+    name for it, where it launches its kernel and nowhere else), entered
+    in the registry. Its module rebinds the name: ``f = counted(f)``."""
+    wrapper = hooked(fn)
     wrapper.launches = 0
     _COUNTED.append(wrapper)
     return wrapper
 
 
-def launch_counts() -> Dict[Callable, int]:
-    """Every registered wrapper's counter, by wrapper."""
+class LaunchCounter:
+    """A registered counter ``.launches`` named ``name``, for a variant
+    of a kernel that its kernel's wrapper launches."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+        _COUNTED.append(self)
+
+    def __repr__(self):
+        return f"LaunchCounter({self.__name__!r})"
+
+
+def launch_counts() -> Dict:
+    """Every registered counter, by its wrapper or ``LaunchCounter``."""
     return {fn: fn.launches for fn in _COUNTED}
 
 
 @contextlib.contextmanager
-def recording_launches() -> Iterator[Dict[Callable, int]]:
+def recording_launches() -> Iterator[Dict]:
     """Record, by wrapper, the launches counted inside the block, and
     restore the counters on exit (a CUDA graph capture records launches
     without running them). The record holds only non-zero deltas."""
     before = launch_counts()
-    record: Dict[Callable, int] = {}
+    record: Dict = {}
     try:
         yield record
     finally:
@@ -82,7 +108,7 @@ def recording_launches() -> Iterator[Dict[Callable, int]]:
                 fn.launches = n
 
 
-def add_launches(record: Dict[Callable, int]) -> None:
+def add_launches(record: Dict) -> None:
     """Add a recorded step's launches to the counters: one replay."""
     for fn, n in record.items():
         fn.launches += n

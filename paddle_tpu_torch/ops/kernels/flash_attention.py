@@ -48,8 +48,9 @@ pack with its own per-sequence bottom-right frontier
 (``ops/attention.py`` ``varlen_ranges``) runs on K1/K2: every body takes
 them and skips the key tiles (K2's dk/dv: the q tiles) outside them.
 The plain version builds its keep-mask from ``q_ranges``.
-``flash_attention_fwd_varlen`` / ``flash_attention_bwd_varlen`` count
-the launches that carry them, which K1's and K2's counters count too.
+The ``LaunchCounter``s ``flash_attention_fwd_varlen`` /
+``flash_attention_bwd_varlen`` count the launches that carry them, which
+K1's and K2's counters count too.
 Their Hopper instances are built apart from the rule's (which keep their
 registers) and at the default tiles only, like the dropout ones.
 
@@ -70,8 +71,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import (DTYPE_CODES, _build, counted, dtype_code, ptr, route, stream,
-               want_contiguous)
+from . import (DTYPE_CODES, LaunchCounter, _build, counted, dtype_code, ptr,
+               route, stream, want_contiguous)
 from . import autotune as _autotune
 from . import dropout_mask as _dm
 from ...core import flags as _flags
@@ -559,29 +560,10 @@ def flash_attention_bwd_dropout(q, k, v, out, lse, dout, dropout, seed,
                                q_segment_ids, kv_segment_ids, dropout, seed)
 
 
-def flash_attention_fwd_varlen(q, k, v, q_ranges, kv_ranges, scale=None,
-                               dropout=0.0, seed=None):
-    """K1 with the per-sequence frontiers: ``flash_attention_fwd`` with
-    ``q_ranges`` and ``kv_ranges``. Its counter counts the launches that
-    carry them (wherever they are made from); K1's counter counts them
-    too."""
-    return flash_attention_fwd(q, k, v, False, scale, dropout=dropout,
-                               seed=seed, q_ranges=q_ranges,
-                               kv_ranges=kv_ranges)
-
-
-def flash_attention_bwd_varlen(q, k, v, out, lse, dout, q_ranges, kv_ranges,
-                               scale=None, dropout=0.0, seed=None):
-    """K2 with the per-sequence frontiers; counted as
-    ``flash_attention_fwd_varlen`` is."""
-    return flash_attention_bwd(q, k, v, out, lse, dout, False, scale,
-                               dropout=dropout, seed=seed, q_ranges=q_ranges,
-                               kv_ranges=kv_ranges)
-
-
 flash_attention_fwd = counted(flash_attention_fwd)
 flash_attention_bwd = counted(flash_attention_bwd)
 flash_attention_fwd_dropout = counted(flash_attention_fwd_dropout)
 flash_attention_bwd_dropout = counted(flash_attention_bwd_dropout)
-flash_attention_fwd_varlen = counted(flash_attention_fwd_varlen)
-flash_attention_bwd_varlen = counted(flash_attention_bwd_varlen)
+# K1's and K2's launches that carry the per-sequence frontiers
+flash_attention_fwd_varlen = LaunchCounter("flash_attention_fwd_varlen")
+flash_attention_bwd_varlen = LaunchCounter("flash_attention_bwd_varlen")

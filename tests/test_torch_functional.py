@@ -227,7 +227,7 @@ def test_embedding_matches_jax(padding_idx):
     load_jax_state_dict (no transpose: not an nn.Linear) and back."""
     paddle.seed(3)
     jemb = jnn.Embedding(10, 4, padding_idx=padding_idx)
-    temb = Embedding(10, 4, padding_idx=padding_idx)
+    temb = Embedding(10, 4, padding_idx=padding_idx, device="cpu")
     state = {"weight": np.asarray(jemb.weight._value)}
     load_jax_state_dict(temb, state)
     np.testing.assert_array_equal(export_jax_state_dict(temb)["weight"],
@@ -253,4 +253,17 @@ def test_embedding_matches_jax(padding_idx):
 
 def test_embedding_weight_attr_raises():
     with pytest.raises(NotImplementedError, match="ParamAttr"):
-        Embedding(4, 2, weight_attr=object())
+        Embedding(4, 2, weight_attr=object(), device="cpu")
+
+
+def test_embedding_defaults_to_the_card_and_raises_without_one():
+    """Embedding runs on CUDA unless the caller names another device, as
+    every entry point of the port: with no card and no device it raises,
+    and never quietly lands on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is served")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Embedding(4, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Embedding(4, 2, sparse=True)
+    assert Embedding(4, 2, device="cpu").weight.device.type == "cpu"

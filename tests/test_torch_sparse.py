@@ -60,7 +60,8 @@ def test_sparse_embedding_gradient_matches_jax(padding_idx):
     SelectedRows; the lookup and the padding row zeroed at init too."""
     paddle.seed(0)
     jemb = jnn.Embedding(20, 4, sparse=True, padding_idx=padding_idx)
-    temb = Embedding(20, 4, sparse=True, padding_idx=padding_idx)
+    temb = Embedding(20, 4, sparse=True, padding_idx=padding_idx,
+                     device="cpu")
     with torch.no_grad():
         temb.weight.copy_(torch.tensor(np.asarray(jemb.weight._value)))
     if padding_idx is not None:
@@ -117,7 +118,7 @@ def _train_jax(sparse, opt_cls, steps, **kw):
 
 
 def _train_port(w0, sparse, opt_cls, steps, **kw):
-    emb = Embedding(30, 8, sparse=sparse)
+    emb = Embedding(30, 8, sparse=sparse, device="cpu")
     lin = torch.nn.Linear(8, 2)
     with torch.no_grad():
         emb.weight.copy_(torch.tensor(w0[0]))
@@ -176,7 +177,7 @@ def test_lazy_adam_touches_only_looked_up_rows():
     """lazy_mode: untouched rows keep their weights and zero moments; the
     f32 master of a bf16 weight (multi_precision) moves at the touched
     rows, and the weight is that master rounded there."""
-    emb = Embedding(12, 4, sparse=True, dtype=torch.bfloat16,
+    emb = Embedding(12, 4, sparse=True, dtype=torch.bfloat16, device="cpu",
                     generator=torch.Generator().manual_seed(2))
     w0 = emb.weight.detach().clone()
     opt = topt.Adam(0.05, parameters=emb.parameters(), lazy_mode=True,
@@ -199,7 +200,7 @@ def test_lazy_adam_touches_only_looked_up_rows():
 
 
 def test_loss_scaler_with_sparse_gradients_raises():
-    emb = Embedding(6, 2, sparse=True)
+    emb = Embedding(6, 2, sparse=True, device="cpu")
     emb(torch.tensor([1])).sum().backward()
     opt = topt.Adam(parameters=emb.parameters())
     with pytest.raises(NotImplementedError, match="loss scaler"):
