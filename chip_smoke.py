@@ -70,15 +70,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 K1 and K2 with attention dropout (p = 0.1, one seed)
                 against the plain version with the same seed, causal: at
                 gpt_1p3b's shape [4, 2048, 16, 128] and GQA D = 64 in bf16
-                (2e-2 per tile), fp32 D = 64 (1e-4); at the GPT shape both
-                timed with and without dropout (CUDA graphs of 20 calls)
+                (2e-2 per tile), fp32 D = 64 (1e-4); in bf16 both timed
+                with and without dropout (CUDA graphs of 20 calls)
                 beside the plain version and SDPA with and without
                 dropout_p (the bound: the same operations as without
-                dropout). The mask read back bit for bit: with V's rows
-                the identity, K1's output is non-zero exactly where the
-                mask keeps, and with dO's rows the identity K2's dV is
-                too (D = 64, 128 bf16, fp32, causal and not). The repo's
-                Philox4x32-10 (csrc/philox.cuh) against curand's
+                dropout); each dropout row carries its instances' ptxas
+                registers and spills. The mask (csrc/philox.cuh: one
+                Philox4x32-10 hash decides 8 keys of a row, a 16-bit
+                half each, against round(p 2^16)) read back bit for bit:
+                with V's rows the identity, K1's output is non-zero
+                exactly where the mask keeps, and with dO's rows the
+                identity K2's dV is too (D = 64, 128 bf16, fp32, causal
+                and not). The repo's Philox4x32-10 against curand's
                 curand_Philox4x32_10 on 65536 counter/key pairs
 3. parity       a reduced Llama (fp32, TF32 off) served on cuda, graphed
                 and eager, and on cpu with the same weights and arrival
@@ -254,6 +257,9 @@ runs' depth, and ``--profile`` serves the schedule once more (graphed),
 runs 16 more graphed decode steps of each generate run (the weight-only
 ones too) and two more train steps under torch.profiler, and prints the
 device's busy share of those profiled runs and their time by kernel.
+``python3 -c "import chip_smoke; chip_smoke.drop_sass(so)"`` prints
+the SASS counts of K1/K2's dropout instances in a built flash library
+``so`` (for a comparison of two builds; no phase runs it).
 """
 from __future__ import annotations
 
@@ -634,9 +640,10 @@ DROPOUT_CASES = [("gpt", 4, 2048, 16, 16, 128, torch.bfloat16),
 def check_flash_dropout(dev, results):
     """K1 and K2 with attention dropout (p = 0.1, one seed) against the
     plain version with the same seed, per 64-position tile (bf16 2e-2,
-    fp32 1e-4), causal; at the GPT shape K1 and K2 are timed with and
-    without dropout (CUDA graphs of 20 calls), beside the plain version
-    and F.scaled_dot_product_attention with and without dropout_p (timed
+    fp32 1e-4), causal; in bf16 (the GPT shape and D = 64, the head dim
+    of gpt_125m and gpt_350m) K1 and K2 are timed with and without
+    dropout (CUDA graphs of 20 calls), beside the plain version and
+    F.scaled_dot_product_attention with and without dropout_p (timed
     with events: the yardstick only, the port never calls it). The bound
     is the same operations as without dropout. Then the mask read back
     from the kernels (``check_dropout_mask``) and the hash against curand
@@ -673,11 +680,13 @@ def check_flash_dropout(dev, results):
         fwd = dict(base, name="flash_attention_fwd_dropout", bytes=fb,
                    flops=ff, max_abs_err=eo[0], ref_max_abs=eo[1],
                    rel_err=eo[3],
-                   lse_abs_err=(lse - r_lse).abs().max().item())
+                   lse_abs_err=(lse - r_lse).abs().max().item(),
+                   ptxas=drop_ptxas("fwd", D, dt))
         bwd = dict(base, name="flash_attention_bwd_dropout", bytes=bb,
                    flops=bf, max_abs_err=max(e[0] for e in eg),
-                   rel_err=max(e[3] for e in eg))
-        if label == "gpt":
+                   rel_err=max(e[3] for e in eg),
+                   ptxas=drop_ptxas("bwd", D, dt))
+        if dt == torch.bfloat16:
             qt, kt, vt, kw = _sdpa_args(q, k, v, True, None, None)
             qg, kg, vg = (t.detach().requires_grad_(True)
                           for t in (qt, kt, vt))
@@ -729,6 +738,119 @@ def check_flash_dropout(dev, results):
         torch.cuda.empty_cache()
     check_dropout_mask(dev)
     check_philox(dev)
+
+
+def flash_instances(report):
+    """The flash library's body instances in ``report`` (mangled kernel
+    name -> counts: ptxas's registers and spills, or ``drop_sass``'s
+    instruction counts), a record each: ``body`` (fwd, dq, dkv), ``kind``
+    (wgmma, mma, fma), ``n`` (the head dim; for the fp32 bodies the
+    head-dim elements a lane), ``tile`` (K1's Hopper (block_q,
+    block_kv), else None), ``drop`` and ``ranges`` (kDrop, kRange),
+    ``rep`` and ``label``: "fwd_wgmma D=128 dropout", "dkv_wgmma D=64
+    ranges", "dq_mma D=16 dropout", "dkv_fma NI=2 dropout"; a Hopper K1
+    instance with neither flag (a tile of the rule) adds its tile, as in
+    "fwd_wgmma D=64 64x128" (the flagged ones exist at the default tile
+    only)."""
+    import re
+
+    out = []
+    for fn, rep in report.items():
+        m = re.search(r"(fwd|dq|dkv)_(wgmma|mma|fma)I((?:Li\d+E)+)Lb([01])E"
+                      r"(?:Lb([01])E)?", fn)
+        if not m:
+            continue
+        n = [int(a) for a in re.findall(r"Li(\d+)E", m.group(3))]
+        r = dict(body=m.group(1), kind=m.group(2), n=n[0],
+                 tile=(64 * n[1], n[2]) if len(n) == 3 else None,
+                 drop=m.group(4) == "1", ranges=m.group(5) == "1", rep=rep)
+        r["label"] = (f"{r['body']}_{r['kind']} "
+                      + ("NI" if r["kind"] == "fma" else "D") + f"={n[0]}"
+                      + " dropout" * r["drop"] + " ranges" * r["ranges"])
+        if r["tile"] and not (r["drop"] or r["ranges"]):
+            r["label"] += " %dx%d" % r["tile"]
+        out.append(r)
+    return out
+
+
+def drop_ptxas(which, D, dt, ranges=False):
+    """ptxas registers and spill bytes (``_build.ptxas_report``) of the
+    dropout instances one K1 (``which`` "fwd") or K2 ("bwd") call at head
+    dim D and dtype dt runs, by ``flash_instances`` label: the Hopper
+    bodies in bf16 at D = 64 and 128 (``ranges``: the frontier-array
+    ones), the mma.sync ones in bf16 at D = 16 and 32, the fp32 FMA
+    ones."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    kind = ("fma" if dt == torch.float32 else
+            "wgmma" if D in (64, 128) else "mma")
+    n = max(1, D // 32) if kind == "fma" else D
+    bodies = ("fwd",) if which == "fwd" else ("dq", "dkv")
+    return {r["label"]: r["rep"] for r in flash_instances(
+        _build.ptxas_report("flash_attention"))
+        if r["drop"] and r["body"] in bodies and r["kind"] == kind
+        and r["n"] == n and r["ranges"] == ranges}
+
+
+# integer ALU opcodes of sm_90 SASS (the part before the first '.'), and
+# Philox4x32-10's first round multiplier 0xD2511F53 as SASS writes the
+# immediate (signed or not)
+_INT_OPS = frozenset(("IMAD", "IADD3", "IADD", "IMUL", "LOP3", "LOP", "SHF",
+                      "SHL", "SHR", "ISETP", "SEL", "PRMT", "LEA", "IABS",
+                      "IMNMX", "VIADD", "VIMNMX", "POPC", "FLO", "BMSK",
+                      "SGXT", "BREV", "P2R", "R2P"))
+_PHILOX_M0 = ("0xd2511f53", "-0x2daee0ad")
+
+
+def drop_sass(so):
+    """Instruction counts of K1/K2's dropout instances in the built flash
+    library ``so`` (``cuobjdump -sass``), beside their no-dropout twins:
+    all and integer ALU instructions, the Philox4x32-10 hashes in the
+    code (the high products by the first round's multiplier, ten a hash)
+    and the integer instructions the dropout instance adds a hash. For a
+    comparison of two builds; no phase runs it."""
+    import os
+    import re
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(so)], check=True,
+                          capture_output=True, text=True).stdout
+    report, counts = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            counts = report.setdefault(m.group(1), dict(
+                instructions=0, integer=0, philox_rounds=0))
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", line)
+        if counts is None or not m:
+            continue
+        op = m.group(1)
+        counts["instructions"] += 1
+        counts["integer"] += op.split(".")[0] in _INT_OPS
+        counts["philox_rounds"] += (op.startswith(("IMAD.WIDE", "IMAD.HI"))
+                                    and any(c in line.lower()
+                                            for c in _PHILOX_M0))
+    insts = flash_instances(report)
+    key = ("body", "kind", "n", "tile", "ranges")
+    twins = {tuple(r[k] for k in key): r["rep"] for r in insts
+             if not r["drop"]}
+    rows = {}
+    for r in insts:
+        if not r["drop"]:
+            continue
+        c, twin = r["rep"], twins.get(tuple(r[k] for k in key))
+        hashes = c["philox_rounds"] / 10
+        rows[r["label"]] = dict(
+            c, hashes=hashes, twin_integer=twin and twin["integer"],
+            integer_a_hash=(c["integer"] - twin["integer"]) / hashes
+            if twin and hashes else None)
+    log("[sass] K1/K2's dropout instances (hashes = Philox rounds / 10, "
+        "integer_a_hash = integer instructions over the no-dropout twin's, "
+        "a hash): " + json.dumps(rows))
+    return rows
 
 
 def check_dropout_mask(dev, cases=((128, torch.bfloat16, 2),
@@ -1356,8 +1478,8 @@ def gemv_launches(dev, calls=4):
     torch.profiler holds ``calls`` CUDA kernel records, every one the
     gemv body's (no split-sum pass). Taken before any timing: a profile
     taken after the CUDA-graph timings here has come back one kernel
-    record short of the calls that ran. Returns the kernels a call by
-    (M, K, N, bits)."""
+    record short of the calls that ran; one with no device record at all
+    is taken again, once. Returns the kernels a call by (M, K, N, bits)."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.nn.quant import weight_quantize
@@ -1375,12 +1497,20 @@ def gemv_launches(dev, calls=4):
                     torch.bfloat16) for _ in range(calls)]
                 K9.weight_only_linear(xs[0], q, s, None, int4)
                 torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    ys = [K9.weight_only_linear(x, q, s, None, int4)
-                          for x in xs]
-                    torch.cuda.synchronize()
-                kern = [e for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA]
+                for _ in range(2):
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        ys = [K9.weight_only_linear(x, q, s, None, int4)
+                              for x in xs]
+                        torch.cuda.synchronize()
+                    kern = [e for e in prof.key_averages() if e.device_type
+                            == torch.autograd.DeviceType.CUDA]
+                    if kern:
+                        break
+                    # a profile with no device record at all is the
+                    # profiler's (an H100 run had one, its outputs right):
+                    # the same calls are profiled again, once
+                    log(f"[kernels] K9 gemv [{M}, {K}, {N}] int{bits}: the "
+                        "profiler recorded no CUDA kernel; profiling again")
                 n = sum(e.count for e in kern)
                 for x, y in zip(xs, ys):
                     ref = K9.weight_only_linear_dense(x, q, s, None, int4)
@@ -3088,27 +3218,33 @@ def phase_train_gpt(counters, steps=12, warm=2):
     return out
 
 
-def _grads_with_delta(q, k, v, do, delta, causal, p, seed):
+def _grads_with_delta(q, k, v, do, delta, lse, causal, p, seed):
     """The attention gradients (dq, dk, dv) written out for a given delta
     [B, H, Sq] (MHA), as K2 computes them: dS = P o (dP o Z - delta) with
     dP = dO V^T, Z the dropout factor (1 without dropout), dq = scale
     r(dS) K, dk = scale r(dS)^T Q, dv = r(P o Z)^T dO, where r rounds to
     the inputs' dtype (bf16 P and dS before their products, as the TPU
     kernel rounds them: flash_attention.py:249, :291, :297) and the
-    products accumulate in f32. With delta = rowsum(dO o O) from K1's
-    bf16 output it is K2's function; autograd through the plain version
-    takes the exact f32 delta and unrounded P and dS."""
+    products accumulate in f32. P is K2's, exp2(S scale log2(e) - lse
+    log2(e)) from K1's f32 ``lse`` [B, H, Sq] (both products rounded to
+    f32 as K2 rounds them). With delta = rowsum(dO o O) from K1's bf16
+    output and K1's lse it is K2's function; autograd through the plain
+    version takes the exact f32 delta, the softmax's P and unrounded P and
+    dS."""
     from paddle_tpu_torch.ops.kernels import flash_attention as K1
 
     B, S, H, D = q.shape
     scale = 1.0 / math.sqrt(D)
     qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
-    s = qf @ kf.transpose(-1, -2) * scale
-    if causal:
-        s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool,
-                                      device=q.device).tril(), -1e30)
-    P = torch.softmax(s, -1)
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    sl2 = (torch.tensor(scale, dtype=torch.float32) * log2e).double()
+    lse2 = (lse.float() * log2e.to(lse.device)).double()
+    s = (qf @ kf.transpose(-1, -2)).double() * sl2 - lse2[..., None]
+    P = torch.exp2(s).float()
     del s
+    if causal:
+        P = P.masked_fill(~torch.ones(S, S, dtype=torch.bool,
+                                      device=q.device).tril(), 0.0)
     Z = (K1._dropout_factor(seed, p, B, H, H, S, S, q.device).reshape(
         B, H, S, S) if p else None)
     dP = dof @ vf.transpose(-1, -2)
@@ -3131,18 +3267,22 @@ def check_gpt_attention(model, opt, batch):
     every layer's attention call watched: each call's seed is drawn from
     the model's generator as the layer would draw it, then K1's output
     against the plain version with the same seed, and K2's dq, dk, dv
-    against the gradients written out with the delta K2 takes (rowsum of
-    dO times K1's bf16 output; ``_grads_with_delta``), per tile, 2e-2.
-    The trained model's last layers attend over keys and values nearly
-    equal across positions (GPT's k and v carry biases), so dP - delta
-    and the sums over keys nearly cancel: there the roundings K2 makes
-    as the TPU kernel does (delta from the bf16 output, bf16 P and dS)
-    are most of dq and dk, and autograd's exact gradients are not the
-    function the kernels compute (on an H100: tile errors of 580 for dq
-    at the last layer against autograd, at absolute differences of
-    1.3e-10, and 0.042 with the bf16 delta alone under dropout). The
-    autograd gradients' errors are printed beside for the first and last
-    layer."""
+    against the gradients written out with the delta and lse K2 takes
+    (rowsum of dO times K1's bf16 output; K1's lse: ``_grads_with_delta``),
+    per tile, 2e-2; K1's lse is held to the plain version's first (2e-2
+    absolute), since that reference takes it. The trained model's attention runs over keys and
+    values nearly equal across positions (GPT's k and v carry biases),
+    so dP - delta and the sums over keys nearly cancel: there the
+    roundings K2 makes as the TPU kernel does (delta from the bf16
+    output, bf16 P and dS) are most of dq and dk, and autograd's exact
+    gradients are not the function the kernels compute (on an H100: tile
+    errors of 580 for dq at the last layer against autograd, at absolute
+    differences of 1.3e-10, and 0.042 with the bf16 delta alone under
+    dropout). P itself is such a rounding: normalized by the softmax
+    instead of K1's lse, a dq tile of a middle layer under dropout moved
+    by 0.033 against K2's function (on an H100, with the 16-bit keep
+    test's masks). The autograd gradients' errors are printed beside for
+    the first and last layer."""
     import paddle_tpu_torch.models.gpt as gpt
     from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
     from paddle_tpu_torch.ops.kernels import dropout_mask as DM
@@ -3168,20 +3308,31 @@ def check_gpt_attention(model, opt, batch):
     finally:
         gpt.flash_attention = kernel_path
     opt.clear_grad()
-    worst = 0.0
+    worst, worst_lse, by_layer = 0.0, 0.0, []
+    drop_p = seen[0]["p"] if seen else None
     for i, r in enumerate(seen):
         kw = dict(dropout=r["p"], seed=r["seed"])
         with torch.no_grad():
-            r_out = K1.flash_attention_dense(r["q"], r["k"], r["v"],
-                                             r["causal"], **kw)[0]
+            r_out, r_lse = K1.flash_attention_dense(r["q"], r["k"], r["v"],
+                                                    r["causal"], **kw)
+            # K2's lse is K1's: the call's forward again, the same bits
+            lse = K1.flash_attention_fwd_lse(r["q"], r["k"], r["v"],
+                                             r["causal"], **kw)[1]
             delta = (r["do"].float() * r["out"].float()).sum(-1).transpose(
                 1, 2)
             ref = _grads_with_delta(r["q"], r["k"], r["v"], r["do"], delta,
-                                    r["causal"], r["p"], r["seed"])
+                                    lse, r["causal"], r["p"], r["seed"])
         errs = {"out": _errs(r["out"], r_out)}
         errs.update((n, _errs(r[n], g)) for n, g in zip(("dq", "dk", "dv"),
                                                         ref))
+        lse_err = (lse - r_lse).abs().max().item()
         worst = max([worst] + [e[3] for e in errs.values()])
+        worst_lse = max(worst_lse, lse_err)
+        name, e = max(errs.items(), key=lambda kv: kv[1][3])
+        by_layer.append(dict(
+            layer=i, worst=name, rel_err=e[3], max_abs_err=e[0],
+            ref_max_abs=e[1], lse_abs_err=lse_err))
+        del lse, r_lse
         if i in (0, len(seen) - 1):
             auto = K1.flash_attention_bwd_dense(r["q"], r["k"], r["v"],
                                                 r["do"], r["causal"], **kw)
@@ -3195,13 +3346,17 @@ def check_gpt_attention(model, opt, batch):
             del auto
         del r_out, ref
         seen[i] = None
+    log(f"[train-gpt] each layer's worst tensor (dropout {drop_p}): "
+        + json.dumps(by_layer))
     if not (len(seen) == model.config.num_layers
-            and worst <= TOL[torch.bfloat16]):
+            and worst <= TOL[torch.bfloat16]
+            and worst_lse <= TOL[torch.bfloat16]):
         raise AssertionError(f"train-gpt attention: {len(seen)} layers "
-                             f"watched, worst tile error {worst}")
-    log(f"[train-gpt] every layer's K1 output and K2 gradients within "
-        f"{TOL[torch.bfloat16]} of the plain version (worst tile {worst}): "
-        "OK")
+                             f"watched, worst tile error {worst}, worst "
+                             f"lse error {worst_lse}")
+    log(f"[train-gpt] every layer's K1 output and lse and K2 gradients "
+        f"within {TOL[torch.bfloat16]} of the plain version (worst tile "
+        f"{worst}, worst lse {worst_lse}): OK")
 
 
 # -- phase 13: varlen packs on K1/K2 with per-sequence frontiers -----------
@@ -3361,6 +3516,9 @@ def check_varlen_pack(dev, results, dt, k_lens, H, D, p, counters,
     bwd = dict(base, name="flash_attention_bwd_varlen", bytes=bb, flops=bf,
                max_abs_err=max(e[0] for e in eg),
                ref_max_abs=[e[1] for e in eg], rel_err=max(e[3] for e in eg))
+    if p:
+        fwd["ptxas"] = drop_ptxas("fwd", D, dt, ranges=True)
+        bwd["ptxas"] = drop_ptxas("bwd", D, dt, ranges=True)
     if timed:
         kk = dict(dropout=p, seed=seed, q_ranges=qr, kv_ranges=kr)
         o4, lse = K1.flash_attention_fwd_lse(q4, k4, v4, **kk)
@@ -3475,6 +3633,7 @@ def check_mma_dropout(dev, results):
                     body="mma")
         fwd = dict(base, name="flash_attention_fwd_dropout_mma", bytes=fb,
                    flops=ff, max_abs_err=eo[0], rel_err=eo[3],
+                   ptxas=drop_ptxas("fwd", D, dt),
                    lse_abs_err=(lse - K1.flash_attention_dense(
                        q, k, v, True, **kw)[1]).abs().max().item(),
                    ms=cuda_ms(lambda: K1.flash_attention_fwd_lse(
@@ -3487,6 +3646,7 @@ def check_mma_dropout(dev, results):
         bwd = dict(base, name="flash_attention_bwd_dropout_mma", bytes=bb,
                    flops=bf, max_abs_err=max(e[0] for e in eg),
                    rel_err=max(e[3] for e in eg),
+                   ptxas=drop_ptxas("bwd", D, dt),
                    ms=cuda_ms(lambda: K1.flash_attention_bwd(
                        q, k, v, out, lse, do, True, **kw)),
                    plain_ms=events_ms(lambda: K1.flash_attention_bwd_dense(
@@ -4077,42 +4237,26 @@ def check_k9_build(_build):
 def check_tile_spills(_build):
     """Every K1 tile the library lists is a fwd_wgmma<D, W, BN> instance
     that ptxas built with 0 spill bytes."""
-    import re
 
     from paddle_tpu_torch.ops.kernels.flash_attention import fwd_tiles
 
-    built, drop = {}, {}
-
-    def label(body, D, kd, kr=0):
-        return f"{body} D={D}" + " dropout" * kd + " ranges" * kr
-
-    for fn, rep in _build.ptxas_report("flash_attention").items():
-        m = re.search(r"fwd_wgmmaILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])E",
-                      fn)
-        if m:
-            D, W, BN, kd, kr = map(int, m.groups())
-            if kd or kr:
-                drop[label("fwd_wgmma", D, kd, kr)] = rep
-            else:
-                built[(D, 64 * W, BN)] = rep
-        m = re.search(r"(dq|dkv)_wgmmaILi(\d+)ELb([01])ELb([01])E", fn)
-        if m and (m.group(3) == "1" or m.group(4) == "1"):
-            drop[label(m.group(1) + "_wgmma", m.group(2), int(m.group(3)),
-                       int(m.group(4)))] = rep
-        m = re.search(r"(fwd|dq|dkv)_mmaILi(\d+)ELb1E", fn)
-        if m:
-            drop[label(m.group(1) + "_mma", m.group(2), 1)] = rep
+    insts = flash_instances(_build.ptxas_report("flash_attention"))
+    built = {(r["n"], *r["tile"]): r["rep"] for r in insts
+             if r["tile"] and not (r["drop"] or r["ranges"])}
+    drop = {r["label"]: r["rep"] for r in insts if r["drop"] or r["ranges"]}
     # the dropout instances (the Hopper bodies: K1's default tiles, K2's
-    # dq and dk/dv; the bf16 mma.sync bodies at D = 16 and 32) and the
+    # dq and dk/dv; the bf16 mma.sync bodies at D = 16 and 32; the fp32
+    # bodies at NI head-dim elements a lane) and the
     # Hopper bodies' frontier-array instances: their spills are recorded,
     # not gated
     log("[build] dropout and frontier-array instances (K1 default tiles, "
-        "K2 dq and dk/dv, the mma bodies at D = 16 / 32): "
+        "K2 dq and dk/dv, the mma bodies at D = 16 / 32, the fp32 bodies "
+        "at NI = 1, 2, 4 head-dim elements a lane): "
         + json.dumps(drop))
-    want = [label(f"{b}_mma", D, 1) for b in ("fwd", "dq", "dkv")
+    want = [f"{b}_mma D={D} dropout" for b in ("fwd", "dq", "dkv")
             for D in (16, 32)] + [
-        label(f"{b}_wgmma", D, kd, 1) for b in ("fwd", "dq", "dkv")
-        for D in (64, 128) for kd in (0, 1)]
+        f"{b}_wgmma D={D}" + " dropout" * kd + " ranges"
+        for b in ("fwd", "dq", "dkv") for D in (64, 128) for kd in (0, 1)]
     if sorted(set(want) - set(drop)):
         raise AssertionError(f"instances not built: "
                              f"{sorted(set(want) - set(drop))}")
@@ -4418,7 +4562,7 @@ def main():
             library_ms=row.get("library_ms"), shape=main_shape[name],
             dtype="bfloat16",
             **{k: row[k] for k in ("body", "splits", "cluster", "kernels",
-                                   "workspace_bytes") if k in row}))
+                                   "workspace_bytes", "ptxas") if k in row}))
     kernels.append(k7_entry(k7, results,
                             by_path["train_autotune"]["measure_flash_blocks"]))
     print(json.dumps({"kernels": kernels}))

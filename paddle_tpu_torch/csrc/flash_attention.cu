@@ -41,11 +41,19 @@
 // l and lse stay over the undropped P; K2 scales dP = dO V^T by the same
 // factor and dv takes the dropped P (delta = rowsum(dO o O) is unchanged).
 // M is Philox4x32-10 keyed by the call's seed over (batch row, query head,
-// query row, key column / 4) (philox.cuh): four keys a hash, one hash shared
-// by the lanes that hold those keys (a thread pair in the row-major bodies,
-// a lane quad in dk/dv's S^T), so every body masks the same elements. Built
-// for every body: the Hopper ones (K1 at its default tiles), the bf16
-// mma.sync ones (D = 16, 32) and the fp32 ones.
+// query row, key column / 8) (philox.cuh): each 16-bit half of the hash's
+// four words decides one key, so one hash decides eight keys of a row and
+// every body makes one hash per 8 elements it masks. The lanes that hold a
+// hash's keys share it: a lane quad in the row-major bodies (lane tig holds
+// keys 2 tig, 2 tig + 1 of each 8-key block, word tig of its hash: the
+// quad's four lanes hash rows A and B of two blocks and trade the keep
+// bytes, drop_rows), the 8 lanes of a tig in dk/dv's S^T (key jA is
+// position grp of its block: drop_keys), one warp in the fp32 bodies, so
+// every body masks the same elements; the Hopper dk/dv body hashes while
+// its S^T and dP^T products run on the tensor cores. Nothing is stored
+// between K1 and K2: each recomputes the mask from (seed, b, h, r, c).
+// Built for every body: the Hopper ones (K1 at its default tiles), the
+// bf16 mma.sync ones (D = 16, 32) and the fp32 ones.
 //
 // Shape limits (the wrapper raises on anything else): D in {16, 32, 64,
 // 128}; H a multiple of KV; any Sq, Skv >= 0 (partial tiles are masked);
@@ -100,9 +108,10 @@
 //     wgmma's 64-column swizzled panels do not fit these widths. A call
 //     with no q row or no key takes them at D = 64 and 128 too (a tensor
 //     map needs every dimension > 0).
-//   fp32: one warp per 4 rows (forward, dq) or 4 keys (dk/dv), each lane
-//     owning head-dim elements d = lane + 32 n; dot products by warp
-//     shuffles. Right first; the fp32 path is not the training path.
+//   fp32: one warp per 4 rows (forward, dq) or 4 keys (dk/dv; 8, one
+//     Philox group, with dropout), each lane owning head-dim elements
+//     d = lane + 32 n; dot products by warp shuffles. Right first; the
+//     fp32 path is not the training path.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -137,8 +146,8 @@ struct Args {
   int Sp;                // delta rows, padded: [B, H, Sp]
   float scale;
   // attention dropout (the bodies built with kDrop): the Philox key (the
-  // call's seed), the keep test's bound floor(p 2^32) and 1 / (1 - p);
-  // philox.cuh gives the counter layout
+  // call's seed), the keep test's bound round(p 2^16) on a 16-bit half and
+  // 1 / (1 - p); philox.cuh gives the counter layout
   uint32_t seed0, seed1, threshold;
   float keep_scale;
   // per-sequence frontiers (null: the causal / segment rule): qrange[b, r]
@@ -148,54 +157,81 @@ struct Args {
   const int2* krange;
 };
 
-// the keep bits of keys 4 g .. 4 g + 3 of (b, h, row): bit i keeps 4 g + i
-__device__ __forceinline__ uint32_t drop_nibble(const Args& a, int b, int h,
-                                                int row, int g) {
-  return philox::keep_nibble(a.seed0, a.seed1, b, h, row, g, a.threshold);
+// the keep bits of keys 8 g .. 8 g + 7 of (b, h, row): bit i keeps 8 g + i
+__device__ __forceinline__ uint32_t drop_byte(const Args& a, int b, int h,
+                                              int row, int g) {
+  return philox::keep_byte(a.seed0, a.seed1, b, h, row, g, a.threshold);
 }
 
-// The keep bits of this thread's accumulator elements of one 8-key column
-// block j (keys key8 + 2 tig + e, rows rA and rB) of an mma/wgmma row-major
-// accumulator: the thread pair (tig, tig ^ 1) shares one 4-key Philox group,
-// so the even thread hashes row A and the odd one row B, and they swap
-// nibbles. Bit e is (row A, key e), bit 2 + e (row B, key e).
-__device__ __forceinline__ uint32_t drop_pair_bits(const Args& a, int b,
-                                                   int h, int rA, int rB,
-                                                   int key8, int tig) {
-  const int odd = tig & 1;
-  uint32_t v = drop_nibble(a, b, h, odd ? rB : rA, (key8 >> 2) + (tig >> 1))
-               << (4 * odd);
+// The keep bits of a thread's elements of two 8-key column blocks g, g + 1
+// of an mma/wgmma row-major accumulator (rows rA, rB = rA + 8; keys
+// 8 (g + d) + 2 tig + e): bit row_bit(i) keeps accumulator element i =
+// 4 d + 2 hi + e of the pair (row hi ? rB : rA). The four (row, block)
+// pairs are a hash each, and lane tig of the quad needs word tig of every
+// one: lane tig hashes (row tig & 1 ? rB : rA, block g + (tig >> 1)), the
+// quad gathers the four keep bytes (byte 2 d + hi), and each lane keeps
+// bits 2 tig, 2 tig + 1 of each byte.
+__device__ __forceinline__ uint32_t drop_rows(const Args& a, int b, int h,
+                                              int rA, int rB, int g,
+                                              int tig) {
+  uint32_t v = drop_byte(a, b, h, (tig & 1) ? rB : rA, g + (tig >> 1))
+               << (8 * tig);
   v |= __shfl_xor_sync(0xffffffffu, v, 1);
-  // row A's nibble in bits 0..3, row B's in 4..7; this thread's keys are
-  // 2 odd + e of the group
-  const uint32_t sh = 2 * odd;
-  return ((v >> sh) & 3u) | (((v >> (4 + sh)) & 3u) << 2);
+  v |= __shfl_xor_sync(0xffffffffu, v, 2);
+  return v >> (2 * tig);
+}
+
+// drop_rows' bit of element i = 4 d + 2 hi + e
+__host__ __device__ constexpr int row_bit(int i) {
+  return 16 * (i >> 2) + 8 * ((i >> 1) & 1) + (i & 1);
 }
 
 // The keep bits of a thread's S^T accumulator elements (rows keys jA and
 // jB = jA + 8, columns q rows q0 + 8 jj + 2 tig + e, NQ q rows): bit
-// 4 jj + 2 hi + e is element (key hi ? jB : jA, row q0 + 8 jj + 2 tig + e).
-// The four lanes grp & 3 = 0..3 (same tig, same grp >> 2) hold the four
-// keys of each Philox group (jA & 3 = grp & 3): lane c hashes the pair
-// c = 2 hi + e, and the quad gathers the four nibbles.
+// key_bit<NQ>(i) keeps element i = 4 jj + 2 hi + e (key hi ? jB : jA).
+// Key jA is position grp of its 8-key block g = jA >> 3 (warp-uniform), so
+// the 8 lanes grp = 0..7 of a tig need the same NQ / 2 hashes (a q row and
+// block each), each lane its own position's bit of every one. Lane grp
+// hashes NQ / 16 of them, one keep byte each (bit p: position p), and the
+// lanes xor 4, 8, 16 apart transpose the 8 x 8 matrix of (lane, position)
+// bit groups in three butterfly rounds: after round k, bit k of a group's
+// lane and of its position have swapped.
 template <int NQ>
-__device__ __forceinline__ uint32_t drop_quad_bits(const Args& a, int b,
-                                                   int h, int q0, int jA,
-                                                   int jB, int grp, int tig) {
-  const int cq = grp & 3;
-  uint32_t kbits = 0u;
+__device__ __forceinline__ uint32_t drop_keys(const Args& a, int b, int h,
+                                              int q0, int g, int grp,
+                                              int tig) {
+  constexpr int J = NQ / 8, C = J / 2;  // jj values; (hi, e) a lane
+  static_assert(J == 4 || J == 8, "drop_keys: 32 or 64 q rows");
+  // lane grp: jj = grp % J and the pairs c = 2 hi + e = C (grp / J) + cc
+  uint32_t x = 0u;
 #pragma unroll
-  for (int jj = 0; jj < NQ / 8; ++jj) {
-    const int r = q0 + 8 * jj + 2 * tig + (cq & 1);
-    uint32_t v = drop_nibble(a, b, h, r, ((cq >> 1) ? jB : jA) >> 2)
-                 << (4 * cq);
-    v |= __shfl_xor_sync(0xffffffffu, v, 4);
-    v |= __shfl_xor_sync(0xffffffffu, v, 8);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      kbits |= ((v >> (4 * e + cq)) & 1u) << (4 * jj + e);
+  for (int cc = 0; cc < C; ++cc) {
+    const int c = C * (grp / J) + cc;
+    x |= drop_byte(a, b, h, q0 + 8 * (grp % J) + 2 * tig + (c & 1),
+                   g + (c >> 1))
+         << (8 * cc);
   }
-  return kbits;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    // positions with bit k clear; a lane with bit k of grp set keeps the
+    // others, and each lane sends its partner the bits it does not keep,
+    // moved to the positions they take there
+    const uint32_t clear = k == 0 ? 0x55555555u
+                                  : (k == 1 ? 0x33333333u : 0x0F0F0F0Fu);
+    const bool up = (grp >> k) & 1;
+    const uint32_t mine = up ? ~clear : clear;
+    const uint32_t send = (up ? x << (1 << k) : x >> (1 << k)) & mine;
+    x = (x & mine) | __shfl_xor_sync(0xffffffffu, send, 4 << k);
+  }
+  return x;
+}
+
+// drop_keys<NQ>'s bit of element i = 4 jj + 2 hi + e: byte c % C of the
+// lane that hashed it, at position jj + J (c / C), c = 2 hi + e
+template <int NQ>
+__host__ __device__ constexpr int key_bit(int i) {
+  return 8 * ((i & 3) % (NQ / 16)) + (i >> 2) +
+         (NQ / 8) * ((i & 3) / (NQ / 16));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -317,10 +353,17 @@ __device__ __forceinline__ size_t k_off(const Args& a, int b, int j, int kv) {
 }
 
 // ---------------------------------------------------------------------------
-// FMA bodies (fp32). kTR rows (or keys) per warp, kKB keys per step.
+// FMA bodies (fp32). kTR rows (or keys; fma_keys for dk/dv) per warp,
+// kKB keys per step.
 // ---------------------------------------------------------------------------
 constexpr int kTR = 4;
 constexpr int kKB = 8;
+
+// keys a warp of dk/dv: with dropout one 8-key Philox group, so that one
+// hash serves the warp's keys of a q row
+__host__ __device__ constexpr int fma_keys(bool drop) {
+  return drop ? 8 : kTR;
+}
 
 template <int NI, bool kDrop>
 __global__ void __launch_bounds__(kThreads) fwd_fma(Args a) {
@@ -397,10 +440,8 @@ __global__ void __launch_bounds__(kThreads) fwd_fma(Args a) {
       }
       l[i] = l[i] * corr + psum;  // over the undropped probabilities
       if constexpr (kDrop) {
-        // keys k0 .. k0 + 7 are two whole Philox groups (k0 % 8 == 0)
-        const uint32_t bits =
-            drop_nibble(a, b, h, r0 + i, k0 >> 2) |
-            (drop_nibble(a, b, h, r0 + i, (k0 >> 2) + 1) << 4);
+        // keys k0 .. k0 + 7 are one 8-key Philox group (k0 % 8 == 0)
+        const uint32_t bits = drop_byte(a, b, h, r0 + i, k0 >> 3);
 #pragma unroll
         for (int kk = 0; kk < kKB; ++kk)
           s[kk] *= ((bits >> kk) & 1u) ? a.keep_scale : 0.f;
@@ -486,9 +527,7 @@ __global__ void __launch_bounds__(kThreads) dq_fma(Args a) {
     for (int i = 0; i < kTR; ++i) {
       if (sp[i].y < k0 || sp[i].x > k0 + kKB - 1) continue;  // warp-uniform
       uint32_t bits = 0xFFu;
-      if constexpr (kDrop)
-        bits = drop_nibble(a, b, h, r0 + i, k0 >> 2) |
-               (drop_nibble(a, b, h, r0 + i, (k0 >> 2) + 1) << 4);
+      if constexpr (kDrop) bits = drop_byte(a, b, h, r0 + i, k0 >> 3);
 #pragma unroll
       for (int kk = 0; kk < kKB; ++kk) {
         float ps = 0.f, pd = 0.f;
@@ -532,16 +571,17 @@ __global__ void __launch_bounds__(kThreads) dkv_fma(Args a) {
   float* __restrict__ dv = static_cast<float*>(a.dv);
   const int b = blockIdx.z, kvh = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int j0 = (blockIdx.x * kWarps + warp) * kTR;
+  constexpr int KR = fma_keys(kDrop);
+  const int j0 = (blockIdx.x * kWarps + warp) * KR;
   if (j0 >= a.Skv) return;
   const int G = a.H / a.KV;
 
-  float kr[kTR][NI], vr[kTR][NI], ak[kTR][NI], av[kTR][NI];
-  int ks[kTR];
-  int2 sp[kTR];
+  float kr[KR][NI], vr[KR][NI], ak[KR][NI], av[KR][NI];
+  int ks[KR];
+  int2 sp[KR];
   int2 wsp = kNone();  // the q rows that see the warp's keys
 #pragma unroll
-  for (int i = 0; i < kTR; ++i) {
+  for (int i = 0; i < KR; ++i) {
     const int j = j0 + i;
     const bool ok = j < a.Skv;
     sp[i] = key_span(a, b, j);
@@ -571,10 +611,10 @@ __global__ void __launch_bounds__(kThreads) dkv_fma(Args a) {
         qf[n] = d < a.D ? q[o + d] : 0.f;
         df[n] = d < a.D ? dout[o + d] : 0.f;
       }
-      // keys j0 .. j0 + 3 are one Philox group (j0 % 4 == 0)
-      const uint32_t bits = kDrop ? drop_nibble(a, b, h, r, j0 >> 2) : 0xFu;
+      // with dropout keys j0 .. j0 + 7 are one Philox group (j0 % 8 == 0)
+      const uint32_t bits = kDrop ? drop_byte(a, b, h, r, j0 >> 3) : 0xFu;
 #pragma unroll
-      for (int i = 0; i < kTR; ++i) {
+      for (int i = 0; i < KR; ++i) {
         if (r < sp[i].x || r > sp[i].y) continue;  // warp-uniform
         if (a.qseg && qs != ks[i]) continue;
         float ps = 0.f, pd = 0.f;
@@ -602,7 +642,7 @@ __global__ void __launch_bounds__(kThreads) dkv_fma(Args a) {
     }
   }
 #pragma unroll
-  for (int i = 0; i < kTR; ++i) {
+  for (int i = 0; i < KR; ++i) {
     const int j = j0 + i;
     if (j >= a.Skv) continue;
     const size_t o = k_off(a, b, j, kvh);
@@ -791,13 +831,15 @@ __global__ void __launch_bounds__(kThreads) fwd_mma(Args a) {
     }
     if constexpr (kDrop) {
       // l summed the undropped P; O takes P M / (1 - p), in f32 before the
-      // bf16 round (s[t] is the row-major accumulator of keys k0 + 8 t)
+      // bf16 round (s[t] is the row-major accumulator of keys k0 + 8 t; one
+      // hash a lane for each pair of blocks)
 #pragma unroll
-      for (int t = 0; t < kFwdKeys / 8; ++t) {
-        const uint32_t bits = drop_pair_bits(a, b, h, rA, rB, k0 + 8 * t, tig);
+      for (int t = 0; t < kFwdKeys / 8; t += 2) {
+        const uint32_t bits = drop_rows(a, b, h, rA, rB, (k0 >> 3) + t, tig);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[t][e] *= ((bits >> e) & 1u) ? a.keep_scale : 0.f;
+        for (int i = 0; i < 8; ++i)
+          s[t + (i >> 2)][i & 3] *=
+              ((bits >> row_bit(i)) & 1u) ? a.keep_scale : 0.f;
       }
     }
 #pragma unroll
@@ -912,11 +954,12 @@ __global__ void __launch_bounds__(kThreads) dq_mma(Args a) {
     // dropout: dP = (dO V^T) M / (1 - p)
     if constexpr (kDrop) {
 #pragma unroll
-      for (int t = 0; t < NS; ++t) {
-        const uint32_t bits = drop_pair_bits(a, b, h, rA, rB, k0 + 8 * t, tig);
+      for (int t = 0; t < NS; t += 2) {
+        const uint32_t bits = drop_rows(a, b, h, rA, rB, (k0 >> 3) + t, tig);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dp[t][e] *= ((bits >> e) & 1u) ? a.keep_scale : 0.f;
+        for (int i = 0; i < 8; ++i)
+          dp[t + (i >> 2)][i & 3] *=
+              ((bits >> row_bit(i)) & 1u) ? a.keep_scale : 0.f;
       }
     }
     // dS = P (dP - delta), P = exp(S scale - lse), kept in s
@@ -1050,10 +1093,11 @@ __global__ void __launch_bounds__(kThreads) dkv_mma(Args a) {
           mma_bf16(dp[t], fv, ld32(drow + ks * 16), ld32(drow + ks * 16 + 8));
         }
       }
-      // dropout on S^T (bit 4 t + 2 hi + e of kbits: s[t][2 hi + e])
+      // dropout on S^T (s[t][2 hi + e]: bit key_bit<kKvQ>(4 t + 2 hi + e)
+      // of kbits)
       uint32_t kbits = 0xFFFFFFFFu;
       if constexpr (kDrop)
-        kbits = drop_quad_bits<kKvQ>(a, b, h, q0, jA, jB, grp, tig);
+        kbits = drop_keys<kKvQ>(a, b, h, q0, jA >> 3, grp, tig);
       // P^T and dS^T: rows are keys (jA, jB), columns q rows; p kept in s
       // (dropout: P^T M / (1 - p), for dv), ds in dp (dropout: dP^T
       // M / (1 - p) before delta)
@@ -1071,8 +1115,11 @@ __global__ void __launch_bounds__(kThreads) dkv_mma(Args a) {
           const float pB = kB ? expf(s[t][2 + e] * a.scale - slse[rl]) : 0.f;
           float zA = 1.f, zB = 1.f;
           if constexpr (kDrop) {
-            zA = ((kbits >> (4 * t + e)) & 1u) ? a.keep_scale : 0.f;
-            zB = ((kbits >> (4 * t + 2 + e)) & 1u) ? a.keep_scale : 0.f;
+            zA = ((kbits >> key_bit<kKvQ>(4 * t + e)) & 1u) ? a.keep_scale
+                                                             : 0.f;
+            zB = ((kbits >> key_bit<kKvQ>(4 * t + 2 + e)) & 1u)
+                     ? a.keep_scale
+                     : 0.f;
           }
           s[t][e] = pA * zA;
           s[t][2 + e] = pB * zB;
@@ -1497,14 +1544,16 @@ __global__ void __launch_bounds__(FwdHop<D, W, BN>::kThreads, 1)
         }
         if constexpr (kDrop) {
           // l summed the undropped P (as the JAX _sdpa_raw drops after the
-          // softmax); O takes P M / (1 - p), in f32 before the bf16 round
+          // softmax); O takes P M / (1 - p), in f32 before the bf16 round;
+          // one hash a lane for each pair of 8-key blocks
 #pragma unroll
-          for (int j = 0; j < SN / 8; ++j) {
-            const uint32_t bits = drop_pair_bits(a, b, h, rA, rB, kh + 8 * j,
-                                                 tig);
+          for (int j = 0; j < SN / 8; j += 2) {
+            const uint32_t bits = drop_rows(a, b, h, rA, rB, (kh >> 3) + j,
+                                            tig);
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
-              sc[4 * j + e] *= ((bits >> e) & 1u) ? a.keep_scale : 0.f;
+            for (int i = 0; i < 8; ++i)
+              sc[4 * j + i] *= ((bits >> row_bit(i)) & 1u) ? a.keep_scale
+                                                           : 0.f;
           }
         }
         uint32_t pa[SN / 16][4];
@@ -1641,15 +1690,17 @@ __global__ void __launch_bounds__(kHopThreads, 1)
           if (!keep) sc[i] = neg_inf();
         }
       }
-      // dropout: dP = (dO V^T) M / (1 - p)
+      // dropout: dP = (dO V^T) M / (1 - p), one hash a lane for each pair
+      // of 8-key blocks
       if constexpr (kDrop) {
 #pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const uint32_t bits = drop_pair_bits(a, b, h, rA, rB, k0 + 8 * j,
-                                               tig);
+        for (int j = 0; j < BN / 8; j += 2) {
+          const uint32_t bits = drop_rows(a, b, h, rA, rB, (k0 >> 3) + j,
+                                          tig);
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            dp[4 * j + e] *= ((bits >> e) & 1u) ? a.keep_scale : 0.f;
+          for (int i = 0; i < 8; ++i)
+            dp[4 * j + i] *= ((bits >> row_bit(i)) & 1u) ? a.keep_scale
+                                                         : 0.f;
         }
       }
       // dS = P (dP - delta), P = exp2(S scale log2(e) - lse2), kept in sc
@@ -1787,6 +1838,14 @@ __global__ void __launch_bounds__(kHopThreads, 1)
         ss<BQ>(dpt, kmajor(sv, BN, k0, kk), kmajor(dos, BQ, 0, kk), kk > 0);
       }
       hopper::wgmma_commit();
+      // dropout on S^T: bit key_bit<BQ>(i) of `kbits` is element i's
+      // (drop_keys; jA >> 3 is the warp's first 8-key block), hashed while
+      // the tensor cores run S^T and dP^T
+      uint32_t kbits = 0xFFFFFFFFu;
+      if constexpr (kDrop) {
+        kbits = drop_keys<BQ>(a, b, kvh * G + g, q0, jA >> 3, grp, tig);
+        asm volatile("" : "+r"(kbits));
+      }
       hopper::wgmma_wait<0>();
       hopper::fence_operand(st);
       hopper::fence_operand(dpt);
@@ -1807,10 +1866,6 @@ __global__ void __launch_bounds__(kHopThreads, 1)
           if (!keep) st[i] = neg_inf();
         }
       }
-      // dropout on S^T: bit i of `kbits` is element i's (drop_quad_bits)
-      uint32_t kbits = 0xFFFFFFFFu;
-      if constexpr (kDrop)
-        kbits = drop_quad_bits<BQ>(a, b, kvh * G + g, q0, jA, jB, grp, tig);
       // P^T (dropout: P^T M / (1 - p), for dv) and dS^T = P^T (dP^T - delta)
       // (dropout: dP^T M / (1 - p))
 #pragma unroll
@@ -1818,7 +1873,8 @@ __global__ void __launch_bounds__(kHopThreads, 1)
         const int c = 8 * (i >> 2) + 2 * tig + (i & 1);
         const float p = exp2f(fmaf(st[i], sl2, -vl[c]));
         if constexpr (kDrop) {
-          const float z = ((kbits >> i) & 1u) ? a.keep_scale : 0.f;
+          const float z = ((kbits >> key_bit<BQ>(i)) & 1u) ? a.keep_scale
+                                                           : 0.f;
           st[i] = p * z;
           dpt[i] = p * (dpt[i] * z - vd[c]);
         } else {
@@ -2096,7 +2152,8 @@ cudaError_t bwd_f(const Args& a, int parts, cudaStream_t s) {
     if (e != cudaSuccess) return e;
   }
   if (!(parts & 4) || a.Skv <= 0) return cudaSuccess;
-  dkv_fma<NI, kDrop><<<key_grid(a, kWarps * kTR), kThreads, 0, s>>>(a);
+  dkv_fma<NI, kDrop><<<key_grid(a, kWarps * fma_keys(kDrop)), kThreads, 0,
+                        s>>>(a);
   return cudaGetLastError();
 }
 
@@ -2238,8 +2295,9 @@ extern "C" int flash_attention_fwd_launch(
 // K1 with attention dropout (the JAX _sdpa_raw's, after the softmax): O =
 // (P M / (1 - p)) V with l and lse over the undropped P. The mask M is
 // Philox4x32-10 keyed by (seed0, seed1) over the counter layout of
-// philox.cuh; an element is kept iff its word >= threshold = floor(p 2^32);
-// keep_scale = 1 / (1 - p). The default tile only.
+// philox.cuh; an element is kept iff its 16-bit half of a word >=
+// threshold = round(p 2^16) (at most 65536: none kept); keep_scale =
+// 1 / (1 - p). The default tile only.
 extern "C" int flash_attention_fwd_dropout_launch(
     const void* q, const void* k, const void* v, const void* qseg,
     const void* kseg, const void* qrange, const void* krange, void* out,

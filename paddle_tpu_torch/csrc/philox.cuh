@@ -8,10 +8,12 @@
 // The counter layout (the one definition; dropout_mask.py's docstring
 // repeats it): the key is the call's 64-bit seed, k = {seed_lo, seed_hi};
 // the element (batch row b, query head h, query row r, key column c) takes
-// counter {c >> 2, r, h, b} and of its four output words the one numbered
-// c & 3. The element is kept iff that word >= threshold = floor(p * 2^32),
-// which keeps it with probability 1 - p to within 2^-32; a kept
-// probability is scaled by keep_scale = 1 / (1 - p) in f32.
+// counter {c >> 3, r, h, b}, of its four output words the one numbered
+// (c >> 1) & 3, and of that word the 16-bit half c & 1 (the low half for
+// even c). The element is kept iff that half >= threshold = round(p 2^16)
+// (0 .. 65536), which keeps it with probability 1 - p to within 2^-17; a
+// kept probability is scaled by keep_scale = 1 / (1 - p) in f32. One hash
+// thus decides eight keys of a row: keep_byte.
 #pragma once
 
 #include <stdint.h>
@@ -38,23 +40,21 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
   return c;
 }
 
-// the keep bits of keys 4 g .. 4 g + 3 of (b, h, row): bit i keeps key
-// 4 g + i
-__device__ __forceinline__ uint32_t keep_nibble(uint32_t k0, uint32_t k1,
-                                                int b, int h, int row, int g,
-                                                uint32_t threshold) {
+// the keep bits of keys 8 g .. 8 g + 7 of (b, h, row): bit i keeps key
+// 8 g + i (half i & 1 of word i >> 1)
+__device__ __forceinline__ uint32_t keep_byte(uint32_t k0, uint32_t k1, int b,
+                                              int h, int row, int g,
+                                              uint32_t threshold) {
   const uint4 w = philox4x32_10(
       make_uint4(uint32_t(g), uint32_t(row), uint32_t(h), uint32_t(b)), k0,
       k1);
-  return uint32_t(w.x >= threshold) | (uint32_t(w.y >= threshold) << 1) |
-         (uint32_t(w.z >= threshold) << 2) | (uint32_t(w.w >= threshold) << 3);
-}
-
-// does (b, h, row, col) keep its probability?
-__device__ __forceinline__ bool keep(uint32_t k0, uint32_t k1, int b, int h,
-                                     int row, int col, uint32_t threshold) {
-  return (keep_nibble(k0, k1, b, h, row, col >> 2, threshold) >> (col & 3)) &
-         1u;
+  const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    bits |= (uint32_t((ws[i] & 0xFFFFu) >= threshold) << (2 * i)) |
+            (uint32_t((ws[i] >> 16) >= threshold) << (2 * i + 1));
+  return bits;
 }
 
 }  // namespace philox

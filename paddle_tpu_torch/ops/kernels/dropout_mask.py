@@ -10,13 +10,19 @@ maps a 128-bit counter and a 64-bit key to four 32-bit words.
 **The counter layout** (``csrc/philox.cuh`` states the same): the key is
 the call's 64-bit seed, ``(seed_lo, seed_hi)``; the element (batch row
 ``b``, query head ``h``, query row ``r``, key column ``c``) takes counter
-``(c >> 2, r, h, b)`` and, of the four output words, the one numbered
-``c & 3``. The element is kept iff that word ``>= floor(p * 2**32)``,
-which keeps it with probability ``1 - p`` to within 2^-32 (the JAX
-package's keep probability); a kept probability is scaled by
-``1 / (1 - p)`` in f32. A mask therefore depends only on (seed, b, h, r,
-c): any slice of the rows, keys or heads gets the same bits as the whole,
-and a kernel can hash the elements it holds in any order.
+``(c >> 3, r, h, b)``, of the four output words the one numbered
+``(c >> 1) & 3``, and of that word the 16-bit half ``c & 1`` (the low
+half for even ``c``). The element is kept iff that half ``>=
+threshold(p) = round(p * 2**16)``, which keeps it with probability
+``1 - p`` to within 2^-17; a kept probability is scaled by
+``1 / (1 - p)`` in f32. One hash decides eight keys of a row. A mask
+depends only on (seed, b, h, r, c): any slice of the rows, keys or heads
+gets the same bits as the whole, a kernel can hash the elements it holds
+in any order, and K2 recomputes K1's mask instead of storing it.
+
+The JAX package resolves p in f32 (``jax.random.bernoulli``) and draws
+other bits: the two packages' masks were never the same, and the tests
+compare each with its own mask.
 
 The words are computed with int64 tensor ops (32x32 -> 64-bit products
 from 16-bit halves, so nothing overflows), on whatever device the caller
@@ -78,11 +84,12 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
 
 
 def threshold(p: float) -> int:
-    """The keep test's bound: a word >= floor(p 2^32) keeps."""
+    """The keep test's bound on a 16-bit half: a half >= round(p 2^16)
+    keeps (halves round up; p just below 1 gives 65536: none kept)."""
     p = float(p)
     if not 0.0 <= p < 1.0:
         raise ValueError(f"attention dropout p must lie in [0, 1), got {p}")
-    return int(math.floor(p * 2.0 ** 32))
+    return int(math.floor(p * 2.0 ** 16 + 0.5))
 
 
 def keep_scale(p: float) -> float:
@@ -115,7 +122,7 @@ def dropout_keep(seed: int, p: float, B: int, H: int, Sq: int, Skv: int,
     a time."""
     k0, k1 = split_seed(seed)
     thr = threshold(p)
-    G = -(-Skv // 4)
+    G = -(-Skv // 8)
     def ar(n, *shape):
         return torch.arange(n, dtype=torch.int64, device=device).view(shape)
 
@@ -125,7 +132,8 @@ def dropout_keep(seed: int, p: float, B: int, H: int, Sq: int, Skv: int,
         bb = torch.full((1, 1, 1), b, dtype=torch.int64, device=device)
         words = philox4x32_10(g, r, h, bb, k0, k1)
         w = torch.stack(torch.broadcast_tensors(*words), dim=-1)  # [H,Sq,G,4]
-        rows.append((w >= thr).reshape(H, Sq, 4 * G)[..., :Skv])
+        halves = torch.stack((w & 0xFFFF, w >> 16), dim=-1)  # low half first
+        rows.append((halves >= thr).reshape(H, Sq, 8 * G)[..., :Skv])
     if not rows:
         return torch.zeros(0, H, Sq, Skv, dtype=torch.bool, device=device)
     return torch.stack(rows)

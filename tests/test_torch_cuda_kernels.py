@@ -630,6 +630,48 @@ def test_dropout_mask_reads_back_bit_exact(cuda, D, causal, dtype):
     assert torch.equal(DM.dropout_keep(seed, p, B, H, S, S).to(cuda), keep)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("S", [13, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dropout_mask_reads_back_ragged_keys(cuda, causal, S, D, dtype):
+    """Sq = Skv not a multiple of 8 (a half-filled 8-key group ends each
+    row; at 200 > D the read-back runs in windows of D keys): V's rows
+    the identity on a window of keys (zero elsewhere) gives K1's output
+    non-zero exactly where the plain mask keeps a visible pair of the
+    window, and dO's rows the identity on a window of q rows gives K2's
+    dV the same on S^T."""
+    from paddle_tpu_torch.ops.kernels import dropout_mask as DM
+
+    B, H, p, seed = 1, 2, 0.25, 0x5A6E + 7 * S + D
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    q = torch.randn(B, S, H, D, device=cuda, generator=g).to(dtype)
+    k = torch.randn(B, S, H, D, device=cuda, generator=g).to(dtype)
+    keep = DM.dropout_keep(seed, p, B, H, S, S, cuda)
+    vis = torch.ones(S, S, dtype=torch.bool, device=cuda)
+    vis = vis.tril() if causal else vis
+
+    def window(w0):    # [B, S, H, D]: row j is e_(j - w0) inside the window
+        eye = torch.zeros(S, D, device=cuda, dtype=dtype)
+        n = min(D, S - w0)
+        eye[w0:w0 + n, :n] = torch.eye(n, device=cuda, dtype=dtype)
+        return eye[None, :, None, :].expand(B, S, H, D).contiguous(), n
+
+    for w0 in range(0, S, D):
+        v, n = window(w0)
+        out, lse = K1.flash_attention_fwd_lse(q, k, v, causal, dropout=p,
+                                              seed=seed)
+        got = (out[..., :n] != 0).permute(0, 2, 1, 3)       # [B, H, S, n]
+        kw, vw = keep[..., w0:w0 + n], vis[:, w0:w0 + n]
+        assert torch.equal(got & vw, kw & vw)
+        assert not (got & ~vw).any()
+        _, _, dv = K1.flash_attention_bwd(q, k, v, out, lse, v, causal,
+                                          dropout=p, seed=seed)
+        gotv = (dv[..., :n] != 0).permute(0, 2, 3, 1)       # [B, H, n, S]
+        kr, vr = keep[:, :, w0:w0 + n], vis[w0:w0 + n]
+        assert torch.equal(gotv & vr, kr & vr)
+
+
 def test_philox_matches_curand(cuda):
     from paddle_tpu_torch.ops.kernels import dropout_mask as DM
 

@@ -71,20 +71,24 @@ def test_philox_matches_pure_python():
 
 
 def test_mask_follows_the_counter_layout():
-    """Element (b, h, r, c) is word c & 3 of counter (c >> 2, r, h, b) under
-    the key (seed_lo, seed_hi), kept iff >= floor(p 2^32)."""
+    """Element (b, h, r, c) is the 16-bit half c & 1 (low first) of word
+    (c >> 1) & 3 of counter (c >> 3, r, h, b) under the key (seed_lo,
+    seed_hi), kept iff >= round(p 2^16); every element of a mask whose
+    last 8-key group is cut short (Skv = 13)."""
     seed, p = 0x0123456789ABCDEF, 0.3
     keep = DM.dropout_keep(seed, p, 2, 3, 9, 13)
-    thr = math.floor(p * 2 ** 32)
+    thr = round(p * 2 ** 16)
     key = (seed & _MASK, seed >> 32)
-    rs = np.random.RandomState(1)
-    for _ in range(64):
-        b, h, r, c = (int(rs.randint(n)) for n in (2, 3, 9, 13))
-        w = _philox_py((c >> 2, r, h, b), key)[c & 3]
-        assert bool(keep[b, h, r, c]) == (w >= thr)
+    for b in range(2):
+        for h in range(3):
+            for r in range(9):
+                for c in range(13):
+                    w = _philox_py((c >> 3, r, h, b), key)[(c >> 1) & 3]
+                    half = (w >> 16) if c & 1 else (w & 0xFFFF)
+                    assert bool(keep[b, h, r, c]) == (half >= thr)
 
 
-@pytest.mark.parametrize("p", [0.1, 0.5])
+@pytest.mark.parametrize("p", [0.1, 0.5, 0.9])
 def test_keep_rate_within_5_sigma(p):
     keep = DM.dropout_keep(1234, p, 2, 4, 256, 256)
     n = keep.numel()
@@ -104,12 +108,31 @@ def test_mask_is_invariant_to_slicing():
 
 def test_seed_and_threshold_helpers():
     assert DM.split_seed(2 ** 64 + 5) == (5, 0)
-    assert DM.threshold(0.0) == 0 and DM.threshold(0.5) == 2 ** 31
+    assert DM.threshold(0.0) == 0 and DM.threshold(0.5) == 2 ** 15
     with pytest.raises(ValueError, match=r"\[0, 1\)"):
         DM.threshold(1.0)
     g1, g2 = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
     assert DM.draw_seed(g1) == DM.draw_seed(g2)
     assert DM.draw_seed(g1) != DM.draw_seed(torch.Generator().manual_seed(4))
+
+
+@pytest.mark.parametrize("p,want", [
+    (0.0, 0), (0.1, 6554), (0.5, 32768), (1 - 2 ** -16, 65535),
+    (math.nextafter(1.0, 0.0), 65536)])
+def test_threshold_is_the_16_bit_bound(p, want):
+    """threshold(p) = round(p 2^16), the bound on a 16-bit half: the keep
+    probability 1 - threshold / 2^16 is within 2^-17 of 1 - p, and p just
+    below 1 keeps nothing (no half reaches 65536)."""
+    assert DM.threshold(p) == want
+    assert abs(want / 2 ** 16 - p) <= 2 ** -17
+    if want == 65536:
+        assert not DM.dropout_keep(5, p, 1, 2, 8, 40).any()
+
+
+@pytest.mark.parametrize("p", [1.0, 1.5, -1e-9, -0.5])
+def test_threshold_raises_outside_0_1(p):
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        DM.threshold(p)
 
 
 # -- nn.functional.dropout / Dropout ------------------------------------------
@@ -278,7 +301,7 @@ def test_varlen_dropout_is_the_packed_mask():
 def test_attention_dropout_needs_a_generator_or_seed():
     """Attention dropout needs a generator or a seed (the JAX _sdpa_raw
     needs a dropout_key); the kernels' arguments are the seed's words,
-    floor(p 2^32) and 1 / (1 - p), at every head dim and dtype."""
+    round(p 2^16) and 1 / (1 - p), at every head dim and dtype."""
     x = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError, match="generator"):
         tattn.flash_attention(x, x, x, causal=True, dropout=0.1)
