@@ -11,7 +11,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 flash and paged attention kernels' registers and spills
                 (ptxas -v); every K1 tile the build lists
                 (flash_attention_fwd_tiles) must be built with 0 spill
-                bytes, and so must every K9 kernel (weight_only_linear),
+                bytes (the mma bodies' instances, with and without
+                dropout, are printed), and so must every K9 kernel
+                (weight_only_linear),
                 the gemv body's gemv_cluster_kernel (8 / 16 rows, int8 /
                 int4, and its read-only form) included, with no wgmma
                 serialised by ptxas; K9's routes, their dynamic shared
@@ -222,10 +224,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 held to the plain version at p = 0, 2e-2). The same in
                 fp32 at a small pack (1e-4). The pack's dropout mask read
                 back bit for bit (Tk <= D: identity V and dO rows), bf16
-                and fp32. bf16 dropout on the mma.sync bodies: gpt_tiny's
-                [8, 128, 4, 16] and [4, 512, 8, 32] against the plain
-                version (2e-2), timed beside SDPA with dropout_p (CUDA
-                graphs), and their masks read back at D = 16 and 32
+                and fp32. The bf16 mma.sync bodies (D = 16, 32), causal,
+                without and with dropout 0.1: gpt_tiny's [8, 128, 4, 16],
+                [4, 512, 8, 32], and Pythia-31m's attention at its full
+                context [8, 2048, 8, 32] with its D = 16 twin, against
+                the plain version (2e-2, lse too), timed beside the plain
+                version and SDPA with and without dropout_p (CUDA graphs)
+                with their bound, K2's dq and dk/dv roles apart and their
+                ptxas registers and spills; their masks read back at D =
+                16 and 32
 14. train-surface
                 gpt_1p3b trained 4 untimed + 4 timed steps on a 4 x 2048
                 batch by cross_entropy(label_smoothing=0.1), every 97th
@@ -242,9 +249,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 densified against dense-gradient Adam (1e-6, weights and
                 moments); SGD with a global-norm clip over sparse and
                 dense gradients against the all-dense model (1e-6).
-                gpt_tiny in bf16 with hidden and attention dropout 0.1 (D
-                = 16): 3 AdamW steps, finite losses, the dropout variants
-                once a layer a step. The host cost of the kernels'
+                gpt_tiny in bf16 (D = 16: the mma bodies) without dropout
+                and with hidden and attention dropout 0.1: 3 AdamW steps
+                each, finite losses, K1/K2 once a layer a step, the
+                dropout variants iff dropout. The host cost of the kernels'
                 counted wrapper with amp.debugging off (ns a call)
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -260,6 +268,11 @@ device's busy share of those profiled runs and their time by kernel.
 ``python3 -c "import chip_smoke; chip_smoke.drop_sass(so)"`` prints
 the SASS counts of K1/K2's dropout instances in a built flash library
 ``so`` (for a comparison of two builds; no phase runs it).
+``--compare ROOT,ROOT,...`` times K1/K2 of each checkout root in turn
+(each in its own process, with its own package and build: a ``git
+archive`` of the parent under ``build/`` against ``.``, in the order
+parent, change, change, parent) at the mma shapes and the Hopper dropout
+cases, and prints them side by side; it runs no phase.
 """
 from __future__ import annotations
 
@@ -743,12 +756,13 @@ def check_flash_dropout(dev, results):
 def flash_instances(report):
     """The flash library's body instances in ``report`` (mangled kernel
     name -> counts: ptxas's registers and spills, or ``drop_sass``'s
-    instruction counts), a record each: ``body`` (fwd, dq, dkv), ``kind``
-    (wgmma, mma, fma), ``n`` (the head dim; for the fp32 bodies the
-    head-dim elements a lane), ``tile`` (K1's Hopper (block_q,
-    block_kv), else None), ``drop`` and ``ranges`` (kDrop, kRange),
-    ``rep`` and ``label``: "fwd_wgmma D=128 dropout", "dkv_wgmma D=64
-    ranges", "dq_mma D=16 dropout", "dkv_fma NI=2 dropout"; a Hopper K1
+    instruction counts), a record each: ``body`` (fwd, dq, dkv; bwd for
+    K2's one-launch mma body), ``kind`` (wgmma, mma, fma), ``n`` (the
+    head dim; for the fp32 bodies the head-dim elements a lane), ``tile``
+    (K1's Hopper (block_q, block_kv), else None), ``drop`` and ``ranges``
+    (kDrop, kRange), ``rep`` and ``label``: "fwd_wgmma D=128 dropout",
+    "dkv_wgmma D=64 ranges", "bwd_mma D=16 dropout", "dkv_fma NI=2
+    dropout"; a Hopper K1
     instance with neither flag (a tile of the rule) adds its tile, as in
     "fwd_wgmma D=64 64x128" (the flagged ones exist at the default tile
     only)."""
@@ -756,7 +770,8 @@ def flash_instances(report):
 
     out = []
     for fn, rep in report.items():
-        m = re.search(r"(fwd|dq|dkv)_(wgmma|mma|fma)I((?:Li\d+E)+)Lb([01])E"
+        m = re.search(r"(fwd|dq|dkv|bwd)_(wgmma|mma|fma)I((?:Li\d+E)+)"
+                      r"Lb([01])E"
                       r"(?:Lb([01])E)?", fn)
         if not m:
             continue
@@ -773,22 +788,22 @@ def flash_instances(report):
     return out
 
 
-def drop_ptxas(which, D, dt, ranges=False):
+def drop_ptxas(which, D, dt, ranges=False, drop=True):
     """ptxas registers and spill bytes (``_build.ptxas_report``) of the
-    dropout instances one K1 (``which`` "fwd") or K2 ("bwd") call at head
-    dim D and dtype dt runs, by ``flash_instances`` label: the Hopper
-    bodies in bf16 at D = 64 and 128 (``ranges``: the frontier-array
-    ones), the mma.sync ones in bf16 at D = 16 and 32, the fp32 FMA
-    ones."""
+    dropout instances (``drop`` False: the mma bodies' no-dropout ones)
+    one K1 (``which`` "fwd") or K2 ("bwd") call at head dim D and dtype dt
+    runs, by ``flash_instances`` label: the Hopper bodies in bf16 at D =
+    64 and 128 (``ranges``: the frontier-array ones), the mma.sync ones in
+    bf16 at D = 16 and 32 (K2's in one launch), the fp32 FMA ones."""
     from paddle_tpu_torch.ops.kernels import _build
 
     kind = ("fma" if dt == torch.float32 else
             "wgmma" if D in (64, 128) else "mma")
     n = max(1, D // 32) if kind == "fma" else D
-    bodies = ("fwd",) if which == "fwd" else ("dq", "dkv")
+    bodies = ("fwd",) if which == "fwd" else ("dq", "dkv", "bwd")
     return {r["label"]: r["rep"] for r in flash_instances(
         _build.ptxas_report("flash_attention"))
-        if r["drop"] and r["body"] in bodies and r["kind"] == kind
+        if r["drop"] == drop and r["body"] in bodies and r["kind"] == kind
         and r["n"] == n and r["ranges"] == ranges}
 
 
@@ -1095,17 +1110,21 @@ def check_fused_adam(dev, results):
     torch.cuda.empty_cache()
 
 
-def _k2_split(K1, q, k, v, out, lse, do, causal, qs, ks):
-    """K2's three launches timed one by one (CUDA graphs, as ``ms``): the
-    pre-pass, the dq kernel and the dk/dv kernel, the last two on the
-    workspace of one pre-pass run. Not counted as launches."""
+def _k2_split(K1, q, k, v, out, lse, do, causal, qs, ks, drop=None,
+              mma=False):
+    """K2's parts timed one by one (CUDA graphs, as ``ms``): the pre-pass,
+    the dq kernel and the dk/dv kernel, the last two on the workspace of
+    one pre-pass run; on the mma bodies (``mma``: bf16 at D = 16, 32) the
+    dq and the dk/dv CTAs of their one launch, each role launched alone
+    (they have no pre-pass). ``drop``: ``_drop_args``' tuple. Not counted
+    as launches."""
     scale = 1.0 / q.shape[-1] ** 0.5
     args = (q, k, v, out, lse, do, causal, scale, qs, ks)
-    work = K1._k2(*args, parts=K1.PREPASS)[3]
+    work = K1._k2(*args, parts=K1.PREPASS, drop=drop)[3]
+    parts = (() if mma else (("prepass", K1.PREPASS),)) + (
+        ("dq", K1.DQ), ("dkv", K1.DKV))
     return {f"{name}_ms": cuda_ms(lambda part=part: K1._k2(
-        *args, parts=part, work=work))
-        for name, part in (("prepass", K1.PREPASS), ("dq", K1.DQ),
-                           ("dkv", K1.DKV))}
+        *args, parts=part, work=work, drop=drop)) for name, part in parts}
 
 
 def _attn_case(dev, dt, B, Sq, H, KV, starts, seq_lens, g, P=512, page=64,
@@ -3596,75 +3615,93 @@ def check_varlen_mask(dev):
         raise AssertionError(f"the pack's dropout mask differs: {summary}")
 
 
+# the mma bodies' timed shapes (bf16, causal; [B, S, H, D]): gpt_tiny's
+# attention, a D = 32 head, and Pythia-31m's attention at its full context
+# (EleutherAI's config: hidden 256 in 8 heads of 32, 2048 positions) with
+# its D = 16 twin, where the work, not the launch, sets the time
+MMA_SHAPES = (TINY_SHAPE, [4, 512, 8, 32], [8, 2048, 8, 32],
+              [8, 2048, 8, 16])
+
+
 def check_mma_dropout(dev, results):
-    """bf16 attention dropout on the mma.sync bodies: gpt_tiny's training
-    shape [8, 128, 4, 16] and a D = 32 head [4, 512, 8, 32], causal, p =
-    0.1, K1 and K2 against the plain version with the same seed (2e-2
-    per tile), timed beside the plain version and SDPA with dropout_p
-    (CUDA graphs, as the kernels: at these shapes a call is tens of
+    """bf16 attention on the mma.sync bodies (D = 16, 32) at MMA_SHAPES,
+    causal, without and with dropout (p = 0.1): K1 and K2 against the
+    plain version with the same seed (2e-2 per tile, K1's lse too), timed
+    beside the plain version and SDPA with and without dropout_p (CUDA
+    graphs, as the kernels: at the small shapes a call is tens of
     microseconds, below what events around eager launches can time; the
-    yardstick only), then the mask read back at D = 16 and 32
+    yardstick only), with the bound (``_flash_cost``), K2's dq and dk/dv
+    roles timed apart (``_k2_split``) and each row's instances' ptxas
+    registers and spills; then the mask read back at D = 16 and 32
     (``check_dropout_mask``)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.kernels import flash_attention as K1
 
     g = torch.Generator(device=dev).manual_seed(16)
-    p, seed, dt = DROPOUT_P, DROPOUT_SEED + 16, torch.bfloat16
-    for B, S, H, D in (TINY_SHAPE, [4, 512, 8, 32]):
+    dt = torch.bfloat16
+    for B, S, H, D in MMA_SHAPES:
         q, k, v, do, _, _ = _flash_inputs(dev, dt, B, S, S, H, H, D, False, g)
-        kw = dict(dropout=p, seed=seed)
-        out, lse = K1.flash_attention_fwd_lse(q, k, v, True, **kw)
-        grads = K1.flash_attention_bwd(q, k, v, out, lse, do, True, **kw)
-        eo = _errs(out, K1.flash_attention_dense(q, k, v, True, **kw)[0])
-        eg = [_errs(a, b) for a, b in zip(grads, K1.flash_attention_bwd_dense(
-            q, k, v, do, True, **kw))]
         (fb, ff), (bb, bf) = _flash_cost(q, k, True, None, None)
         qt, kt, vt, skw = _sdpa_args(q, k, v, True, None, None)
         qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
         dot = do.transpose(1, 2).contiguous()
-        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, dropout_p=p, **skw))
-        lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qg, kg, vg, dropout_p=p, **skw),
-            (qg, kg, vg), dot))
-        base = dict(case=f"mma_d{D}", shape=[B, S, H, D], skv=S, kv_heads=H,
-                    causal=True, dropout=p, dtype="bfloat16", tol=TOL[dt],
-                    body="mma")
-        fwd = dict(base, name="flash_attention_fwd_dropout_mma", bytes=fb,
-                   flops=ff, max_abs_err=eo[0], rel_err=eo[3],
-                   ptxas=drop_ptxas("fwd", D, dt),
-                   lse_abs_err=(lse - K1.flash_attention_dense(
-                       q, k, v, True, **kw)[1]).abs().max().item(),
-                   ms=cuda_ms(lambda: K1.flash_attention_fwd_lse(
-                       q, k, v, True, **kw)),
-                   plain_ms=cuda_ms(lambda: K1.flash_attention_dense(
-                       q, k, v, True, **kw), iters=3, warm=1),
-                   library_ms=lib_fwd,
-                   library=f"F.scaled_dot_product_attention forward, "
-                           f"dropout_p={p} (CUDA graph)")
-        bwd = dict(base, name="flash_attention_bwd_dropout_mma", bytes=bb,
-                   flops=bf, max_abs_err=max(e[0] for e in eg),
-                   rel_err=max(e[3] for e in eg),
-                   ptxas=drop_ptxas("bwd", D, dt),
-                   ms=cuda_ms(lambda: K1.flash_attention_bwd(
-                       q, k, v, out, lse, do, True, **kw)),
-                   plain_ms=events_ms(lambda: K1.flash_attention_bwd_dense(
-                       q, k, v, do, True, **kw), iters=3, warm=1),
-                   library_ms=lib_fwd_bwd - lib_fwd,
-                   library_fwd_bwd_ms=lib_fwd_bwd,
-                   library=f"backward of F.scaled_dot_product_attention, "
-                           f"dropout_p={p}: a CUDA graph of the forward and "
-                           f"autograd.grad less one of the forward")
-        for rec, (nb, nf) in ((fwd, (fb, ff)), (bwd, (bb, bf))):
-            rec["bound_ms"], rec["bound_by"] = bound(nb, nf, dt)
-            log("[varlen] " + json.dumps(rec))
-            if not (rec["rel_err"] <= rec["tol"]
-                    and rec.get("lse_abs_err", 0.0) <= rec["tol"]):
-                raise AssertionError(f"{rec['name']} {rec['shape']}: "
-                                     f"{rec['rel_err']} > {rec['tol']}")
-        results += [fwd, bwd]
-        del qg, kg, vg
+        for p in (0.0, DROPOUT_P):
+            kw = dict(dropout=p, seed=DROPOUT_SEED + 16 if p else None)
+            out, lse = K1.flash_attention_fwd_lse(q, k, v, True, **kw)
+            grads = K1.flash_attention_bwd(q, k, v, out, lse, do, True, **kw)
+            r_out, r_lse = K1.flash_attention_dense(q, k, v, True, **kw)
+            eo = _errs(out, r_out)
+            eg = [_errs(a, b) for a, b in zip(
+                grads, K1.flash_attention_bwd_dense(q, k, v, do, True, **kw))]
+            lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, dropout_p=p, **skw))
+            lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(qg, kg, vg, dropout_p=p,
+                                               **skw), (qg, kg, vg), dot))
+            name = "_dropout_mma" if p else "_mma"
+            base = dict(case=f"mma_d{D}", shape=[B, S, H, D], skv=S,
+                        kv_heads=H, causal=True, dropout=p, dtype="bfloat16",
+                        tol=TOL[dt], body="mma")
+            fwd = dict(base, name="flash_attention_fwd" + name, bytes=fb,
+                       flops=ff, max_abs_err=eo[0], rel_err=eo[3],
+                       ptxas=drop_ptxas("fwd", D, dt, drop=bool(p)),
+                       lse_abs_err=(lse - r_lse).abs().max().item(),
+                       ms=cuda_ms(lambda: K1.flash_attention_fwd_lse(
+                           q, k, v, True, **kw)),
+                       plain_ms=cuda_ms(lambda: K1.flash_attention_dense(
+                           q, k, v, True, **kw), iters=3, warm=1),
+                       library_ms=lib_fwd,
+                       library=f"F.scaled_dot_product_attention forward, "
+                               f"dropout_p={p} (CUDA graph)")
+            bwd = dict(base, name="flash_attention_bwd" + name, bytes=bb,
+                       flops=bf, max_abs_err=max(e[0] for e in eg),
+                       rel_err=max(e[3] for e in eg),
+                       ptxas=drop_ptxas("bwd", D, dt, drop=bool(p)),
+                       ms=cuda_ms(lambda: K1.flash_attention_bwd(
+                           q, k, v, out, lse, do, True, **kw)),
+                       plain_ms=events_ms(
+                           lambda: K1.flash_attention_bwd_dense(
+                               q, k, v, do, True, **kw), iters=3, warm=1),
+                       library_ms=lib_fwd_bwd - lib_fwd,
+                       library_fwd_bwd_ms=lib_fwd_bwd,
+                       library=f"backward of F.scaled_dot_product_attention, "
+                               f"dropout_p={p}: a CUDA graph of the forward "
+                               f"and autograd.grad less one of the forward",
+                       **_k2_split(K1, q, k, v, out, lse, do, True, None,
+                                   None, K1._drop_args(p, kw["seed"], "K2"),
+                                   mma=True))
+            for rec, (nb, nf) in ((fwd, (fb, ff)), (bwd, (bb, bf))):
+                rec["bound_ms"], rec["bound_by"] = bound(nb, nf, dt)
+                log("[varlen] " + json.dumps(rec))
+                if not (rec["rel_err"] <= rec["tol"]
+                        and rec.get("lse_abs_err", 0.0) <= rec["tol"]):
+                    raise AssertionError(f"{rec['name']} {rec['shape']}: "
+                                         f"{rec['rel_err']} > {rec['tol']}")
+            results += [fwd, bwd]
+            del out, lse, grads, r_out, r_lse
+        del qg, kg, vg, q, k, v, do, qt, kt, vt, dot
+        torch.cuda.empty_cache()
     check_dropout_mask(dev, ((16, torch.bfloat16, 2),
                              (32, torch.bfloat16, 4)), tag="varlen")
 
@@ -3893,17 +3930,16 @@ def surface_sparse(dev):
         raise AssertionError(f"train-surface sparse: {out}")
 
 
-def surface_tiny_dropout(counters, steps=3):
-    """14.4: gpt_tiny in bf16 with hidden and attention dropout 0.1 (head
-    dim 16: the mma.sync bodies' dropout instances), 3 AdamW steps on an
-    8 x 128 batch: finite losses, the dropout variants launched once a
-    layer a step each way."""
+def surface_tiny(counters, p, steps=3):
+    """14.4: gpt_tiny in bf16 (head dim 16: the mma.sync bodies) with
+    hidden and attention dropout ``p`` (0.1: their dropout instances; 0:
+    the others), 3 AdamW steps on an 8 x 128 batch: finite losses, K1 and
+    K2 launched once a layer a step, each a dropout variant iff p > 0."""
     from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
                                              GPTPretrainingCriterion,
                                              gpt_tiny)
 
-    cfg = gpt_tiny(dtype="bfloat16", hidden_dropout=0.1,
-                   attention_dropout=0.1)
+    cfg = gpt_tiny(dtype="bfloat16", hidden_dropout=p, attention_dropout=p)
     model = GPTForCausalLM(cfg, device="cuda", seed=3)
     opt, step = _trainer(model, crit=GPTPretrainingCriterion(cfg))
     batch = _lm_batch(25, TINY_SHAPE[0], TINY_SHAPE[1], cfg.vocab_size,
@@ -3912,14 +3948,17 @@ def surface_tiny_dropout(counters, steps=3):
         c.launches = 0
     losses = [float(step(batch)) for _ in range(steps)]
     launches = {c.__name__: c.launches for c in counters}
-    log(f"[train-surface] gpt_tiny bf16, dropout 0.1 (D = 16): losses "
+    log(f"[train-surface] gpt_tiny bf16, dropout {p} (D = 16): losses "
         f"{losses}, launches {launches}")
     n = steps * cfg.num_layers
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"gpt_tiny with dropout: losses {losses}")
-    _expect_launches(launches, {"flash_attention_fwd_dropout": n,
-                                "flash_attention_bwd_dropout": n},
-                     "gpt_tiny with dropout")
+        raise AssertionError(f"gpt_tiny with dropout {p}: losses {losses}")
+    m = n if p else 0
+    _expect_launches(launches, {"flash_attention_fwd": n,
+                                "flash_attention_bwd": n,
+                                "flash_attention_fwd_dropout": m,
+                                "flash_attention_bwd_dropout": m},
+                     f"gpt_tiny with dropout {p}")
     return launches
 
 
@@ -3962,8 +4001,10 @@ def phase_train_surface(dev, paths):
     surface_sparse(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    out["train_surface_tiny"] = surface_tiny_dropout(
-        paths["train_surface_tiny"])
+    out["train_surface_tiny_plain"] = surface_tiny(
+        paths["train_surface_tiny_plain"], 0.0)
+    out["train_surface_tiny"] = surface_tiny(paths["train_surface_tiny"],
+                                             DROPOUT_P)
     log("[train-surface] cross_entropy options, operator stats, the tensor "
         "checker, sparse embedding updates and D = 16 dropout training: OK")
     return out
@@ -4245,21 +4286,24 @@ def check_tile_spills(_build):
              if r["tile"] and not (r["drop"] or r["ranges"])}
     drop = {r["label"]: r["rep"] for r in insts if r["drop"] or r["ranges"]}
     # the dropout instances (the Hopper bodies: K1's default tiles, K2's
-    # dq and dk/dv; the bf16 mma.sync bodies at D = 16 and 32; the fp32
-    # bodies at NI head-dim elements a lane) and the
-    # Hopper bodies' frontier-array instances: their spills are recorded,
-    # not gated
+    # dq and dk/dv; the bf16 mma.sync bodies at D = 16 and 32, K2's in one
+    # launch; the fp32 bodies at NI head-dim elements a lane), the
+    # Hopper bodies' frontier-array instances and the mma bodies'
+    # no-dropout ones: their spills are recorded, not gated
     log("[build] dropout and frontier-array instances (K1 default tiles, "
         "K2 dq and dk/dv, the mma bodies at D = 16 / 32, the fp32 bodies "
         "at NI = 1, 2, 4 head-dim elements a lane): "
         + json.dumps(drop))
-    want = [f"{b}_mma D={D} dropout" for b in ("fwd", "dq", "dkv")
-            for D in (16, 32)] + [
+    mma = {r["label"]: r["rep"] for r in insts
+           if r["kind"] == "mma" and not r["drop"]}
+    log("[build] the mma bodies' no-dropout instances: " + json.dumps(mma))
+    want = [f"{b}_mma D={D}" + " dropout" * kd for b in ("fwd", "bwd")
+            for D in (16, 32) for kd in (0, 1)] + [
         f"{b}_wgmma D={D}" + " dropout" * kd + " ranges"
         for b in ("fwd", "dq", "dkv") for D in (64, 128) for kd in (0, 1)]
-    if sorted(set(want) - set(drop)):
+    if sorted(set(want) - set(drop) - set(mma)):
         raise AssertionError(f"instances not built: "
-                             f"{sorted(set(want) - set(drop))}")
+                             f"{sorted(set(want) - set(drop) - set(mma))}")
     bad = []
     for D in (64, 128):
         tiles = fwd_tiles(D, torch.bfloat16)
@@ -4275,6 +4319,81 @@ def check_tile_spills(_build):
         raise AssertionError("K1 tiles built with spills (or not found in "
                              "the ptxas log): " + "; ".join(bad))
     log("[build] every listed K1 tile built with 0 spill bytes: OK")
+
+
+def mma_times(root):
+    """``--mma-times``: K1 and K2 of the checkout at ``root`` (its own
+    paddle_tpu_torch and build) timed from CUDA graphs, causal bf16,
+    without and with dropout 0.1: the mma bodies at MMA_SHAPES (K2's dq
+    and dk/dv parts too, and the pre-pass where the build has one) and the
+    Hopper bodies at DROPOUT_CASES' bf16 shapes; SDPA beside the mma
+    shapes. One JSON line."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    if Path(K1.__file__).resolve().parents[3] != Path(root).resolve():
+        raise AssertionError(f"imported {K1.__file__}, not {root}'s")
+    _build.build_all()
+    # the one-launch mma backward (this checkout's) has no pre-pass
+    fused = "dkv_role" in (Path(root) / "paddle_tpu_torch" / "csrc" /
+                           "flash_attention.cu").read_text()
+    dev, dt = torch.device("cuda", 0), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(16)
+    shapes = [(B, S, H, H, D) for B, S, H, D in MMA_SHAPES] + [
+        (B, S, H, KV, D) for _, B, S, H, KV, D, t in DROPOUT_CASES
+        if t == dt]
+    rows = []
+    for B, S, H, KV, D in shapes:
+        q, k, v, do, _, _ = _flash_inputs(dev, dt, B, S, S, H, KV, D, False, g)
+        qt, kt, vt, skw = _sdpa_args(q, k, v, True, None, None)
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        dot = do.transpose(1, 2).contiguous()
+        for p in (0.0, DROPOUT_P):
+            kw = dict(dropout=p, seed=DROPOUT_SEED + 16 if p else None)
+            out, lse = K1.flash_attention_fwd_lse(q, k, v, True, **kw)
+            r = dict(shape=[B, S, H, D], kv_heads=KV, dropout=p,
+                     fwd_ms=cuda_ms(lambda: K1.flash_attention_fwd_lse(
+                         q, k, v, True, **kw)),
+                     bwd_ms=cuda_ms(lambda: K1.flash_attention_bwd(
+                         q, k, v, out, lse, do, True, **kw)),
+                     **_k2_split(K1, q, k, v, out, lse, do, True, None, None,
+                                 K1._drop_args(p, kw["seed"], "K2"),
+                                 mma=fused and D <= 32))
+            if D <= 32:
+                r["sdpa_fwd_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, dropout_p=p, **skw))
+                r["sdpa_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(qg, kg, vg, dropout_p=p,
+                                                   **skw),
+                    (qg, kg, vg), dot)) - r["sdpa_fwd_ms"]
+            rows.append(r)
+            del out, lse
+        del q, k, v, do, qt, kt, vt, qg, kg, vg, dot
+        torch.cuda.empty_cache()
+    print(json.dumps({"root": root, "rows": rows}), flush=True)
+
+
+def compare_roots(roots):
+    """``--compare``: ``mma_times`` of each checkout root in turn, each in
+    a process of its own, then the K1 / K2 ms side by side by shape."""
+    runs = []
+    for root in roots:
+        res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--mma-times", root], capture_output=True,
+                             text=True)
+        if res.returncode:
+            raise AssertionError(f"--mma-times {root} failed: "
+                                 f"{res.stderr[-4000:]}")
+        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        log(f"[compare] {root}: " + json.dumps(runs[-1]["rows"]))
+    for i, r in enumerate(runs[0]["rows"]):
+        cols = {key: [run["rows"][i].get(key) for run in runs]
+                for key in r if key.endswith("_ms")}
+        log(f"[compare] {r['shape']} kv {r['kv_heads']} p {r['dropout']} "
+            f"(roots {', '.join(roots)}): " + json.dumps(cols))
 
 
 def main():
@@ -4296,18 +4415,30 @@ def main():
                     help="the train-autotune phase's second process: one K1 "
                     "call with FLAGS_use_autotune on, over the cache file "
                     "$PADDLE_TPU_TORCH_AUTOTUNE_CACHE names")
+    ap.add_argument("--compare",
+                    help="developer: comma-separated checkout roots (e.g. "
+                    "build/parent,.,.,build/parent); K1/K2 of each timed in "
+                    "turn at the mma shapes and the Hopper dropout cases, "
+                    "each root in its own process, printed side by side")
+    ap.add_argument("--mma-times", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = args.phases.split(",")
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; it runs the port on one card")
-    repo = Path(__file__).resolve().parent
+    repo = Path(args.mma_times or Path(__file__).resolve().parent)
+    if args.compare:
+        compare_roots(args.compare.split(","))
+        return
     if not (repo / "paddle_tpu_torch").is_dir():
         sys.exit("chip_smoke.py: run it from the root of a checkout "
                  "(paddle_tpu_torch/ not found beside it)")
     sys.path.insert(0, str(repo))
     if args.k1_probe:
         k1_probe()
+        return
+    if args.mma_times:
+        mma_times(args.mma_times)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -4404,6 +4535,12 @@ def main():
                                     flash_attention_fwd_dropout,
                                     flash_attention_bwd_dropout,
                                     fused_adam],
+             # gpt_tiny in bf16 without dropout: the mma bodies' others
+             "train_surface_tiny_plain": [flash_attention_fwd,
+                                          flash_attention_bwd,
+                                          flash_attention_fwd_dropout,
+                                          flash_attention_bwd_dropout,
+                                          fused_adam],
              "weight_only_generate_static": [rms_norm, decode_attention,
                                              weight_only_linear,
                                              weight_only_linear_wgmma],
@@ -4486,6 +4623,8 @@ def main():
                   "flash_attention_bwd_varlen": [1, 4608, 16, 128],
                   "flash_attention_fwd_dropout_mma": TINY_SHAPE,
                   "flash_attention_bwd_dropout_mma": TINY_SHAPE,
+                  "flash_attention_fwd_mma": TINY_SHAPE,
+                  "flash_attention_bwd_mma": TINY_SHAPE,
                   "fused_adam": [_FUSED_ADAM_N],
                   "weight_only_linear": [8, 4096, 11008],
                   "weight_only_linear_wgmma": [2048, 4096, 11008]}
@@ -4530,6 +4669,13 @@ def main():
         "flash_attention_bwd_dropout_mma": (
             "paddle_tpu_torch/csrc/flash_attention.cu", f"{flash}:307",
             "train_surface_tiny", "flash_attention_bwd_dropout"),
+        # their no-dropout instances, on gpt_tiny's run without dropout
+        "flash_attention_fwd_mma": (
+            "paddle_tpu_torch/csrc/flash_attention.cu", f"{flash}:432",
+            "train_surface_tiny_plain", "flash_attention_fwd"),
+        "flash_attention_bwd_mma": (
+            "paddle_tpu_torch/csrc/flash_attention.cu", f"{flash}:307",
+            "train_surface_tiny_plain", "flash_attention_bwd"),
         "fused_adam": ("paddle_tpu_torch/csrc/fused_adam.cu",
                        "paddle_tpu/optimizer/__init__.py:211", "train"),
         "weight_only_linear": ("paddle_tpu_torch/csrc/weight_only_linear.cu",

@@ -90,7 +90,8 @@
 //       The q blocks of one head launch together (the K and V they
 //       stream stay in L2), under causal the heaviest (last rows) first.
 //     pre-pass: delta = rowsum(dO o O) and lse * log2(e) into f32 rows
-//       padded to 64, one read of O, dO and lse (any dtype, any D).
+//       padded to 64, one read of O, dO and lse (the Hopper and fp32
+//       bodies' backward).
 //     dq: one CTA per 128 q rows; Q and dO resident, 64 keys of K and V a
 //       stage; S = Q K^T, dP = dO V^T, dS = P (dP - delta), dq += dS K.
 //     dk/dv: one CTA per (keys, KV head, batch row), K and V resident;
@@ -103,11 +104,14 @@
 //       work for the 4 of the function, the price of fitting the 168
 //       registers a thread of a 288-thread block may hold); at D = 64, 128
 //       keys, 64 a warpgroup.
-//   bf16, D = 16 and 32: the first tensor-core bodies on mma.sync m16n8k16,
-//     4 warps of 16 rows (or keys), K/V (or Q/dO) staged synchronously;
-//     wgmma's 64-column swizzled panels do not fit these widths. A call
-//     with no q row or no key takes them at D = 64 and 128 too (a tensor
-//     map needs every dimension > 0).
+//   bf16, D = 16 and 32: mma.sync m16n8k16 bodies (wgmma's 64-column
+//     swizzled panels do not fit these widths), 4 warps of 16 rows (or
+//     keys), rows streamed through a cp.async ring, B fragments by
+//     ldmatrix, masks on cut tiles only, exp2; K2 is one launch of dq and
+//     dk/dv CTAs that compute delta themselves (no pre-pass). The design
+//     is at the bodies below. A bf16 call with no q row or no key at D =
+//     64 and 128 (a tensor map needs every dimension > 0) has no pair:
+//     no_pairs writes its zeros and lse.
 //   fp32: one warp per 4 rows (forward, dq) or 4 keys (dk/dv; 8, one
 //     Philox group, with dropout), each lane owning head-dim elements
 //     d = lane + 32 n; dot products by warp shuffles. Right first; the
@@ -125,6 +129,8 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 typedef __nv_bfloat16 bf16;
 
@@ -137,7 +143,7 @@ struct Args {
   const float* delta;    // backward
   const int* qseg;       // null: no segments
   const int* kseg;
-  void* out;             // forward
+  void* out;             // forward: written; backward: read (delta)
   float* lse;            // forward
   void* dq;
   void* dk;
@@ -658,12 +664,46 @@ __global__ void __launch_bounds__(kThreads) dkv_fma(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core bodies: mma.sync m16n8k16, bf16 in, f32 accumulate.
-// Fragment layout (lane = 4 * grp + tig): A rows grp and grp + 8, columns
-// 2 tig, 2 tig + 1 (+ 8); B column grp, rows 2 tig, 2 tig + 1 (+ 8); C rows
-// grp and grp + 8, columns 2 tig, 2 tig + 1.
+// bf16 tensor-core bodies at D = 16 and 32: mma.sync m16n8k16, bf16 in, f32
+// accumulate. Fragment layout (lane = 4 * grp + tig): A rows grp and grp + 8,
+// columns 2 tig, 2 tig + 1 (+ 8); B column grp, rows 2 tig, 2 tig + 1 (+ 8);
+// C rows grp and grp + 8, columns 2 tig, 2 tig + 1. An accumulator over N
+// keys (or q rows) is a flat float[N / 2] whose element 4 j + 2 hi + e is
+// row hi ? grp + 8 : grp, column 8 j + 2 tig + e: a wgmma accumulator's
+// layout within its warp, so drop_rows, drop_keys, hopper::to_a and
+// hopper::store_rows serve both.
+//
+// wgmma's 64-column panels do not fit these widths, and at them the tensor
+// cores are not the limit: a step's range tests, exp2 and Philox hashes
+// outnumber its mma instructions many times over, so what costs time is
+// the serial chain of steps and the instructions in each. Hence:
+//   - K and V (forward, dq) or Q, dO and O rows (dk/dv) stream through a
+//     ring of shared-memory stages filled by 16-byte cp.async ahead of the
+//     step that reads them (rows past the end zero-filled), with one block
+//     barrier a step. Rows are D + 8 bf16 apart, so the 8 rows an ldmatrix
+//     reads fall in distinct banks.
+//   - Every B fragment comes from ldmatrix, transposed where the
+//     contraction runs along the tile's rows (V in the forward, K in dq, Q
+//     and dO in dk/dv); Q, dO (forward, dq) and K, V (dk/dv) are resident A
+//     fragments.
+//   - The mask runs only on a step that a row's span (a key's), the
+//     row or key count, or segment ids cut: `covers` of the span every row
+//     of the warp sees; masked scores are -inf. A step no row of the warp
+//     sees is skipped.
+//   - Scores go to base 2 in one FFMA (scale log2(e) folded in); lse stays
+//     natural at the interface.
+//   - Under causal the heaviest q blocks (the last rows) launch first, in
+//     the forward and in dq.
+//   - The tiles are measured (PERF.md): 16 q rows (keys) a warp
+//     and 64-key stages in the forward beat 32 rows a warp (two m16 groups
+//     sharing every K and V fragment) with 128-key stages, whose 202 / 254
+//     registers (without / with dropout) left 2 CTAs an SM; dq takes 64
+//     keys a stage and dk/dv 64 q rows (32 of either, or 32 dq rows a
+//     warp, ran slower).
+// Each body reads the frontier arrays or the rule at run time (row_span,
+// key_span), so one instance serves both.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -672,23 +712,23 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// B fragment of a [k, n] operand stored row-major by k in shared memory
-// (row stride LD): k = 2 tig, 2 tig + 1 and + 8, n = grp
-template <int LD>
-__device__ __forceinline__ void ld_b_kn(const bf16* base, uint32_t& b0,
-                                        uint32_t& b1) {
-  const unsigned short* p = reinterpret_cast<const unsigned short*>(base);
-  b0 = uint32_t(p[0]) | (uint32_t(p[LD]) << 16);
-  b1 = uint32_t(p[8 * LD]) | (uint32_t(p[9 * LD]) << 16);
+// 2^x in one MUFU op (results below 2^-126 flush to 0, as no P that
+// small changes a bf16 product or an f32 row sum)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the f32 dot product of two bf16 pairs
+__device__ __forceinline__ float dot2(uint32_t x, uint32_t y) {
+  const float2 u = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+  const float2 w = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&y));
+  return fmaf(u.y, w.y, u.x * w.x);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -701,53 +741,152 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// stage rows [r0, r0 + ROWS) of a [B, S, heads, D] tensor (head hh) into
-// shared memory with row stride LD; rows past S are zero
-template <int D, int ROWS, int LD>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src, int b,
-                                      int r0, int S, int heads, int hh) {
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int c = threadIdx.x; c < ROWS * VPR; c += kThreads) {
-    const int r = c / VPR;
-    const int col = (c % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S)
-      val = *reinterpret_cast<const uint4*>(
-          src + ((size_t(b) * S + r0 + r) * heads + hh) * D + col);
-    *reinterpret_cast<uint4*>(dst + r * LD + col) = val;
+// ldmatrix of four 8 x 8 bf16 matrices: lane l gives the address of row
+// l % 8 of matrix l / 8 and receives in r[i] matrix i's row l / 4, columns
+// 2 (l % 4) and 2 (l % 4) + 1 (kTrans: its column l / 4, rows 2 (l % 4)
+// and 2 (l % 4) + 1)
+template <bool kTrans>
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t s = hopper::smem_u32(p);
+  if constexpr (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(s));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(s));
+}
+
+// The B fragments of two n8 tiles over one k16 step of a shared tile with
+// row stride LD, at `t` (the tiles' first n and k): r[0], r[1] are the first
+// n-tile's b0, b1, r[2], r[3] the second's. ldb_nk reads a tile whose rows
+// are n and whose columns are k (K for S = Q K^T, Q and dO for S^T = K Q^T),
+// ldb_kn one whose rows are k (V for O = P V, K for dq, Q and dO for dk/dv),
+// transposed.
+template <int LD>
+__device__ __forceinline__ void ldb_nk(uint32_t (&r)[4], const bf16* t,
+                                       int lane) {
+  ldsm4<false>(r, t + ((lane & 7) + ((lane >> 4) << 3)) * LD + (lane & 8));
+}
+
+template <int LD>
+__device__ __forceinline__ void ldb_kn(uint32_t (&r)[4], const bf16* t,
+                                       int lane) {
+  ldsm4<true>(r, t + ((lane & 7) + (lane & 8)) * LD + ((lane >> 4) << 3));
+}
+
+// cp.async of 16 (4) bytes from global to shared memory; !ok zero-fills
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cp.async rows [r0, r0 + ROWS) of a [B, S, heads, D] bf16 tensor (head
+// hh) into a shared tile of row stride D + 8; rows past S are zero
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int b,
+                                           int r0, int S, int heads,
+                                           int hh) {
+  constexpr int VPR = D / 8;  // 16-byte chunks a row
+  static_assert(ROWS * VPR % kThreads == 0, "stage_rows: whole passes");
+#pragma unroll
+  for (int i = 0; i < ROWS * VPR / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int r = c / VPR, col = c % VPR * 8;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + r * (D + 8) + col,
+               ok ? src + ((size_t(b) * S + r0 + r) * heads + hh) * D + col
+                  : src,
+               ok);
   }
 }
 
-constexpr int kRows = 64;     // q rows per forward / dq CTA (16 per warp)
-constexpr int kFwdKeys = 64;  // keys per forward stage
-constexpr int kDqKeys = 32;   // keys per dq stage
-constexpr int kKvRows = 64;   // keys per dk/dv CTA (16 per warp)
-constexpr int kKvQ = 32;      // q rows per dk/dv stage
+// the span every row (key) of the warp sees, from each lane's `cov`, and
+// the union of the warp's spans, from each lane's `any`
+__device__ __forceinline__ void warp_spans(int2& cov, int2& any) {
+  cov = make_int2(warp_max(cov.x), warp_min(cov.y));
+  any = warp_join(any);
+}
+
+__device__ __forceinline__ int2 meet(int2 s, int2 t) {
+  return make_int2(max(s.x, t.x), min(s.y, t.y));
+}
+
+constexpr int cmax(int x, int y) { return x > y ? x : y; }
+
+// K1: one CTA per (kFwdRows q rows, head, batch row), 16 rows a warp;
+// kFwdBN keys of K and V a stage in a ring of kFwdRing, one online-softmax
+// step a stage.
+constexpr int kFwdRows = 16 * kWarps;
+constexpr int kFwdBN = 64;
+constexpr int kFwdRing = 3;
+
+template <int D>
+constexpr int fwd_mma_smem() {
+  return kFwdRing * 2 * kFwdBN * (D + 8) * 2;
+}
 
 template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads) fwd_mma(Args a) {
-  constexpr int KT = D / 16, NT = D / 8, LD = D + 8;
-  __shared__ __align__(16) bf16 sk[kFwdKeys * LD];
-  __shared__ __align__(16) bf16 sv[kFwdKeys * LD];
-  __shared__ int sseg[kFwdKeys];
+  constexpr int BN = kFwdBN, R = kFwdRing, KT = D / 16, LD = D + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // stage: K, then V rows
   const bf16* __restrict__ q = static_cast<const bf16*>(a.q);
   const bf16* __restrict__ k = static_cast<const bf16*>(a.k);
   const bf16* __restrict__ v = static_cast<const bf16*>(a.v);
-  bf16* __restrict__ out = static_cast<bf16*>(a.out);
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int qb = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qb * kFwdRows;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int grp = lane >> 2, tig = lane & 3;
   const int kvh = h / (a.H / a.KV);
-  const int rA = q0 + warp * 16 + grp, rB = rA + 8;
+  const bool seg = a.qseg != nullptr;
+  const int rA = q0 + 16 * warp + grp, rB = rA + 8;
   const int2 spA = row_span(a, b, rA), spB = row_span(a, b, rB);
-  const int2 wsp = warp_join(join(spA, spB));  // the warp's keys
-  const int2 bsp = rows_span(a, b, q0, kRows);  // the block's
-  const int sA = (a.qseg && rA < a.Sq) ? a.qseg[size_t(b) * a.Sq + rA] : 0;
-  const int sB = (a.qseg && rB < a.Sq) ? a.qseg[size_t(b) * a.Sq + rB] : 0;
+  const int sA = (seg && rA < a.Sq) ? a.qseg[size_t(b) * a.Sq + rA] : 0;
+  const int sB = (seg && rB < a.Sq) ? a.qseg[size_t(b) * a.Sq + rB] : 0;
+  int2 cov = meet(spA, spB), any = join(spA, spB);
+  warp_spans(cov, any);
+  const int2 bsp = rows_span(a, b, q0, kFwdRows);  // the block's keys
+  const int kbeg = first_step(bsp, BN);
+  const int steps = has(bsp) ? (bsp.y - kbeg) / BN + 1 : 0;
+  auto issue = [&](int t) {
+    bf16* ks = ring + (t % R) * 2 * BN * LD;
+    stage_rows<D, BN>(ks, k, b, kbeg + t * BN, a.Skv, a.KV, kvh);
+    stage_rows<D, BN>(ks + BN * LD, v, b, kbeg + t * BN, a.Skv, a.KV, kvh);
+  };
+#pragma unroll
+  for (int t = 0; t < R - 1; ++t) {
+    if (t < steps) issue(t);
+    cp_async_commit();
+  }
+
   const size_t oA = rA < a.Sq ? q_off(a, b, rA, h) : 0;
   const size_t oB = rB < a.Sq ? q_off(a, b, rB, h) : 0;
-
   uint32_t qa[KT][4];
 #pragma unroll
   for (int s = 0; s < KT; ++s) {
@@ -757,415 +896,497 @@ __global__ void __launch_bounds__(kThreads) fwd_mma(Args a) {
     qa[s][2] = rA < a.Sq ? ld32(q + oA + c + 8) : 0u;
     qa[s][3] = rB < a.Sq ? ld32(q + oB + c + 8) : 0u;
   }
-  float acc[NT][4];
-#pragma unroll
-  for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  float o[D / 2];
+  hopper::zero(o);
   float mA = kNeg, mB = kNeg, lA = 0.f, lB = 0.f;
+  const float sl2 = a.scale * kLog2e;  // scores in base 2
 
-  for (int k0 = first_step(bsp, kFwdKeys); k0 <= bsp.y; k0 += kFwdKeys) {
-    __syncthreads();  // the previous stage's readers are done
-    stage<D, kFwdKeys, LD>(sk, k, b, k0, a.Skv, a.KV, kvh);
-    stage<D, kFwdKeys, LD>(sv, v, b, k0, a.Skv, a.KV, kvh);
-    if (threadIdx.x < kFwdKeys)
-      sseg[threadIdx.x] = (a.kseg && k0 + threadIdx.x < a.Skv)
-                              ? a.kseg[size_t(b) * a.Skv + k0 + threadIdx.x]
-                              : 0;
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<R - 2>();
+    // stage t is in, and every warp is past step t - 1, whose slot the
+    // next copy refills
     __syncthreads();
-    // warp-uniform: no row of it sees this block
-    if (wsp.y < k0 || wsp.x > k0 + kFwdKeys - 1) continue;
-
-    float s[kFwdKeys / 8][4];
+    if (t + R - 1 < steps) issue(t + R - 1);
+    cp_async_commit();
+    const int k0 = kbeg + t * BN;
+    if (any.y < k0 || any.x > k0 + BN - 1) continue;  // warp-uniform
+    const bf16* ks = ring + (t % R) * 2 * BN * LD;
+    const bf16* vs = ks + BN * LD;
+    float sc[BN / 2];
+    hopper::zero(sc);
 #pragma unroll
-    for (int t = 0; t < kFwdKeys / 8; ++t) {
-      s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-      const bf16* krow = sk + (t * 8 + grp) * LD + tig * 2;
+    for (int j = 0; j < BN / 16; ++j)
 #pragma unroll
-      for (int ks = 0; ks < KT; ++ks)
-        mma_bf16(s[t], qa[ks], ld32(krow + ks * 16), ld32(krow + ks * 16 + 8));
-    }
-    float bmA = kNeg, bmB = kNeg;
-    unsigned keepA = 0u, keepB = 0u;  // bit 2t+e: element kept
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t f[4];
+        ldb_nk<LD>(f, ks + 16 * j * LD + 16 * kk, lane);
+        mma_bf16(sc + 8 * j, qa[kk], f[0], f[1]);
+        mma_bf16(sc + 8 * j + 4, qa[kk], f[2], f[3]);
+      }
+    if (seg || !covers(cov, k0, BN)) {
 #pragma unroll
-    for (int t = 0; t < kFwdKeys / 8; ++t) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kl = t * 8 + tig * 2 + e;
-        const int key = k0 + kl;
-        const bool kA = key >= spA.x && key <= spA.y &&
-                        (!a.qseg || sseg[kl] == sA);
-        const bool kB = key >= spB.x && key <= spB.y &&
-                        (!a.qseg || sseg[kl] == sB);
-        keepA |= unsigned(kA) << (2 * t + e);
-        keepB |= unsigned(kB) << (2 * t + e);
-        s[t][e] = kA ? s[t][e] * a.scale : kNeg;
-        s[t][2 + e] = kB ? s[t][2 + e] * a.scale : kNeg;
-        bmA = fmaxf(bmA, s[t][e]);
-        bmB = fmaxf(bmB, s[t][2 + e]);
+      for (int i = 0; i < BN / 2; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * tig + (i & 1);
+        const int2 s = (i & 2) ? spB : spA;
+        bool keep = key >= s.x && key <= s.y;
+        if (seg && keep)
+          keep = a.kseg[size_t(b) * a.Skv + key] == ((i & 2) ? sB : sA);
+        if (!keep) sc[i] = hopper::neg_inf();
       }
     }
-    const float nmA = fmaxf(mA, quad_max(bmA));
-    const float nmB = fmaxf(mB, quad_max(bmB));
-    const float cA = expf(mA - nmA), cB = expf(mB - nmB);
-    float psA = 0.f, psB = 0.f;
+    float bA = hopper::neg_inf(), bB = hopper::neg_inf();
 #pragma unroll
-    for (int t = 0; t < kFwdKeys / 8; ++t) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int bit = 2 * t + e;
-        s[t][e] = (keepA >> bit & 1u) ? expf(s[t][e] - nmA) : 0.f;
-        s[t][2 + e] = (keepB >> bit & 1u) ? expf(s[t][2 + e] - nmB) : 0.f;
-        psA += s[t][e];
-        psB += s[t][2 + e];
-      }
+    for (int j = 0; j < BN / 8; ++j) {
+      bA = fmaxf(bA, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      bB = fmaxf(bB, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
-    lA = lA * cA + psA;  // per-lane partial sums; the quad adds them last
-    lB = lB * cB + psB;
-    mA = nmA;
-    mB = nmB;
+    const float nA = fmaxf(mA, quad_max(bA) * sl2);
+    const float nB = fmaxf(mB, quad_max(bB) * sl2);
+    const float cA = ex2(mA - nA), cB = ex2(mB - nB);
+    float pA = 0.f, pB = 0.f;
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      acc[t][0] *= cA;
-      acc[t][1] *= cA;
-      acc[t][2] *= cB;
-      acc[t][3] *= cB;
+    for (int j = 0; j < BN / 8; ++j) {
+      sc[4 * j] = ex2(fmaf(sc[4 * j], sl2, -nA));
+      sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], sl2, -nA));
+      sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], sl2, -nB));
+      sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], sl2, -nB));
+      pA += sc[4 * j] + sc[4 * j + 1];
+      pB += sc[4 * j + 2] + sc[4 * j + 3];
+    }
+    lA = lA * cA + pA;  // per-lane partial sums; the quad adds them last
+    lB = lB * cB + pB;
+    mA = nA;
+    mB = nB;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= cA;
+      o[4 * j + 1] *= cA;
+      o[4 * j + 2] *= cB;
+      o[4 * j + 3] *= cB;
     }
     if constexpr (kDrop) {
       // l summed the undropped P; O takes P M / (1 - p), in f32 before the
-      // bf16 round (s[t] is the row-major accumulator of keys k0 + 8 t; one
-      // hash a lane for each pair of blocks)
+      // bf16 round; one hash a lane for each pair of 8-key blocks
 #pragma unroll
-      for (int t = 0; t < kFwdKeys / 8; t += 2) {
-        const uint32_t bits = drop_rows(a, b, h, rA, rB, (k0 >> 3) + t, tig);
+      for (int j = 0; j < BN / 8; j += 2) {
+        const uint32_t bits = drop_rows(a, b, h, rA, rB, (k0 >> 3) + j, tig);
 #pragma unroll
         for (int i = 0; i < 8; ++i)
-          s[t + (i >> 2)][i & 3] *=
-              ((bits >> row_bit(i)) & 1u) ? a.keep_scale : 0.f;
+          sc[4 * j + i] *= ((bits >> row_bit(i)) & 1u) ? a.keep_scale : 0.f;
       }
     }
+    // O += P V
 #pragma unroll
-    for (int u = 0; u < kFwdKeys / 16; ++u) {
+    for (int u = 0; u < BN / 16; ++u) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * u][0], s[2 * u][1]);
-      pa[1] = pack_bf16(s[2 * u][2], s[2 * u][3]);
-      pa[2] = pack_bf16(s[2 * u + 1][0], s[2 * u + 1][1]);
-      pa[3] = pack_bf16(s[2 * u + 1][2], s[2 * u + 1][3]);
-      const bf16* vk = sv + (u * 16 + tig * 2) * LD + grp;
+      hopper::to_a(pa, sc, u);
 #pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        uint32_t b0, b1;
-        ld_b_kn<LD>(vk + t * 8, b0, b1);
-        mma_bf16(acc[t], pa, b0, b1);
+      for (int n = 0; n < D / 16; ++n) {
+        uint32_t f[4];
+        ldb_kn<LD>(f, vs + 16 * u * LD + 16 * n, lane);
+        mma_bf16(o + 8 * n, pa, f[0], f[1]);
+        mma_bf16(o + 8 * n + 4, pa, f[2], f[3]);
       }
     }
   }
 
   lA = fmaxf(quad_sum(lA), 1e-30f);
   lB = fmaxf(quad_sum(lB), 1e-30f);
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    const int d = t * 8 + tig * 2;
-    if (rA < a.Sq)
-      *reinterpret_cast<uint32_t*>(out + oA + d) =
-          pack_bf16(acc[t][0] / lA, acc[t][1] / lA);
-    if (rB < a.Sq)
-      *reinterpret_cast<uint32_t*>(out + oB + d) =
-          pack_bf16(acc[t][2] / lB, acc[t][3] / lB);
-  }
+  hopper::store_rows<D>(static_cast<bf16*>(a.out), o, oA, rA < a.Sq,
+                        1.f / lA, oB, rB < a.Sq, 1.f / lB, tig);
   if (tig == 0) {
+    // natural-log lse; a row that saw no key keeps m = kNeg
     const size_t st = (size_t(b) * a.H + h) * a.Sq;
-    if (rA < a.Sq) a.lse[st + rA] = mA + logf(lA);
-    if (rB < a.Sq) a.lse[st + rB] = mB + logf(lB);
+    if (rA < a.Sq) a.lse[st + rA] = mA == kNeg ? kNeg : mA * kLn2 + logf(lA);
+    if (rB < a.Sq) a.lse[st + rB] = mB == kNeg ? kNeg : mB * kLn2 + logf(lB);
   }
 }
 
-template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreads) dq_mma(Args a) {
-  constexpr int KT = D / 16, NT = D / 8, LD = D + 8;
-  constexpr int NS = kDqKeys / 8;  // score n-tiles
-  __shared__ __align__(16) bf16 sk[kDqKeys * LD];
-  __shared__ __align__(16) bf16 sv[kDqKeys * LD];
-  __shared__ int sseg[kDqKeys];
-  const bf16* __restrict__ q = static_cast<const bf16*>(a.q);
-  const bf16* __restrict__ k = static_cast<const bf16*>(a.k);
-  const bf16* __restrict__ v = static_cast<const bf16*>(a.v);
-  const bf16* __restrict__ dout = static_cast<const bf16*>(a.dout);
-  bf16* __restrict__ dq = static_cast<bf16*>(a.dq);
+// K2 in one launch. The grid holds the dk/dv CTAs (the first keys, which
+// the most q rows see, first) and then the dq CTAs (under causal the last
+// rows first); `parts` selects the roles, and a CTA computes the same bits
+// whatever else its grid holds. There is no pre-pass: each CTA computes
+// delta = rowsum(dO o O) (D multiply-adds a row) and lse log2(e) for the q
+// rows it reads, dq for its resident rows and dk/dv for each stage's rows
+// one stage ahead of the step that reads them, so a step keeps one barrier.
+// Both roles recompute P = exp2(S scale log2(e) - lse log2(e)) (and the
+// dropout mask), the price of determinism without atomics: every visible
+// pair's exp2 and hash run twice. At D = 32 ([8, 2048, 8, 32], causal, on
+// an H100) the dq CTAs, there only to make dq without atomics, take 0.121
+// ms of the backward's 0.305 run alone (0.197 of 0.462 with dropout;
+// PERF.md).
+constexpr int kDqRows = 16 * kWarps;  // dq: q rows a CTA, 16 a warp
+constexpr int kDqBN = 64;     // dq: keys a stage
+constexpr int kDqRing = 3;
+constexpr int kKvKeys = 16 * kWarps;  // dk/dv: keys a CTA, 16 a warp
+constexpr int kKvBQ = 64;     // dk/dv: q rows a stage
+constexpr int kKvRing = 4;
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRows;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int kvh = h / (a.H / a.KV);
-  const int rA = q0 + warp * 16 + grp, rB = rA + 8;
-  const int2 spA = row_span(a, b, rA), spB = row_span(a, b, rB);
-  const int2 wsp = warp_join(join(spA, spB));  // the warp's keys
-  const int2 bsp = rows_span(a, b, q0, kRows);  // the block's
-  const int sA = (a.qseg && rA < a.Sq) ? a.qseg[size_t(b) * a.Sq + rA] : 0;
-  const int sB = (a.qseg && rB < a.Sq) ? a.qseg[size_t(b) * a.Sq + rB] : 0;
-  const size_t st = (size_t(b) * a.H + h) * a.Sq;
-  const float lseA = rA < a.Sq ? a.lse_in[st + rA] : 0.f;
-  const float lseB = rB < a.Sq ? a.lse_in[st + rB] : 0.f;
-  const size_t sp = (size_t(b) * a.H + h) * a.Sp;
-  const float dlA = rA < a.Sq ? a.delta[sp + rA] : 0.f;
-  const float dlB = rB < a.Sq ? a.delta[sp + rB] : 0.f;
-  const size_t oA = rA < a.Sq ? q_off(a, b, rA, h) : 0;
-  const size_t oB = rB < a.Sq ? q_off(a, b, rB, h) : 0;
+template <int D>
+constexpr int dq_mma_smem() {
+  return kDqRing * 2 * kDqBN * (D + 8) * 2;
+}
 
-  uint32_t qa[KT][4], da[KT][4];
-#pragma unroll
-  for (int s = 0; s < KT; ++s) {
-    const int c = s * 16 + tig * 2;
-    qa[s][0] = rA < a.Sq ? ld32(q + oA + c) : 0u;
-    qa[s][1] = rB < a.Sq ? ld32(q + oB + c) : 0u;
-    qa[s][2] = rA < a.Sq ? ld32(q + oA + c + 8) : 0u;
-    qa[s][3] = rB < a.Sq ? ld32(q + oB + c + 8) : 0u;
-    da[s][0] = rA < a.Sq ? ld32(dout + oA + c) : 0u;
-    da[s][1] = rB < a.Sq ? ld32(dout + oB + c) : 0u;
-    da[s][2] = rA < a.Sq ? ld32(dout + oA + c + 8) : 0u;
-    da[s][3] = rB < a.Sq ? ld32(dout + oB + c + 8) : 0u;
-  }
-  float acc[NT][4];
-#pragma unroll
-  for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-
-  for (int k0 = first_step(bsp, kDqKeys); k0 <= bsp.y; k0 += kDqKeys) {
-    __syncthreads();
-    stage<D, kDqKeys, LD>(sk, k, b, k0, a.Skv, a.KV, kvh);
-    stage<D, kDqKeys, LD>(sv, v, b, k0, a.Skv, a.KV, kvh);
-    if (threadIdx.x < kDqKeys)
-      sseg[threadIdx.x] = (a.kseg && k0 + threadIdx.x < a.Skv)
-                              ? a.kseg[size_t(b) * a.Skv + k0 + threadIdx.x]
-                              : 0;
-    __syncthreads();
-    if (wsp.y < k0 || wsp.x > k0 + kDqKeys - 1) continue;  // warp-uniform
-
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int t = 0; t < NS; ++t) {
-      s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-      dp[t][0] = dp[t][1] = dp[t][2] = dp[t][3] = 0.f;
-      const bf16* krow = sk + (t * 8 + grp) * LD + tig * 2;
-      const bf16* vrow = sv + (t * 8 + grp) * LD + tig * 2;
-#pragma unroll
-      for (int ks = 0; ks < KT; ++ks) {
-        mma_bf16(s[t], qa[ks], ld32(krow + ks * 16), ld32(krow + ks * 16 + 8));
-        mma_bf16(dp[t], da[ks], ld32(vrow + ks * 16), ld32(vrow + ks * 16 + 8));
-      }
-    }
-    // dropout: dP = (dO V^T) M / (1 - p)
-    if constexpr (kDrop) {
-#pragma unroll
-      for (int t = 0; t < NS; t += 2) {
-        const uint32_t bits = drop_rows(a, b, h, rA, rB, (k0 >> 3) + t, tig);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          dp[t + (i >> 2)][i & 3] *=
-              ((bits >> row_bit(i)) & 1u) ? a.keep_scale : 0.f;
-      }
-    }
-    // dS = P (dP - delta), P = exp(S scale - lse), kept in s
-#pragma unroll
-    for (int t = 0; t < NS; ++t) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kl = t * 8 + tig * 2 + e;
-        const int key = k0 + kl;
-        const bool kA = key >= spA.x && key <= spA.y &&
-                        (!a.qseg || sseg[kl] == sA);
-        const bool kB = key >= spB.x && key <= spB.y &&
-                        (!a.qseg || sseg[kl] == sB);
-        const float pA = kA ? expf(s[t][e] * a.scale - lseA) : 0.f;
-        const float pB = kB ? expf(s[t][2 + e] * a.scale - lseB) : 0.f;
-        s[t][e] = pA * (dp[t][e] - dlA);
-        s[t][2 + e] = pB * (dp[t][2 + e] - dlB);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kDqKeys / 16; ++u) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * u][0], s[2 * u][1]);
-      pa[1] = pack_bf16(s[2 * u][2], s[2 * u][3]);
-      pa[2] = pack_bf16(s[2 * u + 1][0], s[2 * u + 1][1]);
-      pa[3] = pack_bf16(s[2 * u + 1][2], s[2 * u + 1][3]);
-      const bf16* kk = sk + (u * 16 + tig * 2) * LD + grp;
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        uint32_t b0, b1;
-        ld_b_kn<LD>(kk + t * 8, b0, b1);
-        mma_bf16(acc[t], pa, b0, b1);
-      }
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    const int d = t * 8 + tig * 2;
-    if (rA < a.Sq)
-      *reinterpret_cast<uint32_t*>(dq + oA + d) =
-          pack_bf16(acc[t][0] * a.scale, acc[t][1] * a.scale);
-    if (rB < a.Sq)
-      *reinterpret_cast<uint32_t*>(dq + oB + d) =
-          pack_bf16(acc[t][2] * a.scale, acc[t][3] * a.scale);
-  }
+// a dk/dv stage: Q, dO and O rows, then lse (log2(e) lse once delta is
+// computed) and delta, f32
+template <int D>
+__host__ __device__ constexpr int dkv_stage_bytes() {
+  return 3 * kKvBQ * (D + 8) * 2 + 2 * kKvBQ * 4;
 }
 
 template <int D>
-constexpr int dkv_smem_bytes() {
-  return (2 * kKvRows + 2 * kKvQ) * (D + 8) * 2 + 3 * kKvQ * 4;
+constexpr int bwd_mma_smem() {
+  return cmax(dq_mma_smem<D>(), kKvRing * dkv_stage_bytes<D>());
 }
 
+// dq of CTA x of the role: rows [q0, q0 + kDqRows) of head h, 16 a warp; Q
+// and dO as resident A fragments, kDqBN keys of K and V a stage; S = Q K^T,
+// dP = dO V^T, dS = P (dP - delta), dq += dS K
 template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreads) dkv_mma(Args a) {
-  constexpr int KT = D / 16, NT = D / 8, LD = D + 8;
-  constexpr int NS = kKvQ / 8;  // score n-tiles (q rows)
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sk = reinterpret_cast<bf16*>(smem);
-  bf16* sv = sk + kKvRows * LD;
-  bf16* sq = sv + kKvRows * LD;
-  bf16* sdo = sq + kKvQ * LD;
-  float* slse = reinterpret_cast<float*>(sdo + kKvQ * LD);
-  float* sdl = slse + kKvQ;
-  int* sseg = reinterpret_cast<int*>(sdl + kKvQ);
+__device__ __forceinline__ void dq_role(const Args& a, int x,
+                                        unsigned char* smem) {
+  constexpr int BN = kDqBN, R = kDqRing, KT = D / 16, LD = D + 8;
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // stage: K, then V rows
   const bf16* __restrict__ q = static_cast<const bf16*>(a.q);
   const bf16* __restrict__ k = static_cast<const bf16*>(a.k);
   const bf16* __restrict__ v = static_cast<const bf16*>(a.v);
   const bf16* __restrict__ dout = static_cast<const bf16*>(a.dout);
-  bf16* __restrict__ dk = static_cast<bf16*>(a.dk);
-  bf16* __restrict__ dv = static_cast<bf16*>(a.dv);
-
-  const int b = blockIdx.z, kvh = blockIdx.y, j0 = blockIdx.x * kKvRows;
+  const bf16* __restrict__ out = static_cast<const bf16*>(a.out);
+  const int nqb = (a.Sq + kDqRows - 1) / kDqRows;
+  const int rank = x / (a.H * a.B), h = x % a.H, b = x / a.H % a.B;
+  const int q0 = (a.causal ? nqb - 1 - rank : rank) * kDqRows;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int grp = lane >> 2, tig = lane & 3;
+  const int kvh = h / (a.H / a.KV);
+  const bool seg = a.qseg != nullptr;
+  const int rA = q0 + 16 * warp + grp, rB = rA + 8;
+  const bool wA = rA < a.Sq, wB = rB < a.Sq;
+  const int2 spA = row_span(a, b, rA), spB = row_span(a, b, rB);
+  const int sA = (seg && wA) ? a.qseg[size_t(b) * a.Sq + rA] : 0;
+  const int sB = (seg && wB) ? a.qseg[size_t(b) * a.Sq + rB] : 0;
+  int2 cov = meet(spA, spB), any = join(spA, spB);
+  warp_spans(cov, any);
+  const int2 bsp = rows_span(a, b, q0, kDqRows);
+  const int kbeg = first_step(bsp, BN);
+  const int steps = has(bsp) ? (bsp.y - kbeg) / BN + 1 : 0;
+  auto issue = [&](int t) {
+    bf16* ks = ring + (t % R) * 2 * BN * LD;
+    stage_rows<D, BN>(ks, k, b, kbeg + t * BN, a.Skv, a.KV, kvh);
+    stage_rows<D, BN>(ks + BN * LD, v, b, kbeg + t * BN, a.Skv, a.KV, kvh);
+  };
+#pragma unroll
+  for (int t = 0; t < R - 1; ++t) {
+    if (t < steps) issue(t);
+    cp_async_commit();
+  }
+
+  // Q and dO fragments, delta = rowsum(dO o O) (the quad's lanes hold a
+  // row's columns between them) and lse in base 2; rows past Sq read 0
+  const size_t oA = wA ? q_off(a, b, rA, h) : 0;
+  const size_t oB = wB ? q_off(a, b, rB, h) : 0;
+  uint32_t qa[KT][4], da[KT][4];
+  float dA = 0.f, dB = 0.f;
+#pragma unroll
+  for (int s = 0; s < KT; ++s) {
+    const int c = s * 16 + tig * 2;
+    qa[s][0] = wA ? ld32(q + oA + c) : 0u;
+    qa[s][1] = wB ? ld32(q + oB + c) : 0u;
+    qa[s][2] = wA ? ld32(q + oA + c + 8) : 0u;
+    qa[s][3] = wB ? ld32(q + oB + c + 8) : 0u;
+    da[s][0] = wA ? ld32(dout + oA + c) : 0u;
+    da[s][1] = wB ? ld32(dout + oB + c) : 0u;
+    da[s][2] = wA ? ld32(dout + oA + c + 8) : 0u;
+    da[s][3] = wB ? ld32(dout + oB + c + 8) : 0u;
+    dA += dot2(da[s][0], wA ? ld32(out + oA + c) : 0u) +
+          dot2(da[s][2], wA ? ld32(out + oA + c + 8) : 0u);
+    dB += dot2(da[s][1], wB ? ld32(out + oB + c) : 0u) +
+          dot2(da[s][3], wB ? ld32(out + oB + c + 8) : 0u);
+  }
+  dA = quad_sum(dA);
+  dB = quad_sum(dB);
+  const size_t st = (size_t(b) * a.H + h) * a.Sq;
+  const float lA = wA ? a.lse_in[st + rA] * kLog2e : 0.f;
+  const float lB = wB ? a.lse_in[st + rB] * kLog2e : 0.f;
+  float acc[D / 2];
+  hopper::zero(acc);
+  const float sl2 = a.scale * kLog2e;
+
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<R - 2>();
+    __syncthreads();  // as in the forward
+    if (t + R - 1 < steps) issue(t + R - 1);
+    cp_async_commit();
+    const int k0 = kbeg + t * BN;
+    if (any.y < k0 || any.x > k0 + BN - 1) continue;  // warp-uniform
+    const bf16* ks = ring + (t % R) * 2 * BN * LD;
+    const bf16* vs = ks + BN * LD;
+    float sc[BN / 2], dp[BN / 2];
+    hopper::zero(sc);
+    hopper::zero(dp);
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j)
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t f[4], g[4];
+        ldb_nk<LD>(f, ks + 16 * j * LD + 16 * kk, lane);
+        ldb_nk<LD>(g, vs + 16 * j * LD + 16 * kk, lane);
+        mma_bf16(sc + 8 * j, qa[kk], f[0], f[1]);
+        mma_bf16(sc + 8 * j + 4, qa[kk], f[2], f[3]);
+        mma_bf16(dp + 8 * j, da[kk], g[0], g[1]);
+        mma_bf16(dp + 8 * j + 4, da[kk], g[2], g[3]);
+      }
+    if (seg || !covers(cov, k0, BN)) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * tig + (i & 1);
+        const int2 s = (i & 2) ? spB : spA;
+        bool keep = key >= s.x && key <= s.y;
+        if (seg && keep)
+          keep = a.kseg[size_t(b) * a.Skv + key] == ((i & 2) ? sB : sA);
+        if (!keep) sc[i] = hopper::neg_inf();
+      }
+    }
+    // dropout: dP = (dO V^T) M / (1 - p), one hash a lane for each pair of
+    // 8-key blocks
+    if constexpr (kDrop) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; j += 2) {
+        const uint32_t bits = drop_rows(a, b, h, rA, rB, (k0 >> 3) + j, tig);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          dp[4 * j + i] *= ((bits >> row_bit(i)) & 1u) ? a.keep_scale : 0.f;
+      }
+    }
+    // dS = P (dP - delta), P = exp2(S scale log2(e) - lse2), kept in sc
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const float p = ex2(fmaf(sc[i], sl2, (i & 2) ? -lB : -lA));
+      sc[i] = p * (dp[i] - ((i & 2) ? dB : dA));
+    }
+    // dq += dS K
+#pragma unroll
+    for (int u = 0; u < BN / 16; ++u) {
+      uint32_t pa[4];
+      hopper::to_a(pa, sc, u);
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) {
+        uint32_t f[4];
+        ldb_kn<LD>(f, ks + 16 * u * LD + 16 * n, lane);
+        mma_bf16(acc + 8 * n, pa, f[0], f[1]);
+        mma_bf16(acc + 8 * n + 4, pa, f[2], f[3]);
+      }
+    }
+  }
+  hopper::store_rows<D>(static_cast<bf16*>(a.dq), acc, oA, wA, a.scale, oB,
+                        wB, a.scale, tig);
+}
+
+// dk/dv of CTA x of the role: keys [j0, j0 + kKvKeys) of KV head kvh, 16 a
+// warp, K and V as resident A fragments; kKvBQ q rows of Q, dO, O and lse a
+// stage, for each query head of the GQA group from the first q block that
+// sees the CTA's keys; S^T = K Q^T, dP^T = V dO^T, dv += P^T dO, dk +=
+// dS^T Q
+template <int D, bool kDrop>
+__device__ __forceinline__ void dkv_role(const Args& a, int x,
+                                         unsigned char* smem) {
+  constexpr int BQ = kKvBQ, R = kKvRing;
+  constexpr int KT = D / 16, LD = D + 8, SB = dkv_stage_bytes<D>();
+  const bf16* __restrict__ q = static_cast<const bf16*>(a.q);
+  const bf16* __restrict__ k = static_cast<const bf16*>(a.k);
+  const bf16* __restrict__ v = static_cast<const bf16*>(a.v);
+  const bf16* __restrict__ dout = static_cast<const bf16*>(a.dout);
+  const bf16* __restrict__ out = static_cast<const bf16*>(a.out);
+  const int rank = x / (a.KV * a.B), kvh = x % a.KV, b = x / a.KV % a.B;
+  const int j0 = rank * kKvKeys;
   const int G = a.H / a.KV;
-  const int jA = j0 + warp * 16 + grp, jB = jA + 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int jA = j0 + 16 * warp + grp, jB = jA + 8;
+  const bool seg = a.qseg != nullptr;
   const int2 ksA = key_span(a, b, jA), ksB = key_span(a, b, jB);
-  const int2 wsp = warp_join(join(ksA, ksB));  // the warp's q rows
-  const int2 bsp = keys_span(a, b, j0, kKvRows);  // the block's
-  const int gA = (a.kseg && jA < a.Skv) ? a.kseg[size_t(b) * a.Skv + jA] : 0;
-  const int gB = (a.kseg && jB < a.Skv) ? a.kseg[size_t(b) * a.Skv + jB] : 0;
-
-  stage<D, kKvRows, LD>(sk, k, b, j0, a.Skv, a.KV, kvh);
-  stage<D, kKvRows, LD>(sv, v, b, j0, a.Skv, a.KV, kvh);
-
-  float ak[NT][4], av[NT][4];
+  const int gA = (seg && jA < a.Skv) ? a.kseg[size_t(b) * a.Skv + jA] : 0;
+  const int gB = (seg && jB < a.Skv) ? a.kseg[size_t(b) * a.Skv + jB] : 0;
+  int2 cov = meet(ksA, ksB), any = join(ksA, ksB);
+  warp_spans(cov, any);
+  const int2 bsp = keys_span(a, b, j0, kKvKeys);  // the block's q rows
+  const int qfirst = first_step(bsp, BQ);
+  const int nq = has(bsp) ? (bsp.y - qfirst) / BQ + 1 : 0;
+  const int steps = G * nq;  // each head of the group, then its q blocks
+  auto stage = [&](int t) { return smem + (t % R) * SB; };
+  auto issue = [&](int t) {
+    const int hh = kvh * G + t / nq, q0 = qfirst + t % nq * BQ;
+    bf16* s = reinterpret_cast<bf16*>(stage(t));
+    stage_rows<D, BQ>(s, q, b, q0, a.Sq, a.H, hh);
+    stage_rows<D, BQ>(s + BQ * LD, dout, b, q0, a.Sq, a.H, hh);
+    stage_rows<D, BQ>(s + 2 * BQ * LD, out, b, q0, a.Sq, a.H, hh);
+    if (threadIdx.x < BQ) {
+      const int r = q0 + threadIdx.x;
+      float* sl = reinterpret_cast<float*>(s + 3 * BQ * LD);
+      cp_async4(sl + threadIdx.x,
+                a.lse_in + (r < a.Sq ? (size_t(b) * a.H + hh) * a.Sq + r : 0),
+                r < a.Sq);
+    }
+  };
+  // stage t's delta = rowsum(dO o O) and its lse times log2(e) (in place),
+  // TPR threads a row
+  auto prep = [&](int t) {
+    constexpr int TPR = kThreads / BQ, E = D / TPR;
+    static_assert(kThreads % BQ == 0 && E % 4 == 0, "dk/dv delta pass");
+    const bf16* s = reinterpret_cast<const bf16*>(stage(t));
+    float* sl = reinterpret_cast<float*>(stage(t) + 3 * BQ * LD * 2);
+    const int r = threadIdx.x / TPR, c = threadIdx.x % TPR * E;
+    float sum = 0.f;
 #pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    ak[t][0] = ak[t][1] = ak[t][2] = ak[t][3] = 0.f;
-    av[t][0] = av[t][1] = av[t][2] = av[t][3] = 0.f;
+    for (int i = 0; i < E; i += 4) {
+      const uint2 d =
+          *reinterpret_cast<const uint2*>(s + (BQ + r) * LD + c + i);
+      const uint2 o =
+          *reinterpret_cast<const uint2*>(s + (2 * BQ + r) * LD + c + i);
+      sum += dot2(d.x, o.x) + dot2(d.y, o.y);
+    }
+#pragma unroll
+    for (int w = TPR / 2; w > 0; w >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, w);
+    if (threadIdx.x % TPR == 0) {
+      sl[BQ + r] = sum;
+      sl[r] *= kLog2e;
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < R - 1; ++t) {
+    if (t < steps) issue(t);
+    cp_async_commit();
   }
-  const bf16* kr = sk + (warp * 16 + grp) * LD + tig * 2;
-  const bf16* vr = sv + (warp * 16 + grp) * LD + tig * 2;
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    for (int q0 = first_step(bsp, kKvQ); q0 <= bsp.y; q0 += kKvQ) {
-      __syncthreads();  // the previous stage's readers are done
-      stage<D, kKvQ, LD>(sq, q, b, q0, a.Sq, a.H, h);
-      stage<D, kKvQ, LD>(sdo, dout, b, q0, a.Sq, a.H, h);
-      if (threadIdx.x < kKvQ) {
-        const int r = q0 + threadIdx.x;
-        const bool ok = r < a.Sq;
-        const size_t st = (size_t(b) * a.H + h) * a.Sq + r;
-        slse[threadIdx.x] = ok ? a.lse_in[st] : 0.f;
-        sdl[threadIdx.x] = ok ? a.delta[(size_t(b) * a.H + h) * a.Sp + r] : 0.f;
-        sseg[threadIdx.x] = (a.qseg && ok) ? a.qseg[size_t(b) * a.Sq + r] : 0;
-      }
-      __syncthreads();
-      // warp-uniform: no row of the block sees the warp's keys
-      if (wsp.y < q0 || wsp.x > q0 + kKvQ - 1) continue;
 
-      float s[NS][4], dp[NS][4];
+  uint32_t ka[KT][4], va[KT][4];
+  {
+    const size_t oA = jA < a.Skv ? k_off(a, b, jA, kvh) : 0;
+    const size_t oB = jB < a.Skv ? k_off(a, b, jB, kvh) : 0;
 #pragma unroll
-      for (int t = 0; t < NS; ++t) {
-        s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-        dp[t][0] = dp[t][1] = dp[t][2] = dp[t][3] = 0.f;
-        const bf16* qrow = sq + (t * 8 + grp) * LD + tig * 2;
-        const bf16* drow = sdo + (t * 8 + grp) * LD + tig * 2;
-#pragma unroll
-        for (int ks = 0; ks < KT; ++ks) {
-          uint32_t fk[4], fv[4];
-          fk[0] = ld32(kr + ks * 16);
-          fk[1] = ld32(kr + 8 * LD + ks * 16);
-          fk[2] = ld32(kr + ks * 16 + 8);
-          fk[3] = ld32(kr + 8 * LD + ks * 16 + 8);
-          fv[0] = ld32(vr + ks * 16);
-          fv[1] = ld32(vr + 8 * LD + ks * 16);
-          fv[2] = ld32(vr + ks * 16 + 8);
-          fv[3] = ld32(vr + 8 * LD + ks * 16 + 8);
-          mma_bf16(s[t], fk, ld32(qrow + ks * 16), ld32(qrow + ks * 16 + 8));
-          mma_bf16(dp[t], fv, ld32(drow + ks * 16), ld32(drow + ks * 16 + 8));
-        }
-      }
-      // dropout on S^T (s[t][2 hi + e]: bit key_bit<kKvQ>(4 t + 2 hi + e)
-      // of kbits)
-      uint32_t kbits = 0xFFFFFFFFu;
-      if constexpr (kDrop)
-        kbits = drop_keys<kKvQ>(a, b, h, q0, jA >> 3, grp, tig);
-      // P^T and dS^T: rows are keys (jA, jB), columns q rows; p kept in s
-      // (dropout: P^T M / (1 - p), for dv), ds in dp (dropout: dP^T
-      // M / (1 - p) before delta)
-#pragma unroll
-      for (int t = 0; t < NS; ++t) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int rl = t * 8 + tig * 2 + e;
-          const int r = q0 + rl;
-          const bool kA = r >= ksA.x && r <= ksA.y &&
-                          (!a.qseg || sseg[rl] == gA);
-          const bool kB = r >= ksB.x && r <= ksB.y &&
-                          (!a.qseg || sseg[rl] == gB);
-          const float pA = kA ? expf(s[t][e] * a.scale - slse[rl]) : 0.f;
-          const float pB = kB ? expf(s[t][2 + e] * a.scale - slse[rl]) : 0.f;
-          float zA = 1.f, zB = 1.f;
-          if constexpr (kDrop) {
-            zA = ((kbits >> key_bit<kKvQ>(4 * t + e)) & 1u) ? a.keep_scale
-                                                             : 0.f;
-            zB = ((kbits >> key_bit<kKvQ>(4 * t + 2 + e)) & 1u)
-                     ? a.keep_scale
-                     : 0.f;
-          }
-          s[t][e] = pA * zA;
-          s[t][2 + e] = pB * zB;
-          dp[t][e] = pA * (dp[t][e] * zA - sdl[rl]);
-          dp[t][2 + e] = pB * (dp[t][2 + e] * zB - sdl[rl]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kKvQ / 16; ++u) {
-        uint32_t pa[4], da[4];
-        pa[0] = pack_bf16(s[2 * u][0], s[2 * u][1]);
-        pa[1] = pack_bf16(s[2 * u][2], s[2 * u][3]);
-        pa[2] = pack_bf16(s[2 * u + 1][0], s[2 * u + 1][1]);
-        pa[3] = pack_bf16(s[2 * u + 1][2], s[2 * u + 1][3]);
-        da[0] = pack_bf16(dp[2 * u][0], dp[2 * u][1]);
-        da[1] = pack_bf16(dp[2 * u][2], dp[2 * u][3]);
-        da[2] = pack_bf16(dp[2 * u + 1][0], dp[2 * u + 1][1]);
-        da[3] = pack_bf16(dp[2 * u + 1][2], dp[2 * u + 1][3]);
-        const bf16* dk_b = sdo + (u * 16 + tig * 2) * LD + grp;
-        const bf16* qk_b = sq + (u * 16 + tig * 2) * LD + grp;
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          uint32_t b0, b1;
-          ld_b_kn<LD>(dk_b + t * 8, b0, b1);
-          mma_bf16(av[t], pa, b0, b1);
-          ld_b_kn<LD>(qk_b + t * 8, b0, b1);
-          mma_bf16(ak[t], da, b0, b1);
-        }
-      }
+    for (int s = 0; s < KT; ++s) {
+      const int c = s * 16 + tig * 2;
+      ka[s][0] = jA < a.Skv ? ld32(k + oA + c) : 0u;
+      ka[s][1] = jB < a.Skv ? ld32(k + oB + c) : 0u;
+      ka[s][2] = jA < a.Skv ? ld32(k + oA + c + 8) : 0u;
+      ka[s][3] = jB < a.Skv ? ld32(k + oB + c + 8) : 0u;
+      va[s][0] = jA < a.Skv ? ld32(v + oA + c) : 0u;
+      va[s][1] = jB < a.Skv ? ld32(v + oB + c) : 0u;
+      va[s][2] = jA < a.Skv ? ld32(v + oA + c + 8) : 0u;
+      va[s][3] = jB < a.Skv ? ld32(v + oB + c + 8) : 0u;
     }
   }
+  float dk[D / 2], dv[D / 2];
+  hopper::zero(dk);
+  hopper::zero(dv);
+  const float sl2 = a.scale * kLog2e;
+  cp_async_wait<R - 2>();
+  __syncthreads();  // stage 0 is in
+  if (steps > 0) prep(0);
+
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<R - 3>();
+    // stages t and t + 1 are in, stage t's delta is written, and every
+    // warp is past step t - 1, whose slot the next copy refills
+    __syncthreads();
+    if (t + R - 1 < steps) issue(t + R - 1);
+    cp_async_commit();
+    if (t + 1 < steps) prep(t + 1);
+    const int hh = kvh * G + t / nq, q0 = qfirst + t % nq * BQ;
+    if (any.y < q0 || any.x > q0 + BQ - 1) continue;  // warp-uniform
+    const bf16* sq = reinterpret_cast<const bf16*>(stage(t));
+    const bf16* sd = sq + BQ * LD;
+    const float* sl = reinterpret_cast<const float*>(sq + 3 * BQ * LD);
+    float st[BQ / 2], dpt[BQ / 2];
+    hopper::zero(st);
+    hopper::zero(dpt);
 #pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    const int d = t * 8 + tig * 2;
-    if (jA < a.Skv) {
-      const size_t o = k_off(a, b, jA, kvh) + d;
-      *reinterpret_cast<uint32_t*>(dk + o) =
-          pack_bf16(ak[t][0] * a.scale, ak[t][1] * a.scale);
-      *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16(av[t][0], av[t][1]);
+    for (int j = 0; j < BQ / 16; ++j)
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t f[4], g[4];
+        ldb_nk<LD>(f, sq + 16 * j * LD + 16 * kk, lane);
+        ldb_nk<LD>(g, sd + 16 * j * LD + 16 * kk, lane);
+        mma_bf16(st + 8 * j, ka[kk], f[0], f[1]);
+        mma_bf16(st + 8 * j + 4, ka[kk], f[2], f[3]);
+        mma_bf16(dpt + 8 * j, va[kk], g[0], g[1]);
+        mma_bf16(dpt + 8 * j + 4, va[kk], g[2], g[3]);
+      }
+    // dropout on S^T: bit key_bit<BQ>(i) of kbits is element i's
+    uint32_t kbits = 0xFFFFFFFFu;
+    if constexpr (kDrop)
+      kbits = drop_keys<BQ>(a, b, hh, q0, jA >> 3, grp, tig);
+    // rows keys jA, jB; columns q rows q0 + 8 j + 2 tig + e
+    if (seg || !covers(cov, q0, BQ)) {
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int r = q0 + 8 * (i >> 2) + 2 * tig + (i & 1);
+        const int2 s = (i & 2) ? ksB : ksA;
+        bool keep = r >= s.x && r <= s.y;
+        if (seg && keep)
+          keep = a.qseg[size_t(b) * a.Sq + r] == ((i & 2) ? gB : gA);
+        if (!keep) st[i] = hopper::neg_inf();
+      }
     }
-    if (jB < a.Skv) {
-      const size_t o = k_off(a, b, jB, kvh) + d;
-      *reinterpret_cast<uint32_t*>(dk + o) =
-          pack_bf16(ak[t][2] * a.scale, ak[t][3] * a.scale);
-      *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16(av[t][2], av[t][3]);
+    // P^T (dropout: P^T M / (1 - p), for dv) and dS^T = P^T (dP^T - delta)
+    // (dropout: dP^T M / (1 - p))
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int c = 8 * (i >> 2) + 2 * tig + (i & 1);
+      const float p = ex2(fmaf(st[i], sl2, -sl[c]));
+      if constexpr (kDrop) {
+        const float z = ((kbits >> key_bit<BQ>(i)) & 1u) ? a.keep_scale : 0.f;
+        st[i] = p * z;
+        dpt[i] = p * (dpt[i] * z - sl[BQ + c]);
+      } else {
+        st[i] = p;
+        dpt[i] = p * (dpt[i] - sl[BQ + c]);
+      }
     }
+#pragma unroll
+    for (int u = 0; u < BQ / 16; ++u) {
+      uint32_t pa[4], ds[4];
+      hopper::to_a(pa, st, u);
+      hopper::to_a(ds, dpt, u);
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) {
+        uint32_t f[4], g[4];
+        ldb_kn<LD>(f, sd + 16 * u * LD + 16 * n, lane);
+        ldb_kn<LD>(g, sq + 16 * u * LD + 16 * n, lane);
+        mma_bf16(dv + 8 * n, pa, f[0], f[1]);
+        mma_bf16(dv + 8 * n + 4, pa, f[2], f[3]);
+        mma_bf16(dk + 8 * n, ds, g[0], g[1]);
+        mma_bf16(dk + 8 * n + 4, ds, g[2], g[3]);
+      }
+    }
+  }
+  const size_t oA = jA < a.Skv ? k_off(a, b, jA, kvh) : 0;
+  const size_t oB = jB < a.Skv ? k_off(a, b, jB, kvh) : 0;
+  hopper::store_rows<D>(static_cast<bf16*>(a.dk), dk, oA, jA < a.Skv,
+                        a.scale, oB, jB < a.Skv, a.scale, tig);
+  hopper::store_rows<D>(static_cast<bf16*>(a.dv), dv, oA, jA < a.Skv, 1.f,
+                        oB, jB < a.Skv, 1.f, tig);
+}
+
+// K2 on the mma bodies: CTAs [0, dkv_ctas) are dk/dv ones, the rest dq
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kThreads) bwd_mma(Args a, int dkv_ctas) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (int(blockIdx.x) < dkv_ctas)
+    dkv_role<D, kDrop>(a, blockIdx.x, smem);
+  else
+    dq_role<D, kDrop>(a, blockIdx.x - dkv_ctas, smem);
+}
+
+// A bf16 call at D = 64 or 128 with no q row or no key (the Hopper bodies'
+// tensor maps need both) has no (row, key) pair: O and the gradients are 0
+// and lse is -1e30, what every body gives a row that sees no key. `words`
+// 32-bit words of x are zeroed, then `rows` lse entries set.
+__global__ void __launch_bounds__(256) no_pairs(uint32_t* x, size_t words,
+                                                float* lse, size_t rows) {
+  for (size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < words + rows; i += size_t(gridDim.x) * blockDim.x) {
+    if (i < words) x[i] = 0u;
+    else lse[i - words] = kNeg;
   }
 }
 
@@ -1186,8 +1407,6 @@ __global__ void __launch_bounds__(kThreads) dkv_mma(Args a) {
 constexpr int kConsumers = 256;               // two consumer warpgroups (K2)
 constexpr int kHopThreads = kConsumers + 32;  // and one producer warp
 constexpr int kStages = 2;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kPad = 64;  // lse2 / delta rows are padded to this
 
 struct HopParams {
@@ -2059,55 +2278,64 @@ dim3 key_grid(const Args& a, int keys_per_cta) {
 }
 
 
+// the mma bodies (bf16, D = 16 and 32)
 template <int D, bool kDrop>
-cudaError_t bwd_mma(const Args& a, int parts, cudaStream_t s) {
-  if ((parts & 2) && a.Sq > 0) {
-    dq_mma<D, kDrop><<<row_grid(a, kRows), kThreads, 0, s>>>(a);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  if (!(parts & 4) || a.Skv <= 0) return cudaSuccess;
-  constexpr int bytes = dkv_smem_bytes<D>();
-  cudaError_t e;
-  e = cudaFuncSetAttribute(dkv_mma<D, kDrop>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+cudaError_t fwd_mma_run(const Args& a, cudaStream_t s) {
+  constexpr int bytes = fwd_mma_smem<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      fwd_mma<D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  dkv_mma<D, kDrop><<<key_grid(a, kKvRows), kThreads, bytes, s>>>(a);
+  fwd_mma<D, kDrop><<<row_grid(a, kFwdRows), kThreads, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
-// the bf16 mma.sync bodies: D = 16 and 32, and D = 64 and 128 when a call
-// has no q row or no key (the Hopper bodies need both). Dropout instances
-// at D = 16 and 32 only: with no row or no key there is nothing to drop.
+// K2's roles in one launch: `parts` 2 the dq CTAs, 4 the dk/dv ones
+template <int D, bool kDrop>
+cudaError_t bwd_mma_run(const Args& a, int parts, cudaStream_t s) {
+  const int dkv = (parts & 4) ? (a.Skv + kKvKeys - 1) / kKvKeys * a.KV * a.B
+                              : 0;
+  const int dq = (parts & 2) ? (a.Sq + kDqRows - 1) / kDqRows * a.H * a.B
+                             : 0;
+  if (dkv + dq == 0) return cudaSuccess;
+  constexpr int bytes = bwd_mma_smem<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      bwd_mma<D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  bwd_mma<D, kDrop><<<dkv + dq, kThreads, bytes, s>>>(a, dkv);
+  return cudaGetLastError();
+}
+
 cudaError_t fwd_mma_launch(const Args& a, bool drop, cudaStream_t s) {
-  const dim3 grid = row_grid(a, kRows);
   switch (a.D) {
-    case 16:
-      if (drop) fwd_mma<16, true><<<grid, kThreads, 0, s>>>(a);
-      else fwd_mma<16, false><<<grid, kThreads, 0, s>>>(a);
-      break;
-    case 32:
-      if (drop) fwd_mma<32, true><<<grid, kThreads, 0, s>>>(a);
-      else fwd_mma<32, false><<<grid, kThreads, 0, s>>>(a);
-      break;
-    case 64: fwd_mma<64, false><<<grid, kThreads, 0, s>>>(a); break;
-    case 128: fwd_mma<128, false><<<grid, kThreads, 0, s>>>(a); break;
+    case 16: return drop ? fwd_mma_run<16, true>(a, s)
+                         : fwd_mma_run<16, false>(a, s);
+    case 32: return drop ? fwd_mma_run<32, true>(a, s)
+                         : fwd_mma_run<32, false>(a, s);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 cudaError_t bwd_mma_launch(const Args& a, bool drop, int parts,
                            cudaStream_t s) {
   switch (a.D) {
-    case 16: return drop ? bwd_mma<16, true>(a, parts, s)
-                         : bwd_mma<16, false>(a, parts, s);
-    case 32: return drop ? bwd_mma<32, true>(a, parts, s)
-                         : bwd_mma<32, false>(a, parts, s);
-    case 64: return bwd_mma<64, false>(a, parts, s);
-    case 128: return bwd_mma<128, false>(a, parts, s);
+    case 16: return drop ? bwd_mma_run<16, true>(a, parts, s)
+                         : bwd_mma_run<16, false>(a, parts, s);
+    case 32: return drop ? bwd_mma_run<32, true>(a, parts, s)
+                         : bwd_mma_run<32, false>(a, parts, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// zero `elems` bf16 of x (an even count) and set `rows` lse entries to
+// -1e30 (no_pairs)
+cudaError_t fill_no_pairs(void* x, size_t elems, float* lse, size_t rows,
+                          cudaStream_t s) {
+  const size_t n = elems / 2 + rows;
+  if (n == 0) return cudaSuccess;
+  const size_t blocks = (n + 255) / 256;
+  no_pairs<<<unsigned(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+      static_cast<uint32_t*>(x), elems / 2, lse, rows);
+  return cudaGetLastError();
 }
 
 template <int D, bool kDrop, bool kRange>
@@ -2204,16 +2432,17 @@ cudaError_t run_fwd(const Args& a, int dtype, int bq, int bkv, bool drop,
   if (hop_ok(a, dtype)) return fwd_hop_tile(a, bq, bkv, s);
   // the mma and FMA bodies have one tile each: (0, 0)
   if (bq != 0 || bkv != 0) return cudaErrorInvalidValue;
-  if (dtype == 1) return fwd_mma_launch(a, false, s);
-  return fwd_f32<false>(a, s);
+  if (dtype == 0) return fwd_f32<false>(a, s);
+  if (a.D <= 32) return fwd_mma_launch(a, false, s);
+  // D = 64 or 128 with no key
+  return fill_no_pairs(a.out, size_t(a.B) * a.Sq * a.H * a.D, a.lse,
+                       size_t(a.B) * a.H * a.Sq, s);
 }
 
 cudaError_t run_prepass(const Args& a, int dtype, const void* out,
                         float* work, cudaStream_t s) {
   if (dtype == 1) {
     switch (a.D) {
-      case 16: return prepass<bf16, 16>(a, out, work, s);
-      case 32: return prepass<bf16, 32>(a, out, work, s);
       case 64: return prepass<bf16, 64>(a, out, work, s);
       case 128: return prepass<bf16, 128>(a, out, work, s);
       default: return cudaErrorInvalidValue;
@@ -2231,6 +2460,19 @@ cudaError_t run_prepass(const Args& a, int dtype, const void* out,
 cudaError_t run_bwd(const Args& a, int dtype, const void* out, float* work,
                     int parts, bool drop, cudaStream_t s) {
   drop = drop && a.Sq > 0 && a.Skv > 0;
+  // the mma bodies compute delta in their own CTAs: no pre-pass
+  if (dtype == 1 && a.D <= 32) return bwd_mma_launch(a, drop, parts, s);
+  if (dtype == 1 && !hop_ok(a, dtype)) {  // D = 64 or 128, no row or no key
+    cudaError_t e = cudaSuccess;
+    if ((parts & 2) && a.Skv == 0)
+      e = fill_no_pairs(a.dq, size_t(a.B) * a.Sq * a.H * a.D, nullptr, 0, s);
+    const size_t kv = size_t(a.B) * a.Skv * a.KV * a.D;
+    if (e == cudaSuccess && (parts & 4) && a.Sq == 0)
+      e = fill_no_pairs(a.dk, kv, nullptr, 0, s);
+    if (e == cudaSuccess && (parts & 4) && a.Sq == 0)
+      e = fill_no_pairs(a.dv, kv, nullptr, 0, s);
+    return e;
+  }
   if ((parts & 1) && a.Sq > 0) {
     cudaError_t e = run_prepass(a, dtype, out, work, s);
     if (e != cudaSuccess) return e;
@@ -2238,7 +2480,6 @@ cudaError_t run_bwd(const Args& a, int dtype, const void* out, float* work,
   if (hop_ok(a, dtype))
     return a.D == 64 ? bwd_hop_any<64>(a, work, parts, drop, s)
                      : bwd_hop_any<128>(a, work, parts, drop, s);
-  if (dtype == 1) return bwd_mma_launch(a, drop, parts, s);
   return drop ? bwd_f32<true>(a, parts, s) : bwd_f32<false>(a, parts, s);
 }
 
@@ -2348,6 +2589,7 @@ int bwd_launch(const void* q, const void* k, const void* v, const void* out,
   a.k = k;
   a.v = v;
   a.dout = dout;
+  a.out = const_cast<void*>(out);
   a.lse_in = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(work) +
             size_t(B) * H * ((Sq + kPad - 1) / kPad * kPad);

@@ -5,14 +5,16 @@
 kv_segment_ids)`` is the differentiable entry a model calls, as the JAX
 ``flash_attention_fwd`` (custom VJP) is. On CUDA tensors its forward
 launches K1 and its backward launches K2 (``flash_attention_bwd``: a
-pre-pass, one dq kernel and one dk/dv kernel); on CPU tensors it is the
+pre-pass, one dq kernel and one dk/dv kernel; in bf16 at D = 16 and 32
+one kernel whose CTAs take either role); on CPU tensors it is the
 plain version ``flash_attention_dense``, and autograd differentiates
 that.
 
 The CUDA source is ``csrc/flash_attention.cu`` (with the Hopper helpers
 of ``csrc/hopper.cuh``); its header gives the shape limits, the bound
 (operations, at training shapes) and the design: bf16 at D = 64 and 128
-runs wgmma/TMA bodies that need an ``sm_90a`` card. Layout
+runs wgmma/TMA bodies that need an ``sm_90a`` card, bf16 at D = 16 and
+32 mma.sync bodies on a cp.async ring. Layout
 ``[B, S, H, D]``; k and v may carry fewer heads (GQA, ``H % KV == 0``),
 which the kernels take natively: no repeated K/V.
 ``lse`` is f32 ``[B, H, Sq]``. Segment ids are int32 ``[B, Sq]`` and
@@ -21,7 +23,8 @@ which the kernels take natively: no repeated K/V.
 The backward's ``delta = rowsum(dO * O)`` (f32), which the JAX
 ``_fa_bwd`` leaves to XLA, is K2's pre-pass kernel: it writes delta and
 ``lse * log2(e)`` into an f32 workspace ``[2, B, H, Sp]`` (Sp = Sq
-rounded up to 64) that the wrapper allocates.
+rounded up to 64) that the wrapper allocates. The bf16 bodies at D = 16
+and 32 compute delta inside K2's CTAs and leave the workspace unread.
 
 **Attention dropout** (``dropout`` p > 0 with a 64-bit ``seed``): the
 dropout of the JAX ``_sdpa_raw`` (ops/nn_ops.py:693-702), computed
@@ -398,7 +401,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
     ``dropout`` and ``seed``: those of K1's dropout call; with the
     frontier arrays: K1's). CPU tensors
     take ``flash_attention_bwd_dense``; CUDA tensors launch the
-    pre-pass, the dq and the dk/dv kernels."""
+    pre-pass, the dq and the dk/dv kernels (bf16 at D = 16, 32: the one
+    kernel of both roles)."""
     qseg, kseg = _check(q, k, v, q_segment_ids, kv_segment_ids,
                         "flash_attention_bwd")
     qr, kr = _check_ranges(q, k, causal, qseg, q_ranges, kv_ranges,
@@ -443,7 +447,9 @@ def _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg,
     """Launch the ``parts`` of K2 on checked CUDA tensors: (dq, dk, dv,
     work). ``work`` is the pre-pass's f32 workspace [2, B, H, Sp]
     (allocated when None); a launch without PREPASS reads the workspace
-    an earlier one wrote. ``drop``: ``_drop_args``'s tuple of K1's
+    an earlier one wrote (the bf16 D = 16 / 32 body has no pre-pass: DQ
+    and DKV select the roles of its one launch, which compute the same
+    bits alone as together). ``drop``: ``_drop_args``'s tuple of K1's
     dropout call, or None; ``qr``, ``kr``: the frontier arrays."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]

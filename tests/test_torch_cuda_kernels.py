@@ -724,6 +724,117 @@ def test_dropout_on_the_mma_bodies(cuda, case):
         assert _scaled(a, b) <= TOL[torch.bfloat16]
 
 
+# The mma bodies' structure (bf16, D = 16 / 32): a ring of cp.async stages
+# (128 keys a forward stage), masks on cut tiles only, heaviest-first causal
+# blocks, K2's roles in one launch. "laps" runs the ring over 2085 keys
+# (17 forward stages, the last partial); "rect" puts the bottom-right
+# frontier across the reversed block order, Sq > Skv leaving the first rows
+# no key; "gqa4" sums four query heads in each dk/dv CTA.
+MMA = {  # (B, Sq, Skv, H, KV, D, causal, segments)
+    "laps_d32": (1, 200, 2085, 4, 2, 32, True, False),
+    "laps_d16": (1, 2085, 2085, 2, 1, 16, True, False),
+    "rect_causal_d32": (2, 300, 700, 4, 4, 32, True, False),
+    "rect_causal_sq_gt_skv_d32": (2, 700, 300, 4, 4, 32, True, False),
+    "gqa4_d32": (2, 256, 256, 8, 2, 32, True, False),
+    "gqa4_full_d16": (1, 160, 190, 8, 2, 16, False, False),
+    "segments_d32": (2, 256, 256, 4, 2, 32, True, True),
+}
+
+
+@pytest.mark.parametrize("p", [0.0, 0.2])
+@pytest.mark.parametrize("case", sorted(MMA))
+def test_mma_bodies(cuda, case, p):
+    """K1 and K2 on the mma bodies against the plain version (2e-2 per
+    tile, lse too), without and with dropout; K2's dq and dk/dv roles
+    launched alone (parts DQ, DKV) give the one-launch backward's bits, and
+    a second backward gives the same bytes (no atomics)."""
+    B, Sq, Skv, H, KV, D, causal, segm = MMA[case]
+    q, k, v, do, qs, ks = _flash(cuda, torch.bfloat16, B, Sq, Skv, H, KV, D,
+                                 segm, 13)
+    kw = dict(dropout=p, seed=0x3A3A + D if p else None)
+    out, lse = K1.flash_attention_fwd_lse(q, k, v, causal, None, qs, ks, **kw)
+    r_out, r_lse = K1.flash_attention_dense(q, k, v, causal, None, qs, ks,
+                                            **kw)
+    assert _scaled(out, r_out) <= TOL[torch.bfloat16]
+    assert _err(lse, r_lse) <= TOL[torch.bfloat16]
+    grads = K1.flash_attention_bwd(q, k, v, out, lse, do, causal, None, qs,
+                                   ks, **kw)
+    r_grads = K1.flash_attention_bwd_dense(q, k, v, do, causal, None, qs, ks,
+                                           **kw)
+    for a, b in zip(grads, r_grads):
+        assert _scaled(a, b) <= TOL[torch.bfloat16]
+    again = K1.flash_attention_bwd(q, k, v, out, lse, do, causal, None, qs,
+                                   ks, **kw)
+    args = (q, k, v, out, lse, do, causal, 1.0 / D ** 0.5, qs, ks)
+    drop = K1._drop_args(p, kw["seed"], "test")
+    dq = K1._k2(*args, parts=K1.DQ, drop=drop)[0]
+    _, dk, dv, _ = K1._k2(*args, parts=K1.DKV, drop=drop)
+    torch.cuda.synchronize()
+    for a, b, c in zip(grads, again, (dq, dk, dv)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_mma_varlen_pack_through_flash_attn_unpadded(cuda):
+    """A causal pack at D = 32 through nn.functional.flash_attn_unpadded:
+    K1/K2 on the mma bodies with the frontier arrays (their varlen
+    counters), never the plain version; the output against the plain
+    version on the pack's ranges, the gradients against K2's function."""
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.ops import attention as tattn
+
+    cu_q, cu_k = [0, 150, 230, 430], [0, 300, 420, 900]
+    g = torch.Generator(device=cuda).manual_seed(21)
+    mk = lambda *s: torch.randn(*s, device=cuda, generator=g).bfloat16()
+    q, k, v, do = mk(430, 8, 32), mk(900, 2, 32), mk(900, 2, 32), \
+        mk(430, 8, 32)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    n = (K1.flash_attention_fwd_varlen.launches,
+         K1.flash_attention_bwd_varlen.launches)
+    out, soft = PF.flash_attn_unpadded(q, k, v, cu_q, cu_k, causal=True)
+    out.backward(do)
+    assert soft is None
+    assert (K1.flash_attention_fwd_varlen.launches,
+            K1.flash_attention_bwd_varlen.launches) == (n[0] + 1, n[1] + 1)
+    qr, _ = tattn.varlen_ranges(cu_q, cu_k, 430, 900, True, cuda)
+    q4, k4, v4 = (t.detach()[None] for t in (q, k, v))
+    r_out = K1.flash_attention_dense(q4, k4, v4, q_ranges=qr)[0]
+    assert _scaled(out.detach()[None], r_out) <= TOL[torch.bfloat16]
+    ref = _k2_function(q4, k4, v4, do[None], out.detach()[None],
+                       K1.ranges_keep(qr, 900))
+    for a, b in zip((q.grad, k.grad, v.grad), ref):
+        assert _scaled(a[None], b) <= TOL[torch.bfloat16]
+
+
+def _poisoned_like(shape, cuda):
+    """Leave NaN in the allocator's next block of ``shape`` bf16, so an
+    output a kernel does not write shows."""
+    torch.full(shape, float("nan"), device=cuda, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("empty", ["sq", "skv"])
+def test_no_pair_calls_at_d64_d128(cuda, D, empty):
+    """bf16 calls with no q row or no key at D = 64 / 128 (the Hopper
+    bodies' tensor maps need both): K1 gives O = 0 and lse -1e30, K2 zero
+    gradients, each call one launch of each."""
+    Sq, Skv = (0, 50) if empty == "sq" else (40, 0)
+    q, k, v, do, _, _ = _flash(cuda, torch.bfloat16, 2, Sq, Skv, 4, 2, D,
+                               False, 17)
+    nf, nb = K1.flash_attention_fwd.launches, K1.flash_attention_bwd.launches
+    _poisoned_like(q.shape, cuda)
+    out, lse = K1.flash_attention_fwd_lse(q, k, v, True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
+    assert torch.equal(lse, torch.full_like(lse, -1e30))
+    _poisoned_like(k.shape, cuda)
+    grads = K1.flash_attention_bwd(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    assert (K1.flash_attention_fwd.launches,
+            K1.flash_attention_bwd.launches) == (nf + 1, nb + 1)
+    for t in grads:
+        assert torch.equal(t, torch.zeros_like(t))
+
+
 # varlen packs: (cu_seqlens_q, cu_seqlens_k, Tq, Tk); "chunked" gives each
 # q the last part of its sequence, "padded" leaves tokens past both packs,
 # "short_q" has a sequence with more q than k tokens (rows that see no key)

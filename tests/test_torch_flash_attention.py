@@ -42,6 +42,9 @@ CASES = {
     "segments_s128": (2, 128, 128, 4, 4, 16, True, True),
     "gqa_s256": (1, 256, 256, 4, 2, 16, True, False),
     "gqa_segments_full": (2, 128, 128, 4, 2, 16, False, True),
+    # D = 32: the bf16 mma bodies' other head dim on the card
+    "gqa_d32_s256": (1, 256, 256, 8, 2, 32, True, False),
+    "segments_d32": (2, 128, 128, 4, 2, 32, True, True),
 }
 
 
