@@ -208,20 +208,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 dropout variants 24 a step in the second run only; then
                 each layer's attention watched (K1's output and K2's
                 gradients against the plain version, 2e-2)
-13. varlen      a causal pack at gpt_1p3b's attention widths (16 heads, D
-                = 128, bf16): 8 sequences of 2048, 1792, ..., 256 keys
-                (Tk 9216), each q the last half of its sequence (Tq 4608),
-                so q and k boundaries differ. flash_attn_unpadded forward
-                and backward, without and with dropout 0.1: K1/K2 with
-                the frontier arrays launched once each (their varlen
-                counters), flash_attention_dense called 0 times on CUDA;
-                output and gradients against the plain version on the
-                same ranges, per 64-position tile, 2e-2; K1/K2 timed at
-                the pack with their bound (visible pairs x 4 D flops a
-                head forward, 10 D backward) and the library's varlen
-                flash forward and backward (aten._flash_attention_forward
-                / _backward on the cu_seqlens, varlen_attn's op; first
-                held to the plain version at p = 0, 2e-2). The same in
+13. varlen      three causal packs at gpt_1p3b's attention widths (16
+                heads, D = 128, bf16; VARLEN_PACKS): "varlen", 8
+                sequences of 2048, 1792, ..., 256 keys (Tk 9216), each q
+                the last half of its sequence (Tq 4608), so q and k
+                boundaries differ; "varlen_asc", the same shortest first;
+                "varlen_train", 8 documents of 700, 2100, 260, 1300, 500,
+                1800, 1012 and 520 tokens with q = k (T 8192: packed
+                pretraining; blocks straddle documents). Each through
+                flash_attn_unpadded forward and backward, without and
+                with dropout 0.1: K1/K2 with the frontier arrays launched
+                once each (their varlen counters), flash_attention_dense
+                called 0 times on CUDA; output and gradients against the
+                plain version on the same ranges, per 64-position tile,
+                2e-2; K1/K2 timed at the pack with their bound (visible
+                pairs x 4 D flops a head forward, 10 D backward), K2's
+                parts (pre-pass, dq and dk/dv alone) and the library's
+                varlen flash forward and backward
+                (aten._flash_attention_forward / _backward on the
+                cu_seqlens, varlen_attn's op; first held to the plain
+                version at p = 0, 2e-2); K2's dq and dk/dv roles launched
+                alone bit-equal to its one launch. The same checks in
                 fp32 at a small pack (1e-4). The pack's dropout mask read
                 back bit for bit (Tk <= D: identity V and dO rows), bf16
                 and fp32. The bf16 mma.sync bodies (D = 16, 32), causal,
@@ -271,8 +278,11 @@ the SASS counts of K1/K2's dropout instances in a built flash library
 ``--compare ROOT,ROOT,...`` times K1/K2 of each checkout root in turn
 (each in its own process, with its own package and build: a ``git
 archive`` of the parent under ``build/`` against ``.``, in the order
-parent, change, change, parent) at the mma shapes and the Hopper dropout
-cases, and prints them side by side; it runs no phase.
+parent, change, change, parent) at the mma shapes, the Hopper dropout
+cases and the three varlen packs with and without dropout (K2's parts,
+its dq and dk/dv launched apart, the library), and prints them side by
+side; it runs no phase. The first shape a process times is timed twice
+and its first reading dropped.
 """
 from __future__ import annotations
 
@@ -776,9 +786,14 @@ def flash_instances(report):
         if not m:
             continue
         n = [int(a) for a in re.findall(r"Li(\d+)E", m.group(3))]
+        # bwd_wgmma (K2's dq and dk/dv in one launch) exists only for the
+        # frontier arrays
         r = dict(body=m.group(1), kind=m.group(2), n=n[0],
                  tile=(64 * n[1], n[2]) if len(n) == 3 else None,
-                 drop=m.group(4) == "1", ranges=m.group(5) == "1", rep=rep)
+                 drop=m.group(4) == "1",
+                 ranges=m.group(5) == "1" or m.group(1, 2) == ("bwd",
+                                                               "wgmma"),
+                 rep=rep)
         r["label"] = (f"{r['body']}_{r['kind']} "
                       + ("NI" if r["kind"] == "fma" else "D") + f"={n[0]}"
                       + " dropout" * r["drop"] + " ranges" * r["ranges"])
@@ -1111,20 +1126,21 @@ def check_fused_adam(dev, results):
 
 
 def _k2_split(K1, q, k, v, out, lse, do, causal, qs, ks, drop=None,
-              mma=False):
+              mma=False, qr=None, kr=None):
     """K2's parts timed one by one (CUDA graphs, as ``ms``): the pre-pass,
     the dq kernel and the dk/dv kernel, the last two on the workspace of
     one pre-pass run; on the mma bodies (``mma``: bf16 at D = 16, 32) the
     dq and the dk/dv CTAs of their one launch, each role launched alone
-    (they have no pre-pass). ``drop``: ``_drop_args``' tuple. Not counted
-    as launches."""
+    (they have no pre-pass). ``drop``: ``_drop_args``' tuple; ``qr``,
+    ``kr``: the frontier arrays. Not counted as launches."""
     scale = 1.0 / q.shape[-1] ** 0.5
     args = (q, k, v, out, lse, do, causal, scale, qs, ks)
-    work = K1._k2(*args, parts=K1.PREPASS, drop=drop)[3]
+    kw = dict(drop=drop, qr=qr, kr=kr)
+    work = K1._k2(*args, parts=K1.PREPASS, **kw)[3]
     parts = (() if mma else (("prepass", K1.PREPASS),)) + (
         ("dq", K1.DQ), ("dkv", K1.DKV))
     return {f"{name}_ms": cuda_ms(lambda part=part: K1._k2(
-        *args, parts=part, work=work, drop=drop)) for name, part in parts}
+        *args, parts=part, work=work, **kw)) for name, part in parts}
 
 
 def _attn_case(dev, dt, B, Sq, H, KV, starts, seq_lens, g, P=512, page=64,
@@ -3384,12 +3400,27 @@ def check_gpt_attention(model, opt, batch):
 VARLEN_K = [2048 - 256 * i for i in range(8)]
 VARLEN_SEED = 0x5EED_7AC5_0F0F_1234
 TINY_SHAPE = [8, 128, 4, 16]    # gpt_tiny's attention in train-surface
+# the timed packs (16 heads of 128, bf16, causal): name -> (q lengths, k
+# lengths). Their lengths are illustrative, not drawn from a corpus.
+# "varlen": the sequences longest first, each q the last half (chunked
+# prefill, a packed continuation); "varlen_asc": the same shortest first,
+# so index order starts the heaviest blocks last; "varlen_train": a
+# packed pretraining batch (q = k, as PaddleNLP's intokens GPT
+# pretraining feeds flash_attn_unpadded) of 8 documents whose lengths are
+# no multiple of 64, so blocks straddle documents
+TRAIN_DOCS = [700, 2100, 260, 1300, 500, 1800, 1012, 520]
+VARLEN_PACKS = {
+    "varlen": ([n // 2 for n in VARLEN_K], VARLEN_K),
+    "varlen_asc": ([n // 2 for n in VARLEN_K[::-1]], VARLEN_K[::-1]),
+    "varlen_train": (TRAIN_DOCS, TRAIN_DOCS),
+}
 
 
-def _varlen_pack(dev, dt, k_lens, H, D, seed):
-    """q, k, v, dO [T, H, D] of a pack whose q holds the last half of each
-    sequence, and its cu_seqlens."""
-    q_lens = [n // 2 for n in k_lens]
+def _varlen_pack(dev, dt, k_lens, H, D, seed, q_lens=None):
+    """q, k, v, dO [T, H, D] of a pack of sequences of ``k_lens`` keys and
+    ``q_lens`` q rows (None: the last half of each), and its cu_seqlens."""
+    if q_lens is None:
+        q_lens = [n // 2 for n in k_lens]
     cu_q = [0] + list(itertools.accumulate(q_lens))
     cu_k = [0] + list(itertools.accumulate(k_lens))
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -3486,20 +3517,35 @@ def varlen_main_path(q, k, v, do, cu_q, cu_k, p, counters):
             {c.__name__: c.launches for c in counters}, len(cuda_calls))
 
 
-def check_varlen_pack(dev, results, dt, k_lens, H, D, p, counters,
-                      timed=False):
-    """One pack through ``varlen_main_path``, then K1's output and K2's
+def check_roles_bits(K1, args, drop, qr, kr):
+    """K2 at a pack (``args``: ``_k2``'s first ten) with its dq and dk/dv
+    roles launched alone, each after its own pre-pass run: the
+    gradients bit-equal to the one launch's. Returns the verdict."""
+    kw = dict(drop=drop, qr=qr, kr=kr)
+    whole = K1._k2(*args, **kw)
+    work = K1._k2(*args, parts=K1.PREPASS, **kw)[3]
+    alone = (K1._k2(*args, parts=K1.DQ, work=work, **kw)[0],
+             *K1._k2(*args, parts=K1.DKV, work=work, **kw)[1:3])
+    return dict(roles_alone_bits_equal=all(
+        torch.equal(a, b) for a, b in zip(whole[:3], alone)))
+
+
+def check_varlen_pack(dev, results, dt, pack, q_lens, k_lens, H, D, p,
+                      counters, timed=False):
+    """The pack ``pack`` (sequences of ``q_lens`` q rows and ``k_lens``
+    keys) through ``varlen_main_path``, then K1's output and K2's
     gradients against the plain version on the same frontier arrays, per
     64-position tile (bf16 2e-2, fp32 1e-4). Appends the forward and
     backward rows (timed at the pack: CUDA graphs of the K1 and K2
-    calls, the plain version by events, the library's varlen flash
-    forward and backward by CUDA graphs, ``_varlen_library``). Returns
-    the main path's launches."""
+    calls and of K2's parts, the plain version by events, the library's
+    varlen flash forward and backward by CUDA graphs,
+    ``_varlen_library``; and ``check_roles_bits``'s verdict). Returns the
+    main path's launches."""
     from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.ops.kernels import flash_attention as K1
 
     q, k, v, do, cu_q, cu_k = _varlen_pack(dev, dt, k_lens, H, D,
-                                           13 + len(k_lens))
+                                           13 + len(k_lens), q_lens)
     Tq, Tk = q.shape[0], k.shape[0]
     out, grads, launches, dense_calls = varlen_main_path(
         q, k, v, do, cu_q, cu_k, p, counters)
@@ -3526,9 +3572,9 @@ def check_varlen_pack(dev, results, dt, k_lens, H, D, p, counters,
     del r_out, r_grads
     (fb, ff), (bb, bf), pairs = _varlen_cost(qr, H, D, q.element_size(), Tq,
                                              Tk)
-    base = dict(case=f"varlen{len(k_lens)}", shape=[1, Tq, H, D], skv=Tk,
-                kv_heads=H, causal=True, dropout=p, dtype=str(dt)[6:],
-                tol=TOL[dt], k_lens=k_lens, visible_pairs=pairs,
+    base = dict(case=pack, shape=[1, Tq, H, D], skv=Tk, kv_heads=H,
+                causal=True, dropout=p, dtype=str(dt)[6:], tol=TOL[dt],
+                q_lens=q_lens, k_lens=k_lens, visible_pairs=pairs,
                 launches_main_path=launches)
     fwd = dict(base, name="flash_attention_fwd_varlen", bytes=fb, flops=ff,
                max_abs_err=eo[0], ref_max_abs=eo[1], rel_err=eo[3])
@@ -3558,6 +3604,12 @@ def check_varlen_pack(dev, results, dt, k_lens, H, D, p, counters,
             q4, k4, v4, o4, lse, do4, **kk))
         bwd["plain_ms"] = events_ms(lambda: K1.flash_attention_bwd_dense(
             q4, k4, v4, do4, **kw), iters=3, warm=1)
+        drop = K1._drop_args(p, seed, "K2")
+        bwd.update(_k2_split(K1, q4, k4, v4, o4, lse, do4, False, None, None,
+                             drop, qr=qr, kr=kr))
+        bwd.update(check_roles_bits(
+            K1, (q4, k4, v4, o4, lse, do4, False, 1.0 / D ** 0.5, None,
+                 None), drop, qr, kr))
         del o4, lse
     for rec in (fwd, bwd):
         log("[varlen] " + json.dumps(rec))
@@ -3565,6 +3617,9 @@ def check_varlen_pack(dev, results, dt, k_lens, H, D, p, counters,
             raise AssertionError(f"{rec['name']} {rec['case']} p={p} "
                                  f"{rec['dtype']}: {rec['rel_err']} > "
                                  f"{rec['tol']}")
+        if not rec.get("roles_alone_bits_equal", True):
+            raise AssertionError(f"{rec['name']} {rec['case']} p={p}: K2's "
+                                 f"roles alone differ from its one launch")
     results += [fwd, bwd]
     torch.cuda.empty_cache()
     return launches
@@ -3707,17 +3762,21 @@ def check_mma_dropout(dev, results):
 
 
 def phase_varlen(dev, results, counters):
-    """Phase 13: the gpt_1p3b-width pack (H 16, D 128, bf16; Tq 4608, Tk
-    9216) through flash_attn_unpadded without and with dropout 0.1,
-    checked and timed; the same checks in fp32 at a small pack (k 160,
-    96, 64, 32; H 4, D 64, 1e-4); the pack's mask read back; the mma
-    bodies' dropout instances. Returns the launches by path."""
+    """Phase 13: the VARLEN_PACKS packs at gpt_1p3b's attention widths (H
+    16, D 128, bf16) through flash_attn_unpadded without and with
+    dropout 0.1, checked and timed; the same checks in fp32 at a small
+    pack (k 160, 96, 64, 32; H 4, D 64, 1e-4); a pack's mask read back;
+    the mma bodies' dropout instances. Returns the launches by path (a
+    pack's name, "_dropout" added with dropout)."""
     out = {}
-    for p, path in ((0.0, "varlen"), (DROPOUT_P, "varlen_dropout")):
-        out[path] = check_varlen_pack(dev, results, torch.bfloat16, VARLEN_K,
-                                      16, 128, p, counters, timed=True)
-        check_varlen_pack(dev, results, torch.float32, [160, 96, 64, 32], 4,
-                          64, p, counters)
+    for p in (0.0, DROPOUT_P):
+        for name, (q_lens, k_lens) in VARLEN_PACKS.items():
+            out[name + "_dropout" * bool(p)] = check_varlen_pack(
+                dev, results, torch.bfloat16, name, q_lens, k_lens, 16, 128,
+                p, counters, timed=True)
+        check_varlen_pack(dev, results, torch.float32, "small",
+                          [80, 48, 32, 16], [160, 96, 64, 32], 4, 64, p,
+                          counters)
     check_varlen_mask(dev)
     check_mma_dropout(dev, results)
     log("[varlen] every pack within tolerance, on K1/K2 with the frontier "
@@ -4288,11 +4347,11 @@ def check_tile_spills(_build):
     # the dropout instances (the Hopper bodies: K1's default tiles, K2's
     # dq and dk/dv; the bf16 mma.sync bodies at D = 16 and 32, K2's in one
     # launch; the fp32 bodies at NI head-dim elements a lane), the
-    # Hopper bodies' frontier-array instances and the mma bodies'
-    # no-dropout ones: their spills are recorded, not gated
+    # Hopper bodies' frontier-array instances (K2's in one launch) and the
+    # mma bodies' no-dropout ones: their spills are recorded, not gated
     log("[build] dropout and frontier-array instances (K1 default tiles, "
-        "K2 dq and dk/dv, the mma bodies at D = 16 / 32, the fp32 bodies "
-        "at NI = 1, 2, 4 head-dim elements a lane): "
+        "K2 dq and dk/dv or both in one launch, the mma bodies at D = 16 / "
+        "32, the fp32 bodies at NI = 1, 2, 4 head-dim elements a lane): "
         + json.dumps(drop))
     mma = {r["label"]: r["rep"] for r in insts
            if r["kind"] == "mma" and not r["drop"]}
@@ -4300,7 +4359,7 @@ def check_tile_spills(_build):
     want = [f"{b}_mma D={D}" + " dropout" * kd for b in ("fwd", "bwd")
             for D in (16, 32) for kd in (0, 1)] + [
         f"{b}_wgmma D={D}" + " dropout" * kd + " ranges"
-        for b in ("fwd", "dq", "dkv") for D in (64, 128) for kd in (0, 1)]
+        for b in ("fwd", "bwd") for D in (64, 128) for kd in (0, 1)]
     if sorted(set(want) - set(drop) - set(mma)):
         raise AssertionError(f"instances not built: "
                              f"{sorted(set(want) - set(drop) - set(mma))}")
@@ -4325,9 +4384,12 @@ def mma_times(root):
     """``--mma-times``: K1 and K2 of the checkout at ``root`` (its own
     paddle_tpu_torch and build) timed from CUDA graphs, causal bf16,
     without and with dropout 0.1: the mma bodies at MMA_SHAPES (K2's dq
-    and dk/dv parts too, and the pre-pass where the build has one) and the
-    Hopper bodies at DROPOUT_CASES' bf16 shapes; SDPA beside the mma
-    shapes. One JSON line."""
+    and dk/dv parts too, and the pre-pass where the build has one), the
+    Hopper bodies at DROPOUT_CASES' bf16 shapes and at the VARLEN_PACKS
+    (``pack_times``; "varlen" also at D = 64 without dropout); SDPA
+    beside the mma shapes. The first shape is timed twice and its first
+    pass dropped (the first shape a process times reads slow). One JSON
+    line."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.kernels import _build
@@ -4345,7 +4407,7 @@ def mma_times(root):
         (B, S, H, KV, D) for _, B, S, H, KV, D, t in DROPOUT_CASES
         if t == dt]
     rows = []
-    for B, S, H, KV, D in shapes:
+    for i, (B, S, H, KV, D) in enumerate(shapes[:1] + shapes):
         q, k, v, do, _, _ = _flash_inputs(dev, dt, B, S, S, H, KV, D, False, g)
         qt, kt, vt, skw = _sdpa_args(q, k, v, True, None, None)
         qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
@@ -4369,11 +4431,60 @@ def mma_times(root):
                     F.scaled_dot_product_attention(qg, kg, vg, dropout_p=p,
                                                    **skw),
                     (qg, kg, vg), dot)) - r["sdpa_fwd_ms"]
-            rows.append(r)
+            if i:
+                rows.append(r)
             del out, lse
         del q, k, v, do, qt, kt, vt, qg, kg, vg, dot
         torch.cuda.empty_cache()
+    for name in VARLEN_PACKS:
+        for D, p in ((128, 0.0), (128, DROPOUT_P)) + (
+                ((64, 0.0),) if name == "varlen" else ()):
+            rows.append(pack_times(dev, name, D, p))
     print(json.dumps({"root": root, "rows": rows}), flush=True)
+
+
+def pack_times(dev, name, D, p):
+    """K1 and K2 of a VARLEN_PACKS pack (16 heads of ``D``, bf16, causal,
+    dropout ``p``) on the frontier arrays, from CUDA graphs: K2 whole, its
+    parts (``_k2_split``) and its dq and dk/dv roles in two launches after
+    the pre-pass; the library's varlen flash forward and backward. A row
+    of ``--mma-times``."""
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    q_lens, k_lens = VARLEN_PACKS[name]
+    dt = torch.bfloat16
+    q, k, v, do, cu_q, cu_k = _varlen_pack(dev, dt, k_lens, 16, D, 13,
+                                           q_lens)
+    Tq, Tk = q.shape[0], k.shape[0]
+    qr, kr = A.varlen_ranges(cu_q, cu_k, Tq, Tk, True, dev)
+    q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
+    seed = VARLEN_SEED if p else None
+    kk = dict(dropout=p, seed=seed, q_ranges=qr, kv_ranges=kr)
+    o4, lse = K1.flash_attention_fwd_lse(q4, k4, v4, **kk)
+    drop = K1._drop_args(p, seed, "K2")
+    args = (q4, k4, v4, o4, lse, do4, False, 1.0 / D ** 0.5, None, None)
+    work = K1._k2(*args, drop=drop, qr=qr, kr=kr)[3]
+
+    def two_launches():
+        K1._k2(*args, parts=K1.PREPASS | K1.DQ, work=work, drop=drop, qr=qr,
+               kr=kr)
+        K1._k2(*args, parts=K1.DKV, work=work, drop=drop, qr=qr, kr=kr)
+
+    lib_fwd, lib_bwd = _varlen_library(q, k, v, do, cu_q, cu_k, p)
+    r = dict(pack=name, shape=[1, Tq, 16, D], skv=Tk, kv_heads=16,
+             dropout=p,
+             fwd_ms=cuda_ms(lambda: K1.flash_attention_fwd_lse(
+                 q4, k4, v4, **kk)),
+             bwd_ms=cuda_ms(lambda: K1.flash_attention_bwd(
+                 q4, k4, v4, o4, lse, do4, **kk)),
+             **_k2_split(K1, q4, k4, v4, o4, lse, do4, False, None, None,
+                         drop, qr=qr, kr=kr),
+             bwd_two_launches_ms=cuda_ms(two_launches),
+             library_fwd_ms=cuda_ms(lib_fwd), library_bwd_ms=cuda_ms(lib_bwd))
+    del q, k, v, do, q4, k4, v4, do4, o4, lse, work
+    torch.cuda.empty_cache()
+    return r
 
 
 def compare_roots(roots):
@@ -4392,8 +4503,9 @@ def compare_roots(roots):
     for i, r in enumerate(runs[0]["rows"]):
         cols = {key: [run["rows"][i].get(key) for run in runs]
                 for key in r if key.endswith("_ms")}
-        log(f"[compare] {r['shape']} kv {r['kv_heads']} p {r['dropout']} "
-            f"(roots {', '.join(roots)}): " + json.dumps(cols))
+        log(f"[compare] {r.get('pack', '')} {r['shape']} kv {r['kv_heads']} "
+            f"p {r['dropout']} (roots {', '.join(roots)}): "
+            + json.dumps(cols))
 
 
 def main():
@@ -4418,8 +4530,9 @@ def main():
     ap.add_argument("--compare",
                     help="developer: comma-separated checkout roots (e.g. "
                     "build/parent,.,.,build/parent); K1/K2 of each timed in "
-                    "turn at the mma shapes and the Hopper dropout cases, "
-                    "each root in its own process, printed side by side")
+                    "turn at the mma shapes, the Hopper dropout cases and "
+                    "the varlen packs, each root in its own process, "
+                    "printed side by side")
     ap.add_argument("--mma-times", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = args.phases.split(",")

@@ -32,7 +32,10 @@
 // with them). Every body takes them: the row-major ones (forward, dq) read
 // qrange, the key-major ones (dk/dv) krange, and each CTA's loop runs over
 // the union of its rows' (keys') ranges only, so a pack skips the key
-// tiles of other sequences. Null pointers keep the rule.
+// tiles of other sequences. Null pointers keep the rule. The Hopper
+// bodies' instances for them run on a 1-D grid in index order, the heads
+// of a block adjacent, and K2's dq and dk/dv CTAs are one launch
+// (bwd_wgmma), the dk/dv ones after the dq ones.
 //
 // Attention dropout (the JAX _sdpa_raw's, after the softmax; entries
 // flash_attention_fwd_dropout_launch and _bwd_dropout_launch): the
@@ -94,6 +97,8 @@
 //       bodies' backward).
 //     dq: one CTA per 128 q rows; Q and dO resident, 64 keys of K and V a
 //       stage; S = Q K^T, dP = dO V^T, dS = P (dP - delta), dq += dS K.
+//     At the frontier arrays dq and dk/dv are one launch (bwd_wgmma): the
+//       dq CTAs, then the dk/dv CTAs.
 //     dk/dv: one CTA per (keys, KV head, batch row), K and V resident;
 //       64 q rows of Q, dO, lse and delta a stage for each head of the
 //       group from the first q block that sees the CTA's keys; S^T = K Q^T,
@@ -1600,6 +1605,16 @@ constexpr FwdTile kFwdTiles[] = {
 };
 constexpr int kNumFwdTiles = sizeof(kFwdTiles) / sizeof(kFwdTiles[0]);
 
+// The kRange launches run on a 1-D grid. CTA id c = head + heads (block +
+// blocks b), blocks of `rows` rows (keys) out of S: cta_of gives (block,
+// head, batch row). The heads of a block launch together, so a pack's
+// sequences, whose blocks differ in work, reach the SMs one after another
+// and no head's share of the heaviest blocks is left for the last wave
+__device__ __forceinline__ int3 cta_of(int c, int heads, int S, int rows) {
+  const int nb = (S + rows - 1) / rows;
+  return make_int3(c / heads % nb, c % heads, c / heads / nb);
+}
+
 // a shared-memory descriptor `base` advanced by `off` (16-byte units),
 // computed where it is used: the empty asm keeps the compiler from
 // computing a whole wgmma batch's descriptors into registers ahead of it
@@ -1630,10 +1645,14 @@ __global__ void __launch_bounds__(FwdHop<D, W, BN>::kThreads, 1)
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + kStages;
   const Args& a = P.a;
-  // the q blocks of one (head, batch row) launch together, so the K and V
-  // they all stream stay in L2; causal: the heaviest (last rows) first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int qb = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  // the rule: the q blocks of one (head, batch row) launch together, so
+  // the K and V they all stream stay in L2; causal: the heaviest (last
+  // rows) first. The frontier arrays: a 1-D grid in index order
+  const int3 cta = kRange ? cta_of(blockIdx.x, a.H, a.Sq, BM)
+                          : make_int3(a.causal ? gridDim.x - 1 - blockIdx.x
+                                               : blockIdx.x,
+                                      blockIdx.y, blockIdx.z);
+  const int qb = cta.x, h = cta.y, b = cta.z;
   const int q0 = qb * BM;
   const int kvh = h / (a.H / a.KV);
   // the keys the block's rows see, [kbeg, kend), kbeg a multiple of 64:
@@ -1816,9 +1835,11 @@ struct DqHop {
   static constexpr int smem = 2 * QB + kStages * 2 * KB + 64 + 1024;
 };
 
+// the CTA of q block qb, head h, batch row b (dq_wgmma's, or bwd_wgmma's
+// dq role)
 template <int D, bool kDrop, bool kRange>
-__global__ void __launch_bounds__(kHopThreads, 1)
-    dq_wgmma(const __grid_constant__ HopParams P) {
+__device__ __forceinline__ void dq_cta(const HopParams& P, int qb, int h,
+                                       int b) {
   using C = DqHop<D>;
   constexpr int BM = C::BM, BN = C::BN;
   extern __shared__ unsigned char smem_raw[];
@@ -1831,8 +1852,6 @@ __global__ void __launch_bounds__(kHopThreads, 1)
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + kStages;
   const Args& a = P.a;
-  const int h = blockIdx.y, b = blockIdx.z;  // as the forward
-  const int qb = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = qb * BM;
   const int kvh = h / (a.H / a.KV);
   // the keys the block's rows see, [kbeg, kend)
@@ -1947,6 +1966,16 @@ __global__ void __launch_bounds__(kHopThreads, 1)
   }
 }
 
+// the rule's dq launch: q blocks as the forward's (causal: the heaviest,
+// last rows, first)
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    dq_wgmma(const __grid_constant__ HopParams P) {
+  dq_cta<D, kDrop, false>(
+      P, P.a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x, blockIdx.y,
+      blockIdx.z);
+}
+
 // K2 dk/dv: one CTA per (BN keys, KV head, batch row); K and V resident,
 // 64 q rows of Q, dO, lse2 and delta a stage, for each query head of the
 // GQA group from the first q block that sees the CTA's keys. S^T = K Q^T
@@ -1968,9 +1997,11 @@ struct DkvHop {
       2 * KB + kStages * (2 * QB + 2 * VB) + 64 + 1024;
 };
 
+// the CTA of key block jb, KV head kvh, batch row b (dkv_wgmma's, or
+// bwd_wgmma's dk/dv role)
 template <int D, bool kDrop, bool kRange>
-__global__ void __launch_bounds__(kHopThreads, 1)
-    dkv_wgmma(const __grid_constant__ HopParams P) {
+__device__ __forceinline__ void dkv_cta(const HopParams& P, int jb, int kvh,
+                                        int b) {
   using C = DkvHop<D>;
   constexpr int BN = C::BN, BQ = C::BQ, DW = C::DW;
   extern __shared__ unsigned char smem_raw[];
@@ -1985,11 +2016,7 @@ __global__ void __launch_bounds__(kHopThreads, 1)
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + kStages;
   const Args& a = P.a;
-  // the key blocks of one (KV head, batch row) launch together, so the Q
-  // and dO they all stream stay in L2; causal: the first keys see the most
-  // q rows, so they launch first
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int j0 = blockIdx.x * BN;
+  const int j0 = jb * BN;
   const int G = a.H / a.KV;
   // the q rows that see the block's keys, [qfirst, qend)
   const int2 qs_ = keys_steps<kRange>(a, b, j0, BN, BQ);
@@ -2136,6 +2163,46 @@ __global__ void __launch_bounds__(kHopThreads, 1)
   }
 }
 
+// the rule's dk/dv launch: the key blocks of one (KV head, batch row)
+// launch together, so the Q and dO they all stream stay in L2; causal: the
+// first keys see the most q rows, so they launch first
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    dkv_wgmma(const __grid_constant__ HopParams P) {
+  dkv_cta<D, kDrop, false>(P, blockIdx.x, blockIdx.y, blockIdx.z);
+}
+
+// K2 at the frontier arrays: the dq and the dk/dv CTAs in one launch on a
+// 1-D grid, so the SMs idle in dq's last wave take dk/dv CTAs. Its first
+// dq_ctas CTAs are dq CTAs (id head + H (q block + blocks b), cta_of over
+// DqHop::BM rows); the rest are dk/dv CTAs (id kv head + KV (key block +
+// blocks b) over DkvHop::BN keys). Each CTA runs its role's body as the
+// separate launches would, so every element has the same bits with either
+// role alone. The shared memory is the larger role's.
+struct BwdHop {
+  HopParams dq, dkv;  // each role's tensor maps (their boxes differ)
+  int dq_ctas;
+};
+
+template <int D>
+__host__ __device__ constexpr int bwd_smem() {
+  return DqHop<D>::smem > DkvHop<D>::smem ? DqHop<D>::smem : DkvHop<D>::smem;
+}
+
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    bwd_wgmma(const __grid_constant__ BwdHop P) {
+  const Args& a = P.dq.a;
+  if (int(blockIdx.x) < P.dq_ctas) {
+    const int3 t = cta_of(blockIdx.x, a.H, a.Sq, DqHop<D>::BM);
+    dq_cta<D, kDrop, true>(P.dq, t.x, t.y, t.z);
+  } else {
+    const int3 t = cta_of(int(blockIdx.x) - P.dq_ctas, a.KV, a.Skv,
+                          DkvHop<D>::BN);
+    dkv_cta<D, kDrop, true>(P.dkv, t.x, t.y, t.z);
+  }
+}
+
 // K2 pre-pass: delta = rowsum(dO o O) and lse2 = lse log2(e), both f32
 // [B, H, Sp] with zero pad rows, from one read of O, dO and lse. L lanes
 // (16 bytes each) per (batch, row, head), rows walked in memory order.
@@ -2181,6 +2248,7 @@ bool hop_ok(const Args& a, int dtype) {
   return dtype == 1 && (a.D == 64 || a.D == 128) && a.Sq > 0 && a.Skv > 0;
 }
 
+// kRange: the frontier arrays' instance, on a 1-D grid
 template <int D, int W, int BN, bool kDrop = false, bool kRange = false>
 cudaError_t fwd_hop(const Args& a, cudaStream_t s) {
   using C = FwdHop<D, W, BN>;
@@ -2195,7 +2263,13 @@ cudaError_t fwd_hop(const Args& a, cudaStream_t s) {
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.Sq + C::BM - 1) / C::BM, a.H, a.B);
+  const int blocks = (a.Sq + C::BM - 1) / C::BM;
+  dim3 grid(blocks, a.H, a.B);
+  if constexpr (kRange) {
+    static_assert(W == 2 && BN == 128,
+                  "the frontier arrays' forward is the default tile's");
+    grid = dim3(blocks * a.H * a.B);
+  }
   fwd_wgmma<D, W, BN, kDrop, kRange><<<grid, C::kThreads, C::smem, s>>>(p);
   return cudaGetLastError();
 }
@@ -2225,47 +2299,83 @@ cudaError_t prepass(const Args& a, const void* out, float* work,
   return cudaGetLastError();
 }
 
-template <int D, bool kDrop, bool kRange>
+// dq's and dk/dv's parameters: the tensor maps at each role's boxes
+template <int D>
+bool dq_params(const Args& a, const float* work, HopParams* p) {
+  using C = DqHop<D>;
+  p->a = a;
+  p->lse2 = work;
+  p->delta2 = work + size_t(a.B) * a.H * a.Sp;
+  return hopper_host::encode_rows(&p->tq, a.q, a.B, a.Sq, a.H, D, C::BM) &&
+         hopper_host::encode_rows(&p->tdo, a.dout, a.B, a.Sq, a.H, D, C::BM) &&
+         hopper_host::encode_rows(&p->tk, a.k, a.B, a.Skv, a.KV, D, C::BN) &&
+         hopper_host::encode_rows(&p->tv, a.v, a.B, a.Skv, a.KV, D, C::BN);
+}
+
+template <int D>
+bool dkv_params(const Args& a, const float* work, HopParams* p) {
+  using C = DkvHop<D>;
+  p->a = a;
+  const float* delta = work + size_t(a.B) * a.H * a.Sp;
+  return hopper_host::encode_rows(&p->tq, a.q, a.B, a.Sq, a.H, D, C::BQ) &&
+         hopper_host::encode_rows(&p->tdo, a.dout, a.B, a.Sq, a.H, D,
+                                  C::BQ) &&
+         hopper_host::encode_rows(&p->tk, a.k, a.B, a.Skv, a.KV, D, C::BN) &&
+         hopper_host::encode_rows(&p->tv, a.v, a.B, a.Skv, a.KV, D, C::BN) &&
+         hopper_host::encode_f32_rows(&p->tlse, work, a.B * a.H, a.Sp,
+                                      C::BQ) &&
+         hopper_host::encode_f32_rows(&p->tdelta, delta, a.B * a.H, a.Sp,
+                                      C::BQ);
+}
+
+template <int D, bool kDrop>
 cudaError_t dq_hop(const Args& a, const float* work, cudaStream_t s) {
   using C = DqHop<D>;
   HopParams p{};
-  p.a = a;
-  p.lse2 = work;
-  p.delta2 = work + size_t(a.B) * a.H * a.Sp;
-  if (!hopper_host::encode_rows(&p.tq, a.q, a.B, a.Sq, a.H, D, C::BM) ||
-      !hopper_host::encode_rows(&p.tdo, a.dout, a.B, a.Sq, a.H, D, C::BM) ||
-      !hopper_host::encode_rows(&p.tk, a.k, a.B, a.Skv, a.KV, D, C::BN) ||
-      !hopper_host::encode_rows(&p.tv, a.v, a.B, a.Skv, a.KV, D, C::BN))
-    return cudaErrorInvalidValue;
+  if (!dq_params<D>(a, work, &p)) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      dq_wgmma<D, kDrop, kRange>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dq_wgmma<D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Sq + C::BM - 1) / C::BM, a.H, a.B);
-  dq_wgmma<D, kDrop, kRange><<<grid, kHopThreads, C::smem, s>>>(p);
+  dq_wgmma<D, kDrop><<<grid, kHopThreads, C::smem, s>>>(p);
   return cudaGetLastError();
 }
 
-template <int D, bool kDrop, bool kRange>
+template <int D, bool kDrop>
 cudaError_t dkv_hop(const Args& a, const float* work, cudaStream_t s) {
   using C = DkvHop<D>;
   HopParams p{};
-  p.a = a;
-  const float* delta = work + size_t(a.B) * a.H * a.Sp;
-  if (!hopper_host::encode_rows(&p.tq, a.q, a.B, a.Sq, a.H, D, C::BQ) ||
-      !hopper_host::encode_rows(&p.tdo, a.dout, a.B, a.Sq, a.H, D, C::BQ) ||
-      !hopper_host::encode_rows(&p.tk, a.k, a.B, a.Skv, a.KV, D, C::BN) ||
-      !hopper_host::encode_rows(&p.tv, a.v, a.B, a.Skv, a.KV, D, C::BN) ||
-      !hopper_host::encode_f32_rows(&p.tlse, work, a.B * a.H, a.Sp, C::BQ) ||
-      !hopper_host::encode_f32_rows(&p.tdelta, delta, a.B * a.H, a.Sp, C::BQ))
-    return cudaErrorInvalidValue;
+  if (!dkv_params<D>(a, work, &p)) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      dkv_wgmma<D, kDrop, kRange>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkv_wgmma<D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Skv + C::BN - 1) / C::BN, a.KV, a.B);
-  dkv_wgmma<D, kDrop, kRange><<<grid, kHopThreads, C::smem, s>>>(p);
+  dkv_wgmma<D, kDrop><<<grid, kHopThreads, C::smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+// K2's `parts` DQ (2) and DKV (4) at the frontier arrays: one bwd_wgmma
+// launch of the selected roles' CTAs
+template <int D, bool kDrop>
+cudaError_t bwd_hop_range(const Args& a, const float* work, int parts,
+                          cudaStream_t s) {
+  BwdHop p{};
+  if (!dq_params<D>(a, work, &p.dq) || !dkv_params<D>(a, work, &p.dkv))
+    return cudaErrorInvalidValue;
+  p.dq_ctas = (parts & 2) ? (a.Sq + DqHop<D>::BM - 1) / DqHop<D>::BM *
+                                a.H * a.B
+                          : 0;
+  const int ctas = p.dq_ctas + ((parts & 4) ? (a.Skv + DkvHop<D>::BN - 1) /
+                                                  DkvHop<D>::BN * a.KV * a.B
+                                            : 0);
+  if (ctas == 0) return cudaSuccess;
+  constexpr int smem = bwd_smem<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      bwd_wgmma<D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  bwd_wgmma<D, kDrop><<<ctas, kHopThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -2338,14 +2448,14 @@ cudaError_t fill_no_pairs(void* x, size_t elems, float* lse, size_t rows,
   return cudaGetLastError();
 }
 
-template <int D, bool kDrop, bool kRange>
+template <int D, bool kDrop>
 cudaError_t bwd_hop(const Args& a, const float* work, int parts,
                     cudaStream_t s) {
   if (parts & 2) {
-    cudaError_t e = dq_hop<D, kDrop, kRange>(a, work, s);
+    cudaError_t e = dq_hop<D, kDrop>(a, work, s);
     if (e != cudaSuccess) return e;
   }
-  return (parts & 4) ? dkv_hop<D, kDrop, kRange>(a, work, s) : cudaSuccess;
+  return (parts & 4) ? dkv_hop<D, kDrop>(a, work, s) : cudaSuccess;
 }
 
 // the Hopper backward's instance: (D, dropout, frontier arrays)
@@ -2353,17 +2463,17 @@ template <int D>
 cudaError_t bwd_hop_any(const Args& a, const float* work, int parts,
                         bool drop, cudaStream_t s) {
   if (a.qrange)
-    return drop ? bwd_hop<D, true, true>(a, work, parts, s)
-                : bwd_hop<D, false, true>(a, work, parts, s);
-  return drop ? bwd_hop<D, true, false>(a, work, parts, s)
-              : bwd_hop<D, false, false>(a, work, parts, s);
+    return drop ? bwd_hop_range<D, true>(a, work, parts, s)
+                : bwd_hop_range<D, false>(a, work, parts, s);
+  return drop ? bwd_hop<D, true>(a, work, parts, s)
+              : bwd_hop<D, false>(a, work, parts, s);
 }
 
-// the Hopper forward with the frontier arrays: the default tiles only
-template <int D, int W, int BN>
+// the Hopper forward with the frontier arrays: the default tile only
+template <int D>
 cudaError_t fwd_hop_range(const Args& a, bool drop, cudaStream_t s) {
-  return drop ? fwd_hop<D, W, BN, true, true>(a, s)
-              : fwd_hop<D, W, BN, false, true>(a, s);
+  return drop ? fwd_hop<D, 2, 128, true, true>(a, s)
+              : fwd_hop<D, 2, 128, false, true>(a, s);
 }
 
 template <int NI, bool kDrop>
@@ -2417,8 +2527,8 @@ cudaError_t run_fwd(const Args& a, int dtype, int bq, int bkv, bool drop,
   if (a.qrange && hop_ok(a, dtype)) {
     // the frontier arrays' instances are the default tiles'
     if (bq != 0 || bkv != 0) return cudaErrorInvalidValue;
-    return a.D == 64 ? fwd_hop_range<64, 2, 128>(a, drop, s)
-                     : fwd_hop_range<128, 2, 128>(a, drop, s);
+    return a.D == 64 ? fwd_hop_range<64>(a, drop, s)
+                     : fwd_hop_range<128>(a, drop, s);
   }
   if (drop) {
     // the dropout instances are the default tiles'

@@ -55,7 +55,9 @@ The ``LaunchCounter``s ``flash_attention_fwd_varlen`` /
 ``flash_attention_bwd_varlen`` count the launches that carry them, which
 K1's and K2's counters count too.
 Their Hopper instances are built apart from the rule's (which keep their
-registers) and at the default tiles only, like the dropout ones.
+registers) and at the default tiles only, like the dropout ones. They run
+on a 1-D grid, the heads of a q block adjacent, and K2 runs its dq and
+dk/dv CTAs in one launch after the pre-pass.
 
 K1's Hopper body is built at several tiles (block_q, block_kv)
 (``fwd_tiles``). The default is (128, 128); with
@@ -447,10 +449,12 @@ def _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg,
     """Launch the ``parts`` of K2 on checked CUDA tensors: (dq, dk, dv,
     work). ``work`` is the pre-pass's f32 workspace [2, B, H, Sp]
     (allocated when None); a launch without PREPASS reads the workspace
-    an earlier one wrote (the bf16 D = 16 / 32 body has no pre-pass: DQ
-    and DKV select the roles of its one launch, which compute the same
-    bits alone as together). ``drop``: ``_drop_args``'s tuple of K1's
-    dropout call, or None; ``qr``, ``kr``: the frontier arrays."""
+    an earlier one wrote (the bf16 D = 16 / 32 body has no pre-pass, and
+    at the frontier arrays the Hopper bodies run dq and dk/dv in one
+    launch: there DQ and DKV select the roles of that launch, which
+    compute the same bits alone as together). ``drop``: ``_drop_args``'s
+    tuple of K1's dropout call, or None; ``qr``, ``kr``: the frontier
+    arrays."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     if work is None:

@@ -936,6 +936,55 @@ def test_varlen_pack_runs_k1_k2_with_frontiers(cuda, pack, causal, D, KV,
     assert _scaled(out.detach()[None], cpu.to(cuda)[None]) <= TOL[dtype]
 
 
+# packs whose blocks differ in work in other orders than chip_smoke.py's
+# descending pack: the sequences shortest first (each q the last half),
+# and documents of lengths that are no multiple of 64 (q = k), so blocks
+# straddle documents
+ROLE_PACKS = {
+    "ascending": ([32, 96, 160, 224], [64, 192, 320, 448]),
+    "straddling": ([100, 333, 70, 260, 201],) * 2,
+}
+
+
+@pytest.mark.parametrize("p", [0.0, 0.2])
+@pytest.mark.parametrize("KV", [8, 2])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("pack", sorted(ROLE_PACKS))
+def test_frontier_launch_roles_are_bit_equal(cuda, pack, D, KV, p):
+    """The Hopper bodies at the frontier arrays (bf16, 8 q heads, the
+    1-D grids): K2's DQ and DKV parts launched alone give the bits of
+    their one launch together, two runs of K1 and K2 the same bits, and
+    K1's output agrees with the plain version."""
+    from paddle_tpu_torch.ops import attention as tattn
+
+    q_lens, k_lens = ROLE_PACKS[pack]
+    cu_q, cu_k = np.cumsum([0] + q_lens), np.cumsum([0] + k_lens)
+    Tq, Tk, H = int(cu_q[-1]), int(cu_k[-1]), 8
+    g = torch.Generator(device=cuda).manual_seed(D + KV)
+    mk = lambda *s: torch.randn(*s, device=cuda, generator=g).bfloat16()
+    q, do = mk(1, Tq, H, D), mk(1, Tq, H, D)
+    k, v = mk(1, Tk, KV, D), mk(1, Tk, KV, D)
+    qr, kr = tattn.varlen_ranges(cu_q.tolist(), cu_k.tolist(), Tq, Tk, True,
+                                 cuda)
+    drop = K1._drop_args(p, 0xD0 + D, "test")
+    scale = 1.0 / D ** 0.5
+    o, lse = K1._k1(q, k, v, False, scale, None, None, None, drop, qr, kr)
+    o2, lse2 = K1._k1(q, k, v, False, scale, None, None, None, drop, qr, kr)
+    args = (q, k, v, o, lse, do, False, scale, None, None)
+    kw = dict(drop=drop, qr=qr, kr=kr)
+    dq, dk, dv, work = K1._k2(*args, **kw)
+    again = K1._k2(*args, **kw)[:3]
+    alone = (K1._k2(*args, parts=K1.DQ, work=work, **kw)[0],
+             *K1._k2(*args, parts=K1.DKV, work=work, **kw)[1:3])
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    for a, b, c in zip((dq, dk, dv), again, alone):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    r_out = K1.flash_attention_dense(q, k, v, q_ranges=qr, dropout=p,
+                                     seed=0xD0 + D if p else None)[0]
+    assert _scaled(o, r_out) <= TOL[torch.bfloat16]
+
+
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_varlen_dropout_mask_reads_back_bit_exact(cuda, D):
     """A causal pack with differing boundaries, V's rows the identity:

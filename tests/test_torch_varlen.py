@@ -15,6 +15,10 @@ same plain version in tests/test_torch_cuda_kernels.py). Here:
   that see no key are NaN there, from its -inf softmax, and 0 here);
 - q, k, v gradients against ``jax.vjp`` of that dense path (2e-5), on
   packs where every row sees a key (a NaN row's gradient is NaN there).
+
+The packs include chip_smoke.py's three timed ones (``VARLEN_PACKS``) at
+an eighth of their lengths: sequences longest first and shortest first,
+each q the last half, and documents (q = k) whose blocks straddle them.
 """
 import numpy as np
 import pytest
@@ -28,6 +32,15 @@ from paddle_tpu_torch.ops.kernels import flash_attention as K1
 
 DENSE_TOL = 2e-5
 
+
+def _pack(q_lens, k_lens):
+    cu_q, cu_k = (np.cumsum([0] + n).tolist() for n in (q_lens, k_lens))
+    return cu_q, cu_k, cu_q[-1], cu_k[-1]
+
+
+_K = [(2048 - 256 * i) // 8 for i in range(8)]
+_DOCS = [n // 8 for n in (700, 2100, 260, 1300, 500, 1800, 1012, 520)]
+
 # name: (cu_seqlens_q, cu_seqlens_k, Tq, Tk); every row sees a key in
 # the first four (causal): q is each sequence's tail
 PACKS = {
@@ -39,12 +52,18 @@ PACKS = {
     "empty_seq": ([0, 4, 4, 10], [0, 9, 12, 20], 10, 20),
     "fewer_k_seqs": ([0, 6, 12, 18], [0, 10, 20], 18, 24),
     "padded_q_only": ([0, 9, 16], [0, 12, 30], 20, 30),
+    "phase_varlen": _pack([n // 2 for n in _K], _K),
+    "phase_varlen_asc": _pack([n // 2 for n in _K[::-1]], _K[::-1]),
+    "phase_varlen_train": _pack(_DOCS, _DOCS),
 }
 # (pack, causal) where every row sees a key (padded rows measure their
 # causal frontier from sequence 0, so some see none)
 GRAD_CASES = [("chunked", True), ("chunked", False), ("same", True),
               ("same", False), ("one_seq_rect", True),
-              ("one_seq_rect", False), ("padded_both", False)]
+              ("one_seq_rect", False), ("padded_both", False)] + [
+    (pack, causal) for pack in ("phase_varlen", "phase_varlen_asc",
+                                "phase_varlen_train")
+    for causal in (True, False)]
 
 
 def _jax_mask(cu_q, cu_k, Tq, Tk, causal):
