@@ -261,6 +261,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 each, finite losses, K1/K2 once a layer a step, the
                 dropout variants iff dropout. The host cost of the kernels'
                 counted wrapper with amp.debugging off (ns a call)
+15. train-ckpt  gpt_1p3b at full width, 4 layers (0.31 B parameters),
+                bf16, AdamW with f32 masters, clip 1.0, LinearWarmup into
+                CosineAnnealingDecay, hidden and attention dropout 0.1, a
+                4 x 2048 batch a step from a seed, through ParallelEngine
+                with its telemetry: run A takes 8 steps, a synchronous
+                save_checkpoint after step 4 and an async one through a
+                CheckpointManager (keep 2) after step 6; run B, a fresh
+                model from another seed, restores step 4 and takes steps
+                5-8: its losses, parameters, masters, moments, step
+                count, LR schedule and both dropout generators must equal
+                A's bit for bit (torch.equal). A save whose commit fails
+                (the ckpt.commit failpoint) must raise and leave step 6
+                the newest committed checkpoint, which restores A's step-6
+                parameters. Run A's telemetry: steps / tokens counters 8 /
+                8 x 8192, the loss gauge the last loss, MFU within 2% of
+                (6 N + 12 L h S) tokens/s / 989e12 on the last step's
+                interval, device-memory gauges, no health event (and one
+                loss_spike from health.loss_spike=corrupt@3 on a monitor
+                with warmup 2 fed the first three steps), restore and
+                ckpt_stall in the goodput journal, every train metric of
+                schema.json in one /metrics scrape over loopback. K1/K2
+                (their dropout instances) 4 a step and K8 one. Prints the
+                checkpoint's bytes, the save, stall and restore seconds
+                and GB/s, and the telemetry's host microseconds a step
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -282,7 +306,10 @@ parent, change, change, parent) at the mma shapes, the Hopper dropout
 cases and the three varlen packs with and without dropout (K2's parts,
 its dq and dk/dv launched apart, the library), and prints them side by
 side; it runs no phase. The first shape a process times is timed twice
-and its first reading dropped.
+and its first reading dropped. ``--compare-train ROOT,ROOT,...`` runs
+each root's own ``chip_smoke.py --phases build,train-gpt`` in turn and
+prints the step ms p50 of each run side by side (the cost of a change to
+every training step; it runs no phase of its own).
 """
 from __future__ import annotations
 
@@ -4069,6 +4096,327 @@ def phase_train_surface(dev, paths):
     return out
 
 
+# -- phase 15: checkpoints and telemetry ------------------------------------
+def _ckpt_trainer(cfg, seed, device):
+    """gpt_1p3b-width training as a user builds it: AdamW with f32 masters,
+    clip 1.0, a warmup-then-cosine schedule, through ParallelEngine."""
+    from paddle_tpu_torch.distributed.engine import ParallelEngine
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+                                             GPTPretrainingCriterion)
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    model = GPTForCausalLM(cfg, device=device, seed=seed)
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(3e-4, T_max=8),
+                            warmup_steps=2, start_lr=3e-5, end_lr=3e-4)
+    opt = AdamW(learning_rate=sched, weight_decay=0.01,
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0),
+                parameters=model.parameters())
+    crit = GPTPretrainingCriterion(cfg)
+    eng = ParallelEngine(model, opt)
+    return model, opt, eng, eng.train_step(
+        lambda m, b: crit(m(b["x"]), b["y"]))
+
+
+def _ckpt_state(model, opt):
+    """{name: tensor} of everything a resume must reproduce: parameters,
+    masters, moments, and both dropout generators' states."""
+    out = {f"param {n}": p.detach() for n, p in model.named_parameters()}
+    for n, p in model.named_parameters():
+        if id(p) in opt._master_weights:
+            out[f"master {n}"] = opt._master_weights[id(p)]
+        for k, v in opt._states.get(id(p), {}).items():
+            out[f"{k} {n}"] = v
+    out["hidden dropout generator"] = \
+        model.gpt.embeddings.dropout.generator.get_state()
+    out["attention dropout generator"] = \
+        model.gpt.layers[0].attn._attn_gen.get_state()
+    return out
+
+
+def _ckpt_anatomy(eng, tmp, cuda, reps=200):
+    """Seconds of a synchronous save's parts (device-to-host copy, the
+    crc32s, the npz write, its fsync) on the engine's state, and
+    microseconds of the per-step telemetry's parts over ``reps`` calls."""
+    import os
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.distributed.checkpoint.save_state_dict import (
+        collect_shards, crc32_all)
+    from paddle_tpu_torch.distributed.engine import _Scalars
+    from paddle_tpu_torch.observability import healthmon
+
+    out = {}
+    t0 = time.perf_counter()
+    _, shards, _ = collect_shards(eng._checkpoint_state()[0])
+    t1 = time.perf_counter()
+    crc32_all(shards.values())
+    t2 = time.perf_counter()
+    path = str(Path(tmp) / "anatomy.npz")
+    with open(path, "wb") as f:
+        np.savez(f, **shards)
+        t3 = time.perf_counter()
+        f.flush()
+        os.fsync(f.fileno())
+    t4 = time.perf_counter()
+    os.remove(path)
+    del shards
+    out["save_s"] = dict(device_to_host=t1 - t0, crc32=t2 - t1,
+                         npz_write=t3 - t2, fsync=t4 - t3)
+    dev = eng.device
+    x = torch.ones((), device=dev)
+    mon = healthmon.HealthMonitor(flight_on_spike=False)
+
+    def us(fn):
+        fn()
+        if cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t) / reps * 1e6
+
+    out["telemetry_us"] = dict(
+        scalars_to_host=us(lambda: _Scalars((x, x, None), 0)),
+        allocator_stats=us(lambda: torch.cuda.memory_stats(dev))
+        if cuda else 0.0,
+        registry_snapshot=us(lambda: obs.get_registry().snapshot()),
+        health_observe=us(lambda: mon.observe(loss=1.0, grad_norm=1.0,
+                                              step_seconds=0.1)))
+    return out
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def phase_train_ckpt(counters, layers=4, steps=8, device="cuda", cfg=None,
+                     B=4, S=2048):
+    """Phase 15 (module docstring): run A with a synchronous checkpoint
+    after step 4 and an async one after step 6, run B resumed from step 4
+    and held to A bit for bit, a failed commit, the telemetry checks.
+    Returns run A's launches. ``device="cpu"`` with a small ``cfg`` is a
+    dry run of the same logic, without the checks only a card can pass
+    (kernel launches, allocator gauges, MFU)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.distributed import failpoints as fp
+    from paddle_tpu_torch.distributed.checkpoint import (CheckpointManager,
+                                                         latest_committed)
+    from paddle_tpu_torch.models.gpt import gpt_1p3b
+    from paddle_tpu_torch.observability import catalog, goodput, healthmon
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+    from paddle_tpu_torch.ops.kernels.fused_adam import fused_adam
+
+    cuda = device == "cuda"
+    cfg = cfg or dataclasses.replace(
+        gpt_1p3b(dtype="bfloat16", hidden_dropout=0.1,
+                 attention_dropout=0.1), num_layers=layers)
+    batches = [_lm_batch(300 + i, B, S, cfg.vocab_size, device)
+               for i in range(steps)]
+    tmp = tempfile.mkdtemp(prefix="train_ckpt_")
+    base = str(Path(tmp) / "run")
+    c4 = str(Path(tmp) / "step4")
+    obs.reset_registry()
+    goodput.detach()
+    out = {}
+    try:
+        mgr = CheckpointManager(base, keep_last_k=2, async_save=True)
+        led = goodput.current()
+        model, opt, eng, step = _ckpt_trainer(cfg, 0, device)
+        # the telemetry's host cost: its per-step calls, timed
+        host = []
+
+        def timed(fn):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    host.append(time.perf_counter() - t0)
+            return wrapper
+
+        eng._note_step = timed(eng._note_step)
+        eng._flush_pending_scalars = timed(eng._flush_pending_scalars)
+        for c in counters:
+            c.launches = 0
+        losses, norms, entries = [], [], []
+        for i in range(steps):
+            if cuda:
+                torch.cuda.synchronize()
+            entries.append(time.perf_counter())
+            losses.append(float(step(batches[i])))
+            norms.append(float(opt.grad_norm))
+            if i == 3:
+                t0 = time.perf_counter()
+                eng.save_checkpoint(c4)
+                out["sync_save_s"] = time.perf_counter() - t0
+                gold4 = {k: v.clone() for k, v in
+                         _ckpt_state(model, opt).items()}
+            if i == 5:
+                t0 = time.perf_counter()
+                eng.save_checkpoint(manager=mgr)
+                out["async_stall_s"] = time.perf_counter() - t0
+                gold6 = {n: p.detach().clone()
+                         for n, p in model.named_parameters()}
+        launches = {c.__name__: c.launches for c in counters}
+        telemetry_us = sum(host) / steps * 1e6
+        t0 = time.perf_counter()
+        mgr.wait()
+        out["async_wait_s"] = time.perf_counter() - t0
+        snap = eng.metrics_snapshot()["metrics"]
+        ck = snap["paddle_tpu_ckpt_save_seconds"]["series"]
+        out["async_write_s"] = next(r["value"] for r in ck
+                                    if r["labels"]["phase"] == "write")
+        out["bytes"] = _dir_bytes(c4)
+        gold = _ckpt_state(model, opt)
+
+        # -- telemetry --------------------------------------------------
+        def one(name):
+            return snap[name]["series"][0]["value"]
+
+        n = cfg.num_params()
+        tps = B * S / (entries[-1] - entries[-2])
+        want_mfu = (6 * n + 12 * cfg.num_layers * cfg.hidden_size * S) \
+            * tps / 989e12
+        mem = {r["labels"]["stat"] for r in snap.get(
+            "paddle_tpu_device_memory_bytes", {"series": []})["series"]}
+        mon = healthmon.HealthMonitor(warmup=2, flight_on_spike=False)
+        with fp.scoped("health.loss_spike=corrupt@3"):
+            spikes = [e["kind"] for i in range(3) for e in mon.observe(
+                loss=losses[i], grad_norm=norms[i], step=i + 1)]
+        with obs.serve_metrics(0) as srv:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}/metrics",
+                    timeout=30) as resp:
+                text = resp.read().decode()
+        typed = {ln.split()[2] for ln in text.splitlines()
+                 if ln.startswith("# TYPE ")}
+        train_names = {m.name for m in catalog.train_metrics(
+            obs.MetricsRegistry()).values()}
+        schema = json.loads(Path(catalog.SCHEMA_PATH).read_text())
+        tel = dict(steps=one("paddle_tpu_train_steps_total"),
+                   tokens=one("paddle_tpu_train_tokens_total"),
+                   loss=one("paddle_tpu_train_loss"),
+                   mfu=one("paddle_tpu_train_mfu"), mfu_formula=want_mfu,
+                   device_memory=sorted(mem),
+                   health_events=eng._health.event_count(),
+                   injected=spikes, scraped_train_names=len(
+                       train_names & typed), telemetry_host_us=telemetry_us)
+        log("[train-ckpt] run A " + json.dumps(dict(
+            config="gpt_1p3b", layers=cfg.num_layers,
+            params=n, dropout=0.1, batch=[B, S], losses=losses,
+            launches=launches, **tel)))
+        bad = []
+        if tel["steps"] != steps or tel["tokens"] != steps * B * S:
+            bad.append(f"steps / tokens {tel['steps']} / {tel['tokens']}")
+        if tel["loss"] != losses[-1]:
+            bad.append(f"loss gauge {tel['loss']} != {losses[-1]}")
+        if cuda and not abs(tel["mfu"] - want_mfu) <= 0.02 * want_mfu:
+            bad.append(f"mfu {tel['mfu']} against {want_mfu}")
+        if cuda and mem != {"bytes_in_use", "peak_bytes_in_use",
+                            "bytes_limit"}:
+            bad.append(f"device memory gauges {mem}")
+        if tel["health_events"] or spikes != ["loss_spike"]:
+            bad.append(f"health events {tel['health_events']}, injected "
+                       f"{spikes}")
+        if not train_names <= typed or not train_names <= set(schema):
+            bad.append(f"/metrics lacks {sorted(train_names - typed)}")
+        L = cfg.num_layers
+        # a dropout launch counts under K1 / K2 and under its variant
+        want = {K1.flash_attention_fwd.__name__: L * steps,
+                K1.flash_attention_bwd.__name__: L * steps,
+                K1.flash_attention_fwd_dropout.__name__: L * steps,
+                K1.flash_attention_bwd_dropout.__name__: L * steps,
+                fused_adam.__name__: steps}
+        if cuda and launches != want:
+            bad.append(f"launches {launches}, expected {want}")
+        if not all(np.isfinite(losses)):
+            bad.append(f"non-finite losses {losses}")
+        if bad:
+            raise AssertionError("train-ckpt telemetry: " + "; ".join(bad))
+
+        # -- run B: a fresh model from another seed, resumed ---------------
+        model_b, opt_b, eng_b, step_b = _ckpt_trainer(cfg, 1, device)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = eng_b.restore_checkpoint(c4)
+        if cuda:
+            torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        restored = _ckpt_state(model_b, opt_b)
+        diff4 = [k for k in gold4 if not torch.equal(gold4[k], restored[k])]
+        losses_b = [float(step_b(batches[i])) for i in range(4, steps)]
+        got = _ckpt_state(model_b, opt_b)
+        diff = [k for k in gold if not torch.equal(gold[k], got[k])]
+        lr_a, lr_b = opt._lr.state_dict(), opt_b._lr.state_dict()
+        log("[train-ckpt] run B from step 4 " + json.dumps(dict(
+            meta_step=meta["step"], losses=losses_b, gold=losses[4:],
+            step_count=[opt._step_count, opt_b._step_count],
+            lr=[lr_a, lr_b], restored_unequal=len(diff4),
+            unequal=len(diff), tensors=len(gold))))
+        if diff4 or diff or losses_b != losses[4:] or lr_a != lr_b or \
+                opt._step_count != opt_b._step_count or meta["step"] != 4:
+            gaps = {k: float((gold[k].float() - got[k].float()).abs().max())
+                    for k in diff[:8]}
+            raise AssertionError(
+                f"the resumed run differs from the uninterrupted one: "
+                f"restored {diff4[:4]}, losses {losses_b} against "
+                f"{losses[4:]}, largest gaps {gaps}, LR {lr_a} / {lr_b}")
+        del gold4, gold, restored, got
+        shutil.rmtree(c4)
+        log("[train-ckpt] where a save and a step's telemetry go "
+            + json.dumps(_ckpt_anatomy(eng, tmp, cuda)))
+
+        # -- a failed commit leaves step 6 the newest, and it restores ------
+        raised = False
+        with fp.scoped("ckpt.commit=raise"):
+            eng_b.save_checkpoint(manager=mgr, step=steps + 1)
+            try:
+                mgr.wait()
+            except fp.FailpointError:
+                raised = True
+        latest = latest_committed(base)
+        meta6 = eng_b.restore_checkpoint(latest)
+        bad6 = [n for n, p in model_b.named_parameters()
+                if not torch.equal(p, gold6[n])]
+        summ = led.summary()["segments"] if led is not None else {}
+        log("[train-ckpt] failed commit " + json.dumps(dict(
+            raised=raised, latest=Path(latest).name, meta_step=meta6["step"],
+            unequal=len(bad6), goodput={k: summ.get(k, 0.0) for k in (
+                "compile", "step_compute", "ckpt_stall", "restore")})))
+        if not raised or not latest.endswith("step_00000006") or bad6 or \
+                meta6["step"] != 6:
+            raise AssertionError("a failed commit did not leave step 6 "
+                                 "the newest loadable checkpoint")
+        if not (summ.get("restore", 0) > 0 and summ.get("ckpt_stall", 0) > 0):
+            raise AssertionError(f"goodput journal lacks restore / "
+                                 f"ckpt_stall: {summ}")
+        mgr.close()
+        gb = out["bytes"] / 1e9
+        log("[train-ckpt] " + json.dumps(dict(
+            checkpoint_bytes=out["bytes"],
+            sync_save_s=out["sync_save_s"],
+            sync_save_gb_s=gb / out["sync_save_s"],
+            async_stall_s=out["async_stall_s"],
+            async_stall_gb_s=gb / out["async_stall_s"],
+            async_write_s=out["async_write_s"],
+            async_write_gb_s=gb / out["async_write_s"],
+            restore_s=out["restore_s"], restore_gb_s=gb / out["restore_s"],
+            telemetry_host_us_per_step=telemetry_us)))
+        log("[train-ckpt] the resume equals the uninterrupted run bit for "
+            "bit, the failed commit falls back, telemetry holds: OK")
+        return launches
+    finally:
+        goodput.detach()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def k1_probe():
     """The second process of train-autotune: one K1 call at the train
     shape with FLAGS_use_autotune on, over the cache file the environment
@@ -4508,6 +4856,33 @@ def compare_roots(roots):
             + json.dumps(cols))
 
 
+def compare_train(roots):
+    """``--compare-train``: the train-gpt phase of each checkout root in
+    turn, each root's own ``chip_smoke.py`` in a process of its own (its
+    package, its build), then each run's step ms side by side: the cost
+    of what one root adds to every step (its telemetry, say)."""
+    runs = []
+    for root in roots:
+        res = subprocess.run([sys.executable, "chip_smoke.py", "--phases",
+                              "build,train-gpt"], cwd=root,
+                             capture_output=True, text=True)
+        if res.returncode:
+            raise AssertionError(f"train-gpt in {root} failed: "
+                                 f"{res.stderr[-4000:]}")
+        rows = [json.loads(ln.split("[train-gpt] ", 1)[1])
+                for ln in res.stdout.splitlines()
+                if ln.startswith("[train-gpt] {")]
+        runs.append({r["dropout"]: r for r in rows})
+        for r in rows:
+            log(f"[compare-train] {root} dropout {r['dropout']}: "
+                + json.dumps({k: r[k] for k in ("step_ms_p50", "step_ms",
+                                                "mfu", "peak_mem_gib")}))
+    for p in sorted(runs[0]):
+        log(f"[compare-train] dropout {p} step ms p50 (roots "
+            f"{', '.join(roots)}): "
+            + json.dumps([run[p]["step_ms_p50"] for run in runs]))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -4517,7 +4892,7 @@ def main():
                     default="build,kernels,parity,serve,serve-prefix-spec,"
                             "generate,weight-only,train-parity,train,"
                             "train-autotune,gpt-parity,train-gpt,varlen,"
-                            "train-surface")
+                            "train-surface,train-ckpt")
     ap.add_argument("--profile", action="store_true",
                     help="serve the schedule once more (and the prefix and "
                     "draft configuration's), run 16 more decode steps of "
@@ -4533,6 +4908,10 @@ def main():
                     "turn at the mma shapes, the Hopper dropout cases and "
                     "the varlen packs, each root in its own process, "
                     "printed side by side")
+    ap.add_argument("--compare-train",
+                    help="developer: comma-separated checkout roots; the "
+                    "train-gpt phase of each in turn (its own chip_smoke.py "
+                    "and build), step ms p50 printed side by side")
     ap.add_argument("--mma-times", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -4542,6 +4921,9 @@ def main():
     repo = Path(args.mma_times or Path(__file__).resolve().parent)
     if args.compare:
         compare_roots(args.compare.split(","))
+        return
+    if args.compare_train:
+        compare_train(args.compare_train.split(","))
         return
     if not (repo / "paddle_tpu_torch").is_dir():
         sys.exit("chip_smoke.py: run it from the root of a checkout "
@@ -4654,6 +5036,11 @@ def main():
                                           flash_attention_fwd_dropout,
                                           flash_attention_bwd_dropout,
                                           fused_adam],
+             # gpt_1p3b's widths at 4 layers with dropout, checkpointed
+             # and resumed: run A's 8 steps
+             "train_ckpt": [flash_attention_fwd, flash_attention_bwd,
+                            flash_attention_fwd_dropout,
+                            flash_attention_bwd_dropout, fused_adam],
              "weight_only_generate_static": [rms_norm, decode_attention,
                                              weight_only_linear,
                                              weight_only_linear_wgmma],
@@ -4722,6 +5109,10 @@ def main():
         by_path.update(phase_varlen(dev, results, paths["varlen"]))
     if "train-surface" in phases:
         by_path.update(phase_train_surface(dev, paths))
+    if "train-ckpt" in phases:
+        by_path["train_ckpt"] = phase_train_ckpt(paths["train_ckpt"])
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # one entry per kernel: the main path's dtype (bf16) at its main shape
     main_shape = {"rms_norm": [2048, 4096],

@@ -27,26 +27,70 @@ parameters, masters and moments exactly as they were on overflow,
 advances the applied-step count that drives bias correction only on
 applied steps, and keeps the scale's dynamic or static bookkeeping.
 
+Telemetry, as the JAX engine's (``engine.py:355-406``, ``:1156-1330``):
+every step books a goodput ``compile`` segment (a new batch signature,
+or the first step after a restore) or ``step_compute``, and updates the
+``paddle_tpu_train_*`` series of ``observability.get_registry()``: step
+seconds (the host's dispatch window), steps, tokens, tokens/s and MFU
+(between step entries), loss, grad norm, the batch-signature counters
+and the CUDA allocator's bytes. The loss, the grad norm (the
+optimizer's, or the global norm of the gradients when it computes
+none) and the scaler's ``found`` flag go to the host without a sync:
+copied ``non_blocking`` into pinned memory behind a CUDA event, they
+are read once the event has completed — at a later step's entry, or
+at the latest in ``metrics_snapshot()`` — and only then reach the
+gauges and the engine's own ``HealthMonitor`` (one-step lag; a step
+the scaler skipped never reaches the detector). With
+``PADDLE_TPU_TIMESERIES_DIR`` set, a sampler journals the registry
+every ``PADDLE_TPU_TIMESERIES_S`` seconds.
+
+Checkpoints, as the JAX engine's (``engine.py:1495-1700``), in its
+format (``distributed/checkpoint``): ``save_checkpoint`` writes the
+parameters, the optimizer's moments and f32 masters (keyed
+``optim.<structured name>.<slot>``), the step count, LR schedule,
+scaler state and the model's random generators in one atomic commit;
+``restore_checkpoint`` loads them in place. ``nn.Linear`` weights, and
+their moments and masters, are stored ``[in, out]`` as the JAX package
+stores them (``convert.py``'s rule), so a checkpoint of either package
+restores into the other. The random streams are each package's own:
+the port saves its ``torch.Generator`` states under ``rng.torch.*`` and
+a restore keeps the current stream for a key it does not find, as the
+JAX restore does — so a resume across packages is exact in parameters,
+slots, counters and schedules, not in dropout draws.
+
 Everything above degree 1 raises: a mesh of more than one device
 (ROADMAP.md queue 1, item 8), ZeRO, offload, quantized or overlapped
-communication and the memory ledger (items 9 and 10).
+communication (items 9 and 10), and the memory ledger (item 11's
+remaining part, ``memledger``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+import os
+import time
+from collections import deque
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..amp import GradScaler
+from ..convert import _linear_weights
 from ..core.compile_stats import CompileStats
+from ..core.enforce import enforce
 from ..models.llama import resolve_device
+from ..nn.clip import global_norm
+from ..observability import flops as _flops
+from ..observability import goodput as _gp
+from ..observability import healthmon as _hm
+from ..observability.catalog import train_metrics as _train_metrics
 from ..optimizer.lr import LRScheduler
+from . import failpoints as _fp
 
 __all__ = ["ParallelEngine"]
 
 _ITEM8 = "ROADMAP.md queue 1, item 8 (the communication base)"
 _ITEM9_10 = "ROADMAP.md queue 1, items 9 and 10"
+_ITEM11 = "ROADMAP.md queue 1, item 11's remaining part (memledger)"
 
 
 def _map(batch, fn):
@@ -71,6 +115,66 @@ def _map(batch, fn):
     return mapped, structure, leaves
 
 
+def _batch_tokens(leaves) -> int:
+    """Tokens one batch carries: the largest integer leaf (token ids
+    [B, S] beat labels [B]); else the leading dim of the first leaf
+    (samples), as the JAX engine counts them."""
+    tensors = [v for v in leaves if isinstance(v, torch.Tensor)]
+    tok = max((v.numel() for v in tensors if v.dim() >= 1
+               and not v.is_floating_point() and not v.is_complex()
+               and v.dtype != torch.bool), default=0)
+    if tok == 0 and tensors:
+        tok = int(tensors[0].shape[0]) if tensors[0].dim() >= 1 else 1
+    return tok
+
+
+def _model_generators(model) -> Dict[str, torch.Generator]:
+    """Every ``torch.Generator`` a module of ``model`` holds, by the
+    first ``<module path>.<attribute>`` that names it (GPT: its hidden
+    dropout's on the device, its attention dropout's seeds on the CPU)."""
+    out: Dict[str, torch.Generator] = {}
+    seen = set()
+    for mname, mod in model.named_modules():
+        for attr, v in vars(mod).items():
+            if isinstance(v, torch.Generator) and id(v) not in seen:
+                seen.add(id(v))
+                out[f"{mname}.{attr}" if mname else attr] = v
+    return out
+
+
+class _Scalars:
+    """One step's loss, grad norm and scaler ``found`` on their way to
+    the host: copied ``non_blocking`` into pinned memory behind a CUDA
+    event (at once on the CPU). Absent values read as None."""
+
+    __slots__ = ("host", "event", "present", "step")
+
+    def __init__(self, vals, step: int):
+        self.present = [v is not None for v in vals]
+        self.step = step
+        dev = next(v.device for v in vals if v is not None)
+        cuda = dev.type == "cuda"
+        self.host = torch.zeros(len(vals), dtype=torch.float32,
+                                pin_memory=cuda)
+        for i, v in enumerate(vals):
+            if v is not None:
+                self.host[i:i + 1].copy_(v.detach().reshape(1).float(),
+                                         non_blocking=cuda)
+        self.event = None
+        if cuda:
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(dev))
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def values(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return [v if p else None
+                for v, p in zip(self.host.tolist(), self.present)]
+
+
 class ParallelEngine:
     def __init__(self, model, optimizer=None, mesh=None, comm_overlap=None,
                  comm_buffer_size_mb=None, mem_ledger=None, quant_comm=None,
@@ -80,8 +184,11 @@ class ParallelEngine:
             raise NotImplementedError(
                 f"ParallelEngine over a mesh of {mesh.size} devices is not "
                 f"ported yet: {_ITEM8}")
-        knobs = {"comm_overlap": comm_overlap, "mem_ledger": mem_ledger,
-                 "quant_comm": quant_comm, "sharding_stage": sharding_stage,
+        if mem_ledger not in (None, False):
+            raise NotImplementedError(
+                f"ParallelEngine mem_ledger: not ported yet ({_ITEM11})")
+        knobs = {"comm_overlap": comm_overlap, "quant_comm": quant_comm,
+                 "sharding_stage": sharding_stage,
                  "stage3_release_after_forward":
                      stage3_release_after_forward, "offload": offload,
                  "comm_buffer_size_mb": comm_buffer_size_mb}
@@ -97,6 +204,36 @@ class ParallelEngine:
         # raises here as it does where it is built
         self.device = resolve_device(params[0].device if params else None)
         self.stats = CompileStats()
+        # telemetry (observability/), as the JAX engine's: host-side, on
+        # scalars read once their step has finished
+        self._metrics = _train_metrics()
+        # a PER-ENGINE health monitor: a fresh model's first loss is never
+        # judged against another run's converged window
+        self._health = _hm.HealthMonitor()
+        self._health.register_healthz("train_health")
+        self._n_params_cfg = _flops.params_from_config(
+            getattr(model, "config", None))
+        self._peak_flops, _ = _flops.peak_flops_per_chip(self.device)
+        self._bytes_limit = (torch.cuda.mem_get_info(self.device)[1]
+                             if self.device.type == "cuda" else None)
+        self._stats_reported = (0, 0)    # (compiles, cache_hits) published
+        self._pending: deque = deque()   # _Scalars not yet published
+        self._prev_step_entry = None
+        self._last_tokens = 0
+        self._last_step_seconds = 0.0
+        self._last_dispatch_fresh = False
+        # set by restore_checkpoint: the next step books as compile and
+        # stays out of the step-time baseline
+        self._post_restore_warmup = False
+        self.sampler = None
+        ts_dir = os.environ.get("PADDLE_TPU_TIMESERIES_DIR")
+        if ts_dir:
+            from ..observability import timeseries as _ts
+            try:
+                self.sampler = _ts.attach_dir(ts_dir, interval_s=float(
+                    os.environ.get("PADDLE_TPU_TIMESERIES_S", "5.0")))
+            except (OSError, ValueError):
+                self.sampler = None
 
     def _to_device(self, x):
         if isinstance(x, torch.Tensor):
@@ -129,13 +266,11 @@ class ParallelEngine:
         if self.optimizer is None:
             raise ValueError("ParallelEngine.train_step needs an optimizer")
 
-        def step(batch):
-            batch, structure, leaves = _map(batch, self._to_device)
-            self.stats.note("train", (structure, tuple(
-                (tuple(v.shape), str(v.dtype)) for v in leaves
-                if isinstance(v, torch.Tensor)), amp_key))
+        def run(batch):
+            """fn, backward, update: (loss, grad norm, found)."""
             opt = self.optimizer
             loss = fn(self.model, batch)
+            found = None
             if use_scaler:
                 # the applied-step count is seeded from the optimizer's
                 # count before this step (the JAX engine's -1)
@@ -148,13 +283,285 @@ class ParallelEngine:
                 # loss scaling = seeding the backward with the scale
                 loss.backward(amp.scale.to(loss.dtype).reshape(loss.shape))
                 opt.step(amp=amp)
-                scaler._found_inf_dev = amp.found
+                scaler._found_inf_dev = found = amp.found
             else:
                 loss.backward()
                 opt.step()
+            gnorm = opt.grad_norm
+            if gnorm is None:
+                # the JAX step always returns the global norm
+                grads = [p.grad for p in opt._parameter_list
+                         if p.grad is not None and not p.grad.is_sparse]
+                if grads:
+                    with torch.no_grad():
+                        gnorm = global_norm(grads)
             opt.clear_grad()
             if isinstance(opt._lr, LRScheduler):
                 opt._lr.step()   # once per train step, as the JAX engine
-            return loss.detach()
+            return loss.detach(), gnorm, found
+
+        def step(batch):
+            t_entry = time.perf_counter()
+            # fault-injection site: fires before any state mutates
+            _fp.hit("engine.step_dispatch")
+            # earlier steps' scalars whose copies have landed (never waits)
+            self._flush_pending_scalars(block=False)
+            batch, structure, leaves = _map(batch, self._to_device)
+            fresh = self.stats.note("train", (structure, tuple(
+                (tuple(v.shape), str(v.dtype)) for v in leaves
+                if isinstance(v, torch.Tensor)), amp_key))
+            self._last_dispatch_fresh = fresh or self._post_restore_warmup
+            self._post_restore_warmup = False
+            led = _gp.current()
+            if led is not None:
+                led.begin("compile" if self._last_dispatch_fresh
+                          else "step_compute",
+                          step=int(self.optimizer._step_count) + 1)
+            try:
+                loss, gnorm, found = run(batch)
+                self._note_step(t_entry, _batch_tokens(leaves), loss, gnorm,
+                                found)
+            finally:
+                if led is not None:
+                    led.end()
+            return loss
 
         return step
+
+    # -- telemetry (observability/) -------------------------------------
+    def _flush_pending_scalars(self, block: bool = True):
+        """Publish earlier steps' loss / grad norm into their gauges and
+        the health monitor, oldest first: every pending step when
+        ``block`` (``metrics_snapshot``), else only those whose copies
+        have landed (a step's entry: never a sync)."""
+        while self._pending and (block or self._pending[0].ready()):
+            rec = self._pending.popleft()
+            try:
+                lv, gn, found = rec.values()
+                m = self._metrics
+                m["loss"].set(lv)
+                if gn is not None:
+                    m["grad_norm"].set(gn)
+                # a step the scaler skipped (found_inf) is protocol, not
+                # an anomaly: its scalars never enter the windows
+                if found is None or found == 0.0:
+                    self._health.observe(loss=lv, grad_norm=gn,
+                                         step=rec.step)
+            except Exception:
+                pass        # a dead device must not take telemetry down
+
+    def _note_step(self, t_entry: float, n_tok: int, loss, gnorm,
+                   found=None):
+        """Host-side per-step instrumentation; the device scalars are
+        queued, never read here."""
+        now = time.perf_counter()
+        m = self._metrics
+        m["step_seconds"].observe(now - t_entry)
+        m["steps"].inc()
+        m["tokens"].inc(n_tok)
+        # step-time stall watch on the dispatch window (entry to return);
+        # compile dispatches stay out of the baseline
+        if not self._last_dispatch_fresh:
+            try:
+                self._health.observe(step_seconds=now - t_entry)
+            except Exception:
+                pass
+        # throughput between step ENTRIES: with the device running
+        # behind the host, the inter-step gap is the honest step time
+        if self._prev_step_entry is not None:
+            dt = max(t_entry - self._prev_step_entry, 1e-9)
+            self._last_step_seconds = dt
+            tps = n_tok / dt
+            m["tokens_per_sec"].set(tps)
+            n_params = self._n_params_cfg or sum(
+                p.numel() for p in self.model.parameters())
+            m["mfu"].set(_flops.mfu(
+                n_params, tps, 1, self._peak_flops,
+                config=getattr(self.model, "config", None)))
+        self._prev_step_entry = t_entry
+        self._pending.append(_Scalars(
+            (loss, gnorm, found), int(self.optimizer._step_count)))
+        m["grad_buckets"].set(0.0)   # the unbucketed update (items 9-10)
+        rc, rh = self._stats_reported
+        if self.stats.compiles > rc:
+            m["compiles"].inc(self.stats.compiles - rc,
+                              site="train_engine")
+        if self.stats.cache_hits > rh:
+            m["cache_hits"].inc(self.stats.cache_hits - rh,
+                                site="train_engine")
+        self._stats_reported = (self.stats.compiles,
+                                self.stats.cache_hits)
+        if self.device.type == "cuda":
+            # the caching allocator's host-side counters (no device sync)
+            st = torch.cuda.memory_stats(self.device)
+            dev = str(self.device.index or 0)
+            for k, v in (("bytes_in_use",
+                          st.get("allocated_bytes.all.current", 0)),
+                         ("peak_bytes_in_use",
+                          st.get("allocated_bytes.all.peak", 0)),
+                         ("bytes_limit", self._bytes_limit)):
+                m["device_memory"].set(float(v), device=dev, stat=k)
+        self._last_tokens = n_tok
+        led_gp = _gp.current()
+        if led_gp is not None:
+            try:
+                led_gp.publish(m)
+            except Exception:
+                pass    # a dead journal must not take the step down
+        from ..observability import get_registry
+
+        get_registry().snapshot()    # feeds the flight-record ring
+
+    def metrics_snapshot(self):
+        """Publish every pending step's scalars (waiting for their
+        copies), then return the registry snapshot."""
+        self._flush_pending_scalars(block=True)
+        from ..observability import get_registry
+
+        return get_registry().snapshot()
+
+    def pod_throughput(self) -> Dict[str, float]:
+        """Job-level tokens/s. One process: the local gauge; across
+        processes it raises (``cross_host_sum``, ROADMAP.md item 8)."""
+        from ..observability import cross_host_sum, process_count
+
+        local = self._metrics["tokens_per_sec"].value()
+        total = cross_host_sum(local)
+        self._metrics["pod_tokens_per_sec"].set(total)
+        return {"local_tokens_per_sec": local,
+                "pod_tokens_per_sec": total,
+                "processes": float(process_count())}
+
+    def pod_step_skew(self) -> Dict[str, Any]:
+        """The straggler gauges over the last inter-step interval (one
+        process: skew 0, host 0)."""
+        return self._health.observe_pod_skew(self._last_step_seconds)
+
+    # -- crash-consistent checkpointing (distributed/checkpoint) ---------
+    def _ensure_opt_states(self):
+        opt = self.optimizer
+        for p in opt._parameter_list:
+            if p.requires_grad:
+                opt._param_state(p)
+
+    def _model_tensors(self):
+        """The model's parameters and persistent buffers in the JAX
+        layout (``nn.Linear`` weights as ``[in, out]`` views): the
+        save's source and the restore's in-place target."""
+        linear = _linear_weights(self.model)
+        return {k: v.t() if k in linear else v
+                for k, v in self.model.state_dict().items()}
+
+    def _optim_tensors(self):
+        """(slots, tensors): the optimizer's moments and masters, each
+        materialized if missing, in the JAX layout (``opt_state_tensors``)."""
+        from .fleet.elastic.resume import opt_state_tensors
+
+        self._ensure_opt_states()
+        return opt_state_tensors(self.model, self.optimizer,
+                                 transposed=_linear_weights(self.model))
+
+    def _checkpoint_state(self, scaler=None):
+        """The full training state as (state dict, json meta): the
+        model's and the optimizer's tensors, the model's generator states
+        under ``rng``, and the counters, LR schedule and scaler state."""
+        state: Dict[str, Any] = {"model": self._model_tensors()}
+        opt = self.optimizer
+        meta: Dict[str, Any] = {"format": 1}
+        if opt is not None:
+            _, tensors = self._optim_tensors()
+            if tensors:
+                state["optim"] = tensors
+            meta["opt_step_count"] = int(opt._step_count)
+            if isinstance(opt._lr, LRScheduler):
+                meta["lr_scheduler"] = opt._lr.state_dict()
+            else:
+                meta["lr"] = float(opt.get_lr())
+        if scaler is not None:
+            meta["scaler"] = scaler.state_dict()
+        rng = {f"torch.{name}": g.get_state().numpy()
+               for name, g in _model_generators(self.model).items()}
+        if rng:
+            state["rng"] = rng
+        return state, meta
+
+    def save_checkpoint(self, path: Optional[str] = None, *,
+                        manager=None, step: Optional[int] = None,
+                        scaler=None, extra_meta: Optional[Dict] = None,
+                        async_save: bool = False) -> None:
+        """Write a crash-consistent checkpoint of the engine's whole
+        training state (``_checkpoint_state``).
+
+        ``path``: one atomic checkpoint directory; or pass ``manager``
+        (a ``checkpoint.CheckpointManager``) for rolling keep-last-k
+        retention. ``async_save`` / the manager's async mode stall only
+        for the device-to-host copy, which is complete when this returns
+        (a following step may update the tensors in place); the commit
+        happens in the background (``checkpoint.wait_async_saves()`` /
+        ``manager.wait()`` to join). ``step`` defaults to the
+        optimizer's applied-step count."""
+        state, meta = self._checkpoint_state(scaler)
+        if step is None:
+            step = meta.get("opt_step_count", 0)
+        meta["step"] = int(step)
+        if extra_meta:
+            meta.update(extra_meta)
+        if manager is not None:
+            manager.save(state, step=int(step), extra_meta=meta)
+            return
+        enforce(path is not None,
+                "save_checkpoint needs a path or a CheckpointManager")
+        from .checkpoint import save_state_dict
+
+        save_state_dict(state, path, async_save=async_save, extra_meta=meta)
+
+    def restore_checkpoint(self, path: str, scaler=None) -> Dict[str, Any]:
+        """Restore the engine in place from a committed checkpoint of
+        either package: parameters, optimizer moments and masters,
+        scaler, counters, LR schedule, and the generators it finds.
+        Returns the checkpoint's meta dict (incl. ``step``). Never
+        changes a shape, dtype or the set of batch signatures; its wall
+        time is journaled as the goodput ``restore`` segment, and the
+        next step books as ``compile``."""
+        with _gp.segment("restore"):
+            meta = self._restore_checkpoint_inner(path, scaler)
+        self._post_restore_warmup = True
+        return meta
+
+    def _restore_checkpoint_inner(self, path: str, scaler=None
+                                  ) -> Dict[str, Any]:
+        from .checkpoint import open_checkpoint, read_extra_meta
+        from .fleet.elastic.resume import _apply_opt_state
+
+        # one read of the files for every load below
+        ckpt = open_checkpoint(path)
+        meta = read_extra_meta(ckpt.path)
+        opt = self.optimizer
+        # model parameters first, then the slots (materialized from the
+        # loaded weights where the optimizer had none)
+        ckpt.load({"model": self._model_tensors()})
+        if opt is not None:
+            slots, tensors = self._optim_tensors()
+            if tensors:
+                ckpt.load({"optim": tensors})
+                _apply_opt_state(opt, slots, tensors)
+            opt._step_count = int(meta.get("opt_step_count",
+                                           meta.get("step", 0)))
+            if "lr_scheduler" in meta and isinstance(opt._lr,
+                                                     LRScheduler):
+                opt._lr.set_state_dict(meta["lr_scheduler"])
+            if "lr" in meta and not isinstance(opt._lr, LRScheduler):
+                opt.set_lr(float(meta["lr"]))
+        if scaler is not None and "scaler" in meta:
+            scaler.load_state_dict(meta["scaler"])
+        # generators: a key the checkpoint lacks keeps its current stream
+        gens = _model_generators(self.model)
+        targets = {"rng": {f"torch.{n}": np.zeros(0, np.uint8)
+                           for n in gens}}
+        ckpt.load(targets)
+        for name, g in gens.items():
+            st = targets["rng"][f"torch.{name}"]
+            if getattr(st, "size", 0):
+                g.set_state(torch.from_numpy(
+                    np.ascontiguousarray(st, dtype=np.uint8)))
+        return meta

@@ -128,6 +128,20 @@ class LinearWarmup(LRScheduler):
         self.end_lr = end_lr
         super().__init__(start_lr, last_epoch, verbose)
 
+    def state_dict(self):
+        """The base state, plus the wrapped scheduler's under
+        ``LinearWarmup_LR`` (Paddle's key): it advances on its own after
+        the warmup, so a resume needs its epoch too."""
+        out = super().state_dict()
+        if self.lr_sched is not None:
+            out["LinearWarmup_LR"] = self.lr_sched.state_dict()
+        return out
+
+    def set_state_dict(self, state):
+        super().set_state_dict(state)
+        if self.lr_sched is not None and "LinearWarmup_LR" in state:
+            self.lr_sched.set_state_dict(state["LinearWarmup_LR"])
+
     def get_lr(self):
         if self.last_epoch < self.warmup_steps:
             return (self.end_lr - self.start_lr) * (

@@ -71,7 +71,8 @@ def test_scheduler_matches_jax_exactly(name):
 
 
 @pytest.mark.parametrize("name", ["CosineAnnealingDecay", "StepDecay",
-                                  "CyclicLR"])
+                                  "CyclicLR",
+                                  "LinearWarmup(CosineAnnealingDecay)"])
 def test_state_dict_round_trip(name):
     a = SCHEDULERS[name](tlr)
     _trace(a, 11)
