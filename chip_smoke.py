@@ -109,11 +109,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 eager, graphed, graphed, eager. Equal tokens in all four,
                 launches of K3, K4 and K5 exactly as the rounds imply,
                 every graphed round a replay, one graph per shape key.
+                The telemetry (the engine runs with mem_ledger=True):
+                each run moves the TTFT, TPOT and e2e stage histograms'
+                counts by its 16 requests and leaves each request's whole
+                trace (queued, prefill, chunks, decode rounds, decode,
+                e2e); a /metrics scrape and /healthz over loopback; one
+                memory ledger a graphed site (unified, decode), the pool
+                exactly page_bytes x pool_pages.
                 Then one unified round holding both prefill chunks and
                 decode rows, and one decode round, of a second short
                 eager serve with every layer's K4 and K5 call watched:
                 each output against the plain version on the engine's
                 own q, pools, tables, starts and lengths, per tile, 2e-2
+4b. serve-disagg
+                the serve phase's model, settings and schedule through a
+                Router: first two unified replicas, then one
+                phase="prefill" and one phase="decode" replica
+                (pool_pages="auto": the second engine sees the first's
+                pool) with KVMigrator moving each request's committed
+                pages (device to host, crc32, host to device). Each fleet
+                warmed a request a replica, then served graphed: every
+                round a replay, no capture after the warmup, each
+                replica's K3 / K4 / K5 launches exactly as its rounds
+                imply, migrated bytes equal to sum(ceil(L / 64) x
+                page_bytes + 128) on the counter and the comm ledger,
+                the migrated requests' traces complete. Prints tokens/s,
+                TTFT / TPOT p50 / p99, the migration seconds in its three
+                parts, the fleets' token agreement and both fleets' worst
+                teacher-forced logit gap (< 0.5). Then the same fleets at
+                2 layers in fp32 (TF32 off), the split one with a second
+                prefill replica and its first migration corrupted: equal
+                streams, one crc error retried on the other replica
 5. serve-prefix-spec
                 the same model and engine settings with prefix_cache=True:
                 alone, with the llama-68m draft (its published widths,
@@ -309,7 +335,10 @@ side; it runs no phase. The first shape a process times is timed twice
 and its first reading dropped. ``--compare-train ROOT,ROOT,...`` runs
 each root's own ``chip_smoke.py --phases build,train-gpt`` in turn and
 prints the step ms p50 of each run side by side (the cost of a change to
-every training step; it runs no phase of its own).
+every training step; it runs no phase of its own). ``--compare-serve
+ROOT,ROOT,...`` does the same with each root's ``--phases build,serve``
+and prints the graphed runs' tokens/s and TPOT p50 (the cost of a change
+to every serving round).
 """
 from __future__ import annotations
 
@@ -1684,6 +1713,29 @@ def serve(eng, schedule):
             eng.stats.replays - replays0, launches)
 
 
+@contextlib.contextmanager
+def gc_pauses():
+    """Python's garbage-collector pauses inside the block, by generation:
+    {"collections": [n0, n1, n2], "ms": [t0, t1, t2]} (the serving loop
+    waits on them between two rounds)."""
+    out = {"collections": [0, 0, 0], "ms": [0.0, 0.0, 0.0]}
+    starts = []
+
+    def cb(phase, info):
+        if phase == "start":
+            starts.append(time.perf_counter())
+        elif starts:
+            g = info["generation"]
+            out["collections"][g] += 1
+            out["ms"][g] += 1e3 * (time.perf_counter() - starts.pop())
+
+    gc.callbacks.append(cb)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(cb)
+
+
 def mode_ctx(mode):
     """The context a measured run's mode asks for: eager() runs every
     step body without its graph; "graphed" is the default."""
@@ -2003,21 +2055,32 @@ def phase_serve(model, counters, profile=False,
     L = cfg.num_layers
     kw = dict(page=64, max_length=2048, max_batch=8, prefill_chunk=256,
               prefill_token_budget=256)
-    eng = make_engine(model, **kw)
+    # the serve phase runs with the memory ledger on (a ledger a launch
+    # site at its first execution)
+    eng = make_engine(model, mem_ledger=tag == "serve", **kw)
     # warmup (not measured): first cuBLAS handles, allocator growth, the
     # unified and decode rounds' graph captures
     serve(eng, (prompts(0, [64], cfg.vocab_size), [], 0, 4))
-    lens = np.random.RandomState(11).randint(64, 1537, 16)
-    sched = (prompts(12, lens[:8], cfg.vocab_size),
-             prompts(13, lens[8:], cfg.vocab_size), 4, 32)
+    sched = serve_schedule(cfg.vocab_size)
+    lens = [len(p) for p in sched[0] + sched[1]]
     runs, summaries = [], []
     for mode in modes:
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
             c.launches = 0
-        with mode_ctx(mode):
+        m = eng._metrics
+        hist0 = (m["ttft"].count(), m["tpot"].count(),
+                 m["stage_seconds"].count(stage="e2e"))
+        with gc_pauses() as gcp, mode_ctx(mode):
             reqs, wall, rounds, replays, _ = serve(eng, sched)
         launches = {c.__name__: c.launches for c in counters}
+        hist = (m["ttft"].count(), m["tpot"].count(),
+                m["stage_seconds"].count(stage="e2e"))
+        if any(b - a != len(reqs) for a, b in zip(hist0, hist)):
+            raise AssertionError(f"{mode} serve: TTFT / TPOT / e2e counts "
+                                 f"moved {hist0} -> {hist}, not by "
+                                 f"{len(reqs)} requests")
+        check_spans(eng, reqs)
         n_tok = sum(len(r.new_tokens) for r in reqs)
         ttft = [1e3 * (r.t_first_token - r.t_submit) for r in reqs]
         tpot = [1e3 * (r.t_finish - r.t_first_token)
@@ -2037,7 +2100,7 @@ def phase_serve(model, counters, profile=False,
             rounds=dict(rounds), graph_replays=dict(replays),
             pool_pages=eng.P,
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-            launches=launches)
+            launches=launches, gc=gcp)
         log(f"[{tag}] " + json.dumps(summary))
         summaries.append(summary)
         # what the rounds imply: K4 once a layer a unified round, K5 once
@@ -2068,11 +2131,380 @@ def phase_serve(model, counters, profile=False,
     log(f"[{tag}] {', '.join(modes)}: equal token streams and "
         f"launches {runs[0][2]}: OK")
     if tag == "serve":
+        check_serve_telemetry(eng)
         check_serve_attention(model, kw)
     if profile:
         profile_serve(eng, sched, tag)
     graphed = next(n for m, _, n in runs if m == "graphed")
     return graphed, summaries
+
+
+def serve_schedule(vocab):
+    """The serve phase's schedule: 16 greedy requests of 64..1536 prompt
+    tokens, 32 new tokens each, 8 arriving after 4 steps."""
+    lens = np.random.RandomState(11).randint(64, 1537, 16)
+    return (prompts(12, lens[:8], vocab), prompts(13, lens[8:], vocab), 4,
+            32)
+
+
+def check_spans(eng, reqs, migrated=False):
+    """Every request of a run has its whole trace in the engine's ring:
+    queued, prefill (with its chunks), decode rounds, decode and e2e, all
+    closed (a migrated request: migrate_in, decode rounds, decode, e2e)."""
+    want = ({"migrate_in", "decode_round", "decode", "e2e"} if migrated
+            else {"queued", "prefill", "prefill_chunk", "decode_round",
+                  "decode", "e2e"})
+    traces = {t["rid"]: t for t in eng.request_traces()}
+    for r in reqs:
+        t = traces.get(r.rid)
+        if t is None or not want <= {s["name"] for s in t["spans"]} or \
+                any(s["t1"] is None for s in t["spans"]) or \
+                t["trace_id"] != r.trace_id:
+            raise AssertionError(f"request {r.rid}: incomplete trace "
+                                 f"{t and [s['name'] for s in t['spans']]}")
+
+
+def check_serve_telemetry(eng):
+    """The serve phase's telemetry on the card: /metrics and /healthz
+    answer over loopback with the engine's series; the memory ledger has
+    one ledger a graphed launch site, and the pool's bytes are exactly
+    page_bytes x pool_pages."""
+    import urllib.request
+
+    from paddle_tpu_torch import observability as obs
+
+    with obs.serve_metrics(0) as srv:
+        url = f"http://127.0.0.1:{srv.port}"
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+            text = obs.parse_prometheus_text(r.read().decode())
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+    n = text["paddle_tpu_serving_ttft_seconds_count"][()]
+    if n != eng._metrics["ttft"].count() or health["status"] != "ok" or \
+            {"component": "serving", "status": "ok"} not in \
+            health.get("components", []):
+        raise AssertionError(f"scrape: ttft count {n}, healthz {health}")
+    summary = eng.memory_summary()
+    st = summary["state"]
+    pools = sum(t.numel() * t.element_size() for kv in eng.pools
+                for t in kv)
+    sites = set(eng._mem_ledgers)
+    want = {("unified", eng.Sc), ("decode",)}
+    if st["kv_pool_bytes"] != st["page_bytes"] * st["pool_pages"] or \
+            st["kv_pool_bytes"] != pools or sites != want:
+        raise AssertionError(f"memory ledger: {st}, sites {sites}")
+    for site in sorted(want):
+        led = eng.memory_ledger(site)
+        if led.alias_bytes != pools or led.temp_bytes <= 0:
+            raise AssertionError(f"{site} ledger: {led}")
+    # a forced tick (gauges, allocator read, registry snapshot): the host
+    # work the loop waits on at most every SNAPSHOT_EVERY_S
+    t0 = time.perf_counter()
+    for _ in range(100):
+        eng.metrics_snapshot()
+    tick_us = (time.perf_counter() - t0) / 100 * 1e6
+    log("[serve] telemetry: /metrics ttft count "
+        f"{int(n)}, /healthz {health['status']}; a snapshot tick "
+        f"{tick_us:.1f} us of host; memory "
+        + json.dumps(summary) + "; roofline "
+        + json.dumps(eng.roofline_report().to_dict()))
+
+
+def corrupt_once(migrator):
+    """Make the next migration's wire flip one byte of its first page
+    (the crc32 must catch it); the frame's bytes are kept in
+    ``migrator.tampered_bytes`` (the migration counter books them)."""
+    def transmit(wire):
+        if not hasattr(migrator, "tampered_bytes"):
+            migrator.tampered_bytes = int(wire["wire_bytes"])
+            pages = [a.copy() for a in wire["pages"]]
+            pages[0].view(np.uint8).reshape(-1)[3] ^= 0xFF
+            wire = dict(wire, pages=pages)
+        return wire
+
+    migrator._transmit = transmit
+
+
+def fleet(model, names, page=64, max_length=2048, **kw):
+    """A Router over one engine a (name, phase) pair, each with the serve
+    phase's settings and its own predictor of ``model``."""
+    from paddle_tpu_torch.inference import Router
+
+    kw = dict(dict(max_batch=8, prefill_chunk=256,
+                   prefill_token_budget=256), **kw)
+    return Router([(n, make_engine(model, page, max_length, phase=ph, **kw))
+                   for n, ph in names])
+
+
+def book_launches(rt, counters):
+    """Book the kernels' launches of each replica's steps to its name."""
+    per = {r.name: Counter() for r in rt.replicas}
+    for r in rt.replicas:
+        def step(orig=r.engine.step, name=r.name):
+            before = [c.launches for c in counters]
+            orig()
+            for c, b in zip(counters, before):
+                if c.launches != b:
+                    per[name][c.__name__] += c.launches - b
+        r.engine.step = step
+    return per
+
+
+def serve_fleet(rt, schedule):
+    """``serve`` for a Router: the requests (in submission order) and the
+    wall seconds."""
+    first, later, after, n_new = schedule
+    t0 = time.perf_counter()
+    gids = [rt.submit(p, max_new_tokens=n_new) for p in first]
+    for _ in range(after):
+        rt.step()
+    gids += [rt.submit(p, max_new_tokens=n_new) for p in later]
+    res = rt.run(max_steps=100000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rt.pending:
+        raise AssertionError(f"fleet left {rt.pending} requests unserved")
+    return [res[g] for g in gids], wall
+
+
+def run_fleet(rt, schedule, counters, L, tag, after_warmup=None):
+    """Warm every replica (one request each: the graphs they need are
+    captured), call ``after_warmup(rt)``, then serve ``schedule`` graphed
+    with the kernels' counts set to 0 just before it. Checks: every
+    round a replay, no capture after the warmup, each replica's K3 / K4 /
+    K5 launches exactly as its rounds imply, migrated bytes at the closed
+    form on the counter and the comm ledger, a migrated request's trace
+    complete. Returns the requests, the summary, and the launches."""
+    engines = {r.name: r.engine for r in rt.replicas}
+    vocab = next(iter(engines.values())).pred._model.config.vocab_size
+    warm = prompts(1, [64] * len(rt.frontdoor), vocab)
+    serve_fleet(rt, (warm, [], 0, 4))
+    if after_warmup is not None:
+        after_warmup(rt)
+    mig = rt.migrator
+    n_mig0 = mig.migrated if mig else 0
+    caps0 = {n: dict(e.stats.captures) for n, e in engines.items()}
+    rounds0 = {n: Counter(e.rounds) for n, e in engines.items()}
+    replays0 = {n: Counter(e.stats.replays) for n, e in engines.items()}
+    per = book_launches(rt, counters)
+    for c in counters:
+        c.launches = 0
+    m = next(iter(engines.values()))._metrics
+    bytes0 = (m["migration_bytes"].value(),
+              m["comm_bytes"].value(axis="migrate", op="ppermute"))
+    torch.cuda.reset_peak_memory_stats()
+    reqs, wall = serve_fleet(rt, schedule)
+    launches = {c.__name__: c.launches for c in counters}
+    for n, e in engines.items():
+        rounds = e.rounds - rounds0[n]
+        want = {k: v for k, v in implied_launches(e, rounds, L, 0).items()
+                if v}
+        if dict(per[n]) != want:
+            raise AssertionError(f"{tag} {n}: launched {dict(per[n])}, its "
+                                 f"rounds {dict(rounds)} imply {want}")
+        reps = e.stats.replays - replays0[n]
+        want_reps = {k: v for k, v in (("unified", rounds["unified"]),
+                                       ("serve_decode", rounds["decode"]))
+                     if v}
+        if dict(reps) != want_reps or dict(e.stats.captures) != caps0[n]:
+            raise AssertionError(f"{tag} {n}: replays {dict(reps)} for "
+                                 f"rounds {dict(rounds)}, captures "
+                                 f"{dict(e.stats.captures)} after warmup "
+                                 f"{caps0[n]}")
+        per[n] = dict(per[n], rounds=dict(rounds), pool_pages=e.P)
+    n_tok = sum(len(r.new_tokens) for r in reqs)
+    ttft = [1e3 * (r.t_first_token - r.t_submit) for r in reqs]
+    tpot = [1e3 * (r.t_finish - r.t_first_token) / (len(r.new_tokens) - 1)
+            for r in reqs]
+    summary = dict(
+        fleet=tag, replicas={n: e.phase or "unified"
+                             for n, e in engines.items()},
+        requests=len(reqs), new_tokens=n_tok, wall_s=wall,
+        tokens_per_s=n_tok / wall,
+        ttft_ms_p50=float(np.percentile(ttft, 50)),
+        ttft_ms_p99=float(np.percentile(ttft, 99)),
+        tpot_ms_p50=float(np.percentile(tpot, 50)),
+        tpot_ms_p99=float(np.percentile(tpot, 99)),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        by_replica=per)
+    if mig is not None:
+        e0 = next(e for e in engines.values() if e.phase == "decode")
+        page_bytes = e0._page_bytes()
+        want = sum(-(-len(r.prompt) // e0.page) * page_bytes + e0.npages * 4
+                   for r in reqs)
+        # a frame that failed its crc32 was booked on the wire too
+        booked = want + getattr(mig, "tampered_bytes", 0)
+        got = (m["migration_bytes"].value() - bytes0[0],
+               m["comm_bytes"].value(axis="migrate", op="ppermute")
+               - bytes0[1])
+        t = list(mig.timings)[-(mig.migrated - n_mig0):]
+        if got != (booked, booked) or \
+                sum(x["wire_bytes"] for x in t) != want:
+            raise AssertionError(f"{tag}: migrated bytes {got}, timings "
+                                 f"{sum(x['wire_bytes'] for x in t)}, "
+                                 f"closed form {want}")
+        check_spans(e0, reqs, migrated=True)
+        parts = {k: [x[k] for x in t] for k in ("d2h_s", "crc_s", "h2d_s")}
+        summary.update(
+            migrated_bytes=want, migrated_bytes_closed_form=want,
+            migrations=len(t),
+            migration_s={k: dict(p50=float(np.percentile(v, 50)),
+                                 mean=float(np.mean(v)),
+                                 max=float(np.max(v)))
+                         for k, v in parts.items()},
+            migration_gb_s=want / 1e9 / sum(
+                x["d2h_s"] + x["crc_s"] + x["h2d_s"] for x in t),
+            migration_per_request=[
+                {"pages": x["pages"], **{k: round(x[k], 6) for k in parts}}
+                for x in t])
+    log(f"[serve-disagg] {tag}: " + json.dumps(summary))
+    return reqs, summary, launches
+
+
+def free_fleet(rt):
+    """Drop the fleet's engines (pools, graphs and their memory pool)."""
+    for r in rt.replicas:
+        r.engine.pools = r.engine._graphs = None
+    for held in (rt.replicas, rt.frontdoor, rt._prefill_engines,
+                 rt._by_name, rt._name_of):
+        held.clear()
+    if rt.migrator is not None:
+        rt.migrator.decode.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_disagg(model, counters, fp32_layers=2):
+    """Disaggregated serving at the serve phase's widths and schedule:
+    a unified 2-replica Router, then 1 prefill + 1 decode replica
+    (pool_pages="auto", which sees the pool already on the card), each
+    replica with its own predictor of the shared bf16 model. Reports
+    migration seconds (device to host, crc32, host to device), TTFT /
+    TPOT, tokens/s, migrated bytes against the closed form, the fleets'
+    agreement and the worst teacher-forced logit gap (< 0.5). Then the
+    same fleets at ``fp32_layers`` layers in fp32 (TF32 off) must commit
+    equal streams, with a second prefill replica and one corrupted
+    migration retried there. Returns the split fleet's launches."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    from paddle_tpu_torch.observability import memledger as ml
+
+    cfg = model.config
+    L = cfg.num_layers
+    sched = serve_schedule(cfg.vocab_size)
+    rt = fleet(model, [("u0", None), ("u1", None)])
+    ureqs, usum, _ = run_fleet(rt, sched, counters, L, "unified")
+    free_fleet(rt)
+    page_bytes = 2 * L * cfg.num_kv_heads * 64 * cfg.head_dim * 2
+    fits = [ml.suggest_pool_pages(torch.device("cuda"), page_bytes, 0)]
+    from paddle_tpu_torch.inference import Router
+
+    p0 = make_engine(model, 64, 2048, phase="prefill", max_batch=8,
+                     prefill_chunk=256, prefill_token_budget=256,
+                     pool_pages="auto")
+    fits.append(ml.suggest_pool_pages(torch.device("cuda"), page_bytes, 0))
+    d0 = make_engine(model, 64, 2048, phase="decode", max_batch=8,
+                     pool_pages="auto")
+    rt = Router([("p0", p0), ("d0", d0)])
+    log(f"[serve-disagg] pool_pages='auto': the card fits {fits[0]} then "
+        f"{fits[1]} pages of {page_bytes} B (the prefill replica's pool "
+        f"taken off); pools {p0.P} / {d0.P} (the geometric cap "
+        f"{p0.B * p0.npages + 1}, bucketed)")
+    if not fits[1] < fits[0]:
+        raise AssertionError(f"auto sizing did not see the first pool: "
+                             f"{fits}")
+    sreqs, ssum, launches = run_fleet(rt, sched, counters, L, "split")
+    free_fleet(rt)
+    same = [list(a.new_tokens) == list(b.new_tokens)
+            for a, b in zip(ureqs, sreqs)]
+    pos = sum(x == y for a, b in zip(ureqs, sreqs)
+              for x, y in zip(a.new_tokens, b.new_tokens))
+    total = sum(len(a.new_tokens) for a in ureqs)
+    bad, worst, n = teacher_forced(model, sreqs)
+    ubad, uworst, _ = teacher_forced(model, ureqs)
+    log("[serve-disagg] bf16 " + json.dumps(dict(
+        identical_requests=sum(same), requests=len(same),
+        agreeing_tokens=pos, tokens=total,
+        split_teacher_forced=dict(mismatches=bad, worst_gap=worst,
+                                  tokens=n),
+        unified_teacher_forced=dict(mismatches=ubad, worst_gap=uworst),
+        tokens_per_s=[usum["tokens_per_s"], ssum["tokens_per_s"]],
+        tpot_ms_p50=[usum["tpot_ms_p50"], ssum["tpot_ms_p50"]]))
+        + " (unified, split)")
+
+    # fp32 at a reduced depth: the streams must be equal
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        m32 = LlamaForCausalLM(llama_7b(dtype="float32",
+                                        num_layers=fp32_layers),
+                               device="cuda", seed=0)
+        rt = fleet(m32, [("u0", None), ("u1", None)])
+        u32, _, _ = run_fleet(rt, sched, counters, fp32_layers, "unified_fp32")
+        free_fleet(rt)
+        rt = fleet(m32, [("p0", "prefill"), ("p1", "prefill"),
+                         ("d0", "decode")])
+        m = rt.replicas[0].engine._metrics
+
+        def retries():
+            return sum(m["router_requests"].value(replica=n, decision="retry")
+                       for n in ("p0", "p1"))
+
+        crc0, retry0 = m["migrations"].value(result="crc_error"), retries()
+        s32, _, _ = run_fleet(rt, sched, counters, fp32_layers, "split_fp32",
+                              after_warmup=lambda r: corrupt_once(r.migrator))
+        free_fleet(rt)
+        crc = m["migrations"].value(result="crc_error") - crc0
+        retry = retries() - retry0
+        del m32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+        gc.collect()
+        torch.cuda.empty_cache()
+    diff = [i for i, (a, b) in enumerate(zip(u32, s32))
+            if list(a.new_tokens) != list(b.new_tokens)]
+    if diff or crc != 1 or retry != 1:
+        raise AssertionError(f"fp32 fleets: requests {diff} differ; "
+                             f"crc errors {crc}, retries {retry}")
+    log(f"[serve-disagg] fp32 at {fp32_layers} layers: the split fleet's "
+        f"{len(s32)} streams equal the unified fleet's, one corrupted "
+        f"migration retried on the other prefill replica to the same "
+        f"tokens: OK")
+    return launches
+
+
+def compare_serve(roots):
+    """``--compare-serve``: the serve phase of each checkout root in
+    turn, each root's own ``chip_smoke.py --phases build,serve`` in a
+    process of its own (its package, its build), then the graphed runs'
+    tokens/s and TPOT p50 side by side: the cost of what one root adds
+    to every round (its telemetry, say)."""
+    runs = []
+    for root in roots:
+        res = subprocess.run([sys.executable, "chip_smoke.py", "--phases",
+                              "build,serve"], cwd=root,
+                             capture_output=True, text=True)
+        if res.returncode:
+            raise AssertionError(f"serve in {root} failed: "
+                                 f"{res.stderr[-4000:]}")
+        rows = [json.loads(ln.split("[serve] ", 1)[1])
+                for ln in res.stdout.splitlines()
+                if ln.startswith("[serve] {")]
+        graphed = [r for r in rows if r["mode"] == "graphed"]
+        runs.append(graphed)
+        log(f"[compare-serve] {root}: " + json.dumps(
+            [{k: r[k] for k in ("mode", "tokens_per_s", "tpot_ms_p50",
+                                "ttft_ms_p50", "wall_s", "gc") if k in r}
+             for r in rows]))
+        for ln in res.stdout.splitlines():
+            if ln.startswith("[serve] telemetry"):
+                log(f"[compare-serve] {root}: {ln}")
+    log(f"[compare-serve] graphed tokens/s (roots {', '.join(roots)}): "
+        + json.dumps([[r["tokens_per_s"] for r in run] for run in runs]))
+    log(f"[compare-serve] graphed TPOT ms p50 (roots {', '.join(roots)}): "
+        + json.dumps([[r["tpot_ms_p50"] for r in run] for run in runs]))
 
 
 def check_serve_attention(model, kw):
@@ -4574,8 +5006,24 @@ def _log_profile(prof, wall, tag, per=1):
 
 
 def profile_serve(eng, sched, tag="serve"):
-    """The same schedule again on the warmed engine, graphed."""
+    """The same schedule again on the warmed engine, graphed: under
+    torch.profiler (device time), then under cProfile (the host's own
+    time by function; the token reads' wait on the card among them)."""
+    import cProfile
+    import pstats
+
     _profiled(lambda: serve(eng, sched)[1], tag)
+    prof = cProfile.Profile()
+    prof.enable()
+    wall = serve(eng, sched)[1]
+    prof.disable()
+    rows = sorted(((tt, nc, f"{Path(f).name}:{ln}({fn})")
+                   for (f, ln, fn), (_, nc, tt, _, _)
+                   in pstats.Stats(prof).stats.items()), reverse=True)
+    log(f"[{tag}] host profile (cProfile, one graphed run, wall "
+        f"{wall:.4f} s): " + json.dumps(
+            [{"fn": name, "calls": nc, "self_ms": 1e3 * tt}
+             for tt, nc, name in rows[:24]]))
 
 
 def _profiled(run, tag):
@@ -4889,7 +5337,8 @@ def main():
                     help="depth of the 7B-width serving, generate and "
                     "weight-only runs")
     ap.add_argument("--phases",
-                    default="build,kernels,parity,serve,serve-prefix-spec,"
+                    default="build,kernels,parity,serve,serve-disagg,"
+                            "serve-prefix-spec,"
                             "generate,weight-only,train-parity,train,"
                             "train-autotune,gpt-parity,train-gpt,varlen,"
                             "train-surface,train-ckpt")
@@ -4912,6 +5361,10 @@ def main():
                     help="developer: comma-separated checkout roots; the "
                     "train-gpt phase of each in turn (its own chip_smoke.py "
                     "and build), step ms p50 printed side by side")
+    ap.add_argument("--compare-serve",
+                    help="developer: comma-separated checkout roots; the "
+                    "serve phase of each in turn (its own chip_smoke.py and "
+                    "build), graphed tokens/s and TPOT p50 side by side")
     ap.add_argument("--mma-times", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -4924,6 +5377,9 @@ def main():
         return
     if args.compare_train:
         compare_train(args.compare_train.split(","))
+        return
+    if args.compare_serve:
+        compare_serve(args.compare_serve.split(","))
         return
     if not (repo / "paddle_tpu_torch").is_dir():
         sys.exit("chip_smoke.py: run it from the root of a checkout "
@@ -5004,6 +5460,9 @@ def main():
     # K8
     paths = {"serve": [rms_norm, ragged_paged_attention,
                        paged_decode_attention],
+             # the phase-split fleet's serve (1 prefill + 1 decode replica)
+             "serve_disagg": [rms_norm, ragged_paged_attention,
+                              paged_decode_attention],
              "serve_prefix_spec": [rms_norm, ragged_paged_attention,
                                    paged_decode_attention],
              "generate_static": [rms_norm, decode_attention],
@@ -5058,12 +5517,17 @@ def main():
     by_path = {p: {c.__name__: None for c in cs} for p, cs in paths.items()}
     # the bf16 runs' summaries, printed beside the weight-only ones
     bf16 = {"serve": [], "generate": [], "generate_outs": {}}
-    if {"serve", "serve-prefix-spec", "generate", "weight-only"} & \
-            set(phases):
+    if {"serve", "serve-disagg", "serve-prefix-spec", "generate",
+            "weight-only"} & set(phases):
         model = build_7b(args.layers)
         if "serve" in phases:
             by_path["serve"], bf16["serve"] = phase_serve(
                 model, paths["serve"], args.profile)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "serve-disagg" in phases:
+            by_path["serve_disagg"] = phase_serve_disagg(
+                model, paths["serve_disagg"])
             gc.collect()
             torch.cuda.empty_cache()
         if "serve-prefix-spec" in phases:

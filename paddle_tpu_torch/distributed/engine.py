@@ -58,10 +58,19 @@ a restore keeps the current stream for a key it does not find, as the
 JAX restore does — so a resume across packages is exact in parameters,
 slots, counters and schedules, not in dropout draws.
 
+The memory ledger (``mem_ledger=True`` or ``PADDLE_TPU_MEM_LEDGER=1``;
+``observability/memledger.py``): a batch signature's first step is
+measured into its ledger (parameters, optimizer state, masters and the
+batch read; parameters, state, masters and the loss written, all but
+the loss in place; on a card the caching allocator's peak over the step
+less what was allocated before it, read from host-side counters), its
+gauges republished every step, with the state accounting and the
+allocator's live bytes. ``memory_ledger()``, ``state_accounting()`` and
+``roofline_report()`` read them.
+
 Everything above degree 1 raises: a mesh of more than one device
 (ROADMAP.md queue 1, item 8), ZeRO, offload, quantized or overlapped
-communication (items 9 and 10), and the memory ledger (item 11's
-remaining part, ``memledger``).
+communication (items 9 and 10).
 """
 from __future__ import annotations
 
@@ -82,6 +91,7 @@ from ..nn.clip import global_norm
 from ..observability import flops as _flops
 from ..observability import goodput as _gp
 from ..observability import healthmon as _hm
+from ..observability import memledger as _ml
 from ..observability.catalog import train_metrics as _train_metrics
 from ..optimizer.lr import LRScheduler
 from . import failpoints as _fp
@@ -90,7 +100,6 @@ __all__ = ["ParallelEngine"]
 
 _ITEM8 = "ROADMAP.md queue 1, item 8 (the communication base)"
 _ITEM9_10 = "ROADMAP.md queue 1, items 9 and 10"
-_ITEM11 = "ROADMAP.md queue 1, item 11's remaining part (memledger)"
 
 
 def _map(batch, fn):
@@ -184,9 +193,6 @@ class ParallelEngine:
             raise NotImplementedError(
                 f"ParallelEngine over a mesh of {mesh.size} devices is not "
                 f"ported yet: {_ITEM8}")
-        if mem_ledger not in (None, False):
-            raise NotImplementedError(
-                f"ParallelEngine mem_ledger: not ported yet ({_ITEM11})")
         knobs = {"comm_overlap": comm_overlap, "quant_comm": quant_comm,
                  "sharding_stage": sharding_stage,
                  "stage3_release_after_forward":
@@ -234,6 +240,20 @@ class ParallelEngine:
                     os.environ.get("PADDLE_TPU_TIMESERIES_S", "5.0")))
             except (OSError, ValueError):
                 self.sampler = None
+        # the memory ledger (observability/memledger.py): one ledger a
+        # batch signature, measured at its first step
+        self._mem_on = (bool(int(os.environ.get(
+            "PADDLE_TPU_MEM_LEDGER", "0") or 0))
+            if mem_ledger is None else bool(mem_ledger))
+        self._mem_ledgers: Dict[Any, Any] = {}
+        self._last_key = None
+        self._state_acct = None
+        self._live_peak = 0
+
+    @property
+    def params(self):
+        """The model's parameters, in order."""
+        return list(self.model.parameters())
 
     def _to_device(self, x):
         if isinstance(x, torch.Tensor):
@@ -307,9 +327,14 @@ class ParallelEngine:
             # earlier steps' scalars whose copies have landed (never waits)
             self._flush_pending_scalars(block=False)
             batch, structure, leaves = _map(batch, self._to_device)
-            fresh = self.stats.note("train", (structure, tuple(
+            key = (structure, tuple(
                 (tuple(v.shape), str(v.dtype)) for v in leaves
-                if isinstance(v, torch.Tensor)), amp_key))
+                if isinstance(v, torch.Tensor)), amp_key)
+            fresh = self.stats.note("train", key)
+            self._last_key = key
+            probe = (_ml.TempProbe(self.device)
+                     if self._mem_on and key not in self._mem_ledgers
+                     else None)
             self._last_dispatch_fresh = fresh or self._post_restore_warmup
             self._post_restore_warmup = False
             led = _gp.current()
@@ -319,6 +344,9 @@ class ParallelEngine:
                           step=int(self.optimizer._step_count) + 1)
             try:
                 loss, gnorm, found = run(batch)
+                if probe is not None:
+                    self._mem_ledgers[key] = self._step_ledger(
+                        leaves, loss, probe.temp_bytes())
                 self._note_step(t_entry, _batch_tokens(leaves), loss, gnorm,
                                 found)
             finally:
@@ -402,6 +430,8 @@ class ParallelEngine:
                          ("bytes_limit", self._bytes_limit)):
                 m["device_memory"].set(float(v), device=dev, stat=k)
         self._last_tokens = n_tok
+        if self._mem_on:
+            self._note_memory(m, n_tok)
         led_gp = _gp.current()
         if led_gp is not None:
             try:
@@ -411,6 +441,90 @@ class ParallelEngine:
         from ..observability import get_registry
 
         get_registry().snapshot()    # feeds the flight-record ring
+
+    def _note_memory(self, m, n_tok: int):
+        """The memory ledger's gauges at a step's end: the step's ledger,
+        the state accounting (made once) and the allocator's live bytes.
+        Host-side counters only."""
+        led = self._mem_ledgers.get(self._last_key)
+        if led is not None:
+            led.publish(m, program="train")
+        if self._state_acct is None:
+            self._state_acct = _ml.account_engine(self, batch_tokens=n_tok)
+        self._state_acct.publish(m)
+        lb = _ml.live_bytes(self.device)
+        if lb:
+            self._live_peak = max(self._live_peak, lb)
+            m["mem_live"].set(lb)
+            m["mem_live_peak"].set(self._live_peak)
+
+    def _step_ledger(self, leaves, loss, temp_bytes):
+        """The ledger of one train step (memledger.analyze): it reads the
+        parameters, optimizer state, masters and batch; it writes the
+        parameters, state and masters in place, and the loss."""
+        opt = self.optimizer
+        state = [v for st in getattr(opt, "_states", {}).values()
+                 for v in st.values() if isinstance(v, torch.Tensor)]
+        masters = list(getattr(opt, "_master_weights", {}).values())
+        own = self.params + state + masters
+        return _ml.analyze(
+            "train",
+            reads=own + [v for v in leaves if isinstance(v, torch.Tensor)],
+            writes=own + [loss], in_place=own, temp_bytes=temp_bytes)
+
+    # -- memory accounting (observability/memledger) ---------------------
+    def memory_ledger(self, key=None):
+        """The memory ledger of the last step's (or ``key``'s) batch
+        signature. With the ledger on it was measured at the signature's
+        first step; with it off it is made here from the tensors alone,
+        its temporaries not measured (said in its note). None before any
+        step."""
+        key = key if key is not None else self._last_key
+        if key is None:
+            return None
+        led = self._mem_ledgers.get(key)
+        if led is None:
+            led = self._step_ledger([], torch.zeros((), device=self.device),
+                                    None)
+        return led
+
+    def state_accounting(self, batch_tokens: Optional[int] = None):
+        """Measured model-state accounting (memledger.account_engine):
+        parameters, gradients, optimizer state and masters, the analytic
+        activation-checkpoint term, and the auto_tuner's drift. Cached
+        after the first step; ``batch_tokens`` overrides the last step's
+        token count for the checkpoint term."""
+        if self._state_acct is not None and batch_tokens is None:
+            return self._state_acct
+        acct = _ml.account_engine(
+            self, batch_tokens=int(batch_tokens if batch_tokens is not None
+                                   else self._last_tokens))
+        if batch_tokens is None:
+            self._state_acct = acct
+        return acct
+
+    def roofline_report(self, exposed=None):
+        """The roofline verdict of the last step (memledger.roofline):
+        the flop accountant's FLOPs for its tokens, the memory ledger's
+        traffic, against the last inter-step interval; "unknown" off the
+        card. ``exposed`` (an exposed-comm report) supplies measured
+        interconnect seconds and step time where one exists."""
+        n_params = self._n_params_cfg or sum(p.numel() for p in self.params)
+        fl = _flops.train_flops_per_token(
+            n_params, config=getattr(self.model, "config", None)) \
+            * self._last_tokens
+        led = self.memory_ledger()
+        traffic = led.traffic_bytes if led is not None and \
+            led.available else 0.0
+        exp_ici = None
+        step_s = self._last_step_seconds
+        if exposed is not None:
+            exp_ici = sum(exposed.exposed_seconds.values())
+            step_s = exposed.step_seconds or step_s
+        return _ml.roofline(
+            step_seconds=step_s, flops_per_step=fl,
+            hbm_traffic_bytes=traffic, wire_bytes=0.0, device=self.device,
+            exposed_ici_seconds=exp_ici, program="train")
 
     def metrics_snapshot(self):
         """Publish every pending step's scalars (waiting for their

@@ -30,6 +30,11 @@ site's shape and counts captures and replays. The predictor serves on
 its model's device: caches, pools, tables and the sampling generator
 live there too.
 
+``ServingEngine`` (serving.py) serves continuous batches over the page
+pool; ``Router`` / ``RouterServer`` (router.py) front several engines,
+unified or split by phase, with ``KVMigrator`` (disagg.py) moving KV
+pages from prefill to decode replicas.
+
 ``Config.enable_weight_only`` serves int8 / int4 weights: the predictor
 swaps the model's linears for ``nn.quant.WeightOnlyLinear`` (in place,
 after the dtype cast, the LM head kept by default), whose projections
@@ -54,7 +59,8 @@ from ..core.cuda_graphs import StepGraphs
 from ..core.enforce import enforce
 
 __all__ = ["Config", "Predictor", "create_predictor", "GenerationConfig",
-           "CompileStats", "ServingEngine", "ServingRequest"]
+           "CompileStats", "ServingEngine", "ServingRequest", "KVMigrator",
+           "MigrationCorruptError", "Replica", "Router", "RouterServer"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -384,3 +390,5 @@ class Predictor:
 
 
 from .serving import ServingEngine, ServingRequest  # noqa: E402
+from .disagg import KVMigrator, MigrationCorruptError  # noqa: E402
+from .router import Replica, Router, RouterServer  # noqa: E402

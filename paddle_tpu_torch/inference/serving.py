@@ -56,9 +56,26 @@ valid. ``stats`` notes every launch site with its shape key, as the JAX
 engine notes its compiled programs, so a fixed shape lattice after
 warmup stays checkable. The legacy per-arrival prefill stays eager.
 
-Not ported yet (ROADMAP.md queue 1, item 3): request traces, metrics
-and the memory and comm ledgers (which wait on item 11's
-observability), and disaggregated phases with the router.
+Telemetry, as the JAX engine's: TTFT / TPOT / stage / round
+histograms, queue, slot and page gauges and lifecycle counters in the
+process-wide registry (``observability.catalog.serving_metrics``), one
+``RequestTrace`` of spans per request (queued, prefill or its chunks,
+decode rounds, decode, e2e; shed and preempt instants) kept in a
+bounded ``SpanRing`` with Chrome-trace export, W3C trace identity on
+``submit`` (a ``traceparent`` header or bare ids), ``health()`` on the
+exporter's ``/healthz``, and the ``PADDLE_TPU_TIMESERIES_DIR`` sampler.
+All of it is host-side, on the host clock at points where the engine
+already reads tokens back: no round gains a device sync. With
+``mem_ledger=True`` each launch site gets a memory ledger at its first
+execution (``observability/memledger.py``) and ``pool_pages="auto"``
+sizes the pool from the card's free memory. No round of one engine
+issues a collective, so ``comm_ledger(site)`` is None for each.
+
+Disaggregated phases (``phase="prefill"`` / ``"decode"``,
+``inference/disagg.py`` and ``inference/router.py``): a prefill replica
+parks each row at its first committed token; ``export_request`` reads
+its committed pages out in place, ``import_request`` writes them into a
+decode replica's pool in place, so every captured graph stays valid.
 """
 from __future__ import annotations
 
@@ -66,6 +83,7 @@ import inspect
 import os
 import threading
 import time
+import weakref
 from collections import Counter, OrderedDict, deque
 from dataclasses import dataclass, field
 from types import SimpleNamespace
@@ -77,12 +95,23 @@ import torch
 from ..core.bucketing import bucket as _bucket
 from ..core.cuda_graphs import StepGraphs
 from ..core.enforce import enforce
+from ..observability import memledger as _ml
+from ..observability.catalog import serving_metrics as _serving_metrics
+from ..observability.spans import (RequestTrace, SpanRing,
+                                   format_traceparent as
+                                   _format_traceparent,
+                                   parse_traceparent as
+                                   _parse_traceparent)
 
 __all__ = ["ServingEngine", "ServingRequest"]
 
-_ITEM3 = ("ROADMAP.md queue 1, item 3: request traces, metrics and the "
-          "memory and comm ledgers wait on item 11's observability, and "
-          "disaggregated phases come after them")
+# Least seconds between two registry snapshots of the serving ticks. A
+# snapshot (every metric's rows, every histogram's percentiles) is the
+# costliest host work of a tick, and the serving loop waits on it
+# between two rounds: at one a tick it costs graphed serve tokens/s
+# measurably (PERF.md, the serving telemetry). The snapshot also stamps
+# /healthz's liveness, which is then never older than this plus a round.
+SNAPSHOT_EVERY_S = 0.1
 
 
 @dataclass
@@ -103,10 +132,24 @@ class ServingRequest:
     # deadline in the t_submit clock
     shed_reason: Optional[str] = None
     deadline: Optional[float] = None
+    # W3C trace identity (observability/spans.py): trace_id spans
+    # replicas, span_id is this request's root span in this engine,
+    # parent_span_id the submitting caller's span
+    trace_id: Optional[str] = None
+    span_id: Optional[str] = None
+    parent_span_id: Optional[str] = None
 
     @property
     def shed(self) -> bool:
         return self.shed_reason is not None
+
+    @property
+    def traceparent(self) -> Optional[str]:
+        """The ``00-<trace_id>-<span_id>-01`` header for work downstream
+        of this request (None before submit stamps the identity)."""
+        if self.trace_id is None or self.span_id is None:
+            return None
+        return _format_traceparent(self.trace_id, self.span_id)
 
     @property
     def output_ids(self) -> np.ndarray:
@@ -118,8 +161,8 @@ class ServingRequest:
 class _Slot:
     """Host-side state of one in-flight batch row."""
 
-    __slots__ = ("req", "pages", "pos", "state", "fed", "seq", "hashes",
-                 "registered", "hit_pages")
+    __slots__ = ("req", "pages", "pos", "state", "fed", "chunks", "seq",
+                 "hashes", "registered", "hit_pages")
 
     def __init__(self, req: ServingRequest, pages: List[int],
                  state: str = "decode", seq: int = 0):
@@ -128,9 +171,11 @@ class _Slot:
         # cache position the NEXT decode input token is written at
         self.pos = len(req.prompt)
         # "prefill" while prompt tokens remain unfed (chunked mode), then
-        # "decode"; legacy slots are born "decode" (prefilled at admit)
+        # "decode"; legacy slots are born "decode" (prefilled at admit);
+        # "migrate" on a prefill replica once the first token is sampled
         self.state = state
         self.fed = 0            # prompt tokens already written
+        self.chunks = 0         # chunks fed (the spans' chunk index)
         self.seq = seq          # admission order (scheduler fairness)
         # prefix cache: the rolling hash per full page-aligned prompt
         # chunk (None with the cache off), the leading pages already
@@ -164,11 +209,6 @@ class ServingEngine:
                  host_spill_pages: int = 0,
                  phase: Optional[str] = None,
                  debug_invariants: bool = False):
-        if trace_ring != 256 or mem_ledger or phase is not None or \
-                pool_pages == "auto":
-            raise NotImplementedError(
-                "ServingEngine's trace_ring, mem_ledger, phase and "
-                f"pool_pages='auto' are not ported: {_ITEM3}")
         cfg = predictor.config
         enforce(cfg._kv_page_size,
                 "ServingEngine serves over the paged KV cache; call "
@@ -201,13 +241,40 @@ class ServingEngine:
         else:
             self.Sc = 0
             self.prefill_budget = 0
+        # disaggregated serving (inference/disagg.py moves the pages): a
+        # "prefill" replica parks each row at its first sampled token,
+        # holding its committed pages for export; a "decode" replica only
+        # adopts migrated rows (submit is refused). None = unified.
+        enforce(phase in (None, "prefill", "decode"),
+                'ServingEngine phase must be None, "prefill", or '
+                '"decode"')
+        self.phase = phase
+        if phase == "prefill":
+            enforce(self.chunked,
+                    'phase="prefill" runs the chunked unified step; set '
+                    "prefill_chunk")
+        if phase is not None:
+            enforce(draft_predictor is None,
+                    "disaggregated phases do not carry the draft pools; "
+                    "run speculative decoding on unified replicas")
         self._admit_seq = 0
         # chunked-mode backpressure: while an active row is page-stalled,
         # admissions pause so freed pages reach the oldest stalled row
         self._page_stalled = False
         self._dtype = predictor.dtype
+        # one pool for the engine's lifetime. pool_pages="auto" sizes it
+        # from the card's free memory (memledger.suggest_pool_pages:
+        # weights and any other engine's pool already taken off, 10%
+        # margin), capped at the geometric maximum the batch can
+        # reference; off the card it falls back to the geometric default.
         geom = self.B * self.npages + 1
-        self.P = _bucket(int(pool_pages or geom), lo=8)
+        if pool_pages == "auto":
+            fit = _ml.suggest_pool_pages(self.device, self._page_bytes(),
+                                         0)
+            want = min(fit, geom) if fit else geom
+        else:
+            want = pool_pages or geom
+        self.P = _bucket(int(want), lo=8)
         self.trash = self.P - 1
         self._free_pages = list(range(self.P - 1))
         # prefix cache: ref-counted, content-addressed pages. _hash_page
@@ -259,6 +326,27 @@ class ServingEngine:
         self.queue: deque = deque()
         self.finished: Dict[int, ServingRequest] = {}
         self.stats = predictor.stats
+        # telemetry (observability/catalog.py serving_metrics): host-side,
+        # so the rounds and their graphs are untouched
+        self._metrics = _serving_metrics()
+        self._stats_reported = (self.stats.compiles, self.stats.cache_hits)
+        # per-request traces: live ones by rid, finished ones in a ring
+        self.traces = SpanRing(maxlen=trace_ring)
+        self._live_traces: Dict[int, RequestTrace] = {}
+        self._round = 0
+        # comm ledgers by site: no round of one engine issues a
+        # collective, so none is ever stored (comm_ledger returns None)
+        self._ledgers: Dict[Any, Any] = {}
+        # memory ledgers by site, made at a site's first execution
+        self._mem_on = bool(mem_ledger) or bool(int(os.environ.get(
+            "PADDLE_TPU_MEM_LEDGER", "0") or 0))
+        self._mem_ledgers: Dict[Any, Any] = {}
+        # the bytes each recent decode round moved (roofline_report)
+        self._decode_bytes: deque = deque(maxlen=4096)
+        self._weight_bytes = sum(_ml.shard_bytes(p)
+                                 for p in self.pred._params)
+        self._live_peak = 0
+        self._last_snapshot = -float("inf")
         # the rounds' graphs and static buffers: the engine's own, since
         # they hold its pools' addresses
         self._graphs = StepGraphs(self.device, self.stats)
@@ -321,8 +409,39 @@ class ServingEngine:
         self.admission_deadline_s = admission_deadline_s
         self._degraded_window = float(degraded_window_s)
         self._last_shed_time: Optional[float] = None
-        # the JAX engine also registers health() with its /healthz
-        # exporter, which waits for ROADMAP item 11
+        # /healthz reports "degraded" while this engine sheds; the
+        # provider holds the engine weakly, so a dead engine is pruned
+        from ..observability import exporter as _exporter
+
+        ref = weakref.ref(self)
+
+        def _health_provider():
+            eng = ref()
+            if eng is None:
+                return None
+            return {"component": "serving", "status": eng.health()}
+
+        self._health_provider = _health_provider
+        _exporter.add_health_provider(_health_provider)
+        # durable metrics history: PADDLE_TPU_TIMESERIES_DIR attaches the
+        # registry sampler (PADDLE_TPU_TIMESERIES_S sets its interval)
+        self.sampler = None
+        ts_dir = os.environ.get("PADDLE_TPU_TIMESERIES_DIR")
+        if ts_dir:
+            from ..observability import timeseries as _ts
+
+            try:
+                self.sampler = _ts.attach_dir(
+                    ts_dir, interval_s=float(os.environ.get(
+                        "PADDLE_TPU_TIMESERIES_S", "5.0")))
+            except (OSError, ValueError):
+                self.sampler = None    # unwritable dir: serve anyway
+
+    def _page_bytes(self) -> int:
+        """Bytes one page takes across every layer's K and V pools."""
+        mcfg = self.pred._model.config
+        return (2 * mcfg.num_layers * mcfg.num_kv_heads * self.page
+                * mcfg.head_dim * self._dtype.itemsize)
 
     # -- admission -------------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
@@ -335,11 +454,18 @@ class ServingEngine:
         ``max_queue`` set, a full queue sheds the request at once (it
         lands in ``finished`` with ``shed_reason="queue_full"`` and no
         tokens); ``deadline_s`` (default: ``admission_deadline_s``)
-        bounds its wait for admission."""
-        if trace_id is not None or parent_span_id is not None:
-            raise NotImplementedError(
-                f"submit's trace_id and parent_span_id are not ported: "
-                f"{_ITEM3}")
+        bounds its wait for admission.
+
+        ``trace_id`` is a 32-hex W3C trace id or a whole ``traceparent``
+        header (whose span becomes the parent); ``parent_span_id`` gives
+        or overrides the caller's 16-hex span. What is missing is minted;
+        a malformed header or an invalid bare id is replaced by a fresh
+        id and counted on ``paddle_tpu_serving_trace_parse_errors_total``
+        (never raised). ``trace_context(rid)`` reads the identity back."""
+        enforce(self.phase != "decode",
+                'a phase="decode" replica only adopts migrated requests '
+                "(import_request); route submissions to a prefill or "
+                "unified replica")
         ids = np.asarray(prompt).reshape(-1).astype(np.int64)
         n_new = int(max_new_tokens if max_new_tokens is not None
                     else self.gen.max_new_tokens)
@@ -353,6 +479,19 @@ class ServingEngine:
         enforce(self._pages_needed(L, n_new) <= self.P - 1,
                 f"request needs {self._pages_needed(L, n_new)} pages but "
                 f"the pool only has {self.P - 1}; raise pool_pages")
+        if trace_id is not None and "-" in trace_id:
+            # a whole traceparent header: its span is the parent unless
+            # one is given; a malformed header mints a fresh id instead
+            try:
+                tid, parent = _parse_traceparent(trace_id)
+            except ValueError:
+                self._metrics["trace_parse_errors"].inc(
+                    reason="malformed_traceparent")
+                trace_id = None
+            else:
+                trace_id = tid
+                if parent_span_id is None:
+                    parent_span_id = parent
         rid = self._next_rid
         self._next_rid += 1
         now = time.perf_counter()
@@ -361,19 +500,49 @@ class ServingEngine:
         req = ServingRequest(rid, ids, n_new, eos, t_submit=now,
                              deadline=(now + dls) if dls is not None
                              else None)
+        meta = {"prompt_len": L, "max_new_tokens": n_new}
+        try:
+            tr = RequestTrace(rid, meta=meta, trace_id=trace_id,
+                              parent_span_id=parent_span_id)
+        except ValueError:
+            # bare ids that fail W3C validation: a fresh identity
+            self._metrics["trace_parse_errors"].inc(
+                reason="invalid_trace_id")
+            tr = RequestTrace(rid, meta=meta)
+        req.trace_id = tr.trace_id
+        req.span_id = tr.span_id
+        req.parent_span_id = tr.parent_span_id
+        tr.begin("queued", now)
+        self._live_traces[rid] = tr
+        self._metrics["requests"].inc(event="submitted")
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             self._shed(req, "queue_full")
             return rid
         self.queue.append(req)
+        self._metrics["queue_depth"].set(len(self.queue))
         return rid
 
     def _shed(self, req: ServingRequest, reason: str):
         """Load-shed a queued request: it finishes with no tokens and no
-        first-token time."""
+        first-token time, so it stays out of the TTFT histogram; the
+        decision is a zero-length "shed" span (a Chrome instant) on its
+        trace."""
         req.shed_reason = reason
         req.t_finish = time.perf_counter()
         self.finished[req.rid] = req
         self._last_shed_time = req.t_finish
+        self._metrics["shed"].inc(reason=reason)
+        tr = self._live_traces.pop(req.rid, None)
+        if tr is not None:
+            # the queued span closes but is not observed on the stage
+            # histogram: shed latency stays out of the percentiles
+            sp = tr.end("queued", req.t_finish)
+            tr.meta["shed_reason"] = reason
+            tr.add("shed", req.t_finish, req.t_finish,
+                   {"reason": reason,
+                    "queued_seconds": (sp.seconds if sp is not None
+                                       else 0.0)})
+            self.traces.add(tr)
 
     def health(self) -> str:
         """"ok", or "degraded" while the engine sheds load (a shed within
@@ -427,6 +596,7 @@ class ServingEngine:
             h = self._page_hash.pop(pg)
             del self._hash_page[h]
             self._pfx["reclaimed"] += 1
+            self._metrics["prefix_events"].inc(event="reclaimed")
             if self.spill_pages:
                 self._spill_pending.append((pg, h))
             self._free_pages.append(pg)
@@ -462,14 +632,25 @@ class ServingEngine:
             self._hash_page[h] = pg
             self._page_hash[pg] = h
             self._pfx["registered"] += 1
+            self._metrics["prefix_events"].inc(event="registered")
 
     # -- host spill tier -------------------------------------------------
     def _note_spill(self, direction: str, nbytes: int):
-        # the JAX engine also republishes offload gauges here, which wait
-        # for ROADMAP item 11; the byte ledger is spill_stats'
+        """Book one transfer and republish the offload gauges: cumulative
+        totals set as gauges, one number per (component, direction), as
+        the training tier publishes them."""
         with self._lock:
             k = ("kv_page", direction)
             self._spill_ledger[k] = self._spill_ledger.get(k, 0) + nbytes
+            host = sum(self._payload_nbytes(p)
+                       for p in self._spilled.values())
+            vals = dict(self._spill_ledger)
+            npages = len(self._spilled)
+        m = self._metrics
+        for (comp, d), v in vals.items():
+            m["offload_bytes"].set(v, component=comp, direction=d)
+        m["offload_host"].set(host, component="kv_page")
+        m["offload_spilled_pages"].set(npages)
 
     @staticmethod
     def _payload_nbytes(payload) -> int:
@@ -504,13 +685,18 @@ class ServingEngine:
         for pg, h in pending:
             self.stats.note("page_read", ("target", len(self.pools),
                                           str(self._dtype)))
-            target = self._read_page(self.pools, pg)
+            target = self._run_site(
+                ("page_read",), lambda: self._read_page(self.pools, pg),
+                params=False, writes_pools=False)
             draft = None
             if self._draft is not None:
                 self.stats.note("page_read",
                                 ("draft", len(self.draft_pools),
                                  str(self._draft_dtype)))
-                draft = self._read_page(self.draft_pools, pg)
+                draft = self._run_site(
+                    ("page_read_draft",),
+                    lambda: self._read_page(self.draft_pools, pg),
+                    draft=True, params=False, writes_pools=False)
             payload = (target, draft)
             with self._lock:
                 self._spilled[h] = payload
@@ -547,12 +733,17 @@ class ServingEngine:
             target, draft = payload
             self.stats.note("page_write", ("target", len(self.pools),
                                            str(self._dtype)))
-            self._write_page(self.pools, target, pg)
+            self._run_site(("page_write",),
+                           lambda: self._write_page(self.pools, target, pg),
+                           params=False)
             if self._draft is not None and draft is not None:
                 self.stats.note("page_write",
                                 ("draft", len(self.draft_pools),
                                  str(self._draft_dtype)))
-                self._write_page(self.draft_pools, draft, pg)
+                self._run_site(
+                    ("page_write_draft",),
+                    lambda: self._write_page(self.draft_pools, draft, pg),
+                    draft=True, params=False)
             self._register_page(h, pg)
             self._release_pages([pg])     # idle + registered: hit-able
             with self._lock:
@@ -691,6 +882,7 @@ class ServingEngine:
                     time.perf_counter() > req.deadline:
                 self.queue.popleft()
                 self._shed(req, "deadline")
+                self._metrics["queue_depth"].set(len(self.queue))
                 continue
             if self.chunked and self._page_stalled and self.num_active:
                 return    # backpressure: stalled elders drain first
@@ -709,6 +901,8 @@ class ServingEngine:
                 return                    # head-of-line waits for evictions
             self.queue.popleft()
             b = free[0]
+            # a backfill is an admission that joins rows mid-decode
+            backfill = self.num_active > 0
             for pg in hits:
                 self._ref_page(pg)        # pin BEFORE any reclaim can run
             pages = list(hits) + self._alloc_pages(cold)
@@ -723,13 +917,31 @@ class ServingEngine:
             slot.fed = fed0
             self.slots[b] = slot
             self._admit_seq += 1
+            m = self._metrics
+            m["requests"].inc(event="admitted")
             if hashes is not None:
                 self._pfx["lookups"] += len(hashes)
                 self._pfx["hits"] += len(hits)
                 self._pfx["skipped_tokens"] += fed0
+                if hits:
+                    m["prefix_events"].inc(len(hits), event="hit")
             if self.debug:
                 self.check_invariants()
-            if not self.chunked:
+            if backfill:
+                m["requests"].inc(event="backfilled")
+            m["queue_depth"].set(len(self.queue))
+            tr = self._live_traces.get(req.rid)
+            if tr is not None:
+                sp = tr.end("queued", time.perf_counter())
+                tr.meta["backfill"] = bool(backfill)
+                if sp is not None:
+                    m["stage_seconds"].observe(sp.seconds, stage="queued")
+            if self.chunked:
+                # chunks feed in the unified rounds; the prefill stage
+                # span (admit -> first token) opens here
+                if tr is not None:
+                    tr.begin("prefill", time.perf_counter())
+            else:
                 self._prefill(b)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -741,6 +953,7 @@ class ServingEngine:
 
         slot = self.slots[b]
         req = slot.req
+        t0 = time.perf_counter()
         L = len(req.prompt)
         Sb = min(_bucket(L), self.M)
         ids = np.zeros((1, Sb), np.int64)
@@ -749,14 +962,27 @@ class ServingEngine:
         caches = [(kp, vp, tbl) for kp, vp in self.pools]
         self.stats.note("prefill", (1, Sb, self.M, self.page, self.P,
                                     str(ids.dtype), str(self._dtype)))
-        last, _ = self.pred._prefill_step(
-            self._tensor(ids), caches,
-            torch.tensor([L], dtype=torch.int32, device=self.device))
+        ids_t = self._tensor(ids)
+        lens = torch.tensor([L], dtype=torch.int32, device=self.device)
+        last, _ = self._run_site(
+            ("prefill", Sb),
+            lambda: self.pred._prefill_step(ids_t, caches, lens),
+            reads=[ids_t, tbl, lens], writes=[])
         tok0 = int(_sample(last, self.gen, self._generator)[0])
         req.new_tokens.append(tok0)
-        req.t_first_token = time.perf_counter()
+        now = time.perf_counter()
+        req.t_first_token = now
         self.stats.count_tokens(("prefill", Sb, self.P), 1)
         self.rounds["prefill"] += 1
+        m = self._metrics
+        m["prefill_seconds"].observe(now - t0)
+        m["ttft"].observe(now - req.t_submit)
+        m["tokens"].inc(1, phase="prefill")
+        tr = self._live_traces.get(req.rid)
+        if tr is not None:
+            tr.add("prefill", t0, now, {"seq_bucket": Sb})
+            m["stage_seconds"].observe(now - t0, stage="prefill")
+            tr.begin("decode", now)    # closed at eviction
         if len(req.new_tokens) >= req.max_new_tokens or \
                 (req.eos_token_id is not None and tok0 == req.eos_token_id):
             self._finish(b)
@@ -800,6 +1026,7 @@ class ServingEngine:
             cow = self._cow_plan(s, n)
             if max(extra, 0) + len(cow) > self._avail_pages():
                 stalled = True
+                self._metrics["prefill_stall"].inc()
                 continue
             if extra > 0:
                 newp = self._alloc_pages(extra)
@@ -839,6 +1066,7 @@ class ServingEngine:
         self.tables[b, j] = new
         self._release_pages([old])
         self._pfx["cow"] += 1
+        self._metrics["prefix_events"].inc(event="cow")
 
     def _copy_page(self, src: int, dst: int):
         """Copy one physical page in every pool, and in every draft pool
@@ -847,18 +1075,22 @@ class ServingEngine:
         and the copies queue on the current stream, the one the round
         graphs replay on, ahead of the next round's replay. The pools
         keep their addresses, so every captured graph stays valid."""
+        def copy(pools):
+            for kp, vp in pools:
+                kp[dst].copy_(kp[src])
+                vp[dst].copy_(vp[src])
+
         self.stats.note("page_copy",
                         ("target", len(self.pools), str(self._dtype)))
-        for kp, vp in self.pools:
-            kp[dst].copy_(kp[src])
-            vp[dst].copy_(vp[src])
+        self._run_site(("page_copy",), lambda: copy(self.pools),
+                       params=False)
         if self._draft is not None:
             self.stats.note("page_copy",
                             ("draft", len(self.draft_pools),
                              str(self._draft_dtype)))
-            for kp, vp in self.draft_pools:
-                kp[dst].copy_(kp[src])
-                vp[dst].copy_(vp[src])
+            self._run_site(("page_copy_draft",),
+                           lambda: copy(self.draft_pools), draft=True,
+                           params=False)
 
     def _unified_buffers(self):
         kw = {"device": self.device}
@@ -939,7 +1171,11 @@ class ServingEngine:
         st.tok.copy_(torch.from_numpy(tok))
         st.pos.copy_(torch.from_numpy(pos))
         st.tbl.copy_(torch.from_numpy(tbl))
-        self._graphs.step("draft_propose", key, self._propose_body)
+        self._run_site(
+            ("draft_propose",),
+            lambda: self._graphs.step("draft_propose", key,
+                                      self._propose_body),
+            reads=[st.tok, st.pos, st.tbl], writes=[st.out], draft=True)
         self.rounds["draft_propose"] += 1
 
     def _spec_buffers(self):
@@ -993,7 +1229,11 @@ class ServingEngine:
         st.starts.copy_(torch.from_numpy(starts))
         st.nvalid.copy_(torch.from_numpy(nvf))
         st.tbl.copy_(torch.from_numpy(tbl))
-        self._graphs.step("draft_chunk", key, self._draft_chunk_body)
+        self._run_site(
+            ("draft_chunk", self.Sc),
+            lambda: self._graphs.step("draft_chunk", key,
+                                      self._draft_chunk_body),
+            reads=[st.ids, st.starts, st.nvalid, st.tbl], draft=True)
         self.rounds["draft_chunk"] += 1
 
     @torch.no_grad()
@@ -1003,6 +1243,7 @@ class ServingEngine:
         (speculative: its last token and k proposals verified in the same
         launch), dead rows ride along at seq_len 0 — one [B, Sc]
         forward."""
+        t0 = time.perf_counter()
         B = self.B
         spec = self._draft is not None
         ids = np.zeros((B, self.Sc), np.int64)
@@ -1059,7 +1300,12 @@ class ServingEngine:
         if spec:
             st.dmask.copy_(torch.from_numpy(dmask))
         # the verify step is greedy: it draws nothing from the generator
-        self._graphs.step(site, key, body, None if spec else self._generator)
+        self._run_site(
+            (site, self.Sc),
+            lambda: self._graphs.step(site, key, body,
+                                      None if spec else self._generator),
+            reads=[st.ids, st.starts, st.nvalid, st.tbl],
+            writes=[st.out if spec else st.toks])
         self.rounds[site] += 1
         # mirror the chunks into the draft pools BEFORE commits can
         # retire a feeder (its registered pages must carry draft KV)
@@ -1071,12 +1317,21 @@ class ServingEngine:
         else:
             toks = st.toks.cpu().numpy()      # [B]
         now = time.perf_counter()
+        m = self._metrics
         fed_tokens = 0
         for b, n, last_chunk in feeders:
             s = self.slots[b]
             req = s.req
+            tr = self._live_traces.get(req.rid)
+            if tr is not None:
+                # a span per chunk: the Chrome trace shows the chunks
+                # interleaved with the decode rounds
+                tr.add("prefill_chunk", t0, now,
+                       {"chunk": s.chunks, "tokens": n, "start": s.fed})
             s.fed += n
+            s.chunks += 1
             fed_tokens += n
+            m["prefill_chunks"].inc()
             if self.prefix and s.hashes:
                 # pages wholly behind the fed frontier now hold final,
                 # immutable KV: publish them under their prefix hash
@@ -1089,16 +1344,30 @@ class ServingEngine:
                     else int(toks[b])
                 req.new_tokens.append(tok0)
                 req.t_first_token = now
+                m["ttft"].observe(now - req.t_submit)
+                m["tokens"].inc(1, phase="prefill")
                 s.state = "decode"
+                if tr is not None:
+                    sp = tr.end("prefill", now)
+                    if sp is not None:
+                        m["prefill_seconds"].observe(sp.seconds)
+                        m["stage_seconds"].observe(sp.seconds,
+                                                   stage="prefill")
+                    tr.begin("decode", now)    # closed at eviction
                 if len(req.new_tokens) >= req.max_new_tokens or \
                         (req.eos_token_id is not None
                          and tok0 == req.eos_token_id):
                     self._finish(b)
+                elif self.phase == "prefill":
+                    # disaggregated: park the row with its committed
+                    # pages for export to a decode replica
+                    s.state = "migrate"
         if self.prefix:
             self._pfx["fed_tokens"] += fed_tokens
         emitted = 0
         for b in decode_rows:
             req = self.slots[b].req
+            acc = 0
             if spec:
                 # greedy verify: toks[b, i] is the target argmax after
                 # input i, so proposal i is accepted iff it equals the
@@ -1110,10 +1379,17 @@ class ServingEngine:
                     if int(ids[b, i]) != seq[-1]:
                         break
                     seq.append(int(toks[b, i]))
+                acc = len(seq) - 1
                 self._spec["proposed"] += ku
-                self._spec["accepted"] += len(seq) - 1
+                self._spec["accepted"] += acc
             else:
                 seq = [int(toks[b])]
+            tr = self._live_traces.get(req.rid)
+            if tr is not None:
+                meta = {"round": self._round, "unified": True}
+                if spec:
+                    meta.update(proposed=k_use[b], accepted=acc)
+                tr.add("decode_round", t0, now, meta)
             for t in seq:
                 req.new_tokens.append(t)
                 emitted += 1
@@ -1129,6 +1405,10 @@ class ServingEngine:
             self._spec["committed"] += emitted
         self.stats.count_tokens((site, self.Sc, self.P),
                                 fed_tokens + emitted)
+        m["unified_round_seconds"].observe(now - t0)
+        if emitted:
+            m["tokens"].inc(emitted, phase="decode")
+        self._round += 1
 
     def _preempt_youngest(self):
         """Deadlock breaker: bounce the YOUNGEST mid-prefill row (no token
@@ -1142,11 +1422,20 @@ class ServingEngine:
             return
         b = max(rows, key=lambda b: self.slots[b].seq)
         s = self.slots[b]
+        now = time.perf_counter()
         self._release_pages(s.pages)
         self.tables[b, :] = self.trash
         self.slots[b] = None
         self.queue.appendleft(s.req)
         self.rounds["preempted"] += 1
+        m = self._metrics
+        m["requests"].inc(event="preempted")
+        m["queue_depth"].set(len(self.queue))
+        tr = self._live_traces.get(s.req.rid)
+        if tr is not None:
+            tr.end("prefill", now)     # the partial prefill span, kept
+            tr.add("preempt", now, now, {"reason": "pages", "fed": s.fed})
+            tr.begin("queued", now)
         if self.debug:
             self.check_invariants()
 
@@ -1197,6 +1486,10 @@ class ServingEngine:
                   and self.slots[b].state == "decode"]
         if not active:
             return
+        t0 = time.perf_counter()
+        # captured before evictions can retire the traces
+        round_traces = [self._live_traces.get(self.slots[b].req.rid)
+                        for b in active]
         tok = np.zeros((self.B,), np.int64)
         pos = np.zeros((self.B,), np.int32)
         for b in active:
@@ -1218,8 +1511,13 @@ class ServingEngine:
         st.tok.copy_(torch.from_numpy(tok))
         st.pos.copy_(torch.from_numpy(pos))
         st.tbl.copy_(torch.from_numpy(tbl))
-        self._graphs.step("serve_decode", key, self._decode_body,
-                          self._generator)
+        self._run_site(
+            ("decode",),
+            lambda: self._graphs.step("serve_decode", key,
+                                      self._decode_body, self._generator),
+            reads=[st.tok, st.pos, st.tbl], writes=[st.out])
+        if self._mem_on:
+            self._decode_bytes.append(self._decode_round_bytes(pos))
         toks = st.out.cpu().numpy()                   # [B, chunk]
         self.rounds["decode"] += 1
         emitted = 0
@@ -1236,6 +1534,16 @@ class ServingEngine:
                     break               # rest of the chunk is discarded
         self.stats.count_tokens(("decode", self.B, self.chunk, self.P),
                                 emitted)
+        m = self._metrics
+        now = time.perf_counter()
+        m["decode_round_seconds"].observe(now - t0)
+        m["tokens"].inc(emitted, phase="decode")
+        # one "decode_round" span per request in flight this round
+        for tr in round_traces:
+            if tr is not None:
+                tr.add("decode_round", t0, now,
+                       {"round": self._round, "chunk": self.chunk})
+        self._round += 1
 
     def _finish(self, b: int):
         """Evict a finished row: one reference dropped per page
@@ -1245,10 +1553,216 @@ class ServingEngine:
         self._release_pages(slot.pages)
         self.tables[b, :] = self.trash
         self.slots[b] = None
-        slot.req.t_finish = time.perf_counter()
-        self.finished[slot.req.rid] = slot.req
+        req = slot.req
+        req.t_finish = time.perf_counter()
+        self.finished[req.rid] = req
+        m = self._metrics
+        m["requests"].inc(event="evicted")
+        if len(req.new_tokens) > 1 and req.t_first_token:
+            m["tpot"].observe((req.t_finish - req.t_first_token)
+                              / (len(req.new_tokens) - 1))
+        tr = self._live_traces.pop(req.rid, None)
+        if tr is not None:
+            sp = tr.end("decode", req.t_finish)
+            if sp is not None:
+                m["stage_seconds"].observe(sp.seconds, stage="decode")
+            tr.meta["new_tokens"] = len(req.new_tokens)
+            tr.add("e2e", req.t_submit, req.t_finish)
+            m["stage_seconds"].observe(req.t_finish - req.t_submit,
+                                       stage="e2e")
+            self.traces.add(tr)
         if self.debug:
             self.check_invariants()
+
+    # -- disaggregated prefill/decode hooks (inference/disagg.py) --------
+    def prefix_match(self, hashes: List[int]) -> int:
+        """Leading page-aligned prompt chunks whose KV this replica's
+        prefix cache holds: the router's affinity signal (the rolling
+        hashes ``_prefix_hashes`` registers pages under)."""
+        n = 0
+        with self._lock:
+            for h in hashes:
+                if h not in self._hash_page:
+                    break
+                n += 1
+        return n
+
+    def migratable(self) -> List[int]:
+        """rids parked for migration on a prefill replica: prompt fed,
+        first token committed, KV pages held for export."""
+        return [s.req.rid for s in self.slots
+                if s is not None and s.state == "migrate"]
+
+    def can_import(self, prompt_len: int, max_new_tokens: int) -> bool:
+        """Whether ``import_request`` would take a request of this
+        geometry now (a free slot and its whole page footprint); False
+        is the backpressure signal the migrator acts on."""
+        if any(s is None for s in self.slots):
+            return self._pages_needed(prompt_len, max_new_tokens) \
+                <= self._avail_pages()
+        return False
+
+    def _host_pages(self, n: int) -> torch.Tensor:
+        """Host memory for ``n`` page payloads ([n, 2 * layers, kv_heads,
+        page, head_dim]; pinned on a card). It is cut from a block sized
+        for a whole row's pages, so the caching host allocator serves
+        every migration from blocks of one size: a block is allocated
+        once and reused once its tensor is gone."""
+        kp = self.pools[0][0]
+        shape = (2 * len(self.pools),) + tuple(kp.shape[1:])
+        full = torch.empty((self.npages,) + shape, dtype=self._dtype,
+                           pin_memory=self.device.type == "cuda")
+        return full[:n]
+
+    def _gather_pages(self, pages: List[int]) -> np.ndarray:
+        """The pages' rows of every layer's K and V pool as one host
+        array [n, 2 * layers, kv_heads, page, head_dim] (K and V
+        interleaved by layer; bf16 as its uint16 image). One gather on
+        the device, one copy into pinned host memory; the copy is
+        synchronous, so it follows every write already queued."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        dev = torch.stack([t.index_select(0, idx) for kv in self.pools
+                           for t in kv], dim=1)
+        host = self._host_pages(len(pages))
+        host.copy_(dev)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(np.uint16)
+        return host.numpy()
+
+    def _scatter_pages(self, payloads: List[np.ndarray], pages: List[int]):
+        """Write page payloads (``_gather_pages``' layout) into pool
+        pages ``pages`` in place: host to device (straight from payloads
+        that lie in pinned memory, as an in-process export's do, else
+        staged through pinned memory), then one indexed copy a pool. On
+        a card it waits for the copies, so the caller's host arrays are
+        free when it returns."""
+        n = len(payloads)
+        if not n:
+            return
+        bf16 = self._dtype == torch.bfloat16
+        want = np.uint16 if bf16 else np.dtype(
+            str(self._dtype).replace("torch.", ""))
+        cuda = self.device.type == "cuda"
+        srcs = []
+        for arr in payloads:
+            enforce(arr.dtype == want,
+                    f"page payload dtype {arr.dtype} does not match the "
+                    f"pool's {self._dtype}")
+            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
+                                 if bf16 else np.ascontiguousarray(arr))
+            srcs.append(t.view(torch.bfloat16) if bf16 else t)
+        if cuda and all(t.is_pinned() for t in srcs):
+            dev = torch.empty((n,) + tuple(srcs[0].shape), dtype=self._dtype,
+                              device=self.device)
+            for j, t in enumerate(srcs):
+                dev[j].copy_(t, non_blocking=True)
+        else:
+            host = self._host_pages(n)
+            for j, t in enumerate(srcs):
+                host[j].copy_(t)
+            dev = host.to(self.device, non_blocking=cuda)
+        idx = torch.tensor(pages[:n], dtype=torch.long, device=self.device)
+        for i, (kp, vp) in enumerate(self.pools):
+            kp.index_copy_(0, idx, dev[:, 2 * i])
+            vp.index_copy_(0, idx, dev[:, 2 * i + 1])
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def export_request(self, rid: int) -> Dict[str, Any]:
+        """Export one parked row: its committed KV page payloads (one
+        [2 * layers, kv_heads, page, head_dim] array a page), its
+        block-table row and the host request state; the row is then
+        evicted (pages released, slot open for backfill). The pages are
+        read in place, so no graph is captured again. Framing (crc32 a
+        page, wire bytes) lives in inference/disagg.py."""
+        b = next((i for i, s in enumerate(self.slots)
+                  if s is not None and s.state == "migrate"
+                  and s.req.rid == rid), None)
+        enforce(b is not None, f"rid {rid} is not parked for migration")
+        s = self.slots[b]
+        req = s.req
+        k = self._pages_for(len(req.prompt))  # pages with committed KV
+        for _ in range(k):
+            self.stats.note("page_read", ("target", len(self.pools),
+                                          str(self._dtype)))
+        rows = self._run_site(("page_read",),
+                              lambda: self._gather_pages(s.pages[:k]),
+                              params=False, writes_pools=False)
+        payloads = [rows[j] for j in range(k)]
+        now = time.perf_counter()
+        tr = self._live_traces.pop(rid, None)
+        if tr is not None:
+            tr.end("decode", now)
+            tr.add("migrate_out", now, now, {"pages": k})
+            self.traces.add(tr)
+        pkg = {"rid": rid, "prompt": req.prompt,
+               "max_new_tokens": req.max_new_tokens,
+               "eos_token_id": req.eos_token_id,
+               "new_tokens": list(req.new_tokens),
+               "t_submit": req.t_submit,
+               "t_first_token": req.t_first_token,
+               "trace_id": req.trace_id, "parent_span_id": req.span_id,
+               "pages": payloads, "table_row": self.tables[b].copy()}
+        self._release_pages(s.pages)
+        self.tables[b, :] = self.trash
+        self.slots[b] = None
+        self._metrics["requests"].inc(event="migrated_out")
+        if self.debug:
+            self.check_invariants()
+        return pkg
+
+    def import_request(self, pkg: Dict[str, Any]) -> Optional[int]:
+        """Adopt a migrated request on a decode replica: allocate its
+        whole page footprint, write the committed page payloads into the
+        pool in place, and seat the row mid-decode where the prefill
+        replica stopped. Returns the local rid, or None when this
+        replica refuses (no free slot or pages): the migrator's
+        backpressure signal. The crc32s are checked before this call
+        (inference/disagg.py)."""
+        enforce(self.phase != "prefill",
+                "a prefill replica cannot adopt migrated rows")
+        prompt = np.asarray(pkg["prompt"], np.int64)
+        L, n_new = len(prompt), int(pkg["max_new_tokens"])
+        free = [b for b in range(self.B) if self.slots[b] is None]
+        if not free or self._pages_needed(L, n_new) > \
+                self._avail_pages():
+            return None
+        b = free[0]
+        pages = self._alloc_pages(self._pages_needed(L, n_new))
+        for _ in pkg["pages"]:
+            self.stats.note("page_write", ("target", len(self.pools),
+                                           str(self._dtype)))
+        self._run_site(("page_write",),
+                       lambda: self._scatter_pages(pkg["pages"], pages),
+                       params=False)
+        self.tables[b, :] = self.trash
+        self.tables[b, :len(pages)] = pages
+        rid = self._next_rid
+        self._next_rid += 1
+        req = ServingRequest(rid, prompt, n_new, pkg["eos_token_id"],
+                             new_tokens=list(pkg["new_tokens"]),
+                             t_submit=pkg["t_submit"],
+                             t_first_token=pkg["t_first_token"])
+        slot = _Slot(req, pages, state="decode", seq=self._admit_seq)
+        slot.fed = L
+        self._admit_seq += 1
+        self.slots[b] = slot
+        tr = RequestTrace(rid, meta={"prompt_len": L,
+                                     "max_new_tokens": n_new,
+                                     "migrated": True},
+                          trace_id=pkg.get("trace_id"),
+                          parent_span_id=pkg.get("parent_span_id"))
+        req.trace_id = tr.trace_id
+        req.span_id = tr.span_id
+        req.parent_span_id = tr.parent_span_id
+        now = time.perf_counter()
+        tr.add("migrate_in", now, now, {"pages": len(pkg["pages"])})
+        tr.begin("decode", now)    # closed at eviction
+        self._live_traces[rid] = tr
+        self._metrics["requests"].inc(event="migrated_in")
+        if self.debug:
+            self.check_invariants()
+        return rid
 
     # -- driving ---------------------------------------------------------
     @property
@@ -1256,12 +1770,203 @@ class ServingEngine:
         return sum(s is not None for s in self.slots)
 
     def step(self):
-        """One serving tick: admit arrivals, then one shared round."""
+        """One serving tick: admit arrivals, then one shared round, then
+        the tick's gauges."""
         self._admit()
         if self.chunked:
             self._chunked_round()
         else:
             self._decode_round()
+        self._note_tick()
+
+    def _note_tick(self, force: bool = False):
+        """Per-tick occupancy gauges and compile-counter deltas. At most
+        every ``SNAPSHOT_EVERY_S`` (always with ``force``), also the
+        allocator's live bytes (with the memory ledger on) and one
+        registry snapshot into the flight recorder's ring, which this
+        returns (else None). Host state only: no device sync."""
+        m = self._metrics
+        m["queue_depth"].set(len(self.queue))
+        m["active_slots"].set(self.num_active)
+        with self._lock:
+            n_free, n_idle = len(self._free_pages), len(self._lru)
+            n_reg = len(self._page_hash)
+        m["free_pages"].set(n_free)
+        usable = self.P - 1              # the trash page is never handed out
+        # idle cached pages are reclaimable: occupancy is what slots hold
+        m["page_occupancy"].set(
+            (usable - n_free - n_idle) / usable if usable else 0.0)
+        if self.prefix:
+            lk = self._pfx["lookups"]
+            m["prefix_hit_rate"].set(self._pfx["hits"] / lk if lk else 0.0)
+            m["prefix_pages"].set(n_reg - n_idle, state="active")
+            m["prefix_pages"].set(n_idle, state="idle")
+            m["prefix_hash_entries"].set(n_reg)
+        if self._draft is not None:
+            pr = self._spec["proposed"]
+            m["spec_accept_rate"].set(
+                self._spec["accepted"] / pr if pr else 0.0)
+            rd = self._spec["rounds"]
+            m["spec_tokens_per_step"].set(
+                self._spec["committed"] / rd if rd else 0.0)
+        rc, rh = self._stats_reported
+        if self.stats.compiles > rc:
+            m["compiles"].inc(self.stats.compiles - rc, site="serving")
+        if self.stats.cache_hits > rh:
+            m["cache_hits"].inc(self.stats.cache_hits - rh, site="serving")
+        self._stats_reported = (self.stats.compiles, self.stats.cache_hits)
+        now = time.perf_counter()
+        if not force and now - self._last_snapshot < SNAPSHOT_EVERY_S:
+            return None
+        self._last_snapshot = now
+        if self._mem_on:
+            lb = _ml.live_bytes(self.device)
+            if lb:
+                self._live_peak = max(self._live_peak, lb)
+                m["mem_live"].set(lb)
+                m["mem_live_peak"].set(self._live_peak)
+        from ..observability import get_registry
+
+        return get_registry().snapshot()
+
+    def _run_site(self, site, run, reads=(), writes=(), draft=False,
+                  params=True, writes_pools=True):
+        """Run one launch site. With the memory ledger on, the site's
+        first execution is measured into its ledger (memledger.analyze:
+        the parameters, pools and ``reads`` it reads, the pools and
+        ``writes`` it writes, the pools updated in place, the allocator's
+        temporaries) and its gauges published (a site's ledger never
+        changes after). Nothing here reads the device."""
+        if not self._mem_on:
+            return run()
+        led = self._mem_ledgers.get(site)
+        probe = _ml.TempProbe(self.device) if led is None else None
+        out = run()
+        if led is None:
+            pred = self._draft if draft else self.pred
+            pools = [t for kv in (self.draft_pools if draft
+                                  else self.pools) for t in kv]
+            wr = pools if writes_pools else []
+            led = self._mem_ledgers[site] = _ml.analyze(
+                "_".join(str(x) for x in site),
+                reads=(list(pred._params) if params else []) + pools
+                + list(reads),
+                writes=wr + list(writes), in_place=wr,
+                temp_bytes=probe.temp_bytes())
+            led.publish(self._metrics)
+        return out
+
+    def comm_ledger(self, site) -> Optional[Any]:
+        """The comm ledger of a serving site (sites as ``memory_ledger``'s).
+        One engine's rounds run on one card and issue no collective, so
+        this is None for every site; migrations book theirs on the
+        migrator (inference/disagg.py)."""
+        return self._ledgers.get(site)
+
+    # -- memory accounting (observability/memledger) ---------------------
+    def memory_ledger(self, site=("decode",)) -> Optional[Any]:
+        """The memory ledger of one launch site, made at the site's first
+        execution when the engine was built with ``mem_ledger=True`` (or
+        PADDLE_TPU_MEM_LEDGER=1). Sites: ("decode",), ("prefill", Sb),
+        ("unified", Sc); with speculation ("unified_spec", Sc),
+        ("draft_propose",), ("draft_chunk", Sc); ("page_copy",),
+        ("page_read",), ("page_write",) and their ``_draft`` twins."""
+        return self._mem_ledgers.get(site)
+
+    def memory_summary(self) -> Dict[str, Any]:
+        """Every site ledger's byte classes plus the resident state: the
+        parameters and the KV page pool, with the per-page cost and the
+        pool's geometry that ``pool_pages="auto"`` uses."""
+        pool_bytes = sum(_ml.shard_bytes(kp) + _ml.shard_bytes(vp)
+                         for kp, vp in self.pools)
+        return {
+            "executables": {led.program: led.to_dict()
+                            for led in self._mem_ledgers.values()},
+            "state": {
+                "params_bytes": sum(_ml.shard_bytes(p)
+                                    for p in self.pred._params),
+                "kv_pool_bytes": pool_bytes,
+                "page_bytes": self._page_bytes(),
+                "pool_pages": self.P,
+                "live_peak_bytes": self._live_peak,
+            },
+        }
+
+    def _decode_round_bytes(self, pos: np.ndarray) -> int:
+        """The HBM bytes one decode round must move, from its rows'
+        positions ``pos`` [B] (free and stalled rows at 0, on the trash
+        page): at each of its ``chunk`` steps the weights once (the
+        embedding table counted whole), every row's K and V pages up to
+        and including its new token's page (the pages its length covers
+        in every layer), and one token's K and V a row written."""
+        page_bytes = self._page_bytes()
+        lens = pos[:, None].astype(np.int64) + np.arange(1, self.chunk + 1)
+        pages = int(((lens + self.page - 1) // self.page).sum())
+        return (self.chunk * (self._weight_bytes
+                              + self.B * (page_bytes // self.page))
+                + pages * page_bytes)
+
+    def roofline_report(self):
+        """The roofline verdict of the shared decode round
+        (memledger.roofline): 2 N FLOPs a token over the B x chunk round;
+        HBM traffic the median of the bytes the decode rounds moved
+        (``_decode_round_bytes``; not the decode site's ledger, which
+        counts every page of the pools as read and as written); the
+        median measured round time; "unknown" off the card. Needs the
+        memory ledger on (no traffic is counted without it)."""
+        cfg = getattr(self.pred._model, "config", None)
+        n_params = None
+        fn = getattr(cfg, "num_params", None)
+        if callable(fn):
+            try:
+                n_params = int(fn())
+            except Exception:
+                n_params = None
+        if n_params is None:
+            n_params = sum(p.numel() for p in self.pred._params)
+        fl = 2.0 * n_params * self.B * self.chunk
+        traffic = float(np.median(self._decode_bytes)) \
+            if self._decode_bytes else 0.0
+        step_s = self._metrics["decode_round_seconds"].percentile(50)
+        return _ml.roofline(
+            step_seconds=step_s, flops_per_step=fl,
+            hbm_traffic_bytes=traffic, wire_bytes=0.0,
+            device=self.device, program="decode")
+
+    # -- per-request traces ----------------------------------------------
+    def request_traces(self) -> List[Dict[str, Any]]:
+        """Finished request traces (the bounded ring), oldest first."""
+        return self.traces.to_dicts()
+
+    def export_request_traces(self, path: Optional[str] = None
+                              ) -> Dict[str, Any]:
+        """Chrome-trace JSON of the finished traces plus those in flight;
+        written to ``path`` when given. Every event's args carry the
+        request's ``trace_id`` / ``span_id`` (and ``parent_span_id``), so
+        traces of different replicas stitch on ``trace_id``."""
+        return self.traces.to_chrome_trace(
+            path, extra=list(self._live_traces.values()))
+
+    def trace_context(self, rid: int) -> Optional[Dict[str, Any]]:
+        """The W3C identity of one request, live or finished (None for
+        an unknown rid): {"trace_id", "span_id", "parent_span_id",
+        "traceparent"}; ``traceparent`` names this request's root span
+        for the next hop."""
+        tr = self._live_traces.get(rid)
+        if tr is not None:
+            return {"trace_id": tr.trace_id, "span_id": tr.span_id,
+                    "parent_span_id": tr.parent_span_id,
+                    "traceparent": tr.traceparent}
+        req = self.finished.get(rid)
+        if req is not None and req.trace_id is not None:
+            return {"trace_id": req.trace_id, "span_id": req.span_id,
+                    "parent_span_id": req.parent_span_id,
+                    "traceparent": req.traceparent}
+        return None
+
+    def metrics_snapshot(self):
+        """The registry's snapshot after this tick's gauges."""
+        return self._note_tick(force=True)
 
     def run(self, max_steps: Optional[int] = None
             ) -> Dict[int, ServingRequest]:

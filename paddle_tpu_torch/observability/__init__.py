@@ -1,11 +1,12 @@
-"""Training telemetry for the port (counterpart of
-``paddle_tpu/observability/``, its single-process training half).
+"""Telemetry for the port (counterpart of ``paddle_tpu/observability/``,
+its single-process half).
 
 One process-wide ``MetricsRegistry`` (metrics.py, names and labels from
 catalog.py, pinned by ``schema.json`` — the JAX package's file) that
-``distributed.engine.ParallelEngine`` instruments into: per-step wall
+``distributed.engine.ParallelEngine`` and
+``inference.ServingEngine`` instrument into: per-step wall
 time, tokens/s, loss, grad-norm, MFU (flops.py), device memory and the
-batch-signature counters; plus
+batch-signature counters, TTFT / TPOT and the serving gauges; plus
 
 - **trace**      — ``annotate``: ``torch.profiler.record_function``
   ranges and host region stacks that ``flight.dump()`` reports,
@@ -16,12 +17,20 @@ batch-signature counters; plus
   loss / grad-norm / step time, a degraded ``/healthz`` component,
 - **timeseries** — a sampled, crash-durable ``metrics.jsonl``,
 - **exporter**   — ``/metrics`` and ``/healthz`` over HTTP on a
-  loopback port.
+  loopback port,
+- **spans**      — per-request serving traces (``RequestTrace``,
+  ``SpanRing``, W3C traceparent identity; ``ServingEngine``),
+- **memledger**  — per-site memory ledgers, model-state accounting, the
+  roofline verdict, ``pool_pages="auto"`` sizing (``mem_ledger=True`` on
+  either engine),
+- **commledger** — the ledger core (records, captures, closed-form wire
+  bytes), which books the KV page migrations of ``inference/disagg.py``.
 
-The engine's scalars reach the registry without a device sync in the
-step (``ParallelEngine`` docstring). Not ported yet: the memory ledger
-(``memledger``, ROADMAP.md queue 1 item 11), serving spans (item 3), the
-comm ledger, fleet collector, MoE stats and watchdog (items 8 and 10).
+The engines' scalars reach the registry without a device sync in a
+step or a graphed round (``ParallelEngine`` and ``ServingEngine``
+docstrings). Not ported yet: the comm ledger's collective capture and
+exposed-comm replay, the fleet collector, MoE stats and the watchdog
+(ROADMAP.md queue 1, items 8-10).
 """
 from __future__ import annotations
 
@@ -36,6 +45,9 @@ from . import flops  # noqa: F401
 from . import goodput  # noqa: F401
 from . import healthmon  # noqa: F401
 from . import timeseries  # noqa: F401
+from . import spans  # noqa: F401
+from . import memledger  # noqa: F401
+from . import commledger  # noqa: F401
 from .goodput import GoodputLedger  # noqa: F401
 from .healthmon import HealthMonitor  # noqa: F401
 from .timeseries import MetricsSampler  # noqa: F401
@@ -48,7 +60,7 @@ __all__ = [
     "FlightRecorder", "dump_flight_record", "get_recorder", "flops",
     "cross_host_sum", "process_count", "goodput", "GoodputLedger",
     "healthmon", "HealthMonitor", "timeseries", "MetricsSampler",
-    "MetricsServer", "serve_metrics",
+    "MetricsServer", "serve_metrics", "spans", "memledger", "commledger",
 ]
 
 

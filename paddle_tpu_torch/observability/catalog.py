@@ -8,9 +8,11 @@ updating the schema fails CI instead of silently breaking dashboards.
 
 Counterpart of ``paddle_tpu/observability/catalog.py``, whole and
 unchanged, help strings included: the port's ``schema.json`` is the JAX
-package's, so one dashboard reads both. Of these sets the port's
-engine publishes ``train_metrics`` (less the comm / memory-ledger /
-pipeline / MoE series, which wait on ROADMAP.md queue 1, items 8-11),
+package's, so one dashboard reads both. Of these sets the port
+publishes ``train_metrics`` (its memory-ledger series with
+``mem_ledger``; less the comm / pipeline / MoE series, which wait on
+ROADMAP.md queue 1, items 8-10), ``serving_metrics`` (the serving
+engine, the KV migrator and the router; no collective series),
 ``health_metrics``, ``ckpt_metrics``, ``goodput_metrics`` and
 ``timeseries_metrics``.
 

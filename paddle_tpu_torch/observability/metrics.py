@@ -49,11 +49,15 @@ DEFAULT_LATENCY_BUCKETS: Tuple[float, ...] = (
 
 
 def _label_key(labelnames: Sequence[str], labels: Dict[str, str]):
-    if set(labels) != set(labelnames):
-        raise ValueError(
-            f"labels {sorted(labels)} do not match the declared "
-            f"labelnames {sorted(labelnames)}")
-    return tuple(str(labels[k]) for k in labelnames)
+    # equal sizes and every declared name present == the same name sets
+    if len(labels) == len(labelnames):
+        try:
+            return tuple([str(labels[k]) for k in labelnames])
+        except KeyError:
+            pass
+    raise ValueError(
+        f"labels {sorted(labels)} do not match the declared "
+        f"labelnames {sorted(labelnames)}")
 
 
 class _Metric:
@@ -157,6 +161,8 @@ class Histogram(_Metric):
         if not bs:
             raise ValueError(f"histogram {name} needs at least one bucket")
         self.buckets = bs
+        # the snapshot's bucket keys
+        self._bucket_keys = tuple(str(ub) for ub in bs)
 
     def _new_series(self):
         return _HistSeries(len(self.buckets))
@@ -186,23 +192,35 @@ class Histogram(_Metric):
         counts, linearly interpolated inside the winning bucket and
         clamped to the observed min/max."""
         with self._lock:
-            s = self._get(labels)
-            if not s.count:
-                return 0.0
-            rank = q / 100.0 * s.count
-            cum = 0
-            for i, c in enumerate(s.counts):
-                if not c:
-                    continue
-                if cum + c >= rank:
-                    lo = 0.0 if i == 0 else self.buckets[i - 1]
-                    hi = (self.buckets[i] if i < len(self.buckets)
-                          else s.max)
-                    frac = (rank - cum) / c
-                    v = lo + (hi - lo) * min(max(frac, 0.0), 1.0)
-                    return min(max(v, s.min), s.max)
-                cum += c
-            return s.max
+            return self._percentile(self._get(labels), q)
+
+    def _percentile(self, s: _HistSeries, q: float) -> float:
+        if not s.count:
+            return 0.0
+        rank = q / 100.0 * s.count
+        cum = 0
+        for i, c in enumerate(s.counts):
+            if not c:
+                continue
+            if cum + c >= rank:
+                lo = 0.0 if i == 0 else self.buckets[i - 1]
+                hi = (self.buckets[i] if i < len(self.buckets)
+                      else s.max)
+                frac = (rank - cum) / c
+                v = lo + (hi - lo) * min(max(frac, 0.0), 1.0)
+                return min(max(v, s.min), s.max)
+            cum += c
+        return s.max
+
+    def _snapshot_row(self, key, s: _HistSeries) -> Dict[str, Any]:
+        """One series' snapshot row (the lock held by the caller)."""
+        return {"labels": dict(zip(self.labelnames, key)),
+                "count": s.count, "sum": s.sum,
+                "min": s.min if s.count else 0.0,
+                "max": s.max if s.count else 0.0,
+                "buckets": {**dict(zip(self._bucket_keys, s.counts)),
+                            "+Inf": s.counts[-1]},
+                **{f"p{q}": self._percentile(s, q) for q in (50, 90, 99)}}
 
 
 class MetricsRegistry:
@@ -272,32 +290,15 @@ class MetricsRegistry:
         with self._lock:
             for name, m in self._metrics.items():
                 entry: Dict[str, Any] = dict(m.spec())
-                series = []
-                for key, s in m._series.items():
-                    labels = dict(zip(m.labelnames, key))
-                    if isinstance(m, Histogram):
-                        series.append({
-                            "labels": labels, "count": s.count,
-                            "sum": s.sum,
-                            "min": s.min if s.count else 0.0,
-                            "max": s.max if s.count else 0.0,
-                            "buckets": {
-                                **{str(ub): c for ub, c in
-                                   zip(m.buckets, s.counts)},
-                                "+Inf": s.counts[-1]},
-                        })
-                    else:
-                        series.append({"labels": labels, "value": s[0]})
+                if isinstance(m, Histogram):
+                    series = [m._snapshot_row(key, s)
+                              for key, s in m._series.items()]
+                else:
+                    series = [{"labels": dict(zip(m.labelnames, key)),
+                               "value": s[0]}
+                              for key, s in m._series.items()]
                 entry["series"] = series
                 out["metrics"][name] = entry
-        # percentiles computed outside the lock (they re-take it)
-        for name, entry in out["metrics"].items():
-            if entry["type"] != "histogram":
-                continue
-            m = self._metrics[name]
-            for row in entry["series"]:
-                for q in (50, 90, 99):
-                    row[f"p{q}"] = m.percentile(q, **row["labels"])
         if self._flight is not None:
             self._flight.push(out)
         if touch:

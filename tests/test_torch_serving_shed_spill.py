@@ -200,16 +200,38 @@ def test_spill_requires_prefix_cache(models):
         ServingEngine(tp, pool_pages=8, host_spill_pages=4)
 
 
-# -- what the port does not take yet --------------------------------------
+# -- the options the port once refused, served now -----------------------
 @pytest.mark.parametrize("kw", [dict(trace_ring=64), dict(mem_ledger=True),
                                 dict(phase="prefill"), dict(phase="decode"),
                                 dict(pool_pages="auto")],
                          ids=["trace_ring", "mem_ledger", "phase_prefill",
                               "phase_decode", "pool_auto"])
 def test_unported_engine_options_raise(models, kw):
-    _, tp = _preds(models, "target")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ServingEngine(tp, max_batch=2, prefill_chunk=16, **kw)
+    """Each option builds the engine the JAX package builds with it: the
+    same pool, phase and ring bound, and nothing raises any more (a
+    decode replica refuses submit in both packages)."""
+    jp, tp = _preds(models, "target")
+    je = JaxEngine(jp, max_batch=2, prefill_chunk=16, **kw)
+    te = ServingEngine(tp, max_batch=2, prefill_chunk=16, **kw)
+    assert te.P == je.P and te.phase == je.phase
+    assert te.traces._ring.maxlen == je.traces._ring.maxlen
+    assert te._mem_on == je._mem_on
+    if kw.get("phase") == "decode":
+        for eng in (te, je):
+            with pytest.raises(Exception, match="decode"):
+                eng.submit(np.arange(1, 5), max_new_tokens=2)
+        return
+    outs = []
+    for eng in (te, je):
+        rid = eng.submit(np.arange(1, 5), max_new_tokens=2)
+        if kw.get("phase") == "prefill":
+            for _ in range(4):
+                eng.step()
+            assert eng.migratable() == [rid]     # parked for export
+            outs.append(list(eng.slots[0].req.new_tokens))
+        else:
+            outs.append(list(eng.run()[rid].new_tokens))
+    assert outs[0] == outs[1]
 
 
 @pytest.mark.parametrize("kw", [
@@ -217,8 +239,17 @@ def test_unported_engine_options_raise(models, kw):
     dict(parent_span_id="b7ad6b7169203331")],
     ids=["trace_id", "parent_span_id"])
 def test_unported_submit_options_raise(models, kw):
-    _, tp = _preds(models, "target")
-    eng = ServingEngine(tp, max_batch=2, prefill_chunk=16)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        eng.submit(np.arange(1, 5), max_new_tokens=2, **kw)
-    assert not eng.queue and not eng.finished
+    """submit's trace identity is adopted as the JAX engine adopts it."""
+    jp, tp = _preds(models, "target")
+    te = ServingEngine(tp, max_batch=2, prefill_chunk=16)
+    je = JaxEngine(jp, max_batch=2, prefill_chunk=16)
+    ctx = []
+    for eng in (te, je):
+        rid = eng.submit(np.arange(1, 5), max_new_tokens=2, **kw)
+        eng.run()
+        c = eng.trace_context(rid)
+        for key, v in kw.items():
+            assert c[key] == v
+        assert len(c["trace_id"]) == 32 and len(c["span_id"]) == 16
+        ctx.append(list(eng.finished[rid].new_tokens))
+    assert ctx[0] == ctx[1]

@@ -158,8 +158,13 @@ class TestEnginePolicy:
                                       "quant_comm", "mem_ledger",
                                       "sharding_stage"])
     def test_degree_above_one_raises(self, knob):
+        """Every knob above degree 1 raises citing the roadmap; the memory
+        ledger (mem_ledger) is a degree-1 service and builds."""
         model = tl.LlamaForCausalLM(tl.llama_tiny(), device="cpu")
         opt = AdamW(parameters=model.parameters())
+        if knob == "mem_ledger":
+            assert ParallelEngine(model, opt, mem_ledger=True)._mem_on
+            return
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ParallelEngine(model, opt, **{knob: 3 if knob ==
                                           "sharding_stage" else True})
