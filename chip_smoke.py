@@ -19,7 +19,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 serialised by ptxas; K9's routes, their dynamic shared
                 memory (the wrapper's count must equal the C library's)
                 and the wgmma and gemv bodies' registers
-2. kernels      K9 (the int8 / int4 weight-only linear) against its plain
+2. kernels      K10 (LLM.int8's linear) against its plain version at
+                Llama-7B's widths, x [8, 4096] and [2048, 4096] times q
+                [11008, 4096], x [2048, 11008] times q [4096, 11008],
+                threshold 6.0, bf16 with 8 planted outlier columns (up to
+                |20|) and with none, one fp32 and one biased case: xq, the
+                row scales, the column absmax and the int32 product equal
+                the plain version's bit for bit, the outlier list its
+                outlier columns, the output within bf16 2e-2 / fp32 1e-5
+                of its largest magnitude (equal where nothing is an
+                outlier); K10, plain, torch._int_mm (M > 16) and F.linear
+                (a bf16 copy of the dequantized weight) timed with the
+                bound; then nn.quant.llm_int8_linear once at each shape,
+                the path whose launches the kernels line reads.
+                K9 (the int8 / int4 weight-only linear) against its plain
                 version: int8 and int4, bf16 and fp32 x, M = 1, 8, 16,
                 17, 2048, 8192 at (K, N) = (4096, 4096), (4096, 11008),
                 (11008, 4096), (4128, 200) (the TMA edge: K not a
@@ -85,6 +98,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 identity K2's dV is too (D = 64, 128 bf16, fp32, causal
                 and not). The repo's Philox4x32-10 against curand's
                 curand_Philox4x32_10 on 65536 counter/key pairs
+2b. masked-attention
+                scaled_dot_product_attention with an attn_mask and
+                dropout_p = 0.1 (torch ops on the kernels' Philox mask) at
+                gpt_1p3b's attention [4, 2048, 16, 128], bf16: an all-True
+                mask with is_causal against K1 / K2 with dropout at the
+                same seed (output and gradients, 2e-2 per 64-position
+                tile); a key-padding mask [4, 1, 1, 2048] of ragged
+                lengths: finite output and gradients; at [2, 128, 4, 64]
+                fp32, bool and additive masks, card against cpu within
+                1e-5 and the keep masks equal. The masked path's forward
+                and forward + backward ms and peak memory beside the
+                unmasked path's
 3. parity       a reduced Llama (fp32, TF32 off) served on cuda, graphed
                 and eager, and on cpu with the same weights and arrival
                 schedule, and run through Predictor.generate with static
@@ -187,6 +212,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 forward (printed); the share of tokens equal to bf16's
                 (not gated). Then the model rebuilt from its seed and
                 quantized to int4: static generation, graphed
+7b. load-serve  Llama-7B widths cut to 8 layers (bf16, seed 0) saved with
+                save(export_jax_state_dict(model, tensors=True)) (the JAX
+                package's format and layout, 3.76 GB) under build/, then
+                served by Predictor.generate through
+                Config(params_file=...) and Config(model_dir=...) with a
+                model factory (another seed): 32 greedy tokens for the
+                generate phase's ragged prompts equal to the live
+                model's; K3 / K6 launches as the steps imply; the save and
+                load seconds and GB/s; the files removed
 8. train-parity the reduced Llama trains 3 steps on cuda and on cpu from
                 the same weights and batch: losses and global grad norms
                 within 1e-4 relative; then 5 steps from fresh weights
@@ -359,6 +393,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
+              torch.int8: 1979e12,     # dense tensor-core int8 (TOP/s)
               torch.float32: 67e12}    # fp32 outside the tensor cores
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -1560,6 +1595,125 @@ def check_weight_only(dev, results):
             raise AssertionError(f"weight_only_linear {r['shape']} int"
                                  f"{r['bits']} ran the {r['body']} body, "
                                  f"not {want}")
+
+
+LLM_INT8_SHAPES = ((8, 4096, 11008), (2048, 4096, 11008),
+                   (2048, 11008, 4096))   # (M, K, N): Llama-7B's widths
+
+
+def _llm_int8_inputs(dev, M, K, N, dt, planted, g):
+    """x [M, K] (randn clipped to |5.5|: no column above the threshold
+    6.0) with, if ``planted``, 8 columns scaled to reach |20|, as LLM.int8
+    finds its outliers concentrated in a few feature dimensions; q, scale
+    from weight_quantize(w, "llm.int8") of w [K, N] * 0.02."""
+    from paddle_tpu_torch.nn.quant import weight_quantize
+
+    x = torch.randn(M, K, device=dev, generator=g).clamp_(-5.5, 5.5)
+    if planted:
+        cols = torch.randperm(K, device=dev, generator=g)[:8]
+        x[:, cols] *= 20.0 / 5.5
+        x[torch.arange(8, device=dev) % M, cols] = 20.0
+    w = torch.randn(K, N, device=dev, generator=g) * 0.02
+    q, s = weight_quantize(w, "llm.int8")
+    return x.to(dt), q, s
+
+
+def check_llm_int8(dev, results, counters):
+    """K10 (LLM.int8's linear) against its plain version at Llama-7B's
+    widths (LLM_INT8_SHAPES), threshold 6.0: bf16 with no outlier column
+    and with 8 planted ones, one fp32 case and one with a bias. xq, the
+    per-row scales, the column absmax and the int32 product must equal the
+    plain version's bit for bit, the outlier list its outlier columns in
+    order, the output be within bf16 2e-2 / fp32 1e-5 of the output's
+    largest magnitude (and equal to it where no column is an outlier). The
+    bf16 cases without a bias are timed (CUDA graphs of 20 calls, the
+    weights rotated through 3 copies, 135 MB, past the L2): K10, the plain
+    version, torch._int_mm on the same xq and q (M > 16 only) and F.linear
+    on a bf16 copy of the dequantized weight. Then the main path: one call
+    at each shape through nn.quant.llm_int8_linear, the user's entry
+    point, with the counters set to 0 before and read after. Returns its
+    launches."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.nn.quant import llm_int8_linear as entry
+    from paddle_tpu_torch.ops.kernels import llm_int8_linear as K10
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    thr = 6.0
+    cases = [(shape, torch.bfloat16, planted, False)
+             for shape in LLM_INT8_SHAPES for planted in (True, False)]
+    cases += [(LLM_INT8_SHAPES[1], torch.float32, True, False),
+              (LLM_INT8_SHAPES[1], torch.bfloat16, True, True)]
+    for (M, K, N), dt, planted, with_bias in cases:
+        x, q, s = _llm_int8_inputs(dev, M, K, N, dt, planted, g)
+        b = torch.randn(N, device=dev, generator=g) if with_bias else None
+        n0 = K10.llm_int8_linear.launches
+        out, got = K10.llm_int8_linear(x, q, s, b, thr, parts=True)
+        if K10.llm_int8_linear.launches != n0 + 1:
+            raise AssertionError("K10 did not count its launch")
+        ref, want = K10.llm_int8_linear_dense(x, q, s, b, thr, parts=True)
+        torch.cuda.synchronize()
+        same = {key: bool(torch.equal(got[key], want[key]))
+                for key in ("col_amax", "xq", "a_scale", "acc")}
+        cols = torch.nonzero(want["col_amax"] > thr).flatten()
+        count = int(got["count"].item())
+        same["outliers"] = bool(torch.equal(got["idx"][:count].long(), cols))
+        err = (out.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        rec = dict(name="llm_int8_linear", shape=[M, K, N],
+                   dtype=str(dt)[6:], planted=planted, bias=with_bias,
+                   outliers=count, bit_equal=same,
+                   exact=bool(torch.equal(out, ref)), max_abs_err=err,
+                   ref_max_abs=top, rel_err=err / top,
+                   tol={torch.bfloat16: 2e-2, torch.float32: 1e-5}[dt])
+        if not all(same.values()) or count != (8 if planted else 0) or \
+                (not planted and not rec["exact"]):
+            raise AssertionError(f"K10 {rec}")
+        if dt == torch.bfloat16 and not with_bias:
+            qs = [q] + [q.clone() for _ in range(2)]
+            nbytes = (x.nbytes + q.nbytes + s.nbytes
+                      + M * N * x.element_size())
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * M * N * K,
+                                                     torch.int8)
+            qi = itertools.cycle(qs)
+            rec["ms"] = cuda_ms(lambda: K10.llm_int8_linear(
+                x, next(qi), s, None, thr))
+            rec["plain_ms"] = cuda_ms(lambda: K10.llm_int8_linear_dense(
+                x, next(qi), s, None, thr), iters=3, warm=1)
+            xq = got["xq"].contiguous()
+            rec["library_ms"] = None
+            if M > 16:
+                rec["library_ms"] = cuda_ms(lambda: torch._int_mm(
+                    xq, next(qi).t()))
+                rec["library"] = ("torch._int_mm on the same xq and q "
+                                  "(the int8 product alone)")
+            wl = (q.float() * s[:, None]).to(dt)
+            ls = [wl] + [wl.clone() for _ in range(2)]
+            li = itertools.cycle(ls)
+            rec["flinear_ms"] = cuda_ms(lambda: F.linear(x, next(li)))
+            del qs, ls, wl, xq
+        results.append(rec)
+        del x, q, s, out, got, ref, want
+    torch.cuda.empty_cache()
+    # the main path: the user's entry point, one call at each shape
+    calls = [_llm_int8_inputs(dev, M, K, N, torch.bfloat16, True, g)
+             for M, K, N in LLM_INT8_SHAPES]
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    outs = [entry(x, q, None, s, thr) for x, q, s in calls]
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    _expect_launches(launches, {"llm_int8_linear": len(calls)},
+                     "llm_int8 path")
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError("llm_int8 path: non-finite output")
+    log(f"[kernels] llm_int8 path (nn.quant.llm_int8_linear at "
+        f"{[list(sh) for sh in LLM_INT8_SHAPES]}, bf16, 8 outlier columns): "
+        f"launches {launches}")
+    del calls, outs
+    torch.cuda.empty_cache()
+    return launches
 
 
 def gemv_launches(dev, calls=4):
@@ -2836,6 +2990,220 @@ def phase_serve_prefix_spec(model, counters, profile=False):
 
 
 # -- phase 6: generation --------------------------------------------------------
+MASKED_SHAPE = (4, 2048, 16, 128)   # gpt_1p3b's attention
+MASKED_LENS = (2048, 1536, 1000, 517)
+
+
+def _masked_grads(q, k, v, do, **kw):
+    """(out, dq, dk, dv) of scaled_dot_product_attention (the user's entry
+    point) by autograd."""
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = scaled_dot_product_attention(qq, kk, vv, **kw)
+    return (out.detach(),) + torch.autograd.grad(out, (qq, kk, vv), do)
+
+
+def phase_masked_attention(dev):
+    """Masked attention with dropout (scaled_dot_product_attention with an
+    attn_mask and dropout_p, item 2.13: torch ops on the kernels' Philox
+    mask) at gpt_1p3b's attention shape [4, 2048, 16, 128], bf16, p = 0.1,
+    one seed. An all-True bool mask with is_causal gives K1's kDrop output
+    for the seed, and its backward K2's gradients (2e-2 per 64-position
+    tile); a key-padding mask [4, 1, 1, 2048] of ragged lengths gives
+    finite outputs and gradients; at [2, 128, 4, 64] fp32 (a bool mask and
+    an additive one) the card's output and gradients equal the CPU's
+    within 1e-5 (TF32 off) and the keep masks are torch.equal. Prints the
+    masked path's forward and forward + backward ms (CUDA events) and its
+    peak memory beside the unmasked path's (K1/K2 with dropout)."""
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops.kernels import dropout_mask as DM
+
+    p, seed = DROPOUT_P, DROPOUT_SEED
+    B, S, H, D = MASKED_SHAPE
+    g = torch.Generator(device=dev).manual_seed(23)
+    q, k, v, do = (torch.randn(B, S, H, D, device=dev, generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    ones = torch.ones(1, 1, S, S, dtype=torch.bool, device=dev)
+    masked = dict(attn_mask=ones, dropout_p=p, is_causal=True, seed=seed)
+    got = _masked_grads(q, k, v, do, **masked)
+
+    def unmasked(qq, kk, vv):
+        return A.flash_attention(qq, kk, vv, causal=True, dropout=p,
+                                 seed=seed)
+
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = unmasked(qq, kk, vv)
+    want = (o.detach(),) + torch.autograd.grad(o, (qq, kk, vv), do)
+    errs = [_errs(a, b) for a, b in zip(got, want)]
+    rec = dict(shape=list(MASKED_SHAPE), dtype="bfloat16", dropout=p,
+               fwd_rel_err=errs[0][3],
+               bwd_rel_err=max(e[3] for e in errs[1:]), tol=2e-2)
+    if not max(rec["fwd_rel_err"], rec["bwd_rel_err"]) <= 2e-2:
+        raise AssertionError(f"masked attention (all-True mask) against "
+                             f"K1/K2 with dropout: {rec}")
+    del got, want, o, qq, kk, vv
+
+    pad = (torch.arange(S, device=dev)[None, None, None, :]
+           < torch.tensor(MASKED_LENS, device=dev)[:, None, None, None])
+    got = _masked_grads(q, k, v, do, attn_mask=pad, dropout_p=p, seed=seed)
+    rec["padding_finite"] = all(bool(torch.isfinite(t).all()) for t in got)
+    if not rec["padding_finite"]:
+        raise AssertionError("masked attention (key padding): non-finite "
+                             "output or gradient")
+    del got
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        return events_ms(fn, iters=5, warm=1), peak / 2 ** 30
+
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+    rec["masked_fwd_ms"], rec["masked_fwd_peak_gib"] = timed(
+        lambda: scaled_dot_product_attention(q, k, v, **masked))
+    rec["masked_fwd_bwd_ms"], rec["masked_fwd_bwd_peak_gib"] = timed(
+        lambda: _masked_grads(q, k, v, do, **masked))
+    rec["masked_padding_fwd_bwd_ms"], rec["masked_padding_peak_gib"] = \
+        timed(lambda: _masked_grads(q, k, v, do, attn_mask=pad, dropout_p=p,
+                                    seed=seed))
+    rec["unmasked_fwd_ms"], rec["unmasked_fwd_peak_gib"] = timed(
+        lambda: scaled_dot_product_attention(q, k, v, dropout_p=p,
+                                             is_causal=True, seed=seed))
+    rec["unmasked_fwd_bwd_ms"], rec["unmasked_fwd_bwd_peak_gib"] = timed(
+        lambda: _masked_grads(q, k, v, do, dropout_p=p, is_causal=True,
+                              seed=seed))
+    rec["keep_mask_ms"], rec["keep_mask_peak_gib"] = timed(
+        lambda: DM.dropout_keep(seed, p, B, H, S, S, dev))
+    del q, k, v, do, pad, ones
+
+    # fp32: the card against the CPU on the same inputs, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = np.random.RandomState(29)
+    small = [r.randn(2, 128, 4, 64).astype(np.float32) for _ in range(4)]
+    bmask = r.rand(2, 1, 128, 128) > 0.3
+    bmask[..., 0] = True
+    amask = (r.randn(1, 4, 128, 128) * 2).astype(np.float32)
+    worst = 0.0
+    for am, causal in ((bmask, False), (bmask, True), (amask, False)):
+        outs = {}
+        for d in ("cuda", "cpu"):
+            t = [torch.tensor(a, device=d) for a in small]
+            outs[d] = _masked_grads(*t[:3], t[3],
+                                    attn_mask=torch.tensor(am, device=d),
+                                    dropout_p=p, is_causal=causal,
+                                    seed=seed)
+        for a, b in zip(outs["cuda"], outs["cpu"]):
+            worst = max(worst, (a.cpu() - b).abs().max().item())
+    rec["fp32_cuda_vs_cpu"] = worst
+    rec["fp32_keep_equal"] = bool(torch.equal(
+        DM.dropout_keep(seed, p, 2, 4, 128, 128, dev).cpu(),
+        DM.dropout_keep(seed, p, 2, 4, 128, 128, "cpu")))
+    log("[masked-attention] " + json.dumps(rec))
+    if not (worst <= 1e-5 and rec["fp32_keep_equal"]):
+        raise AssertionError(f"masked attention fp32: card against cpu "
+                             f"{worst} (> 1e-5) or keep masks differ")
+    torch.cuda.empty_cache()
+    return rec
+
+def phase_load_serve(counters, layers=8, n_new=32):
+    """Serving a saved model (item 1.4) at Llama-7B widths cut to
+    ``layers`` layers, bf16, random weights from seed 0: the live model's
+    predictor generates ``n_new`` greedy tokens for the generate phase's
+    ragged prompts (static cache, graphed decode); the model is saved with
+    ``save(export_jax_state_dict(model, tensors=True), path)`` (the JAX
+    package's format and layout) under build/, then
+    ``create_predictor(Config(params_file=path).set_model_factory(...))``,
+    the factory building the model from another seed, and the
+    ``Config(model_dir=...)`` route each generate the same prompts: their
+    tokens must equal the live predictor's. The first file route is the
+    path whose K3 / K6 launches the kernels line reads (counts set to 0
+    before its generate, read after). Prints the file's bytes, the save
+    and load seconds and GB/s (the load: create_predictor less the
+    factory's build), and removes the files."""
+    import shutil
+
+    from paddle_tpu_torch import save
+    from paddle_tpu_torch.convert import export_jax_state_dict
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+
+    cfg = llama_7b(dtype="bfloat16", num_layers=layers)
+    model = build_7b(layers)
+    ids, lens = _ragged_prompts(cfg.vocab_size)
+
+    def generate(conf):
+        conf.max_length = 2048
+        pred = create_predictor(conf)
+        return pred, pred.generate(ids, max_new_tokens=n_new,
+                                   lengths=lens).cpu().numpy()
+
+    _, live = generate(Config().set_model(model))
+    root = Path(__file__).resolve().parent / "build" / "load_serve"
+    shutil.rmtree(root, ignore_errors=True)
+    path = root / "model.pdparams"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(export_jax_state_dict(model, tensors=True), str(path))
+        save_s = time.perf_counter() - t0
+        nbytes = path.stat().st_size
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        built = []
+
+        def factory():
+            t = time.perf_counter()
+            m = LlamaForCausalLM(cfg, device="cuda", seed=1)
+            torch.cuda.synchronize()
+            built.append(time.perf_counter() - t)
+            return m
+
+        conf = Config(params_file=str(path)).set_model_factory(factory)
+        conf.max_length = 2048
+        t0 = time.perf_counter()
+        pred = create_predictor(conf)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0 - built[-1]
+        pred.generate(ids, max_new_tokens=n_new, lengths=lens).cpu()  # warm
+        for c in counters:
+            c.launches = 0
+        from_file = pred.generate(ids, max_new_tokens=n_new,
+                                  lengths=lens).cpu().numpy()
+        launches = {c.__name__: c.launches for c in counters}
+        del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, from_dir = generate(Config(model_dir=str(root))
+                               .set_model_factory(factory))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _expect_launches(launches, {
+        "rms_norm": (2 * layers + 1) * n_new,
+        "decode_attention": layers * n_new}, "load-serve path")
+    rec = dict(layers=layers, dtype="bfloat16", prompt_lens=lens.tolist(),
+               new_tokens=n_new, file_bytes=nbytes, save_s=save_s,
+               save_gb_s=nbytes / save_s / 1e9, load_s=load_s,
+               load_gb_s=nbytes / load_s / 1e9,
+               factory_s=built[0], params_file_equal=bool(
+                   (from_file == live).all()),
+               model_dir_equal=bool((from_dir == live).all()),
+               launches=launches)
+    log("[load-serve] " + json.dumps(rec))
+    if not (rec["params_file_equal"] and rec["model_dir_equal"]):
+        raise AssertionError("load-serve: a predictor built from the saved "
+                             "file generated other tokens than the live "
+                             "model's")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _ragged_prompts(vocab):
     """8 prompts of RandomState(21).randint(128, 1025, 8) tokens, right-
     padded into one [8, max] array."""
@@ -5337,11 +5705,11 @@ def main():
                     help="depth of the 7B-width serving, generate and "
                     "weight-only runs")
     ap.add_argument("--phases",
-                    default="build,kernels,parity,serve,serve-disagg,"
-                            "serve-prefix-spec,"
-                            "generate,weight-only,train-parity,train,"
-                            "train-autotune,gpt-parity,train-gpt,varlen,"
-                            "train-surface,train-ckpt")
+                    default="build,kernels,masked-attention,parity,serve,"
+                            "serve-disagg,serve-prefix-spec,"
+                            "generate,weight-only,load-serve,train-parity,"
+                            "train,train-autotune,gpt-parity,train-gpt,"
+                            "varlen,train-surface,train-ckpt")
     ap.add_argument("--profile", action="store_true",
                     help="serve the schedule once more (and the prefix and "
                     "draft configuration's), run 16 more decode steps of "
@@ -5407,6 +5775,7 @@ def main():
         flash_attention_bwd_varlen, flash_attention_fwd,
         flash_attention_fwd_dropout, flash_attention_fwd_varlen)
     from paddle_tpu_torch.ops.kernels.fused_adam import fused_adam
+    from paddle_tpu_torch.ops.kernels.llm_int8_linear import llm_int8_linear
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
         ragged_paged_attention
     from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm
@@ -5418,7 +5787,8 @@ def main():
     log(f"[build] {len(_build.SOURCES)} sources in "
         f"{time.perf_counter() - t0:.1f}s")
     # registers and spills of the attention kernels and K9 (nvcc -Xptxas -v)
-    for src in ("flash_attention", "paged_attention", "weight_only_linear"):
+    for src in ("flash_attention", "paged_attention", "weight_only_linear",
+                "llm_int8_linear"):
         for fn, rep in _build.ptxas_report(src).items():
             log(f"[build] ptxas {fn}: {json.dumps(rep)}")
     check_tile_spills(_build)
@@ -5427,7 +5797,9 @@ def main():
     dev = torch.device("cuda", 0)
     results = []
     k7 = {}   # K7's numbers: the kernels phase's, then train-autotune's
+    llm_int8_path = {"llm_int8_linear": None}
     if "kernels" in phases:
+        llm_int8_path = check_llm_int8(dev, results, [llm_int8_linear])
         check_weight_only(dev, results)
         check_rms(dev, results)
         check_attention(dev, results)
@@ -5449,6 +5821,8 @@ def main():
             raise AssertionError("kernels disagree with their plain "
                                  "versions: " + "; ".join(bad))
         log("[kernels] every case within tolerance: OK")
+    if "masked-attention" in phases:
+        phase_masked_attention(dev)
     if "parity" in phases:
         phase_parity()
         weight_only_parity()
@@ -5513,8 +5887,12 @@ def main():
              "weight_only_int4_generate_static": [rms_norm,
                                                   decode_attention,
                                                   weight_only_linear,
-                                                  weight_only_linear_wgmma]}
+                                                  weight_only_linear_wgmma],
+             # a saved 7B-width model served from its params file
+             "load_serve": [rms_norm, decode_attention]}
     by_path = {p: {c.__name__: None for c in cs} for p, cs in paths.items()}
+    # nn.quant.llm_int8_linear at Llama-7B's widths (the kernels phase)
+    by_path["llm_int8"] = llm_int8_path
     # the bf16 runs' summaries, printed beside the weight-only ones
     bf16 = {"serve": [], "generate": [], "generate_outs": {}}
     if {"serve", "serve-disagg", "serve-prefix-spec", "generate",
@@ -5551,6 +5929,8 @@ def main():
             del model
             gc.collect()
             torch.cuda.empty_cache()
+    if "load-serve" in phases:
+        by_path["load_serve"] = phase_load_serve(paths["load_serve"])
     if "train-parity" in phases:
         phase_train_parity()
     train_losses = None
@@ -5595,7 +5975,8 @@ def main():
                   "flash_attention_bwd_mma": TINY_SHAPE,
                   "fused_adam": [_FUSED_ADAM_N],
                   "weight_only_linear": [8, 4096, 11008],
-                  "weight_only_linear_wgmma": [2048, 4096, 11008]}
+                  "weight_only_linear_wgmma": [2048, 4096, 11008],
+                  "llm_int8_linear": [2048, 4096, 11008]}
     flash = "paddle_tpu/ops/pallas/flash_attention.py"
     meta = {
         "rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
@@ -5652,7 +6033,11 @@ def main():
         # K9's wgmma body (bf16 M > 16: the unified rounds and prefill)
         "weight_only_linear_wgmma": (
             "paddle_tpu_torch/csrc/weight_only_linear.cu",
-            "paddle_tpu/nn/quant.py:78", "weight_only_serve")}
+            "paddle_tpu/nn/quant.py:78", "weight_only_serve"),
+        # port-only: LLM.int8's int8 product (the JAX package leaves it to
+        # XLA), on nn.quant.llm_int8_linear's path
+        "llm_int8_linear": ("paddle_tpu_torch/csrc/llm_int8_linear.cu",
+                            "paddle_tpu/nn/quant.py:97", "llm_int8")}
     kernels = []
     for name, (src, repl, path, *counter) in meta.items():
         counter = counter[0] if counter else name

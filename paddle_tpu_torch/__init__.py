@@ -11,5 +11,6 @@ the card: a CUDA tensor launches the kernel or raises.
 """
 
 from .core.flags import get_flags, set_flags
+from .framework.io import load, save
 
-__all__ = ["get_flags", "set_flags"]
+__all__ = ["get_flags", "load", "save", "set_flags"]

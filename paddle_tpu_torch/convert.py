@@ -16,6 +16,11 @@ imports JAX.
 np.ndarray}`` with the linears transposed back to ``[in, out]``, for
 comparing parameters with the JAX package after training steps
 (bf16 parameters come out as float32 arrays, which numpy can hold).
+With ``tensors=True`` the values are CPU tensors in the parameters' own
+dtypes instead (bf16 stays bf16), which ``framework.io.save`` writes as
+the JAX package writes a state dict: ``save(export_jax_state_dict(model,
+tensors=True), path)`` is a params file either package serves.
+``load_jax_state_dict`` takes such tensors as well as arrays.
 
 A model quantized for serving (``nn.quant.quantize_for_serving``) carries
 ``*.weight_quant`` (int8, ``[out, in]`` in both packages, so never
@@ -50,29 +55,39 @@ def load_jax_state_dict(model: nn.Module,
     linear = _linear_weights(model)
     converted = {}
     for name, p in params.items():
-        arr = np.asarray(state[name])
-        if arr.dtype.kind not in "fiu":     # e.g. ml_dtypes bfloat16
-            arr = arr.astype(np.float32)
+        src = state[name]
+        if isinstance(src, torch.Tensor):
+            t = src.detach()
+        else:
+            arr = np.asarray(src)
+            if arr.dtype.kind not in "fiu":     # e.g. ml_dtypes bfloat16
+                arr = arr.astype(np.float32)
+            t = torch.tensor(np.ascontiguousarray(arr))
         if name in linear:
-            arr = arr.T
-        if tuple(arr.shape) != tuple(p.shape):
+            t = t.T
+        if tuple(t.shape) != tuple(p.shape):
             raise ValueError(f"load_jax_state_dict: {name} has shape "
-                             f"{tuple(np.asarray(state[name]).shape)} in the "
+                             f"{tuple(src.shape)} in the "
                              f"JAX state, the port expects "
                              f"{tuple(p.shape)}"
                              + (" (transposed from [in, out])"
                                 if name in linear else ""))
-        converted[name] = torch.tensor(np.ascontiguousarray(arr))
+        converted[name] = t
     for name, p in params.items():
         p.copy_(converted[name].to(device=p.device, dtype=p.dtype))
 
 
 @torch.no_grad()
-def export_jax_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:
+def export_jax_state_dict(model: nn.Module, tensors: bool = False) -> Dict:
     linear = _linear_weights(model)
     out = {}
     for name, p in model.named_parameters():
         p = p.detach()
+        if name in linear:
+            p = p.T
+        if tensors:
+            out[name] = p.contiguous().cpu()
+            continue
         arr = (p.float() if p.is_floating_point() else p).cpu().numpy()
-        out[name] = np.ascontiguousarray(arr.T if name in linear else arr)
+        out[name] = np.ascontiguousarray(arr)
     return out

@@ -40,15 +40,24 @@ swaps the model's linears for ``nn.quant.WeightOnlyLinear`` (in place,
 after the dtype cast, the LM head kept by default), whose projections
 run kernel K9 on the card.
 
-Not ported (it raises ``NotImplementedError`` naming its ROADMAP.md
-item): weight loading from ``params_file`` / ``model_dir`` with a model
-factory.
+``Config(params_file=...)`` / ``Config(model_dir=...)`` with
+``set_model_factory`` serve a saved model, as the JAX predictor does: the
+factory builds the model, the file's weights load into it, then
+``dtype`` casts and ``enable_weight_only`` quantizes. The file is the JAX
+package's ``save`` format (``framework/io.py``) holding the JAX layout
+(Linear weights ``[in, out]``): ``paddle_tpu.save(model.state_dict(),
+path)`` writes one, and so does the port's ``save(export_jax_state_dict(
+model, tensors=True), path)``. It loads through
+``convert.load_jax_state_dict``, which raises on a name or a shape that
+differs; a file of the port's own ``state_dict()`` (torch layout) is
+refused, never transposed silently.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from types import SimpleNamespace
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -104,21 +113,17 @@ class GenerationConfig:
     eos_token_id: Optional[int] = None
 
 
-_PARAMS_TODO = ("loading weights from a params file or model directory "
-                "needs Paddle's save format, which is not ported: "
-                "ROADMAP.md queue 1, item 1.4; build the model and call "
-                "Config.set_model")
-
-
 class Config:
     """Predictor configuration (the ported subset of
-    ``paddle_tpu.inference.Config``)."""
+    ``paddle_tpu.inference.Config``): a live model (``set_model``) or a
+    model factory with a params file or model directory."""
 
     def __init__(self, model_dir: Optional[str] = None,
                  params_file: Optional[str] = None):
-        if model_dir is not None or params_file is not None:
-            raise NotImplementedError(_PARAMS_TODO)
+        self.model_dir = model_dir
+        self.params_file = params_file
         self._model = None
+        self._model_factory: Optional[Callable[[], Any]] = None
         self.dtype: Optional[str] = None
         self.max_batch_size = 8
         self.max_length: Optional[int] = None
@@ -132,11 +137,16 @@ class Config:
         self._model = model
         return self
 
-    def set_model_factory(self, factory) -> "Config":
-        raise NotImplementedError(_PARAMS_TODO)
+    def set_model_factory(self, factory: Callable[[], Any]) -> "Config":
+        """A callable building the model (its weights need not be set);
+        with ``params_file`` / ``model_dir`` the file's weights load
+        into it."""
+        self._model_factory = factory
+        return self
 
     def set_params_file(self, path: str) -> "Config":
-        raise NotImplementedError(_PARAMS_TODO)
+        self.params_file = path
+        return self
 
     def enable_weight_only(self, algo: str = "weight_only_int8",
                            skip=("lm_head",)) -> "Config":
@@ -167,22 +177,46 @@ def create_predictor(config: Config) -> "Predictor":
     return Predictor(config)
 
 
+def _params_path(config: Config) -> Optional[str]:
+    """``params_file``, else the first of ``model.pdparams`` and
+    ``params`` in ``model_dir`` (the JAX predictor's search)."""
+    if config.params_file is not None or not config.model_dir:
+        return config.params_file
+    for cand in ("model.pdparams", "params"):
+        p = os.path.join(config.model_dir, cand)
+        if os.path.exists(p):
+            return p
+    raise FileNotFoundError(f"model_dir {config.model_dir!r} holds neither "
+                            "model.pdparams nor params")
+
+
+def _load_params(model, path: str) -> None:
+    """The JAX-layout state dict at ``path`` into ``model``
+    (``convert.load_jax_state_dict``); a torch-layout file raises."""
+    from ..convert import _linear_weights, load_jax_state_dict
+    from ..framework.io import load_state
+
+    state, torch_layout = load_state(path)
+    params = dict(model.named_parameters())
+    # a square [out, in] weight has the JAX shape too: the file's mark
+    # (or, without one, a shape that only the transpose fits) tells
+    flipped = [n for n in _linear_weights(model) & set(state)
+               if torch_layout or (
+                   tuple(state[n].shape) == tuple(params[n].shape)
+                   != tuple(params[n].shape[::-1]))]
+    if flipped:
+        raise ValueError(
+            f"{path} holds the port's torch layout (nn.Linear weights [out, "
+            f"in], e.g. {flipped[0]}); a params file holds the JAX layout "
+            "([in, out]): write it with framework.io.save("
+            "convert.export_jax_state_dict(model, tensors=True), path)")
+    load_jax_state_dict(model, state)
+
+
 class Predictor:
     def __init__(self, config: Config):
-        if config._model is None:
-            raise ValueError("Config needs set_model(module) before "
-                             "create_predictor")
         self.config = config
-        self._model = config._model
-        if config.dtype:
-            self._model.to(_DTYPES[config.dtype])
-        if config._weight_only_algo:
-            # after the cast, as the JAX predictor's _build_model does:
-            # a later cast would round the f32 scales
-            from ..nn.quant import quantize_for_serving
-
-            quantize_for_serving(self._model, config._weight_only_algo,
-                                 config._weight_only_skip)
+        self._model = self._build_model(config)
         self._model.eval()
         # the embedding comes first: device and dtype read it, never an
         # int8 weight
@@ -193,6 +227,31 @@ class Predictor:
         self._caches = {}
         # re-seeded per generate call; the decode graphs read its state
         self._generator = torch.Generator(device=self.device)
+
+    @staticmethod
+    def _build_model(config: Config):
+        """The JAX predictor's order: the live model or the factory's, the
+        params file's weights, the ``dtype`` cast, then
+        ``enable_weight_only``'s swap (after the cast: a later cast would
+        round the f32 scales)."""
+        model = config._model
+        if model is None:
+            if config._model_factory is None:
+                raise ValueError(
+                    "Config needs set_model(module) or set_model_factory "
+                    "(+ params_file / model_dir) before create_predictor")
+            model = config._model_factory()
+        path = _params_path(config)
+        if path:
+            _load_params(model, path)
+        if config.dtype:
+            model.to(_DTYPES[config.dtype])
+        if config._weight_only_algo:
+            from ..nn.quant import quantize_for_serving
+
+            quantize_for_serving(model, config._weight_only_algo,
+                                 config._weight_only_skip)
+        return model
 
     @property
     def device(self) -> torch.device:

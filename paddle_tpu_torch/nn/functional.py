@@ -21,13 +21,12 @@ from torch.nn import functional as _F
 
 from ..amp import cast_inputs
 from ..ops import attention as _attn
+from ..ops.kernels import dropout_mask as _dm
 from ..ops.kernels.flash_attention import flash_attention_fwd
 
 __all__ = ["cross_entropy", "dropout", "embedding", "flash_attention",
            "flash_attn_unpadded", "gelu", "layer_norm", "linear",
            "scaled_dot_product_attention"]
-
-_ITEM_2_13 = "ROADMAP.md queue 1, item 2.13"
 
 _MODES = ("upscale_in_train", "downscale_in_infer")
 
@@ -133,24 +132,23 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     sees no key gives 0. With a bool (True = attend) or additive
     ``attn_mask`` it runs the JAX formula in torch ops, as the JAX
     package runs it in XLA: f32 scores, -inf where masked, a softmax
-    (a row with no key is NaN there too), the output in q's dtype.
-    ``dropout_p`` (in training) needs ``generator=`` or ``seed=``; with a
-    mask it raises (the kernels' Philox mask is the port's only attention
-    dropout)."""
+    (a row with no key is NaN there too), then the dropout of the JAX op
+    (ops/nn_ops.py:693-702) if any, the output in q's dtype.
+    ``dropout_p`` (in training) needs ``generator=`` or ``seed=``. Both
+    paths drop by the kernels' Philox mask (``ops/kernels/dropout_mask.py``)
+    from one seed: the masked path keeps ``dropout_keep(seed, p, B, H, Sq,
+    Skv)``'s elements scaled by ``keep_scale(p)`` and zeroes the rest, so
+    an all-True mask drops what K1 drops with that seed. Gradients flow
+    by autograd through the constant mask."""
     p = float(dropout_p) if training else 0.0
+    seed = _attn._dropout_seed(p, generator, seed)
     if attn_mask is None:
-        seed = _attn._dropout_seed(p, generator, seed)
         q, k, v = cast_inputs("scaled_dot_product_attention", query, key,
                               value)
         return flash_attention_fwd(q, k, v, bool(is_causal), dropout=p,
                                    seed=seed)
-    if p:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: dropout with an attn_mask is not "
-            f"ported ({_ITEM_2_13}): the port's attention dropout is K1/K2's "
-            "Philox mask, and K1/K2 take no mask tensor")
     q, k, v = cast_inputs("scaled_dot_product_attention", query, key, value)
-    S, D = q.shape[1], q.shape[3]
+    B, S, H, D = q.shape
     qf, kf, vf = (t.transpose(1, 2).float() for t in (q, k, v))
     scores = qf @ kf.transpose(-1, -2) * (1.0 / math.sqrt(D))
     if is_causal:
@@ -161,7 +159,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         scores = scores.masked_fill(~attn_mask, float("-inf"))
     else:
         scores = scores + attn_mask
-    out = torch.softmax(scores, -1) @ vf
+    probs = torch.softmax(scores, -1)
+    if p:
+        keep = _dm.dropout_keep(seed, p, B, H, S, kf.shape[2], q.device)
+        probs = torch.where(keep, probs * _dm.keep_scale(p),
+                            torch.zeros((), device=q.device))
+    out = probs @ vf
     return out.transpose(1, 2).to(q.dtype)
 
 

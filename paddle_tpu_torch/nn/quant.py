@@ -16,7 +16,10 @@ input column in the low nibble) and ``scale`` f32 ``[out]``, bit for bit
 the JAX values. ``WeightOnlyLinear`` quantizes ``inner.weight.T``: the
 port's linears hold ``[out, in]``.
 
-``llm_int8_linear`` is not ported (ROADMAP.md queue 1, item 1.2).
+``llm_int8_linear`` is LLM.int8's outlier decomposition (the JAX
+function's steps and roundings): kernel K10
+(``ops/kernels/llm_int8_linear.py``) on CUDA tensors, its plain version on
+CPU tensors.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 from torch import nn
 
 from ..core.enforce import enforce
+from ..ops.kernels.llm_int8_linear import llm_int8_linear as k10_linear
 from ..ops.kernels.weight_only_linear import unpack_int4 as _unpack_int4
 from ..ops.kernels.weight_only_linear import weight_only_linear as k9_linear
 
@@ -105,12 +109,17 @@ def weight_only_linear(x: torch.Tensor, weight: torch.Tensor,
     return k9_linear(x, weight, weight_scale, bias, weight_dtype == "int4")
 
 
-def llm_int8_linear(x, weight, bias=None, weight_scale=None,
-                    threshold: float = 6.0):
-    raise NotImplementedError(
-        "llm_int8_linear (LLM.int8 outlier decomposition, an int8 x int8 "
-        "-> int32 product) is not ported: ROADMAP.md queue 1, item 1.2; "
-        "serve with weight_only_linear / Config.enable_weight_only")
+@torch.no_grad()
+def llm_int8_linear(x: torch.Tensor, weight: torch.Tensor, bias=None,
+                    weight_scale=None,
+                    threshold: float = 6.0) -> torch.Tensor:
+    """LLM.int8's linear over an int8 ``weight`` [out, in] and its f32
+    ``weight_scale`` (``weight_quantize(w, "llm.int8")``): the input
+    columns whose absmax over all rows exceeds ``threshold`` multiply the
+    dequantized weight in f32, the rest run as int8 x int8 -> int32 with
+    per-row scales; kernel K10 on the card. Inference only, as in the JAX
+    package."""
+    return k10_linear(x, weight, weight_scale, bias, threshold)
 
 
 class WeightOnlyLinear(nn.Module):

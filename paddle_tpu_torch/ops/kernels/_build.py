@@ -36,7 +36,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD = _PKG.parent / "build" / "kernels"
 SOURCES = ("rms_norm", "paged_attention", "flash_attention", "fused_adam",
-           "weight_only_linear", "philox_check")
+           "weight_only_linear", "llm_int8_linear", "philox_check")
 # sm_90a, not sm_90: wgmma exists only for the "a" target
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -35,6 +35,7 @@ from paddle_tpu_torch.ops.kernels import autotune as K7
 from paddle_tpu_torch.ops.kernels import decode_attention as K5
 from paddle_tpu_torch.ops.kernels import flash_attention as K1
 from paddle_tpu_torch.ops.kernels import fused_adam as K8
+from paddle_tpu_torch.ops.kernels import llm_int8_linear as K10
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as K4
 from paddle_tpu_torch.ops.kernels import rms_norm as K3
 from paddle_tpu_torch.ops.kernels import weight_only_linear as K9
@@ -265,7 +266,8 @@ def test_every_kernel_wrapper_is_registered():
         K3.rms_norm,
         K4.ragged_paged_attention, K5.decode_attention,
         K5.paged_decode_attention, K8.fused_adam, K7.measure_flash_blocks,
-        K9.weight_only_linear, K9.weight_only_linear_wgmma}
+        K9.weight_only_linear, K9.weight_only_linear_wgmma,
+        K10.llm_int8_linear}
 
 
 def test_registry_adds_a_recorded_step_once_per_replay():

@@ -1450,3 +1450,102 @@ def test_adamw_on_the_card_launches_k8_each_step(cuda):
         opt.step()
         opt.clear_grad()
     assert K8.fused_adam.launches == n + 3
+
+
+# ---------------------------------------------------------------------------
+# K10: LLM.int8's linear
+# ---------------------------------------------------------------------------
+def _k10_case(cuda, M, K, N, dtype, outliers, seed):
+    """x [M, K] in ``dtype``, weight_quantize(w, "llm.int8") of a [K, N]
+    weight, and the threshold: 6.0 with no column above it, 6.0 with 8
+    planted columns up to |20| ("planted"), 2.0 on randn (most columns),
+    or -1 (every column)."""
+    from paddle_tpu_torch.nn.quant import weight_quantize
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(M, K, device=cuda, generator=g).clamp(-5.5, 5.5)
+    thr = {"none": 6.0, "planted": 6.0, "most": 2.0, "all": -1.0}[outliers]
+    if outliers == "planted":
+        cols = torch.randperm(K, device=cuda, generator=g)[:8]
+        x[:, cols] *= 20.0 / 5.5
+        x[torch.arange(8, device=cuda) % M, cols] = 20.0
+    elif outliers in ("most", "all"):
+        x = torch.randn(M, K, device=cuda, generator=g)
+    w = torch.randn(K, N, device=cuda, generator=g) * 0.02
+    q, s = weight_quantize(w, "llm.int8")
+    return x.to(dtype), q, s, thr
+
+
+K10_SHAPES = [(1, 64, 8), (8, 4096, 1000), (130, 200, 130), (300, 512, 264),
+              (17, 1104, 260)]
+
+
+@pytest.mark.parametrize("bias", [None, "f32", "same"])
+@pytest.mark.parametrize("outliers", ["none", "planted", "most", "all"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", K10_SHAPES, ids=str)
+def test_llm_int8_kernel(cuda, shape, dtype, outliers, bias):
+    """K10's xq, scales, column absmax and int32 product bit-equal to the
+    plain version's, its outlier list the plain version's outlier columns
+    in order, its output within fp32 1e-5 / bf16 2e-2 of the output's
+    largest magnitude (the outlier sum runs in another order), and equal
+    bit for bit when no column is an outlier."""
+    from paddle_tpu_torch.ops.kernels import llm_int8_linear as K10
+    M, K, N = shape
+    x, q, s, thr = _k10_case(cuda, M, K, N, dtype, outliers, seed=M + K + N)
+    b = None
+    if bias:
+        b = torch.randn(N, device=cuda).to(torch.float32 if bias == "f32"
+                                           else dtype)
+    n = K10.llm_int8_linear.launches
+    out, got = K10.llm_int8_linear(x, q, s, b, thr, parts=True)
+    assert K10.llm_int8_linear.launches == n + 1
+    ref, want = K10.llm_int8_linear_dense(x, q, s, b, thr, parts=True)
+    torch.cuda.synchronize()
+    for key in ("col_amax", "xq", "a_scale", "acc"):
+        assert torch.equal(got[key], want[key]), key
+    cols = torch.nonzero(want["col_amax"] > thr).flatten().to(torch.int32)
+    count = int(got["count"].item())
+    assert torch.equal(got["idx"][:count], cols)
+    if outliers == "none":
+        assert count == 0 and torch.equal(out, ref)
+    elif outliers == "planted":
+        assert count == 8
+    elif outliers == "all":
+        assert count == K
+    top = ref.float().abs().max().item()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert _err(out, ref) <= tol * top
+
+
+def test_llm_int8_kernel_leading_dims_graph_and_empty(cuda):
+    """3-D x; a call captured in a CUDA graph (nothing reads back to the
+    host) replays to the eager output; no rows launches nothing."""
+    from paddle_tpu_torch.ops.kernels import llm_int8_linear as K10
+    x, q, s, thr = _k10_case(cuda, 24, 256, 96, torch.bfloat16, "planted", 5)
+    x3 = x.reshape(2, 12, 256)
+    eager = K10.llm_int8_linear(x3, q, s, None, thr)
+    assert eager.shape == (2, 12, 96)
+    assert torch.equal(eager.reshape(24, 96),
+                       K10.llm_int8_linear(x, q, s, None, thr))
+    K10.llm_int8_linear(x3, q, s, None, thr)          # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K10.llm_int8_linear(x3, q, s, None, thr)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    n = K10.llm_int8_linear.launches
+    empty = K10.llm_int8_linear(x[:0], q, s, None, thr)
+    assert empty.shape == (0, 96) and K10.llm_int8_linear.launches == n
+
+
+def test_llm_int8_kernel_checks_raise(cuda):
+    from paddle_tpu_torch.ops.kernels import llm_int8_linear as K10
+    x, q, s, thr = _k10_case(cuda, 4, 64, 32, torch.bfloat16, "none", 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        K10.llm_int8_linear(x.t().contiguous().t(), q, s)
+    with pytest.raises(ValueError, match="several devices"):
+        K10.llm_int8_linear(x, q, s.cpu())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K10.llm_int8_linear(x.half(), q, s)

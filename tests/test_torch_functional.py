@@ -165,7 +165,8 @@ def test_scaled_dot_product_attention_dropout():
     """In training, dropout_p needs a generator or a seed and runs the
     kernels' Philox mask (the plain version here: the same output as
     ``flash_attention`` with that seed); not in training it is off; with
-    a mask it raises naming the ROADMAP item."""
+    a mask it drops by the same mask (an all-True mask: K1's output with
+    that seed, 1e-6)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as K1
 
     q, k, v = (torch.tensor(t) for t in _qkv(seed=3))
@@ -179,10 +180,11 @@ def test_scaled_dot_product_attention_dropout():
         K1.flash_attention_fwd(q, k, v))
     with pytest.raises(ValueError, match="generator"):
         tF.scaled_dot_product_attention(q, k, v, dropout_p=0.2)
-    with pytest.raises(NotImplementedError, match="item 2.13"):
-        tF.scaled_dot_product_attention(
-            q, k, v, attn_mask=torch.ones(24, 24, dtype=torch.bool),
-            dropout_p=0.2, seed=1)
+    masked = tF.scaled_dot_product_attention(
+        q, k, v, attn_mask=torch.ones(24, 24, dtype=torch.bool),
+        dropout_p=0.2, seed=1)
+    torch.testing.assert_close(masked, K1.flash_attention_fwd(
+        q, k, v, dropout=0.2, seed=1), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("causal", [False, True])

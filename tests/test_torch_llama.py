@@ -190,28 +190,35 @@ class TestDevicePolicy:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tl.LlamaForCausalLM(tl.llama_tiny())
 
-    def test_unported_paths_raise(self, models):
-        """Weight loading from a params file or model directory and
-        ``llm_int8_linear`` still raise, naming their ROADMAP items;
-        generate, the contiguous cache and weight-only serving are ported
-        (tests/test_torch_generate.py, tests/test_torch_weight_only.py)."""
-        from paddle_tpu_torch.inference import Config
+    def test_params_file_and_llm_int8_paths_work(self, models, tmp_path):
+        """Weight loading from a params file or a model directory through
+        a model factory, and ``llm_int8_linear``, which raised before
+        they were ported, now serve (tests/test_torch_params_file.py and
+        tests/test_torch_llm_int8.py hold them against the JAX package);
+        generate runs on the loaded model."""
+        from paddle_tpu_torch.convert import export_jax_state_dict
+        from paddle_tpu_torch.framework.io import save
+        from paddle_tpu_torch.inference import Config, create_predictor
         from paddle_tpu_torch.nn.quant import llm_int8_linear
 
         _, tm, _ = models
-        for kw in ({"params_file": "model.pdparams"}, {"model_dir": "m"}):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                Config(**kw)
-        conf = Config().set_model(tm)
-        for call in (lambda: llm_int8_linear(torch.zeros(1, 4),
-                                             torch.zeros(2, 4,
-                                                         dtype=torch.int8)),
-                     lambda: conf.set_model_factory(lambda: tm),
-                     lambda: conf.set_params_file("model.pdparams")):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                call()
+        save(export_jax_state_dict(tm, tensors=True),
+             str(tmp_path / "model.pdparams"))
         ids = torch.zeros(1, 4, dtype=torch.int64)
-        assert tm.generate(ids, max_new_tokens=2).shape == (1, 6)
+        want = tm.generate(ids, max_new_tokens=2)
+        factory = lambda: tl.LlamaForCausalLM(tl.llama_tiny(),  # noqa: E731
+                                              device="cpu", seed=3)
+        for conf in (Config(params_file=str(tmp_path / "model.pdparams")),
+                     Config(model_dir=str(tmp_path)),
+                     Config().set_params_file(
+                         str(tmp_path / "model.pdparams"))):
+            pred = create_predictor(conf.set_model_factory(factory))
+            assert torch.equal(pred._model.generate(ids, max_new_tokens=2),
+                               want)
+        out = llm_int8_linear(torch.ones(1, 4),
+                              torch.ones(2, 4, dtype=torch.int8),
+                              weight_scale=torch.ones(2))
+        assert out.tolist() == [[4.0, 4.0]]
 
 
 # ---------------------------------------------------------------------------

@@ -212,8 +212,9 @@ def test_unsupported_requests_raise():
         tq.weight_only_linear(x, q, None, s, group_size=64)
     with pytest.raises(NotImplementedError, match="group_size"):
         tq.weight_quantize(torch.ones(8, 4), group_size=64)
-    with pytest.raises(NotImplementedError, match="item 1.2"):
-        tq.llm_int8_linear(x, q, None, s)
+    assert tq.llm_int8_linear(x, q, None, s).shape == (2, 4)
+    with pytest.raises(TypeError, match="weight_scale"):
+        tq.llm_int8_linear(x, q)
 
 
 def test_k9_wrapper_checks_raise():
