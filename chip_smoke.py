@@ -18,7 +18,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 int4, and its read-only form) included, with no wgmma
                 serialised by ptxas; K9's routes, their dynamic shared
                 memory (the wrapper's count must equal the C library's)
-                and the wgmma and gemv bodies' registers
+                and the wgmma and gemv bodies' registers; K10's three
+                bodies and their pre-pass kernels built (no wgmma
+                serialised), and the registers and spills of each (the
+                pre-pass kernels' bf16 and fp32 instances)
 2. kernels      K10 (LLM.int8's linear) against its plain version at
                 Llama-7B's widths, x [8, 4096] and [2048, 4096] times q
                 [11008, 4096], x [2048, 11008] times q [4096, 11008],
@@ -28,10 +31,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 the plain version's bit for bit, the outlier list its
                 outlier columns, the output within bf16 2e-2 / fp32 1e-5
                 of its largest magnitude (equal where nothing is an
-                outlier); K10, plain, torch._int_mm (M > 16) and F.linear
-                (a bf16 copy of the dequantized weight) timed with the
-                bound; then nn.quant.llm_int8_linear once at each shape,
-                the path whose launches the kernels line reads.
+                outlier), and so the output of the same call without
+                ``parts`` (the wgmma body's 16-byte stores); K10, plain,
+                torch._int_mm (M > 16) and F.linear (a bf16 copy of the
+                dequantized weight) timed with the bound, K10's pre-pass
+                apart (torch.profiler's device time of its kernels), and
+                at M = 8 the gemv body at every K split it can take;
+                each row names the body it took (the prefill shapes must
+                take wgmma, M = 8 gemv), its CTAs and its kernels' ptxas
+                registers and spills; then nn.quant.llm_int8_linear once
+                at each shape, the path whose launches the kernels line
+                reads, its outputs held to the plain version's.
                 K9 (the int8 / int4 weight-only linear) against its plain
                 version: int8 and int4, bf16 and fp32 x, M = 1, 8, 16,
                 17, 2048, 8192 at (K, N) = (4096, 4096), (4096, 11008),
@@ -364,12 +374,15 @@ the SASS counts of K1/K2's dropout instances in a built flash library
 archive`` of the parent under ``build/`` against ``.``, in the order
 parent, change, change, parent) at the mma shapes, the Hopper dropout
 cases and the three varlen packs with and without dropout (K2's parts,
-its dq and dk/dv launched apart, the library), and prints them side by
-side; it runs no phase. The first shape a process times is timed twice
-and its first reading dropped. ``--compare-train ROOT,ROOT,...`` runs
-each root's own ``chip_smoke.py --phases build,train-gpt`` in turn and
-prints the step ms p50 of each run side by side (the cost of a change to
-every training step; it runs no phase of its own). ``--compare-serve
+its dq and dk/dv launched apart, the library), and K10 at
+LLM_INT8_SHAPES with and without outlier columns (``--k10-times``: the
+call, its pre-pass apart by torch.profiler, torch._int_mm and
+F.linear), and prints them side by side; it runs no phase. The first
+shape a process times is timed twice and its first reading dropped.
+``--compare-train ROOT,ROOT,...`` runs each root's own ``chip_smoke.py
+--phases build,train-gpt`` in turn and prints the step ms p50 of each
+run side by side (the cost of a change to every training step; it runs
+no phase of its own). ``--compare-serve
 ROOT,ROOT,...`` does the same with each root's ``--phases build,serve``
 and prints the graphed runs' tokens/s and TPOT p50 (the cost of a change
 to every serving round).
@@ -1636,8 +1649,10 @@ def check_llm_int8(dev, results, counters):
     import torch.nn.functional as F
 
     from paddle_tpu_torch.nn.quant import llm_int8_linear as entry
+    from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import llm_int8_linear as K10
 
+    ptxas = k10_ptxas(_build)
     g = torch.Generator(device=dev).manual_seed(17)
     thr = 6.0
     cases = [(shape, torch.bfloat16, planted, False)
@@ -1660,14 +1675,27 @@ def check_llm_int8(dev, results, counters):
         same["outliers"] = bool(torch.equal(got["idx"][:count].long(), cols))
         err = (out.float() - ref.float()).abs().max().item()
         top = ref.float().abs().max().item()
+        tol = {torch.bfloat16: 2e-2, torch.float32: 1e-5}[dt]
+        # the same call without parts: the wgmma body's full tiles leave
+        # through 16-byte stores only then (parts' acc takes the element
+        # stores)
+        fast = K10.llm_int8_linear(x, q, s, b, thr)
+        fast_err = (fast.float() - ref.float()).abs().max().item()
+        plan = K10.llm_int8_route(M, N, K)
         rec = dict(name="llm_int8_linear", shape=[M, K, N],
                    dtype=str(dt)[6:], planted=planted, bias=with_bias,
+                   body=got["body"], tiles=K10.route_tiles(plan, M, N),
+                   splits=plan.splits, ptxas=ptxas[got["body"]],
                    outliers=count, bit_equal=same,
                    exact=bool(torch.equal(out, ref)), max_abs_err=err,
-                   ref_max_abs=top, rel_err=err / top,
-                   tol={torch.bfloat16: 2e-2, torch.float32: 1e-5}[dt])
+                   ref_max_abs=top, rel_err=err / top, tol=tol,
+                   no_parts=dict(exact=bool(torch.equal(fast, ref)),
+                                 max_abs_err=fast_err))
         if not all(same.values()) or count != (8 if planted else 0) or \
-                (not planted and not rec["exact"]):
+                (not planted and not rec["exact"]) or \
+                (not planted and not rec["no_parts"]["exact"]) or \
+                not err <= tol * top or not fast_err <= tol * top or \
+                rec["body"] != ("gemv" if M <= 16 else "wgmma"):
             raise AssertionError(f"K10 {rec}")
         if dt == torch.bfloat16 and not with_bias:
             qs = [q] + [q.clone() for _ in range(2)]
@@ -1678,6 +1706,11 @@ def check_llm_int8(dev, results, counters):
             qi = itertools.cycle(qs)
             rec["ms"] = cuda_ms(lambda: K10.llm_int8_linear(
                 x, next(qi), s, None, thr))
+            rec["prepass_ms"], rec["prepass_kernels"] = k10_prepass_ms(
+                lambda: K10.llm_int8_linear(x, next(qi), s, None, thr))
+            if plan.body == "gemv":
+                rec["split_ms"] = k10_split_ms(K10, x, qi, s, thr, ref,
+                                               tol * top, planted)
             rec["plain_ms"] = cuda_ms(lambda: K10.llm_int8_linear_dense(
                 x, next(qi), s, None, thr), iters=3, warm=1)
             xq = got["xq"].contiguous()
@@ -1693,7 +1726,7 @@ def check_llm_int8(dev, results, counters):
             rec["flinear_ms"] = cuda_ms(lambda: F.linear(x, next(li)))
             del qs, ls, wl, xq
         results.append(rec)
-        del x, q, s, out, got, ref, want
+        del x, q, s, out, got, ref, want, fast
     torch.cuda.empty_cache()
     # the main path: the user's entry point, one call at each shape
     calls = [_llm_int8_inputs(dev, M, K, N, torch.bfloat16, True, g)
@@ -1706,14 +1739,84 @@ def check_llm_int8(dev, results, counters):
     launches = {c.__name__: c.launches for c in counters}
     _expect_launches(launches, {"llm_int8_linear": len(calls)},
                      "llm_int8 path")
-    if not all(bool(torch.isfinite(o).all()) for o in outs):
-        raise AssertionError("llm_int8 path: non-finite output")
+    errs = []
+    for (x, q, s), o in zip(calls, outs):
+        ref = K10.llm_int8_linear_dense(x, q, s, None, thr)
+        err = (o.float() - ref.float()).abs().max().item()
+        errs.append(err / ref.float().abs().max().item())
+        if not (torch.isfinite(o).all() and errs[-1] <= 2e-2):
+            raise AssertionError(f"llm_int8 path {list(x.shape)}: off the "
+                                 f"plain version by {err}")
     log(f"[kernels] llm_int8 path (nn.quant.llm_int8_linear at "
         f"{[list(sh) for sh in LLM_INT8_SHAPES]}, bf16, 8 outlier columns): "
-        f"launches {launches}")
+        f"launches {launches}, error over the plain output's largest "
+        f"magnitude {errs} (bf16 limit 2e-2)")
     del calls, outs
     torch.cuda.empty_cache()
     return launches
+
+
+K10_PRODUCTS = ("wgmma_kernel", "gemv_kernel", "gemm_kernel")
+
+
+def k10_prepass_ms(call, calls=20):
+    """Device ms of a K10 call's pre-pass: ``calls`` eager calls under
+    torch.profiler, each kernel (and memset) of the call but the product
+    (K10_PRODUCTS) at its mean device time a launch, summed (each runs
+    once a call). Returns the ms and each part's us. A profile with no
+    device record is taken again, once (gemv_launches)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kern:
+            break
+    pre = {e.key: e.self_device_time_total / e.count for e in kern
+           if e.count and not any(k in e.key for k in K10_PRODUCTS)}
+    if not pre or len(pre) == len(kern):
+        raise AssertionError(f"K10 pre-pass: the profile holds "
+                             f"{[(e.key, e.count) for e in kern]}")
+    name = lambda k: re.search(r"\w+_kernel|Memset", k)  # noqa: E731
+    return sum(pre.values()) / 1e3, {
+        (name(k).group() if name(k) else k[:40]): round(v, 3)
+        for k, v in pre.items()}
+
+
+def k10_split_ms(K10, x, qi, s, thr, ref, limit, planted):
+    """The gemv body at every K split its K allows (whole 64-byte k
+    blocks, at most 8 slices), the route's own choice among them: ms
+    by split count, each split's output held to the plain version's
+    (equal where nothing is an outlier, within ``limit`` otherwise)."""
+    M, K = x.shape
+    steps = -(-K // 64)
+    route = K10.llm_int8_route
+    out = {}
+    try:
+        for want in range(1, min(8, steps) + 1):
+            per = -(-steps // want)
+            plan = K10.LlmInt8Route("gemv", -(-steps // per), per * 64)
+            if plan.splits in out:
+                continue
+            K10.llm_int8_route = lambda *a, plan=plan, **k: plan
+            y = K10.llm_int8_linear(x, next(qi), s, None, thr)
+            err = (y.float() - ref.float()).abs().max().item()
+            if not (err <= limit and (planted or torch.equal(y, ref))):
+                raise AssertionError(f"K10 gemv split {plan}: off the "
+                                     f"plain version by {err}")
+            out[plan.splits] = cuda_ms(lambda: K10.llm_int8_linear(
+                x, next(qi), s, None, thr))
+    finally:
+        K10.llm_int8_route = route
+    return out
 
 
 def gemv_launches(dev, calls=4):
@@ -5498,6 +5601,50 @@ def check_k9_build(_build):
         f"and no serialised wgmma: OK")
 
 
+def k10_ptxas(_build):
+    """Registers and spill bytes of K10's kernels by body: the product
+    kernel and the pre-pass kernels it runs behind, each pre-pass kernel
+    in its bf16 and its fp32 instance (the wgmma body's pre-pass on
+    16-byte row loads)."""
+    rep = _build.ptxas_report("llm_int8_linear")
+    pre = {"wgmma": {"colmax_vec_kernel": "17colmax_vec_kernel{}E",
+                     "outlier_kernel": "14outlier_kernelE",
+                     "quant_kernel": "12quant_kernel{}Lb1E"},
+           "gemv": {"small_prepass_kernel": "20small_prepass_kernel{}E"},
+           "mma": {"colmax_kernel": "13colmax_kernel{}E",
+                   "outlier_kernel": "14outlier_kernelE",
+                   "quant_kernel": "12quant_kernel{}Lb0E"}}
+    want = {"wgmma": {"wgmma_kernel": "12wgmma_kernelE"},
+            "gemv": {"gemv_kernel<8>": "11gemv_kernelILi8EE",
+                     "gemv_kernel<16>": "11gemv_kernelILi16EE"},
+            "mma": {"gemm_kernel": "11gemm_kernelE"}}
+    for body, kernels in pre.items():
+        for name, key in kernels.items():
+            if "{}" not in key:
+                want[body][name] = key
+                continue
+            for dt, code in (("bf16", "I13__nv_bfloat16"), ("f32", "If")):
+                want[body][f"{name} {dt}"] = key.format(code)
+    return {body: {name: next((r for fn, r in rep.items() if key in fn),
+                              None) for name, key in kernels.items()}
+            for body, kernels in want.items()}
+
+
+def check_k10_build(_build):
+    """K10's bodies built (the wgmma body with no wgmma serialised by
+    ptxas); their registers and spills."""
+    rep = k10_ptxas(_build)
+    missing = [f"{b} {k}" for b, ks in rep.items() for k, r in ks.items()
+               if r is None]
+    if missing:
+        raise AssertionError(f"K10 kernels not built: {missing}")
+    text = _build._target("llm_int8_linear").with_suffix(".log").read_text()
+    serial = [ln for ln in text.splitlines() if "serialized" in ln]
+    if serial:
+        raise AssertionError(f"K10: ptxas serialised wgmma: {serial}")
+    log(f"[build] K10 bodies (registers, spills): {json.dumps(rep)}: OK")
+
+
 def check_tile_spills(_build):
     """Every K1 tile the library lists is a fwd_wgmma<D, W, BN> instance
     that ptxas built with 0 spill bytes."""
@@ -5651,25 +5798,78 @@ def pack_times(dev, name, D, p):
     return r
 
 
+def k10_times(root):
+    """``--k10-times``: K10 of the checkout at ``root`` (its own
+    paddle_tpu_torch and build) timed from CUDA graphs at LLM_INT8_SHAPES,
+    bf16, threshold 6.0, with 8 planted outlier columns and with none
+    (the weights rotated through 3 copies, past the L2): the call, its
+    pre-pass apart (``k10_prepass_ms``: the kernels but the product),
+    torch._int_mm on the same xq and q (M > 16) and F.linear on a bf16
+    copy of the dequantized weight; the body and CTAs where the checkout
+    routes. The first shape is timed twice and its first pass dropped.
+    One JSON line."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import llm_int8_linear as K10
+
+    if Path(K10.__file__).resolve().parents[3] != Path(root).resolve():
+        raise AssertionError(f"imported {K10.__file__}, not {root}'s")
+    _build.library("llm_int8_linear")
+    dev, thr = torch.device("cuda", 0), 6.0
+    g = torch.Generator(device=dev).manual_seed(17)
+    cases = [(shape, planted) for shape in LLM_INT8_SHAPES
+             for planted in (True, False)]
+    rows = []
+    for i, ((M, K, N), planted) in enumerate(cases[:1] + cases):
+        x, q, s = _llm_int8_inputs(dev, M, K, N, torch.bfloat16, planted, g)
+        qi = itertools.cycle([q] + [q.clone() for _ in range(2)])
+        call = lambda: K10.llm_int8_linear(x, next(qi), s,  # noqa: E731
+                                           None, thr)
+        r = dict(shape=[M, K, N], planted=planted, ms=cuda_ms(call),
+                 prepass_ms=k10_prepass_ms(call)[0])
+        if hasattr(K10, "llm_int8_route"):
+            plan = K10.llm_int8_route(M, N, K)
+            r.update(body=plan.body, tiles=K10.route_tiles(plan, M, N))
+        _, parts = K10.llm_int8_linear(x, q, s, None, thr, parts=True)
+        xq = parts["xq"].contiguous()
+        r["int_mm_ms"] = (cuda_ms(lambda: torch._int_mm(xq, next(qi).t()))
+                          if M > 16 else None)
+        wl = (q.float() * s[:, None]).to(torch.bfloat16)
+        li = itertools.cycle([wl] + [wl.clone() for _ in range(2)])
+        r["flinear_ms"] = cuda_ms(lambda: F.linear(x, next(li)))
+        if i:
+            rows.append(r)
+        del x, q, s, qi, call, parts, xq, wl, li
+        torch.cuda.empty_cache()
+    print(json.dumps({"root": root, "rows": rows}), flush=True)
+
+
 def compare_roots(roots):
-    """``--compare``: ``mma_times`` of each checkout root in turn, each in
-    a process of its own, then the K1 / K2 ms side by side by shape."""
-    runs = []
-    for root in roots:
-        res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                              "--mma-times", root], capture_output=True,
-                             text=True)
-        if res.returncode:
-            raise AssertionError(f"--mma-times {root} failed: "
-                                 f"{res.stderr[-4000:]}")
-        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
-        log(f"[compare] {root}: " + json.dumps(runs[-1]["rows"]))
-    for i, r in enumerate(runs[0]["rows"]):
-        cols = {key: [run["rows"][i].get(key) for run in runs]
-                for key in r if key.endswith("_ms")}
-        log(f"[compare] {r.get('pack', '')} {r['shape']} kv {r['kv_heads']} "
-            f"p {r['dropout']} (roots {', '.join(roots)}): "
-            + json.dumps(cols))
+    """``--compare``: ``mma_times`` and ``k10_times`` of each checkout
+    root in turn, each in a process of its own, then the K1 / K2 and K10
+    ms side by side by shape."""
+    for kind in ("mma", "k10"):
+        runs = []
+        for root in roots:
+            res = subprocess.run([sys.executable,
+                                  str(Path(__file__).resolve()),
+                                  f"--{kind}-times", root],
+                                 capture_output=True, text=True)
+            if res.returncode:
+                raise AssertionError(f"--{kind}-times {root} failed: "
+                                     f"{res.stderr[-4000:]}")
+            runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+            log(f"[compare] {root}: " + json.dumps(runs[-1]["rows"]))
+        for i, r in enumerate(runs[0]["rows"]):
+            cols = {key: [run["rows"][i].get(key) for run in runs]
+                    for key in r if key == "ms" or key.endswith("_ms")}
+            what = (f"K10 {r['shape']} planted {r['planted']}"
+                    if kind == "k10" else
+                    f"{r.get('pack', '')} {r['shape']} kv {r['kv_heads']} "
+                    f"p {r['dropout']}")
+            log(f"[compare] {what} (roots {', '.join(roots)}): "
+                + json.dumps(cols))
 
 
 def compare_train(roots):
@@ -5723,8 +5923,8 @@ def main():
                     help="developer: comma-separated checkout roots (e.g. "
                     "build/parent,.,.,build/parent); K1/K2 of each timed in "
                     "turn at the mma shapes, the Hopper dropout cases and "
-                    "the varlen packs, each root in its own process, "
-                    "printed side by side")
+                    "the varlen packs, and K10 at LLM_INT8_SHAPES, each "
+                    "root in its own process, printed side by side")
     ap.add_argument("--compare-train",
                     help="developer: comma-separated checkout roots; the "
                     "train-gpt phase of each in turn (its own chip_smoke.py "
@@ -5734,12 +5934,14 @@ def main():
                     "serve phase of each in turn (its own chip_smoke.py and "
                     "build), graphed tokens/s and TPOT p50 side by side")
     ap.add_argument("--mma-times", help=argparse.SUPPRESS)
+    ap.add_argument("--k10-times", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = args.phases.split(",")
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; it runs the port on one card")
-    repo = Path(args.mma_times or Path(__file__).resolve().parent)
+    repo = Path(args.mma_times or args.k10_times
+                or Path(__file__).resolve().parent)
     if args.compare:
         compare_roots(args.compare.split(","))
         return
@@ -5758,6 +5960,9 @@ def main():
         return
     if args.mma_times:
         mma_times(args.mma_times)
+        return
+    if args.k10_times:
+        k10_times(args.k10_times)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -5793,6 +5998,7 @@ def main():
             log(f"[build] ptxas {fn}: {json.dumps(rep)}")
     check_tile_spills(_build)
     check_k9_build(_build)
+    check_k10_build(_build)
 
     dev = torch.device("cuda", 0)
     results = []
@@ -6061,7 +6267,8 @@ def main():
             library_ms=row.get("library_ms"), shape=main_shape[name],
             dtype="bfloat16",
             **{k: row[k] for k in ("body", "splits", "cluster", "kernels",
-                                   "workspace_bytes", "ptxas") if k in row}))
+                                   "workspace_bytes", "ptxas", "tiles",
+                                   "prepass_ms") if k in row}))
     kernels.append(k7_entry(k7, results,
                             by_path["train_autotune"]["measure_flash_blocks"]))
     print(json.dumps({"kernels": kernels}))

@@ -47,8 +47,8 @@ import torch
 from . import (_build, counted, dtype_code, ptr, route, stream,
                want_contiguous)
 
-__all__ = ["WeightOnlyRoute", "route_cluster", "route_grid", "route_kernels",
-           "route_smem", "unpack_int4",
+__all__ = ["WeightOnlyRoute", "gemv_split", "route_cluster", "route_grid",
+           "route_kernels", "route_smem", "unpack_int4",
            "weight_only_linear", "weight_only_linear_dense",
            "weight_only_linear_wgmma", "weight_only_route"]
 
@@ -103,6 +103,27 @@ def weight_only_linear_dense(x: torch.Tensor, q: torch.Tensor,
     return out.to(x.dtype)
 
 
+def gemv_split(K: int, N: int, kb: int, smem) -> tuple:
+    """(splits, ks): how a gemv body (K9's, and K10's) cuts K. A block
+    owns 128 weight rows and one K slice of whole k blocks of ``kb``
+    weights; at most 8 slices run as one cluster. A launch takes its waves
+    (blocks over the slots their shared memory, ``smem(ks)`` bytes a
+    block, leaves an SM) times a block's k blocks plus a fixed cost; the
+    split count with the least cost wins, the most splits on a tie."""
+    steps = -(-K // kb)
+    cols = -(-N // _GV_COLS)
+    best = None
+    for want in range(1, min(_GV_SPLITS, steps) + 1):
+        per = -(-steps // want)
+        splits = -(-steps // per)
+        per_sm = min(_GV_PER_SM, _SM_SMEM // (smem(per * kb) + 1024))
+        waves = math.ceil(cols * splits / (_GV_PACK * _SMS * per_sm))
+        cost = waves * (per + _GV_FIXED)
+        if best is None or cost <= best[0]:
+            best = (cost, (splits, per * kb))
+    return best[1]
+
+
 @functools.lru_cache(maxsize=None)
 def weight_only_route(M: int, N: int, K: int, int4: bool,
                       dtype: torch.dtype,
@@ -117,27 +138,11 @@ def weight_only_route(M: int, N: int, K: int, int4: bool,
             if aligned and K % w == 0:
                 return WeightOnlyRoute("wgmma", _WG_ROWS, 1, K)
             return WeightOnlyRoute("tile", _TILE, 1, K)
-        # 128 columns a block, a k block of 64 weight bytes a row, K cut
-        # into at most 8 slices that run as one cluster. A launch takes
-        # its waves (blocks over the slots its shared memory leaves) times
-        # a block's k blocks plus a fixed cost; take the split count with
-        # the least (the most splits on a tie; PERF.md §6 has the sweep)
+        # 64 int8 / 128 int4 weights a k block (PERF.md §6 has the sweep)
         mr = 8 if M <= 8 else 16
-        kb = 4 * w                          # 64 int8 / 128 int4 weights
-        steps = -(-K // kb)
-        cols = -(-N // _GV_COLS)
-        best = None
-        for want in range(1, min(_GV_SPLITS, steps) + 1):
-            per = -(-steps // want)
-            plan = WeightOnlyRoute("gemv", mr, -(-steps // per), per * kb)
-            per_sm = min(_GV_PER_SM,
-                         _SM_SMEM // (route_smem(plan, int4) + 1024))
-            waves = math.ceil(cols * plan.splits
-                              / (_GV_PACK * _SMS * per_sm))
-            cost = waves * (per + _GV_FIXED)
-            if best is None or cost <= best[0]:
-                best = (cost, plan)
-        return best[1]
+        splits, ks = gemv_split(K, N, 4 * w, lambda ks: route_smem(
+            WeightOnlyRoute("gemv", mr, 1, ks), int4))
+        return WeightOnlyRoute("gemv", mr, splits, ks)
     else:
         # 4 warps of 4 or 8 columns, steps of 32 w; x staged as f32 with 4
         # floats of padding a lane chunk

@@ -1458,16 +1458,20 @@ def test_adamw_on_the_card_launches_k8_each_step(cuda):
 def _k10_case(cuda, M, K, N, dtype, outliers, seed):
     """x [M, K] in ``dtype``, weight_quantize(w, "llm.int8") of a [K, N]
     weight, and the threshold: 6.0 with no column above it, 6.0 with 8
-    planted columns up to |20| ("planted"), 2.0 on randn (most columns),
-    or -1 (every column)."""
+    planted columns up to |20| ("planted") or with 40 more than the
+    kernel's gathered capacity ("over"), 2.0 on randn (most columns), or
+    -1 (every column)."""
     from paddle_tpu_torch.nn.quant import weight_quantize
+    from paddle_tpu_torch.ops.kernels.llm_int8_linear import CAPACITY
     g = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn(M, K, device=cuda, generator=g).clamp(-5.5, 5.5)
-    thr = {"none": 6.0, "planted": 6.0, "most": 2.0, "all": -1.0}[outliers]
-    if outliers == "planted":
-        cols = torch.randperm(K, device=cuda, generator=g)[:8]
+    thr = {"none": 6.0, "planted": 6.0, "over": 6.0, "most": 2.0,
+           "all": -1.0}[outliers]
+    if outliers in ("planted", "over"):
+        n = 8 if outliers == "planted" else CAPACITY + 40
+        cols = torch.randperm(K, device=cuda, generator=g)[:n]
         x[:, cols] *= 20.0 / 5.5
-        x[torch.arange(8, device=cuda) % M, cols] = 20.0
+        x[torch.arange(n, device=cuda) % M, cols] = 20.0
     elif outliers in ("most", "all"):
         x = torch.randn(M, K, device=cuda, generator=g)
     w = torch.randn(K, N, device=cuda, generator=g) * 0.02
@@ -1475,20 +1479,22 @@ def _k10_case(cuda, M, K, N, dtype, outliers, seed):
     return x.to(dtype), q, s, thr
 
 
-K10_SHAPES = [(1, 64, 8), (8, 4096, 1000), (130, 200, 130), (300, 512, 264),
-              (17, 1104, 260)]
+# (M, K, N) and the body each takes: gemv at M = 1, 8 and 16 (K not a
+# multiple of 64 in the last); wgmma with M, N and K off its tiles, one
+# x tile and three, and on whole 256 x 128 tiles only; mma where K is
+# not a multiple of 16, above and below 16 rows
+K10_BODIES = {(1, 64, 8): "gemv", (8, 4096, 1000): "gemv",
+              (130, 200, 130): "mma", (300, 512, 264): "wgmma",
+              (17, 1104, 260): "wgmma", (200, 1040, 520): "wgmma",
+              (520, 2064, 392): "wgmma", (512, 1024, 256): "wgmma",
+              (16, 1056, 300): "gemv", (12, 136, 40): "mma"}
+K10_SHAPES = list(K10_BODIES)
 
 
-@pytest.mark.parametrize("bias", [None, "f32", "same"])
-@pytest.mark.parametrize("outliers", ["none", "planted", "most", "all"])
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("shape", K10_SHAPES, ids=str)
-def test_llm_int8_kernel(cuda, shape, dtype, outliers, bias):
-    """K10's xq, scales, column absmax and int32 product bit-equal to the
-    plain version's, its outlier list the plain version's outlier columns
-    in order, its output within fp32 1e-5 / bf16 2e-2 of the output's
-    largest magnitude (the outlier sum runs in another order), and equal
-    bit for bit when no column is an outlier."""
+def _k10_check(cuda, shape, dtype, outliers, bias):
+    """One K10 call against its plain version (test_llm_int8_kernel),
+    with ``parts`` and without: the wgmma body stores a whole tile's
+    outputs 16 bytes at a time only when it writes no acc."""
     from paddle_tpu_torch.ops.kernels import llm_int8_linear as K10
     M, K, N = shape
     x, q, s, thr = _k10_case(cuda, M, K, N, dtype, outliers, seed=M + K + N)
@@ -1499,6 +1505,7 @@ def test_llm_int8_kernel(cuda, shape, dtype, outliers, bias):
     n = K10.llm_int8_linear.launches
     out, got = K10.llm_int8_linear(x, q, s, b, thr, parts=True)
     assert K10.llm_int8_linear.launches == n + 1
+    assert got["body"] == K10_BODIES[shape]
     ref, want = K10.llm_int8_linear_dense(x, q, s, b, thr, parts=True)
     torch.cuda.synchronize()
     for key in ("col_amax", "xq", "a_scale", "acc"):
@@ -1510,22 +1517,60 @@ def test_llm_int8_kernel(cuda, shape, dtype, outliers, bias):
         assert count == 0 and torch.equal(out, ref)
     elif outliers == "planted":
         assert count == 8
+    elif outliers == "over":
+        assert K10.CAPACITY < count == K10.CAPACITY + 40 < K
     elif outliers == "all":
         assert count == K
     top = ref.float().abs().max().item()
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     assert _err(out, ref) <= tol * top
+    fast = K10.llm_int8_linear(x, q, s, b, thr)
+    assert K10.llm_int8_linear.launches == n + 2
+    if outliers == "none":
+        assert torch.equal(fast, ref)
+    assert _err(fast, ref) <= tol * top
 
 
-def test_llm_int8_kernel_leading_dims_graph_and_empty(cuda):
-    """3-D x; a call captured in a CUDA graph (nothing reads back to the
-    host) replays to the eager output; no rows launches nothing."""
+@pytest.mark.parametrize("bias", [None, "f32", "same"])
+@pytest.mark.parametrize("outliers", ["none", "planted", "most", "all"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", K10_SHAPES, ids=str)
+def test_llm_int8_kernel(cuda, shape, dtype, outliers, bias):
+    """K10's xq, scales, column absmax and int32 product bit-equal to the
+    plain version's, its outlier list the plain version's outlier columns
+    in order, its output within fp32 1e-5 / bf16 2e-2 of the output's
+    largest magnitude (the outlier sum runs in another order), and equal
+    bit for bit when no column is an outlier; each shape on its body."""
+    _k10_check(cuda, shape, dtype, outliers, bias)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(8, 4096, 1000), (16, 1056, 300),
+                                   (300, 512, 264), (520, 2064, 392),
+                                   (130, 200, 130)], ids=str)
+def test_llm_int8_kernel_over_capacity(cuda, shape, dtype):
+    """More outlier columns than the kernel gathers once a call (and
+    fewer than K): the gathered columns and the ones read at a stride of
+    K add up to the plain version's term, on each body."""
+    _k10_check(cuda, shape, dtype, "over", "f32")
+
+
+@pytest.mark.parametrize("M, body", [(24, "wgmma"), (8, "gemv")])
+def test_llm_int8_kernel_leading_dims_graph_and_empty(cuda, M, body):
+    """3-D x, within bf16 2e-2 of the plain version; a call captured in a
+    CUDA graph (nothing reads back to the host) replays to the eager
+    output, on the wgmma body and on the gemv body (a pre-pass and a
+    product behind it with programmatic dependent launch); no rows
+    launches nothing."""
     from paddle_tpu_torch.ops.kernels import llm_int8_linear as K10
-    x, q, s, thr = _k10_case(cuda, 24, 256, 96, torch.bfloat16, "planted", 5)
-    x3 = x.reshape(2, 12, 256)
+    x, q, s, thr = _k10_case(cuda, M, 256, 96, torch.bfloat16, "planted", 5)
+    assert K10.llm_int8_route(M, 96, 256).body == body
+    x3 = x.reshape(2, M // 2, 256)
     eager = K10.llm_int8_linear(x3, q, s, None, thr)
-    assert eager.shape == (2, 12, 96)
-    assert torch.equal(eager.reshape(24, 96),
+    assert eager.shape == (2, M // 2, 96)
+    ref = K10.llm_int8_linear_dense(x3, q, s, None, thr)
+    assert _err(eager, ref) <= 2e-2 * ref.float().abs().max().item()
+    assert torch.equal(eager.reshape(M, 96),
                        K10.llm_int8_linear(x, q, s, None, thr))
     K10.llm_int8_linear(x3, q, s, None, thr)          # warm
     torch.cuda.synchronize()

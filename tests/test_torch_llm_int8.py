@@ -10,7 +10,9 @@ without the bias; 2-D and 3-D x; fp32 and bf16. Tolerances: fp32 1e-5 of the out
 largest magnitude (the outlier term's f32 sum runs in another order in
 the two packages); bf16 one bf16 step of that magnitude (2^-8, the same
 sums rounded once to bf16). xq, the scales and the int32 product equal
-the JAX formula's, rebuilt in numpy, exactly.
+the JAX formula's, rebuilt in numpy, exactly. The kernel's routing by
+shape (``llm_int8_route``) and its outlier capacity are checked from the
+shapes and the CUDA source alone.
 """
 import numpy as np
 import pytest
@@ -155,3 +157,57 @@ def test_plain_version_counts_no_launch():
     K10.llm_int8_linear(torch.tensor(x), torch.tensor(q), torch.tensor(s),
                         torch.tensor(b), thr)
     assert K10.llm_int8_linear.launches == n
+
+
+@pytest.mark.parametrize("M, N, K, body", [
+    (2048, 11008, 4096, "wgmma"),   # Llama-7B's prefill: gate / up
+    (2048, 4096, 11008, "wgmma"),   # its down projection
+    (8, 11008, 4096, "gemv"),       # a decode step
+    (16, 11008, 4096, "gemv"),      # the gemv body's last row count
+    (17, 11008, 4096, "wgmma"),     # and the first past it
+    (8, 72, 200, "mma"),            # K % 16 != 0: no TMA, no 16-byte copy
+    (2048, 130, 130, "mma"),
+])
+def test_llm_int8_route_by_shape(M, N, K, body):
+    """The body K10 takes comes from the shapes alone: wgmma above 16 rows
+    and gemv up to 16 where TMA and 16-byte copies can address the weight
+    rows (K a multiple of 16), mma otherwise."""
+    plan = K10.llm_int8_route(M, N, K)
+    assert plan.body == body
+    if body == "gemv":
+        # the K slices are whole 64-byte blocks, cover K once, one cluster
+        assert plan.ks % 64 == 0 and 1 <= plan.splits <= 8
+        assert (plan.splits - 1) * plan.ks < K <= plan.splits * plan.ks
+    else:
+        assert (plan.splits, plan.ks) == (1, K)
+
+
+@pytest.mark.parametrize("M", [8, 2048])
+def test_llm_int8_route_unaligned_weight_takes_mma(M):
+    """A weight that does not start on 16 bytes goes to the mma body at
+    any row count: TMA and cp.async need 16-byte-aligned rows."""
+    assert K10.llm_int8_route(M, 11008, 4096, aligned=False).body == "mma"
+
+
+def test_llm_int8_route_tiles_at_llama_shapes():
+    """The units of work each body's product walks at Llama-7B's widths."""
+    tiles = {(M, N, K): K10.route_tiles(K10.llm_int8_route(M, N, K), M, N)
+             for M, N, K in ((2048, 11008, 4096), (2048, 4096, 11008),
+                             (8, 11008, 4096))}
+    assert tiles == {(2048, 11008, 4096): 8 * 86,
+                     (2048, 4096, 11008): 8 * 32,
+                     (8, 11008, 4096): 86 * K10.llm_int8_route(
+                         8, 11008, 4096).splits}
+
+
+def test_llm_int8_capacity_matches_the_kernel_source():
+    """The outlier columns the wrapper allocates x_out / w_out for equal
+    the capacity the kernel's source states (kOutCap), read from the
+    source text: a mismatch would make the kernel write past the
+    buffers."""
+    from pathlib import Path
+    import re
+    src = (Path(K10.__file__).resolve().parents[2] / "csrc"
+           / "llm_int8_linear.cu").read_text()
+    cap = re.search(r"constexpr int kOutCap = (\d+);", src)
+    assert cap and int(cap.group(1)) == K10.CAPACITY
