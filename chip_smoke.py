@@ -85,7 +85,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 masters and moments) against its plain version: f32
                 buffers within 1e-6 of each tensor's largest magnitude,
                 bf16 parameters within one ulp; K8, plain and
-                torch._fused_adamw_ timed with CUDA events. K1 at every
+                torch._fused_adamw_ timed with CUDA events. K8's split
+                reduce (an mp 2 rank of gpt_1p3b, 0.66 B parameters: the
+                shards' and the replicated tensors' squared sums apart)
+                against its plain version and the degree-1 call's norm
+                (1e-5), timed beside the degree-1 call. K1/K2 with
+                dropout at a head offset (heads 8..15 of gpt_1p3b's
+                attention with head_offset 8) bit-equal to the whole
+                call's same heads, and within 2e-2 of the plain version
+                at the offset. K1 at every
                 built tile (block_q, block_kv) at the train shape [4,
                 2048, 32, 128] and at GQA [4, 2048, 32 / 8, 128], causal
                 bf16, against the plain version and timed; K7's search
@@ -355,6 +363,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 (their dropout instances) 4 a step and K8 one. Prints the
                 checkpoint's bytes, the save, stall and restore seconds
                 and GB/s, and the telemetry's host microseconds a step
+16. train-hybrid
+                tensor- and data-parallel GPT through the port's launcher
+                (python -m paddle_tpu_torch.distributed.launch
+                --nproc_per_node N chip_smoke.py --hybrid-rank MODE: fresh
+                processes, each rank on cuda:0, its output in
+                build/hybrid/logs/MODE/workerlog.RANK; a rank that fails
+                or hangs fails the launch): NCCL at world 1 (every
+                collective of the API on a CUDA tensor is the identity,
+                through NCCL; one gpt_1p3b-width 2-layer bf16 step under
+                a degree-1 HCG bit-equal to the step without fleet); two
+                ranks on the card refused (init_parallel_env() raises;
+                NCCL itself, asked anyway, reports the duplicate GPU);
+                then, each held to a degree-1 run of the same model, seed
+                and 4 x 2048 batch in this process (AdamW, f32 masters for
+                bf16, clip 1.0): mp 2 fp32 at gpt_1p3b's widths and 2
+                layers, 3 steps (losses 1e-4 relative, the gathered
+                parameters 1e-4 relative L2 over all); mp 2 bf16 at full
+                depth, 5 steps with dropout 0, then 5 with 0.1 (losses
+                2e-2, finite and falling); dp 2 x mp 2 bf16 at 4 layers,
+                3 steps (2e-2). Every run: replicated parameters
+                bit-equal across the mp ranks (and every parameter across
+                all ranks at dp 2), K1/K2 layers x steps launches a rank
+                and K8 one a step, layer 0's attention on the rank's
+                heads (dropout at its head offset) within 2e-2 of the
+                plain version, the last step's booked bytes equal to the
+                closed form (mp: 4 L b S H e + 2 b S H e + 2 b S 4 + 4
+                all-reduced, b S 4 maxed). Prints per rank step ms p50,
+                the card's tokens/s, peak memory, the bytes and the host
+                staging's seconds a step, beside the card's name and
+                power limit: times of ranks sharing one card over gloo,
+                not of NCCL
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -395,6 +434,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1226,6 +1266,162 @@ def check_fused_adam(dev, results):
         library="torch._fused_adamw_ on f32 grads + foreach global-norm clip",
         bytes=nbytes, design_bytes=30 * N, bound_ms=b_ms, bound_by=b_by))
     del A
+    torch.cuda.empty_cache()
+
+
+def _mp2_shapes():
+    """gpt_1p3b's parameters on one rank of mp 2 (the port's layout, in
+    model order) and which are mp shards."""
+    from paddle_tpu_torch.models.gpt import gpt_1p3b
+
+    cfg = gpt_1p3b()
+    h, m, V, P = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                  cfg.max_position_embeddings)
+    layer = [((h,), False), ((h,), False), ((3 * h // 2, h), True),
+             ((3 * h // 2,), True), ((h, h // 2), True), ((h,), False),
+             ((h,), False), ((h,), False), ((m // 2, h), True),
+             ((m // 2,), True), ((h, m // 2), True), ((h,), False)]
+    rows = [((V // 2, h), True), ((P, h), False)] + \
+        layer * cfg.num_layers + [((h,), False), ((h,), False)]
+    return [s for s, _ in rows], [f for _, f in rows]
+
+
+def check_fused_adam_split(dev, results):
+    """K8's split reduce (phases 1 and 2: the mp shards' and the
+    replicated tensors' squared sums apart, then the finalize from their
+    sum), as one rank of mp 2 on gpt_1p3b calls it (0.66 B bf16
+    parameters, f32 masters and moments, clip 1.0), with no group to sum
+    over: against the plain version with the same split (f32 buffers
+    within 1e-6 of each tensor's largest magnitude, bf16 within one ulp
+    of it, norms within 1e-5) and against the degree-1 call (the norm
+    within 1e-5: the same sum in another order); one launch counted a
+    call; timed beside the degree-1 call and the plain version."""
+    from paddle_tpu_torch.nn.clip import GradSync
+    from paddle_tpu_torch.ops.kernels import fused_adam as K8
+
+    shapes, flags = _mp2_shapes()
+    N = sum(int(np.prod(s)) for s in shapes)
+    split = (GradSync(), flags)
+
+    def buffers(grads=None):
+        g = torch.Generator(device=dev).manual_seed(24)
+        params = [(0.02 * torch.randn(s, device=dev, generator=g)
+                   ).bfloat16() for s in shapes]
+        new = [(1e-3 * torch.randn(s, device=dev, generator=g)).bfloat16()
+               for s in shapes]
+        return dict(params=params, grads=grads or new,
+                    masters=[p.float() for p in params],
+                    moments1=[1e-4 * torch.randn(s, device=dev, generator=g)
+                              for s in shapes],
+                    moments2=[1e-8 * torch.rand(s, device=dev, generator=g)
+                              for s in shapes],
+                    decays=[True] * len(shapes))
+
+    kw = dict(lr=3e-4, beta1=0.9, beta2=0.999, epsilon=1e-8,
+              weight_decay=0.01, decoupled=True, step=3, clip_norm=1.0)
+    A = buffers()
+    B = buffers(A["grads"])
+    n0 = K8.fused_adam.launches
+    norm = K8.fused_adam(**A, **kw, split=split)
+    if K8.fused_adam.launches != n0 + 1:
+        raise AssertionError("K8's split call did not count one launch")
+    rnorm = K8.fused_adam_dense(**B, **kw, split=split)
+    torch.cuda.synchronize()
+    rel, scaled, abs_err = 0.0, 0.0, 0.0
+    for key in ("masters", "moments1", "moments2", "params"):
+        for x, r in zip(A[key], B[key]):
+            d = (x.float() - r.float()).abs().max().item()
+            top = max(r.float().abs().max().item(), 1e-30)
+            abs_err = max(abs_err, d)
+            if x.dtype == torch.float32:
+                rel = max(rel, d / top)
+            else:
+                scaled = max(scaled, d / (2.0 ** (math.floor(
+                    math.log2(top)) - 7)))
+    del B
+    torch.cuda.empty_cache()
+    C = buffers(A["grads"])
+    dnorm = K8.fused_adam(**C, **kw)
+    del C
+    torch.cuda.empty_cache()
+    stats = dict(rel=rel, ulps_at_max=scaled, abs_err=abs_err,
+                 norm_err=abs(norm.item() - rnorm.item()) / rnorm.item(),
+                 norm_vs_degree1=abs(norm.item() - dnorm.item())
+                 / dnorm.item(), norm=norm.item())
+    log(f"[kernels] fused_adam split (one mp 2 rank of gpt_1p3b, "
+        f"{N / 1e9:.3f}B) against its plain version and the degree-1 "
+        f"call: {json.dumps(stats)}")
+    if not (rel <= 1e-6 and scaled <= 1 and stats["norm_err"] <= 1e-5
+            and stats["norm_vs_degree1"] <= 1e-5):
+        raise AssertionError(f"K8's split reduce disagrees: {stats}")
+    ms = events_ms(lambda: K8.fused_adam(**A, **kw, split=split), iters=10,
+                   warm=2)
+    unsplit_ms = events_ms(lambda: K8.fused_adam(**A, **kw), iters=10,
+                           warm=2)
+    plain_ms = events_ms(lambda: K8.fused_adam_dense(**A, **kw, split=split),
+                         iters=3, warm=1)
+    b_ms, b_by = bound(28 * N, 30 * N, torch.float32)
+    results.append(dict(
+        name="fused_adam_split", shape=[N], tensors=len(shapes),
+        dtype="bfloat16", max_abs_err=abs_err, rel_err=rel, tol=1e-6,
+        bf16_ulps_at_tensor_max=scaled, norm_rel_err=stats["norm_err"],
+        norm_vs_degree1=stats["norm_vs_degree1"], ms=ms,
+        degree1_ms=unsplit_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by))
+    del A
+    torch.cuda.empty_cache()
+
+
+def check_head_offset(dev, results):
+    """K1/K2 with dropout at a head offset: one mp 2 rank's half of
+    gpt_1p3b's attention (heads 8..15 of [4, 2048, 16, 128], bf16,
+    p = 0.1) run with head_offset 8 gives the bits of the whole call's
+    heads 8..15 (output, lse, dq, dk, dv), and is held to the plain
+    version at the same offset per tile (2e-2)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    p, seed, h0 = DROPOUT_P, DROPOUT_SEED, 8
+    g = torch.Generator(device=dev).manual_seed(16)
+    q, k, v, do, _, _ = _flash_inputs(dev, torch.bfloat16, 4, 2048, 2048,
+                                      16, 16, 128, False, g)
+    out, lse = K1.flash_attention_fwd_lse(q, k, v, True, dropout=p,
+                                          seed=seed)
+    grads = K1.flash_attention_bwd(q, k, v, out, lse, do, True, dropout=p,
+                                   seed=seed)
+    half = [t[:, :, h0:].contiguous() for t in (q, k, v, do)]
+    hq, hk, hv, hdo = half
+    hout, hlse = K1.flash_attention_fwd_lse(hq, hk, hv, True, dropout=p,
+                                            seed=seed, head_offset=h0)
+    hgrads = K1.flash_attention_bwd(hq, hk, hv, hout, hlse, hdo, True,
+                                    dropout=p, seed=seed, head_offset=h0)
+    bits = dict(out=torch.equal(hout, out[:, :, h0:]),
+                lse=torch.equal(hlse, lse[:, h0:]),
+                **{n: torch.equal(a, b[:, :, h0:]) for n, a, b in
+                   zip(("dq", "dk", "dv"), hgrads, grads)})
+    r_out, _ = K1.flash_attention_dense(hq, hk, hv, True, dropout=p,
+                                        seed=seed, head_offset=h0)
+    r_grads = K1.flash_attention_bwd_dense(hq, hk, hv, hdo, True, dropout=p,
+                                           seed=seed, head_offset=h0)
+    eo = _errs(hout, r_out)
+    eg = [_errs(a, b) for a, b in zip(hgrads, r_grads)]
+    log(f"[kernels] K1/K2 with dropout at head offset {h0} (heads 8..15 of "
+        f"gpt_1p3b's attention): bit-equal to the whole call's heads "
+        f"{json.dumps(bits)}; against the plain version per tile: output "
+        f"{eo[3]}, gradients {max(e[3] for e in eg)}")
+    if not all(bits.values()):
+        raise AssertionError(f"K1/K2 at a head offset are not the whole "
+                             f"call's heads: {bits}")
+    base = dict(case="mp2_rank1_head_offset", shape=[4, 2048, 8, 128],
+                kv_heads=8, causal=True, dropout=p, dtype="bfloat16",
+                tol=TOL[torch.bfloat16], head_offset=h0,
+                bit_equal_to_whole_call=bits, diagnostic=True)
+    results += [dict(base, name="flash_attention_fwd_dropout",
+                     max_abs_err=eo[0], rel_err=eo[3]),
+                dict(base, name="flash_attention_bwd_dropout",
+                     max_abs_err=max(e[0] for e in eg),
+                     rel_err=max(e[3] for e in eg))]
+    del q, k, v, do, out, lse, grads, half, hout, hlse, hgrads, r_out, \
+        r_grads
     torch.cuda.empty_cache()
 
 
@@ -4256,11 +4452,14 @@ def check_gpt_attention(model, opt, batch):
     kernel_path = gpt.flash_attention
     seen = []
 
-    def watched(q, k, v, causal=False, dropout=0.0, generator=None):
+    def watched(q, k, v, causal=False, dropout=0.0, generator=None,
+                head_offset=0):
         seed = DM.draw_seed(generator) if dropout else None
-        out = kernel_path(q, k, v, causal=causal, dropout=dropout, seed=seed)
+        out = kernel_path(q, k, v, causal=causal, dropout=dropout, seed=seed,
+                          head_offset=head_offset)
         rec = dict(q=q.detach(), k=k.detach(), v=v.detach(),
-                   out=out.detach(), causal=causal, p=dropout, seed=seed)
+                   out=out.detach(), causal=causal, p=dropout, seed=seed,
+                   h0=head_offset)
         for key, t in (("do", out), ("dq", q), ("dk", k), ("dv", v)):
             t.register_hook(lambda g, key=key: rec.__setitem__(key, g))
         seen.append(rec)
@@ -5320,6 +5519,485 @@ def phase_train_ckpt(counters, layers=4, steps=8, device="cuda", cfg=None,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase 16: hybrid parallelism (tensor and data parallel GPT) -------------
+# Each run's ranks are processes the port's launcher starts, sharing the
+# one card; their collectives go over gloo (staged through host memory),
+# so their times say nothing about NCCL. Run: (mode, ranks, dp, mp,
+# layers, dtype, steps, the global batch [B, S]).
+HYBRID_RUNS = {
+    "mp2-fp32": (2, 1, 2, 2, "float32", 3, (4, 2048)),
+    "mp2-bf16": (2, 1, 2, 24, "bfloat16", 5, (4, 2048)),
+    "dp2mp2": (4, 2, 2, 4, "bfloat16", 3, (4, 2048)),
+}
+HYBRID_SEED, HYBRID_BATCH_SEED, HYBRID_ATTN_SEED = 0, 21, 0x48_3021
+HYBRID_TIMEOUT_S = 600        # a launch; every gloo group: 300 s
+
+
+def _hybrid_cfg(layers, dtype, dropout=0.0):
+    """gpt_1p3b's widths at ``layers`` layers."""
+    import dataclasses
+
+    from paddle_tpu_torch.models.gpt import gpt_1p3b
+
+    return dataclasses.replace(
+        gpt_1p3b(dtype=dtype, hidden_dropout=dropout,
+                 attention_dropout=dropout), num_layers=layers)
+
+
+def _hybrid_trainer(model, mesh=None):
+    """The hybrid runs' step: AdamW (lr 3e-4, decay 0.01, f32 masters for
+    bf16 weights), clip 1.0, through ParallelEngine over ``mesh``."""
+    from paddle_tpu_torch.distributed.engine import ParallelEngine
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=3e-4, weight_decay=0.01,
+                multi_precision=model.config.dtype != "float32",
+                grad_clip=ClipGradByGlobalNorm(1.0),
+                parameters=model.named_parameters())
+    crit = GPTPretrainingCriterion(model.config)
+    eng = ParallelEngine(model, opt, mesh)
+    return opt, eng.train_step(lambda m, b: crit(m(b["x"]), b["y"]))
+
+
+def _hybrid_reference(cfg, steps, B, S, params=False):
+    """The degree-1 run a hybrid run is held to: the same model, seed,
+    batch and step in one process (the parent). (losses, the parameters
+    in the JAX layout on the host, or None)."""
+    from paddle_tpu_torch.convert import export_jax_state_dict
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+
+    model = GPTForCausalLM(cfg, device="cuda", seed=HYBRID_SEED)
+    _, step = _hybrid_trainer(model)
+    batch = _lm_batch(HYBRID_BATCH_SEED, B, S, cfg.vocab_size, model.device)
+    losses = [float(step(batch)) for _ in range(steps)]
+    state = export_jax_state_dict(model, tensors=True) if params else None
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, state
+
+
+def _launch_ranks(n, mode, out_dir):
+    """``python -m paddle_tpu_torch.distributed.launch --nproc_per_node n
+    chip_smoke.py --hybrid-rank mode``: fresh processes (the parent holds
+    a CUDA context, so none is forked from it), each rank's output in
+    out_dir/logs/<mode>/workerlog.<rank>; a rank that fails or hangs
+    fails the launch. Returns each rank's result (its JSON file)."""
+    logs = out_dir / "logs" / mode
+    for f in out_dir.glob(f"{mode}.rank*.json"):
+        f.unlink()
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(n), "--log_dir", str(logs),
+           str(Path(__file__).resolve()), "--hybrid-rank", mode,
+           "--hybrid-dir", str(out_dir)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=HYBRID_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        rc = "timeout"
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        for f in sorted(logs.glob("workerlog.*")):
+            log(f"[train-hybrid] {mode} {f.name}, last lines:\n"
+                + "\n".join(f.read_text().splitlines()[-25:]))
+        raise AssertionError(f"train-hybrid {mode}: the launcher returned "
+                             f"{rc} after {secs:.1f}s")
+    res = [json.loads((out_dir / f"{mode}.rank{r}.json").read_text())
+           for r in range(n)]
+    log(f"[train-hybrid] {mode}: {n} rank(s) in {secs:.1f}s (launch "
+        f"included)")
+    return res
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_train_hybrid(counters):
+    """Phase 16 (see the module docstring): NCCL at world 1; ranks
+    sharing the card refused (the port's check and NCCL's own error);
+    mp 2 fp32 at 2 layers, mp 2 bf16 at full depth (dropout 0, then 0.1)
+    and dp 2 x mp 2 bf16 at 4 layers against degree-1 runs of the same
+    model in this process. Returns the kernels' launches per rank of the
+    runs, by path."""
+    out_dir = Path(__file__).resolve().parent / "build" / "hybrid"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    card = smi.splitlines()[0]
+    log(f"[train-hybrid] {card}; every multi-rank time below is of ranks "
+        f"sharing this one card over gloo (collectives staged through "
+        f"host memory): not NCCL's speed")
+    r = _launch_ranks(1, "nccl1", out_dir)[0]
+    log("[train-hybrid] nccl1 " + json.dumps(r))
+    for r in _launch_ranks(2, "nccl-shared", out_dir):
+        log("[train-hybrid] nccl-shared " + json.dumps(r))
+    launches = {}
+    for mode, (n, dp, mp, layers, dtype, steps, (B, S)) in \
+            HYBRID_RUNS.items():
+        refs = {}
+        for p in ((0.0, 0.1) if mode == "mp2-bf16" else (0.0,)):
+            cfg = _hybrid_cfg(layers, dtype, p)
+            losses, state = _hybrid_reference(cfg, steps, B, S,
+                                              params=dtype == "float32")
+            refs[str(p)] = losses
+            if state is not None:
+                torch.save(state, out_dir / f"{mode}.ref.pt")
+            log(f"[train-hybrid] {mode} degree-1 reference, dropout {p}: "
+                f"losses {losses}")
+        (out_dir / f"{mode}.ref.json").write_text(json.dumps(refs))
+        res = _launch_ranks(n, mode, out_dir)
+        for rk in res:
+            log(f"[train-hybrid] {mode} rank {rk['rank']} ({card}): "
+                + json.dumps(rk))
+        for rk in res[1:]:
+            for key in ("losses",):
+                if rk[key] != res[0][key]:
+                    raise AssertionError(f"{mode}: rank {rk['rank']}'s "
+                                         f"{key} differ from rank 0's")
+        launches[mode] = [run["launches"] for run in res[0]["runs"]]
+        (out_dir / f"{mode}.ref.pt").unlink(missing_ok=True)
+    log("[train-hybrid] nccl at world 1, the refusals, mp 2 fp32 / bf16 "
+        "and dp 2 x mp 2 within their gates of degree 1; replicated "
+        "parameters bit-equal across ranks; launches as expected: OK")
+    return {"train_hybrid": launches["mp2-bf16"][0],
+            "train_hybrid_dropout": launches["mp2-bf16"][1],
+            "train_hybrid_fp32": launches["mp2-fp32"][0],
+            "train_hybrid_dp2mp2": launches["dp2mp2"][0]}
+
+
+# -- the ranks (chip_smoke.py --hybrid-rank MODE, under the launcher) ---------
+def _hybrid_world(mode):
+    from paddle_tpu_torch.distributed import collective as C
+
+    if mode == "nccl1":
+        return C.init_parallel_env(backend="nccl")
+    return C.init_parallel_env(backend="gloo", device="cuda", timeout=300)
+
+
+def _rank_nccl1(out):
+    """World 1 on NCCL: every collective of the API on a CUDA tensor is
+    the identity (through NCCL), then one GPT step under a degree-1 HCG
+    bit-equal to the same step without fleet."""
+    from paddle_tpu_torch.convert import export_jax_state_dict
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import compat, fleet
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.observability import commledger as cl
+
+    g = C.get_group(0)
+    if not (g.backend == "nccl" and g.process_group is not None
+            and torch.distributed.get_backend() == "nccl"):
+        raise AssertionError(f"nccl1: world group {g}")
+    x = torch.arange(1, 9, dtype=torch.float32, device="cuda").reshape(2, 4)
+    checks = {}
+    with cl.capture() as led:
+        for name, op in (("sum", C.ReduceOp.SUM), ("max", C.ReduceOp.MAX),
+                         ("min", C.ReduceOp.MIN), ("prod", C.ReduceOp.PROD),
+                         ("avg", C.ReduceOp.AVG)):
+            y = x.clone()
+            C.all_reduce(y, op)
+            checks["all_reduce_" + name] = torch.equal(y, x)
+        parts = []
+        checks["all_gather"] = torch.equal(C.all_gather(parts, x, axis=1),
+                                           x) and len(parts) == 1
+        checks["reduce_scatter"] = torch.equal(C.reduce_scatter(x), x)
+        checks["all_to_all"] = torch.equal(C.all_to_all(x), x)
+        y = x.clone()
+        checks["broadcast"] = torch.equal(C.broadcast(y, 0), x)
+        y = x.clone()
+        checks["reduce"] = torch.equal(C.reduce(y, 0), x)
+        y = torch.empty_like(x)
+        checks["scatter"] = torch.equal(C.scatter(y, [x], 0), x)
+        y = torch.empty_like(x)
+        C.send(x, 0)
+        checks["send_recv"] = torch.equal(C.recv(y, 0), x)
+        checks["ppermute"] = torch.equal(C.ppermute(x, [(0, 0)]), x)
+        checks["t_shims"] = all(torch.equal(f(x, g), x) for f in (
+            C.t_psum, C.t_pmean, C.t_pmax, C.t_pmin, C.t_all_gather,
+            C.t_psum_scatter, C.t_all_to_all))
+        checks["alltoall_single"] = torch.equal(
+            compat.alltoall_single(None, x), x)
+        C.barrier()
+        checks["all_gather_object"] = C.all_gather_object([], {"r": 0}) == [
+            {"r": 0}]
+        checks["broadcast_object_list"] = C.broadcast_object_list(
+            [{"a": 1}]) == [{"a": 1}]
+    torch.cuda.synchronize()
+    if not all(checks.values()):
+        raise AssertionError(f"nccl1: collectives not identities: {checks}")
+    if led.host_bytes() != 0 or not len(led):
+        raise AssertionError("nccl1: the NCCL collectives staged bytes or "
+                             "booked nothing")
+    # one GPT step without fleet, then under a degree-1 HCG
+    cfg = _hybrid_cfg(2, "bfloat16")
+    batch = _lm_batch(HYBRID_BATCH_SEED, 4, 2048, cfg.vocab_size, "cuda")
+    runs = []
+    for hcg in (None, "fleet"):
+        mesh = None
+        if hcg:
+            hcg = fleet.init(is_collective=True,
+                             strategy=fleet.DistributedStrategy())
+            mesh = hcg.mesh
+        model = GPTForCausalLM(cfg, device="cuda", seed=HYBRID_SEED)
+        _, step = _hybrid_trainer(model, mesh)
+        loss = float(step(batch))
+        runs.append((loss, export_jax_state_dict(model, tensors=True)))
+        del model, step
+    (l0, p0), (l1, p1) = runs
+    bit_equal = l0 == l1 and all(torch.equal(p0[k], p1[k]) for k in p0)
+    if not bit_equal:
+        raise AssertionError(f"nccl1: the degree-1 HCG step differs from "
+                             f"the step without fleet ({l0} vs {l1})")
+    out.update(backend="nccl", collectives=checks, ledger_records=len(led),
+               gpt_step_loss=l0, hcg_step_bit_equal=bit_equal)
+
+
+def _rank_nccl_shared(out):
+    """Two ranks on the one card: init_parallel_env() (no backend named)
+    refuses, and NCCL itself, asked anyway, reports the duplicate GPU."""
+    import datetime
+
+    from paddle_tpu_torch.distributed import collective as C
+
+    try:
+        C.init_parallel_env()
+        raise AssertionError("init_parallel_env() accepted ranks sharing "
+                             "a card")
+    except RuntimeError as e:
+        if "share" not in str(e):
+            raise
+        out["port_refusal"] = str(e).splitlines()[0][:200]
+    dist = torch.distributed
+    try:
+        dist.init_process_group(
+            "nccl", timeout=datetime.timedelta(seconds=60),
+            device_id=torch.device("cuda", 0))
+        t = torch.ones(4, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        raise AssertionError("NCCL ran two ranks on one card")
+    except RuntimeError as e:
+        msg = [ln for ln in str(e).splitlines() if "Duplicate GPU" in ln]
+        if not msg:
+            raise
+        out["nccl_error"] = msg[0].strip()
+
+
+def _check_rank_attention(model, batch, p, h0):
+    """Layer 0's attention on this rank's heads: K1 (with dropout p at
+    this rank's head offset) against the plain version, per tile."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    layer = model.gpt.layers[0]
+    with torch.no_grad():
+        x = layer.ln1(model.gpt.embeddings(batch["x"]))
+        B, S = x.shape[:2]
+        D = model.config.head_dim
+        qkv = layer.attn.qkv_proj(x).reshape(B, S, -1, 3 * D)
+        q, k, v = (t.contiguous() for t in qkv.split(D, dim=-1))
+        kw = dict(dropout=p, seed=HYBRID_ATTN_SEED if p else None,
+                  head_offset=h0)
+        out, _ = K1.flash_attention_fwd_lse(q, k, v, True, **kw)
+        ref, _ = K1.flash_attention_dense(q, k, v, True, **kw)
+    e = _errs(out, ref)
+    if not e[3] <= TOL[torch.bfloat16]:
+        raise AssertionError(f"layer 0 attention off by {e[3]} per tile")
+    return {"rel_err": e[3], "max_abs_err": e[0], "heads": q.shape[2],
+            "head_offset": h0}
+
+
+def _replicated_equal(model, group):
+    """Are the parameters that are not mp shards (LayerNorms, position
+    embeddings, row biases) bit-equal on every rank of ``group``?"""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers import \
+        mp_sharded
+
+    reps = [p.detach().reshape(-1) for p in model.parameters()
+            if not mp_sharded(p)]
+    # bits as int32 (gloo gathers no int16)
+    flat = torch.cat([t.view(torch.int16).int() if t.dtype == torch.bfloat16
+                      else t.view(torch.int32) for t in reps])
+    got = C.t_all_gather(flat, group, tiled=False)
+    return all(torch.equal(got[0], got[i]) for i in range(1, group.nranks))
+
+
+def _comm_closed_form(model, b, S, dp, ledger):
+    """A step's booked payload bytes by (group, op) against the closed
+    form: on mp, 4 L b S H e (two forward and two backward activation
+    all-reduces a layer) + 2 b S H e (the embedding's and the tied head's)
+    + 2 b S 4 (the cross entropy's sums) + 4 (K8's sharded squared sum);
+    pmax b S 4 (the cross entropy's max); on dp (dp > 1), each local
+    gradient once, in its parameter's dtype; on the world, the loss's
+    mean (4)."""
+    cfg = model.config
+    L, H = cfg.num_layers, cfg.hidden_size
+    e = 2 if cfg.dtype == "bfloat16" else 4
+    booked = {}
+    for r in ledger.records:
+        key = f"{r.axis}/{r.op}"
+        booked[key] = booked.get(key, 0) + r.payload_bytes
+    want = {"mp/psum": 4 * L * b * S * H * e + 2 * b * S * H * e
+            + 2 * b * S * 4 + 4, "mp/pmax": b * S * 4, "world/psum": 4}
+    if dp > 1:
+        want["dp/psum"] = sum(p.numel() * p.element_size()
+                              for p in model.parameters())
+    return booked, want
+
+
+def _params_rel(mine, ref):
+    """The gathered parameters' relative L2 distance from degree 1's:
+    over all of them together ("all", the gate), and the worst tensor
+    with its own (printed: a zero-initialised bias after a few AdamW
+    steps is a few lr in size, and its elements whose gradient is near 0
+    take steps of up to lr from f32 summation noise, Adam's g / (|g| +
+    eps), as tests/test_torch_gpt.py's gate explains)."""
+    d2 = r2 = 0.0
+    worst = (0.0, None)
+    for k in ref:
+        d = float((mine[k].double() - ref[k].double()).norm())
+        r = float(ref[k].double().norm())
+        d2, r2 = d2 + d * d, r2 + r * r
+        worst = max(worst, (d / max(r, 1e-30), k))
+    return {"all": math.sqrt(d2 / r2), "worst_tensor": worst[1],
+            "worst_tensor_rel": worst[0]}
+
+
+def _rank_train(mode, out, out_dir):
+    """One hybrid run on this rank (HYBRID_RUNS[mode]); for mp2-bf16 a
+    second run with dropout 0.1."""
+    from paddle_tpu_torch.convert import export_jax_state_dict
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.observability import commledger as cl
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+    from paddle_tpu_torch.ops.kernels.fused_adam import fused_adam
+
+    n, dp, mp, layers, dtype, steps, (B, S) = HYBRID_RUNS[mode]
+    refs = json.loads((out_dir / f"{mode}.ref.json").read_text())
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": dp, "mp_degree": mp}
+    hcg = fleet.init(is_collective=True, strategy=strategy)
+    rank = C.get_rank()
+    counters = [K1.flash_attention_fwd, K1.flash_attention_bwd, fused_adam,
+                K1.flash_attention_fwd_dropout,
+                K1.flash_attention_bwd_dropout]
+    runs = []
+    for p in ((0.0, 0.1) if mode == "mp2-bf16" else (0.0,)):
+        cfg = _hybrid_cfg(layers, dtype, p)
+        model = GPTForCausalLM(cfg, device="cuda", seed=HYBRID_SEED)
+        opt, step = _hybrid_trainer(model, hcg.mesh)
+        batch = _lm_batch(HYBRID_BATCH_SEED, B, S, cfg.vocab_size, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        staged0 = C.staging_stats()
+        losses, secs = [], []
+        for i in range(steps):
+            C.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == steps - 1:
+                with cl.capture() as led:
+                    losses.append(float(step(batch)))
+            else:
+                losses.append(float(step(batch)))
+            secs.append(time.perf_counter() - t0)
+        staged = {k: C.staging_stats()[k] - staged0[k] for k in staged0}
+        got = {c.__name__: c.launches for c in counters}
+        want = {K1.flash_attention_fwd.__name__: layers * steps,
+                K1.flash_attention_bwd.__name__: layers * steps,
+                fused_adam.__name__: steps,
+                K1.flash_attention_fwd_dropout.__name__:
+                    layers * steps if p else 0,
+                K1.flash_attention_bwd_dropout.__name__:
+                    layers * steps if p else 0}
+        _expect_launches(got, want, f"{mode} rank {rank}")
+        ref = refs[str(p)]
+        gate = 1e-4 if dtype == "float32" else 2e-2
+        rel = max(_rel(a, b) for a, b in zip(losses, ref))
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+                and rel <= gate):
+            raise AssertionError(f"{mode} dropout {p}: losses {losses}, "
+                                 f"degree 1 {ref}, worst relative {rel}")
+        mp_group = hcg.get_model_parallel_group()
+        rep_equal = _replicated_equal(model, mp_group)
+        every_equal = _replicated_equal(model, C.get_group(0)) \
+            if dp > 1 else None
+        if not rep_equal or every_equal is False:
+            raise AssertionError(f"{mode}: replicated parameters differ "
+                                 f"across ranks")
+        b = B // dp
+        booked, want_bytes = _comm_closed_form(model, b, S, dp, led)
+        if booked != want_bytes:
+            raise AssertionError(f"{mode}: booked {booked} bytes a step, "
+                                 f"the closed form {want_bytes}")
+        local = {k: v[rank // mp * b:(rank // mp + 1) * b] if dp > 1 else v
+                 for k, v in batch.items()}
+        attn = _check_rank_attention(model, local, p,
+                                     model.gpt.layers[0].attn.head_offset)
+        timed = secs[1:]
+        params_err = None
+        if dtype == "float32":
+            mine = export_jax_state_dict(model, tensors=True)
+            if rank == 0:
+                params_err = _params_rel(
+                    mine, torch.load(out_dir / f"{mode}.ref.pt"))
+                if not params_err["all"] <= 1e-4:
+                    raise AssertionError(f"{mode}: the gathered parameters "
+                                         f"{params_err} (relative L2) from "
+                                         f"degree 1")
+        runs.append(dict(
+            dropout=p, losses=losses, degree1_losses=ref,
+            loss_rel_err=rel, step_ms=[t * 1e3 for t in secs],
+            step_ms_p50=float(np.percentile(timed, 50)) * 1e3,
+            card_tokens_per_s=B * S / float(np.percentile(timed, 50)),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            comm_payload_bytes_last_step=booked,
+            comm_closed_form=want_bytes,
+            comm_host_bytes_last_step=led.host_bytes(),
+            staging_s_per_step=staged["seconds"] / steps,
+            staged_bytes_per_step=staged["bytes"] / steps,
+            replicated_bit_equal=rep_equal, all_ranks_equal=every_equal,
+            launches=got, attention=attn, params_rel_l2=params_err))
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    out.update(mode=mode, dp=dp, mp=mp, layers=layers, dtype=dtype,
+               batch=[B, S], runs=runs, launches=runs[0]["launches"],
+               losses=[r["losses"] for r in runs])
+
+
+def hybrid_rank(mode, out_dir):
+    """One rank of a train-hybrid launch: its result to
+    out_dir/<mode>.rank<r>.json; any failure exits non-zero."""
+    out_dir = Path(out_dir)
+    if mode == "nccl-shared":
+        out = {"rank": int(os.environ["RANK"])}
+        _rank_nccl_shared(out)
+    else:
+        from paddle_tpu_torch.distributed import collective as C
+
+        _hybrid_world(mode)
+        out = {"rank": C.get_rank(), "world": C.get_world_size()}
+        if mode == "nccl1":
+            _rank_nccl1(out)
+        else:
+            _rank_train(mode, out, out_dir)
+        C.barrier()
+        C.destroy_process_group()
+    (out_dir / f"{mode}.rank{out['rank']}.json").write_text(json.dumps(out))
+
+
 def k1_probe():
     """The second process of train-autotune: one K1 call at the train
     shape with FLAGS_use_autotune on, over the cache file the environment
@@ -5909,7 +6587,7 @@ def main():
                             "serve-disagg,serve-prefix-spec,"
                             "generate,weight-only,load-serve,train-parity,"
                             "train,train-autotune,gpt-parity,train-gpt,"
-                            "varlen,train-surface,train-ckpt")
+                            "varlen,train-surface,train-ckpt,train-hybrid")
     ap.add_argument("--profile", action="store_true",
                     help="serve the schedule once more (and the prefix and "
                     "draft configuration's), run 16 more decode steps of "
@@ -5933,6 +6611,8 @@ def main():
                     help="developer: comma-separated checkout roots; the "
                     "serve phase of each in turn (its own chip_smoke.py and "
                     "build), graphed tokens/s and TPOT p50 side by side")
+    ap.add_argument("--hybrid-rank", help=argparse.SUPPRESS)
+    ap.add_argument("--hybrid-dir", help=argparse.SUPPRESS)
     ap.add_argument("--mma-times", help=argparse.SUPPRESS)
     ap.add_argument("--k10-times", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -5955,6 +6635,10 @@ def main():
         sys.exit("chip_smoke.py: run it from the root of a checkout "
                  "(paddle_tpu_torch/ not found beside it)")
     sys.path.insert(0, str(repo))
+    if args.hybrid_rank:
+        # one rank of the train-hybrid phase, under the port's launcher
+        hybrid_rank(args.hybrid_rank, args.hybrid_dir)
+        return
     if args.k1_probe:
         k1_probe()
         return
@@ -6014,6 +6698,8 @@ def main():
         check_flash_tiles(dev, results, k7)
         check_flash_dropout(dev, results)
         check_fused_adam(dev, results)
+        check_fused_adam_split(dev, results)
+        check_head_offset(dev, results)
         for r in read_ceiling(dev):
             log("[kernels] read ceiling " + json.dumps(r))
         bad = []
@@ -6080,6 +6766,10 @@ def main():
              "train_ckpt": [flash_attention_fwd, flash_attention_bwd,
                             flash_attention_fwd_dropout,
                             flash_attention_bwd_dropout, fused_adam],
+             # phase 16: one rank of mp 2 (gpt_1p3b, bf16) at dropout 0
+             "train_hybrid": [flash_attention_fwd, flash_attention_bwd,
+                              fused_adam, flash_attention_fwd_dropout,
+                              flash_attention_bwd_dropout],
              "weight_only_generate_static": [rms_norm, decode_attention,
                                              weight_only_linear,
                                              weight_only_linear_wgmma],
@@ -6163,6 +6853,8 @@ def main():
         by_path["train_ckpt"] = phase_train_ckpt(paths["train_ckpt"])
         gc.collect()
         torch.cuda.empty_cache()
+    if "train-hybrid" in phases:
+        by_path.update(phase_train_hybrid(paths["train_hybrid"]))
 
     # one entry per kernel: the main path's dtype (bf16) at its main shape
     main_shape = {"rms_norm": [2048, 4096],

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import List, Optional, Set, Tuple
+from typing import Any, List, Optional, Set, Tuple
 
 import torch
 
@@ -163,16 +163,21 @@ class AmpStep:
     decr_ratio: float
     cap: float
     found: Optional[torch.Tensor] = None
+    # over a mesh: a GradSync whose found_group the flag is maxed over
+    sync: Optional[Any] = None
 
     def unscale(self, grads: List[torch.Tensor]
                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-        """(unscaled gradients, found): found over every raw gradient;
-        each unscaled in f32, rounded to its dtype, with an inverse scale
-        of 0 on overflow (the JAX engine's ``inv``)."""
+        """(unscaled gradients, found): found over every raw gradient (of
+        every rank, under ``sync``); each unscaled in f32, rounded to its
+        dtype, with an inverse scale of 0 on overflow (the JAX engine's
+        ``inv``)."""
         finite = torch.ones((), dtype=torch.bool, device=self.scale.device)
         for g in grads:
             finite = finite & torch.isfinite(g).all()
         found = (~finite).float().reshape(1)
+        if self.sync is not None:
+            found = self.sync.max_found(found)
         inv = torch.where(found > 0, torch.zeros_like(self.scale),
                           1.0 / self.scale)
         return [(g.float() * inv).to(g.dtype) for g in grads], found

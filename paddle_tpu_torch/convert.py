@@ -26,6 +26,17 @@ A model quantized for serving (``nn.quant.quantize_for_serving``) carries
 ``*.weight_quant`` (int8, ``[out, in]`` in both packages, so never
 transposed; int4 packed ``[out, in // 2]``) and ``*.weight_scale`` (f32)
 both ways bit for bit: int8 stays int8.
+
+Under tensor parallelism (a model built after ``fleet.init`` with mp > 1)
+``load_jax_state_dict(model, state, hcg=None)`` slices the JAX package's
+full weights for this rank: column-parallel weights and biases by output
+(the rows of the port's ``[out, in]``), row-parallel weights by input,
+the vocab embedding by rows; a row-parallel bias and everything else is
+replicated and loaded whole. ``hcg`` names the model-parallel rank and
+degree (default: the group each shard was built for).
+``export_jax_state_dict`` gathers the shards back into the full JAX
+layout (an all-gather over the mp group: every rank calls it), so
+parameters compare whole.
 """
 from __future__ import annotations
 
@@ -43,9 +54,28 @@ def _linear_weights(model: nn.Module):
             if isinstance(mod, nn.Linear)}
 
 
+def _shard(p: torch.Tensor, hcg=None):
+    """(group, split dim) of a tensor-parallel shard, or None."""
+    g = getattr(p, "mp_group", None)
+    if g is None:
+        return None
+    if hcg is not None:
+        g = hcg.get_model_parallel_group()
+    return g, p.split_axis
+
+
+def _local(t: torch.Tensor, shard) -> torch.Tensor:
+    """This rank's slice of the full tensor ``t`` (port layout)."""
+    if shard is None:
+        return t
+    g, axis = shard
+    n = t.shape[axis] // g.nranks
+    return t.narrow(axis, g.rank * n, n)
+
+
 @torch.no_grad()
-def load_jax_state_dict(model: nn.Module,
-                        state: Dict[str, np.ndarray]) -> None:
+def load_jax_state_dict(model: nn.Module, state: Dict[str, np.ndarray],
+                        hcg=None) -> None:
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(state))
     unexpected = sorted(set(state) - set(params))
@@ -65,6 +95,7 @@ def load_jax_state_dict(model: nn.Module,
             t = torch.tensor(np.ascontiguousarray(arr))
         if name in linear:
             t = t.T
+        t = _local(t, _shard(p, hcg))
         if tuple(t.shape) != tuple(p.shape):
             raise ValueError(f"load_jax_state_dict: {name} has shape "
                              f"{tuple(src.shape)} in the "
@@ -82,7 +113,12 @@ def export_jax_state_dict(model: nn.Module, tensors: bool = False) -> Dict:
     linear = _linear_weights(model)
     out = {}
     for name, p in model.named_parameters():
+        shard = _shard(p)
         p = p.detach()
+        if shard is not None:
+            from .distributed import collective as C
+
+            p = C.t_all_gather(p.contiguous(), shard[0], axis=shard[1])
         if name in linear:
             p = p.T
         if tensors:

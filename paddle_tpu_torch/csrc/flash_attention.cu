@@ -161,6 +161,10 @@ struct Args {
   // 1 / (1 - p); philox.cuh gives the counter layout
   uint32_t seed0, seed1, threshold;
   float keep_scale;
+  // the first head's global index: a tensor-parallel rank holding heads
+  // h0 .. h0 + H - 1 of the model hashes h0 + h, so its mask is its slice
+  // of the degree-1 mask (0 at degree 1)
+  int h0;
   // per-sequence frontiers (null: the causal / segment rule): qrange[b, r]
   // = (first, last) key row r sees, krange[b, j] = (first, last) q row
   // that sees key j; first > last: none
@@ -171,7 +175,8 @@ struct Args {
 // the keep bits of keys 8 g .. 8 g + 7 of (b, h, row): bit i keeps 8 g + i
 __device__ __forceinline__ uint32_t drop_byte(const Args& a, int b, int h,
                                               int row, int g) {
-  return philox::keep_byte(a.seed0, a.seed1, b, h, row, g, a.threshold);
+  return philox::keep_byte(a.seed0, a.seed1, b, a.h0 + h, row, g,
+                           a.threshold);
 }
 
 // The keep bits of a thread's elements of two 8-key column blocks g, g + 1
@@ -2609,7 +2614,7 @@ int fwd_launch(const void* q, const void* k, const void* v, const void* qseg,
                void* out, void* lse, int B, int Sq, int Skv,
                int H, int KV, int D, int causal, float scale, int dtype,
                int block_q, int block_kv, bool drop, uint32_t seed0,
-               uint32_t seed1, uint32_t threshold, float keep_scale,
+               uint32_t seed1, uint32_t threshold, float keep_scale, int h0,
                void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   Args a{};
@@ -2627,6 +2632,7 @@ int fwd_launch(const void* q, const void* k, const void* v, const void* qseg,
   a.scale = scale;
   a.seed0 = seed0; a.seed1 = seed1; a.threshold = threshold;
   a.keep_scale = keep_scale;
+  a.h0 = h0;
   return static_cast<int>(run_fwd(a, dtype, block_q, block_kv, drop,
                                   static_cast<cudaStream_t>(stream)));
 }
@@ -2640,7 +2646,7 @@ extern "C" int flash_attention_fwd_launch(
     float scale, int dtype, int block_q, int block_kv, void* stream) {
   return fwd_launch(q, k, v, qseg, kseg, qrange, krange, out, lse, B, Sq,
                     Skv, H, KV, D, causal, scale, dtype, block_q, block_kv,
-                    false, 0, 0, 0, 1.f, stream);
+                    false, 0, 0, 0, 1.f, 0, stream);
 }
 
 // K1 with attention dropout (the JAX _sdpa_raw's, after the softmax): O =
@@ -2648,16 +2654,17 @@ extern "C" int flash_attention_fwd_launch(
 // Philox4x32-10 keyed by (seed0, seed1) over the counter layout of
 // philox.cuh; an element is kept iff its 16-bit half of a word >=
 // threshold = round(p 2^16) (at most 65536: none kept); keep_scale =
-// 1 / (1 - p). The default tile only.
+// 1 / (1 - p); h0, the global index of head 0 (a tensor-parallel rank's
+// first head; 0 at degree 1). The default tile only.
 extern "C" int flash_attention_fwd_dropout_launch(
     const void* q, const void* k, const void* v, const void* qseg,
     const void* kseg, const void* qrange, const void* krange, void* out,
     void* lse, int B, int Sq, int Skv, int H, int KV, int D, int causal,
     float scale, int dtype, unsigned seed0, unsigned seed1,
-    unsigned threshold, float keep_scale, void* stream) {
+    unsigned threshold, float keep_scale, int h0, void* stream) {
   return fwd_launch(q, k, v, qseg, kseg, qrange, krange, out, lse, B, Sq,
                     Skv, H, KV, D, causal, scale, dtype, 0, 0, true, seed0,
-                    seed1, threshold, keep_scale, stream);
+                    seed1, threshold, keep_scale, h0, stream);
 }
 
 // The forward's built tiles for (D, dtype) as (block_q, block_kv) pairs in
@@ -2692,7 +2699,7 @@ int bwd_launch(const void* q, const void* k, const void* v, const void* out,
                void* dv, int B, int Sq, int Skv, int H, int KV, int D,
                int causal, float scale, int dtype, int parts, bool drop,
                uint32_t seed0, uint32_t seed1, uint32_t threshold,
-               float keep_scale, void* stream) {
+               float keep_scale, int h0, void* stream) {
   if (B <= 0 || H <= 0 || (Sq <= 0 && Skv <= 0)) return 0;
   Args a{};
   a.q = q;
@@ -2716,6 +2723,7 @@ int bwd_launch(const void* q, const void* k, const void* v, const void* out,
   a.scale = scale;
   a.seed0 = seed0; a.seed1 = seed1; a.threshold = threshold;
   a.keep_scale = keep_scale;
+  a.h0 = h0;
   return static_cast<int>(run_bwd(a, dtype, out, static_cast<float*>(work),
                                   parts, drop,
                                   static_cast<cudaStream_t>(stream)));
@@ -2731,7 +2739,7 @@ extern "C" int flash_attention_bwd_launch(
     int causal, float scale, int dtype, int parts, void* stream) {
   return bwd_launch(q, k, v, out, dout, lse, work, qseg, kseg, qrange,
                     krange, dq, dk, dv, B, Sq, Skv, H, KV, D, causal, scale,
-                    dtype, parts, false, 0, 0, 0, 1.f, stream);
+                    dtype, parts, false, 0, 0, 0, 1.f, 0, stream);
 }
 
 // K2 of K1's dropout call, from the same seed, threshold and keep_scale:
@@ -2743,9 +2751,10 @@ extern "C" int flash_attention_bwd_dropout_launch(
     const void* kseg, const void* qrange, const void* krange, void* dq,
     void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, int D,
     int causal, float scale, int dtype, int parts, unsigned seed0,
-    unsigned seed1, unsigned threshold, float keep_scale, void* stream) {
+    unsigned seed1, unsigned threshold, float keep_scale, int h0,
+    void* stream) {
   return bwd_launch(q, k, v, out, dout, lse, work, qseg, kseg, qrange,
                     krange, dq, dk, dv, B, Sq, Skv, H, KV, D, causal, scale,
                     dtype, parts, true, seed0, seed1, threshold, keep_scale,
-                    stream);
+                    h0, stream);
 }

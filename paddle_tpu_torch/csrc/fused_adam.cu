@@ -49,6 +49,16 @@
 //     threads on neighbouring groups, and updates them in place.
 // The tensor table (pointers, sizes, dtype and flags) is copied to the
 // device each step: gradients are reallocated after clear_grad.
+//
+// Under tensor parallelism (phase 1, then 2) the norm crosses ranks: the
+// squared sum of a rank's shards of split tensors must be summed over its
+// model-parallel group before the finalize, and the overflow flag taken
+// over every rank. Phase 1 runs the reduce and a finalize that writes
+// sums[0] (the sharded tensors' squared sum), sums[1] (the replicated
+// ones') and sums[2] (the nonfinite flag) and stops; the caller
+// all-reduces sums[0] over the mp group (and sums[2], max, over the
+// world); phase 2 finalizes from sums[0] + sums[1] and updates. Phase 0,
+// the degree-1 step, is the three launches above, unchanged.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -63,7 +73,7 @@ constexpr int kVec = 8;
 enum { F32 = 0, BF16 = 1, F16 = 2 };
 
 // one row of the tensor table: pointers as integers, the element count,
-// and code = param dtype | has_master << 8 | decays << 9
+// and code = param dtype | has_master << 8 | decays << 9 | mp shard << 10
 struct Desc {
   long long p, g, master, m, v, n, code;
 };
@@ -78,10 +88,11 @@ struct Args {
   float* amp_scale;        // [1] or null
   int* amp_counts;         // [3] good, bad, applied step, or null
   const float* pre_found;  // [1] or null
+  float* sums;             // [3] phases 1-2: sharded ss, replicated ss, bad
   float lr, beta1, beta2, c1, c2, eps, wd, clip, incr_ratio, decr_ratio,
       scale_cap;
   int n_chunks, l1, decoupled, step, reduce, unscale, dynamic, incr_every,
-      decr_every, state_dtype;
+      decr_every, state_dtype, phase;
 };
 
 template <int DT>
@@ -235,17 +246,36 @@ __global__ void __launch_bounds__(kThreads) reduce_kernel(Args a) {
 
 __global__ void finalize_kernel(Args a) {
   __shared__ float red[32];
-  float s = 0.f;
+  float s = 0.f, sh = 0.f;  // sh: the mp shards' partials (phase 1)
   int bad = 0;
-  if (a.reduce) {
+  if (a.reduce && a.phase != 2) {
     for (int i = threadIdx.x; i < a.n_chunks; i += blockDim.x) {
-      s += a.partial[i];
+      if (a.phase == 1 && ((a.descs[a.chunks[i].x].code >> 10) & 1))
+        sh += a.partial[i];
+      else
+        s += a.partial[i];
       bad |= a.flags[i];
     }
   }
   s = block_sum(s, red);
+  if (a.phase == 1) {
+    sh = block_sum(sh, red);
+    bad = __syncthreads_or(bad);
+    if (threadIdx.x == 0) {
+      a.sums[0] = sh;
+      a.sums[1] = s;
+      a.sums[2] = bad ? 1.f : 0.f;
+    }
+    return;
+  }
   bad = __syncthreads_or(bad);
   if (threadIdx.x != 0) return;
+  if (a.phase == 2) {
+    // the mp group's shards' sum (all-reduced by the caller) + this
+    // rank's replicated tensors' sum; the flag maxed over every rank
+    s = __fadd_rn(a.sums[0], a.sums[1]);
+    bad = a.sums[2] > 0.f;
+  }
   if (a.pre_found) bad |= *a.pre_found > 0.f;
   const float norm = __fsqrt_rn(s);
   float coef = 1.f;
@@ -387,20 +417,21 @@ __global__ void __launch_bounds__(kThreads) update_kernel(Args a) {
 }  // namespace
 
 // One K8 step: reduce (when clipping or under a scaler), finalize,
-// update, all on `stream`. Returns cudaGetLastError() after the launches.
-// `args` points to a host struct Args (the ctypes mirror is _Args in
-// ops/kernels/fused_adam.py).
+// update, all on `stream`; phase 1 the reduce and the split sums alone,
+// phase 2 the finalize from them and the update (the header). Returns
+// cudaGetLastError() after the launches. `args` points to a host struct
+// Args (the ctypes mirror is _Args in ops/kernels/fused_adam.py).
 extern "C" int fused_adam_launch(const void* args, void* stream) {
   const Args a = *static_cast<const Args*>(args);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.reduce && a.n_chunks > 0) {
+  if (a.reduce && a.n_chunks > 0 && a.phase != 2) {
     reduce_kernel<<<a.n_chunks, kThreads, 0, s>>>(a);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   finalize_kernel<<<1, 1024, 0, s>>>(a);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != cudaSuccess || a.phase == 1) return static_cast<int>(e);
   if (a.n_chunks > 0) {
     if (a.state_dtype == 0)
       update_kernel<F32><<<a.n_chunks, kThreads, 0, s>>>(a);

@@ -8,7 +8,9 @@
 // The counter layout (the one definition; dropout_mask.py's docstring
 // repeats it): the key is the call's 64-bit seed, k = {seed_lo, seed_hi};
 // the element (batch row b, query head h, query row r, key column c) takes
-// counter {c >> 3, r, h, b}, of its four output words the one numbered
+// counter {c >> 3, r, h, b} (h the head's index in the whole model: a
+// tensor-parallel rank adds its first head's), of its four output words
+// the one numbered
 // (c >> 1) & 3, and of that word the 16-bit half c & 1 (the low half for
 // even c). The element is kept iff that half >= threshold = round(p 2^16)
 // (0 .. 65536), which keeps it with probability 1 - p to within 2^-17; a

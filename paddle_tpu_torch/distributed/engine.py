@@ -1,9 +1,10 @@
-"""The train-step engine at degree 1 (counterpart of
-``paddle_tpu/distributed/engine.py`` ``ParallelEngine``).
+"""The train-step engine (counterpart of
+``paddle_tpu/distributed/engine.py`` ``ParallelEngine``), at degree 1
+and over a data- and tensor-parallel mesh.
 
 Usage, as in the JAX package::
 
-    eng = ParallelEngine(model, opt)
+    eng = ParallelEngine(model, opt)            # or (model, opt, hcg.mesh)
     step = eng.train_step(lambda model, batch:
                           loss_fn(model(batch["x"]), batch["y"]))
     loss = step({"x": xb, "y": yb})
@@ -68,9 +69,21 @@ gauges republished every step, with the state accounting and the
 allocator's live bytes. ``memory_ledger()``, ``state_accounting()`` and
 ``roofline_report()`` read them.
 
-Everything above degree 1 raises: a mesh of more than one device
-(ROADMAP.md queue 1, item 8), ZeRO, offload, quantized or overlapped
-communication (items 9 and 10).
+Over ``hcg.mesh`` (``fleet.init``; one process a rank) the step follows
+the JAX engine's (``engine.py:820-955``): ``train_step`` takes the
+global batch and each dp rank trains on its block of every array leaf's
+dim 0; after the backward every gradient is averaged over the dp group
+(one all-reduce a dtype, over a flat buffer); the optimizer gets a
+``nn.clip.GradSync`` so its clip and the reported global norm are the
+norm over the mp group (sharded gradients' squared sums all-reduced,
+replicated ones counted once) and a loss scaler's overflow flag is
+maxed over every rank; the loss returned is the mean over every rank.
+Telemetry stays per process (its tokens are the global batch's).
+
+Still raising over a mesh: the pipeline, sharding (ZeRO) and ``comm_overlap``
+axes and knobs (ROADMAP.md queue 1, item 9), sep / ep and ``quant_comm``
+(item 10), ``batch_specs`` (item 8's remainder), offload (item 9) and
+checkpoints across processes (items 9 and 11).
 """
 from __future__ import annotations
 
@@ -87,7 +100,7 @@ from ..convert import _linear_weights
 from ..core.compile_stats import CompileStats
 from ..core.enforce import enforce
 from ..models.llama import resolve_device
-from ..nn.clip import global_norm
+from ..nn.clip import GradSync, global_norm
 from ..observability import flops as _flops
 from ..observability import goodput as _gp
 from ..observability import healthmon as _hm
@@ -95,11 +108,14 @@ from ..observability import memledger as _ml
 from ..observability.catalog import train_metrics as _train_metrics
 from ..optimizer.lr import LRScheduler
 from . import failpoints as _fp
+from .parallel import fused_allreduce_gradients
 
 __all__ = ["ParallelEngine"]
 
-_ITEM8 = "ROADMAP.md queue 1, item 8 (the communication base)"
+_ITEM8R = "ROADMAP.md queue 1, item 8's remainder"
 _ITEM9_10 = "ROADMAP.md queue 1, items 9 and 10"
+# mesh axes the port does not run yet, and the item that ports each
+_AXIS_ITEM = {"pp": 9, "sharding": 9, "sep": 10, "ep": 10}
 
 
 def _map(batch, fn):
@@ -189,10 +205,14 @@ class ParallelEngine:
                  comm_buffer_size_mb=None, mem_ledger=None, quant_comm=None,
                  sharding_stage=None, stage3_release_after_forward=None,
                  offload=None):
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                f"ParallelEngine over a mesh of {mesh.size} devices is not "
-                f"ported yet: {_ITEM8}")
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            for axis, item in _AXIS_ITEM.items():
+                if mesh.shape.get(axis, 1) > 1:
+                    raise NotImplementedError(
+                        f"ParallelEngine over a mesh with a {axis} axis of "
+                        f"{mesh.shape[axis]}: not ported yet (ROADMAP.md "
+                        f"queue 1, item {item})")
         knobs = {"comm_overlap": comm_overlap, "quant_comm": quant_comm,
                  "sharding_stage": sharding_stage,
                  "stage3_release_after_forward":
@@ -204,7 +224,19 @@ class ParallelEngine:
                 f"ParallelEngine {', '.join(on)}: not ported yet "
                 f"({_ITEM9_10})")
         self.model = model
-        self.optimizer = optimizer
+        # a fleet optimizer wrapper steps its inner optimizer
+        self.optimizer = getattr(optimizer, "_inner_opt", optimizer)
+        self._dp = self._mp = self._world = None
+        if self.mesh is not None:
+            from . import collective as C
+
+            dp, mp = self.mesh.groups["dp"], self.mesh.groups["mp"]
+            self._dp = dp if dp.nranks > 1 else None
+            self._mp = mp if mp.nranks > 1 else None
+            self._world = C.get_group(0)
+            if self._mp is not None and self.optimizer is not None:
+                self.optimizer._grad_sync = GradSync(
+                    mp_group=self._mp, found_group=self._world)
         params = list(model.parameters())
         # the model's device is the engine's; a CUDA model without a card
         # raises here as it does where it is built
@@ -281,8 +313,8 @@ class ParallelEngine:
                    if use_scaler else None)
         if batch_specs is not None:
             raise NotImplementedError(
-                f"ParallelEngine.train_step(batch_specs=...) shards over a "
-                f"mesh: not ported yet ({_ITEM8})")
+                f"ParallelEngine.train_step(batch_specs=...): not ported yet "
+                f"({_ITEM8R}); the global batch's dim 0 is split over dp")
         if self.optimizer is None:
             raise ValueError("ParallelEngine.train_step needs an optimizer")
 
@@ -300,25 +332,36 @@ class ParallelEngine:
                 # the cap keeps the backward seed itself finite; a power
                 # of two keeps scale and unscale an exact round trip
                 amp.scale.clamp_(max=amp.cap)
+                amp.sync = opt._grad_sync
                 # loss scaling = seeding the backward with the scale
                 loss.backward(amp.scale.to(loss.dtype).reshape(loss.shape))
+                self._dp_mean_grads()
                 opt.step(amp=amp)
                 scaler._found_inf_dev = found = amp.found
             else:
                 loss.backward()
+                self._dp_mean_grads()
                 opt.step()
             gnorm = opt.grad_norm
             if gnorm is None:
                 # the JAX step always returns the global norm
-                grads = [p.grad for p in opt._parameter_list
-                         if p.grad is not None and not p.grad.is_sparse]
-                if grads:
+                ps = [p for p in opt._parameter_list
+                      if p.grad is not None and not p.grad.is_sparse]
+                if ps:
                     with torch.no_grad():
-                        gnorm = global_norm(grads)
+                        gnorm = global_norm(
+                            [p.grad for p in ps], **opt._sync_kw(ps))
             opt.clear_grad()
             if isinstance(opt._lr, LRScheduler):
                 opt._lr.step()   # once per train step, as the JAX engine
-            return loss.detach(), gnorm, found
+            loss = loss.detach()
+            if self._world is not None:
+                from . import collective as C
+
+                # the mean over every rank (JAX engine.py:955)
+                loss = C.t_pmean(loss.reshape(1), self._world).reshape(
+                    loss.shape)
+            return loss, gnorm, found
 
         def step(batch):
             t_entry = time.perf_counter()
@@ -327,6 +370,9 @@ class ParallelEngine:
             # earlier steps' scalars whose copies have landed (never waits)
             self._flush_pending_scalars(block=False)
             batch, structure, leaves = _map(batch, self._to_device)
+            n_tok = _batch_tokens(leaves)
+            if self._dp is not None:
+                batch, structure, leaves = _map(batch, self._dp_block)
             key = (structure, tuple(
                 (tuple(v.shape), str(v.dtype)) for v in leaves
                 if isinstance(v, torch.Tensor)), amp_key)
@@ -347,14 +393,32 @@ class ParallelEngine:
                 if probe is not None:
                     self._mem_ledgers[key] = self._step_ledger(
                         leaves, loss, probe.temp_bytes())
-                self._note_step(t_entry, _batch_tokens(leaves), loss, gnorm,
-                                found)
+                self._note_step(t_entry, n_tok, loss, gnorm, found)
             finally:
                 if led is not None:
                     led.end()
             return loss
 
         return step
+
+    # -- the data-parallel axis -------------------------------------------
+    def _dp_block(self, x):
+        """This dp rank's block of a global batch leaf's dim 0."""
+        if not isinstance(x, torch.Tensor) or x.dim() == 0:
+            return x
+        n, r = self._dp.nranks, self._dp.rank
+        enforce(x.shape[0] % n == 0,
+                f"ParallelEngine: a batch leaf's dim 0 ({x.shape[0]}) must "
+                f"divide the dp degree {n}")
+        b = x.shape[0] // n
+        return x[r * b:(r + 1) * b]
+
+    def _dp_mean_grads(self):
+        """Average every gradient over the dp group (the JAX pmean,
+        ``engine.py:820-840``)."""
+        if self._dp is not None:
+            fused_allreduce_gradients(self.optimizer._parameter_list,
+                                      self._dp)
 
     # -- telemetry (observability/) -------------------------------------
     def _flush_pending_scalars(self, block: bool = True):
@@ -403,8 +467,10 @@ class ParallelEngine:
             m["tokens_per_sec"].set(tps)
             n_params = self._n_params_cfg or sum(
                 p.numel() for p in self.model.parameters())
+            # every rank takes the global batch, so tps is the job's rate:
+            # its FLOPs over every card of the mesh (JAX engine.py:1235)
             m["mfu"].set(_flops.mfu(
-                n_params, tps, 1, self._peak_flops,
+                n_params, tps, self._n_devices(), self._peak_flops,
                 config=getattr(self.model, "config", None)))
         self._prev_step_entry = t_entry
         self._pending.append(_Scalars(
@@ -512,7 +578,7 @@ class ParallelEngine:
         n_params = self._n_params_cfg or sum(p.numel() for p in self.params)
         fl = _flops.train_flops_per_token(
             n_params, config=getattr(self.model, "config", None)) \
-            * self._last_tokens
+            * self._last_tokens / self._n_devices()
         led = self.memory_ledger()
         traffic = led.traffic_bytes if led is not None and \
             led.available else 0.0
@@ -534,13 +600,21 @@ class ParallelEngine:
 
         return get_registry().snapshot()
 
+    def _n_devices(self) -> int:
+        """The cards one step runs on: the mesh's size, else 1."""
+        return self.mesh.size if self.mesh is not None else 1
+
     def pod_throughput(self) -> Dict[str, float]:
-        """Job-level tokens/s. One process: the local gauge; across
-        processes it raises (``cross_host_sum``, ROADMAP.md item 8)."""
+        """Job-level tokens/s over every process (``cross_host_sum``).
+        Over a mesh every rank's gauge is already the job's rate (each
+        takes the global batch), so each adds its 1/mesh-size share: the
+        sum is the job's rate once, the mean of the ranks' readings.
+        Without a mesh each process trains on its own batches and adds
+        its whole gauge."""
         from ..observability import cross_host_sum, process_count
 
         local = self._metrics["tokens_per_sec"].value()
-        total = cross_host_sum(local)
+        total = cross_host_sum(local / self._n_devices())
         self._metrics["pod_tokens_per_sec"].set(total)
         return {"local_tokens_per_sec": local,
                 "pod_tokens_per_sec": total,

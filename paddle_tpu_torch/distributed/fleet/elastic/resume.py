@@ -1,7 +1,7 @@
 """The optimizer half of a training checkpoint (counterpart of
 ``paddle_tpu/distributed/fleet/elastic/resume.py``'s ``opt_state_tensors``
 and ``_apply_opt_state``; the rest of that module waits on ROADMAP.md
-queue 1, item 8).
+queue 1, item 11).
 
 Keys are the MODEL's structured parameter names, as in the JAX package
 (``gpt.layers.0.attn.qkv_proj.weight.moment1``, ``....master_weight``):

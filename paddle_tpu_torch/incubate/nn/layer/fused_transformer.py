@@ -15,7 +15,7 @@ accept and then ignore raise here when set: ``attn_mask`` (which the JAX
 layer turns into non-causal attention without applying it), ``cache``,
 ``key``/``value`` other than the query, ``kdim``/``vdim``,
 ``need_weights``, the ``*_attr`` ParamAttrs (ROADMAP.md queue 1, item
-2.2) and tensor parallelism (``nranks``, ``ring_id``: item 8).
+2.2) and tensor parallelism (``nranks``, ``ring_id``: item 8's remainder).
 
 ``FusedMultiTransformer`` is the reference's inference decoder stack over
 fused_multi_transformer_op.cu.h.
@@ -95,7 +95,7 @@ class FusedMultiHeadAttention(nn.Module):
                   need_weights=need_weights or None)
         enforce(nranks == 1 and ring_id == -1,
                 "FusedMultiHeadAttention: tensor parallelism is not ported "
-                "(ROADMAP.md queue 1, item 8)")
+                "(ROADMAP.md queue 1, item 8's remainder)")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
@@ -164,7 +164,7 @@ class FusedFeedForward(nn.Module):
                   ln2_scale_attr=ln2_scale_attr, ln2_bias_attr=ln2_bias_attr)
         enforce(nranks == 1 and ring_id == -1,
                 "FusedFeedForward: tensor parallelism is not ported "
-                "(ROADMAP.md queue 1, item 8)")
+                "(ROADMAP.md queue 1, item 8's remainder)")
         self.normalize_before = normalize_before
         self.dropout_rate = dropout_rate
         self.act_dropout_rate = (act_dropout_rate
@@ -242,7 +242,7 @@ class FusedMultiTransformer(nn.Module):
                 "convert.load_jax_state_dict")
         enforce(nranks == 1 and ring_id == -1,
                 "FusedMultiTransformer: tensor parallelism is not ported "
-                "(ROADMAP.md queue 1, item 8)")
+                "(ROADMAP.md queue 1, item 8's remainder)")
         enforce(trans_qkvw, "FusedMultiTransformer: the layer's qkv weight "
                 "is [embed_dim, 3 * embed_dim]; trans_qkvw applies to the "
                 "functional form")

@@ -10,7 +10,7 @@ order:
 1. **Health**: replicas whose ``health()`` is "degraded" (shedding, or
    the queue at its bound), or that an attached ``collector`` calls
    degraded (any object with ``member_health(name)``; the JAX
-   ``FleetCollector`` waits on ROADMAP.md queue 1, item 8), are skipped
+   ``FleetCollector`` waits on ROADMAP.md queue 1, item 11), are skipped
    while a healthy candidate exists; a fully degraded pool still serves.
 2. **Prefix affinity**: the prompt's page-aligned rolling prefix hashes
    (the ones the prefix cache registers pages under) against each

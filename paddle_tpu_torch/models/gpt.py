@@ -1,4 +1,5 @@
-"""GPT (counterpart of ``paddle_tpu/models/gpt.py``) at degree 1.
+"""GPT (counterpart of ``paddle_tpu/models/gpt.py``), at degree 1 and
+under tensor parallelism.
 
 Ported: the configuration and its presets, the training forward (pre-LN
 decoder blocks, causal flash attention through kernels K1/K2, attention
@@ -22,10 +23,27 @@ masks (``ops/kernels/dropout_mask.py``). The JAX model draws both from
 ``jax.random`` keys, so masks differ between the packages: only the
 distributions match.
 
+Tensor parallelism (an mp group of more than one rank: ``mp_group``, or
+the fleet HCG's when the model is built after ``fleet.init``), as the
+JAX model under its mesh: ``qkv_proj`` and ``fc1`` column-parallel,
+``out_proj`` and ``fc2`` row-parallel, the vocab-parallel embedding and
+the tied head's local logits (``_c_identity`` before the product, so its
+partial input gradients are summed) into the vocab-parallel cross
+entropy (the criterion takes the same group). qkv's columns are
+head-major (``[n_local, 3 D]``), so each rank holds whole heads. Built
+from a seed, every rank draws each full tensor from the seeded generator
+and keeps its slice, so an mp model starts from the degree-1 model's
+weights. Hidden dropout acts on replicated activations and draws from
+the model's generator, the same on every rank (every rank drops the same
+elements); attention dropout acts on head-sharded probabilities: one
+seed a call from the model's attention generator, the same on every
+rank, and each rank's kernels hash their heads' global indices
+(``head_offset``), so each rank drops its own heads and mp 2 with
+dropout computes degree 1's masks.
+
 Not ported: the MoE blocks (``GPTMoEMLP``, ``num_experts > 0``: ROADMAP.md
 queue 1, item 10), context parallelism (a ``sep_group`` of more than one
-rank: item 10), tensor parallelism (an ``mp_group`` of more than one
-rank: item 8) and ``GPTForCausalLMPipe`` (item 9). The JAX ``_annotate``
+rank: item 10) and ``GPTForCausalLMPipe`` (item 9). The JAX ``_annotate``
 scopes are ``torch.profiler.record_function`` ranges here.
 """
 from __future__ import annotations
@@ -43,8 +61,11 @@ from ..amp import cast_inputs
 from ..core.enforce import enforce
 from ..distributed.fleet.layers.mpu import (ColumnParallelLinear,
                                             RowParallelLinear,
-                                            VocabParallelEmbedding, mp_active,
+                                            VocabParallelEmbedding,
                                             parallel_cross_entropy)
+from ..distributed.fleet.layers.mpu.mp_layers import mp_sharded
+from ..distributed.fleet.layers.mpu.mp_ops import _c_identity
+from ..distributed.fleet.layers.mpu.mp_ops import mp_group as mp_group_of
 from ..nn import functional as F
 from ..nn.common import Dropout
 from ..ops.attention import flash_attention
@@ -103,13 +124,22 @@ class GPTAttention(nn.Module):
     dropout (train mode) inside K1/K2, hidden dropout after ``out_proj``."""
 
     def __init__(self, config: GPTConfig, generators, device=None,
-                 dtype=None):
+                 dtype=None, mp_group=None):
         super().__init__()
         self.config = config
         h = config.hidden_size
-        kw = {"device": device, "dtype": dtype, "has_bias": True}
-        self.qkv_proj = ColumnParallelLinear(h, 3 * h, **kw)
-        self.out_proj = RowParallelLinear(h, h, **kw)
+        kw = {"device": device, "dtype": dtype, "has_bias": True,
+              "mp_group": mp_group}
+        self.qkv_proj = ColumnParallelLinear(h, 3 * h, gather_output=False,
+                                             **kw)
+        self.out_proj = RowParallelLinear(h, h, input_is_parallel=True, **kw)
+        n = self.qkv_proj.world_size
+        enforce(config.num_heads % n == 0,
+                f"num_heads {config.num_heads} must divide mp degree {n}")
+        self.num_local_heads = config.num_heads // n
+        # this rank's first head in the model (the dropout mask's offset)
+        g = self.qkv_proj._mp_group
+        self.head_offset = 0 if g is None else g.rank * self.num_local_heads
         hidden_gen, self._attn_gen = generators
         self.dropout = Dropout(config.hidden_dropout, generator=hidden_gen)
 
@@ -118,8 +148,9 @@ class GPTAttention(nn.Module):
         cfg = self.config
         B, S = x.shape[0], x.shape[1]
         D = cfg.head_dim
+        n = self.num_local_heads
         # [B, S, n, 3D] split into q, k, v as the JAX layer does
-        qkv = self.qkv_proj(x).reshape(B, S, cfg.num_heads, 3 * D)
+        qkv = self.qkv_proj(x).reshape(B, S, n, 3 * D)
         q, k, v = (t.contiguous() for t in qkv.split(D, dim=-1))
         new_cache = None
         if cache is not None:
@@ -130,8 +161,9 @@ class GPTAttention(nn.Module):
         else:
             p = cfg.attention_dropout if self.training else 0.0
             out = flash_attention(q, k, v, causal=True, dropout=p,
-                                  generator=self._attn_gen)
-        out = self.dropout(self.out_proj(out.reshape(B, S, cfg.num_heads * D)))
+                                  generator=self._attn_gen,
+                                  head_offset=self.head_offset)
+        out = self.dropout(self.out_proj(out.reshape(B, S, n * D)))
         return (out, new_cache) if cache is not None else out
 
 
@@ -139,12 +171,13 @@ class GPTMLP(nn.Module):
     """fc1 -> tanh GELU -> fc2 -> hidden dropout."""
 
     def __init__(self, config: GPTConfig, generator, device=None,
-                 dtype=None):
+                 dtype=None, mp_group=None):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
-        kw = {"device": device, "dtype": dtype, "has_bias": True}
-        self.fc1 = ColumnParallelLinear(h, m, **kw)
-        self.fc2 = RowParallelLinear(m, h, **kw)
+        kw = {"device": device, "dtype": dtype, "has_bias": True,
+              "mp_group": mp_group}
+        self.fc1 = ColumnParallelLinear(h, m, gather_output=False, **kw)
+        self.fc2 = RowParallelLinear(m, h, input_is_parallel=True, **kw)
         self.dropout = Dropout(config.hidden_dropout, generator=generator)
 
     def forward(self, x):
@@ -155,14 +188,14 @@ class GPTDecoderLayer(nn.Module):
     """Pre-LN decoder block."""
 
     def __init__(self, config: GPTConfig, generators, device=None,
-                 dtype=None):
+                 dtype=None, mp_group=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         h, eps = config.hidden_size, config.layer_norm_eps
         self.ln1 = nn.LayerNorm(h, eps=eps, **kw)
-        self.attn = GPTAttention(config, generators, **kw)
+        self.attn = GPTAttention(config, generators, mp_group=mp_group, **kw)
         self.ln2 = nn.LayerNorm(h, eps=eps, **kw)
-        self.mlp = GPTMLP(config, generators[0], **kw)
+        self.mlp = GPTMLP(config, generators[0], mp_group=mp_group, **kw)
 
     def forward(self, x, cache=None):
         if cache is not None:
@@ -183,11 +216,12 @@ class GPTEmbeddings(nn.Module):
     ``arange(S) + position_offset``, then hidden dropout."""
 
     def __init__(self, config: GPTConfig, generator, device=None,
-                 dtype=None):
+                 dtype=None, mp_group=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         h = config.hidden_size
         self.word_embeddings = VocabParallelEmbedding(config.vocab_size, h,
+                                                      mp_group=mp_group,
                                                       **kw)
         self.position_embeddings = nn.Embedding(
             config.max_position_embeddings, h, **kw)
@@ -204,10 +238,11 @@ class GPTModel(nn.Module):
     """Embeddings, the decoder stack and the final LayerNorm.
     ``generators`` = (hidden dropout's, on the device; attention
     dropout's, on the CPU), as ``GPTForCausalLM`` makes them from its
-    seed; None makes them from seed 0."""
+    seed; None makes them from seed 0. ``mp_group``: the tensor-parallel
+    group (None: the fleet HCG's; degree 1 without one)."""
 
     def __init__(self, config: GPTConfig, device=None, dtype=None,
-                 generators=None, sep_group=None):
+                 generators=None, sep_group=None, mp_group=None):
         super().__init__()
         enforce(config.num_experts == 0,
                 "GPT's MoE blocks (GPTMoEMLP, num_experts > 0) are not "
@@ -220,11 +255,13 @@ class GPTModel(nn.Module):
         dev = resolve_device(device)
         if generators is None:
             generators = _generators(dev, 0)
-        kw = {"device": dev, "dtype": dtype}
+        kw = {"device": dev, "dtype": dtype,
+              "mp_group": mp_group_of(mp_group)}
         self.embeddings = GPTEmbeddings(config, generators[0], **kw)
         self.layers = nn.ModuleList([GPTDecoderLayer(config, generators,
                                                      **kw)
                                      for _ in range(config.num_layers)])
+        kw.pop("mp_group")
         self.final_ln = nn.LayerNorm(config.hidden_size,
                                      eps=config.layer_norm_eps, **kw)
 
@@ -246,6 +283,22 @@ class GPTModel(nn.Module):
             return self.final_ln(x)
 
 
+@torch.no_grad()
+def _draw(w: torch.Tensor, std: float, g: torch.Generator) -> None:
+    """``w`` ~ N(0, std) from ``g``: the whole tensor, or, for this
+    rank's shard of a tensor-parallel one, the full tensor drawn and this
+    rank's slice kept (the same values as the degree-1 model's)."""
+    if not mp_sharded(w):
+        w.normal_(0.0, std, generator=g)
+        return
+    grp, axis = w.mp_group, w.split_axis
+    shape = list(w.shape)
+    shape[axis] *= grp.nranks
+    full = torch.empty(shape, dtype=w.dtype, device=w.device)
+    full.normal_(0.0, std, generator=g)
+    w.copy_(full.narrow(axis, grp.rank * w.shape[axis], w.shape[axis]))
+
+
 def _generators(device: torch.device, seed: int):
     """(hidden dropout's generator on ``device``, attention dropout's on
     the CPU), seeded from ``seed``."""
@@ -259,25 +312,28 @@ class GPTForCausalLM(nn.Module):
     means the CUDA device; weights are drawn from a generator seeded with
     ``seed`` on that device (normal, std ``initializer_range``; ``out_proj``
     and ``fc2`` use std / sqrt(2 * num_layers); biases 0, LayerNorm 1 and
-    0), as the JAX initialisers draw them. ``mp_group`` / ``sep_group`` of
-    more than one rank raise (items 8 and 10)."""
+    0), as the JAX initialisers draw them; under tensor parallelism each
+    rank draws the full tensors and keeps its slices (module docstring).
+    ``mp_group`` (None: the fleet HCG's) shards the model; a ``sep_group``
+    of more than one rank raises (item 10). The logits are this rank's
+    vocab shard at mp > 1 (pair them with ``GPTPretrainingCriterion``)."""
 
     def __init__(self, config: GPTConfig, device=None, seed: int = 0,
                  mp_group=None, sep_group=None):
         super().__init__()
-        enforce(not mp_active(mp_group),
-                "GPT under tensor parallelism (an mp group of more than one "
-                "rank) is not ported yet: ROADMAP.md queue 1, item 8")
         self.config = config
         dev = resolve_device(device)
         dtype = _DTYPES[config.dtype]
+        self._mp_group = mp_group_of(mp_group)
         self.gpt = GPTModel(config, device=dev, dtype=dtype,
                             generators=_generators(dev, seed),
-                            sep_group=sep_group)
+                            sep_group=sep_group, mp_group=self._mp_group)
         if not config.tie_word_embeddings:
             self.lm_head = ColumnParallelLinear(config.hidden_size,
                                                 config.vocab_size,
-                                                device=dev, dtype=dtype)
+                                                device=dev, dtype=dtype,
+                                                gather_output=False,
+                                                mp_group=self._mp_group)
         self._init_weights(seed)
 
     @property
@@ -295,12 +351,16 @@ class GPTForCausalLM(nn.Module):
                 mod.bias.zero_()
             elif isinstance(mod, (nn.Linear, nn.Embedding)):
                 out = name.endswith(("out_proj", "fc2"))
-                mod.weight.normal_(0.0, out_std if out else std, generator=g)
+                _draw(mod.weight, out_std if out else std, g)
                 if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()
 
     def _logits(self, x):
         if self.config.tie_word_embeddings:
+            if self._mp_group is not None:
+                # each rank's head gives a partial input gradient (its
+                # vocab shard's): summed before the decoder (Megatron)
+                x = _c_identity(x, self._mp_group)
             x, w = cast_inputs("matmul", x,
                                self.gpt.embeddings.word_embeddings.weight)
             return TF.linear(x, w)
@@ -335,7 +395,7 @@ class GPTPretrainingCriterion(nn.Module):
 
     def __init__(self, config: Optional[GPTConfig] = None, mp_group=None):
         super().__init__()
-        self._mp_group = mp_group
+        self._mp_group = mp_group_of(mp_group)
 
     def forward(self, logits, labels, loss_mask=None):
         loss = parallel_cross_entropy(logits, labels,

@@ -35,7 +35,7 @@ from torch.nn import functional as F
 from ..amp import cast_inputs
 from ..distributed.fleet.layers.mpu import (ColumnParallelLinear,
                                             RowParallelLinear,
-                                            VocabParallelEmbedding,
+                                            VocabParallelEmbedding, mp_active,
                                             parallel_cross_entropy)
 from ..core.compile_stats import CompileStats
 from ..core.enforce import enforce
@@ -322,6 +322,10 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
+        enforce(not mp_active(),
+                "Llama under tensor parallelism (a fleet mp group of more "
+                "than one rank) is not ported yet: ROADMAP.md queue 1, "
+                "item 8's remainder")
         self.config = config
         dev = resolve_device(device)
         dtype = _DTYPES[config.dtype]

@@ -75,11 +75,15 @@ def process_count() -> int:
 
 
 def cross_host_sum(value: float) -> float:
-    """Sum a host-local scalar across every process. Single-process:
-    identity; more than one process raises until the communication base
-    is ported (ROADMAP.md queue 1, item 8)."""
+    """Sum a host-local scalar across every process (an all-reduce over
+    the world group of ``distributed/collective.py``; identity for one
+    process)."""
     if process_count() == 1:
         return float(value)
-    raise NotImplementedError(
-        "cross_host_sum across processes is not ported yet: ROADMAP.md "
-        "queue 1, item 8 (the communication base)")
+    import torch
+
+    from ..distributed import collective as C
+
+    t = torch.tensor([float(value)], dtype=torch.float64,
+                     device=C.comm_device())
+    return float(C.t_psum(t, C.get_group(0)).item())

@@ -32,10 +32,13 @@ ROADMAP.md item it waits on: ``scan_trips`` (pipelined and bucketed
 collectives, queue 1 item 9), ``quant_wire`` (quantized collectives,
 item 10), and the exposed-comm attribution — ``ablate``, ``ablating``,
 ``ablation_token``, ``build_report``, ``replay_callable`` — which
-replays collectives over a process group (item 8).
+replays collectives over a process group (item 11's multi-process
+half). ``distributed/collective.py`` books every collective here,
+with the bytes it staged through host memory (``host_bytes``).
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, List, Optional, Tuple
@@ -44,8 +47,9 @@ import numpy as np
 
 __all__ = [
     "CommRecord", "CommLedger", "capture", "note", "wire_bytes",
-    "active", "ablate", "ablating", "ablation_token", "scan_trips",
-    "quant_wire", "build_report", "replay_callable", "OPS",
+    "active", "open_captures", "carried", "ablate", "ablating",
+    "ablation_token", "scan_trips", "quant_wire", "build_report",
+    "replay_callable", "OPS",
 ]
 
 # canonical op kinds the ledger aggregates under (the {op} label of
@@ -53,7 +57,8 @@ __all__ = [
 OPS = ("psum", "pmax", "pmin", "all_gather", "reduce_scatter",
        "all_to_all", "ppermute")
 
-_ITEM8 = "ROADMAP.md queue 1, item 8 (the communication base)"
+_ITEM11 = ("ROADMAP.md queue 1, item 11 (the multi-process run-time "
+           "services)")
 _ITEM9 = "ROADMAP.md queue 1, item 9 (pipeline and bucketed grad sync)"
 _ITEM10 = "ROADMAP.md queue 1, item 10 (quantized collectives)"
 
@@ -98,6 +103,7 @@ class CommRecord:
     trips: int = 1               # executions per program run
     wire_dtype: str = ""         # dtype on the wire (== dtype here)
     payload_ratio: float = 1.0   # compressed / uncompressed wire bytes
+    host_bytes: int = 0          # staged through host memory (a host hop)
 
 
 class CommLedger:
@@ -105,6 +111,7 @@ class CommLedger:
 
     def __init__(self):
         self.records: List[CommRecord] = []
+        self.open = False            # while its capture is open
 
     def __len__(self):
         return len(self.records)
@@ -137,6 +144,14 @@ class CommLedger:
     def ops_for(self, axis: Optional[str] = None,
                 op: Optional[str] = None) -> int:
         return sum(r.trips for r in self.records
+                   if (axis is None or r.axis == axis)
+                   and (op is None or r.op == op))
+
+    def host_bytes(self, axis: Optional[str] = None,
+                   op: Optional[str] = None) -> int:
+        """Bytes the records copied between the card and host memory
+        (gloo collectives on CUDA tensors; 0 for direct ones)."""
+        return sum(r.host_bytes * r.trips for r in self.records
                    if (axis is None or r.axis == axis)
                    and (op is None or r.op == op))
 
@@ -183,29 +198,55 @@ _state = _State()
 
 
 def active() -> bool:
-    """True when a capture is open on this thread."""
+    """True when a capture is open on this thread (or carried into it)."""
     return bool(_state.captures)
 
 
 class _Capture:
     def __enter__(self) -> CommLedger:
         self.ledger = CommLedger()
+        self.ledger.open = True
         _state.captures.append(self.ledger)
         return self.ledger
 
     def __exit__(self, *exc):
+        self.ledger.open = False
         _state.captures.remove(self.ledger)
         return False
 
 
 def capture() -> _Capture:
-    """Context manager collecting every transfer noted inside it."""
+    """Context manager collecting every transfer noted inside it on this
+    thread, and on the threads it is carried into (``carried``)."""
     return _Capture()
 
 
+def open_captures() -> Tuple[CommLedger, ...]:
+    """This thread's open captures, to hand to ``carried``."""
+    return tuple(_state.captures)
+
+
+@contextlib.contextmanager
+def carried(ledgers: Iterable[CommLedger]):
+    """Book this thread's transfers also into ``ledgers``, captures that
+    another thread opened, for as long as they stay open. An autograd
+    Function takes ``open_captures()`` in its forward and carries them
+    into its backward, which a CUDA autograd runs on a device thread of
+    its own."""
+    add = [led for led in ledgers
+           if not any(led is c for c in _state.captures)]
+    _state.captures.extend(add)
+    try:
+        yield
+    finally:
+        for led in add:
+            _state.captures.remove(led)
+
+
 def note(op: str, axes: Iterable[str], shape, dtype, p: int,
-         args: Tuple = ()) -> None:
-    """Record one transfer into every open capture."""
+         args: Tuple = (), host_bytes: int = 0) -> None:
+    """Record one transfer into every open capture; ``host_bytes``: what
+    staging it through host memory copied (a host hop)."""
     if not _state.captures:
         return
     axes = tuple(axes)
@@ -216,9 +257,11 @@ def note(op: str, axes: Iterable[str], shape, dtype, p: int,
                      dtype=str(dtype), p=int(p),
                      payload_bytes=payload,
                      wire_bytes=wire_bytes(op, payload, int(p)),
-                     args=tuple(args), wire_dtype=str(dtype))
+                     args=tuple(args), wire_dtype=str(dtype),
+                     host_bytes=int(host_bytes))
     for led in _state.captures:
-        led.add(rec)
+        if led.open:
+            led.add(rec)
 
 
 def scan_trips(length: int):
@@ -236,26 +279,26 @@ def quant_wire(ratio: float):
 def ablate(labels: Iterable[str]):
     raise NotImplementedError(
         f"commledger.ablate (the exposed-comm replay) needs collectives "
-        f"over a process group: not ported yet ({_ITEM8})")
+        f"over a process group: not ported yet ({_ITEM11})")
 
 
 def ablating(axis_label: str) -> bool:
     raise NotImplementedError(
-        f"commledger.ablating: not ported yet ({_ITEM8})")
+        f"commledger.ablating: not ported yet ({_ITEM11})")
 
 
 def ablation_token():
     raise NotImplementedError(
-        f"commledger.ablation_token: not ported yet ({_ITEM8})")
+        f"commledger.ablation_token: not ported yet ({_ITEM11})")
 
 
 def build_report(*args, **kwargs):
     raise NotImplementedError(
         f"commledger.build_report (exposed-comm attribution): not ported "
-        f"yet ({_ITEM8})")
+        f"yet ({_ITEM11})")
 
 
 def replay_callable(*args, **kwargs):
     raise NotImplementedError(
         f"commledger.replay_callable (replaying a ledger's collectives): "
-        f"not ported yet ({_ITEM8})")
+        f"not ported yet ({_ITEM11})")

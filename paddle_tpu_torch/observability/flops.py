@@ -13,7 +13,8 @@ back to summing parameter sizes, which the engine can always do.
 989e12 dense bf16 FLOP/s and 3.35e12 HBM bytes/s, NVIDIA's published
 figures. Any other device gives (0, 0), so MFU reads 0.0 there. The
 interconnect floors (``ici_bytes_per_sec``, ``comm_seconds_lower_bound``)
-wait on the communication base (ROADMAP.md queue 1, item 8).
+wait on NCCL across cards, which needs a host with more than one
+(ROADMAP.md queue 1, item 8's remainder).
 """
 from __future__ import annotations
 

@@ -39,9 +39,9 @@ Deliberate spike injection for tests rides the failpoint table
 telemetry-only: the training state never sees it).
 
 Cross-host stragglers: ``observe_pod_skew`` publishes ``step_time_skew``
-= (slowest - median) / median plus the slowest host id. In the port it
-is single-process (skew 0, host 0); across processes it raises until
-the communication base is ported (ROADMAP.md queue 1, item 8).
+= (slowest - median) / median plus the slowest host id, over every
+process's step time (an all-gather of the host floats over the world
+group; one process: skew 0, host 0).
 
 Everything is host-side python on fetched scalars; nothing here adds
 ops to compiled programs.
@@ -315,17 +315,18 @@ class HealthMonitor:
     # -- cross-host stragglers -------------------------------------------
     def observe_pod_skew(self, step_seconds: float) -> Dict[str, float]:
         """Publish the straggler gauges: ``step_time_skew`` = (slowest -
-        median) / median, ``slowest_host`` = its process index.
-        Single-process: skew 0, host 0. More than one process raises:
-        the all-gather waits on ROADMAP.md queue 1, item 8."""
+        median) / median, ``slowest_host`` = its process index, over
+        every process's ``step_seconds`` (an all-gather; every process
+        calls it). Single-process: skew 0, host 0."""
         from . import process_count
 
         m = self._metrics()
-        if process_count() > 1:
-            raise NotImplementedError(
-                "observe_pod_skew across processes is not ported yet: "
-                "ROADMAP.md queue 1, item 8 (the communication base)")
         times = [float(step_seconds)]
+        if process_count() > 1:
+            from ..distributed import collective as C
+
+            times = [float(t) for t in
+                     C.all_gather_object([], float(step_seconds))]
         med = _median(sorted(times))
         slowest = max(range(len(times)), key=lambda i: times[i])
         skew = (times[slowest] - med) / med if med > 0 else 0.0

@@ -437,8 +437,9 @@ def roofline(*, step_seconds: float, flops_per_step: float,
     """The roofline verdict from one device's per-step quantities.
     ``device`` is a torch device or a card name; the peaks come from
     ``flops.peak_flops_per_chip`` (the H100's; (0, 0) elsewhere). The
-    interconnect's rate is not in the port's table until item 8, so the
-    ici term is the measured ``exposed_ici_seconds`` or 0."""
+    interconnect's rate is not in the port's table (NVLink waits on a host
+    with more than one card: item 8's remainder), so the ici term is the
+    measured ``exposed_ici_seconds`` or 0."""
     from . import flops as _flops
 
     peak, hbm_bw = _flops.peak_flops_per_chip(device) \

@@ -45,15 +45,16 @@ def _dropout_seed(dropout, generator, seed):
 
 
 def flash_attention(q, k, v, causal=False, dropout=0.0, generator=None,
-                    seed=None):
+                    seed=None, head_offset=0):
     """Layout [batch, seqlen, num_heads, head_dim]. GQA accepted: k/v may
     carry fewer (dividing) heads; the kernels group the q heads of each
     kv head natively. ``dropout`` > 0 drops attention probabilities
-    (module docstring)."""
+    (module docstring); ``head_offset`` is the global index of head 0 in
+    the mask (a tensor-parallel rank's first head)."""
     seed = _dropout_seed(dropout, generator, seed)
     q, k, v = cast_inputs("flash_attention", q, k, v)
     return flash_attention_fwd(q, k, v, causal, dropout=float(dropout),
-                               seed=seed)
+                               seed=seed, head_offset=head_offset)
 
 
 def _segments_from_cu(cu, total, device):

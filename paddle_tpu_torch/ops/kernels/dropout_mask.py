@@ -36,8 +36,9 @@ Each attention-dropout call draws one seed (``draw_seed``) from an
 explicit generator on the CPU, which the model owns, so a CPU model and a
 CUDA model built with the same seed draw the same masks. The JAX package
 draws attention masks from its "local" RNG stream so that every model-
-parallel rank masks its own heads; at degree 1 the local and the global
-streams are one stream.
+parallel rank masks its own heads; here a rank hashes its heads' global
+indices (``head_offset``) under the model's one seed, so its mask is its
+slice of the degree-1 mask.
 """
 from __future__ import annotations
 
@@ -116,17 +117,19 @@ def draw_seed(generator: torch.Generator) -> int:
 
 
 def dropout_keep(seed: int, p: float, B: int, H: int, Sq: int, Skv: int,
-                 device=None) -> torch.Tensor:
+                 device=None, head_offset: int = 0) -> torch.Tensor:
     """Boolean keep-mask [B, H, Sq, Skv] of one attention-dropout call
     (True = kept), by the counter layout above; computed one batch row at
-    a time."""
+    a time. Head i hashes as head ``head_offset + i`` (a tensor-parallel
+    rank's global heads: its mask is its slice of the degree-1 mask)."""
     k0, k1 = split_seed(seed)
     thr = threshold(p)
     G = -(-Skv // 8)
     def ar(n, *shape):
         return torch.arange(n, dtype=torch.int64, device=device).view(shape)
 
-    g, r, h = ar(G, 1, 1, G), ar(Sq, 1, Sq, 1), ar(H, H, 1, 1)
+    g, r = ar(G, 1, 1, G), ar(Sq, 1, Sq, 1)
+    h = ar(H, H, 1, 1) + int(head_offset)
     rows = []
     for b in range(B):
         bb = torch.full((1, 1, 1), b, dtype=torch.int64, device=device)

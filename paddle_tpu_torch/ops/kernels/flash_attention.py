@@ -118,10 +118,11 @@ def ranges_keep(q_ranges, Skv):
     return (j >= lo) & (j <= hi)
 
 
-def _dropout_factor(seed, p, B, H, KV, Sq, Skv, device):
+def _dropout_factor(seed, p, B, H, KV, Sq, Skv, device, head_offset=0):
     """f32 [B, KV, rep, Sq, Skv]: 1 / (1 - p) where the Philox mask keeps,
     0 where it drops (the GQA layout of the plain version's scores)."""
-    keep = _dm.dropout_keep(seed, p, B, H, Sq, Skv, device)
+    keep = _dm.dropout_keep(seed, p, B, H, Sq, Skv, device,
+                            head_offset=head_offset)
     # 1.0 * f32(1 / (1 - p)): no host tensor, so a CUDA graph can capture it
     return keep.float().mul_(_dm.keep_scale(p)).reshape(
         B, KV, H // KV, Sq, Skv)
@@ -129,13 +130,15 @@ def _dropout_factor(seed, p, B, H, KV, Sq, Skv, device):
 
 def flash_attention_dense(q, k, v, causal=False, scale=None,
                           q_segment_ids=None, kv_segment_ids=None,
-                          dropout=0.0, seed=None, q_ranges=None
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+                          dropout=0.0, seed=None, q_ranges=None,
+                          head_offset=0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: (out [B, Sq, H, D] in q's dtype, lse [B, H, Sq] f32).
     ``q_ranges`` (the per-sequence frontiers, module docstring) masks as
     ``ranges_keep``. ``dropout`` p > 0 with ``seed`` drops probabilities
     after the softmax by the Philox mask, kept ones scaled by 1 / (1 - p)
     in f32 (module docstring); l and lse stay over the undropped P.
+    ``head_offset``: the global index of head 0 in the mask's counter (a
+    tensor-parallel rank's first head).
 
     The GQA broadcast of the JAX ``_gqa_sdpa`` (ops/attention.py:31): q
     reshapes to [B, KV, rep, Sq, D] and the kv planes broadcast over rep,
@@ -161,7 +164,8 @@ def flash_attention_dense(q, k, v, causal=False, scale=None,
         p = p * keep
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     if dropout:
-        p = p * _dropout_factor(seed, dropout, B, H, KV, Sq, Skv, q.device)
+        p = p * _dropout_factor(seed, dropout, B, H, KV, Sq, Skv, q.device,
+                                head_offset)
     out = torch.matmul(p, vf) / l
     lse = (m + torch.log(l)).reshape(B, H, Sq)
     out = out.reshape(B, H, Sq, D).transpose(1, 2).to(q.dtype)
@@ -170,7 +174,8 @@ def flash_attention_dense(q, k, v, causal=False, scale=None,
 
 def flash_attention_bwd_dense(q, k, v, dout, causal=False, scale=None,
                               q_segment_ids=None, kv_segment_ids=None,
-                              dropout=0.0, seed=None, q_ranges=None):
+                              dropout=0.0, seed=None, q_ranges=None,
+                              head_offset=0):
     """Plain backward: (dq, dk, dv) by autograd through
     ``flash_attention_dense``."""
     with torch.enable_grad():
@@ -178,7 +183,8 @@ def flash_attention_bwd_dense(q, k, v, dout, causal=False, scale=None,
         out, _ = flash_attention_dense(qq, kk, vv, causal, scale,
                                        q_segment_ids, kv_segment_ids,
                                        dropout=dropout, seed=seed,
-                                       q_ranges=q_ranges)
+                                       q_ranges=q_ranges,
+                                       head_offset=head_offset)
         return torch.autograd.grad(out, (qq, kk, vv), dout)
 
 
@@ -196,10 +202,10 @@ def _lib():
     lib.flash_attention_bwd_launch.restype = i
     u = ctypes.c_uint
     lib.flash_attention_fwd_dropout_launch.argtypes = (
-        [vp] * 9 + [i] * 7 + [f, i, u, u, u, f, vp])
+        [vp] * 9 + [i] * 7 + [f, i, u, u, u, f, i, vp])
     lib.flash_attention_fwd_dropout_launch.restype = i
     lib.flash_attention_bwd_dropout_launch.argtypes = (
-        [vp] * 14 + [i] * 7 + [f, i, i, u, u, u, f, vp])
+        [vp] * 14 + [i] * 7 + [f, i, i, u, u, u, f, i, vp])
     lib.flash_attention_bwd_dropout_launch.restype = i
     return lib
 
@@ -299,11 +305,12 @@ def fwd_tiles(D: int, dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
 
 
 def _k1(q, k, v, causal, scale, qseg, kseg, blocks=None, drop=None,
-        qr=None, kr=None):
+        qr=None, kr=None, h0=0):
     """Launch K1: (out, lse). ``blocks`` = (block_q, block_kv), one of
     ``fwd_tiles``; None is the body's default tile. ``drop`` is
     ``_drop_args``'s tuple for the dropout kernel (default tile only);
-    ``qr``, ``kr`` the frontier arrays (``_check_ranges``)."""
+    ``qr``, ``kr`` the frontier arrays (``_check_ranges``); ``h0`` the
+    dropout mask's first head (``head_offset``)."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     _check_cuda({"q": q, "k": k, "v": v}, D, "flash_attention_fwd")
@@ -325,7 +332,7 @@ def _k1(q, k, v, causal, scale, qseg, kseg, blocks=None, drop=None,
                                                stream(q))
     else:
         rc = _lib().flash_attention_fwd_dropout_launch(*args, *drop,
-                                                       stream(q))
+                                                       int(h0), stream(q))
     _build.check(rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     if drop is not None:
@@ -397,7 +404,7 @@ def _select_blocks(q, k, causal, qseg):
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
                         q_segment_ids=None, kv_segment_ids=None,
                         dropout=0.0, seed=None, q_ranges=None,
-                        kv_ranges=None):
+                        kv_ranges=None, head_offset=0):
     """K2: (dq, dk, dv) of ``out = flash_attention(q, k, v)`` for the
     output gradient ``dout``, from K1's ``out`` and ``lse`` (with
     ``dropout`` and ``seed``: those of K1's dropout call; with the
@@ -414,7 +421,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
     if route(q, k, v, out, lse, dout,
              *_present(qseg, kseg, qr, kr)) == "cpu":
         return flash_attention_bwd_dense(q, k, v, dout, causal, scale, qseg,
-                                         kseg, dropout, seed, qr)
+                                         kseg, dropout, seed, qr, head_offset)
     drop = _drop_args(dropout, seed, "flash_attention_bwd")
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and "
@@ -431,7 +438,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
     _check_cuda({"q": q, "k": k, "v": v, "out": out, "dout": dout}, D,
                 "flash_attention_bwd")
     dq, dk, dv, _ = _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg,
-                        drop=drop, qr=qr, kr=kr)
+                        drop=drop, qr=qr, kr=kr, h0=head_offset)
     flash_attention_bwd.launches += 1
     if drop is not None:
         flash_attention_bwd_dropout.launches += 1
@@ -445,7 +452,8 @@ PAD = 64                     # workspace rows are padded to this
 
 
 def _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg,
-        parts=PREPASS | DQ | DKV, work=None, drop=None, qr=None, kr=None):
+        parts=PREPASS | DQ | DKV, work=None, drop=None, qr=None, kr=None,
+        h0=0):
     """Launch the ``parts`` of K2 on checked CUDA tensors: (dq, dk, dv,
     work). ``work`` is the pre-pass's f32 workspace [2, B, H, Sp]
     (allocated when None); a launch without PREPASS reads the workspace
@@ -454,7 +462,7 @@ def _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg,
     launch: there DQ and DKV select the roles of that launch, which
     compute the same bits alone as together). ``drop``: ``_drop_args``'s
     tuple of K1's dropout call, or None; ``qr``, ``kr``: the frontier
-    arrays."""
+    arrays; ``h0``: the dropout mask's first head."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     if work is None:
@@ -470,7 +478,7 @@ def _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg,
         rc = _lib().flash_attention_bwd_launch(*args, stream(q))
     else:
         rc = _lib().flash_attention_bwd_dropout_launch(*args, *drop,
-                                                       stream(q))
+                                                       int(h0), stream(q))
     _build.check(rc, "flash_attention_bwd")
     return dq, dk, dv, work
 
@@ -478,15 +486,15 @@ def _k2(q, k, v, out, lse, dout, causal, scale, qseg, kseg,
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, qseg, kseg, dropout, seed, qr,
-                kr):
+                kr, h0):
         drop = _drop_args(dropout, seed, "flash_attention_fwd")
         blocks = None if drop else _select_blocks(
             q, k, causal, qr if qseg is None else qseg)
         out, lse = _k1(q, k, v, causal, scale, qseg, kseg, blocks, drop, qr,
-                       kr)
+                       kr, h0)
         ctx.save_for_backward(q, k, v, out, lse, qseg, kseg, qr, kr)
         ctx.causal, ctx.scale = causal, scale
-        ctx.dropout, ctx.seed = dropout, seed
+        ctx.dropout, ctx.seed, ctx.h0 = dropout, seed, h0
         return out
 
     @staticmethod
@@ -494,18 +502,19 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse, qseg, kseg, qr, kr = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal,
                                          ctx.scale, qseg, kseg, ctx.dropout,
-                                         ctx.seed, qr, kr)
-        return (dq, dk, dv) + (None,) * 8
+                                         ctx.seed, qr, kr, ctx.h0)
+        return (dq, dk, dv) + (None,) * 9
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None,
                         q_segment_ids=None, kv_segment_ids=None,
                         dropout=0.0, seed=None, q_ranges=None,
-                        kv_ranges=None):
+                        kv_ranges=None, head_offset=0):
     """[B, Sq, H, D] attention output, differentiable in q, k and v; with
-    ``dropout`` p > 0 and a 64-bit ``seed``, attention dropout; with
-    ``q_ranges`` and ``kv_ranges``, the per-sequence frontiers (module
-    docstring)."""
+    ``dropout`` p > 0 and a 64-bit ``seed``, attention dropout (its mask
+    hashing heads ``head_offset`` ..: a tensor-parallel rank's global
+    heads); with ``q_ranges`` and ``kv_ranges``, the per-sequence
+    frontiers (module docstring)."""
     qseg, kseg = _check(q, k, v, q_segment_ids, kv_segment_ids,
                         "flash_attention_fwd")
     qr, kr = _check_ranges(q, k, causal, qseg, q_ranges, kv_ranges,
@@ -520,15 +529,16 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None,
     if route(q, k, v, *_present(qseg, kseg, qr, kr)) == "cpu":
         return flash_attention_dense(q, k, v, causal, scale, qseg, kseg,
                                      dropout=dropout, seed=seed,
-                                     q_ranges=qr)[0]
+                                     q_ranges=qr,
+                                     head_offset=head_offset)[0]
     return _FlashAttention.apply(q, k, v, bool(causal), scale, qseg, kseg,
-                                 dropout, seed, qr, kr)
+                                 dropout, seed, qr, kr, int(head_offset))
 
 
 def flash_attention_fwd_lse(q, k, v, causal=False, scale=None,
                             q_segment_ids=None, kv_segment_ids=None,
                             blocks=None, dropout=0.0, seed=None,
-                            q_ranges=None, kv_ranges=None):
+                            q_ranges=None, kv_ranges=None, head_offset=0):
     """(out, lse) with no graph: K1's two outputs (the JAX ``_fa_fwd``
     residuals), for checks and for callers that reuse the lse. On CUDA
     tensors ``blocks`` = (block_q, block_kv) runs K1 at that tile (one of
@@ -543,31 +553,35 @@ def flash_attention_fwd_lse(q, k, v, causal=False, scale=None,
         if route(q, k, v, *_present(qseg, kseg, qr, kr)) == "cpu":
             return flash_attention_dense(q, k, v, causal, scale, qseg, kseg,
                                          dropout=dropout, seed=seed,
-                                         q_ranges=qr)
+                                         q_ranges=qr,
+                                         head_offset=head_offset)
         drop = _drop_args(float(dropout), seed, "flash_attention_fwd")
         if blocks is None and drop is None:
             blocks = _select_blocks(q, k, causal,
                                     qr if qseg is None else qseg)
-        return _k1(q, k, v, causal, scale, qseg, kseg, blocks, drop, qr, kr)
+        return _k1(q, k, v, causal, scale, qseg, kseg, blocks, drop, qr, kr,
+                   head_offset)
 
 
 def flash_attention_fwd_dropout(q, k, v, dropout, seed, causal=False,
                                 scale=None, q_segment_ids=None,
-                                kv_segment_ids=None):
+                                kv_segment_ids=None, head_offset=0):
     """K1's dropout variant: ``flash_attention_fwd`` with ``dropout`` and
     ``seed``. Its counter counts the variant's launches (wherever they are
     made from); K1's counter counts them too."""
     return flash_attention_fwd(q, k, v, causal, scale, q_segment_ids,
-                               kv_segment_ids, dropout=dropout, seed=seed)
+                               kv_segment_ids, dropout=dropout, seed=seed,
+                               head_offset=head_offset)
 
 
 def flash_attention_bwd_dropout(q, k, v, out, lse, dout, dropout, seed,
                                 causal=False, scale=None, q_segment_ids=None,
-                                kv_segment_ids=None):
+                                kv_segment_ids=None, head_offset=0):
     """K2's dropout variant: ``flash_attention_bwd`` with ``dropout`` and
     ``seed``; counted as ``flash_attention_fwd_dropout`` is."""
     return flash_attention_bwd(q, k, v, out, lse, dout, causal, scale,
-                               q_segment_ids, kv_segment_ids, dropout, seed)
+                               q_segment_ids, kv_segment_ids, dropout, seed,
+                               head_offset=head_offset)
 
 
 flash_attention_fwd = counted(flash_attention_fwd)

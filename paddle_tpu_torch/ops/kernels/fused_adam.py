@@ -25,6 +25,15 @@ rounds:
 
 Under a scaler an overflow step writes nothing (parameters, masters and
 moments stay bit-equal) and does not advance the applied-step count.
+
+Under tensor parallelism (``split`` = a ``nn.clip.GradSync`` and one
+flag a tensor: is it an mp shard?) the norm is the global one: the
+reduce writes two f32 squared sums, one over the shards and one over the
+replicated tensors, and the nonfinite flag (the kernel's phase 1); the
+first is all-reduced over the mp group and the flag maxed over every
+rank (``distributed/collective.py``); the finalize and the update run
+from their sum (phase 2). One call still counts one launch. Without
+``split`` the launches and bits are the degree-1 ones.
 """
 from __future__ import annotations
 
@@ -68,7 +77,7 @@ def _decay(pf, wd, l1):
 def fused_adam_dense(params, grads, masters, moments1, moments2, decays, *,
                      lr, beta1, beta2, epsilon, weight_decay, l1=False,
                      decoupled=False, clip_norm=0.0, step=1, amp=None,
-                     pre_found=None) -> Optional[torch.Tensor]:
+                     pre_found=None, split=None) -> Optional[torch.Tensor]:
     """Plain version of ``fused_adam``: the same in-place update, in
     torch, one parameter at a time. Returns the global norm (f32 [1]) of
     the unscaled gradients when it clips or runs under a scaler, else
@@ -81,7 +90,10 @@ def fused_adam_dense(params, grads, masters, moments1, moments2, decays, *,
         else:
             found = pre_found
     norm = None
-    if clip_norm > 0 or amp is not None:
+    if (clip_norm > 0 or amp is not None) and split is not None:
+        sync, sharded = split
+        norm = torch.sqrt(sync.sq_sum(gs, sharded)).reshape(1)
+    elif clip_norm > 0 or amp is not None:
         norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                               for g in gs)).reshape(1)
     if clip_norm > 0:
@@ -125,13 +137,13 @@ class _Args(ctypes.Structure):
     """``struct Args`` of csrc/fused_adam.cu, field for field."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "descs", "chunks", "partial", "flags", "scalars", "out",
-        "amp_scale", "amp_counts", "pre_found")] + [
+        "amp_scale", "amp_counts", "pre_found", "sums")] + [
         (n, ctypes.c_float) for n in (
             "lr", "beta1", "beta2", "c1", "c2", "eps", "wd", "clip",
             "incr_ratio", "decr_ratio", "scale_cap")] + [
         (n, ctypes.c_int) for n in (
             "n_chunks", "l1", "decoupled", "step", "reduce", "unscale",
-            "dynamic", "incr_every", "decr_every", "state_dtype")]
+            "dynamic", "incr_every", "decr_every", "state_dtype", "phase")]
 
 
 @functools.cache
@@ -202,7 +214,7 @@ def fused_adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                moments2: Sequence[torch.Tensor], decays: Sequence[bool], *,
                lr, beta1, beta2, epsilon, weight_decay, l1=False,
                decoupled=False, clip_norm=0.0, step=1, amp=None,
-               pre_found=None) -> Optional[torch.Tensor]:
+               pre_found=None, split=None) -> Optional[torch.Tensor]:
     """Update ``params`` (and their masters and moments) in place; see
     the module docstring. ``step`` is the bias-correction step unless
     ``amp`` (an ``amp.AmpStep``) carries it. ``pre_found`` (f32 [1]) is
@@ -210,10 +222,13 @@ def fused_adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     the gradients itself (a ``ClipGradByNorm`` / ``ClipGradByValue``
     clip): the update then only ORs it with its own check and does not
     unscale again. Returns the global norm of the unscaled gradients (f32
-    [1]) when clipping or under a scaler, else None."""
+    [1]) when clipping or under a scaler, else None. ``split``: (GradSync,
+    per-tensor mp-shard flags) under tensor parallelism (module
+    docstring)."""
     kw = dict(lr=lr, beta1=beta1, beta2=beta2, epsilon=epsilon,
               weight_decay=weight_decay, l1=l1, decoupled=decoupled,
-              clip_norm=clip_norm, step=step, amp=amp, pre_found=pre_found)
+              clip_norm=clip_norm, step=step, amp=amp, pre_found=pre_found,
+              split=split)
     _check(params, grads, masters, moments1, moments2, decays)
     tensors = [t for ts in (params, grads, moments1, moments2) for t in ts]
     tensors += [m for m in masters if m is not None]
@@ -236,16 +251,21 @@ def fused_adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     desc = np.zeros((len(params), 7), np.int64)
     for i, (p, g, mw, m, v, d) in enumerate(zip(params, grads, masters,
                                                 moments1, moments2, decays)):
+        shard = split is not None and split[1][i]
         desc[i] = (p.data_ptr(), g.data_ptr(),
                    0 if mw is None else mw.data_ptr(), m.data_ptr(),
                    v.data_ptr(), p.numel(),
-                   _PDTYPES[p.dtype] | (mw is not None) << 8 | bool(d) << 9)
+                   _PDTYPES[p.dtype] | (mw is not None) << 8 | bool(d) << 9
+                   | bool(shard) << 10)
     # one small H2D copy a step: gradients are freed by clear_grad, so
     # their addresses change between steps. The pinned staging buffer
     # stays alive in the caching host allocator until the copy is done.
     descs = torch.from_numpy(desc).pin_memory().to(dev, non_blocking=True)
     out = torch.zeros(2, dtype=torch.float32, device=dev)
     reduce = clip_norm > 0 or amp is not None
+    # phases 1 and 2 only where a norm or a flag must cross ranks
+    two = split is not None and reduce
+    sums = torch.zeros(3, dtype=torch.float32, device=dev) if two else None
     a = _Args(
         descs=descs.data_ptr(), chunks=chunks.data_ptr(),
         partial=partial.data_ptr(), flags=flags.data_ptr(),
@@ -253,6 +273,7 @@ def fused_adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
         amp_scale=amp.scale.data_ptr() if amp is not None else None,
         amp_counts=amp.counts.data_ptr() if amp is not None else None,
         pre_found=pre_found.data_ptr() if pre_found is not None else None,
+        sums=sums.data_ptr() if two else None,
         lr=lr, beta1=_f32(beta1), beta2=_f32(beta2), c1=_f32(1 - beta1),
         c2=_f32(1 - beta2), eps=epsilon, wd=weight_decay,
         clip=clip_norm if clip_norm > 0 else 0.0,
@@ -265,7 +286,18 @@ def fused_adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
         dynamic=int(amp.dynamic) if amp is not None else 0,
         incr_every=amp.incr_every if amp is not None else 0,
         decr_every=amp.decr_every if amp is not None else 0,
-        state_dtype=_SDTYPES[moments1[0].dtype])
+        state_dtype=_SDTYPES[moments1[0].dtype], phase=1 if two else 0)
+    if two:
+        _build.check(_lib()(ctypes.byref(a), stream(params[0])),
+                     "fused_adam")
+        sync = split[0]
+        from ...distributed import collective as C
+
+        if sync.mp_group is not None:
+            C.all_reduce(sums[0:1], C.ReduceOp.SUM, group=sync.mp_group)
+        if amp is not None and sync.found_group is not None:
+            C.all_reduce(sums[2:3], C.ReduceOp.MAX, group=sync.found_group)
+        a.phase = 2
     _build.check(_lib()(ctypes.byref(a), stream(params[0])), "fused_adam")
     fused_adam.launches += 1
     if amp is not None:

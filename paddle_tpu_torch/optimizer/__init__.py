@@ -38,6 +38,14 @@ Adam / AdamW included, densifies the gradient and updates it with the
 dense parameters (K8 for Adam / AdamW on CUDA). A loss scaler with sparse
 gradients raises (the JAX step has no such path).
 
+Under tensor parallelism ``ParallelEngine`` hands the optimizer a
+``nn.clip.GradSync`` (``_grad_sync``): every clip norm and the global
+norm are then the norm over the model-parallel group (the shards'
+squared sums all-reduced, the replicated gradients once), and a loss
+scaler's overflow flag is maxed over every rank; K8 takes the split
+reduce of ``ops/kernels/fused_adam.py``. Sparse gradients under it
+raise (ROADMAP.md queue 1, item 8's remainder).
+
 Not ported, and raising: AdamW's ``lr_ratio`` and Lamb's
 ``exclude_from_weight_decay_fn`` (both stored and never read by the JAX
 package).
@@ -50,7 +58,8 @@ import numpy as np
 import torch
 
 from ..framework.selected_rows import SelectedRows, merge_selected_rows
-from ..nn.clip import ClipGradBase, ClipGradByGlobalNorm, global_norm
+from ..nn.clip import (ClipGradBase, ClipGradByGlobalNorm, GradSync,
+                       global_norm)
 from ..ops.kernels.fused_adam import bias_correction, fused_adam
 from . import lr
 from .lr import LRScheduler
@@ -108,6 +117,8 @@ class Optimizer:
         self._master_weights: Dict[int, torch.Tensor] = {}
         self._step_count = 0
         self.grad_norm: Optional[torch.Tensor] = None
+        # set by ParallelEngine over a tensor-parallel mesh
+        self._grad_sync: Optional[GradSync] = None
 
     def _decay_term(self, pf):
         """Weight-decay gradient term: wd*p for L2Decay, wd*sign(p) (the
@@ -180,6 +191,10 @@ class Optimizer:
             raise NotImplementedError(
                 "a loss scaler with sparse (SelectedRows) gradients: the JAX "
                 "step has no such path")
+        if sparse and self._grad_sync is not None:
+            raise NotImplementedError(
+                "sparse (SelectedRows) gradients under tensor parallelism "
+                "are not ported yet: ROADMAP.md queue 1, item 8's remainder")
         self._step_count += 1
         lr_v = _f32(self.get_lr())
         if sparse:
@@ -242,11 +257,18 @@ class Optimizer:
         if pin is not p:
             p.index_copy_(0, rows, pin.index_select(0, rows).to(p.dtype))
 
-    def _clip_values(self, grads):
+    def _sync_kw(self, params) -> Dict:
+        """The clips' tensor-parallel arguments for ``params``' grads."""
+        sync = self._grad_sync
+        if sync is None:
+            return {}
+        return {"sync": sync, "sharded": sync.sharded(params)}
+
+    def _clip_values(self, grads, params):
         clip = self._grad_clip
         if clip is None:
             return grads, None
-        return clip.apply_values(grads)
+        return clip.apply_values(grads, **self._sync_kw(params))
 
     def _fused_update(self, params, grads, states, masters, lr, step,
                       amp=None, clipped=False) -> Optional[torch.Tensor]:
@@ -258,10 +280,10 @@ class Optimizer:
         if amp is not None:
             grads, found = amp.unscale(list(grads))
         grads, norm = ((list(grads), None) if clipped
-                       else self._clip_values(list(grads)))
+                       else self._clip_values(list(grads), params))
         if amp is not None:
             if norm is None:
-                norm = global_norm(grads).reshape(1)
+                norm = global_norm(grads, **self._sync_kw(params)).reshape(1)
             step = amp.applied_step(found)
         for p, g, st, master in zip(params, grads, states, masters):
             pin = master if master is not None else p
@@ -435,14 +457,17 @@ class Adam(Optimizer):
             # the unscale (the JAX order); the update then only skips
             if amp is not None:
                 grads, pre_found = amp.unscale(list(grads))
-            grads, _ = clip.apply_values(list(grads))
+            grads, _ = clip.apply_values(list(grads),
+                                         **self._sync_kw(params))
+        sync = self._grad_sync
         return fused_adam(
             params, grads, masters, [s["moment1"] for s in states],
             [s["moment2"] for s in states], [self._decays(p) for p in params],
             lr=lr, beta1=self._beta1, beta2=self._beta2,
             epsilon=self._epsilon, weight_decay=self._weight_decay,
             l1=self._wd_mode == "l1", decoupled=self._decoupled,
-            clip_norm=clip_norm, step=step, amp=amp, pre_found=pre_found)
+            clip_norm=clip_norm, step=step, amp=amp, pre_found=pre_found,
+            split=None if sync is None else (sync, sync.sharded(params)))
 
 
 class AdamW(Adam):

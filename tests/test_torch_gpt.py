@@ -226,16 +226,19 @@ def test_parameter_count_matches_the_built_model():
 
 
 def test_unported_variants_raise():
+    """MoE and context parallelism raise (item 10). Tensor parallelism is
+    ported (tests/test_torch_hybrid_gpt.py): an mp group that is not a
+    distributed Group is refused."""
     class Group:
         nranks = 2
 
     with pytest.raises(RuntimeError, match="item 10"):
         tg.GPTForCausalLM(tg.gpt_tiny(num_experts=4), device="cpu")
-    with pytest.raises(RuntimeError, match="item 8"):
+    with pytest.raises(TypeError, match="distributed Group"):
         tg.GPTForCausalLM(tg.gpt_tiny(), device="cpu", mp_group=Group())
     with pytest.raises(RuntimeError, match="item 10"):
         tg.GPTForCausalLM(tg.gpt_tiny(), device="cpu", sep_group=Group())
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="distributed Group"):
         tg.GPTPretrainingCriterion(mp_group=Group())(
             torch.zeros(1, 2, 4), torch.zeros(1, 2, dtype=torch.long))
 
