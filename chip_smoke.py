@@ -379,8 +379,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 and 4 x 2048 batch in this process (AdamW, f32 masters for
                 bf16, clip 1.0): mp 2 fp32 at gpt_1p3b's widths and 2
                 layers, 3 steps (losses 1e-4 relative, the gathered
-                parameters 1e-4 relative L2 over all); mp 2 bf16 at full
-                depth, 5 steps with dropout 0, then 5 with 0.1 (losses
+                parameters 1e-4 relative L2 over all); mp 2 bf16 at 8 of
+                its 24 layers (cut from full depth to keep the run inside
+                half its time limit beside phase 17), 5 steps with
+                dropout 0, then 5 with 0.1 (losses
                 2e-2, finite and falling); dp 2 x mp 2 bf16 at 4 layers,
                 3 steps (2e-2). Every run: replicated parameters
                 bit-equal across the mp ranks (and every parameter across
@@ -394,6 +396,57 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 staging's seconds a step, beside the card's name and
                 power limit: times of ranks sharing one card over gloo,
                 not of NCCL
+17. train-llama-hybrid
+                Llama at Llama-7B's published widths (h 4096, 32 heads, FFN
+                11008, vocab 32000) under tensor parallelism, sequence
+                parallelism and recompute, ranks sharing the card over gloo
+                through the port's launcher as in phase 16
+                (build/llama_hybrid), AdamW at lr 1e-5 (LLAMA_LR: early
+                warmup's) with f32 masters for bf16, clip 1.0, one 4 x 2048
+                batch from a seed, every run mp 2 and held to a degree-1 run
+                of the same weights and batch made in this process first and
+                freed before the ranks start. First K8's split reduce at one
+                Llama mp 2 rank's parameters (8 layers, 0.94 B) against its
+                plain version. (a) fp32, 2 layers, 3 steps: the gathered
+                seeded initialisation bit-equal to degree 1's (sha256 of
+                every tensor), losses within 1e-6 (|a - b| / max(|b|, 1):
+                the batch is learnt in a few steps, so a loss near 0 is held
+                absolutely) and the gathered parameters within 1e-6 relative
+                L2 over all, 1e-5 for the worst tensor (LLAMA_PARAMS_GATE).
+                (b) bf16, 8 layers (1.881 B), 5 steps: losses within 1e-3.
+                (e) first, on (b)'s fresh model: ParallelEngine.eval_step
+                with batch_specs, the vocab's shards gathered by out_spec on
+                a 4 x 256 batch: bit-equal to the rank's own forward
+                gathered, within 2e-2 of the degree-1 forward with its
+                o_proj / down_proj products split in two halves rounded to
+                bf16 before their sum, as mp 2's are (relative L2 over tiles
+                of 64 positions; the reading against the plain degree-1
+                forward and the split forward's own printed beside,
+                LLAMA_EVAL_GATES), and in (a)'s fp32 model within 1e-4 of
+                the plain forward. (c) (b) with every decoder
+                layer under fleet.recompute: the same gate, and its losses
+                and parameters against (b)'s (bit-equal expected; the
+                largest difference and its first tensor printed). (d) the
+                JAX test's SPBlock (sequence scattered, LlamaRMSNorm, column
+                / row sequence-parallel linears 4096 -> 11008 -> 4096, ReLU,
+                sequence gathered) stacked 8 deep over [4, 2048, 4096] bf16,
+                an MSE loss, 3 steps, then again under recompute: losses
+                within 1e-3 of the dense stack at degree 1. Every run:
+                replicated (and sequence-parallel-marked) parameters
+                bit-equal across the ranks; K1 layers x steps launches a
+                rank (twice that under recompute), K2 layers x steps, K3 (2
+                L + 1) x steps (4 L + 1 under recompute; the SP stack L, 2
+                L), K8 one a step; the last step's booked bytes equal to the
+                closed form (mp: (7 L + 2) b S H e all-reduced, 2 L b S H e
+                more under recompute, + 2 b S 4 + 4, b S 4 maxed; SP:
+                all-gathers of the sequence shard, reduce-scatters of the
+                whole, the marked gradients' sums); K1/K2 on layer 0's
+                attention on the rank's 16 heads [4, 2048, 16, 128] and K3
+                (forward and gradient) on layer 0's input, the SP stack's on
+                the rank's sequence shard [4096, 4096], each within 2e-2 of
+                its plain version. Prints per rank step ms p50, the card's
+                tokens/s, peak memory and the bytes and host staging seconds
+                a step, beside the card's name and power limit
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -1286,11 +1339,13 @@ def _mp2_shapes():
     return [s for s, _ in rows], [f for _, f in rows]
 
 
-def check_fused_adam_split(dev, results):
+def check_fused_adam_split(dev, results, shapes=None,
+                           what="one mp 2 rank of gpt_1p3b"):
     """K8's split reduce (phases 1 and 2: the mp shards' and the
     replicated tensors' squared sums apart, then the finalize from their
     sum), as one rank of mp 2 on gpt_1p3b calls it (0.66 B bf16
-    parameters, f32 masters and moments, clip 1.0), with no group to sum
+    parameters, f32 masters and moments, clip 1.0; or ``shapes``, the
+    (shapes, shard flags) of another model's rank), with no group to sum
     over: against the plain version with the same split (f32 buffers
     within 1e-6 of each tensor's largest magnitude, bf16 within one ulp
     of it, norms within 1e-5) and against the degree-1 call (the norm
@@ -1299,7 +1354,7 @@ def check_fused_adam_split(dev, results):
     from paddle_tpu_torch.nn.clip import GradSync
     from paddle_tpu_torch.ops.kernels import fused_adam as K8
 
-    shapes, flags = _mp2_shapes()
+    shapes, flags = shapes or _mp2_shapes()
     N = sum(int(np.prod(s)) for s in shapes)
     split = (GradSync(), flags)
 
@@ -1348,7 +1403,7 @@ def check_fused_adam_split(dev, results):
                  norm_err=abs(norm.item() - rnorm.item()) / rnorm.item(),
                  norm_vs_degree1=abs(norm.item() - dnorm.item())
                  / dnorm.item(), norm=norm.item())
-    log(f"[kernels] fused_adam split (one mp 2 rank of gpt_1p3b, "
+    log(f"[kernels] fused_adam split ({what}, "
         f"{N / 1e9:.3f}B) against its plain version and the degree-1 "
         f"call: {json.dumps(stats)}")
     if not (rel <= 1e-6 and scaled <= 1 and stats["norm_err"] <= 1e-5
@@ -1362,7 +1417,7 @@ def check_fused_adam_split(dev, results):
                          iters=3, warm=1)
     b_ms, b_by = bound(28 * N, 30 * N, torch.float32)
     results.append(dict(
-        name="fused_adam_split", shape=[N], tensors=len(shapes),
+        name="fused_adam_split", case=what, shape=[N], tensors=len(shapes),
         dtype="bfloat16", max_abs_err=abs_err, rel_err=rel, tol=1e-6,
         bf16_ulps_at_tensor_max=scaled, norm_rel_err=stats["norm_err"],
         norm_vs_degree1=stats["norm_vs_degree1"], ms=ms,
@@ -5526,7 +5581,7 @@ def phase_train_ckpt(counters, layers=4, steps=8, device="cuda", cfg=None,
 # layers, dtype, steps, the global batch [B, S]).
 HYBRID_RUNS = {
     "mp2-fp32": (2, 1, 2, 2, "float32", 3, (4, 2048)),
-    "mp2-bf16": (2, 1, 2, 24, "bfloat16", 5, (4, 2048)),
+    "mp2-bf16": (2, 1, 2, 8, "bfloat16", 5, (4, 2048)),
     "dp2mp2": (4, 2, 2, 4, "bfloat16", 3, (4, 2048)),
 }
 HYBRID_SEED, HYBRID_BATCH_SEED, HYBRID_ATTN_SEED = 0, 21, 0x48_3021
@@ -5621,7 +5676,7 @@ def _rel(a, b):
 def phase_train_hybrid(counters):
     """Phase 16 (see the module docstring): NCCL at world 1; ranks
     sharing the card refused (the port's check and NCCL's own error);
-    mp 2 fp32 at 2 layers, mp 2 bf16 at full depth (dropout 0, then 0.1)
+    mp 2 fp32 at 2 layers, mp 2 bf16 at 8 layers (dropout 0, then 0.1)
     and dp 2 x mp 2 bf16 at 4 layers against degree-1 runs of the same
     model in this process. Returns the kernels' launches per rank of the
     runs, by path."""
@@ -5978,7 +6033,7 @@ def _rank_train(mode, out, out_dir):
 
 
 def hybrid_rank(mode, out_dir):
-    """One rank of a train-hybrid launch: its result to
+    """One rank of a train-hybrid or train-llama-hybrid launch: its result to
     out_dir/<mode>.rank<r>.json; any failure exits non-zero."""
     out_dir = Path(out_dir)
     if mode == "nccl-shared":
@@ -5991,11 +6046,616 @@ def hybrid_rank(mode, out_dir):
         out = {"rank": C.get_rank(), "world": C.get_world_size()}
         if mode == "nccl1":
             _rank_nccl1(out)
+        elif mode.startswith("llama-"):
+            _rank_llama(mode, out, out_dir)
         else:
             _rank_train(mode, out, out_dir)
         C.barrier()
         C.destroy_process_group()
     (out_dir / f"{mode}.rank{out['rank']}.json").write_text(json.dumps(out))
+
+
+# -- phase 17: Llama under tensor and sequence parallelism, recompute ---------
+# Llama-7B's published widths (Touvron et al. 2023; llama_7b()) cut in
+# depth, ranks sharing the one card over gloo as in phase 16. Run: (layers,
+# dtype, steps) on the global batch LLAMA_BATCH; every run is mp 2.
+LLAMA_HYBRID_RUNS = {
+    "llama-mp2-fp32": (2, "float32", 3),     # (a)
+    "llama-mp2-bf16": (8, "bfloat16", 5),    # (b), then (c) and (e)
+    "llama-sp": (8, "bfloat16", 3),          # (d), then under recompute
+}
+LLAMA_BATCH, LLAMA_EVAL = (4, 2048), (4, 256)
+LLAMA_SEED, LLAMA_BATCH_SEED, LLAMA_EVAL_SEED, LLAMA_SP_SEED = 0, 25, 26, 27
+# the lr of Llama's early warmup (its 3e-4 peak comes after 2000 warmup
+# steps, Touvron et al. 2023): at 3e-4 a fresh 7B-width model learns the
+# one batch in a step (loss 11.17 -> 0.36) and the runs compare a
+# degenerate trajectory, where mp 2's bf16 rounding moved step 1's loss
+# by 1.8e-3 on the H100
+LLAMA_LR = 1e-5
+# losses: |a - b| / max(|b|, 1) (one batch is learnt in a few steps: a
+# loss near 0 is held absolutely)
+LLAMA_GATES = {"float32": 1e-6, "bfloat16": 1e-3}
+# (a)'s gathered parameters against degree 1's, relative L2 over all of
+# them and of the worst tensor: f32 sums in another order (the
+# row-parallel products' halves) read 7.6e-8 and 2.9e-7 on the H100 at
+# LLAMA_LR. A fault that left one layer's norm weights unchanged would read
+# about 3e-5 on that tensor (3 AdamW steps of about lr an element, on
+# weights of 1), over the tensor gate
+LLAMA_PARAMS_GATE, LLAMA_PARAMS_TENSOR_GATE = 1e-6, 1e-5
+# (e) eval_step's logits (relative L2 over tiles of 64 positions, a row's
+# logits whole). mp 2 rounds each row-parallel product's two halves to the
+# model's dtype before their sum, where degree 1 rounds the whole once: in
+# bf16 that alone moves the logits, so mp 2 is held against degree 1's
+# forward with o_proj and down_proj computed the same way
+# (_row_products_split), and the reading against degree 1's plain forward
+# is printed beside, with the split forward's own reading against it
+LLAMA_EVAL_GATES = {"float32": TOL[torch.float32], "bfloat16": 2e-2}
+
+
+def _llama_cfg(layers, dtype):
+    from paddle_tpu_torch.models.llama import llama_7b
+
+    return llama_7b(num_layers=layers, dtype=dtype)
+
+
+def _llama_logits(model, ids, rc):
+    """The training forward, each decoder layer under fleet.recompute
+    when ``rc`` (without it: ``model(ids)``'s operations)."""
+    from paddle_tpu_torch.distributed.fleet import recompute
+
+    x = model.llama.embed_tokens(ids)
+    for layer in model.llama.layers:
+        x = recompute(layer, x) if rc else layer(x)
+    return model._logits(model.llama.norm(x))
+
+
+@contextlib.contextmanager
+def _row_products_split(model):
+    """Degree 1's o_proj and down_proj computed as mp 2's row-parallel
+    linears compute them: the product over each half of the input
+    features (contiguous, as a rank holds them), each rounded to the
+    model's dtype, then the two summed in that dtype (the all-reduce)."""
+    import torch.nn.functional as F
+
+    def split(mod, x):
+        k = x.shape[-1] // 2
+        w = mod.weight
+        out = (F.linear(x[..., :k].contiguous(), w[:, :k].contiguous())
+               + F.linear(x[..., k:].contiguous(), w[:, k:].contiguous()))
+        return out if mod.bias is None else out + mod.bias
+
+    mods = [m for layer in model.llama.layers
+            for m in (layer.self_attn.o_proj, layer.mlp.down_proj)]
+    for m in mods:
+        m.forward = lambda x, m=m: split(m, x)
+    try:
+        yield
+    finally:
+        for m in mods:
+            del m.forward
+
+
+def _adamw(model):
+    """AdamW (lr LLAMA_LR, decay 0.01, f32 masters for bf16 weights),
+    clip 1.0: phase 17's optimizer."""
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    bf16 = next(model.parameters()).dtype != torch.float32
+    return AdamW(learning_rate=LLAMA_LR, weight_decay=0.01,
+                 multi_precision=bf16,
+                 grad_clip=ClipGradByGlobalNorm(1.0),
+                 parameters=model.named_parameters())
+
+
+def _llama_trainer(model, mesh=None, rc=False):
+    from paddle_tpu_torch.distributed.engine import ParallelEngine
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+
+    opt = _adamw(model)
+    crit = LlamaPretrainingCriterion(model.config)
+    eng = ParallelEngine(model, opt, mesh)
+    return opt, eng, eng.train_step(
+        lambda m, b: crit(_llama_logits(m, b["x"], rc), b["y"]))
+
+
+def _digests(state):
+    """sha256 of each tensor's bits (a state of CPU tensors)."""
+    import hashlib
+
+    out = {}
+    for k, t in state.items():
+        bits = t.contiguous().view(torch.int16 if t.element_size() == 2
+                                   else torch.int32)
+        out[k] = hashlib.sha256(bits.numpy().tobytes()).hexdigest()
+    return out
+
+
+class _SPBlock(torch.nn.Module):
+    """tests/test_sharding_sp.py's SPBlock at Llama-7B's MLP widths, its
+    norm LlamaRMSNorm (K3 on sequence shards): the sequence (dim 1)
+    scattered, norm, column / row sequence-parallel linears with a ReLU
+    between, the sequence gathered; the norm's weight marked."""
+
+    def __init__(self, h, f, dtype):
+        super().__init__()
+        from paddle_tpu_torch.distributed.fleet.utils import \
+            sequence_parallel_utils as spu
+        from paddle_tpu_torch.models.llama import LlamaRMSNorm
+
+        kw = dict(device="cuda", dtype=dtype)
+        self.spu = spu
+        self.norm = LlamaRMSNorm(h, 1e-5, **kw)
+        self.fc1 = spu.ColumnSequenceParallelLinear(
+            h, f, gather_output=False, seq_axis=1, **kw)
+        self.fc2 = spu.RowSequenceParallelLinear(
+            f, h, input_is_parallel=True, seq_axis=1, **kw)
+        spu.mark_as_sequence_parallel_parameter(self.norm.weight)
+
+    def forward(self, x):
+        x = self.spu.scatter(x, axis=1)
+        x = torch.relu(self.fc1(self.norm(x)))
+        return self.spu.gather(self.fc2(x), axis=1)
+
+
+class _SPStack(torch.nn.Module):
+    """``layers`` SPBlocks; with ``rc`` each under fleet.recompute. At
+    degree 1 (no mp group) it is the dense stack. Weights from a seeded
+    generator, each full tensor drawn and the rank's slice kept."""
+
+    def __init__(self, layers, dtype, rc=False):
+        super().__init__()
+        from paddle_tpu_torch.models.llama import _draw, llama_7b
+
+        cfg = llama_7b()
+        self.rc = rc
+        self.blocks = torch.nn.ModuleList(
+            [_SPBlock(cfg.hidden_size, cfg.intermediate_size, dtype)
+             for _ in range(layers)])
+        g = torch.Generator(device="cuda").manual_seed(LLAMA_SEED)
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if name.endswith("norm.weight"):
+                    p.fill_(1.0)
+                elif name.endswith("bias"):
+                    p.zero_()
+                else:
+                    _draw(p, 0.02, g)
+
+    def forward(self, x):
+        from paddle_tpu_torch.distributed.fleet import recompute
+
+        for b in self.blocks:
+            x = recompute(b, x) if self.rc else b(x)
+        return x
+
+
+def _sp_batch(dtype):
+    g = torch.Generator(device="cuda").manual_seed(LLAMA_SP_SEED)
+    B, S = LLAMA_BATCH
+    return {k: torch.randn(B, S, 4096, device="cuda", generator=g).to(dtype)
+            for k in ("x", "y")}
+
+
+def _sp_trainer(model, mesh=None):
+    from paddle_tpu_torch.distributed.engine import ParallelEngine
+
+    opt = _adamw(model)
+    eng = ParallelEngine(model, opt, mesh)
+    return opt, eng.train_step(
+        lambda m, b: torch.mean((m(b["x"]).float() - b["y"].float()) ** 2))
+
+
+def _llama_mp2_shapes(layers=8):
+    """Llama-7B's parameters at ``layers`` layers on one rank of mp 2
+    (the port's layout, in model order) and which are mp shards."""
+    cfg = _llama_cfg(layers, "bfloat16")
+    h, m, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    layer = [((h,), False), ((h // 2, h), True), ((h // 2, h), True),
+             ((h // 2, h), True), ((h, h // 2), True), ((h,), False),
+             ((m // 2, h), True), ((m // 2, h), True), ((h, m // 2), True)]
+    rows = [((V // 2, h), True)] + layer * layers + [((h,), False),
+                                                     ((V // 2, h), True)]
+    return [s for s, _ in rows], [f for _, f in rows]
+
+
+def phase_train_llama_hybrid(dev, results):
+    """Phase 17 (see the module docstring): K8's split reduce at a Llama
+    mp 2 rank's shapes, then (a) mp 2 fp32, (b) mp 2 bf16 with (e) its
+    eval_step and (c) its recompute run, (d) the SP stack, each launch of
+    two ranks held to degree-1 runs made in this process first (and freed
+    before the ranks start). Returns the kernels' launches a rank by
+    path."""
+    from paddle_tpu_torch.convert import export_jax_state_dict
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    out_dir = Path(__file__).resolve().parent / "build" / "llama_hybrid"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    card = smi.splitlines()[0]
+    log(f"[train-llama-hybrid] {card}; Llama-7B widths, ranks sharing this "
+        f"one card over gloo (collectives staged through host memory): "
+        f"not NCCL's speed")
+    check_fused_adam_split(dev, results, shapes=_llama_mp2_shapes(),
+                           what="one mp 2 rank of Llama-7B at 8 layers")
+    B, S = LLAMA_BATCH
+    launches = {}
+    for mode, (layers, dtype, steps) in LLAMA_HYBRID_RUNS.items():
+        ref = {}
+        t0 = time.perf_counter()
+        if mode == "llama-sp":
+            model = _SPStack(layers, torch.bfloat16)
+            step = _sp_trainer(model)[1]
+            batch = _sp_batch(torch.bfloat16)
+            ref["losses"] = [float(step(batch)) for _ in range(steps)]
+            del model, step, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        else:
+            cfg = _llama_cfg(layers, dtype)
+            model = LlamaForCausalLM(cfg, device="cuda", seed=LLAMA_SEED)
+            if dtype == "float32":
+                ref["init"] = _digests(export_jax_state_dict(model,
+                                                             tensors=True))
+            ev = _lm_batch(LLAMA_EVAL_SEED, *LLAMA_EVAL, cfg.vocab_size,
+                           "cuda")
+            with torch.no_grad():
+                plain = model(ev["x"])
+                with _row_products_split(model):
+                    split = model(ev["x"])
+            e = _errs(split[:, :, None], plain[:, :, None])
+            ref["eval_split_vs_plain"] = dict(rel_err=e[3],
+                                              max_abs_err=e[0])
+            torch.save({"plain": plain.cpu(), "split": split.cpu()},
+                       out_dir / f"{mode}.eval.pt")
+            del plain, split
+            # the step holds the engine, its model and optimizer: freed
+            # with it below
+            step = _llama_trainer(model)[2]
+            batch = _lm_batch(LLAMA_BATCH_SEED, B, S, cfg.vocab_size, "cuda")
+            ref["losses"] = [float(step(batch)) for _ in range(steps)]
+            if dtype == "float32":
+                torch.save(export_jax_state_dict(model, tensors=True),
+                           out_dir / f"{mode}.ref.pt")
+            del model, step, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"[train-llama-hybrid] {mode} degree-1 reference in "
+            f"{time.perf_counter() - t0:.1f}s: "
+            + json.dumps({k: v for k, v in ref.items() if k != "init"}))
+        (out_dir / f"{mode}.ref.json").write_text(json.dumps(ref))
+        res = _launch_ranks(2, mode, out_dir)
+        for rk in res:
+            log(f"[train-llama-hybrid] {mode} rank {rk['rank']} ({card}): "
+                + json.dumps(rk))
+        if res[1]["losses"] != res[0]["losses"]:
+            raise AssertionError(f"{mode}: rank 1's losses differ from "
+                                 f"rank 0's")
+        launches[mode] = [run["launches"] for run in res[0]["runs"]]
+        for f in out_dir.glob(f"{mode}.*.pt"):
+            f.unlink()
+    log("[train-llama-hybrid] mp 2 fp32 / bf16, recompute, eval_step and "
+        "the SP stack within their gates of degree 1; replicated and "
+        "marked parameters bit-equal across ranks; bytes at the closed "
+        "form; launches as expected: OK")
+    return {"train_llama_hybrid": launches["llama-mp2-bf16"][0],
+            "train_llama_hybrid_recompute": launches["llama-mp2-bf16"][1],
+            "train_llama_hybrid_fp32": launches["llama-mp2-fp32"][0],
+            "train_llama_sp": launches["llama-sp"][0],
+            "train_llama_sp_recompute": launches["llama-sp"][1]}
+
+
+def _llama_closed_form(cfg, b, S, rc, ledger):
+    """A Llama step's booked payload bytes by (group, op) against the
+    closed form at dp 1: on mp, (7 L + 2) b S H e all-reduced (a layer's
+    two forward and five backward activation all-reduces: o and down
+    forward, the q / k / v / gate / up inputs' gradients; the
+    embedding's and the head input's gradient), 2 L b S H e more under
+    recompute (the replayed forwards), + 2 b S 4 (the cross entropy's
+    sums) + 4 (K8's sharded squared sum); b S 4 maxed; on the world the
+    loss's mean (4)."""
+    L, H = cfg.num_layers, cfg.hidden_size
+    e = 2 if cfg.dtype == "bfloat16" else 4
+    act = b * S * H * e
+    want = {"mp/psum": (7 * L + 2 + (2 * L if rc else 0)) * act
+            + 2 * b * S * 4 + 4, "mp/pmax": b * S * 4, "world/psum": 4}
+    return _booked(ledger), want
+
+
+def _sp_closed_form(layers, b, S, rc, ledger):
+    """An SP stack step's booked payload bytes: a block's fc1 input, its
+    gathered output and (but the first block's) the scatter's gradient
+    all-gathered from the shard [b, S / 2, H], and fc2's gradient too;
+    fc2's output and fc1's input gradient reduce-scattered whole
+    [b, S, H]; under recompute the replayed forward's two all-gathers and
+    one reduce-scatter a block more; the marked parameters' gradients
+    (norm weight and fc2 bias, H each a block) summed over mp, + 4 (K8's
+    sharded squared sum); the loss's mean (4). bf16 throughout."""
+    H, e, L = 4096, 2, layers
+    shard, whole = b * (S // 2) * H * e, b * S * H * e
+    want = {"mp/all_gather": (4 * L - 1 + (2 * L if rc else 0)) * shard,
+            "mp/reduce_scatter": (2 * L + (L if rc else 0)) * whole,
+            "mp/psum": 2 * L * H * e + 4, "world/psum": 4}
+    return _booked(ledger), want
+
+
+def _booked(ledger):
+    booked = {}
+    for r in ledger.records:
+        key = f"{r.axis}/{r.op}"
+        booked[key] = booked.get(key, 0) + r.payload_bytes
+    return booked
+
+
+def _check_rank_kernels(model, ids):
+    """This rank's K1/K2 on layer 0's attention (its heads) and K3 on
+    layer 0's input, each against its plain version: (K1, K2 per tile;
+    K3 forward, its gradient) errors."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+    from paddle_tpu_torch.ops.nn_ops import fused_rope
+
+    out = {}
+    layer = model.llama.layers[0]
+    with torch.no_grad():
+        x = model.llama.embed_tokens(ids)
+        h = layer.input_layernorm(x)
+        B, S = h.shape[:2]
+        att = layer.self_attn
+        D = model.config.head_dim
+        q = att.q_proj(h).view(B, S, att.num_local_heads, D)
+        k = att.k_proj(h).view(B, S, att.num_local_kv_heads, D)
+        v = att.v_proj(h).view(B, S, att.num_local_kv_heads, D)
+        q, k = fused_rope(q, k, att.rope_cos[:S], att.rope_sin[:S])
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        o, lse = K1.flash_attention_fwd_lse(q, k, v, True)
+        ro, _ = K1.flash_attention_dense(q, k, v, True)
+        g = torch.Generator(device="cuda").manual_seed(17)
+        do = torch.randn(o.shape, device="cuda", generator=g).to(o.dtype)
+        grads = K1.flash_attention_bwd(q, k, v, o, lse, do, True)
+        rgrads = K1.flash_attention_bwd_dense(q, k, v, do, True)
+    e1 = _errs(o, ro)
+    e2 = [_errs(a, b) for a, b in zip(grads, rgrads)]
+    out["k1_k2"] = dict(shape=list(q.shape), k1_rel_err=e1[3],
+                        k1_max_abs_err=e1[0],
+                        k2_rel_err=max(e[3] for e in e2),
+                        k2_max_abs_err=max(e[0] for e in e2))
+    del q, k, v, o, lse, ro, do, grads, rgrads
+    bad = [k for k, v in (("k1", e1[3]), ("k2", out["k1_k2"]["k2_rel_err"]))
+           if not v <= TOL[x.dtype]]
+    if bad:
+        raise AssertionError(f"kernels off their plain versions on this "
+                             f"rank's shapes: {bad}: {out}")
+    out.update(_check_k3(x, layer.input_layernorm))
+    return out
+
+
+def _check_k3(rows, norm):
+    """K3 on ``rows`` ([..., H]: all of a rank's, or its sequence shard)
+    with ``norm``'s weight and epsilon against its plain version, forward
+    and gradient."""
+    from paddle_tpu_torch.ops.kernels import rms_norm as K3
+
+    rows = rows.detach().reshape(-1, rows.shape[-1]).contiguous()
+    rows.requires_grad_(True)
+    w = norm.weight.detach().clone().requires_grad_(True)
+    got = K3.rms_norm(rows, w, norm._epsilon)
+    ref = K3.rms_norm_dense(rows, w, norm._epsilon)
+    g = torch.Generator(device="cuda").manual_seed(18)
+    go = torch.randn(got.shape, device="cuda", generator=g).to(got.dtype)
+    dx, dw = torch.autograd.grad(got, (rows, w), go)
+    rx, rw = torch.autograd.grad(ref, (rows, w), go)
+    ef = _errs(got[None, :, None], ref[None, :, None])
+    eg = max(_errs(dx[None, :, None], rx[None, :, None])[3],
+             _errs(dw[None, None, None], rw[None, None, None])[3])
+    out = {"k3": dict(shape=list(rows.shape), fwd_rel_err=ef[3],
+                      fwd_max_abs_err=ef[0], grad_rel_err=eg)}
+    if not (ef[3] <= TOL[rows.dtype] and eg <= TOL[rows.dtype]):
+        raise AssertionError(f"K3 off its plain version on this rank's "
+                             f"rows: {out}")
+    return out
+
+
+def _timed_steps(step, batch, steps):
+    """Run ``steps`` steps, each timed from a barrier and a sync; the
+    last under a comm capture. (losses, seconds, its ledger, bytes and
+    seconds staged a step)."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.observability import commledger as cl
+
+    staged0 = C.staging_stats()
+    losses, secs = [], []
+    led = None
+    for i in range(steps):
+        C.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == steps - 1:
+            with cl.capture() as led:
+                losses.append(float(step(batch)))
+        else:
+            losses.append(float(step(batch)))
+        secs.append(time.perf_counter() - t0)
+    staged = {k: (C.staging_stats()[k] - staged0[k]) / steps
+              for k in staged0}
+    return losses, secs, led, staged
+
+
+def _run_stats(B, S, secs, staged, led):
+    p50 = float(np.percentile(secs[1:], 50))
+    return dict(step_ms=[t * 1e3 for t in secs], step_ms_p50=p50 * 1e3,
+                card_tokens_per_s=B * S / p50,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                staged_bytes_per_step=staged["bytes"],
+                staging_s_per_step=staged["seconds"],
+                comm_host_bytes_last_step=led.host_bytes())
+
+
+def _max_diff(a, b):
+    """(largest |a - b| over the tensors, its first tensor's name)."""
+    worst = (0.0, None)
+    for k in a:
+        d = (a[k].float() - b[k].float()).abs().max().item()
+        if d > worst[0]:
+            worst = (d, k)
+    return worst
+
+
+def _rank_llama(mode, out, out_dir):
+    """One rank of a phase-17 launch (LLAMA_HYBRID_RUNS[mode])."""
+    from paddle_tpu_torch.convert import export_jax_state_dict
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.engine import P
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+    from paddle_tpu_torch.ops.kernels import rms_norm as K3
+    from paddle_tpu_torch.ops.kernels.fused_adam import fused_adam
+
+    layers, dtype, steps = LLAMA_HYBRID_RUNS[mode]
+    ref = json.loads((out_dir / f"{mode}.ref.json").read_text())
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 2}
+    hcg = fleet.init(is_collective=True, strategy=strategy)
+    rank, mp_group = C.get_rank(), hcg.get_model_parallel_group()
+    counters = [K1.flash_attention_fwd, K1.flash_attention_bwd, K3.rms_norm,
+                fused_adam]
+    B, S = LLAMA_BATCH
+    gate = LLAMA_GATES[dtype]
+    runs = []
+    for rc in ((False,) if dtype == "float32" else (False, True)):
+        eng = None
+        if mode == "llama-sp":
+            model = _SPStack(layers, torch.bfloat16, rc=rc)
+            opt, step = _sp_trainer(model, hcg.mesh)
+            batch = _sp_batch(torch.bfloat16)
+        else:
+            cfg = _llama_cfg(layers, dtype)
+            model = LlamaForCausalLM(cfg, device="cuda", seed=LLAMA_SEED)
+            opt, eng, step = _llama_trainer(model, hcg.mesh, rc)
+            batch = _lm_batch(LLAMA_BATCH_SEED, B, S, cfg.vocab_size, "cuda")
+        want_ref = ref["losses"]
+        run = {"recompute": rc}
+        if "init" in ref:
+            init = _digests(export_jax_state_dict(model, tensors=True))
+            run["init_bit_equal"] = init == ref["init"]
+            if not run["init_bit_equal"]:
+                raise AssertionError(f"{mode}: the seeded mp 2 model's "
+                                     f"slices differ from degree 1's")
+        if mode != "llama-sp" and not rc:
+            # (e): eval_step over the fresh model, the batch spec'd, the
+            # vocab's mp shards gathered: the rank's own forward gathered
+            # bit for bit, and degree 1's forward within LLAMA_EVAL_GATES
+            # (in bf16 degree 1's with its row products split as mp 2's
+            # are; the largest difference over the largest logit, and the
+            # reading against degree 1's plain forward, printed beside)
+            ev = _lm_batch(LLAMA_EVAL_SEED, *LLAMA_EVAL, cfg.vocab_size,
+                           "cuda")
+            fwd = eng.eval_step(lambda m, b: m(b["x"]),
+                                batch_specs=(P(), P()))
+            logits = fwd(ev, out_spec=P(None, None, "mp"))
+            with torch.no_grad():
+                own = C.t_all_gather(model(ev["x"]), mp_group, axis=-1)
+            refs = torch.load(out_dir / f"{mode}.eval.pt")
+            held = "split" if dtype == "bfloat16" else "plain"
+            errs = {k: _errs(logits[:, :, None], v.cuda()[:, :, None])
+                    for k, v in refs.items()}
+            e = errs[held]
+            run["eval"] = dict(
+                shape=list(logits.shape), held_against=held, rel_err=e[3],
+                max_abs_err=e[0], max_abs_over_max=e[0] / e[1],
+                rel_err_by_reference={k: v[3] for k, v in errs.items()},
+                split_vs_plain=ref["eval_split_vs_plain"],
+                own_forward_bit_equal=torch.equal(logits, own))
+            if not (run["eval"]["own_forward_bit_equal"]
+                    and e[3] <= LLAMA_EVAL_GATES[dtype]):
+                raise AssertionError(f"{mode}: eval_step's logits "
+                                     f"{run['eval']} against the rank's "
+                                     f"forward and degree 1's")
+            # the eval step holds the engine: freed with it below
+            del logits, refs, own, fwd
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        losses, secs, led, staged = _timed_steps(step, batch, steps)
+        got = {c.__name__: c.launches for c in counters}
+        if mode == "llama-sp":
+            want_l = {"rms_norm": layers * steps * (2 if rc else 1),
+                      "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                      "fused_adam": steps}
+            booked, want_b = _sp_closed_form(layers, B, S, rc, led)
+        else:
+            want_l = {"flash_attention_fwd": layers * steps * (2 if rc
+                                                                else 1),
+                      "flash_attention_bwd": layers * steps,
+                      "rms_norm": (2 * layers * (2 if rc else 1) + 1) * steps,
+                      "fused_adam": steps}
+            booked, want_b = _llama_closed_form(cfg, B, S, rc, led)
+        run.update(_run_stats(B, S, secs, staged, led))
+        _expect_launches(got, want_l, f"{mode} rank {rank} recompute {rc}")
+        if booked != want_b:
+            raise AssertionError(f"{mode} recompute {rc}: booked {booked} "
+                                 f"bytes a step, the closed form {want_b}")
+        rel = max(abs(a - b) / max(abs(b), 1.0)
+                  for a, b in zip(losses, want_ref))
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+                and rel <= gate):
+            raise AssertionError(f"{mode} recompute {rc}: losses {losses}, "
+                                 f"degree 1 {want_ref}, worst |a - b| / "
+                                 f"max(|b|, 1) {rel} > {gate}")
+        if not _replicated_equal(model, mp_group):
+            raise AssertionError(f"{mode}: replicated parameters differ "
+                                 f"across ranks")
+        mine = {n: p.detach().cpu().clone() for n, p in
+                model.named_parameters()}
+        if rc:
+            # against the run without recompute in this process: expected
+            # bit-equal (the replay repeats the forward's operations)
+            first = runs[0]
+            run["losses_bit_equal_to_plain"] = losses == first["losses"]
+            diff = _max_diff(mine, plain_params)
+            run["params_bit_equal_to_plain"] = diff[0] == 0.0
+            run["largest_param_diff"] = diff
+            log(f"[train-llama-hybrid] {mode} rank {rank}: recompute "
+                f"against the plain run: losses bit-equal "
+                f"{run['losses_bit_equal_to_plain']}, parameters bit-equal "
+                f"{run['params_bit_equal_to_plain']}, largest difference "
+                f"{diff[0]} (first in {diff[1]})")
+        else:
+            plain_params = mine
+        if mode != "llama-sp":
+            run["kernels"] = _check_rank_kernels(model, batch["x"])
+        else:
+            # K3 on this rank's sequence shard of the first block's input
+            r, x = hcg.get_model_parallel_rank(), batch["x"]
+            half = x.shape[1] // 2
+            run["kernels"] = _check_k3(x[:, r * half:(r + 1) * half],
+                                       model.blocks[0].norm)
+        if dtype == "float32":
+            full = export_jax_state_dict(model, tensors=True)
+            if rank == 0:
+                run["params_rel_l2"] = _params_rel(
+                    full, torch.load(out_dir / f"{mode}.ref.pt"))
+                prel = run["params_rel_l2"]
+                if not (prel["all"] <= LLAMA_PARAMS_GATE
+                        and prel["worst_tensor_rel"]
+                        <= LLAMA_PARAMS_TENSOR_GATE):
+                    raise AssertionError(f"{mode}: the gathered parameters "
+                                         f"{prel} (relative L2) from "
+                                         f"degree 1")
+            del full
+        run.update(losses=losses, degree1_losses=want_ref, loss_rel_err=rel,
+                   comm_payload_bytes_last_step=booked,
+                   comm_closed_form=want_b, launches=got,
+                   replicated_bit_equal=True)
+        runs.append(run)
+        del model, opt, eng, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    out.update(mode=mode, mp=2, layers=layers, dtype=dtype,
+               batch=[B, S], runs=runs, losses=[r["losses"] for r in runs])
 
 
 def k1_probe():
@@ -6587,7 +7247,8 @@ def main():
                             "serve-disagg,serve-prefix-spec,"
                             "generate,weight-only,load-serve,train-parity,"
                             "train,train-autotune,gpt-parity,train-gpt,"
-                            "varlen,train-surface,train-ckpt,train-hybrid")
+                            "varlen,train-surface,train-ckpt,train-hybrid,"
+                            "train-llama-hybrid")
     ap.add_argument("--profile", action="store_true",
                     help="serve the schedule once more (and the prefix and "
                     "draft configuration's), run 16 more decode steps of "
@@ -6686,6 +7347,14 @@ def main():
 
     dev = torch.device("cuda", 0)
     results = []
+    clock = [time.perf_counter()]
+
+    def tick(what):
+        """Log the seconds since the last tick (a phase's wall time)."""
+        now = time.perf_counter()
+        log(f"[time] {what}: {now - clock[0]:.1f}s")
+        clock[0] = now
+
     k7 = {}   # K7's numbers: the kernels phase's, then train-autotune's
     llm_int8_path = {"llm_int8_linear": None}
     if "kernels" in phases:
@@ -6713,11 +7382,13 @@ def main():
             raise AssertionError("kernels disagree with their plain "
                                  "versions: " + "; ".join(bad))
         log("[kernels] every case within tolerance: OK")
+        tick("kernels")
     if "masked-attention" in phases:
         phase_masked_attention(dev)
     if "parity" in phases:
         phase_parity()
         weight_only_parity()
+    tick("masked-attention, parity")
     # each path is driven with its kernels' counts set to 0 just before
     # it and read just after: serving (with the prefix cache and a draft
     # too) runs K3, K4, K5; static-cache generation K3, K6; paged
@@ -6770,6 +7441,20 @@ def main():
              "train_hybrid": [flash_attention_fwd, flash_attention_bwd,
                               fused_adam, flash_attention_fwd_dropout,
                               flash_attention_bwd_dropout],
+             # phase 17: one rank of mp 2 (Llama-7B widths, bf16, 8
+             # layers), then the same under recompute; the fp32 run; the
+             # SP stack and it under recompute
+             "train_llama_hybrid": [rms_norm, flash_attention_fwd,
+                                    flash_attention_bwd, fused_adam],
+             "train_llama_hybrid_recompute": [rms_norm, flash_attention_fwd,
+                                              flash_attention_bwd,
+                                              fused_adam],
+             "train_llama_hybrid_fp32": [rms_norm, flash_attention_fwd,
+                                         flash_attention_bwd, fused_adam],
+             "train_llama_sp": [rms_norm, flash_attention_fwd,
+                                flash_attention_bwd, fused_adam],
+             "train_llama_sp_recompute": [rms_norm, flash_attention_fwd,
+                                          flash_attention_bwd, fused_adam],
              "weight_only_generate_static": [rms_norm, decode_attention,
                                              weight_only_linear,
                                              weight_only_linear_wgmma],
@@ -6825,10 +7510,13 @@ def main():
             del model
             gc.collect()
             torch.cuda.empty_cache()
+        tick("serve, serve-disagg, serve-prefix-spec, generate, "
+             "weight-only")
     if "load-serve" in phases:
         by_path["load_serve"] = phase_load_serve(paths["load_serve"])
     if "train-parity" in phases:
         phase_train_parity()
+    tick("load-serve, train-parity")
     train_losses = None
     if "train" in phases:
         by_path["train"], train_losses = phase_train(paths["train"],
@@ -6837,6 +7525,7 @@ def main():
     if "train-autotune" in phases:
         by_path["train_autotune"] = phase_train_autotune(
             paths["train_autotune"], k7, train_losses)
+    tick("train, train-autotune")
     if "gpt-parity" in phases:
         phase_gpt_parity()
     by_path["train_gpt_dropout"] = dict(by_path["train_gpt"])
@@ -6853,8 +7542,15 @@ def main():
         by_path["train_ckpt"] = phase_train_ckpt(paths["train_ckpt"])
         gc.collect()
         torch.cuda.empty_cache()
+    tick("gpt-parity, train-gpt, varlen, train-surface, train-ckpt")
     if "train-hybrid" in phases:
         by_path.update(phase_train_hybrid(paths["train_hybrid"]))
+        gc.collect()
+        torch.cuda.empty_cache()
+        tick("train-hybrid")
+    if "train-llama-hybrid" in phases:
+        by_path.update(phase_train_llama_hybrid(dev, results))
+        tick("train-llama-hybrid")
 
     # one entry per kernel: the main path's dtype (bf16) at its main shape
     main_shape = {"rms_norm": [2048, 4096],

@@ -100,22 +100,32 @@ def cast_inputs(op_name: str, *tensors):
                  else t for t in tensors)
 
 
-@contextlib.contextmanager
-def auto_cast(enable: bool = True, custom_white_list=None,
-              custom_black_list=None, level: str = "O1", dtype="bfloat16",
-              use_promote: bool = True):
-    prev = (_state.enabled, _state.dtype, _state.level,
+def state_snapshot():
+    """The ``auto_cast`` state in force: what ``restored`` re-enters (a
+    recomputed block replays its forward under its forward's casts)."""
+    return (_state.enabled, _state.dtype, _state.level,
             _state.custom_white, _state.custom_black)
-    _state.enabled = bool(enable)
-    _state.dtype = _dtype(dtype)
-    _state.level = level
-    _state.custom_white = set(custom_white_list or ())
-    _state.custom_black = set(custom_black_list or ())
+
+
+@contextlib.contextmanager
+def restored(snapshot):
+    """Run the block under the ``auto_cast`` state ``snapshot``."""
+    prev = state_snapshot()
+    (_state.enabled, _state.dtype, _state.level,
+     _state.custom_white, _state.custom_black) = snapshot
     try:
         yield
     finally:
         (_state.enabled, _state.dtype, _state.level,
          _state.custom_white, _state.custom_black) = prev
+
+
+def auto_cast(enable: bool = True, custom_white_list=None,
+              custom_black_list=None, level: str = "O1", dtype="bfloat16",
+              use_promote: bool = True):
+    return restored((bool(enable), _dtype(dtype), level,
+                     set(custom_white_list or ()),
+                     set(custom_black_list or ())))
 
 
 amp_guard = auto_cast

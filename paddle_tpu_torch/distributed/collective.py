@@ -48,9 +48,15 @@ write into the tensor they are given, as Paddle's do. None of them is
 differentiable: ``fleet/layers/mpu/mp_ops.py`` pairs them into
 ``torch.autograd.Function``s. ``src`` / ``dst`` are global ranks, as in
 Paddle and torch; ``perm`` pairs are ranks within the group, as in JAX.
+
+``spmd_region(data_group)`` marks code running as one rank of a step
+over split data (``ParallelEngine``'s ``fn``), as the JAX engine's
+``shard_map`` region does; ``spmd_data_group()`` names the group its
+batch is split over there (None outside one, or without a split).
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import time
@@ -70,10 +76,28 @@ __all__ = [
     "all_reduce_mean_value", "wait", "ppermute", "gather_object",
     "is_initialized", "P2POp", "batch_isend_irecv", "staging_stats",
     "t_psum", "t_pmean", "t_pmax", "t_pmin", "t_all_gather",
-    "t_psum_scatter", "t_all_to_all", "t_ppermute",
+    "t_psum_scatter", "t_all_to_all", "t_ppermute", "spmd_region",
+    "spmd_data_group",
 ]
 
 DEFAULT_TIMEOUT_S = 600.0
+
+_SPMD: List[Optional["Group"]] = []
+
+
+@contextlib.contextmanager
+def spmd_region(data_group: Optional["Group"] = None):
+    """Run the block as one rank of a step whose batch is split over
+    ``data_group`` (module docstring)."""
+    _SPMD.append(data_group)
+    try:
+        yield
+    finally:
+        _SPMD.pop()
+
+
+def spmd_data_group() -> Optional["Group"]:
+    return _SPMD[-1] if _SPMD else None
 
 
 class ReduceOp:

@@ -3,7 +3,7 @@
 ``distributed/collective.py`` and ``spawn``. The auto-parallel entries
 (``DistModel``, ``to_static``, ``shard_optimizer``, ``shard_scaler``,
 ``shard_dataloader``, ``unshard_dtensor``) raise: ROADMAP.md queue 1,
-item 8's remainder. The parameter-server datasets raise as the JAX
+item 8.3 (they stand on the JAX ``distributed/auto_parallel/`` engine). The parameter-server datasets raise as the JAX
 package's do (the brpc data path is out of the reference's scope).
 """
 from __future__ import annotations
@@ -116,7 +116,7 @@ def spawn(func, args=(), nprocs=-1, join=True, daemon=False, **options):
 def _auto_parallel(name):
     raise NotImplementedError(
         f"{name} (auto parallel) is not ported yet: ROADMAP.md queue 1, "
-        f"item 8's remainder")
+        f"item 8.3")
 
 
 class DistModel:

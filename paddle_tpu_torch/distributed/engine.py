@@ -79,11 +79,30 @@ norm over the mp group (sharded gradients' squared sums all-reduced,
 replicated ones counted once) and a loss scaler's overflow flag is
 maxed over every rank; the loss returned is the mean over every rank.
 Telemetry stays per process (its tokens are the global batch's).
+Parameters marked ``sequence_parallel`` (replicated, applied to sequence
+shards: ``fleet.utils.sequence_parallel_utils``) have their gradients
+summed over the mp group after the dp mean, before the clip and the
+update (the JAX ``_param_grad_axes``); the clip counts them once, as
+replicated.
+
+``train_step(fn, batch_specs=...)`` and ``eval_step(fn, batch_specs=None)
+-> step(batch, out_spec=None)`` take one ``PartitionSpec`` per array leaf
+of the global batch (in its flatten order: dict keys sorted, as
+``jax.tree_util`` orders them). A spec names, for each dim, the mesh axis
+(or axes, major first) it is split over, or None: each rank takes its
+block of that dim at its coordinate on the axis, so ``P()`` gives every
+rank the whole leaf, ``P("dp")`` (the default for a leaf with a dim)
+splits dim 0 over dp, and ``P(None, "mp")`` gives each mp rank its slice
+of dim 1 (the sequence, for sequence parallelism). ``eval_step`` runs
+``fn(model, batch)`` without gradients and gathers each output leaf by
+``out_spec`` (default ``P("dp")`` over a dp axis of more than one rank,
+else ``P()``: every rank's own output), as the JAX ``shard_map``'s
+out_specs assemble it.
 
 Still raising over a mesh: the pipeline, sharding (ZeRO) and ``comm_overlap``
 axes and knobs (ROADMAP.md queue 1, item 9), sep / ep and ``quant_comm``
-(item 10), ``batch_specs`` (item 8's remainder), offload (item 9) and
-checkpoints across processes (items 9 and 11).
+(item 10), offload (item 9) and checkpoints across processes (items 9
+and 11).
 """
 from __future__ import annotations
 
@@ -107,12 +126,12 @@ from ..observability import healthmon as _hm
 from ..observability import memledger as _ml
 from ..observability.catalog import train_metrics as _train_metrics
 from ..optimizer.lr import LRScheduler
+from . import collective as C
 from . import failpoints as _fp
-from .parallel import fused_allreduce_gradients
+from .parallel import sync_hybrid_gradients
 
-__all__ = ["ParallelEngine"]
+__all__ = ["ParallelEngine", "PartitionSpec", "P"]
 
-_ITEM8R = "ROADMAP.md queue 1, item 8's remainder"
 _ITEM9_10 = "ROADMAP.md queue 1, items 9 and 10"
 # mesh axes the port does not run yet, and the item that ports each
 _AXIS_ITEM = {"pp": 9, "sharding": 9, "sep": 10, "ep": 10}
@@ -138,6 +157,29 @@ def _map(batch, fn):
 
     mapped, structure = walk(batch)
     return mapped, structure, leaves
+
+
+class PartitionSpec(tuple):
+    """How a batch or output leaf is split across the mesh's ranks: per
+    dim, an axis name, a tuple of axis names (major first) or None (not
+    split). Named as the JAX ``PartitionSpec``; trailing dims it does not
+    name are not split."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+
+def _spec_axes(entry):
+    """A spec entry's axis names, major first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 def _batch_tokens(leaves) -> int:
@@ -228,8 +270,6 @@ class ParallelEngine:
         self.optimizer = getattr(optimizer, "_inner_opt", optimizer)
         self._dp = self._mp = self._world = None
         if self.mesh is not None:
-            from . import collective as C
-
             dp, mp = self.mesh.groups["dp"], self.mesh.groups["mp"]
             self._dp = dp if dp.nranks > 1 else None
             self._mp = mp if mp.nranks > 1 else None
@@ -311,17 +351,15 @@ class ParallelEngine:
         amp_key = ((scaler._dynamic, scaler._incr_every, scaler._decr_every,
                     scaler._incr_ratio, scaler._decr_ratio)
                    if use_scaler else None)
-        if batch_specs is not None:
-            raise NotImplementedError(
-                f"ParallelEngine.train_step(batch_specs=...): not ported yet "
-                f"({_ITEM8R}); the global batch's dim 0 is split over dp")
+        specs = self._check_specs(batch_specs)
         if self.optimizer is None:
             raise ValueError("ParallelEngine.train_step needs an optimizer")
 
         def run(batch):
             """fn, backward, update: (loss, grad norm, found)."""
             opt = self.optimizer
-            loss = fn(self.model, batch)
+            with C.spmd_region(self._dp):
+                loss = fn(self.model, batch)
             found = None
             if use_scaler:
                 # the applied-step count is seeded from the optimizer's
@@ -335,12 +373,12 @@ class ParallelEngine:
                 amp.sync = opt._grad_sync
                 # loss scaling = seeding the backward with the scale
                 loss.backward(amp.scale.to(loss.dtype).reshape(loss.shape))
-                self._dp_mean_grads()
+                self._sync_grads()
                 opt.step(amp=amp)
                 scaler._found_inf_dev = found = amp.found
             else:
                 loss.backward()
-                self._dp_mean_grads()
+                self._sync_grads()
                 opt.step()
             gnorm = opt.grad_norm
             if gnorm is None:
@@ -356,8 +394,6 @@ class ParallelEngine:
                 opt._lr.step()   # once per train step, as the JAX engine
             loss = loss.detach()
             if self._world is not None:
-                from . import collective as C
-
                 # the mean over every rank (JAX engine.py:955)
                 loss = C.t_pmean(loss.reshape(1), self._world).reshape(
                     loss.shape)
@@ -371,11 +407,10 @@ class ParallelEngine:
             self._flush_pending_scalars(block=False)
             batch, structure, leaves = _map(batch, self._to_device)
             n_tok = _batch_tokens(leaves)
-            if self._dp is not None:
-                batch, structure, leaves = _map(batch, self._dp_block)
+            batch, leaves = self._local_batch(batch, specs)
             key = (structure, tuple(
                 (tuple(v.shape), str(v.dtype)) for v in leaves
-                if isinstance(v, torch.Tensor)), amp_key)
+                if isinstance(v, torch.Tensor)), specs, amp_key)
             fresh = self.stats.note("train", key)
             self._last_key = key
             probe = (_ml.TempProbe(self.device)
@@ -401,24 +436,112 @@ class ParallelEngine:
 
         return step
 
-    # -- the data-parallel axis -------------------------------------------
-    def _dp_block(self, x):
-        """This dp rank's block of a global batch leaf's dim 0."""
-        if not isinstance(x, torch.Tensor) or x.dim() == 0:
-            return x
-        n, r = self._dp.nranks, self._dp.rank
-        enforce(x.shape[0] % n == 0,
-                f"ParallelEngine: a batch leaf's dim 0 ({x.shape[0]}) must "
-                f"divide the dp degree {n}")
-        b = x.shape[0] // n
-        return x[r * b:(r + 1) * b]
+    # -- the batch across the mesh ----------------------------------------
+    def _check_specs(self, specs):
+        """``batch_specs`` as a tuple of PartitionSpecs (None: the
+        default, dim 0 over dp), every axis one of the mesh's."""
+        if specs is None:
+            return None
+        specs = tuple(P() if s is None else P(*s) for s in specs)
+        names = self.mesh.axis_names if self.mesh is not None else ("dp",)
+        for s in specs:
+            for entry in s:
+                for a in _spec_axes(entry):
+                    enforce(a in names, f"ParallelEngine: batch spec {s} "
+                            f"names axis {a!r}, not one of the mesh's "
+                            f"{tuple(names)}")
+        return specs
 
-    def _dp_mean_grads(self):
-        """Average every gradient over the dp group (the JAX pmean,
-        ``engine.py:820-840``)."""
-        if self._dp is not None:
-            fused_allreduce_gradients(self.optimizer._parameter_list,
-                                      self._dp)
+    def _axis(self, a):
+        """(this rank's coordinate, size) on mesh axis ``a``."""
+        if self.mesh is None:
+            return 0, 1
+        return self.mesh.coords.get(a, 0), self.mesh.shape.get(a, 1)
+
+    def _block(self, x, spec):
+        """This rank's block of a global leaf by ``spec``."""
+        if not isinstance(x, torch.Tensor):
+            return x
+        enforce(len(spec) <= x.dim(),
+                f"ParallelEngine: spec {spec} names {len(spec)} dims of a "
+                f"{x.dim()}-d leaf")
+        for d, entry in enumerate(spec):
+            idx, n = 0, 1
+            for a in _spec_axes(entry):
+                c, size = self._axis(a)
+                idx, n = idx * size + c, n * size
+            if n == 1:
+                continue
+            enforce(x.shape[d] % n == 0,
+                    f"ParallelEngine: a batch leaf's dim {d} ({x.shape[d]}) "
+                    f"must divide its split over {entry} ({n})")
+            b = x.shape[d] // n
+            x = x.narrow(d, idx * b, b)
+        return x
+
+    def _local_batch(self, batch, specs):
+        """(this rank's batch, its leaves): each leaf's block by its spec
+        (``specs`` None: dim 0 of every leaf with a dim over dp)."""
+        if specs is None:
+            def spec_of(v):
+                return P("dp") if isinstance(v, torch.Tensor) and v.dim() \
+                    else P()
+        else:
+            n = len(_map(batch, lambda v: v)[2])
+            enforce(n == len(specs),
+                    f"ParallelEngine: {len(specs)} batch specs for a batch "
+                    f"of {n} leaves (one spec a leaf, in flatten order)")
+            it = iter(specs)
+
+            def spec_of(v):
+                return next(it)
+        mapped, _, leaves = _map(batch, lambda v: self._block(v, spec_of(v)))
+        return mapped, leaves
+
+    def _gather_out(self, x, spec):
+        """A whole output leaf from this rank's block: each split dim
+        all-gathered over its axes, the innermost first."""
+        if not isinstance(x, torch.Tensor):
+            return x
+        enforce(len(spec) <= x.dim(),
+                f"ParallelEngine.eval_step: out_spec {spec} names "
+                f"{len(spec)} dims of a {x.dim()}-d output")
+        for d, entry in enumerate(spec):
+            for a in reversed(_spec_axes(entry)):
+                g = self.mesh.groups[a] if self.mesh is not None else None
+                if g is not None and g.nranks > 1:
+                    x = C.t_all_gather(x.contiguous(), g, axis=d)
+        return x
+
+    def _sync_grads(self):
+        """The dp mean and the sequence-parallel sum over mp (module
+        docstring; ``parallel.sync_hybrid_gradients``)."""
+        sync_hybrid_gradients(self.optimizer._parameter_list, self._dp,
+                              self._mp)
+
+    def eval_step(self, fn: Callable, batch_specs=None
+                  ) -> Callable[..., Any]:
+        """``step(batch, out_spec=None)``: ``fn(model, batch)`` on this
+        rank's blocks of the global batch (``batch_specs``, as
+        ``train_step``'s) without gradients, every output leaf gathered by
+        ``out_spec`` (one PartitionSpec; module docstring). Array leaves move
+        to the model's device; the model's train / eval mode is the
+        caller's."""
+        specs = self._check_specs(batch_specs)
+
+        def step(batch, out_spec=None):
+            batch, structure, _ = _map(batch, self._to_device)
+            batch, leaves = self._local_batch(batch, specs)
+            if out_spec is None:
+                out_spec = P("dp") if self._dp is not None else P()
+            self.stats.note("eval", (structure, tuple(
+                (tuple(v.shape), str(v.dtype)) for v in leaves
+                if isinstance(v, torch.Tensor)), specs, repr(out_spec)))
+            with torch.no_grad(), C.spmd_region(self._dp):
+                out = fn(self.model, batch)
+            return _map(out, lambda v: self._gather_out(v, out_spec))[0]
+
+        return step
 
     # -- telemetry (observability/) -------------------------------------
     def _flush_pending_scalars(self, block: bool = True):

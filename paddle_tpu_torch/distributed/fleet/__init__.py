@@ -7,6 +7,8 @@ not) and seeds the hybrid RNG tracker once: the global stream from
 ``mp_seed`` (2024 by default), the same on every rank, and the local
 stream from ``mp_seed + 2718 + mp rank``, distinct per mp rank.
 ``distributed_model`` / ``distributed_optimizer`` wrap by strategy.
+``fleet.utils`` holds sequence parallelism (``sequence_parallel_utils``)
+and ``recompute``, which ``fleet.recompute`` names too.
 """
 from __future__ import annotations
 
@@ -16,11 +18,13 @@ from .base.distributed_strategy import DistributedStrategy
 from .base.role_maker import (PaddleCloudRoleMaker, Role,  # noqa: F401
                               RoleMakerBase, UserDefinedRoleMaker, UtilBase)
 from .base.topology import CommunicateTopology, HybridCommunicateGroup
+from . import utils  # noqa: F401
+from .utils.recompute import recompute  # noqa: F401
 
 __all__ = ["init", "DistributedStrategy", "HybridCommunicateGroup",
            "CommunicateTopology", "get_hybrid_communicate_group",
            "get_strategy", "is_initialized", "distributed_model",
-           "distributed_optimizer", "fleet", "util"]
+           "distributed_optimizer", "fleet", "util", "utils", "recompute"]
 
 
 class _FleetState:

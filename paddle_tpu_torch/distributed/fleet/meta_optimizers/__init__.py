@@ -4,14 +4,16 @@
 ``HybridParallelOptimizer`` wraps the user's optimizer: its clip and
 global norm become the norm over the model-parallel group (a
 ``nn.clip.GradSync``, as ``ParallelEngine`` installs), and its ``step()``
-first averages the gradients over the data-parallel group, so an eager
-``loss.backward(); opt.step()`` loop trains as the engine does.
+first runs the engine's gradient sync (``parallel.sync_hybrid_gradients``:
+the mean over the data-parallel group, then the sum over the
+model-parallel group of the parameters marked ``sequence_parallel``), so
+an eager ``loss.backward(); opt.step()`` loop trains as the engine does.
 ``ParallelEngine`` unwraps it (``_inner_opt``). ``DygraphShardingOptimizer``
 (ZeRO) raises: ROADMAP.md queue 1, item 9.
 """
 from __future__ import annotations
 
-from ...parallel import fused_allreduce_gradients
+from ...parallel import sync_hybrid_gradients
 from ....nn.clip import GradSync
 
 __all__ = ["HybridParallelOptimizer", "DygraphShardingOptimizer"]
@@ -70,8 +72,9 @@ class HybridParallelOptimizer(_OptimizerWrapper):
 
     def step(self):
         if self._hcg is not None:
-            fused_allreduce_gradients(self._inner_opt._parameter_list,
-                                      self._hcg.get_data_parallel_group())
+            sync_hybrid_gradients(self._inner_opt._parameter_list,
+                                  self._hcg.get_data_parallel_group(),
+                                  self._hcg.get_model_parallel_group())
         return self._inner_opt.step()
 
 

@@ -16,8 +16,13 @@ autograd engine. ``find_unused_parameters`` puts every parameter in a
 bucket of its own. In a world of one the reduction is the identity.
 
 ``fused_allreduce_gradients(params, group)`` averages the gradients of
-``params`` over ``group`` after a backward (one all-reduce a dtype), as
-``ParallelEngine`` and ``HybridParallelOptimizer`` do over the dp group.
+``params`` over ``group`` after a backward (one all-reduce a dtype).
+``sync_hybrid_gradients(params, dp_group, mp_group)`` is the hybrid
+step's gradient sync that ``ParallelEngine`` and
+``HybridParallelOptimizer`` both run: that mean over the dp group, then
+the sum over the mp group of the gradients of parameters marked
+``sequence_parallel`` (each mp rank holds only its sequence shard's
+part of those: the JAX engine's ``_param_grad_axes``).
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ from ..observability import commledger as cl
 from . import collective as C
 
 __all__ = ["DataParallel", "ParallelEnv", "Reducer",
-           "fused_allreduce_gradients"]
+           "fused_allreduce_gradients", "sync_hybrid_gradients"]
 
 
 class ParallelEnv:
@@ -70,27 +75,41 @@ class ParallelEnv:
 
 
 @torch.no_grad()
-def fused_allreduce_gradients(params, group: Optional[C.Group]) -> None:
-    """Average the (dense) gradients of ``params`` over ``group``: one
-    all-reduce a dtype over a flat buffer, then / nranks (the JAX
-    pmean)."""
+def fused_allreduce_gradients(params, group: Optional[C.Group],
+                              mean: bool = True) -> None:
+    """Average (``mean``; else sum) the (dense) gradients of ``params``
+    over ``group``: one all-reduce a dtype over a flat buffer, then /
+    nranks (the JAX pmean)."""
     if group is None or group.nranks <= 1:
         return
     ps = [p for p in params if p.grad is not None]
     enforce(not any(p.grad.is_sparse for p in ps),
             "sparse (SelectedRows) gradients under data parallelism are not "
-            "ported yet: ROADMAP.md queue 1, item 8's remainder")
+            "ported yet: ROADMAP.md queue 1, item 8.2")
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for p in ps:
         by_dtype.setdefault(p.grad.dtype, []).append(p)
     for same in by_dtype.values():
         flat = torch.cat([p.grad.reshape(-1) for p in same])
-        C.all_reduce(flat, C.ReduceOp.AVG, group=group)
+        C.all_reduce(flat, C.ReduceOp.AVG if mean else C.ReduceOp.SUM,
+                     group=group)
         off = 0
         for p in same:
             n = p.grad.numel()
             p.grad.copy_(flat[off:off + n].view_as(p.grad))
             off += n
+
+
+def sync_hybrid_gradients(params, dp_group: Optional[C.Group],
+                          mp_group: Optional[C.Group]) -> None:
+    """Average the gradients of ``params`` over ``dp_group``, then sum
+    those of the parameters marked ``sequence_parallel`` over
+    ``mp_group`` (module docstring); before the clip and the update."""
+    params = list(params)
+    fused_allreduce_gradients(params, dp_group)
+    fused_allreduce_gradients(
+        [p for p in params if getattr(p, "sequence_parallel", False)],
+        mp_group, mean=False)
 
 
 class Reducer:

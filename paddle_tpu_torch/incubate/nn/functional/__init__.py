@@ -135,8 +135,8 @@ def fused_multi_transformer(x, ln_scales, ln_biases, qkv_weights,
     enforce(rotary_emb_dims == 0, "fused_multi_transformer: in-kernel "
             "rotary (rotary_emb_dims != 0) is not served")
     enforce(ring_id == -1, "fused_multi_transformer: ring_id tensor "
-            "parallelism is not ported (ROADMAP.md queue 1, item 8's "
-            "remainder)")
+            "parallelism is not served, as the JAX functional refuses it "
+            "(ROADMAP.md queue 3, divergences)")
     offset = 0 if time_step is None else time_step
     act = _ACT[activation]
     B, S, h = x.shape

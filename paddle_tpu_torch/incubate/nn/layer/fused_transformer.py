@@ -15,7 +15,10 @@ accept and then ignore raise here when set: ``attn_mask`` (which the JAX
 layer turns into non-causal attention without applying it), ``cache``,
 ``key``/``value`` other than the query, ``kdim``/``vdim``,
 ``need_weights``, the ``*_attr`` ParamAttrs (ROADMAP.md queue 1, item
-2.2) and tensor parallelism (``nranks``, ``ring_id``: item 8's remainder).
+2.2) and tensor parallelism (``nranks``, ``ring_id``: the JAX layers
+accept ``nranks`` and ignore it, and its functional refuses ``ring_id``,
+so there is nothing to hold a sharded layer against; ROADMAP.md queue 3
+lists it as a divergence).
 
 ``FusedMultiTransformer`` is the reference's inference decoder stack over
 fused_multi_transformer_op.cu.h.
@@ -94,8 +97,9 @@ class FusedMultiHeadAttention(nn.Module):
                   ln_scale_attr=ln_scale_attr, ln_bias_attr=ln_bias_attr,
                   need_weights=need_weights or None)
         enforce(nranks == 1 and ring_id == -1,
-                "FusedMultiHeadAttention: tensor parallelism is not ported "
-                "(ROADMAP.md queue 1, item 8's remainder)")
+                "FusedMultiHeadAttention: tensor parallelism (nranks, ring_id) "
+                "is not served: the JAX layers ignore nranks, so a sharded "
+                "layer has no reference (ROADMAP.md queue 3, divergences)")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
@@ -163,8 +167,9 @@ class FusedFeedForward(nn.Module):
                   ln1_scale_attr=ln1_scale_attr, ln1_bias_attr=ln1_bias_attr,
                   ln2_scale_attr=ln2_scale_attr, ln2_bias_attr=ln2_bias_attr)
         enforce(nranks == 1 and ring_id == -1,
-                "FusedFeedForward: tensor parallelism is not ported "
-                "(ROADMAP.md queue 1, item 8's remainder)")
+                "FusedFeedForward: tensor parallelism (nranks, ring_id) "
+                "is not served: the JAX layers ignore nranks, so a sharded "
+                "layer has no reference (ROADMAP.md queue 3, divergences)")
         self.normalize_before = normalize_before
         self.dropout_rate = dropout_rate
         self.act_dropout_rate = (act_dropout_rate
@@ -241,8 +246,9 @@ class FusedMultiTransformer(nn.Module):
                 "queue 1, item 2.2); load weights with "
                 "convert.load_jax_state_dict")
         enforce(nranks == 1 and ring_id == -1,
-                "FusedMultiTransformer: tensor parallelism is not ported "
-                "(ROADMAP.md queue 1, item 8's remainder)")
+                "FusedMultiTransformer: tensor parallelism (nranks, ring_id) "
+                "is not served: the JAX layers ignore nranks, so a sharded "
+                "layer has no reference (ROADMAP.md queue 3, divergences)")
         enforce(trans_qkvw, "FusedMultiTransformer: the layer's qkv weight "
                 "is [embed_dim, 3 * embed_dim]; trans_qkvw applies to the "
                 "functional form")

@@ -63,13 +63,13 @@ from ..distributed.fleet.layers.mpu import (ColumnParallelLinear,
                                             RowParallelLinear,
                                             VocabParallelEmbedding,
                                             parallel_cross_entropy)
-from ..distributed.fleet.layers.mpu.mp_layers import mp_sharded
 from ..distributed.fleet.layers.mpu.mp_ops import _c_identity
 from ..distributed.fleet.layers.mpu.mp_ops import mp_group as mp_group_of
 from ..nn import functional as F
 from ..nn.common import Dropout
 from ..ops.attention import flash_attention
-from .llama import _DTYPES, resolve_device
+from .llama import (_DTYPES, _draw, _masked_mean_over_splits,
+                    resolve_device)
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM",
            "GPTPretrainingCriterion", "gpt_tiny", "gpt_125m", "gpt_350m",
@@ -283,22 +283,6 @@ class GPTModel(nn.Module):
             return self.final_ln(x)
 
 
-@torch.no_grad()
-def _draw(w: torch.Tensor, std: float, g: torch.Generator) -> None:
-    """``w`` ~ N(0, std) from ``g``: the whole tensor, or, for this
-    rank's shard of a tensor-parallel one, the full tensor drawn and this
-    rank's slice kept (the same values as the degree-1 model's)."""
-    if not mp_sharded(w):
-        w.normal_(0.0, std, generator=g)
-        return
-    grp, axis = w.mp_group, w.split_axis
-    shape = list(w.shape)
-    shape[axis] *= grp.nranks
-    full = torch.empty(shape, dtype=w.dtype, device=w.device)
-    full.normal_(0.0, std, generator=g)
-    w.copy_(full.narrow(axis, grp.rank * w.shape[axis], w.shape[axis]))
-
-
 def _generators(device: torch.device, seed: int):
     """(hidden dropout's generator on ``device``, attention dropout's on
     the CPU), seeded from ``seed``."""
@@ -391,7 +375,8 @@ class GPTForCausalLM(nn.Module):
 class GPTPretrainingCriterion(nn.Module):
     """Shift-by-one LM loss: the mean over tokens of
     ``parallel_cross_entropy``, or with ``loss_mask`` sum(loss * m) /
-    max(sum(m), 1) (the JAX ``_masked_mean_over_splits`` at one split)."""
+    max(sum(m), 1) over the whole batch, across the dp ranks inside a
+    ``ParallelEngine`` step (the JAX ``_masked_mean_over_splits``)."""
 
     def __init__(self, config: Optional[GPTConfig] = None, mp_group=None):
         super().__init__()
@@ -402,7 +387,7 @@ class GPTPretrainingCriterion(nn.Module):
                                       self._mp_group).squeeze(-1)
         if loss_mask is not None:
             m = loss_mask.to(loss.dtype)
-            return (loss * m).sum() / m.sum().clamp_min(1.0)
+            return _masked_mean_over_splits((loss * m).sum(), m.sum())
         return loss.mean()
 
 

@@ -10,6 +10,20 @@ kernel K6), and ``generate``. Architecture as in the JAX package:
 RMSNorm (kernel K3, with its gradient), rotary embeddings, GQA
 (num_kv_heads < num_heads), SwiGLU MLP, untied LM head by default.
 
+Tensor parallelism (an mp group of more than one rank: ``mp_group``, or
+the fleet HCG's when the model is built after ``fleet.init``), as the
+JAX model under its mesh: q/k/v, gate and up column-parallel, o and down
+row-parallel, the vocab-parallel embedding and LM head; the logits are
+the rank's vocab shard, for ``LlamaPretrainingCriterion``'s
+``parallel_cross_entropy``. Both head counts must divide the mp degree:
+GQA shards by KV head, so each rank attends with its own q heads over
+its own KV heads (K1/K2 on the rank's heads). The tied head puts
+``_c_identity`` before the product (its partial input gradients are
+summed). Built from a seed, every rank draws each full tensor and keeps
+its slice, so an mp model starts from the degree-1 model's weights. The
+cached forwards and ``generate`` raise under an mp group: the JAX package
+serves on one device only, so a sharded cache has no reference.
+
 The training forward keeps activations in the parameters' dtype: its
 rope casts the f32 tables to q/k's dtype, as the serving rope does
 (the JAX training rope promotes bf16 q/k to f32; in f32 the two agree).
@@ -35,8 +49,11 @@ from torch.nn import functional as F
 from ..amp import cast_inputs
 from ..distributed.fleet.layers.mpu import (ColumnParallelLinear,
                                             RowParallelLinear,
-                                            VocabParallelEmbedding, mp_active,
+                                            VocabParallelEmbedding,
                                             parallel_cross_entropy)
+from ..distributed.fleet.layers.mpu.mp_layers import mp_sharded
+from ..distributed.fleet.layers.mpu.mp_ops import _c_identity
+from ..distributed.fleet.layers.mpu.mp_ops import mp_group as mp_group_of
 from ..core.compile_stats import CompileStats
 from ..core.enforce import enforce
 from ..ops.attention import flash_attention
@@ -150,6 +167,29 @@ def write_cache(cache, new, offset):
         cache[:, :, o:o + S] = new.transpose(1, 2)
 
 
+@torch.no_grad()
+def _draw(w: torch.Tensor, std: float, g: torch.Generator) -> None:
+    """``w`` ~ N(0, std) from ``g``: the whole tensor, or, for this
+    rank's shard of a tensor-parallel one, the full tensor drawn and this
+    rank's slice kept (the same values as the degree-1 model's)."""
+    if not mp_sharded(w):
+        w.normal_(0.0, std, generator=g)
+        return
+    grp, axis = w.mp_group, w.split_axis
+    shape = list(w.shape)
+    shape[axis] *= grp.nranks
+    full = torch.empty(shape, dtype=w.dtype, device=w.device)
+    full.normal_(0.0, std, generator=g)
+    w.copy_(full.narrow(axis, grp.rank * w.shape[axis], w.shape[axis]))
+
+
+_NO_MP_CACHE = ("Llama's cached forwards and generate under tensor "
+                "parallelism (an mp group of more than one rank): the JAX "
+                "package serves on one device only, so a sharded KV cache "
+                "has no reference to hold it against; serve the model at "
+                "degree 1")
+
+
 class LlamaRMSNorm(nn.Module):
     """RMSNorm straight through the K3 wrapper (no shape gate, no
     fallback: on a CUDA tensor the kernel runs or the call raises)."""
@@ -170,16 +210,27 @@ class LlamaAttention(nn.Module):
     without a cache, else attention over a paged or a contiguous KV
     cache."""
 
-    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None,
+                 mp_group=None):
         super().__init__()
         self.config = config
         h, D = config.hidden_size, config.head_dim
         kv = config.num_kv_heads * D
-        kw = {"device": device, "dtype": dtype}
-        self.q_proj = ColumnParallelLinear(h, h, **kw)
-        self.k_proj = ColumnParallelLinear(h, kv, **kw)
-        self.v_proj = ColumnParallelLinear(h, kv, **kw)
-        self.o_proj = RowParallelLinear(h, h, **kw)
+        kw = {"device": device, "dtype": dtype, "mp_group": mp_group}
+        self.q_proj = ColumnParallelLinear(h, h, gather_output=False, **kw)
+        n = self.q_proj.world_size
+        enforce(config.num_heads % n == 0 and config.num_kv_heads % n == 0,
+                f"num_heads {config.num_heads} and num_kv_heads "
+                f"{config.num_kv_heads} must divide mp degree {n} (GQA TP "
+                f"sharding)")
+        self.k_proj = ColumnParallelLinear(h, kv, gather_output=False, **kw)
+        self.v_proj = ColumnParallelLinear(h, kv, gather_output=False, **kw)
+        self.o_proj = RowParallelLinear(h, h, input_is_parallel=True, **kw)
+        # the rank's heads (all of them at degree 1); whether the module is
+        # sharded (its projections may be swapped for quantized ones)
+        self.num_local_heads = config.num_heads // n
+        self.num_local_kv_heads = config.num_kv_heads // n
+        self.is_mp = n > 1
         # non-persistent buffers: they follow the module across .to()
         # (a dtype cast rounds them as the multiply's cast would) and stay
         # out of state_dict
@@ -191,15 +242,18 @@ class LlamaAttention(nn.Module):
         cfg = self.config
         B, S = x.shape[0], x.shape[1]
         D = cfg.head_dim
-        q = self.q_proj(x).view(B, S, cfg.num_heads, D)
-        k = self.k_proj(x).view(B, S, cfg.num_kv_heads, D)
-        v = self.v_proj(x).view(B, S, cfg.num_kv_heads, D)
+        n, nkv = self.num_local_heads, self.num_local_kv_heads
+        q = self.q_proj(x).view(B, S, n, D)
+        k = self.k_proj(x).view(B, S, nkv, D)
+        v = self.v_proj(x).view(B, S, nkv, D)
         if cache is None:
             # training: rope over positions 0..S-1, causal flash
-            # attention (K1/K2); GQA heads pass through as they are
+            # attention (K1/K2) on this rank's heads; GQA heads pass
+            # through as they are
             q, k = fused_rope(q, k, self.rope_cos[:S], self.rope_sin[:S])
             o = flash_attention(q, k, v, causal=True)
-            return self.o_proj(o.reshape(B, S, cfg.num_heads * D))
+            return self.o_proj(o.reshape(B, S, n * D))
+        enforce(not self.is_mp, _NO_MP_CACHE)
         q = _apply_rope(q, self.rope_cos, self.rope_sin, offset)
         k = _apply_rope(k, self.rope_cos, self.rope_sin, offset)
         if len(cache) == 2:
@@ -252,28 +306,30 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     """SwiGLU MLP."""
 
-    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None,
+                 mp_group=None):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
-        kw = {"device": device, "dtype": dtype}
-        self.gate_proj = ColumnParallelLinear(h, m, **kw)
-        self.up_proj = ColumnParallelLinear(h, m, **kw)
-        self.down_proj = RowParallelLinear(m, h, **kw)
+        kw = {"device": device, "dtype": dtype, "mp_group": mp_group}
+        self.gate_proj = ColumnParallelLinear(h, m, gather_output=False, **kw)
+        self.up_proj = ColumnParallelLinear(h, m, gather_output=False, **kw)
+        self.down_proj = RowParallelLinear(m, h, input_is_parallel=True, **kw)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None,
+                 mp_group=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         self.input_layernorm = LlamaRMSNorm(config.hidden_size,
                                             config.rms_norm_eps, **kw)
-        self.self_attn = LlamaAttention(config, **kw)
+        self.self_attn = LlamaAttention(config, mp_group=mp_group, **kw)
         self.post_attention_layernorm = LlamaRMSNorm(
             config.hidden_size, config.rms_norm_eps, **kw)
-        self.mlp = LlamaMLP(config, **kw)
+        self.mlp = LlamaMLP(config, mp_group=mp_group, **kw)
 
     def forward(self, x, cache=None, offset=0, valid=None):
         if cache is None:
@@ -287,14 +343,16 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None,
+                 mp_group=None):
         super().__init__()
         self.config = config
         kw = {"device": device, "dtype": dtype}
-        self.embed_tokens = VocabParallelEmbedding(config.vocab_size,
-                                                   config.hidden_size, **kw)
-        self.layers = nn.ModuleList([LlamaDecoderLayer(config, **kw)
-                                     for _ in range(config.num_layers)])
+        self.embed_tokens = VocabParallelEmbedding(
+            config.vocab_size, config.hidden_size, mp_group=mp_group, **kw)
+        self.layers = nn.ModuleList([
+            LlamaDecoderLayer(config, mp_group=mp_group, **kw)
+            for _ in range(config.num_layers)])
         self.norm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps,
                                  **kw)
 
@@ -318,22 +376,23 @@ class LlamaForCausalLM(nn.Module):
     device; weights are drawn from a generator seeded with ``seed`` on
     that device (normal, std ``initializer_range``; the residual-output
     projections use std / sqrt(2 * num_layers), as the JAX package
-    does)."""
+    does); under tensor parallelism each rank draws the full tensors and
+    keeps its slices (module docstring). ``mp_group`` (None: the fleet
+    HCG's) shards the model; its logits are then the rank's vocab shard."""
 
-    def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
+    def __init__(self, config: LlamaConfig, device=None, seed: int = 0,
+                 mp_group=None):
         super().__init__()
-        enforce(not mp_active(),
-                "Llama under tensor parallelism (a fleet mp group of more "
-                "than one rank) is not ported yet: ROADMAP.md queue 1, "
-                "item 8's remainder")
         self.config = config
         dev = resolve_device(device)
         dtype = _DTYPES[config.dtype]
-        self.llama = LlamaModel(config, device=dev, dtype=dtype)
+        self._mp_group = mp_group_of(mp_group)
+        self.llama = LlamaModel(config, device=dev, dtype=dtype,
+                                mp_group=self._mp_group)
         if not config.tie_word_embeddings:
-            self.lm_head = ColumnParallelLinear(config.hidden_size,
-                                                config.vocab_size,
-                                                device=dev, dtype=dtype)
+            self.lm_head = ColumnParallelLinear(
+                config.hidden_size, config.vocab_size, device=dev,
+                dtype=dtype, gather_output=False, mp_group=self._mp_group)
         self._init_weights(seed)
         self.stats = CompileStats()
 
@@ -350,12 +409,16 @@ class LlamaForCausalLM(nn.Module):
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
             elif name.endswith(("o_proj.weight", "down_proj.weight")):
-                p.normal_(0.0, out_std, generator=g)
+                _draw(p, out_std, g)
             else:
-                p.normal_(0.0, std, generator=g)
+                _draw(p, std, g)
 
     def _logits(self, x):
         if self.config.tie_word_embeddings:
+            if self._mp_group is not None:
+                # each rank's head gives a partial input gradient (its
+                # vocab shard's): summed before the decoder (Megatron)
+                x = _c_identity(x, self._mp_group)
             x, w = cast_inputs("matmul", x, self.llama.embed_tokens.weight)
             return x @ w.t()
         return self.lm_head(x)
@@ -396,6 +459,7 @@ class LlamaForCausalLM(nn.Module):
         identical)."""
         from ..inference import GenerationConfig, _sample
 
+        enforce(self._mp_group is None, _NO_MP_CACHE)
         ids = torch.as_tensor(input_ids, device=self.device).long()
         B, S0 = ids.shape
         M = max_length or min(self.config.max_position_embeddings,
@@ -422,9 +486,27 @@ class LlamaForCausalLM(nn.Module):
         return torch.cat(toks, dim=1)
 
 
+def _masked_mean_over_splits(num, den):
+    """sum(loss * m) / max(sum(m), 1) over the ranks a batch is split
+    over (the JAX helper): inside a ``ParallelEngine`` step over dp, this
+    rank's numerator over the global denominator, scaled by the rank
+    count, so the engine's equal-weight dp mean gives the global masked
+    mean and each token its own gradient."""
+    from ..distributed import collective as C
+
+    g = C.spmd_data_group()
+    if g is not None and g.nranks > 1:
+        den = C.t_psum(den.detach().reshape(1), g).reshape(())
+        num = num * float(g.nranks)
+    return num / den.clamp_min(1.0)
+
+
 class LlamaPretrainingCriterion(nn.Module):
-    """LM loss: the mean over tokens of ``parallel_cross_entropy``, or
-    with ``loss_mask`` the masked mean sum(loss * m) / max(sum(m), 1)."""
+    """LM loss: the mean over tokens of ``parallel_cross_entropy`` (over
+    the vocab-sharded logits at mp > 1: ``mp_group``, else the fleet
+    HCG's), or with ``loss_mask`` the masked mean sum(loss * m) /
+    max(sum(m), 1) over the whole batch, across the dp ranks inside a
+    ``ParallelEngine`` step (``_masked_mean_over_splits``)."""
 
     def __init__(self, config=None, mp_group=None):
         super().__init__()
@@ -435,7 +517,7 @@ class LlamaPretrainingCriterion(nn.Module):
                                       self._mp_group).squeeze(-1)
         if loss_mask is not None:
             m = loss_mask.to(loss.dtype)
-            return (loss * m).sum() / m.sum().clamp_min(1.0)
+            return _masked_mean_over_splits((loss * m).sum(), m.sum())
         return loss.mean()
 
 

@@ -14,7 +14,7 @@ back to summing parameter sizes, which the engine can always do.
 figures. Any other device gives (0, 0), so MFU reads 0.0 there. The
 interconnect floors (``ici_bytes_per_sec``, ``comm_seconds_lower_bound``)
 wait on NCCL across cards, which needs a host with more than one
-(ROADMAP.md queue 1, item 8's remainder).
+(ROADMAP.md queue 1, item 8.1).
 """
 from __future__ import annotations
 

@@ -438,7 +438,7 @@ def roofline(*, step_seconds: float, flops_per_step: float,
     ``device`` is a torch device or a card name; the peaks come from
     ``flops.peak_flops_per_chip`` (the H100's; (0, 0) elsewhere). The
     interconnect's rate is not in the port's table (NVLink waits on a host
-    with more than one card: item 8's remainder), so the ici term is the
+    with more than one card: item 8.1), so the ici term is the
     measured ``exposed_ici_seconds`` or 0."""
     from . import flops as _flops
 

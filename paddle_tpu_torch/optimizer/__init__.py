@@ -44,7 +44,7 @@ norm are then the norm over the model-parallel group (the shards'
 squared sums all-reduced, the replicated gradients once), and a loss
 scaler's overflow flag is maxed over every rank; K8 takes the split
 reduce of ``ops/kernels/fused_adam.py``. Sparse gradients under it
-raise (ROADMAP.md queue 1, item 8's remainder).
+raise (ROADMAP.md queue 1, item 8.2).
 
 Not ported, and raising: AdamW's ``lr_ratio`` and Lamb's
 ``exclude_from_weight_decay_fn`` (both stored and never read by the JAX
@@ -194,7 +194,7 @@ class Optimizer:
         if sparse and self._grad_sync is not None:
             raise NotImplementedError(
                 "sparse (SelectedRows) gradients under tensor parallelism "
-                "are not ported yet: ROADMAP.md queue 1, item 8's remainder")
+                "are not ported yet: ROADMAP.md queue 1, item 8.2")
         self._step_count += 1
         lr_v = _f32(self.get_lr())
         if sparse:

@@ -172,7 +172,7 @@ def test_unported_knobs_raise():
     with pytest.raises(RuntimeError, match="item 2.2"):
         FusedMultiHeadAttention(64, 4, qkv_weight_attr=object(),
                                 device="cpu")
-    with pytest.raises(RuntimeError, match="item 8"):
+    with pytest.raises(RuntimeError, match="queue 3"):
         FusedFeedForward(64, 128, nranks=2, device="cpu")
     layer = FusedMultiHeadAttention(64, 4, device="cpu")
     x = torch.zeros(1, 4, 64)

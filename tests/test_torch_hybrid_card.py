@@ -9,7 +9,12 @@
   degree-1 call's;
 - K1 / K2 with attention dropout at a head offset: a rank's heads run
   with ``head_offset`` give the bits of the whole call's same heads, and
-  match the plain version at the offset.
+  match the plain version at the offset;
+- ``fleet.recompute`` over GPT decoder layers with hidden and attention
+  dropout 0.1: the replay restores the model's generators, so K1 runs
+  again with the forward's Philox seed and K2 differentiates the
+  forward's mask: the loss and every gradient bit-equal to the plain
+  layers', K1 launched twice a layer and K2 once.
 
 Without a card every test skips with a reason (decided inside the
 ``cuda`` fixture). Tolerances: f32 buffers 1e-6 of each tensor's largest
@@ -153,3 +158,40 @@ def test_dropout_at_a_head_offset_is_the_whole_calls_slice(cuda, dt, D, h0):
     tol = 2e-2 if dt == torch.bfloat16 else 1e-4
     err = (hout.float() - r_out.float()).abs().max().item()
     assert err <= tol * r_out.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recompute_gives_k1_k2_the_forward_seed(cuda, dtype):
+    from paddle_tpu_torch.distributed.fleet import recompute
+    from paddle_tpu_torch.models import gpt as tg
+
+    import dataclasses
+
+    # two heads of 64 (the bf16 wgmma bodies), dropout in K1/K2
+    cfg = dataclasses.replace(tg.gpt_tiny(
+        hidden_dropout=0.1, attention_dropout=0.1, dtype=dtype),
+        hidden_size=128, num_heads=2)
+    runs = []
+    for rc in (False, True):
+        m = tg.GPTForCausalLM(cfg, device="cuda", seed=3)
+        x = torch.randint(0, 256, (2, 128), device=cuda,
+                          generator=torch.Generator(cuda).manual_seed(0))
+        K1.flash_attention_fwd_dropout.launches = 0
+        K1.flash_attention_bwd_dropout.launches = 0
+        h = m.gpt.embeddings(x)
+        for layer in m.gpt.layers:
+            h = recompute(layer, h) if rc else layer(h)
+        loss = (m._logits(m.gpt.final_ln(h)).float() ** 2).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss.detach(), {n: p.grad for n, p in
+                                     m.named_parameters()},
+                     (K1.flash_attention_fwd_dropout.launches,
+                      K1.flash_attention_bwd_dropout.launches)))
+    (lp, gp, np_), (lr, gr, nr) = runs
+    L = cfg.num_layers
+    assert np_ == (L, L) and nr == (2 * L, L)
+    assert torch.equal(lp, lr)
+    for n in gp:
+        assert torch.equal(gp[n], gr[n]), n
+

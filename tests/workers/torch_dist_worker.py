@@ -404,6 +404,317 @@ def hybrid_gpt_cases(rank, n, params):
     return out
 
 
+def _fleet_init(dp, mp, **hybrid):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = dict({"dp_degree": dp, "mp_degree": mp}, **hybrid)
+    return fleet.init(is_collective=True, strategy=s)
+
+
+def hybrid_llama_cases(rank, n, params):
+    """llama_tiny through fleet.init + ParallelEngine at (dp, mp): the
+    seeded initialisation gathered; the JAX weights loaded (sharded by
+    convert) and exported back; AdamW runs with and without clip 1.0; an
+    SGD run with a loss mask, one with the tied head; train_step and
+    eval_step with batch_specs (a replicated leaf beside dp-split ones);
+    what the cached paths raise."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.convert import (export_jax_state_dict,
+                                          load_jax_state_dict)
+    from paddle_tpu_torch.distributed.engine import P, ParallelEngine
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+
+    hcg = _fleet_init(params["dp"], params["mp"])
+    arr = {k: torch.tensor(np.asarray(params[k])) for k in ("x", "y", "mask",
+                                                            "w")}
+    crit = tl.LlamaPretrainingCriterion()
+    out = {"coords": hcg.mesh.coords}
+    out["init"] = export_jax_state_dict(
+        tl.LlamaForCausalLM(tl.llama_tiny(), device="cpu", seed=7))
+
+    def model(tied=False):
+        m = tl.LlamaForCausalLM(tl.llama_tiny(tie_word_embeddings=tied),
+                                device="cpu", seed=7)
+        load_jax_state_dict(m, {k: np.asarray(v) for k, v in params[
+            "state_tied" if tied else "state"].items()})
+        return m
+
+    m = model()
+    back = export_jax_state_dict(m)
+    out["round_trip"] = set(back) == set(params["state"]) and all(
+        np.array_equal(back[k], np.asarray(params["state"][k]))
+        for k in back)
+    out["local_shapes"] = {k: tuple(p.shape) for k, p in m.named_parameters()}
+    runs = {"adamw": (AdamW, 1e-3, None, False, False, 3),
+            "adamw_clip": (AdamW, 1e-3, 1.0, False, False, 3),
+            "masked": (SGD, 0.05, None, False, True, 2),
+            "tied": (SGD, 0.05, None, True, False, 2)}
+    for run, (cls, lr, clip, tied, masked, steps) in runs.items():
+        m = model(tied)
+        opt = cls(learning_rate=lr, parameters=m.named_parameters(),
+                  grad_clip=ClipGradByGlobalNorm(clip) if clip else None)
+        step = ParallelEngine(m, opt, hcg.mesh).train_step(
+            lambda mm, b: crit(mm(b["x"]), b["y"],
+                               b["mask"] if masked else None))
+        batch = {"x": arr["x"], "y": arr["y"], "mask": arr["mask"]}
+        out[run] = {"losses": [float(step(batch)) for _ in range(steps)],
+                    "final": export_jax_state_dict(m)}
+    # batch_specs: keys sorted, so (w, x, y); w [S] whole on every rank
+    specs = (P(), P("dp"), P("dp"))
+    m = model()
+    eng = ParallelEngine(m, SGD(learning_rate=0.05,
+                                parameters=m.named_parameters()), hcg.mesh)
+    batch = {"w": arr["w"], "x": arr["x"], "y": arr["y"]}
+    ev = eng.eval_step(lambda mm, b: mm(b["x"]), batch_specs=specs)
+    out["eval_logits"] = ev(batch, out_spec=P("dp", None, "mp")).numpy()
+    step = eng.train_step(
+        lambda mm, b: crit(mm(b["x"]), b["y"],
+                           b["w"][None].expand_as(b["y"])),
+        batch_specs=specs)
+    out["specs"] = {"losses": [float(step(batch)) for _ in range(2)],
+                    "final": export_jax_state_dict(m)}
+    out["eval_stats"] = (eng.stats.compiles, eng.stats.cache_hits)
+    # the cached paths under an mp group
+    raised = {}
+    m = model()
+    ids = arr["x"][:2, :4]
+    for name, call in (
+            ("generate", lambda: m.generate(ids, max_new_tokens=2)),
+            ("static", lambda: m(ids, m._empty_caches(2, 8), offset=0)),
+            ("paged", lambda: m(ids, [(torch.zeros(4, 1, 8, 16),
+                                       torch.zeros(4, 1, 8, 16),
+                                       torch.zeros(2, 1, dtype=torch.int32))]
+                                * 2, offset=0))):
+        try:
+            call()
+            raised[name] = None
+        except RuntimeError as e:
+            raised[name] = str(e)
+    out["raised"] = raised
+    return out
+
+
+SP_OPS = ("scatter", "gather", "all_gather", "reduce_scatter")
+
+
+def _sp_block(norm, d=16, h=32):
+    """The JAX tests/test_sharding_sp.py SPBlock on [b, s, d]: the
+    sequence scattered, the norm on a shard, column / row sequence-parallel
+    linears, the sequence gathered; the norm's parameters marked."""
+    import torch
+    from torch import nn
+
+    from paddle_tpu_torch.distributed.fleet.utils import \
+        sequence_parallel_utils as spu
+    from paddle_tpu_torch.models.llama import LlamaRMSNorm
+
+    class SPBlock(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.norm = (nn.LayerNorm(d) if norm == "layer_norm" else
+                         LlamaRMSNorm(d, 1e-5, device="cpu"))
+            self.fc1 = spu.ColumnSequenceParallelLinear(
+                d, h, gather_output=False, seq_axis=1, device="cpu")
+            self.fc2 = spu.RowSequenceParallelLinear(
+                h, d, input_is_parallel=True, seq_axis=1, device="cpu")
+            for p in self.norm.parameters():
+                spu.mark_as_sequence_parallel_parameter(p)
+
+        def forward(self, x):
+            x = spu.scatter(x, axis=1)
+            x = torch.relu(self.fc1(self.norm(x)))
+            return spu.gather(self.fc2(x), axis=1)
+
+    return SPBlock()
+
+
+def sequence_parallel_cases(rank, n, params):
+    """The SP primitives on this rank's own input and cotangent (indexed
+    by its mp rank), forward and input gradient; with dp > 1 the SPBlock
+    (LayerNorm and LlamaRMSNorm) for 3 Adam steps through the engine,
+    its marked parameters, the hooks' list and the booked bytes; then 3
+    eager steps through fleet.distributed_model / distributed_optimizer
+    (the marked gradients after each sync, the losses' mean over ranks)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.convert import (export_jax_state_dict,
+                                          load_jax_state_dict)
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet as tfleet
+    from paddle_tpu_torch.distributed.engine import ParallelEngine
+    from paddle_tpu_torch.distributed.fleet.utils import \
+        sequence_parallel_utils as spu
+    from paddle_tpu_torch.observability import commledger as cl
+    from paddle_tpu_torch.optimizer import Adam
+
+    hcg = _fleet_init(params["dp"], params["mp"])
+    r = hcg.get_model_parallel_rank()
+    out = {"prims": {}}
+    for op in SP_OPS:
+        case = params["prims"][op]
+        x = torch.tensor(np.asarray(case["x"][r], np.float32),
+                         requires_grad=True)
+        y = getattr(spu, op)(x, axis=1)
+        (y * torch.tensor(np.asarray(case["g"][r], np.float32))
+         ).sum().backward()
+        out["prims"][op] = (y.detach().numpy(), x.grad.numpy())
+    out["alias"] = np.array_equal(
+        spu.ScatterOp.apply(x.detach(), axis=1).numpy(),
+        spu.scatter(x.detach(), axis=1).numpy())
+    if params["dp"] == 1:
+        return out
+    xb = torch.tensor(np.asarray(params["x"], np.float32))
+    yb = torch.tensor(np.asarray(params["y"], np.float32))
+    for norm in ("layer_norm", "rms_norm"):
+        m = _sp_block(norm)
+        load_jax_state_dict(m, {k: np.asarray(v) for k, v in
+                                params["state"][norm].items()})
+        hooks = spu.register_sequence_parallel_allreduce_hooks(m)
+        names = {id(p): k for k, p in m.named_parameters()}
+        eng = ParallelEngine(m, Adam(learning_rate=0.1,
+                                     parameters=m.named_parameters()),
+                             hcg.mesh)
+        step = eng.train_step(
+            lambda mm, b: torch.mean((mm(b["x"]) - b["y"]) ** 2))
+        losses = []
+        for i in range(3):
+            if i == 2:
+                with cl.capture() as led:
+                    losses.append(float(step({"x": xb, "y": yb})))
+            else:
+                losses.append(float(step({"x": xb, "y": yb})))
+        marked = torch.cat([p.detach().reshape(-1) for p in hooks])
+        every = C.t_all_gather(marked, C.get_group(0), tiled=False)
+        booked = {}
+        for rec in led.records:
+            key = f"{rec.axis}/{rec.op}"
+            booked[key] = booked.get(key, 0) + rec.payload_bytes
+        out[norm] = {"losses": losses, "final": export_jax_state_dict(m),
+                     "hooks": sorted(names[id(p)] for p in hooks),
+                     "marked_equal": all(torch.equal(every[0], every[i])
+                                         for i in range(1, n)),
+                     "booked": booked,
+                     "local_shapes": {k: tuple(p.shape) for k, p in
+                                      m.named_parameters()}}
+        # Paddle's eager SP recipe: distributed_model, distributed_optimizer,
+        # the hooks call, each rank on its dp block of the batch
+        m = _sp_block(norm)
+        load_jax_state_dict(m, {k: np.asarray(v) for k, v in
+                                params["state"][norm].items()})
+        model = tfleet.distributed_model(m)
+        opt = tfleet.distributed_optimizer(
+            Adam(learning_rate=0.1, parameters=m.named_parameters()))
+        hooks = spu.register_sequence_parallel_allreduce_hooks(m)
+        dp = hcg.get_data_parallel_rank()
+        blk = slice(dp * 2, dp * 2 + 2)
+        losses, grads_equal = [], []
+        for _ in range(3):
+            loss = torch.mean((model(xb[blk]) - yb[blk]) ** 2)
+            loss.backward()
+            opt.step()
+            g = torch.cat([p.grad.reshape(-1) for p in hooks])
+            every = C.t_all_gather(g, C.get_group(0), tiled=False)
+            grads_equal.append(all(torch.equal(every[0], every[i])
+                                   for i in range(1, n)))
+            opt.clear_grad()
+            losses.append(float(C.t_pmean(loss.detach().reshape(1),
+                                          C.get_group(0))))
+        marked = torch.cat([p.detach().reshape(-1) for p in hooks])
+        every = C.t_all_gather(marked, C.get_group(0), tiled=False)
+        out[norm]["eager"] = {
+            "losses": losses, "final": export_jax_state_dict(m),
+            "grads_equal": grads_equal,
+            "marked_equal": all(torch.equal(every[0], every[i])
+                                for i in range(1, n))}
+    return out
+
+
+def recompute_cases(rank, n, params):
+    """The JAX test_recompute_inside_engine at dp n: a 16 -> 32 -> 16 MLP
+    under ``recompute`` inside the model's forward, 2 Adam steps (lr 0.1)
+    through the engine; the losses and the final parameters. Then a
+    masked mean over the dp split (``_masked_mean_over_splits``) computed
+    inside the recomputed block and the same block run plainly, 2 steps
+    each."""
+    import numpy as np
+    import torch
+    from torch import nn
+
+    from paddle_tpu_torch.convert import (export_jax_state_dict,
+                                          load_jax_state_dict)
+    from paddle_tpu_torch.distributed.engine import ParallelEngine
+    from paddle_tpu_torch.distributed.fleet import recompute
+    from paddle_tpu_torch.models.llama import _masked_mean_over_splits
+    from paddle_tpu_torch.optimizer import Adam
+
+    hcg = _fleet_init(n, 1)
+
+    class RematMLP(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.block = _mlp(False, 0)
+
+        def forward(self, x):
+            return recompute(self.block, x)
+
+    m = RematMLP()
+    load_jax_state_dict(m.block, {k: np.asarray(v)
+                                  for k, v in params["state"].items()})
+    step = ParallelEngine(m, Adam(learning_rate=0.1,
+                                  parameters=m.named_parameters()),
+                          hcg.mesh).train_step(
+        lambda mm, b: torch.mean((mm(b["x"]) - b["y"]) ** 2))
+    b = {k: torch.tensor(np.asarray(params[k], np.float32))
+         for k in ("x", "y")}
+    out = {"losses": [float(step(b)) for _ in range(2)],
+           "final": export_jax_state_dict(m.block)}
+    # a masked mean across the dp split inside the recomputed block: rank
+    # 0's block mostly kept, rank 1's mostly masked, so the local and
+    # global denominators differ
+    r = np.random.RandomState(4)
+    xm, ym = r.randn(2, 4, 6, 16), r.randn(2, 4, 6, 16)
+    keep = (r.rand(4, 6) < np.array([[0.9], [0.9], [0.2], [0.2]])) * 1.0
+    keep[3, 0] = 1.0
+    bm = {"x": torch.tensor(xm, dtype=torch.float32),
+          "y": torch.tensor(ym, dtype=torch.float32),
+          "mask": torch.tensor(keep, dtype=torch.float32)}
+
+    class MaskedLoss(nn.Module):
+        def __init__(self, remat):
+            super().__init__()
+            self.block, self.remat = _mlp(False, 0), remat
+
+        def loss(self, x, y, mask):
+            err = ((self.block(x) - y) ** 2).mean(-1)
+            return _masked_mean_over_splits((err * mask).sum(), mask.sum())
+
+        def forward(self, x, y, mask):
+            if self.remat:
+                return recompute(self.loss, x, y, mask)
+            return self.loss(x, y, mask)
+
+    for run in ("plain", "recompute"):
+        m = MaskedLoss(run == "recompute")
+        load_jax_state_dict(m.block, {k: np.asarray(v)
+                                      for k, v in params["state"].items()})
+        step = ParallelEngine(m, Adam(learning_rate=0.1,
+                                      parameters=m.named_parameters()),
+                              hcg.mesh).train_step(
+            lambda mm, bb: mm(bb["x"], bb["y"], bb["mask"]))
+        out["masked_" + run] = {
+            "losses": [float(step({k: v[i] if v.dim() == 4 else v
+                                   for k, v in bm.items()}))
+                       for i in range(2)],
+            "final": export_jax_state_dict(m.block)}
+    return out
+
+
 def launch_env_cases(rank, n, params):
     """What the launcher exported, and a failure on request."""
     keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
@@ -426,6 +737,9 @@ def write_rank(out_dir):
 CASES = {"collective": collective_cases,
          "tensor_parallel": tensor_parallel_cases,
          "reducer": reducer_cases, "hybrid_gpt": hybrid_gpt_cases,
+         "hybrid_llama": hybrid_llama_cases,
+         "sequence_parallel": sequence_parallel_cases,
+         "recompute": recompute_cases,
          "launch_env": launch_env_cases}
 
 
