@@ -447,6 +447,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 its plain version. Prints per rank step ms p50, the card's
                 tokens/s, peak memory and the bytes and host staging seconds
                 a step, beside the card's name and power limit
+18. train-pipe  pipeline parallelism and ZeRO at gpt_1p3b's widths (h 2048,
+                16 heads of 128, vocab 50304, tied embeddings):
+                GPTForCausalLMPipe at mp 2 x pp 2 x sharding 2 with two
+                virtual stages, 8 ranks sharing the card over gloo through
+                the port's launcher as in phase 16 (build/pipe),
+                micro-batch 1 x 2048, accumulate_steps 2, AdamW (lr 1e-5,
+                f32 masters for bf16), clip 1.0, comm_overlap with 25 MB
+                buckets, each run held to a degree-1 GPTForCausalLM of the
+                same seed and batch made in this process first: (a) fp32,
+                4 layers, ZeRO stage 2, 3 steps (losses 1e-5 relative, the
+                parameters 1e-5 relative L2 over every element counted
+                once); (b) bf16, 8 layers (2 a chunk), stage 2 then stage
+                3, 5 steps each (losses 2e-2; stage 3's losses and each
+                rank's parameter digest bit-equal to stage 2's). Every run:
+                K1/K2 blocks on the rank x microbatches launches a step and
+                K8 one, K1 and K2 (dq, dk, dv; a seeded dO) on the rank's
+                first block and its heads within 2e-2 (bf16) / 1e-4 (fp32)
+                per tile of the plain version, K8's call of the last step
+                (the rank's ZeRO shards, bucket views and whole parameters
+                as the step passes them) against the plain version on
+                copies of its inputs (f32 masters, moments and parameters
+                within 1e-6 of each tensor's largest magnitude, bf16
+                parameters within one ulp of it, the split norm within
+                1e-5), the tied embedding's copies bit-equal, the
+                last step's booked bytes by group and op and the
+                model-state bytes at their closed forms. Prints per rank
+                step ms p50, the card's tokens/s, peak memory, model-state
+                bytes, staged bytes and seconds by part (device-to-host,
+                gloo, host-to-device) and the bubble gauge, beside the
+                card's name and power limit
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -6021,6 +6051,9 @@ def _rank_train(mode, out, out_dir):
             comm_closed_form=want_bytes,
             comm_host_bytes_last_step=led.host_bytes(),
             staging_s_per_step=staged["seconds"] / steps,
+            staged_parts_s_per_step={
+                k: staged[k + "_seconds"] / steps
+                for k in ("d2h", "gloo", "h2d")},
             staged_bytes_per_step=staged["bytes"] / steps,
             replicated_bit_equal=rep_equal, all_ranks_equal=every_equal,
             launches=got, attention=attn, params_rel_l2=params_err))
@@ -6048,6 +6081,8 @@ def hybrid_rank(mode, out_dir):
             _rank_nccl1(out)
         elif mode.startswith("llama-"):
             _rank_llama(mode, out, out_dir)
+        elif mode == "pipe":
+            _rank_pipe(out, out_dir)
         else:
             _rank_train(mode, out, out_dir)
         C.barrier()
@@ -6489,6 +6524,9 @@ def _run_stats(B, S, secs, staged, led):
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                 staged_bytes_per_step=staged["bytes"],
                 staging_s_per_step=staged["seconds"],
+                staged_parts_s_per_step={
+                    k: staged[k + "_seconds"] for k in ("d2h", "gloo",
+                                                        "h2d")},
                 comm_host_bytes_last_step=led.host_bytes())
 
 
@@ -6656,6 +6694,494 @@ def _rank_llama(mode, out, out_dir):
         torch.cuda.empty_cache()
     out.update(mode=mode, mp=2, layers=layers, dtype=dtype,
                batch=[B, S], runs=runs, losses=[r["losses"] for r in runs])
+
+
+# -- phase 18: the pipeline and ZeRO -------------------------------------------
+# gpt_1p3b's widths (h 2048, 16 heads of 128, vocab 50304, tied embeddings)
+# as GPTForCausalLMPipe at mp 2 x pp 2 x sharding 2 with two virtual stages:
+# 8 ranks sharing the card over gloo through the port's launcher, as phase 16
+# launches its ranks (build/pipe). The strategy's ZeRO knobs: comm_overlap
+# with 25 MB buckets; every run: micro-batch 1 x 2048, accumulate_steps 2
+# (the global batch PIPE_BATCH, phases 16-17's), AdamW (lr 1e-5, decay
+# 0.01, f32 masters for bf16), clip 1.0, against a degree-1 GPTForCausalLM
+# of the same seed and batch made in this process first.
+PIPE_HYBRID = {"dp_degree": 1, "mp_degree": 2, "pp_degree": 2,
+               "sharding_degree": 2,
+               "pp_configs": {"num_virtual_pipeline_stages": 2},
+               "sharding_configs": {"comm_overlap": True,
+                                    "comm_buffer_size_MB": 25.0}}
+PIPE_M, PIPE_MICRO, PIPE_VPP = 2, 1, 2
+PIPE_BATCH = (4, 2048)
+# run: (layers, dtype, sharding stage, steps); (a) then (b) at stage 2 and 3
+PIPE_RUNS = {"fp32-s2": (4, "float32", 2, 3),
+             "bf16-s2": (8, "bfloat16", 2, 5),
+             "bf16-s3": (8, "bfloat16", 3, 5)}
+PIPE_LR = 1e-5
+# losses, relative: (a) in fp32 the pipeline sums the same terms in another
+# order; (b) bf16 as phase 16's gate
+PIPE_GATES = {"float32": 1e-5, "bfloat16": 2e-2}
+# (a)'s parameters against degree 1's, relative L2 over all of them: 3 AdamW
+# steps at PIPE_LR move a LayerNorm weight of 1 by about 3e-5, so a chunk
+# that missed its update or its sync reads above it
+PIPE_PARAMS_GATE = 1e-5
+
+
+def _pipe_adamw(model):
+    """Phase 18's optimizer (the comment above PIPE_HYBRID)."""
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    bf16 = next(model.parameters()).dtype != torch.float32
+    return AdamW(learning_rate=PIPE_LR, weight_decay=0.01,
+                 multi_precision=bf16, grad_clip=ClipGradByGlobalNorm(1.0),
+                 parameters=model.named_parameters())
+
+
+def _pipe_reference(cfg, steps, params):
+    """Degree 1: GPTForCausalLM of the pipe's seed on the whole batch through
+    ParallelEngine, in this process. (losses, the parameters in the JAX
+    pipeline's stacked layout on the host, or None)."""
+    from paddle_tpu_torch.convert import export_jax_state_dict
+    from paddle_tpu_torch.distributed.engine import ParallelEngine
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+                                             GPTPretrainingCriterion)
+
+    model = GPTForCausalLM(cfg, device="cuda", seed=HYBRID_SEED)
+    crit = GPTPretrainingCriterion(cfg)
+    step = ParallelEngine(model, _pipe_adamw(model), None).train_step(
+        lambda m, b: crit(m(b["x"]), b["y"]))
+    batch = _lm_batch(HYBRID_BATCH_SEED, *PIPE_BATCH, cfg.vocab_size,
+                      "cuda")
+    losses = [float(step(batch)) for _ in range(steps)]
+    state = None
+    if params:
+        state = _flat_to_pipe(export_jax_state_dict(model, tensors=True),
+                              cfg.num_layers, PIPE_VPP)
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, state
+
+
+def _flat_to_pipe(state, layers, vpp):
+    """GPTForCausalLM's JAX-layout state under the JAX GPTForCausalLMPipe's
+    names: the blocks stacked [vpp, layers / vpp, ...]."""
+    out, rows = {}, {}
+    for k, v in state.items():
+        if k.startswith("gpt.layers."):
+            _, _, i, rest = k.split(".", 3)
+            rows.setdefault("blocks__" + rest.replace(".", "__"), {})[
+                int(i)] = v
+        elif k.startswith("gpt.embeddings."):
+            out["prologue.0." + k[len("gpt.embeddings."):]] = v
+        elif k.startswith("gpt.final_ln."):
+            out["epilogue.0." + k[len("gpt.final_ln."):]] = v
+        else:
+            raise KeyError(f"no pipeline name for {k}")
+    for k, r in rows.items():
+        full = torch.stack([r[i] for i in range(layers)])
+        out[k] = full.reshape((vpp, layers // vpp) + tuple(full.shape[1:]))
+    return out
+
+
+def phase_train_pipe(counters):
+    """Phase 18 (the module docstring): the degree-1 references here, then
+    one launch of the 8 ranks running (a) and (b). Returns the kernels'
+    launches per rank a run, by path."""
+    out_dir = Path(__file__).resolve().parent / "build" / "pipe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    card = smi.splitlines()[0]
+    log(f"[train-pipe] {card}; 8 ranks sharing this card over gloo "
+        f"(collectives and p2p staged through host memory): not NCCL's "
+        f"speed")
+    refs = {}
+    for run, (layers, dtype, _, steps) in PIPE_RUNS.items():
+        key = f"{layers}-{dtype}"
+        if key in refs:
+            continue
+        cfg = _hybrid_cfg(layers, dtype)
+        losses, state = _pipe_reference(cfg, steps, dtype == "float32")
+        refs[key] = losses
+        if state is not None:
+            torch.save(state, out_dir / f"{key}.ref.pt")
+        log(f"[train-pipe] degree-1 GPTForCausalLM, {layers} layers "
+            f"{dtype}: losses {losses}")
+    (out_dir / "pipe.ref.json").write_text(json.dumps(refs))
+    res = _launch_ranks(8, "pipe", out_dir)
+    log(f"[train-pipe] rank 0 ({card}): " + json.dumps(res[0]["runs"]))
+    keys = ("step_ms_p50", "card_tokens_per_s", "peak_mem_gib",
+            "state_bytes", "staging_s_per_step", "staged_parts_s_per_step",
+            "staged_bytes_per_step", "comm_payload_bytes_last_step",
+            "attention", "k8")
+    for rk in res[1:]:
+        log(f"[train-pipe] rank {rk['rank']} {rk['coords']} ({card}): "
+            + json.dumps({run: {k: r[k] for k in keys}
+                          for run, r in rk["runs"].items()}))
+    for run in PIPE_RUNS:
+        if any(rk["runs"][run]["losses"] != res[0]["runs"][run]["losses"]
+               for rk in res):
+            raise AssertionError(f"train-pipe {run}: the ranks' losses "
+                                 f"differ")
+    for rk in res:
+        s2, s3 = rk["runs"]["bf16-s2"], rk["runs"]["bf16-s3"]
+        if s3["losses"] != s2["losses"] or s3["digest"] != s2["digest"]:
+            raise AssertionError(f"train-pipe rank {rk['rank']}: stage 3 "
+                                 f"is not bit-equal to stage 2 (losses "
+                                 f"{s3['losses']} vs {s2['losses']})")
+    for f in out_dir.glob("*.ref.pt"):
+        f.unlink()
+    log("[train-pipe] (a) fp32 within 1e-5 of degree 1 and its parameters "
+        "within 1e-5 relative L2; (b) stage 3 bit-equal to stage 2, both "
+        "within 2e-2 of degree 1; K1/K2 blocks x microbatches a step and "
+        "K8 one a step on every rank, K1/K2 on each rank's first block and "
+        "K8's call on each rank's shards against their plain versions; the "
+        "booked bytes at their closed forms: OK")
+    r0 = res[0]["runs"]
+    return {"train_pipe": r0["bf16-s2"]["launches"],
+            "train_pipe_s3": r0["bf16-s3"]["launches"],
+            "train_pipe_fp32": r0["fp32-s2"]["launches"]}
+
+
+def _pipe_closed_form(model, eng, hcg, dtype, ledger):
+    """A step's booked payload bytes on this rank by (group, op) against
+    the closed form, with b the micro-batch, M the microbatches, K this
+    rank's blocks, e the dtype's bytes: mp: 4 K M b S H e (each block's
+    two forward and two backward activation all-reduces) + on stage 0 M b
+    S H e (the vocab-parallel embedding) + on the last stage M (b S H e +
+    2 b S 4) (the tied head's input gradient, the cross entropy's sums)
+    all-reduced and M b S 4 maxed; pp: an activation b S H e sent for
+    every forward but the last virtual stage's and a gradient for every
+    backward but the first's (M (2 vpp - 1) a rank at pp 2), the loss's
+    4; pp_shared: the tied embedding's local gradient; sharding: every
+    plan entry's local gradient reduce-scattered, its shard all-gathered
+    (stage 2 after the update, stage 3 at the step's entry); dp+sharding:
+    the gradients outside the plan (an mp-split bias: its one dim is
+    mp's) averaged; world: K8's squared sum and the loss's mean (4
+    each)."""
+    cfg = model.config
+    S, H = PIPE_BATCH[1], cfg.hidden_size
+    b, M, K = PIPE_MICRO, PIPE_M, len(model.blocks)
+    e = 2 if dtype == "bfloat16" else 4
+    P, V = model.get_num_stages(), model.get_num_virtual_stages()
+    first, last = model.is_first_stage(), model.is_last_stage()
+    act = b * S * H * e
+    booked = {}
+    for r in ledger.records:
+        key = f"{r.axis}/{r.op}"
+        booked[key] = booked.get(key, 0) + r.payload_bytes
+    want = {"mp/psum": 4 * K * M * act + (M * act if first else 0)
+            + (M * (act + 2 * b * S * 4) if last else 0),
+            "pp/ppermute": act * M * (2 * V - int(first) - int(last)),
+            "pp/psum": 4, "world/psum": 8}
+    if last:
+        want["mp/pmax"] = M * b * S * 4
+    zs, n = eng._zstep, hcg.get_sharding_parallel_world_size()
+
+    def local(p):
+        # a stage-3 parameter is its shard between steps
+        e = zs.entry(p)
+        return p.numel() * p.element_size() * (n if e and e[1] else 1)
+    tied = [p for p in model.parameters()
+            if getattr(p, "pp_shared", None) is not None]
+    if tied:
+        want["pp_shared/psum"] = sum(local(p) for p in tied)
+    whole = sum(local(p) for p in model.parameters()
+                if zs.entry(p) is not None)
+    want["sharding/reduce_scatter"] = whole
+    want["sharding/all_gather"] = whole // n
+    rest = sum(p.numel() * p.element_size() for p in model.parameters()
+               if zs.entry(p) is None)
+    if rest:
+        want["dp+sharding/psum"] = rest
+    return booked, want
+
+
+def _pipe_digest(model):
+    """sha256 of this rank's parameters."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        t = p.detach().contiguous()
+        bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+        h.update(name.encode())
+        h.update(bits.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _pipe_params_rel(model, hcg, ref_path):
+    """The parameters against degree 1's (a pipe of this rank's chunks
+    loaded from its state): relative L2 over every element counted once
+    over the ranks (an mp replica on mp rank 0, the tied copy on stage 0,
+    sharding rank 0) and the worst tensor's, the largest on any rank."""
+    from paddle_tpu_torch.convert import load_jax_state_dict
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers import \
+        mp_sharded
+    from paddle_tpu_torch.models.gpt import GPTForCausalLMPipe
+
+    torch.set_grad_enabled(False)
+    ref = GPTForCausalLMPipe(model.config, device="cuda", seed=HYBRID_SEED)
+    load_jax_state_dict(ref, torch.load(ref_path, mmap=True))
+    c = hcg.mesh.coords
+    d2 = r2 = 0.0
+    worst = 0.0
+    refs = dict(ref.named_parameters())
+    for name, p in model.named_parameters():
+        q = refs[name]
+        d = float((p.detach().double() - q.double()).norm()) ** 2
+        r = float(q.double().norm()) ** 2
+        worst = max(worst, math.sqrt(d / max(r, 1e-30)))
+        once = (c.get("sharding", 0) == 0
+                and (mp_sharded(p) or c.get("mp", 0) == 0)
+                and (getattr(p, "pp_shared", None) is None
+                     or model.is_first_stage()))
+        if once:
+            d2, r2 = d2 + d, r2 + r
+    sums = torch.tensor([d2, r2, worst], dtype=torch.float64)
+    got = C.t_all_gather(sums, C.get_group(0), tiled=False)
+    del ref
+    torch.set_grad_enabled(True)
+    return {"all": math.sqrt(float(got[:, 0].sum() / got[:, 1].sum())),
+            "worst_tensor_rel": float(got[:, 2].max())}
+
+
+def _check_pipe_attention(model, seed=HYBRID_ATTN_SEED):
+    """K1 and K2 on this rank's first block: its ln1 and qkv on a seeded
+    hidden state [1, S, H], the rank's heads, a seeded dO, against the
+    plain versions (K2: dq, dk, dv, the worst per tile)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+
+    blk = model.blocks[str(model.chunk_blocks[0][0])]
+    w = blk.ln1.weight
+    g = torch.Generator(device=w.device).manual_seed(seed)
+    S, D = PIPE_BATCH[1], model.config.head_dim
+    with torch.no_grad():
+        x = torch.randn(1, S, model.config.hidden_size, generator=g,
+                        device=w.device, dtype=w.dtype)
+        qkv = blk.attn.qkv_proj(blk.ln1(x)).reshape(1, S, -1, 3 * D)
+        q, k, v = (t.contiguous() for t in qkv.split(D, dim=-1))
+        out, lse = K1.flash_attention_fwd_lse(q, k, v, True)
+        ref, _ = K1.flash_attention_dense(q, k, v, True)
+        do = torch.randn(out.shape, generator=g, device=w.device,
+                         dtype=out.dtype)
+        grads = K1.flash_attention_bwd(q, k, v, out, lse, do, True)
+        rgrads = K1.flash_attention_bwd_dense(q, k, v, do, True)
+    e = _errs(out, ref)
+    e2 = [_errs(a, b) for a, b in zip(grads, rgrads)]
+    res = {"block": model.chunk_blocks[0][0], "heads": q.shape[2],
+           "k1_rel_err": e[3], "k1_max_abs_err": e[0],
+           "k2_rel_err": max(t[3] for t in e2),
+           "k2_max_abs_err": max(t[0] for t in e2)}
+    if not (e[3] <= TOL[w.dtype] and res["k2_rel_err"] <= TOL[w.dtype]):
+        raise AssertionError(f"block {res['block']}'s attention off its "
+                             f"plain version per tile: {res}")
+    return res
+
+
+class _K8Probe:
+    """K8 on the call the main path makes. While it is entered, the
+    optimizer's K8 is wrapped: the call made when ``armed`` takes copies
+    of its inputs before the kernel runs (the rank's ZeRO shards, the
+    16-byte-aligned bucket views and copies of them, the whole
+    parameters, as the step passes them) and keeps the tensors the
+    kernel writes. ``check`` runs the plain version on the copies with
+    the same scalars and split reduce (a collective: every rank checks)
+    and holds the kernel's f32 masters, moments and parameters within
+    1e-6 of each tensor's largest magnitude, bf16 parameters within one
+    ulp of it (the clip's coefficient may differ in its last bit, as in
+    check_fused_adam) and the norms within 1e-5. The copies are made
+    inside the armed step, which its time includes."""
+
+    def __init__(self):
+        import paddle_tpu_torch.optimizer as O
+
+        self._mod = O
+        self.armed = False
+        self.call = None
+
+    def __enter__(self):
+        real = self._real = self._mod.fused_adam
+
+        def watched(params, grads, masters, moments1, moments2, decays,
+                    **kw):
+            if not self.armed:
+                return real(params, grads, masters, moments1, moments2,
+                            decays, **kw)
+            self.armed = False
+
+            def copies(ts):
+                return [None if t is None else t.detach().clone()
+                        for t in ts]
+            plain = [copies(ts) for ts in (params, grads, masters, moments1,
+                                           moments2)]
+            norm = real(params, grads, masters, moments1, moments2, decays,
+                        **kw)
+            self.call = dict(live=[list(params), list(masters),
+                                   list(moments1), list(moments2)],
+                             plain=plain, decays=list(decays), kw=kw,
+                             norm=norm,
+                             shards=sum(not isinstance(t, torch.nn.Parameter)
+                                        for t in params),
+                             views=sum(g._base is not None for g in grads))
+            return norm
+
+        self._mod.fused_adam = watched
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.fused_adam = self._real
+        return False
+
+    def check(self):
+        from paddle_tpu_torch.ops.kernels.fused_adam import fused_adam_dense
+
+        c, self.call = self.call, None
+        if c is None:
+            raise AssertionError("K8 was not called in the watched step")
+        p, g, mw, m1, m2 = c["plain"]
+        rnorm = fused_adam_dense(p, g, mw, m1, m2, c["decays"], **c["kw"])
+        torch.cuda.synchronize()
+        rel, scaled, abs_err = 0.0, 0.0, 0.0
+        for xs, rs in zip(c["live"], (p, mw, m1, m2)):
+            for x, r in zip(xs, rs):
+                if x is None:
+                    continue
+                d = (x.float() - r.float()).abs().max().item()
+                top = max(r.float().abs().max().item(), 1e-30)
+                abs_err = max(abs_err, d)
+                if x.dtype == torch.float32:
+                    rel = max(rel, d / top)
+                else:
+                    scaled = max(scaled, d / (2.0 ** (math.floor(
+                        math.log2(top)) - 7)))
+        norm = c["norm"]
+        res = dict(tensors=len(p), shards=c["shards"], grad_views=c["views"],
+                   elements=sum(t.numel() for t in p), rel=rel,
+                   ulps_at_max=scaled, max_abs_err=abs_err,
+                   norm_err=(abs(norm.item() - rnorm.item()) / rnorm.item()
+                             if norm is not None else 0.0))
+        if not (rel <= 1e-6 and scaled <= 1.0 and res["norm_err"] <= 1e-5):
+            raise AssertionError(f"K8 off its plain version on this rank's "
+                                 f"call: {res}")
+        return res
+
+
+def _rank_pipe(out, out_dir):
+    """This rank's runs of phase 18 (PIPE_RUNS), one after another."""
+    import copy
+
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models.gpt import GPTForCausalLMPipe
+    from paddle_tpu_torch.observability import memledger as ml
+    from paddle_tpu_torch.ops.kernels import flash_attention as K1
+    from paddle_tpu_torch.ops.kernels.fused_adam import fused_adam
+
+    refs = json.loads((out_dir / "pipe.ref.json").read_text())
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = copy.deepcopy(PIPE_HYBRID)
+    strategy.pipeline_configs = {"accumulate_steps": PIPE_M,
+                                 "micro_batch_size": PIPE_MICRO}
+    hcg = fleet.init(is_collective=True, strategy=strategy)
+    sc = strategy.hybrid_configs["sharding_configs"]
+    rank = C.get_rank()
+    counters = [K1.flash_attention_fwd, K1.flash_attention_bwd, fused_adam]
+    B, S = PIPE_BATCH
+    runs = {}
+    for run, (layers, dtype, stage, steps) in PIPE_RUNS.items():
+        sc["sharding_stage"] = stage
+        cfg = _hybrid_cfg(layers, dtype)
+        model = GPTForCausalLMPipe(cfg, device="cuda", seed=HYBRID_SEED)
+        dm = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(_pipe_adamw(model))
+        batch = _lm_batch(HYBRID_BATCH_SEED, B, S, cfg.vocab_size, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        probe, calls = _K8Probe(), [0]
+
+        def step(bt):
+            calls[0] += 1
+            probe.armed = calls[0] == steps
+            return dm.train_batch([bt["x"], bt["y"]], opt)
+        for c in counters:
+            c.launches = 0
+        with probe:
+            losses, secs, led, staged = _timed_steps(step, batch, steps)
+        got = {c.__name__: c.launches for c in counters}
+        k8 = probe.check()
+        eng = dm._engine
+        K = len(model.blocks)
+        _expect_launches(got, {K1.flash_attention_fwd.__name__:
+                               K * PIPE_M * steps,
+                               K1.flash_attention_bwd.__name__:
+                               K * PIPE_M * steps,
+                               fused_adam.__name__: steps},
+                         f"train-pipe {run} rank {rank}")
+        ref = refs[f"{layers}-{dtype}"]
+        rel = max(_rel(a, b) for a, b in zip(losses, ref))
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+                and rel <= PIPE_GATES[dtype]):
+            raise AssertionError(f"train-pipe {run}: losses {losses}, "
+                                 f"degree 1 {ref}, worst relative {rel}")
+        booked, want = _pipe_closed_form(model, eng, hcg, dtype, led)
+        if booked != want:
+            raise AssertionError(f"train-pipe {run} rank {rank}: booked "
+                                 f"{booked} bytes a step, the closed form "
+                                 f"{want}")
+        acct = ml.account_engine(eng).components
+        measured = {k: acct[k] for k in ("params", "optimizer_state",
+                                         "master_weights")}
+        closed = eng.zero_closed_form()
+        if measured != closed:
+            raise AssertionError(f"train-pipe {run} rank {rank}: model "
+                                 f"state {measured} bytes, the plan's "
+                                 f"closed form {closed}")
+        res = dict(_run_stats(B, S, secs, staged, led), losses=losses,
+                   degree1_losses=ref, loss_rel_err=rel, launches=got,
+                   comm_payload_bytes_last_step=booked,
+                   state_bytes=measured, k8=k8,
+                   bubble=eng._metrics["pp_bubble"].value(
+                       pp_vpp=str(PIPE_VPP)),
+                   buckets=eng._bucket_plan.num_buckets)
+        # stage 3's parameters whole for the checks, released after
+        eng._zstep.gather()
+        res.update(tied_equal=_pipe_tied_equal(model, hcg),
+                   attention=_check_pipe_attention(model),
+                   digest=_pipe_digest(model))
+        eng._zstep.after_update({})
+        if not res["tied_equal"]:
+            raise AssertionError(f"train-pipe {run}: the tied embedding's "
+                                 f"copies differ")
+        if dtype == "float32":
+            res["params_rel_l2"] = _pipe_params_rel(
+                model, hcg, out_dir / f"{layers}-{dtype}.ref.pt")
+            if not res["params_rel_l2"]["all"] <= PIPE_PARAMS_GATE:
+                raise AssertionError(f"train-pipe {run}: parameters "
+                                     f"{res['params_rel_l2']} from degree 1")
+        runs[run] = res
+        del model, dm, opt, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    out.update(coords=hcg.mesh.coords, runs=runs)
+
+
+def _pipe_tied_equal(model, hcg):
+    """The tied embedding's copies on stage 0 and the last stage
+    bit-equal (gathered over the shared group)."""
+    from paddle_tpu_torch.distributed import collective as C
+
+    g = hcg.get_pipe_shared_group()
+    tied = [p for p in model.parameters()
+            if getattr(p, "pp_shared", None) is not None]
+    if g.nranks <= 1 or not tied:
+        return True
+    flat = torch.cat([p.detach().float().reshape(-1) for p in tied])
+    got = C.t_all_gather(flat, g, tiled=False)
+    return bool(torch.equal(got[0], got[-1]))
 
 
 def k1_probe():
@@ -7248,7 +7774,7 @@ def main():
                             "generate,weight-only,load-serve,train-parity,"
                             "train,train-autotune,gpt-parity,train-gpt,"
                             "varlen,train-surface,train-ckpt,train-hybrid,"
-                            "train-llama-hybrid")
+                            "train-llama-hybrid,train-pipe")
     ap.add_argument("--profile", action="store_true",
                     help="serve the schedule once more (and the prefix and "
                     "draft configuration's), run 16 more decode steps of "
@@ -7455,6 +7981,10 @@ def main():
                                 flash_attention_bwd, fused_adam],
              "train_llama_sp_recompute": [rms_norm, flash_attention_fwd,
                                           flash_attention_bwd, fused_adam],
+             # phase 18: one rank of mp 2 x pp 2 x sharding 2, vpp 2
+             # (gpt_1p3b, bf16, 8 layers) at stage 2, then 3; the fp32 run
+             "train_pipe": [flash_attention_fwd, flash_attention_bwd,
+                            fused_adam],
              "weight_only_generate_static": [rms_norm, decode_attention,
                                              weight_only_linear,
                                              weight_only_linear_wgmma],
@@ -7550,7 +8080,12 @@ def main():
         tick("train-hybrid")
     if "train-llama-hybrid" in phases:
         by_path.update(phase_train_llama_hybrid(dev, results))
+        gc.collect()
+        torch.cuda.empty_cache()
         tick("train-llama-hybrid")
+    if "train-pipe" in phases:
+        by_path.update(phase_train_pipe(paths["train_pipe"]))
+        tick("train-pipe")
 
     # one entry per kernel: the main path's dtype (bf16) at its main shape
     main_shape = {"rms_norm": [2048, 4096],

@@ -37,6 +37,17 @@ degree (default: the group each shard was built for).
 ``export_jax_state_dict`` gathers the shards back into the full JAX
 layout (an all-gather over the mp group: every rank calls it), so
 parameters compare whole.
+
+A ``PipelineLayer`` (``GPTForCausalLMPipe``) carries the JAX
+``PipelineLayer``'s names: its ``jax_names()`` maps each local parameter
+to a JAX name and, for a block, a row of the stacked ``blocks__*`` array
+(``[L, ...]``, or ``[vpp, L / vpp, ...]`` under virtual stages), so each
+pp rank loads the rows of its own chunks, with the mp slice on top, and
+the tied copy on the last stage loads the embedding. Names of parts
+another rank holds are not this rank's to check. Export gathers a
+ZeRO stage-3 parameter's shards over the sharding group, the mp shards,
+then every stage's rows over the pp group (``all_gather_object``), so
+every rank gets the whole JAX state.
 """
 from __future__ import annotations
 
@@ -73,19 +84,33 @@ def _local(t: torch.Tensor, shard) -> torch.Tensor:
     return t.narrow(axis, g.rank * n, n)
 
 
+def _names(model: nn.Module):
+    """{port name: (JAX name, stacked row or None)}."""
+    fn = getattr(model, "jax_names", None)
+    if callable(fn):
+        return fn()
+    return {n: (n, None) for n, _ in model.named_parameters()}
+
+
 @torch.no_grad()
 def load_jax_state_dict(model: nn.Module, state: Dict[str, np.ndarray],
                         hcg=None) -> None:
     params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(state))
-    unexpected = sorted(set(state) - set(params))
+    names = _names(model)
+    wanted = {j for j, _ in names.values()}
+    missing = sorted(wanted - set(state))
+    unexpected = [] if hasattr(model, "jax_names") else sorted(
+        set(state) - wanted)
     if missing or unexpected:
         raise KeyError(f"load_jax_state_dict: names differ; missing "
                        f"{missing}, unexpected {unexpected}")
     linear = _linear_weights(model)
     converted = {}
     for name, p in params.items():
-        src = state[name]
+        jname, row = names[name]
+        src = state[jname]
+        if row is not None:
+            src = src[row]
         if isinstance(src, torch.Tensor):
             t = src.detach()
         else:
@@ -110,20 +135,66 @@ def load_jax_state_dict(model: nn.Module, state: Dict[str, np.ndarray],
 
 @torch.no_grad()
 def export_jax_state_dict(model: nn.Module, tensors: bool = False) -> Dict:
+    from .distributed import collective as C
+
     linear = _linear_weights(model)
+    names = _names(model)
     out = {}
+    rows: Dict[str, Dict[tuple, object]] = {}
     for name, p in model.named_parameters():
+        stored = getattr(p, "zero_stored", None)
         shard = _shard(p)
         p = p.detach()
-        if shard is not None:
-            from .distributed import collective as C
+        if stored is not None:
+            from .distributed.grad_buckets import from_rank_major
 
+            group, dim, _ = stored
+            got = C.t_all_gather(p.contiguous().reshape(-1), group, axis=0,
+                                 tiled=False)
+            p = from_rank_major(got, dim, p.shape)
+        if shard is not None:
             p = C.t_all_gather(p.contiguous(), shard[0], axis=shard[1])
         if name in linear:
             p = p.T
         if tensors:
-            out[name] = p.contiguous().cpu()
-            continue
-        arr = (p.float() if p.is_floating_point() else p).cpu().numpy()
-        out[name] = np.ascontiguousarray(arr)
+            v = p.contiguous().cpu()
+        else:
+            v = np.ascontiguousarray(
+                (p.float() if p.is_floating_point() else p).cpu().numpy())
+        jname, row = names[name]
+        if row is None:
+            out.setdefault(jname, v)
+        else:
+            rows.setdefault(jname, {})[row] = v
+    pp = _pipe_group(model)
+    if pp is not None:
+        parts = C.all_gather_object([], (out, rows), group=pp)
+        out, rows = {}, {}
+        for o, r in parts:     # stage order: stage 0's copy of a tie wins
+            for k, v in o.items():
+                out.setdefault(k, v)
+            for k, v in r.items():
+                rows.setdefault(k, {}).update(v)
+    for jname, got in rows.items():
+        lead = tuple(max(r[d] for r in got) + 1
+                     for d in range(len(next(iter(got)))))
+        first = next(iter(got.values()))
+        if tensors:
+            full = torch.empty(lead + tuple(first.shape), dtype=first.dtype)
+        else:
+            full = np.empty(lead + tuple(first.shape), first.dtype)
+        for r, v in got.items():
+            full[r] = v
+        out[jname] = full
     return out
+
+
+def _pipe_group(model: nn.Module):
+    """A pipeline's pp group of more than one rank, or None."""
+    if not hasattr(model, "jax_names") or model.get_num_stages() <= 1:
+        return None
+    from .distributed import fleet
+
+    hcg = fleet.get_hybrid_communicate_group()
+    g = hcg.get_pipe_parallel_group() if hcg is not None else None
+    return g if g is not None and g.nranks > 1 else None

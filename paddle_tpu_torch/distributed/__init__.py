@@ -11,6 +11,8 @@ from .collective import (  # noqa: F401
     recv, reduce, reduce_scatter, scatter, send, split_group, stream)
 from .compat import *  # noqa: F401,F403
 from .parallel import DataParallel, ParallelEnv  # noqa: F401
+from .sharding import (group_sharded_parallel,  # noqa: F401
+                       save_group_sharded_model)
 
 __all__ = [
     "all_gather", "all_reduce", "all_to_all", "barrier", "broadcast",
@@ -19,5 +21,6 @@ __all__ = [
     "isend", "irecv", "ReduceOp", "Group", "ProcessGroup", "stream",
     "P2POp", "batch_isend_irecv", "DataParallel", "ParallelEnv",
     "split_group", "ppermute", "all_gather_object", "gather_object",
-    "broadcast_object_list",
+    "broadcast_object_list", "group_sharded_parallel",
+    "save_group_sharded_model",
 ]

@@ -7,7 +7,7 @@ marker + rename), a loader that refuses uncommitted and corrupt
 directories, an async save path, and a rolling :class:`CheckpointManager`
 with newest-committed fallback (``latest_committed``) — see
 save_state_dict.py / manager.py. One process: saving across processes
-and resharding across a mesh wait on ROADMAP.md queue 1, items 9 and 11.
+and resharding across a mesh wait on ROADMAP.md queue 1, item 11.
 """
 from .metadata import LocalTensorIndex, LocalTensorMetadata, Metadata  # noqa: F401
 from .save_state_dict import (save_state_dict, wait_async_saves,  # noqa: F401

@@ -122,7 +122,7 @@ def _check_one_process(what: str) -> None:
             dist.get_world_size() > 1:
         raise NotImplementedError(
             f"{what} across {dist.get_world_size()} processes is not "
-            f"ported yet: ROADMAP.md queue 1, items 9 and 11 (sharded "
+            f"ported yet: ROADMAP.md queue 1, item 11 (sharded "
             f"checkpoints)")
 
 

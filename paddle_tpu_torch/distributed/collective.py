@@ -31,8 +31,11 @@ torch (a write from the device pointer, ``gloo::IoException``), so the
 collective layer stages every CUDA tensor of a gloo group through pinned
 host memory itself: one copy to the host, the collective there, one copy
 back. The compute stays on the card; the staging's bytes and seconds are
-booked on the world (``staging_stats()``) and, under an open comm-ledger
-capture, on the collective's record as a host hop (``host_bytes``).
+booked on the world (``staging_stats()``: device-to-host copies, the gloo
+call and its wait, host-to-device copies) and, under an open comm-ledger
+capture, on the collective's record as a host hop (``host_bytes``). Each
+staged tensor gets a fresh pinned buffer, which a p2p task holds until
+its ``wait``.
 
 Every collective books its op kind, group label, local shape, dtype and
 group size into ``observability/commledger.py`` while a capture is open,
@@ -77,12 +80,14 @@ __all__ = [
     "is_initialized", "P2POp", "batch_isend_irecv", "staging_stats",
     "t_psum", "t_pmean", "t_pmax", "t_pmin", "t_all_gather",
     "t_psum_scatter", "t_all_to_all", "t_ppermute", "spmd_region",
-    "spmd_data_group",
+    "spmd_data_group", "loss_denominator", "current_loss_denominator",
+    "psum_scatter_ordered",
 ]
 
 DEFAULT_TIMEOUT_S = 600.0
 
 _SPMD: List[Optional["Group"]] = []
+_DEN: List[Optional[torch.Tensor]] = []
 
 
 @contextlib.contextmanager
@@ -98,6 +103,22 @@ def spmd_region(data_group: Optional["Group"] = None):
 
 def spmd_data_group() -> Optional["Group"]:
     return _SPMD[-1] if _SPMD else None
+
+
+@contextlib.contextmanager
+def loss_denominator(den: Optional[torch.Tensor]):
+    """A masked loss inside the block divides by ``den``, this rank's
+    mask count of the whole batch (a pipeline's microbatch takes the
+    batch's, not its own); None leaves the loss's own."""
+    _DEN.append(den)
+    try:
+        yield
+    finally:
+        _DEN.pop()
+
+
+def current_loss_denominator() -> Optional[torch.Tensor]:
+    return _DEN[-1] if _DEN else None
 
 
 class ReduceOp:
@@ -175,8 +196,9 @@ class _World:
         self.default_group = Group([0], name="world")
         self.groups: Dict[int, Group] = {0: self.default_group}
         self.staged_bytes = 0
-        self.staged_seconds = 0.0
         self.staged_ops = 0
+        # seconds by part: device-to-host copies, gloo, host-to-device
+        self.staged_parts = {"d2h": 0.0, "gloo": 0.0, "h2d": 0.0}
 
 
 _world = _World()
@@ -374,9 +396,14 @@ def split_group(parent: Group, every: int) -> Group:
 def staging_stats() -> Dict[str, float]:
     """The host staging of gloo collectives on CUDA tensors since the
     process started: bytes copied (to the host and back), seconds spent
-    (copies and the collective on the host copy), collectives staged."""
-    return {"bytes": _world.staged_bytes, "seconds": _world.staged_seconds,
-            "ops": _world.staged_ops}
+    in all (``seconds``) and by part (``d2h_seconds`` the copies to the
+    host, ``gloo_seconds`` the collective on the host copies and the wait
+    for a p2p transfer, ``h2d_seconds`` the copies back) and collectives
+    staged."""
+    parts = _world.staged_parts
+    return {"bytes": _world.staged_bytes, "seconds": sum(parts.values()),
+            "ops": _world.staged_ops, "d2h_seconds": parts["d2h"],
+            "gloo_seconds": parts["gloo"], "h2d_seconds": parts["h2d"]}
 
 
 # ---------------------------------------------------------------------------
@@ -408,10 +435,21 @@ def _staged(g: Group, tensors: Sequence[torch.Tensor]) -> bool:
 
 
 def _host(t: torch.Tensor, copy: bool) -> torch.Tensor:
+    """A pinned buffer of ``t``'s shape, holding ``t``'s values when
+    ``copy`` (timed as device-to-host)."""
     h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     if copy:
+        t0 = time.perf_counter()
         h.copy_(t)
+        _world.staged_parts["d2h"] += time.perf_counter() - t0
     return h
+
+
+def _timed(part: str, fn: Callable):
+    t0 = time.perf_counter()
+    out = fn()
+    _world.staged_parts[part] += time.perf_counter() - t0
+    return out
 
 
 def _run(g: Group, fn: Callable, ins: Sequence[torch.Tensor],
@@ -424,20 +462,22 @@ def _run(g: Group, fn: Callable, ins: Sequence[torch.Tensor],
     if not _staged(g, list(ins) + list(outs)):
         fn(list(ins), list(outs))
         return 0
-    t0 = time.perf_counter()
     hmap: Dict[int, torch.Tensor] = {}
     for t in ins:
         hmap[id(t)] = _host(t, copy=True)
     for t in outs:
         if id(t) not in hmap:
             hmap[id(t)] = _host(t, copy=False)
-    fn([hmap[id(t)] for t in ins], [hmap[id(t)] for t in outs])
-    for t in outs:
-        t.copy_(hmap[id(t)])
+    _timed("gloo", lambda: fn([hmap[id(t)] for t in ins],
+                              [hmap[id(t)] for t in outs]))
+
+    def back():
+        for t in outs:
+            t.copy_(hmap[id(t)])
+    _timed("h2d", back)
     nbytes = sum(t.numel() * t.element_size() for t in ins) + \
         sum(t.numel() * t.element_size() for t in outs)
     _world.staged_bytes += nbytes
-    _world.staged_seconds += time.perf_counter() - t0
     _world.staged_ops += 1
     return nbytes
 
@@ -492,9 +532,10 @@ def _scatter0(g: Group, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _a2a0(g: Group, x: torch.Tensor) -> torch.Tensor:
+def _a2a0(g: Group, x: torch.Tensor, book: str = "all_to_all"
+          ) -> torch.Tensor:
     """All-to-all over dim 0: block j of ``x`` goes to member j; block i
-    of the result came from member i."""
+    of the result came from member i (booked as ``book``)."""
     x = _contig(x)
     enforce(x.shape[0] % g.nranks == 0,
             f"all_to_all: dim 0 of {tuple(x.shape)} not divisible by "
@@ -503,8 +544,25 @@ def _a2a0(g: Group, x: torch.Tensor) -> torch.Tensor:
     pg = g.process_group
     hb = _run(g, lambda i, o: dist.all_to_all_single(o[0], i[0], group=pg),
               [x], [out])
-    _note("all_to_all", g, x, (0, 0), hb)
+    _note(book, g, x, (0, 0) if book == "all_to_all" else (0,), hb)
     return out
+
+
+def psum_scatter_ordered(rows: torch.Tensor,
+                         group: Optional[Group] = None) -> torch.Tensor:
+    """Reduce-scatter of ``rows`` [nranks, k] (row j is member j's block):
+    this member's block of the sum, the members' blocks added in rank
+    order, so every element's sum is the same however the blocks were
+    packed (bucketed or one tensor at a time). One all-to-all moves the
+    bytes a reduce-scatter moves; it is booked as ``reduce_scatter``."""
+    g = _group(group)
+    if not _active(g):
+        return rows[0]
+    got = _a2a0(g, _contig(rows), book="reduce_scatter")
+    acc = got[0].clone()
+    for i in range(1, g.nranks):
+        acc += got[i]
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -786,18 +844,21 @@ class _Task:
     """A pending p2p operation: ``wait()`` waits for it and then copies
     a staged receive back to the device."""
 
-    def __init__(self, tensor, work=None, finish=None, buf=None):
+    def __init__(self, tensor, work=None, finish=None, buf=None,
+                 staged=False):
         self.tensor = tensor
         self._work = work
         self._finish = finish
         self._buf = buf       # a staged host buffer, alive until done
+        self._staged = staged
 
     def wait(self):
         if self._work is not None:
-            self._work.wait()
+            part = _timed if self._staged else (lambda _, fn: fn())
+            part("gloo", self._work.wait)
             self._work = None
             if self._finish is not None:
-                self._finish()
+                part("h2d", self._finish)
                 self._finish = None
             self._buf = None
         return self.tensor
@@ -812,7 +873,7 @@ _loopback: Dict[Tuple[int, int], List[torch.Tensor]] = {}
 
 
 def _p2p(kind: str, tensor: torch.Tensor, peer: int,
-         group: Optional[Group]) -> _Task:
+         group: Optional[Group], tag: int = 0) -> _Task:
     g = _group(group)
     peer = int(peer)
     if not _active(g) or peer == _world.rank:
@@ -831,12 +892,11 @@ def _p2p(kind: str, tensor: torch.Tensor, peer: int,
     pg = g.process_group
     staged = _staged(g, [tensor])
     buf = _host(tensor, copy=kind == "send") if staged else _contig(tensor)
-    t0 = time.perf_counter()
     if kind == "send":
-        work = dist.isend(buf, peer, group=pg)
+        work = dist.isend(buf, peer, group=pg, tag=int(tag))
         finish = None
     else:
-        work = dist.irecv(buf, peer, group=pg)
+        work = dist.irecv(buf, peer, group=pg, tag=int(tag))
 
         def finish():
             if buf is not tensor:
@@ -844,12 +904,11 @@ def _p2p(kind: str, tensor: torch.Tensor, peer: int,
                     tensor.copy_(buf)
     if staged:
         _world.staged_bytes += tensor.numel() * tensor.element_size()
-        _world.staged_seconds += time.perf_counter() - t0
         _world.staged_ops += 1
     if kind == "send":
         _note("ppermute", g, tensor, (peer,),
               tensor.numel() * tensor.element_size() if staged else 0)
-    return _Task(tensor, work, finish, buf)
+    return _Task(tensor, work, finish, buf, staged)
 
 
 def send(tensor: torch.Tensor, dst: int = 0, group: Optional[Group] = None,
@@ -864,19 +923,21 @@ def recv(tensor: torch.Tensor, src: int = 0, group: Optional[Group] = None,
     return task.wait() if sync_op else task
 
 
-def isend(tensor, dst=0, group=None) -> _Task:
-    return _p2p("send", tensor, dst, group)
+def isend(tensor, dst=0, group=None, tag: int = 0) -> _Task:
+    """Send ``tensor`` to global rank ``dst`` without waiting; ``tag``
+    matches it with the receive posted under the same tag."""
+    return _p2p("send", tensor, dst, group, tag)
 
 
-def irecv(tensor, src=0, group=None) -> _Task:
-    return _p2p("recv", tensor, src, group)
+def irecv(tensor, src=0, group=None, tag: int = 0) -> _Task:
+    return _p2p("recv", tensor, src, group, tag)
 
 
 class P2POp:
     """One batched point-to-point operation: ``op`` is ``isend`` or
     ``irecv``, bound to a tensor and a peer's global rank."""
 
-    def __init__(self, op, tensor, peer, group=None):
+    def __init__(self, op, tensor, peer, group=None, tag: int = 0):
         enforce(op in (isend, irecv),
                 "P2POp op must be paddle_tpu_torch.distributed isend or "
                 "irecv")
@@ -884,6 +945,7 @@ class P2POp:
         self.tensor = tensor
         self.peer = int(peer)
         self.group = group
+        self.tag = int(tag)
 
 
 def batch_isend_irecv(p2p_op_list) -> List[_Task]:
@@ -895,7 +957,7 @@ def batch_isend_irecv(p2p_op_list) -> List[_Task]:
                 "batch_isend_irecv takes a list of P2POp")
     order = [p for p in p2p_op_list if p.op is irecv] + \
         [p for p in p2p_op_list if p.op is isend]
-    tasks = {id(p): p.op(p.tensor, p.peer, p.group) for p in order}
+    tasks = {id(p): p.op(p.tensor, p.peer, p.group, p.tag) for p in order}
     return [tasks[id(p)] for p in p2p_op_list]
 
 

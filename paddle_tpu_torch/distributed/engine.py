@@ -99,10 +99,34 @@ of dim 1 (the sequence, for sequence parallelism). ``eval_step`` runs
 else ``P()``: every rank's own output), as the JAX ``shard_map``'s
 out_specs assemble it.
 
-Still raising over a mesh: the pipeline, sharding (ZeRO) and ``comm_overlap``
-axes and knobs (ROADMAP.md queue 1, item 9), sep / ep and ``quant_comm``
-(item 10), offload (item 9) and checkpoints across processes (items 9
-and 11).
+Over a mesh with a pp or a sharding axis (the JAX ``_ZeroPlan`` and
+``grad_buckets``, ``engine.py:85-178`` there) each parameter the ZeRO
+plan covers takes a shard dim as the JAX plan picks it: in the JAX
+layout (a linear's ``[in, out]``), the first dim that mp has not split
+and that the sharding degree divides. The plan exists when the
+optimizer names ``state_partition_axis`` (``group_sharded_parallel``,
+``DygraphShardingOptimizer``, ``HybridParallelOptimizer`` over a
+sharding axis) or at stage 3 (``sharding_configs["sharding_stage"]`` or
+``group_sharded_parallel(..., "p_g_os")``); without it the sharding axis
+is one more data axis. The batch splits over dp x sharding; after the
+backward the tied copies of a pipeline sum over the shared group, the
+sequence-parallel gradients over mp, and ``grad_buckets.ZeroStep``
+syncs the rest: a plan entry's gradient reduce-scattered onto this
+rank's shard, the others averaged over dp x sharding, in buckets from
+backward hooks with ``comm_overlap``. The optimizer then updates every
+rank's shards and whole parameters in one call (one K8 launch for Adam /
+AdamW on CUDA), its clip over the norm of every element counted once
+(``nn.clip.GradSync(norm_group=...)``); stage 1/2 all-gather the
+updated shards, stage 3 keeps each parameter as its shard between steps
+and gathers it at the step's entry. ``build_zero`` wires all of it, for
+the engine and for an eager ``DygraphShardingOptimizer``. ``comm_overlap``,
+``comm_buffer_size_mb``, ``sharding_stage`` and
+``stage3_release_after_forward`` override the strategy's
+``sharding_configs``. ``PipelineParallel`` runs its schedule as the
+step's forward and backward (``train_step(fn, fwd_bwd=True)``).
+
+Still raising over a mesh: sep / ep and ``quant_comm`` (ROADMAP.md queue
+1, item 10), offload (item 9.1), checkpoints across processes (item 11).
 """
 from __future__ import annotations
 
@@ -120,6 +144,7 @@ from ..core.compile_stats import CompileStats
 from ..core.enforce import enforce
 from ..models.llama import resolve_device
 from ..nn.clip import GradSync, global_norm
+from ..optimizer import Optimizer as _BaseOptimizer
 from ..observability import flops as _flops
 from ..observability import goodput as _gp
 from ..observability import healthmon as _hm
@@ -128,13 +153,17 @@ from ..observability.catalog import train_metrics as _train_metrics
 from ..optimizer.lr import LRScheduler
 from . import collective as C
 from . import failpoints as _fp
-from .parallel import sync_hybrid_gradients
+from . import grad_buckets as _gb
+from .fleet.layers.mpu.mp_layers import mp_sharded
+from .parallel import fused_allreduce_gradients, sync_hybrid_gradients
 
-__all__ = ["ParallelEngine", "PartitionSpec", "P"]
+__all__ = ["ParallelEngine", "PartitionSpec", "P", "zero_sync", "zero_apply",
+           "zero_counted"]
 
-_ITEM9_10 = "ROADMAP.md queue 1, items 9 and 10"
-# mesh axes the port does not run yet, and the item that ports each
-_AXIS_ITEM = {"pp": 9, "sharding": 9, "sep": 10, "ep": 10}
+# mesh axes and knobs the port does not run yet, and the item of each
+_AXIS_ITEM = {"sep": 10, "ep": 10}
+_KNOB_ITEM = {"quant_comm": "10 (quantized collectives)",
+              "offload": "9.1 (host offload)"}
 
 
 def _map(batch, fn):
@@ -209,6 +238,191 @@ def _model_generators(model) -> Dict[str, torch.Generator]:
     return out
 
 
+class _ZeroPlan:
+    """The ZeRO plan over the sharding group (the JAX ``_ZeroPlan``):
+    ``entries`` {id(p): (shard dim in the port's layout, stored as its
+    shard)}, ``jax_dims`` the same dims in the JAX layout. A parameter's
+    dim is the JAX plan's: over its whole shape in the JAX layout (a
+    linear weight ``[in, out]``, an mp shard's split dim counted whole),
+    the first dim that mp has not split and that ``n`` divides (and is
+    at least ``n``). Block parameters are planned layer by layer, as the
+    JAX plan treats its stacked ``[L, ...]`` rows under ``row_dims``.
+    No plan (``axis`` None) unless the optimizer names
+    ``state_partition_axis`` or stage 3 is on."""
+
+    def __init__(self, trainable, optimizer, n: int, stage: int = 2,
+                 linear_ids=()):
+        axis = getattr(optimizer, "state_partition_axis", None) \
+            if optimizer is not None else None
+        stage3 = stage >= 3 or any(getattr(p, "_zero3", False)
+                                   for p in trainable)
+        if stage3 and axis is None:
+            axis = "sharding"
+        self.axis = axis
+        self.n = n if axis is not None else 1
+        self.stage3 = stage3
+        self.entries: Dict[int, tuple] = {}
+        self.jax_dims: Dict[int, int] = {}
+        if self.n <= 1:
+            self.axis = None
+            return
+        for p in trainable:
+            shape = list(p.shape)
+            split = getattr(p, "split_axis", None) if mp_sharded(p) \
+                else None
+            if split is not None:
+                shape[split] *= p.mp_group.nranks
+            linear = id(p) in linear_ids and p.dim() == 2
+            order = [1, 0] if linear else list(range(p.dim()))
+            for jd, td in enumerate(order):
+                if td == split:
+                    continue
+                if shape[td] % n == 0 and shape[td] >= n:
+                    self.entries[id(p)] = (td, bool(
+                        stage3 or getattr(p, "_zero3", False)))
+                    self.jax_dims[id(p)] = jd
+                    break
+
+    def entry(self, p):
+        return self.entries.get(id(p)) if self.axis else None
+
+
+def _mp_groups(p):
+    """(``p``'s mp group,) when it is an mp shard, else ()."""
+    return (p.mp_group,) if mp_sharded(p) else ()
+
+
+def zero_counted(p, coords, mp, sh, shard: bool) -> bool:
+    """Does this rank count ``p``'s gradient (``shard``: its ZeRO shard)
+    in the global norm? Every element once over the mesh: dp rank 0, a
+    replicated gradient on mp rank 0, a tied copy on stage 0, a whole
+    gradient on sharding rank 0 (``mp`` / ``sh``: the groups, or None)."""
+    if coords.get("dp", 0):
+        return False
+    if mp is not None and not mp_sharded(p) and coords.get("mp", 0):
+        return False
+    if getattr(p, "pp_shared", None) is not None and coords.get("pp", 0):
+        return False
+    if not shard and sh is not None and coords.get("sharding", 0):
+        return False
+    return True
+
+
+def _zero_state(opt, p, shard):
+    """``p``'s optimizer slots (and f32 master) at its shard's shape."""
+    st = opt._states.get(id(p))
+    if st is None:
+        st = {k: torch.zeros(shard.shape, dtype=opt._state_dtype,
+                             device=shard.device)
+              for k in opt._state_shapes()}
+        if opt._multi_precision and shard.dtype != torch.float32:
+            opt._master_weights[id(p)] = shard.detach().float().clone()
+        opt._states[id(p)] = st
+    return st
+
+
+def build_zero(model, opt, sh, dp, data, mp, world, coords, stage: int,
+               buffer_mb: Optional[float] = None, release: bool = True,
+               segment_of: Optional[Callable] = None):
+    """One rank's ZeRO wiring over its groups (None for one rank), shared
+    by ``ParallelEngine`` and an eager ``DygraphShardingOptimizer``: the
+    ``_ZeroPlan`` of ``model``'s trainable parameters at ``stage`` (the
+    linear weights' dims read in the JAX layout), the ``BucketPlan``
+    when ``buffer_mb`` is given, the ``ZeroStep`` with its stage-3
+    parameters stored as shards, and ``opt``'s global-norm sync and
+    counted flags. Returns (plan or None, bucket plan or None, step)."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    zero = None
+    if sh is not None:
+        linear = {id(mod.weight) for mod in model.modules()
+                  if isinstance(mod, torch.nn.Linear)}
+        zero = _ZeroPlan(params, opt, sh.nranks, stage, linear)
+        zero = zero if zero.axis is not None else None
+    if zero is not None and opt is not None:
+        enforce(type(opt)._param_state is _BaseOptimizer._param_state,
+                f"ZeRO over a sharding axis with {type(opt).__name__}: "
+                f"its slots start from its own _param_state, which the "
+                f"shard path does not run (the optimizers whose slots "
+                f"start at zero are ported)")
+    buckets = None
+    if buffer_mb is not None:
+        buckets = _gb.build_plan(
+            params, zero, data.nranks if data is not None else 1, buffer_mb,
+            segment_of=segment_of,
+            skip=lambda p: getattr(p, "pp_shared", None) is not None
+            or getattr(p, "sequence_parallel", False))
+    zs = _gb.ZeroStep(params, zero, sh, dp, data, buckets, release)
+    zs.store()
+    if opt is not None:
+        opt._zero_step = zs
+        opt._grad_sync = GradSync(mp_group=mp, found_group=world,
+                                  norm_group=world)
+        for p in params:
+            p.grad_counted = zero_counted(p, coords, mp, sh, False)
+            p.norm_groups = _mp_groups(p)
+    return zero, buckets, zs
+
+
+@torch.no_grad()
+def zero_sync(opt, zs, shared=None, mp=None) -> Dict[int, torch.Tensor]:
+    """The gradient sync over a pipeline / ZeRO mesh (module docstring):
+    the tied copies' gradients summed over ``shared``, the
+    sequence-parallel ones over ``mp``, then ``zs`` (a
+    ``grad_buckets.ZeroStep``) on the rest. {id(p): the synced gradient,
+    or this rank's shard of it}."""
+    mine = [p for p in opt._parameter_list if p.requires_grad]
+    if shared is not None:
+        tied = [p for p in mine if getattr(p, "pp_shared", None) is not None]
+        if tied:
+            # both copies' gradients, absent ones as zeros, summed
+            flat = torch.cat([(p.grad if p.grad is not None
+                               else torch.zeros_like(p)).reshape(-1)
+                              for p in tied])
+            flat = C.t_psum(flat, shared)
+            off = 0
+            for p in tied:
+                p.grad = flat[off:off + p.numel()].view_as(p).clone()
+                off += p.numel()
+    fused_allreduce_gradients(
+        [p for p in mine if getattr(p, "sequence_parallel", False)], mp,
+        mean=False)
+    enforce(not any(p.grad is not None and p.grad.is_sparse for p in mine),
+            "sparse (SelectedRows) gradients over a pipeline or ZeRO mesh "
+            "are not ported yet: ROADMAP.md queue 1, item 8.2")
+    return zs.finish_sync()
+
+
+@torch.no_grad()
+def zero_apply(opt, zs, synced, counted, amp=None):
+    """One update of every shard and whole parameter of ``synced``
+    together (one K8 launch for Adam / AdamW on CUDA); ``counted(p,
+    shard)`` sets the norm's flags. Returns (the global norm, {id(p):
+    updated shard}) for ``zs.after_update``."""
+    params = [p for p in opt._parameter_list
+              if p.requires_grad and id(p) in synced]
+    tensors, grads, states, masters, shards = [], [], [], [], {}
+    for p in params:
+        if zs.entry(p) is not None:
+            t = zs.shard_of(p)
+            st = _zero_state(opt, p, t)
+            t.grad_counted = counted(p, True)
+            t.norm_groups = _mp_groups(p) + (
+                (zs.sh,) if zs.sh is not None else ())
+            shards[id(p)] = t
+        else:
+            t, st = p, opt._param_state(p)
+        tensors.append(t)
+        grads.append(synced[id(p)])
+        states.append(st)
+        masters.append(opt._master_weights.get(id(p)))
+    if tensors:
+        opt._step_on(tensors, grads, states, masters, amp)
+    gnorm = opt.grad_norm
+    if gnorm is None and tensors:
+        gnorm = global_norm(grads, **opt._sync_kw(tensors))
+    return gnorm, shards
+
+
 class _Scalars:
     """One step's loss, grad norm and scaler ``found`` on their way to
     the host: copied ``non_blocking`` into pinned memory behind a CUDA
@@ -255,26 +469,58 @@ class ParallelEngine:
                         f"ParallelEngine over a mesh with a {axis} axis of "
                         f"{mesh.shape[axis]}: not ported yet (ROADMAP.md "
                         f"queue 1, item {item})")
-        knobs = {"comm_overlap": comm_overlap, "quant_comm": quant_comm,
-                 "sharding_stage": sharding_stage,
-                 "stage3_release_after_forward":
-                     stage3_release_after_forward, "offload": offload,
-                 "comm_buffer_size_mb": comm_buffer_size_mb}
-        on = sorted(k for k, v in knobs.items() if v not in (None, False))
+        from . import fleet as _fleet
+
+        strategy = _fleet.get_strategy()
+        hc = strategy.hybrid_configs if strategy is not None else {}
+        # an explicit knob replaces the strategy's, as in the JAX engine
+        q = quant_comm if quant_comm is not None else hc.get("quant_comm")
+        o = offload if offload is not None else \
+            (hc.get("sharding_configs") or {}).get("offload")
+        knobs = {"quant_comm": q.get("dtype", "none") not in (None, "none")
+                 if isinstance(q, dict) else q not in (None, False, "none"),
+                 "offload": any(o.values()) if isinstance(o, dict)
+                 else bool(o)}
+        on = sorted(k for k, v in knobs.items() if v)
         if on:
             raise NotImplementedError(
-                f"ParallelEngine {', '.join(on)}: not ported yet "
-                f"({_ITEM9_10})")
+                f"ParallelEngine {', '.join(on)}: not ported yet (ROADMAP.md "
+                f"queue 1, item {'; item '.join(_KNOB_ITEM[k] for k in on)})")
+        cfg_on, cfg_mb = _gb.strategy_config(strategy)
+        cfg_stage, cfg_rel = _gb.stage_config(strategy)
+        self._overlap_on = bool(cfg_on if comm_overlap is None
+                                else comm_overlap)
+        self._overlap_mb = float(cfg_mb if comm_buffer_size_mb is None
+                                 else comm_buffer_size_mb)
+        self._sharding_stage = int(cfg_stage if sharding_stage is None
+                                   else sharding_stage)
+        self._stage3_release = bool(
+            cfg_rel if stage3_release_after_forward is None
+            else stage3_release_after_forward)
         self.model = model
         # a fleet optimizer wrapper steps its inner optimizer
         self.optimizer = getattr(optimizer, "_inner_opt", optimizer)
         self._dp = self._mp = self._world = None
+        self._pp = self._sh = self._data = self._shared = None
+        self._zero = self._zstep = self._bucket_plan = None
+        self._pipeline = None          # set by PipelineParallel
+        self._data_spec = P("dp")
         if self.mesh is not None:
-            dp, mp = self.mesh.groups["dp"], self.mesh.groups["mp"]
-            self._dp = dp if dp.nranks > 1 else None
-            self._mp = mp if mp.nranks > 1 else None
+            grp = self.mesh.groups
+
+            def big(name):
+                g = grp.get(name)
+                return g if g is not None and g.nranks > 1 else None
+            self._dp, self._mp = big("dp"), big("mp")
+            self._pp, self._sh = big("pp"), big("sharding")
+            self._shared = big("pp_shared")
+            self._data = big("dp_sharding") if self._sh else self._dp
+            if self._sh is not None:
+                self._data_spec = P(("dp", "sharding"))
             self._world = C.get_group(0)
-            if self._mp is not None and self.optimizer is not None:
+            if self._pp is not None or self._sh is not None:
+                self._init_zero()
+            elif self._mp is not None and self.optimizer is not None:
                 self.optimizer._grad_sync = GradSync(
                     mp_group=self._mp, found_group=self._world)
         params = list(model.parameters())
@@ -327,6 +573,57 @@ class ParallelEngine:
         """The model's parameters, in order."""
         return list(self.model.parameters())
 
+    # -- pipeline and ZeRO over the mesh (module docstring) -----------------
+    def _init_zero(self):
+        model = self.model
+        seg = {}
+        chunks = getattr(model, "chunk_blocks", None)
+        if chunks is not None:
+            for v in range(len(chunks)):
+                for q in model.chunk_parameters(v):
+                    seg.setdefault(id(q), v)
+        self._zero, self._bucket_plan, self._zstep = build_zero(
+            model, self.optimizer, self._sh, self._dp, self._data, self._mp,
+            self._world, self.mesh.coords, self._sharding_stage,
+            self._overlap_mb if self._overlap_on else None,
+            self._stage3_release, segment_of=lambda p: seg.get(id(p), 0))
+
+    def _counted(self, p, shard: bool) -> bool:
+        return zero_counted(p, self.mesh.coords, self._mp, self._sh, shard)
+
+    def _zero_update(self, amp=None):
+        """The gradient sync and the update over a pipeline / ZeRO mesh
+        (module docstring); returns the global norm where the update took
+        one."""
+        opt, zs = self.optimizer, self._zstep
+        synced = zero_sync(opt, zs, self._shared, self._mp)
+        gnorm, shards = zero_apply(opt, zs, synced, self._counted, amp)
+        zs.after_update(shards)
+        return gnorm
+
+    def zero_closed_form(self) -> Dict[str, int]:
+        """Model-state bytes this rank holds between steps, from shapes
+        and the ZeRO plan alone: parameters (a stage-3 entry at 1 / n),
+        optimizer slots and f32 masters (a plan entry's at 1 / n)."""
+        opt = self.optimizer
+        n = self._zero.n if self._zero is not None else 1
+        out = {"params": 0, "optimizer_state": 0, "master_weights": 0}
+        slots = len(opt._state_shapes()) if opt is not None else 0
+        sbytes = torch.empty((), dtype=opt._state_dtype).element_size() \
+            if opt is not None else 4
+        for p in self.model.parameters():
+            e = self._zero.entry(p) if self._zero is not None else None
+            stored = e is not None and e[1]
+            whole = p.numel() * (n if stored and getattr(
+                p, "zero_stored", None) is not None else 1)
+            part = whole // n if e is not None else whole
+            out["params"] += (part if stored else whole) * p.element_size()
+            if opt is not None and p.requires_grad:
+                out["optimizer_state"] += part * slots * sbytes
+                if opt._multi_precision and p.dtype != torch.float32:
+                    out["master_weights"] += part * 4
+        return out
+
     def _to_device(self, x):
         if isinstance(x, torch.Tensor):
             return x.to(self.device)
@@ -334,14 +631,16 @@ class ParallelEngine:
             return torch.from_numpy(x).to(self.device)
         return x
 
-    def train_step(self, fn: Callable, batch_specs=None,
-                   scaler=None) -> Callable[[Any], torch.Tensor]:
+    def train_step(self, fn: Callable, batch_specs=None, scaler=None,
+                   fwd_bwd: bool = False) -> Callable[[Any], torch.Tensor]:
         """``step(batch) -> loss``: ``fn(model, batch)`` (a scalar loss),
         its backward, the optimizer's step and clear_grad, then one step
         of an LR scheduler. Array leaves of the batch move to the model's
         device. With an enabled ``amp.GradScaler`` the step runs the loss
         scaler's protocol on the device (module docstring); the loss
-        returned is unscaled."""
+        returned is unscaled. ``fwd_bwd``: ``fn(model, batch, seed)``
+        runs the backward itself (a pipeline schedule), seeding it with
+        ``seed`` (the loss scale, or None), and returns the loss."""
         if scaler is not None and not isinstance(scaler, GradScaler):
             raise TypeError(f"train_step(scaler=...) takes an "
                             f"amp.GradScaler, got {type(scaler).__name__}")
@@ -355,33 +654,52 @@ class ParallelEngine:
         if self.optimizer is None:
             raise ValueError("ParallelEngine.train_step needs an optimizer")
 
+        def amp_step(dtype):
+            # the applied-step count is seeded from the optimizer's count
+            # before this step (the JAX engine's -1)
+            amp = scaler._amp_step(
+                self.device, 2.0 ** 15 if dtype == torch.float16
+                else 2.0 ** 62, fallback_step=self.optimizer._step_count)
+            # the cap keeps the backward seed itself finite; a power of
+            # two keeps scale and unscale an exact round trip
+            amp.scale.clamp_(max=amp.cap)
+            amp.sync = self.optimizer._grad_sync
+            return amp
+
         def run(batch):
             """fn, backward, update: (loss, grad norm, found)."""
             opt = self.optimizer
-            with C.spmd_region(self._dp):
-                loss = fn(self.model, batch)
-            found = None
-            if use_scaler:
-                # the applied-step count is seeded from the optimizer's
-                # count before this step (the JAX engine's -1)
-                amp = scaler._amp_step(
-                    self.device, 2.0 ** 15 if loss.dtype == torch.float16
-                    else 2.0 ** 62, fallback_step=opt._step_count)
-                # the cap keeps the backward seed itself finite; a power
-                # of two keeps scale and unscale an exact round trip
-                amp.scale.clamp_(max=amp.cap)
-                amp.sync = opt._grad_sync
-                # loss scaling = seeding the backward with the scale
-                loss.backward(amp.scale.to(loss.dtype).reshape(loss.shape))
+            zs = self._zstep
+            amp = found = None
+            if zs is not None:
+                zs.gather()
+                if not fwd_bwd:
+                    zs.arm()
+            if fwd_bwd:
+                if use_scaler:
+                    amp = amp_step(next(self.model.parameters()).dtype)
+                with C.spmd_region(self._data):
+                    loss = fn(self.model, batch,
+                              None if amp is None else amp.scale)
+            else:
+                with C.spmd_region(self._data):
+                    loss = fn(self.model, batch)
+                if use_scaler:
+                    amp = amp_step(loss.dtype)
+                    # loss scaling = seeding the backward with the scale
+                    loss.backward(amp.scale.to(loss.dtype).reshape(
+                        loss.shape))
+                else:
+                    loss.backward()
+            if zs is not None:
+                gnorm = self._zero_update(amp)
+            else:
                 self._sync_grads()
                 opt.step(amp=amp)
+                gnorm = opt.grad_norm
+            if amp is not None:
                 scaler._found_inf_dev = found = amp.found
-            else:
-                loss.backward()
-                self._sync_grads()
-                opt.step()
-            gnorm = opt.grad_norm
-            if gnorm is None:
+            if gnorm is None and zs is None:
                 # the JAX step always returns the global norm
                 ps = [p for p in opt._parameter_list
                       if p.grad is not None and not p.grad.is_sparse]
@@ -484,8 +802,8 @@ class ParallelEngine:
         (``specs`` None: dim 0 of every leaf with a dim over dp)."""
         if specs is None:
             def spec_of(v):
-                return P("dp") if isinstance(v, torch.Tensor) and v.dim() \
-                    else P()
+                return self._data_spec if isinstance(v, torch.Tensor) \
+                    and v.dim() else P()
         else:
             n = len(_map(batch, lambda v: v)[2])
             enforce(n == len(specs),
@@ -533,12 +851,19 @@ class ParallelEngine:
             batch, structure, _ = _map(batch, self._to_device)
             batch, leaves = self._local_batch(batch, specs)
             if out_spec is None:
-                out_spec = P("dp") if self._dp is not None else P()
+                out_spec = self._data_spec if self._data is not None \
+                    else P()
             self.stats.note("eval", (structure, tuple(
                 (tuple(v.shape), str(v.dtype)) for v in leaves
                 if isinstance(v, torch.Tensor)), specs, repr(out_spec)))
-            with torch.no_grad(), C.spmd_region(self._dp):
-                out = fn(self.model, batch)
+            if self._zstep is not None:
+                self._zstep.gather()
+            try:
+                with torch.no_grad(), C.spmd_region(self._data):
+                    out = fn(self.model, batch)
+            finally:
+                if self._zstep is not None:
+                    self._zstep.after_update({})
             return _map(out, lambda v: self._gather_out(v, out_spec))[0]
 
         return step
@@ -598,7 +923,11 @@ class ParallelEngine:
         self._prev_step_entry = t_entry
         self._pending.append(_Scalars(
             (loss, gnorm, found), int(self.optimizer._step_count)))
-        m["grad_buckets"].set(0.0)   # the unbucketed update (items 9-10)
+        m["grad_buckets"].set(float(self._bucket_plan.num_buckets)
+                              if self._bucket_plan is not None else 0.0)
+        if self._pipeline is not None:
+            m["pp_bubble"].set(self._pipeline.bubble_fraction(),
+                               pp_vpp=str(self.model.get_num_virtual_stages()))
         rc, rh = self._stats_reported
         if self.stats.compiles > rc:
             m["compiles"].inc(self.stats.compiles - rc,

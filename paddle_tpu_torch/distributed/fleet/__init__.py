@@ -34,6 +34,7 @@ class _FleetState:
         self.initialized = False
         self.hcg: Optional[HybridCommunicateGroup] = None
         self.strategy: Optional[DistributedStrategy] = None
+        self.model = None        # the last model distributed_model wrapped
 
 
 _fleet_state = _FleetState()
@@ -88,6 +89,7 @@ def distributed_model(model):
     """Wrap ``model`` by the active strategy (``meta_parallel``)."""
     from .meta_parallel import wrap_distributed_model
 
+    _fleet_state.model = model
     return wrap_distributed_model(model, _fleet_state.hcg,
                                   _fleet_state.strategy)
 

@@ -9,12 +9,15 @@ one, ``dp / pp / sharding / sep / ep / mp`` with mp innermost (the
 fastest-varying coordinate of a global rank, as the JAX mesh reshapes
 its devices), so one rank's groups are exactly the JAX mesh's axis
 slices through that rank. Besides the axes there is the ``dp+sharding``
-group (gradient sync in sharding mode) and the world group.
+group (gradient sync in sharding mode), the world group and, with a pp
+axis of more than one stage, the pipeline's shared-layer group: the
+first and the last stage at this rank's other coordinates (a tied
+embedding lives on both; its gradients are summed over the two).
 
 ``hcg.mesh`` is a small descriptor, ``HybridMesh``: ``axis_names``,
 ``shape`` (axis -> size), ``size``, this rank's ``coords`` and its
-``groups`` (axis -> Group); ``ParallelEngine`` reads it as the JAX
-engine reads its ``Mesh``.
+``groups`` (axis -> Group, plus ``dp_sharding`` and ``pp_shared``);
+``ParallelEngine`` reads it as the JAX engine reads its ``Mesh``.
 """
 from __future__ import annotations
 
@@ -138,11 +141,14 @@ class HybridCommunicateGroup:
         self._groups["dp_sharding"] = self._make("dp+sharding",
                                                  ["dp", "sharding"])
         self._groups["world"] = C.get_group(0)
+        self._groups["pp_shared"] = self._make_pp_shared()
         self.mesh = HybridMesh(
             axis_names=tuple(self._order),
             shape={n: self._degree_of(n) for n in self._order},
             coords=dict(self._coords),
-            groups={n: self._groups[n] for n in self._order}, rank=me)
+            groups=dict({n: self._groups[n] for n in self._order},
+                        dp_sharding=self._groups["dp_sharding"],
+                        pp_shared=self._groups["pp_shared"]), rank=me)
 
     def _make(self, name: str, axes: List[str]) -> C.Group:
         axes = [a for a in axes if a in self._order]
@@ -157,6 +163,20 @@ class HybridCommunicateGroup:
             if C.get_rank() in ranks:
                 mine = g
         return mine or C.Group([C.get_rank()], name=name,
+                               backend=C.get_backend())
+
+    def _make_pp_shared(self) -> C.Group:
+        """{stage 0, stage S - 1} at every other coordinate (every
+        process makes every one, in one order); one rank without pp."""
+        me = C.get_rank()
+        if self._pp_degree <= 1:
+            return C.Group([me], name="pp_shared", backend=C.get_backend())
+        mine = None
+        for ranks in self._topo.get_comm_list(["pp"]):
+            g = C.new_group([ranks[0], ranks[-1]], name="pp_shared")
+            if me in g.ranks:
+                mine = g
+        return mine or C.Group([me], name="pp_shared",
                                backend=C.get_backend())
 
     def _degree_of(self, name: str) -> int:
@@ -230,6 +250,11 @@ class HybridCommunicateGroup:
     def get_dp_sharding_parallel_group(self):
         return self._groups["dp_sharding"]
 
+    def get_pipe_shared_group(self):
+        """The first and the last pipeline stage at this rank's other
+        coordinates (module docstring)."""
+        return self._groups["pp_shared"]
+
     def get_check_parallel_group(self, *a):
         return self._groups["world"]
 
@@ -249,6 +274,14 @@ class HybridCommunicateGroup:
     @property
     def topology(self):
         return self._topo
+
+    def get_p2p_next_rank(self):
+        return self.get_rank_from_stage((self.get_stage_id() + 1)
+                                        % self._pp_degree)
+
+    def get_p2p_prev_rank(self):
+        return self.get_rank_from_stage((self.get_stage_id() - 1)
+                                        % self._pp_degree)
 
     def get_rank_from_stage(self, stage_id, **kwargs):
         c = dict(self._coords)

@@ -4,7 +4,7 @@
 One process a rank: the wrapper makes every rank start from the same
 weights, as the reference's does: each replicated parameter is broadcast
 from the model-parallel group's first rank, and every parameter from the
-data-parallel group's first rank. Forward, ``parameters`` and the state
+data-parallel and the sharding group's first ranks. Forward, ``parameters`` and the state
 dict are the wrapped model's. Gradient averaging over dp is
 ``ParallelEngine``'s (or ``HybridParallelOptimizer``'s in an eager loop).
 """
@@ -16,7 +16,7 @@ from torch import nn
 from ... import collective as C
 from ..layers.mpu.mp_layers import mp_sharded
 
-__all__ = ["TensorParallel", "SegmentParallel", "PipelineParallel"]
+__all__ = ["TensorParallel", "SegmentParallel"]
 
 
 class _DelegateWrapper(nn.Module):
@@ -50,12 +50,14 @@ class TensorParallel(_DelegateWrapper):
 
     @torch.no_grad()
     def _broadcast(self, hcg):
-        mp, dp = hcg.get_model_parallel_group(), hcg.get_data_parallel_group()
+        mp = hcg.get_model_parallel_group()
         for p in self._layers.parameters():
             if mp.nranks > 1 and not mp_sharded(p):
                 C.broadcast(p.data, mp.ranks[0], group=mp)
-            if dp.nranks > 1:
-                C.broadcast(p.data, dp.ranks[0], group=dp)
+            for g in (hcg.get_data_parallel_group(),
+                      hcg.get_sharding_parallel_group()):
+                if g.nranks > 1:
+                    C.broadcast(p.data, g.ranks[0], group=g)
 
 
 class SegmentParallel(_DelegateWrapper):
@@ -64,9 +66,3 @@ class SegmentParallel(_DelegateWrapper):
             "SegmentParallel (a sep axis, context parallelism): not ported "
             "yet (ROADMAP.md queue 1, item 10)")
 
-
-class PipelineParallel(_DelegateWrapper):
-    def __init__(self, *a, **k):
-        raise NotImplementedError(
-            "PipelineParallel (a pp axis): not ported yet (ROADMAP.md queue "
-            "1, item 9)")

@@ -41,10 +41,20 @@ rank, and each rank's kernels hash their heads' global indices
 (``head_offset``), so each rank drops its own heads and mp 2 with
 dropout computes degree 1's masks.
 
+``GPTForCausalLMPipe(config, device=, seed=)`` is the pipeline form (the
+JAX ``GPTForCausalLMPipe``): a ``PipelineLayer`` of the embedding (a
+``SharedLayerDesc`` tied to the head), the decoder blocks and the final
+LayerNorm, with ``GPTPretrainingCriterion`` as its loss, built after
+``fleet.init``: each pp rank builds its own chunks only, under mp with
+the same sharded layers. Its weights are drawn in the degree-1 model's
+order from the seed (the draws of a part another rank builds are made
+and dropped), so every rank holds its part of ``GPTForCausalLM(config,
+seed=seed)``'s weights.
+
 Not ported: the MoE blocks (``GPTMoEMLP``, ``num_experts > 0``: ROADMAP.md
-queue 1, item 10), context parallelism (a ``sep_group`` of more than one
-rank: item 10) and ``GPTForCausalLMPipe`` (item 9). The JAX ``_annotate``
-scopes are ``torch.profiler.record_function`` ranges here.
+queue 1, item 10) and context parallelism (a ``sep_group`` of more than
+one rank: item 10). The JAX ``_annotate`` scopes are
+``torch.profiler.record_function`` ranges here.
 """
 from __future__ import annotations
 
@@ -71,7 +81,7 @@ from ..ops.attention import flash_attention
 from .llama import (_DTYPES, _draw, _masked_mean_over_splits,
                     resolve_device)
 
-__all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM",
+__all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "GPTForCausalLMPipe",
            "GPTPretrainingCriterion", "gpt_tiny", "gpt_125m", "gpt_350m",
            "gpt_1p3b", "gpt_13b"]
 
@@ -412,3 +422,113 @@ def gpt_1p3b(**kw) -> GPTConfig:
 def gpt_13b(**kw) -> GPTConfig:
     return GPTConfig(hidden_size=5120, num_layers=40, num_heads=40,
                      max_position_embeddings=2048, **kw)
+
+
+# -- the pipeline form ------------------------------------------------------
+
+def _tied_head_forward(shared_emb, x):
+    """The LM head on the shared embedding's weight (the JAX
+    ``_tied_head_forward``); under mp ``_c_identity`` first, so the
+    ranks' partial input gradients are summed."""
+    w = shared_emb.word_embeddings.weight
+    g = getattr(w, "mp_group", None)
+    if g is not None:
+        x = _c_identity(x, g)
+    x, w = cast_inputs("matmul", x, w)
+    return TF.linear(x, w)
+
+
+class GPTForCausalLMPipe:
+    """``GPTForCausalLMPipe(config, ...)`` returns the ``PipelineLayer``
+    of ``GPTForCausalLM`` (module docstring); ``num_stages``,
+    ``recompute_interval`` and the other ``PipelineLayer`` arguments
+    pass through."""
+
+    def __new__(cls, config: GPTConfig, num_stages=None,
+                recompute_interval: int = 0, device=None, seed: int = 0,
+                mp_group=None, **pp_kwargs):
+        from ..distributed.fleet.meta_parallel import (LayerDesc,
+                                                       PipelineLayer,
+                                                       SharedLayerDesc)
+
+        enforce(config.num_experts == 0,
+                "GPT's MoE blocks (GPTMoEMLP, num_experts > 0) are not "
+                "ported yet: ROADMAP.md queue 1, item 10")
+        dev = resolve_device(device)
+        dtype = _DTYPES[config.dtype]
+        mp = mp_group_of(mp_group)
+        gens = _generators(dev, seed)
+        kw = {"device": dev, "dtype": dtype, "mp_group": mp}
+        descs = [
+            SharedLayerDesc("embed", GPTEmbeddings, None, "weight", config,
+                            gens[0], **kw),
+            *[LayerDesc(GPTDecoderLayer, config, gens, **kw)
+              for _ in range(config.num_layers)],
+            LayerDesc(nn.LayerNorm, config.hidden_size,
+                      eps=config.layer_norm_eps, device=dev, dtype=dtype),
+        ]
+        if config.tie_word_embeddings:
+            descs.append(SharedLayerDesc("embed", GPTEmbeddings,
+                                         _tied_head_forward, "weight",
+                                         config, gens[0], **kw))
+        else:
+            descs.append(LayerDesc(ColumnParallelLinear, config.hidden_size,
+                                   config.vocab_size, has_bias=False,
+                                   gather_output=False, **kw))
+        model = PipelineLayer(
+            layers=descs, num_stages=num_stages,
+            loss_fn=GPTPretrainingCriterion(config, mp_group=mp),
+            seg_method="layer:GPTDecoderLayer",
+            recompute_interval=recompute_interval, generators=gens,
+            seed=seed, **pp_kwargs)
+        model.config = config
+        _init_pipe_weights(model, config, seed, dev, dtype)
+        return model
+
+
+@torch.no_grad()
+def _init_pipe_weights(model, config: GPTConfig, seed: int, dev, dtype):
+    """``GPTForCausalLM._init_weights``'s draws, in its order, into the
+    parts this rank holds; the others' draws are made and dropped."""
+    g = torch.Generator(device=dev).manual_seed(int(seed))
+    std = config.initializer_range
+    out_std = std / math.sqrt(2 * config.num_layers)
+    h, m = config.hidden_size, config.intermediate_size
+
+    def draw(mod, shape, s):
+        if mod is not None:
+            _draw(mod.weight, s, g)
+        else:
+            torch.empty(shape, dtype=dtype, device=dev).normal_(
+                0.0, s, generator=g)
+
+    emb = next((lyr for lyr in model.modules()
+                if isinstance(lyr, GPTEmbeddings)), None)
+    draw(emb.word_embeddings if emb else None,
+         (config.vocab_size, h), std)
+    draw(emb.position_embeddings if emb else None,
+         (config.max_position_embeddings, h), std)
+    for i in range(config.num_layers):
+        blk = model.blocks[str(i)] if str(i) in model.blocks else None
+        if blk is None:
+            for shape, s in (((3 * h, h), std), ((h, h), out_std),
+                             ((m, h), std), ((h, m), out_std)):
+                draw(None, shape, s)
+            continue
+        for name, mod in blk.named_modules():
+            if isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.Linear):
+                draw(mod, None, out_std if name.endswith(("out_proj", "fc2"))
+                     else std)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+    for lyr in model.epilogue:
+        if isinstance(lyr, nn.LayerNorm):
+            lyr.weight.fill_(1.0)
+            lyr.bias.zero_()
+    if not config.tie_word_embeddings:
+        head = next((lyr for lyr in model.epilogue
+                     if isinstance(lyr, nn.Linear)), None)
+        draw(head, (config.vocab_size, h), std)

@@ -491,9 +491,15 @@ def _masked_mean_over_splits(num, den):
     over (the JAX helper): inside a ``ParallelEngine`` step over dp, this
     rank's numerator over the global denominator, scaled by the rank
     count, so the engine's equal-weight dp mean gives the global masked
-    mean and each token its own gradient."""
+    mean and each token its own gradient. Under
+    ``collective.loss_denominator`` (a pipeline's microbatch) the count
+    is the whole batch's, so the microbatches' sum is the batch's mean."""
     from ..distributed import collective as C
 
+    whole = C.current_loss_denominator()
+    if whole is not None:
+        # a pipeline microbatch: the whole batch's count on this rank
+        den = whole.to(den.dtype)
     g = C.spmd_data_group()
     if g is not None and g.nranks > 1:
         den = C.t_psum(den.detach().reshape(1), g).reshape(())

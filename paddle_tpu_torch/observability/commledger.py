@@ -27,10 +27,13 @@ point-to-point ``ppermute`` under the ``migrate`` axis per page payload
 and block-table row, so ``paddle_tpu_comm_bytes_total{axis="migrate"}``
 equals the migration's closed form.
 
-The rest of the JAX module raises ``NotImplementedError`` naming the
-ROADMAP.md item it waits on: ``scan_trips`` (pipelined and bucketed
-collectives, queue 1 item 9), ``quant_wire`` (quantized collectives,
-item 10), and the exposed-comm attribution — ``ablate``, ``ablating``,
+``scan_trips(length)`` stamps the records noted inside it with
+``trips=length`` (multiplied under nesting), as the JAX package stamps a
+scanned body's collectives; the port's pipeline and bucketed sync issue
+each collective itself, one record a call, so they leave it at 1. The
+rest of the JAX module raises ``NotImplementedError`` naming the
+ROADMAP.md item it waits on: ``quant_wire`` (quantized collectives,
+queue 1 item 10), and the exposed-comm attribution — ``ablate``, ``ablating``,
 ``ablation_token``, ``build_report``, ``replay_callable`` — which
 replays collectives over a process group (item 11's multi-process
 half). ``distributed/collective.py`` books every collective here,
@@ -59,7 +62,6 @@ OPS = ("psum", "pmax", "pmin", "all_gather", "reduce_scatter",
 
 _ITEM11 = ("ROADMAP.md queue 1, item 11 (the multi-process run-time "
            "services)")
-_ITEM9 = "ROADMAP.md queue 1, item 9 (pipeline and bucketed grad sync)"
 _ITEM10 = "ROADMAP.md queue 1, item 10 (quantized collectives)"
 
 
@@ -192,6 +194,7 @@ class CommLedger:
 class _State(threading.local):
     def __init__(self):
         self.captures: List[CommLedger] = []
+        self.trips: int = 1
 
 
 _state = _State()
@@ -257,17 +260,24 @@ def note(op: str, axes: Iterable[str], shape, dtype, p: int,
                      dtype=str(dtype), p=int(p),
                      payload_bytes=payload,
                      wire_bytes=wire_bytes(op, payload, int(p)),
-                     args=tuple(args), wire_dtype=str(dtype),
-                     host_bytes=int(host_bytes))
+                     args=tuple(args), trips=int(_state.trips),
+                     wire_dtype=str(dtype), host_bytes=int(host_bytes))
     for led in _state.captures:
         if led.open:
             led.add(rec)
 
 
+@contextlib.contextmanager
 def scan_trips(length: int):
-    raise NotImplementedError(
-        f"commledger.scan_trips counts collectives inside scanned "
-        f"pipeline and bucketed-sync bodies: not ported yet ({_ITEM9})")
+    """While open, every record noted on this thread carries
+    ``trips=length`` (multiplicative under nesting): a body issued
+    ``length`` times per run, booked once."""
+    prev = _state.trips
+    _state.trips = prev * max(int(length), 1)
+    try:
+        yield
+    finally:
+        _state.trips = prev
 
 
 def quant_wire(ratio: float):

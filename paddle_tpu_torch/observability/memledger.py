@@ -32,8 +32,10 @@ Off the card (the CPU) no allocator statistics exist: ``temp_bytes`` is
 invented for a class the device cannot measure.
 
 ``account_engine`` / ``closed_form_state_bytes`` are the JAX package's
-model-state accounting at degree 1 (every tensor whole on the one
-device; no ZeRO, offload or quantized-comm state until items 9-10),
+model-state accounting of one rank: every tensor as this rank holds it
+(an mp shard, a pipeline stage's chunks, a ZeRO shard of the optimizer
+state, a stage-3 parameter stored as its shard; no offload or
+quantized-comm state until items 9.1 and 10),
 with the auto_tuner's analytic model (``estimate_memory_gb``, a copy of
 ``paddle_tpu/distributed/auto_tuner/cost_model.py``'s) for the drift
 gauge. ``roofline`` reads the H100 peak table of ``flops.py``; off the

@@ -30,9 +30,11 @@ Under tensor parallelism (``split`` = a ``nn.clip.GradSync`` and one
 flag a tensor: is it an mp shard?) the norm is the global one: the
 reduce writes two f32 squared sums, one over the shards and one over the
 replicated tensors, and the nonfinite flag (the kernel's phase 1); the
-first is all-reduced over the mp group and the flag maxed over every
-rank (``distributed/collective.py``); the finalize and the update run
-from their sum (phase 2). One call still counts one launch. Without
+first is all-reduced over the mp group (over a pipeline or ZeRO mesh:
+the counted tensors' sum over every rank, the second zeroed;
+``GradSync.reduce_split``) and the flag maxed over every rank
+(``distributed/collective.py``); the finalize and the update run from
+their sum (phase 2). One call still counts one launch. Without
 ``split`` the launches and bits are the degree-1 ones.
 """
 from __future__ import annotations
@@ -293,8 +295,7 @@ def fused_adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
         sync = split[0]
         from ...distributed import collective as C
 
-        if sync.mp_group is not None:
-            C.all_reduce(sums[0:1], C.ReduceOp.SUM, group=sync.mp_group)
+        sync.reduce_split(sums)
         if amp is not None and sync.found_group is not None:
             C.all_reduce(sums[2:3], C.ReduceOp.MAX, group=sync.found_group)
         a.phase = 2

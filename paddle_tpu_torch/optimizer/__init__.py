@@ -203,6 +203,17 @@ class Optimizer:
         self.grad_norm = self._update(params, [p.grad for p in params], lr_v,
                                       amp)
 
+    @torch.no_grad()
+    def _step_on(self, tensors, grads, states, masters, amp=None):
+        """One step over explicit tensors and their slots (the ZeRO path:
+        each rank's parameter shards with shard-shaped moments and
+        masters): the count, the LR, then ``_fused_update`` of them all
+        together (one K8 launch for Adam / AdamW on CUDA)."""
+        self._step_count += 1
+        self.grad_norm = self._fused_update(
+            list(tensors), list(grads), list(states), list(masters),
+            _f32(self.get_lr()), self._step_count, amp)
+
     def _update(self, params, grads, lr, amp=None, clipped=False):
         """``_fused_update`` of ``params`` with their states and masters."""
         states = [self._param_state(p) for p in params]

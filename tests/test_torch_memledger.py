@@ -386,9 +386,28 @@ def test_capture_records_equal_jax():
 
 
 @pytest.mark.parametrize("fn, item", [
-    ("scan_trips", "item 9"), ("quant_wire", "item 10"),
+    ("quant_wire", "item 10"),
     ("ablate", "item 11"), ("build_report", "item 11"),
     ("replay_callable", "item 11")])
 def test_unported_ledger_functions_name_their_item(fn, item):
     with pytest.raises(NotImplementedError, match=item):
         getattr(tcl, fn)(1)
+
+
+def test_scan_trips_stamps_records_as_the_jax_ledger_does():
+    import paddle_tpu.observability.commledger as jcl
+
+    def book(cl):
+        with cl.capture() as led:
+            cl.note("psum", ("dp",), (4, 8), np.float32, p=2)
+            with cl.scan_trips(3):
+                cl.note("all_gather", ("sharding",), (16,), np.float32, p=4)
+                with cl.scan_trips(2):
+                    cl.note("ppermute", ("pp",), (2, 8), np.float32, p=2)
+            cl.note("psum", ("dp",), (4,), np.float32, p=2)
+        return led
+
+    mine, ref = book(tcl), book(jcl)
+    assert [r.trips for r in mine.records] == [1, 3, 6, 1]
+    assert [r.trips for r in mine.records] == [r.trips for r in ref.records]
+    assert mine.totals() == ref.totals()

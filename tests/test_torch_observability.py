@@ -431,7 +431,7 @@ def test_telemetry_changes_nothing(tmp_path):
 
 
 @pytest.mark.parametrize("knob, item", [("mem_ledger", "item 11"),
-                                        ("quant_comm", "items 9 and 10")])
+                                        ("quant_comm", "item 10")])
 def test_knob_errors_cite_their_item(knob, item):
     """A knob still waiting on its item raises citing it; item 11's
     memory ledger is ported, so mem_ledger builds an engine with it on."""

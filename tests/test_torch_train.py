@@ -158,27 +158,35 @@ class TestEnginePolicy:
                                       "quant_comm", "mem_ledger",
                                       "sharding_stage"])
     def test_degree_above_one_raises(self, knob):
-        """Every knob above degree 1 raises citing the roadmap; the memory
-        ledger (mem_ledger) is a degree-1 service and builds."""
+        """A knob still waiting on its item raises citing the roadmap; the
+        memory ledger (mem_ledger) is a degree-1 service and builds, and
+        the ZeRO knobs (comm_overlap, sharding_stage) build an engine that,
+        with no sharding axis, has nothing to shard, as the JAX one."""
         model = tl.LlamaForCausalLM(tl.llama_tiny(), device="cpu")
         opt = AdamW(parameters=model.parameters())
         if knob == "mem_ledger":
             assert ParallelEngine(model, opt, mem_ledger=True)._mem_on
+            return
+        if knob in ("comm_overlap", "sharding_stage"):
+            eng = ParallelEngine(model, opt, **{knob: 3 if knob ==
+                                                "sharding_stage" else True})
+            assert eng._zero is None and eng._bucket_plan is None
             return
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ParallelEngine(model, opt, **{knob: 3 if knob ==
                                           "sharding_stage" else True})
 
     def test_mesh_and_scaler_raise(self):
-        # dp x mp meshes are ported (tests/test_torch_hybrid_gpt.py); a
-        # pipeline axis still raises
+        # dp x mp x pp x sharding meshes are ported
+        # (tests/test_torch_hybrid_gpt.py, test_torch_hybrid_pipe.py); a
+        # context-parallel (sep) axis still raises
         class Mesh:
             size = 8
-            shape = {"dp": 2, "pp": 2, "mp": 2}
+            shape = {"dp": 2, "sep": 2, "mp": 2}
 
         model = tl.LlamaForCausalLM(tl.llama_tiny(), device="cpu")
         opt = AdamW(parameters=model.parameters())
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(NotImplementedError, match="item 10"):
             ParallelEngine(model, opt, Mesh())
         # the scaler is ported; what still raises is a scaler that is
         # not an amp.GradScaler

@@ -715,6 +715,214 @@ def recompute_cases(rank, n, params):
     return out
 
 
+def _tied_equal(model, hcg):
+    """The tied embedding's copies on the first and the last stage are
+    bit-equal (True on ranks that hold none of them)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import collective as C
+
+    g = hcg.get_pipe_shared_group()
+    tied = [p for p in model.parameters()
+            if getattr(p, "pp_shared", None) is not None]
+    if g.nranks <= 1 or not tied:
+        return True
+    flat = torch.cat([p.detach().reshape(-1) for p in tied])
+    got = C.t_all_gather(flat, g, axis=0, tiled=False)
+    return bool(torch.equal(got[0], got[-1]))
+
+
+def pipe_cases(rank, n, params):
+    """GPTForCausalLMPipe through fleet.init + fleet.distributed_model /
+    distributed_optimizer at the given hybrid degrees: the JAX pipeline's
+    weights loaded (each pp rank its chunks, the mp slice on top), then
+    each run's steps of AdamW (its ZeRO stage, clip, comm_overlap,
+    recompute); the losses, the gathered weights in the JAX layout, the
+    tied copies' equality, the eval loss, the schedule this rank ran, the
+    model-state bytes and the bucket plan."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.convert import (export_jax_state_dict,
+                                          load_jax_state_dict)
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import gpt as tg
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm, ClipGradByNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = params["hybrid"]
+    s.pipeline_configs = dict(params["pipeline"])
+    hcg = fleet.init(is_collective=True, strategy=s)
+    cfg = tg.GPTConfig(**params["cfg"])
+    state = {k: np.asarray(v, np.float32) for k, v in params["state"].items()}
+    x = torch.tensor(np.asarray(params["x"]))
+    y = torch.tensor(np.asarray(params["y"]))
+    mask = torch.tensor(np.asarray(params["mask"], np.float32)) \
+        if params.get("mask") is not None else None
+    out = {"coords": hcg.mesh.coords}
+    sc = s.hybrid_configs["sharding_configs"]
+    for run, spec in params["runs"].items():
+        sc["sharding_stage"] = spec.get("stage", 2)
+        sc["comm_overlap"] = spec.get("overlap", False)
+        sc["comm_buffer_size_MB"] = spec.get("buffer_mb", 25.0)
+        model = tg.GPTForCausalLMPipe(
+            cfg, device="cpu", seed=0,
+            recompute_interval=spec.get("recompute", 0))
+        load_jax_state_dict(model, state)
+        if run == params["runs_first"]:
+            back = export_jax_state_dict(model)
+            out["round_trip"] = set(back) == set(state) and all(
+                np.array_equal(back[k], state[k]) for k in state)
+            out["local_shapes"] = {k: tuple(p.shape)
+                                   for k, p in model.named_parameters()}
+        labels = (y, mask) if spec.get("masked") else y
+        dm = fleet.distributed_model(model)
+        clip = spec.get("clip")
+        if clip:
+            clip = (ClipGradByNorm if spec.get("clip_kind") == "norm"
+                    else ClipGradByGlobalNorm)(clip)
+        opt = fleet.distributed_optimizer(AdamW(
+            learning_rate=spec["lr"], parameters=model.named_parameters(),
+            grad_clip=clip or None))
+        scaler = GradScaler(init_loss_scaling=2.0 ** 10) \
+            if spec.get("amp") else None
+        losses = [float(dm.train_batch([x, labels], opt, scaler=scaler))
+                  for _ in range(spec["steps"])]
+        eng = dm._engine
+        names = {id(q): nm for nm, q in model.named_parameters()}
+        jnames = model.jax_names()
+        plan = {}
+        if eng._zero is not None:
+            for pid, d in eng._zero.jax_dims.items():
+                jn, row = jnames[names[pid]]
+                plan[jn] = d + (len(row) if row else 0)
+        res = {"losses": losses, "tied_equal": _tied_equal(model, hcg),
+               "plan": plan,
+               "schedule": list(dm.last_schedule),
+               "state_bytes": eng.zero_closed_form(),
+               "bubble": eng._metrics["pp_bubble"].value(
+                   pp_vpp=str(model.get_num_virtual_stages())),
+               "buckets": (eng._bucket_plan.num_buckets
+                           if eng._bucket_plan is not None else 0),
+               "digest": (eng._bucket_plan.digest()
+                          if eng._bucket_plan is not None else None)}
+        if spec.get("eval"):
+            res["eval"] = float(dm.eval_batch([x, labels]))
+            logits = dm.eval_batch([x, labels], compute_loss=False)
+            res["eval_logits"] = None if logits is None else logits.numpy()
+        res["final"] = export_jax_state_dict(model)
+        out[run] = res
+    return out
+
+
+def zero_cases(rank, n, params):
+    """The JAX tests/test_zero_stage3.py flat MLP (16 -> 32 -> 16, Adam lr
+    0.1) under ZeRO at the given (dp, sharding): each run's
+    ``group_sharded_parallel`` level, ``sharding_stage``,
+    ``comm_overlap`` / bucket size and release knob, through
+    ``ParallelEngine`` (or, for an eager run, ``fleet.distributed_model``
+    / ``distributed_optimizer`` and ``loss.backward(); opt.step()`` on
+    this rank's slice of the batch). The losses, the gathered weights,
+    the plan's dims in the JAX layout, the bucket plan, the model-state
+    bytes measured and by closed form, the sharding group's gather
+    bytes; the last run saved by ``save_group_sharded_model``."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.convert import (export_jax_state_dict,
+                                          load_jax_state_dict)
+    from paddle_tpu_torch.distributed import fleet, group_sharded_parallel
+    from paddle_tpu_torch.distributed import save_group_sharded_model
+    from paddle_tpu_torch.distributed.engine import ParallelEngine
+    from paddle_tpu_torch.observability import commledger as cl
+    from paddle_tpu_torch.observability import memledger as ml
+    from paddle_tpu_torch.optimizer import Adam
+
+    hcg = _fleet_init(params["dp"], 1, sharding_degree=params["sh"])
+    sc = fleet.get_strategy().hybrid_configs["sharding_configs"]
+    state = {k: np.asarray(v, np.float32) for k, v in params["state"].items()}
+    x = torch.tensor(np.asarray(params["x"], np.float32))
+    y = torch.tensor(np.asarray(params["y"], np.float32))
+    out = {"coords": hcg.mesh.coords}
+
+    def loss_fn(m, b):
+        return torch.mean((m(b["x"]) - b["y"]) ** 2)
+
+    for run, spec in params["runs"].items():
+        sc["sharding_stage"] = spec.get("stage", 2)
+        sc["comm_overlap"] = spec.get("overlap", True)
+        sc["comm_buffer_size_MB"] = spec.get("buffer_mb", 0.0005)
+        sc["stage3_release_after_forward"] = spec.get("release", True)
+        model = _mlp(False, 0)
+        load_jax_state_dict(model, state)
+        opt = Adam(learning_rate=0.1, parameters=model.named_parameters())
+        if spec.get("level"):
+            model, opt, _ = group_sharded_parallel(model, opt, spec["level"])
+        res = {}
+        if spec.get("eager"):
+            dm = fleet.distributed_model(model)
+            dopt = fleet.distributed_optimizer(opt)
+            c = hcg.mesh.coords
+            k = c.get("dp", 0) * params["sh"] + c.get("sharding", 0)
+            rows = x.shape[0] // (params["dp"] * params["sh"])
+            mine = slice(k * rows, (k + 1) * rows)
+            losses = []
+            for _ in range(spec["steps"]):
+                loss = loss_fn(dm, {"x": x[mine], "y": y[mine]})
+                loss.backward()
+                dopt.step()
+                dopt.clear_grad()
+                losses.append(float(loss))
+            names = {id(p): nm for nm, p in model.named_parameters()}
+            zero = dopt._sharding._zs.zero
+            res.update(losses=losses,
+                       plan={names[pid]: d
+                             for pid, d in zero.jax_dims.items()},
+                       stored=sorted(names[pid] for pid, e in
+                                     zero.entries.items() if e[1]))
+        else:
+            eng = ParallelEngine(model, opt, hcg.mesh)
+            step = eng.train_step(loss_fn)
+            with cl.capture() as led:
+                losses = [float(step({"x": x, "y": y}))]
+            losses += [float(step({"x": x, "y": y}))
+                       for _ in range(spec["steps"] - 1)]
+            names = {id(p): nm for nm, p in model.named_parameters()}
+            zero = eng._zero
+            res.update(
+                losses=losses,
+                plan={names[pid]: d for pid, d in
+                      (zero.jax_dims.items() if zero is not None else [])},
+                stored=sorted(names[pid] for pid, e in
+                              (zero.entries.items() if zero else [])
+                              if e[1]),
+                buckets=(eng._bucket_plan.num_buckets
+                         if eng._bucket_plan is not None else 0),
+                digest=(eng._bucket_plan.digest()
+                        if eng._bucket_plan is not None else None),
+                gauge=eng._metrics["grad_buckets"].value(),
+                measured={k: v for k, v in
+                          ml.account_engine(eng).components.items()
+                          if k in ("params", "optimizer_state",
+                                   "master_weights")},
+                closed=eng.zero_closed_form(),
+                gather=(led.bytes_for(axis="sharding", op="all_gather"),
+                        led.ops_for(axis="sharding", op="all_gather")),
+                scatter=led.ops_for(axis="sharding", op="reduce_scatter"),
+                shard_bytes=sum(p.numel() * p.element_size()
+                                for p in model.parameters()
+                                if zero is not None
+                                and zero.entry(p) is not None
+                                and zero.entry(p)[1]))
+        res["final"] = export_jax_state_dict(model)
+        if spec.get("save"):
+            save_group_sharded_model(model, params["save_dir"], opt)
+        out[run] = res
+    return out
+
+
 def launch_env_cases(rank, n, params):
     """What the launcher exported, and a failure on request."""
     keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
@@ -739,7 +947,8 @@ CASES = {"collective": collective_cases,
          "reducer": reducer_cases, "hybrid_gpt": hybrid_gpt_cases,
          "hybrid_llama": hybrid_llama_cases,
          "sequence_parallel": sequence_parallel_cases,
-         "recompute": recompute_cases,
+         "recompute": recompute_cases, "pipe": pipe_cases,
+         "zero": zero_cases,
          "launch_env": launch_env_cases}
 
 
